@@ -1,0 +1,26 @@
+"""MNIST 28×28, no learned prior. Copy of ``hopvae_tpu.configs.mnist_28_config``."""
+
+config = {}
+config["batch_size"] = 32
+config["epochs"] = 100
+config["no_cuda"] = False
+config["seed"] = 1265
+config["image_size"] = 28
+config["log_interval"] = 1
+config["learning_rate"] = 1e-3
+config["momentum"] = 0.1
+config["gamma"] = 0.99
+config["weight_decay"] = 0.0
+config["num_hiddens"] = 64
+config["num_residual_layers"] = 2
+config["num_residual_hiddens"] = 32
+config["num_filters"] = 64
+config["embedding_dim"] = 64
+config["num_embeddings"] = 512
+config["num_channels"] = 1
+config["data_set"] = "MNIST"
+config["representation_dim"] = 8
+config["prior"] = "None"
+config["num_levels"] = 512
+config["prior_start"] = 100
+config["index_dim"] = 3

@@ -1,0 +1,114 @@
+"""HopVAE: a VQ-VAE with a modern-Hopfield bottleneck, in PyTorch.
+
+Port of ``hopvae_tpu/models/hopvae.py`` without the priors:
+
+- ``forward``: encoder → pre-VQ 1×1 conv → Hopfield retrieval →
+  embedding→index lookup → sigmoid → straight-through round to
+  ``num_levels`` → index→embedding round-trip, scored only by the aux
+  loss ``mean((r - e)**2)``; the decoder sees the pre-quantization
+  retrieval ``e``.
+- ``post_vq_conv`` parameters exist but are never applied (kept so
+  checkpoints load as they are).
+
+Public tensors are NHWC, as in the JAX package; the conv stacks run on
+the NCHW view of that memory (channels-last), and the latent grid is
+flattened to ``(B, r², d)`` tokens for the lookups.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from hopvae_torch.models.layers import Decoder, Encoder
+from hopvae_torch.ops.bottleneck import IMPLS, LAYERS, hopfield_bottleneck
+from hopvae_torch.ops.conv import conv2d
+from hopvae_torch.ops.hopfield import HopfieldLookup
+
+_NOT_PORTED = "not ported yet: priors, sampling and interpolation come in a later slice (ROADMAP.md, Queue 1)"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Asking for the card without one raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' (with impl='torch') to run on the CPU")
+    return device
+
+
+class HopVAE(nn.Module):
+    def __init__(self, config, impl: str = "cuda", compute_dtype: torch.dtype | None = None, device=None):
+        """``compute_dtype=torch.bfloat16`` runs both conv stacks in bf16
+        from the f32 parameters (JAX's ``_cast``); the bottleneck and the
+        losses stay f32. ``impl="cuda"`` needs a CUDA device."""
+        super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        self.device = resolve_device(device)
+        if impl == "cuda" and self.device.type != "cuda":
+            raise ValueError(f"impl='cuda' runs on a CUDA device, got {self.device}; use impl='torch'")
+        self.config = config
+        self.impl = impl
+        self.compute_dtype = compute_dtype
+        self.num_levels = config.num_levels
+        self.representation_dim = config.representation_dim
+        self.embedding_dim = d = config.embedding_dim
+        self.index_dim = di = config.index_dim
+        m, dev = config.num_embeddings, self.device
+        h, nres, hres = config.num_hiddens, config.num_residual_layers, config.num_residual_hiddens
+        self.encoder = Encoder(config.num_channels, h, nres, hres, dev)
+        self.pre_vq_conv = nn.Conv2d(h, d, 1, device=dev)
+        self.hopfield = HopfieldLookup(d, d, m, dev)
+        self.embedding_to_index = HopfieldLookup(d, di, m, dev)
+        self.index_to_embedding = HopfieldLookup(di, d, m, dev)
+        self.post_vq_conv = nn.Conv2d(di, di, 1, device=dev)  # never applied
+        self.decoder = Decoder(d, config.num_channels, h, nres, hres, dev)
+
+    def _compute(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
+    def _encode_to_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Image ``(B, H, W, C)`` → pre-VQ latent tokens ``(B, r², d)``, f32."""
+        cfg = self.config
+        expected = (cfg.image_size, cfg.image_size, cfg.num_channels)
+        if x.dim() != 4 or tuple(x.shape[1:]) != expected:
+            hint = ""
+            if x.dim() == 4 and tuple(x.shape[1:]) == (cfg.num_channels, cfg.image_size, cfg.image_size):
+                hint = " — input looks NCHW; transpose with x.permute(0, 2, 3, 1)"
+            raise ValueError(
+                f"expected NHWC input of shape (B, {expected[0]}, {expected[1]}, "
+                f"{expected[2]}) for config image_size={cfg.image_size}, got "
+                f"{tuple(x.shape)}{hint}"
+            )
+        z = self.encoder(self._compute(x).permute(0, 3, 1, 2))
+        z = conv2d(z, self.pre_vq_conv.weight, self.pre_vq_conv.bias)
+        b = z.shape[0]
+        return z.permute(0, 2, 3, 1).float().reshape(b, self.representation_dim**2, self.embedding_dim)
+
+    def _tokens_to_image(self, z_embeddings: torch.Tensor) -> torch.Tensor:
+        """Latent tokens ``(B, r², d)`` → decoded image ``(B, H, W, C)``, f32."""
+        b, r = z_embeddings.shape[0], self.representation_dim
+        grid = self._compute(z_embeddings).reshape(b, r, r, self.embedding_dim)
+        out = self.decoder(grid.permute(0, 3, 1, 2))
+        return out.permute(0, 2, 3, 1).float()
+
+    def bottleneck_layers(self) -> dict:
+        return {name: getattr(self, name) for name in LAYERS}
+
+    def forward(self, x: torch.Tensor, *, fit_prior: bool = False):
+        """``(x_recon, aux_loss)`` for a normalized NHWC batch."""
+        if fit_prior:
+            raise NotImplementedError(f"fit_prior is {_NOT_PORTED}")
+        z = self._encode_to_tokens(x)
+        e, _zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl)
+        aux = torch.mean((r - e) ** 2)
+        return self._tokens_to_image(e), aux
+
+    def reconstruct(self, x: torch.Tensor):
+        return self.forward(x)
+
+    def sample(self, *args, **kwargs):
+        raise NotImplementedError(f"sample is {_NOT_PORTED}")
+
+    def interpolate(self, *args, **kwargs):
+        raise NotImplementedError(f"interpolate is {_NOT_PORTED}")

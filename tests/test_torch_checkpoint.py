@@ -1,0 +1,105 @@
+"""The port's checkpoint bridge against the JAX package: the pure-Python
+msgpack reader against flax's, the layout conversions against the JAX
+converters and convs, and the committed golden digits."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax.numpy as jnp
+from flax import serialization
+
+from hopvae_tpu.data import render_digits
+from hopvae_tpu.ops import conv as jax_conv
+from hopvae_torch.data import golden_digits
+from hopvae_torch.utils.checkpoint import load_msgpack, params_from_jax
+
+CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+@pytest.mark.parametrize("name", ["PixelCNN-MNIST-28.msgpack", "Transformer-FFHQ-64.msgpack"])
+def test_load_msgpack_matches_flax(name):
+    path = CKPTS / name
+    ours = load_msgpack(str(path))
+    theirs = serialization.msgpack_restore(path.read_bytes())
+    assert "prior" in theirs and "prior" not in ours
+    del theirs["prior"]
+    a, b = dict(_flatten(ours)), dict(_flatten(theirs))
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].dtype == b[key].dtype and a[key].shape == b[key].shape, key
+        np.testing.assert_array_equal(a[key], b[key], err_msg="/".join(key))
+
+
+def test_load_msgpack_rejects_truncated_file(tmp_path):
+    data = (CKPTS / "PixelCNN-MNIST-28.msgpack").read_bytes()
+    cut = tmp_path / "cut.msgpack"
+    cut.write_bytes(data[: len(data) // 2])
+    with pytest.raises(ValueError, match="truncated"):
+        load_msgpack(str(cut))
+
+
+def test_params_from_jax_round_trips_layouts():
+    """torch layout → the JAX package's converters → params_from_jax is
+    the identity, for conv, transposed conv, Linear and LayerNorm."""
+    g = torch.Generator().manual_seed(0)
+    conv = torch.randn(8, 3, 4, 4, generator=g)
+    conv_t = torch.randn(6, 5, 4, 4, generator=g)
+    lin = torch.randn(7, 4, generator=g)
+    tree = {
+        "encoder": {"conv_1": {"kernel": np.asarray(jax_conv.torch_conv_kernel_to_hwio(conv.numpy())),
+                               "bias": np.arange(8.0)}},
+        "decoder": {"conv_trans_2": {"kernel": np.asarray(jax_conv.torch_conv_transpose_kernel_to_hwio(conv_t.numpy())),
+                                     "bias": np.arange(5.0)}},
+        "hopfield": {"out_proj": {"kernel": lin.numpy().T, "bias": np.zeros(7)},
+                     "norm_state": {"scale": np.ones(4), "bias": np.zeros(4)},
+                     "lookup_weights": np.ones((3, 4))},
+        "prior": {"anything": np.zeros(2)},
+    }
+    sd = params_from_jax(tree)
+    torch.testing.assert_close(sd["encoder.conv_1.weight"], conv, rtol=0, atol=0)
+    torch.testing.assert_close(sd["decoder.conv_trans_2.weight"], conv_t, rtol=0, atol=0)
+    torch.testing.assert_close(sd["hopfield.out_proj.weight"], lin, rtol=0, atol=0)
+    assert sd["hopfield.norm_state.weight"].shape == (4,)
+    assert sd["hopfield.lookup_weights"].shape == (3, 4)
+    assert not any(k.startswith("prior") for k in sd)
+    with pytest.raises(ValueError, match="unknown parameter"):
+        params_from_jax({"x": {"gamma": np.zeros(2)}})
+
+
+@pytest.mark.parametrize("transposed,stride,padding", [(False, 2, 1), (False, 1, 2), (True, 1, 2), (True, 2, 1)])
+def test_converted_conv_matches_jax_conv(transposed, stride, padding):
+    """Weights bridged by params_from_jax give torch's conv the JAX conv's
+    output, NHWC on the JAX side (tests/test_checkpoint_parity.py tolerances)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 9, 9, 5)).astype(np.float32)
+    k = rng.standard_normal((4, 4, 5, 6)).astype(np.float32)
+    b = rng.standard_normal(6).astype(np.float32)
+    name = "conv_trans_1" if transposed else "conv_1"
+    sd = params_from_jax({"decoder": {name: {"kernel": k, "bias": b}}})
+    w = sd[f"decoder.{name}.weight"]
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    if transposed:
+        ref = jax_conv.conv_transpose2d(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), stride=stride, padding=padding)
+        got = F.conv_transpose2d(xt, w, torch.from_numpy(b), stride=stride, padding=padding)
+    else:
+        ref = jax_conv.conv2d(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), stride=stride, padding=padding)
+        got = F.conv2d(xt, w, torch.from_numpy(b), stride=stride, padding=padding)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), rtol=1e-3, atol=1e-4)
+
+
+def test_golden_digits_asset_matches_render_digits():
+    digits, _ = render_digits(64, 28, seed=0)
+    assert golden_digits().dtype == np.uint8
+    np.testing.assert_array_equal(golden_digits(), digits)
