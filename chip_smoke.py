@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Five phases, each of which raises on failure:
+Seven phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed).
 2. Each kernel against its plain torch version on the card, in f32 with
-   TF32 off, at the shapes the serving path gives it; kernel, plain and
-   library-call times from CUDA events, and the bound of each shape.
+   TF32 off, at the shapes the serving and training paths give it: K1
+   (the forward), then K2 and K3 (the backward, from K1's row stats and a
+   seeded cotangent, each run twice to repeat bit for bit); kernel, plain
+   and library-call times from CUDA events, and the bound of each shape.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -17,7 +19,14 @@ Five phases, each of which raises on failure:
    production path, requests of 256, 256, 100 and 1 images with the
    kernels' launch counts read around them; images/s, per-stage times,
    and the f32 path against the JAX recon MSE pinned for a fixed batch.
-5. The kernel summary as one JSON line, the card line, and last
+5. Train golden: the MNIST backbone through ``Trainer`` on the kernels,
+   f32, against the JAX losses and gradient norms pinned in
+   ``TRAIN_GOLDEN``, twice, repeating bit for bit.
+6. Full-width training: ``ffhq_64_scaled`` at batch 256 on the
+   production path through ``Trainer.fit``, 2 epochs, with the kernels'
+   launch counts read around it; images/s, a save and resume, and the
+   per-stage device times of one step, forward and backward.
+7. The kernel summary as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -31,6 +40,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,12 +49,13 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
-from hopvae_torch.data import GOLDENS, golden_input, synthetic_images, _normalize
+from hopvae_torch.data import GOLDENS, TRAIN_GOLDEN, get_datasets, golden_input, synthetic_images, _normalize
 from hopvae_torch.models.hopvae import HopVAE
 from hopvae_torch.ops import hopfield_cuda as hc
 from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
+from hopvae_torch.train import Trainer, load_weights, train_golden
 from hopvae_torch.utils import nvcc
 
 ROOT = Path(__file__).resolve().parent
@@ -64,6 +75,10 @@ STAT_RTOL = 1e-5  # m (floored at |m| = 1: it enters only as exp(sc - m)) and l
 # bf16 path: mean((r16 - r32)^2) < 1e-3 (tests/test_resume_and_dtype.py).
 BF16_GOLDEN_RTOL = 1e-2
 BF16_VS_F32_MSE = 1e-3
+# K2 and K3 against their plain versions, max|a - b| / max|b| of each of
+# dx, ds, dt, dK, dU: f32 sums over up to 74k tokens and 4096 patterns in
+# another order (6e-6 at most on an H100)
+BWD_NORMWISE = 5e-5
 
 
 def log(*args) -> None:
@@ -130,38 +145,80 @@ def phase_environment() -> dict:
 # ------------------------------------------------------------ phase 2
 
 
-def bound(n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
-    """Least time (ms) of one lookup: its FLOPs at the f32 peak and its
-    exps on the SFUs (they overlap) against its bytes at the HBM rate,
-    each input read once and each output written once."""
-    ops_s = max(2 * n * m * (d_in + d_out) / F32_FLOPS, n * m / exp_per_s)
-    bytes_s = 4 * (n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 2 * n) / HBM_BYTES_PER_S
+def roof(flops: float, exps: float, floats: float, exp_per_s: float) -> tuple[float, str]:
+    """Least time (ms) of a kernel: its FLOPs at the f32 peak and its exps
+    on the SFUs (they overlap) against the f32 words it must move at the
+    HBM rate, each input read once and each output written once."""
+    ops_s = max(flops / F32_FLOPS, exps / exp_per_s)
+    bytes_s = 4 * floats / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def library_ms(q, k, u, reps) -> float | None:
-    """One PyTorch call for the same function, as a yardstick only."""
+def bound(n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
+    """K1: reads x, K, U, s, t; writes out, m, l."""
+    floats = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 2 * n
+    return roof(2 * n * m * (d_in + d_out), n * m, floats, exp_per_s)
+
+
+def bound_bwd(kernel: str, n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
+    """K2 and K3 read x, K, U, s, t, g, m, l and delta. K2 does the score
+    product, g·Uᵀ and dS·K and writes dx, ds, dt; K3 does the score
+    product, g·Uᵀ, Aᵀg and dSᵀq and writes dK, dU."""
+    reads = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 3 * n
+    if kernel == "dx":
+        return roof(2 * n * m * (2 * d_in + d_out), n * m, reads + n * d_in + 2 * d_in, exp_per_s)
+    return roof(2 * n * m * (2 * d_in + 2 * d_out), n * m, reads + m * (d_in + d_out), exp_per_s)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, scale=1.0 / math.sqrt(q.shape[-1]))).name
+
+
+def library_ms(q, k, u, reps) -> tuple[float | None, str]:
+    """One PyTorch call for the same function, as a yardstick only, and
+    the SDPA backend it ran on (or the message of its refusal)."""
     beta = 1.0 / math.sqrt(q.shape[1])
     try:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], u[None], scale=beta), reps)
+        backend = sdpa_backend(q[None], k[None], u[None])
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], u[None], scale=beta), reps), backend
     except RuntimeError as e:  # no SDPA backend takes these widths
-        log(f"  library call refused: {str(e).splitlines()[0]}")
-        return None
+        msg = str(e).splitlines()[0]
+        log(f"  library call refused: {msg}")
+        return None, f"refused: {msg}"
+
+
+def kernel_cases(tables: dict) -> list[tuple]:
+    """``(label, n, (K, U, s, t), d_in, d_out)`` at the shapes the main
+    paths give the kernels: a full-width ffhq_64_scaled batch of 256, an
+    MNIST batch of 64, and a ragged case."""
+    cases = []
+    for tag, n, name in (("ffhq64 b256", 73984, "ffhq"), ("mnist b64", 4096, "mnist"), ("ragged", 37, "ragged")):
+        for layer, (d_in, d_out) in zip(("L1", "L2", "L3"), hc.SUPPORTED):
+            cases.append((f"{tag} {layer}", n, tables[name][layer], d_in, d_out))
+    return cases
+
+
+def case_input(n: int, d_in: int, g: torch.Generator) -> torch.Tensor:
+    if d_in == 3:  # the quantized grid zq / (L - 1) that the third lookup reads
+        return torch.randint(0, 512, (n, d_in), device="cuda", generator=g).float() / 511
+    return torch.randn(n, d_in, device="cuda", generator=g)
+
+
+def state_query(x, s, t) -> torch.Tensor:
+    """``LN(x) * s + t`` in f32: the library call's query."""
+    xhat = (x - x.mean(-1, keepdim=True)) * torch.rsqrt(x.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    return (xhat * s + t).contiguous()
 
 
 @parity_mode()
 def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = []
-    for tag, n, name in (("ffhq64 b256", 73984, "ffhq"), ("mnist b64", 4096, "mnist"), ("ragged", 37, "ragged")):
-        for layer, (d_in, d_out) in zip(("L1", "L2", "L3"), hc.SUPPORTED):
-            cases.append((f"{tag} {layer}", n, tables[name][layer], d_in, d_out))
     rows = []
-    for label, n, (k, u, s, t), d_in, d_out in cases:
-        if d_in == 3:  # the quantized grid zq / (L - 1) that the third lookup reads
-            x = torch.randint(0, 512, (n, d_in), device="cuda", generator=g).float() / 511
-        else:
-            x = torch.randn(n, d_in, device="cuda", generator=g)
+    for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
+        x = case_input(n, d_in, g)
         with torch.inference_mode():
             out, m, l = hc.stream_lookup_fwd(x, k, u, s, t)
             torch.cuda.synchronize()
@@ -173,19 +230,87 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             reps = 10 if big else 50
             kernel_ms = cuda_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), reps)
             plain_ms = cuda_ms(lambda: hc.stream_lookup_fwd_reference(x, k, u, s, t), 3 if big else 20)
-            xhat = (x - x.mean(-1, keepdim=True)) * torch.rsqrt(x.var(-1, unbiased=False, keepdim=True) + 1e-5)
-            lib_ms = library_ms((xhat * s + t).contiguous(), k, u, reps)
+            lib_ms, backend = library_ms(state_query(x, s, t), k, u, reps)
         b_ms, b_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"])
         row = {
             "shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out,
             "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
             "bound_ms": b_ms, "bound_by": b_by,
         }
         log(json.dumps(row))
         rows.append(row)
         if not (err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL):
             raise AssertionError(f"kernel disagrees with its plain version at {label}: {row}")
+    return rows
+
+
+def library_bwd_ms(q, k, u, g, reps) -> tuple[float | None, str]:
+    """One ``torch.autograd.grad`` through ``F.scaled_dot_product_attention``
+    for ``(dq, dK, dU)`` with the same cotangent, as a yardstick only: it
+    has no LayerNorm backward and computes what K2 and K3 compute
+    together. Returns its time and the backend SDPA picked."""
+    beta = 1.0 / math.sqrt(q.shape[1])
+    leaves = [a[None].detach().clone().requires_grad_() for a in (q, k, u)]  # clone: k, u are inference tensors
+    try:
+        backend = sdpa_backend(*leaves)
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, scale=beta)
+            ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, g[None], retain_graph=True), reps)
+        return ms, backend
+    except RuntimeError as e:  # no SDPA backend takes these widths
+        msg = str(e).splitlines()[0]
+        log(f"  library call refused: {msg}")
+        return None, f"refused: {msg}"
+
+
+def normwise(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@parity_mode()
+def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
+    """K2 and K3 against their plain versions at the shapes of phase 2,
+    with ``m`` and ``l`` from K1 and a seeded cotangent; each kernel runs
+    twice and must repeat bit for bit."""
+    g_gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
+        x = case_input(n, d_in, g_gen)
+        g = torch.randn(n, d_out, device="cuda", generator=g_gen)
+        big = n * k.shape[0] > 1e8
+        reps, plain_reps = (5, 2) if big else (20, 10)
+        with torch.inference_mode():
+            out, m, l = hc.stream_lookup_fwd(x, k, u, s, t)
+            delta = (g * out).sum(-1, keepdim=True)
+            args = (x, k, u, s, t, g, m, l, delta)
+            got = {"dx": hc.stream_bwd_dx(*args), "dku": hc.stream_bwd_dku(*args)}
+            again = {"dx": hc.stream_bwd_dx(*args), "dku": hc.stream_bwd_dku(*args)}
+            torch.cuda.synchronize()
+            want = {"dx": hc.stream_bwd_dx_reference(*args), "dku": hc.stream_bwd_dku_reference(*args)}
+            names = {"dx": ("dx", "ds", "dt"), "dku": ("dK", "dU")}
+            times = {
+                "dx": (cuda_ms(lambda: hc.stream_bwd_dx(*args), reps),
+                       cuda_ms(lambda: hc.stream_bwd_dx_reference(*args), plain_reps)),
+                "dku": (cuda_ms(lambda: hc.stream_bwd_dku(*args), reps),
+                        cuda_ms(lambda: hc.stream_bwd_dku_reference(*args), plain_reps)),
+            }
+        lib_ms, backend = library_bwd_ms(state_query(x, s, t), k, u, g, reps)
+        for kernel in ("dx", "dku"):
+            errs = {nm: normwise(a, b) for nm, a, b in zip(names[kernel], got[kernel], want[kernel])}
+            abs_err = max((a - b).abs().max().item() for a, b in zip(got[kernel], want[kernel]))
+            repeats = all(torch.equal(a, b) for a, b in zip(got[kernel], again[kernel]))
+            b_ms, b_by = bound_bwd(kernel, n, k.shape[0], d_in, d_out, env["exp_per_s"])
+            row = {
+                "kernel": f"hopfield_stream_bwd_{kernel}", "shape": label, "n": n, "m": k.shape[0],
+                "d_in": d_in, "d_out": d_out, "normwise_err": errs, "max_abs_err": abs_err,
+                "repeats_bitwise": repeats, "ms": times[kernel][0], "plain_ms": times[kernel][1],
+                "library_ms": lib_ms, "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
+            }
+            log(json.dumps(row))
+            rows.append(row)
+            if not (max(errs.values()) <= BWD_NORMWISE and repeats):
+                raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
     return rows
 
 
@@ -314,27 +439,201 @@ def phase_serving() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 5
+
+
+@parity_mode()
+def phase_train_golden() -> dict:
+    """The f32 train golden through the kernels, twice: the step-0 loss
+    and module gradient norms, and the losses after 1 to 3 Adam steps,
+    against the JAX numbers pinned in ``TRAIN_GOLDEN``; the second run must
+    repeat the first bit for bit."""
+    gold = TRAIN_GOLDEN
+    runs = [train_golden(str(CHECKPOINTS), device="cuda", impl="cuda") for _ in range(2)]
+    (losses, norms, model), (losses2, _, model2) = runs
+    repeats = losses == losses2 and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(), model2.state_dict().values())
+    )
+    loss_rel = [abs(a / b - 1) for a, b in zip(losses, gold["losses"])]
+    norm_rel = {k: abs(norms[k] / v - 1) for k, v in gold["grad_norms"].items()}
+    res = {"losses": losses, "jax_losses": gold["losses"], "loss_rel_err": loss_rel,
+           "grad_norms": norms, "grad_norm_rel_err": norm_rel, "repeats_bitwise": repeats}
+    log(json.dumps({"train_golden": res}))
+    if loss_rel[0] > gold["loss0_rtol"] or max(loss_rel) > gold["losses_rtol"]:
+        raise AssertionError(f"train golden losses {losses} are not within tolerance of {gold['losses']}")
+    if max(norm_rel.values()) > gold["grad_norm_rtol"]:
+        raise AssertionError(f"step-0 gradient norms {norms} are not within {gold['grad_norm_rtol']} of JAX's")
+    if not repeats:
+        raise AssertionError("a second run of the train golden does not repeat the first bit for bit")
+    return res
+
+
+KERNEL_COUNTERS = {
+    "hopfield_stream_fwd": hc.stream_lookup_fwd,
+    "hopfield_stream_bwd_dx": hc.stream_bwd_dx,
+    "hopfield_stream_bwd_dku": hc.stream_bwd_dku,
+}
+
+
+def module_grads(model) -> dict:
+    """Each top-level module's gradients, flattened into one vector."""
+    return {
+        name: torch.cat([p.grad.flatten() for p in mod.parameters() if p.grad is not None])
+        for name, mod in model.named_children() if any(p.grad is not None for p in mod.parameters())
+    }
+
+
+def train_stage_ms(model, x: torch.Tensor, reps: int = 5) -> dict:
+    """Device times of one training forward and backward, stage by stage,
+    composed as ``HopVAE.forward`` and ``Trainer._loss_fn`` compose them.
+    Each stage's input is cut from the graph, so the backward runs stage
+    by stage in reverse; the composed loss must equal the trainer's and its
+    gradients must agree with one backward of the whole graph. A spin
+    kernel holds the stream while the host enqueues, as in ``stage_ms``."""
+    layers, levels = model.bottleneck_layers(), model.num_levels
+    names = ("encoder", "lookup_1", "lookup_2", "lookup_3", "decoder_and_loss")
+    fwd, bwd = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+
+    def cut(a):
+        return a.detach().requires_grad_()
+
+    for rep in range(reps + 1):
+        model.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * len(names) + 1)]
+        torch.cuda._sleep(200_000_000)
+        ev[0].record()
+        z = model._encode_to_tokens(x)
+        ev[1].record()
+        e = hc.hopfield_lookup_stream(layers["hopfield"], zc := cut(z))
+        ev[2].record()
+        i = torch.sigmoid(hc.hopfield_lookup_stream(layers["embedding_to_index"], ec := cut(e)))
+        zn = straight_through_round(i * (levels - 1)) / (levels - 1)
+        ev[3].record()
+        r = hc.hopfield_lookup_stream(layers["index_to_embedding"], znc := cut(zn))
+        ev[4].record()
+        recon = model._tokens_to_image(ec)
+        loss = torch.mean((recon - x) ** 2) + torch.mean(((rc := cut(r)) - ec) ** 2)
+        ev[5].record()
+        loss.backward()  # decoder, loss; the aux part reaches rc and ec
+        ev[6].record()
+        r.backward(rc.grad)
+        ev[7].record()
+        zn.backward(znc.grad)  # adds lookup_2's part to ec
+        ev[8].record()
+        e.backward(ec.grad)
+        ev[9].record()
+        z.backward(zc.grad)
+        ev[10].record()
+        torch.cuda.synchronize()
+        if rep == 0:  # the first pass checks; the rest are timed
+            staged = module_grads(model)
+            model.zero_grad(set_to_none=True)
+            whole, _ = Trainer(model, model.config)._loss_fn(x)
+            whole.backward()
+            if not torch.equal(loss, whole):
+                raise AssertionError("the timed stages do not compose to the trainer's loss")
+            # normwise per module: the summation order of e's three
+            # gradients differs, and bf16 casts may round that differently
+            worst = max(normwise(staged[k], v) for k, v in module_grads(model).items())
+            if worst > 1e-2:
+                raise AssertionError(f"the staged backward disagrees with the whole one: {worst}")
+            continue
+        for a, name in enumerate(names):
+            fwd[name] += ev[a].elapsed_time(ev[a + 1]) / reps
+        for a, name in enumerate(reversed(names)):
+            bwd[name] += ev[5 + a].elapsed_time(ev[6 + a]) / reps
+    model.zero_grad(set_to_none=True)
+    return {"forward": fwd, "backward": bwd, "staged_vs_whole_grad_normwise": worst,
+            "step_fwd_bwd_ms": sum(fwd.values()) + sum(bwd.values())}
+
+
+def phase_train_full_width() -> dict:
+    """``ffhq_64_scaled`` at batch 256 on the production path (kernels +
+    bf16 conv stacks) through ``Trainer.fit`` on the synthetic FFHQ train
+    split, 2 epochs, warm-started from the FFHQ-64 backbone. The kernel
+    counts are set to 0 just before ``fit`` and read just after: 3
+    launches of each kernel per step. Then a save and a resume, and the
+    per-stage device times of one step."""
+    cfg = load_config("ffhq_64_scaled")
+    torch.manual_seed(cfg.seed)
+
+    def fresh_model():
+        model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
+        load_weights(model, str(CHECKPOINTS / GOLDENS["ffhq64_synthetic4"]["checkpoint"]))
+        return model
+
+    train_ds, _val, test_ds = get_datasets(cfg, None)
+    steps = 2 * (len(train_ds) // cfg.batch_size)
+    trainer = Trainer(fresh_model(), cfg)
+    with tempfile.TemporaryDirectory() as out:
+        for fn in KERNEL_COUNTERS.values():
+            fn.launches = 0
+        trainer.fit(train_ds, test_ds, epochs=2, out_dir=out, eval_every=0, save_every=0)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+        records = [json.loads(line) for line in open(Path(out) / "metrics.jsonl")]
+        trainer.save(1, out)
+        resumed = Trainer(fresh_model(), cfg)
+        resumed.fit(train_ds, test_ds, epochs=2, out_dir=out, eval_every=0, save_every=0, resume=True)
+    adam, adam_resumed = trainer.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    restored = {
+        "step": resumed.schedule.last_epoch == trainer.schedule.last_epoch == steps,
+        "lr": resumed.optimizer.param_groups[0]["lr"] == trainer.optimizer.param_groups[0]["lr"],
+        "adam_state": adam.keys() == adam_resumed.keys() and all(
+            torch.equal(adam[i][k], adam_resumed[i][k]) for i in adam for k in adam[i]
+        ),
+        "params": all(torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                                         trainer.model.state_dict().values())),
+    }
+    x = train_ds.images[: cfg.batch_size]
+    stages = train_stage_ms(trainer.model, torch.from_numpy(x).cuda())
+    res = {
+        "steps": steps, "launches": launches,
+        "epochs": [{k: r[k] for k in ("epoch", "Train Reconstruction Error", "train_loss_per_batch",
+                                      "epoch_seconds", "images_per_sec")} for r in records],
+        "images_per_s_epoch_2": records[-1]["images_per_sec"],
+        "stage_ms": stages, "resume_restores": restored,
+        "lr_after": trainer.optimizer.param_groups[0]["lr"],
+    }
+    log(json.dumps({"training": res}))
+    if launches != dict.fromkeys(KERNEL_COUNTERS, 3 * steps):
+        raise AssertionError(f"expected 3 launches of each kernel per step over {steps} steps: {launches}")
+    if len(records) != 2 or not all(math.isfinite(r["train_loss_per_batch"]) for r in records):
+        raise AssertionError(f"training records are missing or not finite: {records}")
+    if not all(restored.values()):
+        raise AssertionError(f"the resume did not restore the trainer: {restored}")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
-def kernel_summary(rows: list[dict], launches: int) -> dict:
-    """One entry per kernel. Times and bounds are those of one
-    full-width forward: the sum over its three lookups."""
+REPLACES = {
+    "hopfield_stream_fwd": "hopvae_tpu/ops/hopfield_pallas.py:258 (_stream_fwd_kernel)",
+    "hopfield_stream_bwd_dx": "hopvae_tpu/ops/hopfield_pallas.py:319 (_stream_bwd_dx_kernel)",
+    "hopfield_stream_bwd_dku": "hopvae_tpu/ops/hopfield_pallas.py:367 (_stream_bwd_dku_kernel)",
+}
+
+
+def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
+    """One kernel's entry. Times and bounds are those of one full-width
+    batch-256 step: the sum over its three lookups. ``launches`` is the
+    count from the training run."""
     full = [r for r in rows if r["shape"].startswith("ffhq64")]
     lib = [r["library_ms"] for r in full]
     return {
-        "name": "hopfield_stream_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "hopvae_torch/csrc/hopfield_stream_fwd.cu",
-        "replaces": "hopvae_tpu/ops/hopfield_pallas.py:258 (_stream_fwd_kernel)",
+        "source": f"hopvae_torch/csrc/{name}.cu",
+        "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in full),
-        "kernel_ms": sum(r["ms"] for r in full),
         "plain_ms": sum(r["plain_ms"] for r in full),
         "bound_ms": sum(r["bound_ms"] for r in full),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in full) else "bytes",
         "library_ms": None if None in lib else sum(lib),
+        **extra,
         "shapes": rows,
     }
 
@@ -367,10 +666,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     env = phase_environment()
-    rows = phase_kernel_vs_plain(env, folded_tables())
+    tables = folded_tables()
+    rows = phase_kernel_vs_plain(env, tables)
+    bwd_rows = phase_backward_vs_plain(env, tables)
     phase_mnist_golden()
     serving = phase_serving()
-    log(json.dumps({"kernels": [kernel_summary(rows, serving["launches"])]}))
+    phase_train_golden()
+    training = phase_train_full_width()
+    launches = training["launches"]
+    kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
+                              launches_serving=serving["launches"])]
+    for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
+        kernels.append(kernel_summary(name, [r for r in bwd_rows if r["kernel"] == name], launches[name],
+                                      max_normwise_err=max(max(r["normwise_err"].values())
+                                                           for r in bwd_rows if r["kernel"] == name)))
+    log(json.dumps({"kernels": kernels}))
     log(f"card: {smi('name,power.limit')}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,8 +2,10 @@
 
 It imports torch and numpy, never JAX or ``hopvae_tpu``: the JAX package
 stays in the repository as the reference the port is tested against.
-This slice covers the serving reconstruction path; the one TPU kernel on
-it, the streaming Hopfield forward, is ``csrc/hopfield_stream_fwd.cu``.
+It serves reconstructions (``hopvae_torch.serving``) and trains the
+backbone (``hopvae_torch.train``). The TPU kernels on those paths, the
+streaming Hopfield forward and its two backward kernels, are
+``csrc/hopfield_stream_{fwd,bwd_dx,bwd_dku}.cu``.
 """
 
 from hopvae_torch.config import MakeConfig, load_config

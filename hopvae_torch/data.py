@@ -1,19 +1,31 @@
-"""Data helpers for the port: normalization and hermetic inputs.
+"""Data for the port: readers, datasets, batches and hermetic inputs.
 
-Copies of ``MNIST_MEAN``/``MNIST_STD`` and ``_normalize`` from
-``hopvae_tpu/data``, plus:
+The port's own copies of ``hopvae_tpu/data`` (importing any
+``hopvae_tpu`` module imports JAX):
 
+- the readers: MNIST IDX files, the CIFAR10 pickles and an FFHQ-style
+  image folder (``.npy`` arrays, or image files through PIL);
+- :class:`ArrayDataset`, :func:`iterate_batches` (no per-process slice,
+  no prefetch thread) and :func:`get_datasets` with the reference's
+  splits and the hermetic fallbacks: :func:`render_digits` for MNIST (it
+  needs PIL) and :func:`synthetic_images` for CIFAR10 and FFHQ;
 - :func:`golden_digits`: the committed ``assets/digits_28_seed0_64.npy``,
   64 rendered digits (``hopvae_tpu.data.render_digits(64, 28, seed=0)``),
-  the golden input on hosts without PIL;
-- :func:`synthetic_images`: a numpy-only FFHQ stand-in (smooth random
-  low-frequency RGB images). It is not pixel-equal to the JAX package's,
-  which resizes with ``jax.image``.
+  the golden input on hosts without PIL.
+
+:func:`synthetic_images` is numpy only and not pixel-equal to the JAX
+package's, which resizes with ``jax.image``.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+import pickle
+import struct
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Iterator
 
 import numpy as np
 
@@ -36,6 +48,35 @@ GOLDENS = {
         "recon_mse": 2.108046e-4,
         "aux": 4.265848e-5,
     },
+}
+
+# One training run of the JAX package (Trainer._step_core, impl="xla", f32,
+# make_optimizer at a constant lr; tests/test_torch_train.py recomputes
+# it): the MNIST backbone on the 64 golden digits, one batch, four steps.
+# "losses" are the loss of each step, so step k's is taken after k Adam
+# updates; "grad_norms" are the global gradient norms of each top-level
+# module at step 0 (watch_gradients' grad_norm/<module>). The tolerances
+# are the port's, on the CPU (tests/test_torch_train.py) and with the
+# kernels on the card (chip_smoke.py): the eager CPU path lands within
+# 1.2e-4 of the losses and 3e-6 of the norms; the rest leaves room for a
+# quantizer bin that flips where a logit sits on a .5 edge, which moves
+# one token's aux-path gradients.
+TRAIN_GOLDEN = {
+    "config": "pixelcnn_mnist_28",
+    "checkpoint": "PixelCNN-MNIST-28.msgpack",
+    "learning_rate": 1e-3,
+    "losses": [0.007343466859310865, 0.10418246686458588, 0.030351165682077408, 0.01988830231130123],
+    "grad_norms": {
+        "encoder": 0.3526909053325653,
+        "pre_vq_conv": 0.4854174852371216,
+        "hopfield": 1.3237977027893066,
+        "embedding_to_index": 1.4161494618747383e-05,
+        "index_to_embedding": 0.0007951074512675405,
+        "decoder": 0.35033610463142395,
+    },
+    "loss0_rtol": 1e-3,
+    "losses_rtol": 1e-3,
+    "grad_norm_rtol": 2e-3,
 }
 
 
@@ -85,3 +126,215 @@ def synthetic_images(n: int, image_size: int, seed: int = 0) -> np.ndarray:
     up = _upsample_axis(_upsample_axis(base, 1, image_size), 2, image_size)
     up = (up - up.min()) / (np.ptp(up) + 1e-6)
     return (up * 255).astype(np.uint8)
+
+
+def render_digits(n: int, image_size: int = 28, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Hermetic MNIST-like data: PIL-bitmap-font digits with random shifts,
+    ``(images uint8 (n, s, s), labels)``; the same images as the JAX
+    package's for the same arguments."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font = ImageFont.load_default()
+    rng = np.random.default_rng(seed)
+    xs = np.zeros((n, image_size, image_size), np.uint8)
+    ys = rng.integers(0, 10, n)
+    for i, d in enumerate(ys):
+        img = Image.new("L", (image_size, image_size), 0)
+        dx, dy = rng.integers(4, 13), rng.integers(2, 11)
+        ImageDraw.Draw(img).text((int(dx), int(dy)), str(int(d)), fill=255, font=font)
+        xs[i] = np.asarray(img)
+    return xs, ys.astype(np.int64)
+
+
+# ----------------------------------------------------------------- readers
+
+
+def read_idx(path: str) -> np.ndarray:
+    """An IDX (ubyte) file, MNIST's format, optionally gzipped."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def _find(path: str, names: tuple) -> str | None:
+    for n in names:
+        for cand in (os.path.join(path, n), os.path.join(path, "MNIST", "raw", n)):
+            for ext in ("", ".gz"):
+                if os.path.exists(cand + ext):
+                    return cand + ext
+    return None
+
+
+def load_mnist(path: str) -> tuple | None:
+    """``(train_x, train_y, test_x, test_y)`` uint8, or None if absent."""
+    tr_x = _find(path, ("train-images-idx3-ubyte", "train-images.idx3-ubyte"))
+    tr_y = _find(path, ("train-labels-idx1-ubyte", "train-labels.idx1-ubyte"))
+    te_x = _find(path, ("t10k-images-idx3-ubyte", "t10k-images.idx3-ubyte"))
+    te_y = _find(path, ("t10k-labels-idx1-ubyte", "t10k-labels.idx1-ubyte"))
+    if not all((tr_x, tr_y, te_x, te_y)):
+        return None
+    return read_idx(tr_x), read_idx(tr_y), read_idx(te_x), read_idx(te_y)
+
+
+def load_cifar10(path: str) -> tuple | None:
+    """The standard ``cifar-10-batches-py`` pickles, or None if absent.
+    They are pickles: read only files you trust."""
+    base = os.path.join(path, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        base = path
+    batches = [os.path.join(base, f"data_batch_{i}") for i in range(1, 6)]
+    test = os.path.join(base, "test_batch")
+    if not (all(os.path.exists(b) for b in batches) and os.path.exists(test)):
+        return None
+
+    def _read(p):
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return x, np.asarray(d[b"labels"], dtype=np.int64)
+
+    xs, ys = zip(*[_read(b) for b in batches])
+    te_x, te_y = _read(test)
+    return np.concatenate(xs), np.concatenate(ys), te_x, te_y
+
+
+def list_image_files(path: str) -> list:
+    """Sorted recursive listing of the image files under ``path``
+    (``.npy`` = pre-resized uint8 HWC arrays)."""
+    exts = (".png", ".jpg", ".jpeg", ".bmp", ".webp", ".npy")
+    if not path or not os.path.isdir(path):
+        return []
+    return sorted(os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs if f.lower().endswith(exts))
+
+
+def _read_image_uint8(path: str, image_size: int) -> np.ndarray:
+    """One file → ``(H, W, 3)`` uint8. A ``.npy`` must be pre-resized."""
+    if path.endswith(".npy"):
+        a = np.load(path)
+        if a.dtype != np.uint8 and np.issubdtype(a.dtype, np.integer) and a.size and 0 <= a.min() and a.max() <= 255:
+            a = a.astype(np.uint8)  # integer values in range cast losslessly; floats still raise
+        if a.shape != (image_size, image_size, 3) or a.dtype != np.uint8:
+            raise ValueError(
+                f"{path}: expected pre-resized ({image_size},{image_size},3) "
+                f"uint8 (or integer values in [0,255]), got {a.shape} {a.dtype}"
+            )
+        return a
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if img.size != (image_size, image_size):
+        img = img.resize((image_size, image_size), Image.BILINEAR)
+    return np.asarray(img)
+
+
+def load_image_folder(path: str, image_size: int) -> np.ndarray | None:
+    """A folder of images → ``(N, H, W, 3)`` uint8 (FFHQ-style)."""
+    files = list_image_files(path)
+    if not files:
+        return None
+    out = np.empty((len(files), image_size, image_size, 3), np.uint8)
+    for i, fp in enumerate(files):
+        out[i] = _read_image_uint8(fp, image_size)
+    return out
+
+
+def _resize_uint8(x: np.ndarray, size: int) -> np.ndarray:
+    """Bilinear resize of a uint8 image batch (needs PIL unless the size
+    already matches)."""
+    if x.shape[1] == size and x.shape[2] == size:
+        return x
+    from PIL import Image
+
+    chan = x.shape[3] if x.ndim == 4 else 1
+    out = np.empty((len(x), size, size) + ((chan,) if x.ndim == 4 else ()), np.uint8)
+    for i, img in enumerate(x):
+        pil = Image.fromarray(img.squeeze() if x.ndim == 3 else img)
+        out[i] = np.asarray(pil.resize((size, size), Image.BILINEAR)).reshape(out.shape[1:])
+    return out
+
+
+# ----------------------------------------------------------------- datasets
+
+
+@dataclass
+class ArrayDataset:
+    """In-memory dataset of normalized NHWC float32 images + int labels."""
+
+    images: np.ndarray
+    labels: np.ndarray
+
+    def __len__(self):
+        return len(self.images)
+
+    def gather(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        return self.images[idx], self.labels[idx]
+
+
+def _split(x: np.ndarray, seed: int) -> tuple:
+    """The reference's random 70/10/20 train/val/test split."""
+    perm = np.random.default_rng(seed).permutation(len(x))
+    n_tr, n_va = int(len(x) * 0.7), int(len(x) * 0.1)
+    zeros = np.zeros(len(x), np.int64)
+    return tuple(ArrayDataset(x[s], zeros[s]) for s in (perm[:n_tr], perm[n_tr : n_tr + n_va], perm[n_tr + n_va :]))
+
+
+def get_datasets(config, path: str | None):
+    """``(train, val, test)`` with the reference's split semantics.
+
+    MNIST: val is test, the 10k test set. CIFAR10: the same. FFHQ: a
+    random 70/10/20 split of the folder. Without usable files under
+    ``path`` each falls back to hermetic data: 4096 + 512 rendered digits
+    (PIL), 2048 + 256 or 2048 synthetic images. Sets
+    ``config.data_variance`` as the JAX package does.
+    """
+    ds_name = config.data_set
+    if ds_name == "MNIST":
+        raw = load_mnist(path) if path else None
+        if raw is None:
+            tr_x, tr_y = render_digits(4096, config.image_size, config.seed)
+            te_x, te_y = render_digits(512, config.image_size, config.seed + 1)
+        else:
+            tr_x, tr_y, te_x, te_y = raw
+            tr_x = _resize_uint8(tr_x, config.image_size)
+            te_x = _resize_uint8(te_x, config.image_size)
+        config.data_variance = 1
+        test = ArrayDataset(_normalize(te_x, ds_name), te_y)
+        return ArrayDataset(_normalize(tr_x, ds_name), tr_y), test, test
+
+    if ds_name == "CIFAR10":
+        raw = load_cifar10(path) if path else None
+        if raw is None:
+            tr_x = synthetic_images(2048, config.image_size, config.seed)
+            te_x = synthetic_images(256, config.image_size, config.seed + 1)
+            tr_y, te_y = np.zeros(len(tr_x), np.int64), np.zeros(len(te_x), np.int64)
+        else:
+            tr_x, tr_y, te_x, te_y = raw
+        config.data_variance = float(np.var(tr_x / 255.0))
+        test = ArrayDataset(_normalize(te_x, ds_name), te_y)
+        return ArrayDataset(_normalize(tr_x, ds_name), tr_y), test, test
+
+    if ds_name == "FFHQ":
+        config.data_variance = 1
+        imgs = load_image_folder(path, config.image_size) if path else None
+        if imgs is None:
+            imgs = synthetic_images(2048, config.image_size, config.seed)
+        return _split(_normalize(imgs, ds_name), config.seed)
+
+    raise ValueError(f"unknown data_set {ds_name!r}")
+
+
+def iterate_batches(
+    ds, batch_size: int, *, shuffle: bool, seed: int = 0, drop_remainder: bool = False
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Numpy batches ``(images, labels)`` of anything with ``__len__`` and
+    ``gather(indices)``. ``shuffle`` permutes with
+    ``np.random.default_rng(seed)``, the JAX package's order."""
+    idx = np.arange(len(ds))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    end = len(idx) - (len(idx) % batch_size) if drop_remainder else len(idx)
+    for i in range(0, end, batch_size):
+        yield ds.gather(idx[i : i + batch_size])

@@ -13,6 +13,10 @@ Port of ``hopvae_tpu/models/hopvae.py`` without the priors:
 Public tensors are NHWC, as in the JAX package; the conv stacks run on
 the NCHW view of that memory (channels-last), and the latent grid is
 flattened to ``(B, r², d)`` tokens for the lookups.
+
+``forward`` is differentiable on both paths: with ``impl="cuda"`` the
+backward runs through the streaming kernels (``hopvae_torch.train``
+trains with it).
 """
 
 from __future__ import annotations

@@ -17,10 +17,14 @@ conv of bf16 values runs on the tensor cores where TF32 is allowed
 (cuDNN's default): TF32 holds every bf16 value exactly, so its products
 are exact.
 
-Every conv asks cuDNN for a deterministic algorithm, so one request
-gives the same reconstruction each time: the f32 transposed convs
-otherwise take one whose sums change order from run to run (on an H100,
-up to one bf16 step in the decoder's output, at no gain in speed).
+Every conv asks cuDNN for a deterministic algorithm, in the forward and
+in the backward, so one request gives the same reconstruction each time
+and one training step the same gradients: the f32 transposed convs and
+the weight gradients otherwise take algorithms whose sums change order
+from run to run (on an H100, up to one bf16 step in the decoder's
+output, at no gain in speed). Under autograd the conv runs inside
+:class:`_Deterministic`, whose backward differentiates it under the same
+flag; without a gradient it is called directly, with the same numbers.
 """
 
 from __future__ import annotations
@@ -41,13 +45,43 @@ def _deterministic():
         torch.backends.cudnn.deterministic = saved
 
 
+class _Deterministic(torch.autograd.Function):
+    """``compute(*args)`` with cuDNN's deterministic flag set in the
+    forward and in the backward. The forward records the inner graph of
+    ``compute``; the backward differentiates that graph under the flag."""
+
+    @staticmethod
+    def forward(ctx, compute, *args):
+        with torch.enable_grad(), _deterministic():
+            leaves = [None if a is None else a.detach().requires_grad_(a.requires_grad) for a in args]
+            out = compute(*leaves)
+        ctx.graph = (leaves, out)
+        return out.detach()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        leaves, out = ctx.graph
+        del ctx.graph
+        wanted = [a for a in leaves if a is not None and a.requires_grad]
+        with _deterministic():
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (None, *(next(grads) if a is not None and a.requires_grad else None for a in leaves))
+
+
 def _apply(fn, x, weight, bias, **kw) -> torch.Tensor:
-    w = weight.to(x.dtype)
-    with _deterministic():
+    def compute(x, weight, bias):
+        w = weight.to(x.dtype)
         if bias is None or x.dtype == torch.float32:
             return fn(x, w, None if bias is None else bias.to(x.dtype), **kw)
         # bf16 operands, f32 sums and bias, one rounding
         return fn(x.float(), w.float(), bias.to(x.dtype).float(), **kw).to(x.dtype)
+
+    args = (x, weight, bias)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return _Deterministic.apply(compute, *args)
+    with _deterministic():
+        return compute(*args)
 
 
 def conv2d(x, weight, bias=None, *, stride: int = 1, padding: int = 0) -> torch.Tensor:

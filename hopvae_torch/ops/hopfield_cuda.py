@@ -1,16 +1,30 @@
-"""Streaming Hopfield lookup through the hand-written Hopper kernel.
+"""Streaming Hopfield lookup through the hand-written Hopper kernels.
 
-Port of the forward half of ``hopvae_tpu/ops/hopfield_pallas.py``
-(``_fold_layer``, ``_attn_call_fwd``, ``_lookup_streaming``). Attention
-rows sum to 1, so each lookup's out-projection and both biases fold into
-a value table and a constant shift::
+Port of ``hopvae_tpu/ops/hopfield_pallas.py`` (``_fold_layer``,
+``_attn_ln_stream`` with its forward and backward, ``_lookup_streaming``).
+Attention rows sum to 1, so each lookup's out-projection and both biases
+fold into a value table and a constant shift::
 
     K = LN_stored(P)            U = (LN_proj(P) @ W_inᵀ + b_in) @ W_outᵀ
     out = softmax(β · LN_state(x) Kᵀ) @ U + b_out
 
-``fold_layer`` does that folding in plain, differentiable f32 torch.
-``stream_lookup_fwd`` runs the rest in ``csrc/hopfield_stream_fwd.cu``
-on CUDA tensors; ``stream_lookup_fwd_reference`` is its plain version.
+``fold_layer`` does that folding in plain, differentiable f32 torch, so
+the gradients of the patterns, projections and LayerNorms flow through
+it by autograd. The rest is :class:`StreamLookup`, an autograd function
+over ``(x2, K, U, s, t)`` with three kernels:
+
+- K1 ``csrc/hopfield_stream_fwd.cu`` (:func:`stream_lookup_fwd`): the
+  forward, which also writes the softmax row stats ``m`` and ``l``;
+- K2 ``csrc/hopfield_stream_bwd_dx.cu`` (:func:`stream_bwd_dx`): ``dx``,
+  ``ds`` and ``dt``;
+- K3 ``csrc/hopfield_stream_bwd_dku.cu`` (:func:`stream_bwd_dku`): ``dK``
+  and ``dU``.
+
+The backward kernels rebuild the attention from ``m`` and ``l``, so the
+``(N, M)`` matrix never reaches device memory. Each wrapper launches its
+kernel on CUDA tensors (counting the launch in its ``launches``) and
+takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
+and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
 """
 
 from __future__ import annotations
@@ -23,8 +37,8 @@ import torch
 from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
 from hopvae_torch.utils.nvcc import load_library
 
-SOURCE = "hopfield_stream_fwd"
-SUPPORTED = ((64, 64), (64, 3), (3, 64))  # (d_in, d_out) the kernel is built for
+SUPPORTED = ((64, 64), (64, 3), (3, 64))  # (d_in, d_out) the kernels are built for
+IMPLS = ("cuda", "torch")
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -41,29 +55,81 @@ def fold_layer(layer: HopfieldLookup):
     return k, u, layer.out_proj.bias, layer.norm_state.weight, layer.norm_state.bias
 
 
-def stream_lookup_fwd_reference(x2, K, U, s, t):
-    """Plain torch version of the kernel: ``(out, m, l)`` with ``m`` the
-    row max of the scaled scores and ``l`` the softmax denominator, both
-    ``(N, 1)``. Materializes the ``(N, M)`` scores.
+# ------------------------------------------------------------ plain versions
 
-    The state LayerNorm runs in float64 and rounds once, as the kernel's
-    does: at ``d_in = 3`` a row whose values nearly agree loses most
-    digits of ``x - mean`` in f32."""
+
+def _state_ln(x2):
+    """``(x̂, inv)`` of the state LayerNorm, in float64. The kernels run
+    it in double and round once too: at ``d_in = 3`` a row whose values
+    nearly agree loses most digits of ``x - mean`` in f32."""
     d = x2.shape[1]
     x64 = x2.double()
-    mean = x64.sum(-1, keepdim=True) / d
-    cent = x64 - mean
-    var = (cent * cent).sum(-1, keepdim=True) / d
-    q = (cent * torch.rsqrt(var + LN_EPS) * s.double() + t.double()).float()
-    sc = torch.matmul(q, K.T) * (1.0 / math.sqrt(d))
+    cent = x64 - x64.sum(-1, keepdim=True) / d
+    inv = torch.rsqrt((cent * cent).sum(-1, keepdim=True) / d + LN_EPS)
+    return cent * inv, inv
+
+
+def _query(xhat, s, t):
+    return (xhat * s.double() + t.double()).float()
+
+
+def stream_lookup_fwd_reference(x2, K, U, s, t):
+    """Plain torch version of K1: ``(out, m, l)`` with ``m`` the row max
+    of the scaled scores and ``l`` the softmax denominator, both
+    ``(N, 1)``. Materializes the ``(N, M)`` scores."""
+    xhat, _ = _state_ln(x2)
+    sc = torch.matmul(_query(xhat, s, t), K.T) * (1.0 / math.sqrt(x2.shape[1]))
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
     l = p.sum(-1, keepdim=True)
     return torch.matmul(p, U) / l, m, l
 
 
-def _check(x2, K, U, s, t) -> tuple[int, int, int, int]:
+def _attention_grads(x2, K, U, s, t, g, m, l, delta):
+    """The attention rebuilt from the row stats, and the score cotangent:
+    ``(A, dS, q, x̂, inv)``."""
+    beta = 1.0 / math.sqrt(x2.shape[1])
+    xhat, inv = _state_ln(x2)
+    q = _query(xhat, s, t)
+    a = torch.exp(torch.matmul(q, K.T) * beta - m) / l
+    ds = a * (torch.matmul(g, U.T) - delta) * beta
+    return a, ds, q, xhat, inv
+
+
+def stream_bwd_dx_reference(x2, K, U, s, t, g, m, l, delta):
+    """Plain torch version of K2: ``(dx, ds, dt)``. The LayerNorm backward
+    runs in float64, as in the kernel."""
+    _, dsc, _, xhat, inv = _attention_grads(x2, K, U, s, t, g, m, l, delta)
+    dq = torch.matmul(dsc, K).double()
+    dxhat = dq * s.double()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx.float(), (dq * xhat).sum(0).float(), dq.sum(0).float()
+
+
+def stream_bwd_dku_reference(x2, K, U, s, t, g, m, l, delta):
+    """Plain torch version of K3: ``(dK, dU)``."""
+    a, dsc, q, _, _ = _attention_grads(x2, K, U, s, t, g, m, l, delta)
+    return torch.matmul(dsc.T, q), torch.matmul(a.T, g)
+
+
+def stream_lookup_bwd_reference(x2, K, U, s, t, g, m, l, delta):
+    """Plain backward of the streaming lookup: ``(dx, dK, dU, ds, dt)``
+    for the cotangent ``g (N, d_out)`` of ``out``, from the forward's row
+    stats and ``delta = rowsum(g ⊙ out)``. The same math as K2 and K3,
+    written out with the ``(N, M)`` matrices in memory."""
+    dx, ds, dt = stream_bwd_dx_reference(x2, K, U, s, t, g, m, l, delta)
+    dk, du = stream_bwd_dku_reference(x2, K, U, s, t, g, m, l, delta)
+    return dx, dk, du, ds, dt
+
+
+# ------------------------------------------------------------ kernels
+
+
+def _check(x2, K, U, s, t, *rest) -> tuple[int, int, int, int]:
+    """Types, devices, layouts and shapes of a lookup's arrays; ``rest`` is
+    the backward's ``(g, m, l, delta)``."""
     named = {"x2": x2, "K": K, "U": U, "s": s, "t": t}
+    named.update(zip(("g", "m", "l", "delta"), rest))
     for name, a in named.items():
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
@@ -80,6 +146,13 @@ def _check(x2, K, U, s, t) -> tuple[int, int, int, int]:
             f"shapes disagree: x2 {tuple(x2.shape)}, K {tuple(K.shape)}, "
             f"U {tuple(U.shape)}, s {tuple(s.shape)}, t {tuple(t.shape)}"
         )
+    if rest:
+        g, *stats = rest
+        if g.shape != (n, d_out) or any(a.shape != (n, 1) for a in stats):
+            raise ValueError(
+                f"backward shapes disagree: g {tuple(g.shape)} (want {(n, d_out)}), "
+                f"m, l, delta {[tuple(a.shape) for a in stats]} (want {(n, 1)})"
+            )
     if (d_in, d_out) not in SUPPORTED:
         raise ValueError(f"(d_in, d_out) = {(d_in, d_out)} not in {SUPPORTED}")
     if n == 0 or m == 0:
@@ -87,41 +160,56 @@ def _check(x2, K, U, s, t) -> tuple[int, int, int, int]:
     return n, m, d_in, d_out
 
 
-def _kernel():
-    lib = load_library(SOURCE)
-    fn = lib.hopfield_stream_fwd
+def _bind(stem: str, name: str, n_ptrs: int, n_ints: int):
+    """``lib.name`` of ``csrc/<stem>.cu`` with its argument types: pointers,
+    then ints, then the stream."""
+    fn = getattr(load_library(stem), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def stream_lookup_fwd(x2, K, U, s, t):
-    """``(out, m, l)`` of the streaming lookup of ``x2 (N, d_in)``.
+def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
+    fn = getattr(load_library(stem), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(sizes)
+        fn.restype = ctypes.c_longlong
+    return fn(*sizes)
 
-    CUDA tensors launch the kernel (and count the launch in
+
+def _launch(name: str, fn, device, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _require_cuda(x2) -> None:
+    if x2.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2.device}")
+
+
+def stream_lookup_fwd(x2, K, U, s, t):
+    """K1: ``(out, m, l)`` of the streaming lookup of ``x2 (N, d_in)``.
+
+    CUDA tensors launch the kernel (counted in
     ``stream_lookup_fwd.launches``); CPU tensors take the plain version.
-    The kernel has no backward yet, so inputs that need a gradient raise.
+    This function is forward-only, so on the card inputs that need a
+    gradient raise: differentiate through :func:`stream_lookup`.
     """
     n, m, d_in, d_out = _check(x2, K, U, s, t)
     if x2.device.type == "cpu":
         return stream_lookup_fwd_reference(x2, K, U, s, t)
-    if x2.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2.device}")
+    _require_cuda(x2)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x2, K, U, s, t)):
-        raise RuntimeError("the streaming kernel is forward-only: run it under torch.no_grad()")
+        raise RuntimeError("stream_lookup_fwd is forward-only: differentiate through stream_lookup")
     out = torch.empty(n, d_out, device=x2.device)
     m_stat = torch.empty(n, 1, device=x2.device)
     l_stat = torch.empty(n, 1, device=x2.device)
-    fn = _kernel()
-    with torch.cuda.device(x2.device):
-        err = fn(
-            x2.data_ptr(), K.data_ptr(), U.data_ptr(), s.data_ptr(), t.data_ptr(),
-            out.data_ptr(), m_stat.data_ptr(), l_stat.data_ptr(),
-            n, m, d_in, d_out, torch.cuda.current_stream(x2.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"hopfield_stream_fwd launch failed: cudaError {err}")
+    fn = _bind("hopfield_stream_fwd", "hopfield_stream_fwd", 8, 4)
+    _launch("hopfield_stream_fwd", fn, x2.device,
+            *(a.data_ptr() for a in (x2, K, U, s, t, out, m_stat, l_stat)), n, m, d_in, d_out)
     stream_lookup_fwd.launches += 1
     return out, m_stat, l_stat
 
@@ -129,19 +217,92 @@ def stream_lookup_fwd(x2, K, U, s, t):
 stream_lookup_fwd.launches = 0
 
 
+def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
+    """K2: ``(dx, ds, dt)`` of the lookup for the cotangent ``g`` of its
+    output, from K1's row stats ``m``, ``l`` and ``delta = rowsum(g ⊙
+    out)``, all ``(N, 1)``. CUDA tensors launch the kernel (counted in
+    ``stream_bwd_dx.launches``); CPU tensors take the plain version."""
+    n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
+    if x2.device.type == "cpu":
+        return stream_bwd_dx_reference(x2, K, U, s, t, g, m, l, delta)
+    _require_cuda(x2)
+    stem = "hopfield_stream_bwd_dx"
+    dx = torch.empty(n, d_in, device=x2.device)
+    ds = torch.empty(d_in, device=x2.device)
+    dt = torch.empty(d_in, device=x2.device)
+    work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, d_in), device=x2.device)
+    _launch(stem, _bind(stem, stem, 13, 4), x2.device,
+            *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dx, ds, dt, work)),
+            n, m_pat, d_in, d_out)
+    stream_bwd_dx.launches += 1
+    return dx, ds, dt
+
+
+stream_bwd_dx.launches = 0
+
+
+def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
+    """K3: ``(dK, dU)`` of the lookup, from the same inputs as
+    :func:`stream_bwd_dx`. CUDA tensors launch the kernel (counted in
+    ``stream_bwd_dku.launches``); CPU tensors take the plain version."""
+    n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
+    if x2.device.type == "cpu":
+        return stream_bwd_dku_reference(x2, K, U, s, t, g, m, l, delta)
+    _require_cuda(x2)
+    stem = "hopfield_stream_bwd_dku"
+    dk = torch.empty(m_pat, d_in, device=x2.device)
+    du = torch.empty(m_pat, d_out, device=x2.device)
+    floats = _workspace_floats(stem, f"{stem}_workspace", n, m_pat, d_in, d_out)
+    work = torch.empty(floats, device=x2.device)
+    _launch(stem, _bind(stem, stem, 12, 4), x2.device,
+            *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dk, du, work)),
+            n, m_pat, d_in, d_out)
+    stream_bwd_dku.launches += 1
+    return dk, du
+
+
+stream_bwd_dku.launches = 0
+
+
+class StreamLookup(torch.autograd.Function):
+    """``softmax(β · LN(x2) Kᵀ) @ U`` with the state LayerNorm's ``s``,
+    ``t``, differentiable in all five inputs (JAX's ``_attn_ln_stream``).
+    The output shift ``b`` is added by the caller."""
+
+    @staticmethod
+    def forward(ctx, x2, K, U, s, t):
+        out, m, l = stream_lookup_fwd(x2, K, U, s, t)
+        ctx.save_for_backward(x2, K, U, s, t, m, l, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2, K, U, s, t, m, l, out = ctx.saved_tensors
+        g = g.float().contiguous()
+        delta = (g * out).sum(-1, keepdim=True)
+        dx, ds, dt = stream_bwd_dx(x2, K, U, s, t, g, m, l, delta)
+        dk, du = stream_bwd_dku(x2, K, U, s, t, g, m, l, delta)
+        return dx, dk, du, ds, dt
+
+
+def stream_lookup(x2, K, U, s, t):
+    """The differentiable streaming lookup of ``x2 (N, d_in)``: the kernels
+    on CUDA tensors, their plain versions on CPU tensors."""
+    return StreamLookup.apply(x2, K, U, s, t)
+
+
 def hopfield_lookup_stream(layer: HopfieldLookup, x: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
-    """One lookup of ``x (..., d_in)`` with folded tables; ``impl="cuda"``
-    launches the kernel and needs CUDA tensors, ``impl="torch"`` runs the
-    plain version."""
+    """One lookup of ``x (..., d_in)`` with folded tables, differentiable.
+    ``impl="cuda"`` launches the kernels and needs CUDA tensors;
+    ``impl="torch"`` takes their plain versions and needs CPU tensors."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    want = "cuda" if impl == "cuda" else "cpu"
+    if x.device.type != want:
+        other = "torch" if impl == "cuda" else "cuda"
+        raise ValueError(f"impl={impl!r} needs {want.upper()} tensors, got {x.device}; use impl={other!r}")
     k, u, b, s, t = fold_layer(layer)
     *lead, d = x.shape
-    x2 = x.reshape(-1, d).contiguous()
-    if impl == "cuda":
-        if x2.device.type != "cuda":
-            raise ValueError(f"impl='cuda' needs CUDA tensors, got {x2.device}; use impl='torch'")
-        out, _, _ = stream_lookup_fwd(x2, k, u, s, t)
-    elif impl == "torch":
-        out, _, _ = stream_lookup_fwd_reference(x2, k, u, s, t)
-    else:
-        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    out = stream_lookup(x.reshape(-1, d).contiguous(), k, u, s, t)
     return (out + b).reshape(*lead, u.shape[1])

@@ -2,8 +2,9 @@
 
 Each ``hopvae_torch/csrc/<stem>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``hopvae_torch/_build/``, named
-by a hash of its source and flags, so an edited source builds anew. A
-failed build raises; nothing falls back.
+by a hash of its source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source builds anew. A failed build raises; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(stem: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers in ``csrc/`` and the flags."""
     src = (CSRC / f"{stem}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 

@@ -1,10 +1,12 @@
 """The port's Hopfield lookups and bottleneck against the JAX package.
 
-The plain version of the streaming kernel is held against the Pallas
-forward ``_attn_call_fwd`` run in interpret mode (as tests/test_pallas.py
-runs it on the CPU), and the eager lookups and bottleneck against
-``hopfield_lookup`` / ``hopfield_bottleneck_xla``. Inputs and parameters
-come from numpy with a seed; tolerances are those of tests/test_pallas.py.
+The plain versions of the streaming kernels are held against the Pallas
+forward ``_attn_call_fwd`` and the Pallas VJP of ``_attn_ln_stream``,
+run in interpret mode (as tests/test_pallas.py runs them on the CPU); the
+eager lookups and bottleneck against ``hopfield_lookup`` /
+``hopfield_bottleneck_xla``, and the streaming bottleneck's gradients
+against ``jax.grad``. Inputs and parameters come from numpy with a seed;
+tolerances are those of tests/test_pallas.py.
 """
 
 import numpy as np
@@ -16,15 +18,18 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from hopvae_tpu.ops import hopfield_pallas as hp
+from hopvae_tpu.ops import bottleneck as jax_bottleneck
 from hopvae_tpu.ops.bottleneck import hopfield_bottleneck_xla
 from hopvae_tpu.ops.hopfield import hopfield_lookup as jax_hopfield_lookup
 from hopvae_torch.ops import hopfield_cuda as hc
-from hopvae_torch.ops.bottleneck import hopfield_bottleneck
+from hopvae_torch.ops.bottleneck import hopfield_bottleneck, streaming_bottleneck
 from hopvae_torch.ops.hopfield import HopfieldLookup, hopfield_lookup
 from hopvae_torch.utils.checkpoint import params_from_jax
 
 RTOL, ATOL = 1e-4, 1e-5
 STAT_RTOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6  # test_pallas_gradients_match_reference
+SHAPES = [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)]  # ragged in N and M
 
 
 def _np_params(rng, d_in, d_out, m):
@@ -49,7 +54,7 @@ def _jax(p):
     return jax.tree_util.tree_map(jnp.asarray, p)
 
 
-@pytest.mark.parametrize("n,m,d_in,d_out", [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)])
+@pytest.mark.parametrize("n,m,d_in,d_out", SHAPES)
 def test_stream_reference_matches_pallas_forward(n, m, d_in, d_out):
     rng = np.random.default_rng(n + m)
     p = _np_params(rng, d_in, d_out, m)
@@ -143,3 +148,106 @@ def test_cuda_impl_on_cpu_tensors_raises():
         hc.hopfield_lookup_stream(layer, torch.zeros(2, 4, 64), impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         hc.hopfield_lookup_stream(layer, torch.zeros(2, 4, 64), impl="pallas")
+
+
+def _layers(params):
+    return {
+        "hopfield": _torch_layer(params["hopfield"], 64, 64),
+        "embedding_to_index": _torch_layer(params["embedding_to_index"], 64, 3),
+        "index_to_embedding": _torch_layer(params["index_to_embedding"], 3, 64),
+    }
+
+
+@pytest.mark.parametrize("n,m,d_in,d_out", SHAPES)
+def test_stream_backward_matches_pallas_vjp(n, m, d_in, d_out):
+    """All five cotangents of the plain backward, and of the autograd
+    function on CPU tensors, against ``jax.vjp`` of ``_attn_ln_stream``,
+    whose backward is the two Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(7 * n + m)
+    p = _np_params(rng, d_in, d_out, m)
+    x = rng.standard_normal((n, d_in)).astype(np.float32)
+    g = rng.standard_normal((n, d_out)).astype(np.float32)
+    folded = [np.array(a) for a in hp._fold_layer(_jax(p))]  # writable copies
+    k, u, _b, s, t = folded
+    with pltpu.force_tpu_interpret_mode():
+        out_j, vjp = jax.vjp(
+            lambda *a: hp._attn_ln_stream(*a, jax.lax.Precision.HIGHEST), *map(jnp.asarray, (x, k, u, s, t))
+        )
+        want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+
+    xt, kt, ut, st, tt, gt = map(torch.from_numpy, (x, k, u, s, t, g))
+    out, m_stat, l_stat = hc.stream_lookup_fwd_reference(xt, kt, ut, st, tt)
+    delta = (gt * out).sum(-1, keepdim=True)
+    plain = hc.stream_lookup_bwd_reference(xt, kt, ut, st, tt, gt, m_stat, l_stat, delta)
+
+    leaves = [a.clone().requires_grad_() for a in (xt, kt, ut, st, tt)]
+    got_out = hc.stream_lookup(*leaves)
+    got_out.backward(gt)
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
+    for name, a, b, w in zip(("dx", "dK", "dU", "ds", "dt"), plain, leaves, want):
+        assert a.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), w, rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
+        torch.testing.assert_close(b.grad, a, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("m,s", [(128, 16), (600, 40)])
+def test_streaming_bottleneck_gradients_match_jax(m, s):
+    """The port's streaming bottleneck (autograd function on CPU tensors,
+    table fold by autograd) against ``jax.grad`` of the loss of
+    tests/test_pallas.py::test_pallas_gradients_match_reference, for the
+    input and every parameter of the three lookups."""
+    rng = np.random.default_rng(m + s)
+    params = {
+        "hopfield": _np_params(rng, 64, 64, m),
+        "embedding_to_index": _np_params(rng, 64, 3, m),
+        "index_to_embedding": _np_params(rng, 3, 64, m),
+    }
+    x = rng.standard_normal((2, s, 64)).astype(np.float32)
+
+    def loss(p, xx):
+        e, zq, r = jax_bottleneck.hopfield_bottleneck_xla(p, xx, 512)
+        return jnp.mean((r - e) ** 2) + jnp.mean(e) + 1e-4 * jnp.mean(zq)
+
+    g_params, g_x = jax.grad(loss, argnums=(0, 1))(_jax(params), jnp.asarray(x))
+    want = params_from_jax(g_params)
+
+    layers = _layers(params)
+    xt = torch.from_numpy(x).requires_grad_()
+    e, zq, r = streaming_bottleneck(layers, xt, 512, impl="torch")
+    (torch.mean((r - e) ** 2) + torch.mean(e) + 1e-4 * torch.mean(zq)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(g_x), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    for lname, layer in layers.items():
+        for pname, param in layer.named_parameters():
+            np.testing.assert_allclose(
+                param.grad.numpy(), want[f"{lname}.{pname}"].numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                err_msg=f"{lname}.{pname}",
+            )
+
+
+def test_stream_backward_on_cpu_takes_the_plain_versions():
+    rng = np.random.default_rng(1)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, k, u, g = f(9, 64), f(70, 64), f(70, 3), f(9, 3)
+    s, t = 1 + 0.1 * f(64), 0.1 * f(64)
+    out, m, l = hc.stream_lookup_fwd(x, k, u, s, t)
+    delta = (g * out).sum(-1, keepdim=True)
+    before = (hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches)
+    got = (*hc.stream_bwd_dx(x, k, u, s, t, g, m, l, delta), *hc.stream_bwd_dku(x, k, u, s, t, g, m, l, delta))
+    assert (hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches) == before  # no kernel launched
+    dx, dk, du, ds, dt = hc.stream_lookup_bwd_reference(x, k, u, s, t, g, m, l, delta)
+    for a, b in zip(got, (dx, ds, dt, dk, du)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_stream_backward_checks_its_inputs():
+    x, k, u = torch.zeros(5, 64), torch.zeros(70, 64), torch.zeros(70, 3)
+    s, t, g, stat = torch.ones(64), torch.zeros(64), torch.zeros(5, 3), torch.ones(5, 1)
+    with pytest.raises(ValueError, match="backward shapes"):
+        hc.stream_bwd_dx(x, k, u, s, t, torch.zeros(5, 64), stat, stat, stat)
+    with pytest.raises(ValueError, match="backward shapes"):
+        hc.stream_bwd_dku(x, k, u, s, t, g, stat, torch.ones(5), stat)
+    with pytest.raises(TypeError, match="float32"):
+        hc.stream_bwd_dku(x, k, u, s, t, g.double(), stat, stat, stat)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        hc.hopfield_lookup_stream(HopfieldLookup(64, 3, 50, device="meta"), torch.zeros(2, 4, 64, device="meta"),
+                                  impl="torch")

@@ -13,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hopvae_tpu")
 
 def test_import_leaves_no_jax_module():
     code = (
-        "import sys; import hopvae_torch, hopvae_torch.serving, chip_smoke; "
+        "import sys; import hopvae_torch, hopvae_torch.serving, hopvae_torch.train, chip_smoke; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -148,6 +148,36 @@ def test_bf16_biased_conv_rounds_once(op):
     assert op(x.float(), w, b, stride=2, padding=1).dtype == torch.float32
 
 
+@pytest.mark.parametrize("op,dtype", [(conv2d, torch.float32), (conv_transpose2d, torch.float32),
+                                      (conv2d, torch.bfloat16), (conv_transpose2d, torch.bfloat16)])
+def test_conv_backward_equals_autograd(op, dtype):
+    """Under autograd a conv runs inside the wrapper that keeps cuDNN
+    deterministic in the backward too; its value and gradients are those
+    of the same conv differentiated directly."""
+    rng = np.random.default_rng(4)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x0, w0, b0 = f(2, 8, 9, 9).to(dtype), f(8, 8, 4, 4) / 8, f(8)
+
+    def run(fn):
+        x, w, b = (a.clone().requires_grad_() for a in (x0, w0, b0))
+        y = fn(x, w, b)
+        g = np.random.default_rng(5).standard_normal(y.shape).astype(np.float32)
+        y.backward(torch.from_numpy(g).to(y.dtype))
+        return y.detach(), x.grad, w.grad, b.grad
+
+    torch_fn = torch.nn.functional.conv2d if op is conv2d else torch.nn.functional.conv_transpose2d
+    if dtype == torch.float32:
+        plain = lambda x, w, b: torch_fn(x, w, b, stride=2, padding=1)
+    else:
+        plain = lambda x, w, b: torch_fn(x.float(), w.to(x.dtype).float(), b.to(x.dtype).float(),
+                                         stride=2, padding=1).to(x.dtype)
+    want = run(plain)
+    for a, b in zip(run(lambda x, w, b: op(x, w, b, stride=2, padding=1)), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with torch.no_grad():  # no gradient wanted: called directly, same numbers
+        torch.testing.assert_close(op(x0, w0, b0, stride=2, padding=1), want[0], rtol=0, atol=0)
+
+
 def test_ffhq64_scaled_pinned_batch():
     """The JAX forward of ffhq_64_scaled (M = 4096, r = 17) on the fixed
     batch that chip_smoke.py checks on the card, and the port against it."""
