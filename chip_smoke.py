@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Seven phases, each of which raises on failure:
+Eleven phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed).
@@ -26,8 +26,25 @@ Seven phases, each of which raises on failure:
    production path through ``Trainer.fit``, 2 epochs, with the kernels'
    launch counts read around it; images/s, a save and resume, and the
    per-stage device times of one step, forward and backward.
-7. The kernel summary as one JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+7. The causal flash-attention kernels K5-fwd, K5-dkv and K5-dq against
+   their plain versions, f32 with TF32 off, at the prior's full width
+   (B 256, S 867, 4 heads of 32, strided views of one projection as the
+   prior gives them), at ``prior_heads=1`` (one head of 128) and at small
+   ragged shapes; the backward runs twice and must repeat bit for bit;
+   kernel, plain, bound and SDPA times.
+8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
+   on the committed grid through K5, and ``HopVAE.forward(fit_prior=True)``
+   on the golden batch, against the JAX numbers in ``PRIOR_GOLDENS``.
+9. Prior-train golden: three prior-only Adam steps through ``Trainer``,
+   f32, twice, against ``PRIOR_TRAIN_GOLDEN``; bit-for-bit repeat, and
+   the backbone left bit-identical.
+10. Full-width prior phase: ``ffhq_64_scaled`` with ``prior=Transformer``,
+    ``prior_start=-1``, batch 256, production path, 2 epochs through
+    ``Trainer.fit`` with every kernel's launch count read around it (K5
+    4 a step each, K1 3, K2 and K3 none); images/s, a save and resume,
+    and the per-stage device times of one step.
+11. The kernel summary as one JSON line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
 prints no result, without a CUDA card or outside the repository.
@@ -49,13 +66,15 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
-from hopvae_torch.data import GOLDENS, TRAIN_GOLDEN, get_datasets, golden_input, synthetic_images, _normalize
-from hopvae_torch.models.hopvae import HopVAE
+from hopvae_torch.data import (GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, TRAIN_GOLDEN, get_datasets, golden_grid,
+                               golden_input, synthetic_images, _normalize)
+from hopvae_torch.models.hopvae import PRIOR, HopVAE
+from hopvae_torch.ops import attention_cuda as ac
 from hopvae_torch.ops import hopfield_cuda as hc
 from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
-from hopvae_torch.train import Trainer, load_weights, train_golden
+from hopvae_torch.train import Trainer, load_weights, prior_train_golden, train_golden
 from hopvae_torch.utils import nvcc
 
 ROOT = Path(__file__).resolve().parent
@@ -79,6 +98,11 @@ BF16_VS_F32_MSE = 1e-3
 # dx, ds, dt, dK, dU: f32 sums over up to 74k tokens and 4096 patterns in
 # another order (6e-6 at most on an H100)
 BWD_NORMWISE = 5e-5
+# K5 against its plain versions, normwise as above: out and lse of the
+# forward, sums over up to 867 keys in another order than cuBLAS's; dQ, dK
+# and dV of the backward, which also carry the cancellation in dP - delta
+ATTN_FWD_NORMWISE = 1e-5
+ATTN_BWD_NORMWISE = 5e-5
 
 
 def log(*args) -> None:
@@ -605,13 +629,335 @@ def phase_train_full_width() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 7
+
+
+ATTENTION_COUNTERS = {
+    "causal_attention_fwd": ac.causal_attention_fwd,
+    "causal_attention_bwd_dkv": ac.causal_attention_bwd_dkv,
+    "causal_attention_bwd_dq": ac.causal_attention_bwd_dq,
+}
+# (label, B, S, heads, dh): the prior at full width, at prior_heads=1, and
+# small ragged shapes (S a multiple of no tile, of one tile, below one)
+ATTENTION_CASES = (
+    ("full B256 S867 h4 dh32", 256, 867, 4, 32),
+    ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
+    ("ragged S5", 2, 5, 2, 8),
+    ("ragged S37", 2, 37, 2, 8),
+    ("ragged S48", 2, 48, 2, 8),
+)
+
+
+def attention_bound(kernel: str, b, s, h, dh, exp_per_s) -> tuple[float, str]:
+    """Least time of one K5 launch. Each product over the causal triangle
+    is 2·dh·S(S+1)/2 FLOPs per head; the forward needs 2 (QKᵀ, PV), dK/dV
+    4 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) and dQ 3 (QKᵀ, dO·Vᵀ, dS·K), each with
+    one exp per score. Words: q, k, v (and dO, lse, delta) read once, the
+    outputs (out and lse; dK and dV; dQ) written once."""
+    pairs = b * h * s * (s + 1) / 2
+    products = {"fwd": 2, "dkv": 4, "dq": 3}[kernel]
+    tensor = b * s * h * dh
+    words = {"fwd": 4 * tensor + b * h * s, "dkv": 6 * tensor + 2 * b * h * s,
+             "dq": 5 * tensor + 2 * b * h * s}[kernel]
+    return roof(products * 2 * dh * pairs, pairs, words, exp_per_s)
+
+
+def attention_inputs(b, s, h, dh, g: torch.Generator):
+    """q, k, v as strided views of one ``(B, S, 3·h·dh)`` projection, as
+    the prior's split gives them, and a contiguous cotangent."""
+    qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=g)
+    q, k, v = (qkv[..., i * h * dh : (i + 1) * h * dh].view(b, s, h, dh) for i in range(3))
+    return q, k, v, torch.randn(b, s, h, dh, device="cuda", generator=g)
+
+
+def sdpa_causal_ms(q, k, v, g, reps) -> dict:
+    """The library yardstick, never called by the port: one
+    ``F.scaled_dot_product_attention(is_causal=True)`` on the same f32
+    inputs as contiguous ``(B, h, S, dh)``, forward, backward alone (dQ,
+    dK, dV for the same cotangent) and forward + backward, and the backend
+    it picked."""
+    from torch.nn.attention import SDPBackend
+
+    leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+    gt = g.transpose(1, 2).contiguous()
+    try:
+        backend = SDPBackend(torch._fused_sdp_choice(*leaves, is_causal=True)).name
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*leaves, is_causal=True), reps)
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, gt, retain_graph=True), reps)
+            both = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves, is_causal=True),
+                                                       leaves, gt), reps)
+        return {"fwd_ms": fwd, "bwd_ms": bwd, "fwd_bwd_ms": both, "backend": backend}
+    except RuntimeError as e:  # no SDPA backend takes these inputs
+        msg = str(e).splitlines()[0]
+        log(f"  library call refused: {msg}")
+        return {"fwd_ms": None, "bwd_ms": None, "fwd_bwd_ms": None, "backend": f"refused: {msg}"}
+
+
+@parity_mode()
+def phase_attention_vs_plain(env: dict) -> list[dict]:
+    """K5-fwd, K5-dkv and K5-dq against their plain versions on the same
+    inputs, the backward from the kernel's own lse; each backward kernel
+    runs twice and must repeat bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, b, s, h, dh in ATTENTION_CASES:
+        q, k, v, g = attention_inputs(b, s, h, dh, gen)
+        scale = 1.0 / math.sqrt(dh)
+        big = b * h * s * s > 1e8
+        reps, plain_reps = (10, 3) if big else (50, 20)
+        with torch.inference_mode():
+            out, lse = ac.causal_attention_fwd(q, k, v, scale)
+            delta = ac.attention_delta(out, g)
+            args = (q, k, v, g, lse, delta, scale)
+            dk, dv = ac.causal_attention_bwd_dkv(*args)
+            dq = ac.causal_attention_bwd_dq(*args)
+            dk2, dv2 = ac.causal_attention_bwd_dkv(*args)
+            dq2 = ac.causal_attention_bwd_dq(*args)
+            torch.cuda.synchronize()
+            got = {"fwd": (out, lse), "dkv": (dk, dv), "dq": (dq,)}
+            repeats = {"dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2), "dq": torch.equal(dq, dq2)}
+            want = {"fwd": ac.causal_attention_fwd_reference(q, k, v, scale),
+                    "dkv": ac.causal_attention_bwd_dkv_reference(*args),
+                    "dq": (ac.causal_attention_bwd_dq_reference(*args),)}
+            errs = {kn: [normwise(a, w) for a, w in zip(got[kn], want[kn])] for kn in got}
+            abs_errs = {kn: max((a - w).abs().max().item() for a, w in zip(got[kn], want[kn])) for kn in got}
+            del want, got, dk2, dv2, dq2
+            times = {
+                "fwd": (cuda_ms(lambda: ac.causal_attention_fwd(q, k, v, scale), reps),
+                        cuda_ms(lambda: ac.causal_attention_fwd_reference(q, k, v, scale), plain_reps)),
+                "dkv": (cuda_ms(lambda: ac.causal_attention_bwd_dkv(*args), reps),
+                        cuda_ms(lambda: ac.causal_attention_bwd_dkv_reference(*args), plain_reps)),
+                "dq": (cuda_ms(lambda: ac.causal_attention_bwd_dq(*args), reps),
+                       cuda_ms(lambda: ac.causal_attention_bwd_dq_reference(*args), plain_reps)),
+            }
+        lib = sdpa_causal_ms(q, k, v, g, reps)
+        for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",))):
+            b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
+            row = {
+                "kernel": f"causal_attention_{'fwd' if kn == 'fwd' else 'bwd_' + kn}", "shape": label,
+                "b": b, "s": s, "h": h, "dh": dh, "normwise_err": dict(zip(names, errs[kn])),
+                "max_abs_err": abs_errs[kn], "repeats_bitwise": repeats.get(kn, True),
+                "ms": times[kn][0], "plain_ms": times[kn][1],
+                "library_ms": lib["fwd_ms"] if kn == "fwd" else lib["bwd_ms"],
+                "library_fwd_bwd_ms": lib["fwd_bwd_ms"], "library_backend": lib["backend"],
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            log(json.dumps(row))
+            rows.append(row)
+            limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
+            if not (max(errs[kn]) <= limit and row["repeats_bitwise"]):
+                raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
+        del q, k, v, g, out, lse, delta, dk, dv, dq
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase 8
+
+
+def prior_config(**over):
+    """``ffhq_64_scaled`` with the Transformer prior of ``PRIOR_GOLDENS``."""
+    cfg = load_config(PRIOR_GOLDENS["config"])
+    cfg.prior = PRIOR_GOLDENS["prior"]
+    for key, val in over.items():
+        setattr(cfg, key, val)
+    return cfg
+
+
+@parity_mode()
+def phase_prior_golden() -> dict:
+    """The prior alone on the committed JAX grid, through K5 (4 forward
+    launches, one per layer), and ``HopVAE.forward(fit_prior=True)`` on
+    the golden batch, f32; the quantized grid's bins that differ from the
+    committed one are counted."""
+    spec = PRIOR_GOLDENS
+    model = HopVAE(prior_config(), impl="cuda", device="cuda")
+    model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / spec["checkpoint"])))
+    grid = torch.from_numpy(golden_grid()).cuda()
+    x = torch.from_numpy(golden_input("ffhq64_synthetic4")).cuda()
+    with torch.inference_mode():
+        ac.causal_attention_fwd.launches = 0
+        bits = float(model.prior_bits(grid.reshape(grid.shape[0], -1, grid.shape[-1])))
+        launches = ac.causal_attention_fwd.launches
+        _, loss = model(x, fit_prior=True)
+        _, zq, _ = model.backbone(x)
+    flipped = int((zq.reshape(grid.shape) != grid).sum())
+    res = {"bits": bits, "jax_bits": spec["bits"], "bits_rel_err": abs(bits / spec["bits"] - 1),
+           "loss": float(loss), "jax_loss": spec["loss"], "loss_rel_err": abs(float(loss) / spec["loss"] - 1),
+           "flipped_bins": flipped, "fwd_launches": launches}
+    log(json.dumps({"prior_golden": res}))
+    if launches != model.prior.n_layers:
+        raise AssertionError(f"expected {model.prior.n_layers} K5 forward launches, got {launches}")
+    if res["bits_rel_err"] > spec["bits_rtol"]:
+        raise AssertionError(f"prior bits {bits} are not within {spec['bits_rtol']} of {spec['bits']}")
+    if res["loss_rel_err"] > spec["loss_rtol"] or flipped > spec["max_flipped_bins"]:
+        raise AssertionError(f"fit_prior loss or grid off the JAX golden: {res}")
+    return res
+
+
+# ------------------------------------------------------------ phase 9
+
+
+def backbone_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if not k.startswith(PRIOR)}
+
+
+@parity_mode()
+def phase_prior_train_golden() -> dict:
+    """Three prior-only Adam steps through ``Trainer`` on the kernels, f32,
+    twice: losses and the prior's step-0 gradient norm against JAX's, the
+    second run bit for bit the first, the backbone untouched."""
+    gold = PRIOR_TRAIN_GOLDEN
+    stored = state_from_checkpoint(str(CHECKPOINTS / PRIOR_GOLDENS["checkpoint"]))
+    start = {k: v for k, v in stored.items() if not k.startswith(PRIOR)}
+    runs = [prior_train_golden(str(CHECKPOINTS), device="cuda", impl="cuda") for _ in range(2)]
+    (losses, norm, model), (losses2, norm2, model2) = runs
+    repeats = losses == losses2 and norm == norm2 and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(), model2.state_dict().values())
+    )
+    after = backbone_state(model)
+    frozen = start.keys() == after.keys() and all(torch.equal(start[k], after[k].cpu()) for k in start)
+    loss_rel = [abs(a / b - 1) for a, b in zip(losses, gold["losses"])]
+    res = {"losses": losses, "jax_losses": gold["losses"], "loss_rel_err": loss_rel, "grad_norm": norm,
+           "grad_norm_rel_err": abs(norm / gold["grad_norm"] - 1), "repeats_bitwise": repeats,
+           "backbone_bit_identical": frozen}
+    log(json.dumps({"prior_train_golden": res}))
+    if max(loss_rel) > gold["losses_rtol"] or res["grad_norm_rel_err"] > gold["grad_norm_rtol"]:
+        raise AssertionError(f"prior-train golden off JAX's: {res}")
+    if not (repeats and frozen):
+        raise AssertionError(f"the prior-train golden does not repeat, or moved the backbone: {res}")
+    return res
+
+
+# ------------------------------------------------------------ phase 10
+
+
+def prior_step_stage_ms(trainer, x: torch.Tensor, reps: int = 5) -> dict:
+    """Device times of one prior-phase step, stage by stage, composed as
+    ``Trainer._loss_fn`` and ``train_step`` compose it: the backbone
+    forward without autograd, the prior's forward (bits and loss), the
+    prior's backward and Adam. The composed loss must equal the trainer's.
+    A spin kernel holds the stream while the host enqueues, as in
+    ``stage_ms``. The timed steps do update the prior."""
+    model, opt = trainer.model, trainer.optimizer
+    names = ("backbone_forward", "prior_forward", "prior_backward", "adam")
+    totals = dict.fromkeys(names, 0.0)
+    for rep in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        opt.zero_grad(set_to_none=True)
+        torch.cuda._sleep(200_000_000)
+        ev[0].record()
+        with torch.no_grad():
+            x_recon, zq, aux = model.backbone(x)
+            recon = torch.mean((x_recon - x) ** 2)
+        ev[1].record()
+        loss = recon + (model.prior_bits(zq) + aux)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        if rep == 0:  # the first pass checks; the rest are timed and stepped
+            torch.cuda.synchronize()
+            whole, _ = trainer._loss_fn(x)
+            if not torch.equal(loss.detach(), whole.detach()):
+                raise AssertionError("the timed stages do not compose to the trainer's loss")
+            continue
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for a, name in enumerate(names):
+            totals[name] += ev[a].elapsed_time(ev[a + 1]) / reps
+    opt.zero_grad(set_to_none=True)
+    return {**totals, "step_ms": sum(totals.values())}
+
+
+def phase_prior_train_full_width() -> dict:
+    """The prior phase at full width: ``ffhq_64_scaled`` with
+    ``prior=Transformer`` and ``prior_start=-1`` from
+    ``Transformer-FFHQ-64.msgpack``, batch 256, production path (kernels +
+    bf16 conv stacks), 2 epochs through ``Trainer.fit`` on the synthetic
+    FFHQ train split. Every kernel's count is set to 0 just before ``fit``
+    and read just after: K5's three kernels 4 a step (one per layer), K1 3,
+    K2 and K3 none, since the backbone runs without autograd. Then a save
+    and a resume, and the per-stage device times of one step."""
+    cfg = prior_config(prior_start=-1)
+    torch.manual_seed(cfg.seed)
+    counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
+
+    def fresh_model():
+        model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
+        load_weights(model, str(CHECKPOINTS / PRIOR_GOLDENS["checkpoint"]))
+        return model
+
+    train_ds, _val, test_ds = get_datasets(cfg, None)
+    steps = 2 * (len(train_ds) // cfg.batch_size)
+    trainer = Trainer(fresh_model(), cfg)
+    start = backbone_state(trainer.model)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        for fn in counters.values():
+            fn.launches = 0
+        trainer.fit(train_ds, test_ds, epochs=2, out_dir=out, eval_every=0, save_every=0)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        records = [json.loads(line) for line in open(Path(out) / "metrics.jsonl")]
+        trainer.save(1, out)
+        resumed = Trainer(fresh_model(), cfg)
+        resumed.fit(train_ds, test_ds, epochs=2, out_dir=out, eval_every=0, save_every=0, resume=True)
+    adam, adam_resumed = trainer.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    restored = {
+        "phase": resumed.fit_prior and trainer.fit_prior,
+        "step": resumed.schedule.last_epoch == trainer.schedule.last_epoch == steps,
+        "lr": resumed.optimizer.param_groups[0]["lr"] == trainer.optimizer.param_groups[0]["lr"],
+        "adam_state": adam.keys() == adam_resumed.keys() and all(
+            torch.equal(adam[i][k], adam_resumed[i][k]) for i in adam for k in adam[i]
+        ),
+        "params": all(torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                                         trainer.model.state_dict().values())),
+    }
+    after = backbone_state(trainer.model)
+    frozen = all(torch.equal(start[k], after[k]) for k in start)
+    x = train_ds.images[: cfg.batch_size]
+    stages = prior_step_stage_ms(trainer, torch.from_numpy(x).cuda())
+    res = {
+        "steps": steps, "launches": launches, "peak_gib": peak_gib,
+        "epochs": [{k: r[k] for k in ("epoch", "fit_prior", "Train Reconstruction Error", "train_loss_per_batch",
+                                      "epoch_seconds", "images_per_sec")} for r in records],
+        "images_per_s_epoch_2": records[-1]["images_per_sec"],
+        "stage_ms": stages, "resume_restores": restored, "backbone_bit_identical": frozen,
+    }
+    log(json.dumps({"prior_training": res}))
+    layers = trainer.model.prior.n_layers
+    want = {**dict.fromkeys(ATTENTION_COUNTERS, layers * steps), "hopfield_stream_fwd": 3 * steps,
+            "hopfield_stream_bwd_dx": 0, "hopfield_stream_bwd_dku": 0}
+    if launches != want:
+        raise AssertionError(f"expected launches {want} over {steps} prior-phase steps, got {launches}")
+    if len(records) != 2 or not all(r["fit_prior"] and math.isfinite(r["train_loss_per_batch"]) for r in records):
+        raise AssertionError(f"prior-phase records are missing, not in the prior phase or not finite: {records}")
+    if not (all(restored.values()) and frozen):
+        raise AssertionError(f"the resume did not restore the trainer, or the backbone moved: {restored}")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
+_MOSAIC = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 REPLACES = {
     "hopfield_stream_fwd": "hopvae_tpu/ops/hopfield_pallas.py:258 (_stream_fwd_kernel)",
     "hopfield_stream_bwd_dx": "hopvae_tpu/ops/hopfield_pallas.py:319 (_stream_bwd_dx_kernel)",
     "hopfield_stream_bwd_dku": "hopvae_tpu/ops/hopfield_pallas.py:367 (_stream_bwd_dku_kernel)",
+    "causal_attention_fwd": f"{_MOSAIC}:331 (_flash_attention_kernel), via hopvae_tpu/ops/attention.py:172",
+    "causal_attention_bwd_dkv": f"{_MOSAIC}:796 (_flash_attention_dkv_kernel), via hopvae_tpu/ops/attention.py:172",
+    "causal_attention_bwd_dq": f"{_MOSAIC}:1146 (_flash_attention_dq_kernel), via hopvae_tpu/ops/attention.py:172",
+}
+SOURCES = {
+    "causal_attention_fwd": "hopvae_torch/csrc/causal_attention_fwd.cu",
+    "causal_attention_bwd_dkv": "hopvae_torch/csrc/causal_attention_bwd.cu",
+    "causal_attention_bwd_dq": "hopvae_torch/csrc/causal_attention_bwd.cu",
 }
 
 
@@ -624,7 +970,7 @@ def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
     return {
         "name": name,
         "route": "cuda",
-        "source": f"hopvae_torch/csrc/{name}.cu",
+        "source": SOURCES.get(name, f"hopvae_torch/csrc/{name}.cu"),
         "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -635,6 +981,24 @@ def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
         "library_ms": None if None in lib else sum(lib),
         **extra,
         "shapes": rows,
+    }
+
+
+def attention_summary(name: str, rows: list[dict], launches: int) -> dict:
+    """One K5 kernel's entry: times and bound of one launch at the prior's
+    full width (one layer; a step launches it once per layer), errors over
+    every shape, ``launches`` from the prior-phase run."""
+    mine = [r for r in rows if r["kernel"] == name]
+    full = next(r for r in mine if r["shape"].startswith("full"))
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": full["library_ms"],
+        "max_normwise_err": max(max(r["normwise_err"].values()) for r in mine),
+        "library_fwd_bwd_ms": full["library_fwd_bwd_ms"], "library_backend": full["library_backend"],
+        "shapes": mine,
     }
 
 
@@ -673,13 +1037,20 @@ def main() -> int:
     serving = phase_serving()
     phase_train_golden()
     training = phase_train_full_width()
-    launches = training["launches"]
+    attn_rows = phase_attention_vs_plain(env)
+    phase_prior_golden()
+    phase_prior_train_golden()
+    prior_training = phase_prior_train_full_width()
+    launches, prior_launches = training["launches"], prior_training["launches"]
     kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
-                              launches_serving=serving["launches"])]
+                              launches_serving=serving["launches"],
+                              launches_prior_phase=prior_launches["hopfield_stream_fwd"])]
     for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
         kernels.append(kernel_summary(name, [r for r in bwd_rows if r["kernel"] == name], launches[name],
                                       max_normwise_err=max(max(r["normwise_err"].values())
-                                                           for r in bwd_rows if r["kernel"] == name)))
+                                                           for r in bwd_rows if r["kernel"] == name),
+                                      launches_prior_phase=prior_launches[name]))
+    kernels += [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi('name,power.limit')}")
     log(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 It imports torch and numpy, never JAX or ``hopvae_tpu``: the JAX package
 stays in the repository as the reference the port is tested against.
-It serves reconstructions (``hopvae_torch.serving``) and trains the
-backbone (``hopvae_torch.train``). The TPU kernels on those paths, the
-streaming Hopfield forward and its two backward kernels, are
-``csrc/hopfield_stream_{fwd,bwd_dx,bwd_dku}.cu``.
+It serves reconstructions (``hopvae_torch.serving``), trains the backbone
+and, in the prior phase, the Transformer prior (``hopvae_torch.train``).
+The TPU kernels on those paths are hand-written CUDA: the streaming
+Hopfield forward and its two backward kernels,
+``csrc/hopfield_stream_{fwd,bwd_dx,bwd_dku}.cu``, and the prior's causal
+flash attention, ``csrc/causal_attention_{fwd,bwd}.cu``.
 """
 
 from hopvae_torch.config import MakeConfig, load_config

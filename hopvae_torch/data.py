@@ -11,10 +11,15 @@ The port's own copies of ``hopvae_tpu/data`` (importing any
   needs PIL) and :func:`synthetic_images` for CIFAR10 and FFHQ;
 - :func:`golden_digits`: the committed ``assets/digits_28_seed0_64.npy``,
   64 rendered digits (``hopvae_tpu.data.render_digits(64, 28, seed=0)``),
-  the golden input on hosts without PIL.
+  the golden input on hosts without PIL;
+- :func:`golden_grid`: the committed ``assets/ffhq64_grid4.npy``, the JAX
+  package's quantized grid of the ``ffhq64_synthetic4`` batch.
 
-:func:`synthetic_images` is numpy only and not pixel-equal to the JAX
-package's, which resizes with ``jax.image``.
+:func:`synthetic_images` upsamples with numpy where the JAX package
+calls ``jax.image.resize``, whose f32 sums run in another order. The two
+are pixel-equal at (n, size) = (4, 64), (64, 64) and (300, 32); on the
+2048-image FFHQ fallback set 10 of 25.2 M values differ, each by 1
+(``tests/test_torch_data.py`` holds both).
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from typing import Iterator
 import numpy as np
 
 MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
-GOLDEN_DIGITS = Path(__file__).resolve().parent / "assets" / "digits_28_seed0_64.npy"
+ASSETS = Path(__file__).resolve().parent / "assets"
+GOLDEN_DIGITS = ASSETS / "digits_28_seed0_64.npy"
+GOLDEN_GRID = ASSETS / "ffhq64_grid4.npy"
 
 # Recon MSE and aux loss of the JAX package's f32 forward (impl="xla") on
 # the golden inputs below, with the named checkpoint from checkpoints/.
@@ -79,6 +86,41 @@ TRAIN_GOLDEN = {
     "grad_norm_rtol": 2e-3,
 }
 
+# The Transformer prior on ffhq_64_scaled (prior=Transformer) with the
+# weights of Transformer-FFHQ-64.msgpack, JAX f32 (tests/test_torch_prior.py
+# recomputes both): "loss" is the second output of
+# HopVAE.forward(fit_prior=True) on the ffhq64_synthetic4 batch, the bits
+# plus the aux loss; "bits" is the teacher-forced cross-entropy in bits of
+# the prior alone on that batch's quantized grid, ``golden_grid()``. The
+# grid uses 22 of the 512 levels, and no sigmoid(logit)·511 of the batch
+# comes closer than 1.5e-4 of a level to a rounding edge; a bin that
+# flips on another machine moves the loss by about 1e-4 relative.
+PRIOR_GOLDENS = {
+    "config": "ffhq_64_scaled",
+    "prior": "Transformer",
+    "checkpoint": "Transformer-FFHQ-64.msgpack",
+    "loss": 1.1246376037597656,
+    "aux": 4.2658456e-5,
+    "bits": 1.1245949268341064,
+    "bits_rtol": 1e-4,
+    "loss_rtol": 1e-3,
+    "max_flipped_bins": 2,
+}
+
+# Three prior-phase steps of the JAX package (Trainer._step_core(True) with
+# make_optimizer(prior_only=True), impl="xla", f32, constant lr 1e-3) on
+# the ffhq64_synthetic4 batch from PRIOR_GOLDENS' weights: the loss of
+# each step (step k's is taken after k Adam updates) and the global norm
+# of the prior's gradient at step 0. The first Adam step moves each
+# weight by about lr, which throws the trained prior off (8.72 bits).
+PRIOR_TRAIN_GOLDEN = {
+    "learning_rate": 1e-3,
+    "losses": [1.1248483657836914, 8.723876953125, 2.5462441444396973],
+    "grad_norm": 4.6580376625061035,
+    "losses_rtol": 1e-3,
+    "grad_norm_rtol": 2e-3,
+}
+
 
 def _normalize(x_uint8: np.ndarray, data_set: str) -> np.ndarray:
     x = x_uint8.astype(np.float32) / 255.0
@@ -94,6 +136,12 @@ def _normalize(x_uint8: np.ndarray, data_set: str) -> np.ndarray:
 def golden_digits() -> np.ndarray:
     """(64, 28, 28) uint8 rendered digits."""
     return np.load(GOLDEN_DIGITS)
+
+
+def golden_grid() -> np.ndarray:
+    """(4, 17, 17, 3) float32 levels: the JAX quantized grid of the
+    ``ffhq64_synthetic4`` batch (stored as uint16)."""
+    return np.load(GOLDEN_GRID).astype(np.float32)
 
 
 def golden_input(name: str) -> np.ndarray:

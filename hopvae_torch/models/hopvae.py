@@ -1,12 +1,15 @@
 """HopVAE: a VQ-VAE with a modern-Hopfield bottleneck, in PyTorch.
 
-Port of ``hopvae_tpu/models/hopvae.py`` without the priors:
+Port of ``hopvae_tpu/models/hopvae.py``:
 
 - ``forward``: encoder → pre-VQ 1×1 conv → Hopfield retrieval →
   embedding→index lookup → sigmoid → straight-through round to
   ``num_levels`` → index→embedding round-trip, scored only by the aux
   loss ``mean((r - e)**2)``; the decoder sees the pre-quantization
-  retrieval ``e``.
+  retrieval ``e``. With ``fit_prior`` it adds the prior's teacher-forced
+  cross-entropy in bits over the quantized grid, its gradient stopped.
+- ``prior``: ``get_prior(config)``; the PixelCNN prior is not ported, so
+  a PixelCNN config builds the backbone alone and ``fit_prior`` raises.
 - ``post_vq_conv`` parameters exist but are never applied (kept so
   checkpoints load as they are).
 
@@ -21,15 +24,21 @@ trains with it).
 
 from __future__ import annotations
 
+import math
+import sys
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hopvae_torch.models.layers import Decoder, Encoder
+from hopvae_torch.models.priors import PIXELCNN_NOT_PORTED, get_prior
 from hopvae_torch.ops.bottleneck import IMPLS, LAYERS, hopfield_bottleneck
 from hopvae_torch.ops.conv import conv2d
 from hopvae_torch.ops.hopfield import HopfieldLookup
 
-_NOT_PORTED = "not ported yet: priors, sampling and interpolation come in a later slice (ROADMAP.md, Queue 1)"
+_NOT_PORTED = "not ported yet: sampling and interpolation come in a later slice (ROADMAP.md, Queue 1 item 7)"
+PRIOR = "prior."
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,6 +76,7 @@ class HopVAE(nn.Module):
         self.index_to_embedding = HopfieldLookup(di, d, m, dev)
         self.post_vq_conv = nn.Conv2d(di, di, 1, device=dev)  # never applied
         self.decoder = Decoder(d, config.num_channels, h, nres, hres, dev)
+        self.prior = None if config.prior == "PixelCNN" else get_prior(config, device=dev)
 
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
@@ -99,14 +109,31 @@ class HopVAE(nn.Module):
     def bottleneck_layers(self) -> dict:
         return {name: getattr(self, name) for name in LAYERS}
 
-    def forward(self, x: torch.Tensor, *, fit_prior: bool = False):
-        """``(x_recon, aux_loss)`` for a normalized NHWC batch."""
-        if fit_prior:
-            raise NotImplementedError(f"fit_prior is {_NOT_PORTED}")
+    def backbone(self, x: torch.Tensor):
+        """``(x_recon, zq, aux_loss)``: the reconstruction, the quantized
+        grid ``(B, r², index_dim)`` and the embedding round-trip loss."""
         z = self._encode_to_tokens(x)
-        e, _zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl)
-        aux = torch.mean((r - e) ** 2)
-        return self._tokens_to_image(e), aux
+        e, zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl)
+        return self._tokens_to_image(e), zq, torch.mean((r - e) ** 2)
+
+    def prior_bits(self, zq: torch.Tensor) -> torch.Tensor:
+        """The prior's teacher-forced cross-entropy in bits, averaged over
+        the grid ``zq``, whose gradient is stopped."""
+        if self.prior is None:
+            raise NotImplementedError(PIXELCNN_NOT_PORTED)
+        b, r = zq.shape[0], self.representation_dim
+        grid = zq.detach().reshape(b, r, r, self.index_dim)
+        logp = F.log_softmax(self.prior(grid), dim=-1)
+        ce = -torch.gather(logp, -1, grid.to(torch.int64)[..., None])[..., 0]
+        return torch.mean(ce) * math.log2(math.e)  # nats → bits
+
+    def forward(self, x: torch.Tensor, *, fit_prior: bool = False):
+        """``(x_recon, aux_loss)`` for a normalized NHWC batch; with
+        ``fit_prior`` the aux loss also holds the prior's bits."""
+        x_recon, zq, aux = self.backbone(x)
+        if fit_prior:
+            return x_recon, self.prior_bits(zq) + aux
+        return x_recon, aux
 
     def reconstruct(self, x: torch.Tensor):
         return self.forward(x)
@@ -116,3 +143,24 @@ class HopVAE(nn.Module):
 
     def interpolate(self, *args, **kwargs):
         raise NotImplementedError(f"interpolate is {_NOT_PORTED}")
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """``nn.Module.load_state_dict``, lenient on the prior alone: where
+        the stored ``prior.*`` tensors do not match this model's prior (a
+        checkpoint of another prior family, or none), the model keeps its
+        fresh prior and says so, as the JAX package's lenient load does.
+        Everything else loads as ``strict`` says."""
+        state = dict(state_dict)
+        fresh = {k: v for k, v in self.state_dict().items() if k.startswith(PRIOR)}
+        stored = {k: state[k] for k in state if k.startswith(PRIOR)}
+        if {k: tuple(v.shape) for k, v in stored.items()} != {k: tuple(v.shape) for k, v in fresh.items()}:
+            kept = " and kept the prior's fresh initialization" if fresh else ""
+            print(
+                f"warning: lenient load: the checkpoint's prior subtree ({len(stored)} tensors) does not "
+                f"match this model's prior={self.config.prior!r} ({len(fresh)} tensors); dropped it{kept}",
+                file=sys.stderr,
+            )
+            for k in stored:
+                del state[k]
+            state.update(fresh)
+        return super().load_state_dict(state, strict=strict, assign=assign)

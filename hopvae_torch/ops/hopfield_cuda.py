@@ -35,7 +35,7 @@ import math
 import torch
 
 from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
-from hopvae_torch.utils.nvcc import load_library
+from hopvae_torch.utils.nvcc import bind, launch, load_library
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # (d_in, d_out) the kernels are built for
 IMPLS = ("cuda", "torch")
@@ -161,13 +161,8 @@ def _check(x2, K, U, s, t, *rest) -> tuple[int, int, int, int]:
 
 
 def _bind(stem: str, name: str, n_ptrs: int, n_ints: int):
-    """``lib.name`` of ``csrc/<stem>.cu`` with its argument types: pointers,
-    then ints, then the stream."""
-    fn = getattr(load_library(stem), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    """``lib.name`` of ``csrc/<stem>.cu``: pointers, then ints, then the stream."""
+    return bind(stem, name, [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
 
 
 def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
@@ -176,13 +171,6 @@ def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
         fn.argtypes = [ctypes.c_int] * len(sizes)
         fn.restype = ctypes.c_longlong
     return fn(*sizes)
-
-
-def _launch(name: str, fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _require_cuda(x2) -> None:
@@ -208,7 +196,7 @@ def stream_lookup_fwd(x2, K, U, s, t):
     m_stat = torch.empty(n, 1, device=x2.device)
     l_stat = torch.empty(n, 1, device=x2.device)
     fn = _bind("hopfield_stream_fwd", "hopfield_stream_fwd", 8, 4)
-    _launch("hopfield_stream_fwd", fn, x2.device,
+    launch("hopfield_stream_fwd", fn, x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, out, m_stat, l_stat)), n, m, d_in, d_out)
     stream_lookup_fwd.launches += 1
     return out, m_stat, l_stat
@@ -231,7 +219,7 @@ def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
     ds = torch.empty(d_in, device=x2.device)
     dt = torch.empty(d_in, device=x2.device)
     work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, d_in), device=x2.device)
-    _launch(stem, _bind(stem, stem, 13, 4), x2.device,
+    launch(stem, _bind(stem, stem, 13, 4), x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dx, ds, dt, work)),
             n, m_pat, d_in, d_out)
     stream_bwd_dx.launches += 1
@@ -254,7 +242,7 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
     du = torch.empty(m_pat, d_out, device=x2.device)
     floats = _workspace_floats(stem, f"{stem}_workspace", n, m_pat, d_in, d_out)
     work = torch.empty(floats, device=x2.device)
-    _launch(stem, _bind(stem, stem, 12, 4), x2.device,
+    launch(stem, _bind(stem, stem, 12, 4), x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dk, du, work)),
             n, m_pat, d_in, d_out)
     stream_bwd_dku.launches += 1

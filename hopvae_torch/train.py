@@ -2,6 +2,9 @@
 
     python -m hopvae_torch.train --config ffhq_64_scaled --production   # on the card
     python -m hopvae_torch.train --config mnist_28 --device cpu --impl torch
+    python -m hopvae_torch.train --config ffhq_64_scaled --production \
+        --set prior=Transformer --set prior_start=-1 \
+        --checkpoint checkpoints/Transformer-FFHQ-64.msgpack      # the prior phase
 
 What it keeps from the JAX driver:
 
@@ -13,32 +16,42 @@ What it keeps from the JAX driver:
 - the reference's epoch metric, the sum of the per-step means divided by
   ``len(dataset)``, under its name "Train Reconstruction Error"; eval and
   save every 5 epochs with the modulo quirk (epoch 0 always), 0 disables;
-- checkpoints carry the optimizer and the epoch, so a resume resumes the
-  learning-rate schedule too.
+- checkpoints carry the optimizer, its phase and the epoch, so a resume
+  resumes the learning-rate schedule too;
+- the prior phase: from ``epoch > prior_start`` (for a prior with
+  parameters) a fresh Adam and schedule over the prior's parameters
+  alone, the learning rate restarting at ``learning_rate``, and the
+  prior's bits in the loss. The JAX package differentiates the whole
+  model and gives the frozen leaves zero updates; here the backbone runs
+  under ``torch.no_grad()``, which gives the same updates and runs no
+  backbone backward. A resume across the switch starts a fresh prior
+  optimizer, as JAX's does.
 
 The step runs eagerly: the forward under autograd, the backward through
 the streaming kernels (``impl="cuda"``) or the eager lookups
-(``impl="torch"``). Not ported yet (``ROADMAP.md``): the prior phase, the
-sample and interpolation grids of ``evaluate``, gradient watching,
-profiling, multi-GPU and CUDA graphs for the step.
+(``impl="torch"``), the prior's attention through the flash kernels on
+the card. Not ported yet (``ROADMAP.md``): the PixelCNN prior, the sample
+and interpolation grids of ``evaluate``, gradient watching, profiling,
+multi-GPU and CUDA graphs for the step.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from hopvae_torch.config import apply_overrides, load_config
-from hopvae_torch.data import TRAIN_GOLDEN, get_datasets, golden_input, iterate_batches
+from hopvae_torch.data import (PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, TRAIN_GOLDEN, get_datasets, golden_input,
+                               iterate_batches)
 from hopvae_torch.models.hopvae import HopVAE, resolve_device
+from hopvae_torch.models.priors import PIXELCNN_NOT_PORTED
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.metrics import MetricLogger
-
-_NO_PRIOR_PHASE = "the prior phase is not ported yet (ROADMAP.md, Queue 1)"
 
 
 def prior_has_parameters(config) -> bool:
@@ -51,14 +64,17 @@ def prior_has_parameters(config) -> bool:
     raise ValueError(f"unknown prior {config.prior!r}")
 
 
-def make_optimizer(config, params, steps_per_epoch: int, *, prior_only: bool = False):
-    """``(Adam, schedule)``: the learning rate at optimizer step ``k`` is
-    ``learning_rate * gamma ** (k // steps_per_epoch)``, the value of
-    ``optax.exponential_decay(staircase=True)`` at update ``k``. Step the
-    schedule after each optimizer step."""
+def make_optimizer(config, model: torch.nn.Module, steps_per_epoch: int, *, prior_only: bool = False):
+    """``(Adam, schedule)`` over the parameters of ``model``, or with
+    ``prior_only`` over those of ``model.prior`` alone: the learning rate
+    at optimizer step ``k`` is ``learning_rate * gamma ** (k //
+    steps_per_epoch)``, the value of ``optax.exponential_decay(staircase=
+    True)`` at update ``k``. Step the schedule after each optimizer step."""
     if prior_only:
-        raise NotImplementedError(_NO_PRIOR_PHASE)
-    optimizer = torch.optim.Adam(params, lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        if model.prior is None:
+            raise NotImplementedError(PIXELCNN_NOT_PORTED)
+        model = model.prior
+    optimizer = torch.optim.Adam(model.parameters(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     per_epoch, gamma = max(steps_per_epoch, 1), config.gamma
     schedule = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: gamma ** (step // per_epoch))
     return optimizer, schedule
@@ -77,20 +93,32 @@ class Trainer:
         self.device = model.device
         self.optimizer = self.schedule = None
         self.steps_per_epoch = None
+        self.fit_prior = False  # the phase of the optimizer
         self._staged = None  # (host images, device copy)
 
-    def build_optimizer(self, steps_per_epoch: int) -> None:
-        """A fresh optimizer and schedule; ``fit`` calls this, callers that
-        drive ``train_step`` themselves call it first."""
-        self.optimizer, self.schedule = make_optimizer(self.config, self.model.parameters(), steps_per_epoch)
+    def build_optimizer(self, steps_per_epoch: int, *, fit_prior: bool = False) -> None:
+        """A fresh optimizer and schedule, over the prior alone when
+        ``fit_prior``; ``fit`` calls this, callers that drive
+        ``train_step`` themselves call it first."""
+        self.optimizer, self.schedule = make_optimizer(self.config, self.model, steps_per_epoch,
+                                                       prior_only=fit_prior)
         self.steps_per_epoch = steps_per_epoch
+        self.fit_prior = fit_prior
 
     # ------------------------------------------------------------- steps
 
     def _loss_fn(self, x: torch.Tensor):
-        """``(loss, (recon_error, aux))`` for one normalized NHWC batch."""
-        x_recon, aux = self.model(x)
-        recon_error = torch.mean((x_recon - x) ** 2)
+        """``(loss, (recon_error, aux))`` for one normalized NHWC batch. In
+        the prior phase aux holds the prior's bits too, and the backbone
+        runs without autograd: its parameters take no update then."""
+        if not self.fit_prior:
+            x_recon, aux = self.model(x)
+            recon_error = torch.mean((x_recon - x) ** 2)
+            return recon_error + aux, (recon_error, aux)
+        with torch.no_grad():
+            x_recon, zq, aux = self.model.backbone(x)
+            recon_error = torch.mean((x_recon - x) ** 2)
+        aux = self.model.prior_bits(zq) + aux
         return recon_error + aux, (recon_error, aux)
 
     def train_step(self, x: torch.Tensor) -> dict:
@@ -146,21 +174,24 @@ class Trainer:
         epochs = cfg.epochs if epochs is None else epochs
         steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
         logger = MetricLogger(out_dir)
-        if self.optimizer is None or self.steps_per_epoch != steps_per_epoch:
-            self.build_optimizer(steps_per_epoch)
+        has_prior = prior_has_parameters(cfg)
         if resume:
             start_epoch = self._try_resume(out_dir, start_epoch)
-            if start_epoch > 0:
-                self._try_resume_opt(out_dir)
-        has_prior = prior_has_parameters(cfg)
+        fit_prior = start_epoch > cfg.prior_start and has_prior
+        if self.optimizer is None or self.steps_per_epoch != steps_per_epoch or self.fit_prior != fit_prior:
+            self.build_optimizer(steps_per_epoch, fit_prior=fit_prior)
+        if resume and start_epoch > 0:
+            self._try_resume_opt(out_dir)
 
         for epoch in range(start_epoch, epochs):
-            if epoch > cfg.prior_start and has_prior:
-                raise NotImplementedError(f"epoch {epoch} > prior_start {cfg.prior_start}: {_NO_PRIOR_PHASE}")
+            if epoch > cfg.prior_start and has_prior and not self.fit_prior:
+                # the phase switch: a fresh optimizer and schedule over the prior
+                self.build_optimizer(steps_per_epoch, fit_prior=True)
             t_epoch = time.perf_counter()
             parts = [self.train_step(x) for x in self.epoch_batches(train_ds, epoch)]
             self._write_epoch_record(
-                logger, {"epoch": epoch, "fit_prior": False}, parts, len(train_ds), cfg.batch_size, t_epoch
+                logger, {"epoch": epoch, "fit_prior": self.fit_prior}, parts, len(train_ds), cfg.batch_size,
+                t_epoch,
             )
             if eval_every and not epoch % eval_every:
                 self.evaluate(test_ds, epoch=epoch, logger=logger)
@@ -216,8 +247,8 @@ class Trainer:
         return os.path.join(out_dir, f"{self.config.data_set}-{self.config.image_size}.pt")
 
     def save(self, epoch: int, out_dir: str) -> None:
-        """Model, optimizer and schedule state and the epoch, written to a
-        temporary file and renamed into place."""
+        """Model, optimizer and schedule state, the optimizer's phase and
+        the epoch, written to a temporary file and renamed into place."""
         os.makedirs(out_dir, exist_ok=True)
         path = self.checkpoint_path(out_dir)
         tmp = f"{path}.tmp-{os.getpid()}"
@@ -225,6 +256,7 @@ class Trainer:
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "schedule": self.schedule.state_dict(),
+            "fit_prior": self.fit_prior,
             "epoch": int(epoch),
         }, tmp)
         os.replace(tmp, path)
@@ -246,9 +278,17 @@ class Trainer:
         return ckpt["epoch"] + 1
 
     def _try_resume_opt(self, out_dir: str) -> None:
-        """Restore the optimizer and the schedule's step from ``out_dir``."""
+        """Restore the optimizer and the schedule's step from ``out_dir``,
+        unless they belong to the other phase: then the fresh optimizer
+        stays, as in the JAX package."""
         ckpt = self._load(out_dir)
-        if ckpt is not None:
+        if ckpt is not None and ckpt.get("fit_prior", False) != self.fit_prior:
+            print(
+                f"warning: the optimizer in {self.checkpoint_path(out_dir)} belongs to the "
+                f"{'prior' if ckpt.get('fit_prior') else 'backbone'} phase; starting with a fresh optimizer",
+                file=sys.stderr,
+            )
+        elif ckpt is not None:
             self.optimizer.load_state_dict(ckpt["optimizer"])
             self.schedule.load_state_dict(ckpt["schedule"])
 
@@ -286,6 +326,30 @@ def train_golden(checkpoint_dir: str, device=None, impl: str = "cuda") -> tuple[
                 for name in spec["grad_norms"]
             }
     return losses, norms, model
+
+
+def prior_train_golden(checkpoint_dir: str, device=None, impl: str = "cuda") -> tuple[list, float, HopVAE]:
+    """The prior-train golden of ``PRIOR_TRAIN_GOLDEN``: ffhq_64_scaled with
+    the Transformer prior of ``PRIOR_GOLDENS``' checkpoint on the
+    ``ffhq64_synthetic4`` batch, f32, prior-only Adam at a constant
+    learning rate. Returns the loss of each step (step k's is taken after
+    k updates), the global norm of the prior's gradient at step 0, and the
+    trained model."""
+    spec, gold = PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN
+    config = load_config(spec["config"])
+    config.prior = spec["prior"]
+    config.learning_rate, config.gamma = gold["learning_rate"], 1.0
+    model = HopVAE(config, impl=impl, device=device)
+    model.load_state_dict(state_from_checkpoint(os.path.join(checkpoint_dir, spec["checkpoint"])))
+    trainer = Trainer(model, config)
+    trainer.build_optimizer(1, fit_prior=True)
+    x = torch.from_numpy(golden_input("ffhq64_synthetic4")).to(model.device)
+    losses, norm = [], None
+    for step in range(len(gold["losses"])):
+        losses.append(float(trainer.train_step(x)["loss"]))
+        if step == 0:
+            norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.prior.parameters())))
+    return losses, norm, model
 
 
 def main(argv=None):

@@ -18,6 +18,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -80,6 +82,25 @@ def load_library(stem: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded.setdefault(stem, ctypes.CDLL(str(_build(stem))))
     return lib
+
+
+def bind(stem: str, name: str, argtypes: list):
+    """``lib.name`` of ``csrc/<stem>.cu`` with its ctypes argument types
+    (the last is the stream); it returns a ``cudaError_t``."""
+    fn = getattr(load_library(stem), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, fn, device, *args) -> None:
+    """Call the entry point ``fn`` on the current stream of ``device``;
+    raise if the launch was refused."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def build_all() -> list[str]:

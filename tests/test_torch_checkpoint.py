@@ -1,6 +1,7 @@
 """The port's checkpoint bridge against the JAX package: the pure-Python
 msgpack reader against flax's, the layout conversions against the JAX
-converters and convs, and the committed golden digits."""
+converters and convs, the Transformer prior's subtree, the lenient load
+of a prior that does not match, and the committed golden digits."""
 
 from pathlib import Path
 
@@ -33,8 +34,7 @@ def test_load_msgpack_matches_flax(name):
     path = CKPTS / name
     ours = load_msgpack(str(path))
     theirs = serialization.msgpack_restore(path.read_bytes())
-    assert "prior" in theirs and "prior" not in ours
-    del theirs["prior"]
+    assert "prior" in theirs and "prior" in ours
     a, b = dict(_flatten(ours)), dict(_flatten(theirs))
     assert a.keys() == b.keys()
     for key in a:
@@ -103,3 +103,54 @@ def test_golden_digits_asset_matches_render_digits():
     digits, _ = render_digits(64, 28, seed=0)
     assert golden_digits().dtype == np.uint8
     np.testing.assert_array_equal(golden_digits(), digits)
+
+
+def test_transformer_prior_subtree_maps_onto_the_prior():
+    """The prior subtree of Transformer-FFHQ-64.msgpack, read by the port,
+    lands in ``TransformerPrior``'s state_dict: Linear kernels transposed,
+    LayerNorm scales as weights, blocks as ModuleList indices, embeddings
+    as they are; every tensor equals flax's leaf."""
+    from hopvae_torch import HopVAE, load_config
+
+    path = CKPTS / "Transformer-FFHQ-64.msgpack"
+    theirs = serialization.msgpack_restore(path.read_bytes())["prior"]
+    sd = params_from_jax(load_msgpack(str(path)))
+    cfg = load_config("ffhq_64_scaled")
+    cfg.prior = "Transformer"
+    model = HopVAE(cfg, impl="torch", device="cpu")
+    prior_keys = {k for k in model.state_dict() if k.startswith("prior.")}
+    assert prior_keys == {k for k in sd if k.startswith("prior.")} and len(prior_keys) == 4 * 12 + 7
+    np.testing.assert_array_equal(sd["prior.tok_emb"].numpy(), theirs["tok_emb"])
+    np.testing.assert_array_equal(sd["prior.pos_emb"].numpy(), theirs["pos_emb"])
+    np.testing.assert_array_equal(sd["prior.blocks.3.qkv.weight"].numpy(), theirs["blocks"]["3"]["qkv"]["kernel"].T)
+    np.testing.assert_array_equal(sd["prior.blocks.0.ln2.weight"].numpy(), theirs["blocks"]["0"]["ln2"]["scale"])
+    np.testing.assert_array_equal(sd["prior.head.weight"].numpy(), theirs["head"]["kernel"].T)
+    model.load_state_dict(sd)
+    torch.testing.assert_close(model.prior.blocks[2].mlp_out.bias, torch.from_numpy(np.array(theirs["blocks"]["2"]["mlp_out"]["bias"])))
+
+
+def test_lenient_load_keeps_a_fresh_prior_that_does_not_match(capsys):
+    """A PixelCNN checkpoint under prior=Transformer, and a Transformer
+    checkpoint under the backbone-only PixelCNN config: the backbone loads,
+    the prior keeps its fresh initialization, and a warning names the
+    dropped subtree. A matching checkpoint loads without one."""
+    from hopvae_torch import HopVAE, load_config
+
+    cfg = load_config("pixelcnn_mnist_28")
+    cfg.prior, cfg.prior_d_model, cfg.prior_layers = "Transformer", 32, 1
+    model = HopVAE(cfg, impl="torch", device="cpu")
+    fresh = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("prior.")}
+    sd = params_from_jax(load_msgpack(str(CKPTS / "PixelCNN-MNIST-28.msgpack")))
+    assert not any(k.startswith("prior.") for k in sd)
+    model.load_state_dict(sd)
+    assert "kept the prior's fresh initialization" in capsys.readouterr().err
+    for k, v in fresh.items():
+        torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
+    torch.testing.assert_close(model.state_dict()["hopfield.lookup_weights"], sd["hopfield.lookup_weights"])
+
+    backbone_only = HopVAE(load_config("ffhq_64_scaled"), impl="torch", device="cpu")
+    assert backbone_only.prior is None
+    backbone_only.load_state_dict(params_from_jax(load_msgpack(str(CKPTS / "Transformer-FFHQ-64.msgpack"))))
+    assert "dropped it" in capsys.readouterr().err
+    HopVAE(load_config("pixelcnn_mnist_28"), impl="torch", device="cpu").load_state_dict(sd)
+    assert capsys.readouterr().err == ""

@@ -13,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hopvae_tpu")
 
 def test_import_leaves_no_jax_module():
     code = (
-        "import sys; import hopvae_torch, hopvae_torch.serving, hopvae_torch.train, chip_smoke; "
+        "import sys; import hopvae_torch, hopvae_torch.serving, hopvae_torch.train, chip_smoke, "
+        "hopvae_torch.ops.attention, hopvae_torch.ops.attention_cuda, hopvae_torch.models.priors; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

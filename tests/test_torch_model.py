@@ -203,7 +203,14 @@ def test_input_shape_check_and_unported_methods():
         tm(torch.zeros(2, 1, 28, 28))
     with pytest.raises(ValueError, match="expected NHWC"):
         tm(torch.zeros(2, 32, 32, 1))
-    for call in (lambda: tm(torch.zeros(1, 28, 28, 1), fit_prior=True), tm.sample, tm.interpolate):
+    for call in (tm.sample, tm.interpolate):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     assert {"post_vq_conv.weight", "post_vq_conv.bias"} <= tm.state_dict().keys()
+    # fit_prior: the uniform prior of prior="None" scores about log2(L) bits;
+    # the PixelCNN prior is not ported
+    _, aux = tm(torch.zeros(1, 28, 28, 1), fit_prior=True)
+    assert abs(aux.item() - np.log2(cfg.num_levels)) < 0.5
+    cfg.prior = "PixelCNN"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        HopVAE(cfg, impl="torch", device="cpu")(torch.zeros(1, 28, 28, 1), fit_prior=True)

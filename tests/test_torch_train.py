@@ -5,8 +5,12 @@ Three Adam steps of a narrow MNIST model through the port's ``Trainer``
 with ``make_optimizer``; the MNIST train golden pinned in
 ``hopvae_torch.data.TRAIN_GOLDEN`` against both packages; the schedule
 against ``optax``; the batch order against JAX ``iterate_batches``; the
-epoch record's quirk; save and resume; and the CLI. Inputs come from
-numpy with a seed, and parameters cross over the bridge.
+epoch record's quirk; save and resume; and the CLI. The prior phase:
+three prior-only steps of a tiny Transformer prior against JAX
+``_step_core(True)``, the prior-train golden of ``PRIOR_TRAIN_GOLDEN``
+against both packages, the schedule's restart at the switch, the frozen
+backbone, and a resume across the switch. Inputs come from numpy with a
+seed, and parameters cross over the bridge.
 """
 
 import json
@@ -32,6 +36,7 @@ from hopvae_tpu.utils.checkpoint import load_reference_checkpoint
 from hopvae_torch import HopVAE, load_config
 from hopvae_torch import data as tdata
 from hopvae_torch import train as ttrain
+from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
 from hopvae_torch.utils.metrics import MetricLogger, denormalize
 
@@ -152,15 +157,21 @@ def test_schedule_matches_optax():
     cfg.learning_rate, cfg.gamma = 2e-3, 0.5
     steps_per_epoch = 4
     want = optax.exponential_decay(2e-3, transition_steps=steps_per_epoch, decay_rate=0.5, staircase=True)
-    opt, schedule = ttrain.make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))], steps_per_epoch)
+    opt, schedule = ttrain.make_optimizer(cfg, torch.nn.Linear(2, 1), steps_per_epoch)
     got = []
     for _ in range(10):  # 2.5 epochs
         got.append(opt.param_groups[0]["lr"])
         opt.step()
         schedule.step()
     np.testing.assert_allclose(got, [float(want(k)) for k in range(10)], rtol=1e-6)
+    # prior_only: the prior's parameters alone; a prior the port lacks raises
+    model = torch.nn.Module()
+    model.backbone, model.prior = torch.nn.Linear(2, 1), torch.nn.Linear(3, 1)
+    opt, _ = ttrain.make_optimizer(cfg, model, steps_per_epoch, prior_only=True)
+    assert [p for g in opt.param_groups for p in g["params"]] == list(model.prior.parameters())
+    model.prior = None
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(2))], 4, prior_only=True)
+        ttrain.make_optimizer(cfg, model, 4, prior_only=True)
 
 
 @pytest.mark.parametrize("shuffle,drop", [(True, True), (False, False)])
@@ -288,6 +299,18 @@ def test_cli_trains_one_tiny_epoch(tmp_path, capsys):
     assert "Test Reconstruction Error" in capsys.readouterr().out
 
 
+def test_cli_trains_the_prior_phase(tmp_path):
+    """The prior-phase command on the CPU at a small override: every epoch
+    is a prior epoch, and its checkpoint holds the prior and its phase."""
+    out = tmp_path / "prior"
+    sets = [f"--set={k}={v}" for k, v in {**SMALL, "batch_size": 512, **TINY_PRIOR, "prior_start": -1}.items()]
+    ttrain.main(["--config", "mnist_28", "--device", "cpu", "--impl", "torch", "--epochs", "1", "--out", str(out), *sets])
+    records = [json.loads(l) for l in open(out / "metrics.jsonl") if "Train Reconstruction Error" in l]
+    assert len(records) == 1 and records[0]["fit_prior"] and np.isfinite(records[0]["Train Reconstruction Error"])
+    ckpt = torch.load(out / "MNIST-28.pt")
+    assert ckpt["fit_prior"] is True and "prior.tok_emb" in ckpt["model"]
+
+
 def test_cli_without_card_raises(monkeypatch):
     """No --device means the card; without one the CLI raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -295,3 +318,142 @@ def test_cli_without_card_raises(monkeypatch):
         ttrain.main(["--config", "mnist_28", "--epochs", "1"])
     with pytest.raises(ValueError, match="impl='cuda'"):
         ttrain.main(["--config", "mnist_28", "--epochs", "1", "--device", "cpu"])
+
+
+# ------------------------------------------------------------ prior phase
+
+TINY_PRIOR = {"prior": "Transformer", "prior_d_model": 32, "prior_heads": 2, "prior_layers": 2}
+
+
+def test_prior_phase_steps_match_jax():
+    """Three prior-only steps of a narrow MNIST model with a tiny
+    Transformer prior, the learning rate decaying every step: the loss and
+    its parts within 1e-4 relative, the prior's parameters within 10% of
+    one step of lr (as in ``test_three_train_steps_match_jax``), and the
+    backbone bit-identical in the port and in JAX."""
+    jcfg, tcfg = _configs("mnist_28", {**SMALL, **TINY_PRIOR})
+    params = jax.jit(JaxHopVAE(jcfg).init)(jax.random.PRNGKey(0))
+    digits = tdata.golden_input("mnist_digits")
+    batches = [digits[8 * i : 8 * i + 8] for i in range(3)]
+    tr = JaxTrainer(JaxHopVAE(jcfg), jcfg, mesh=mesh_lib.make_mesh(devices=jax.devices()[:1]))
+    tr._tx = {True: jax_make_optimizer(jcfg, 1, prior_only=True, params=params)}
+    step = jax.jit(tr._step_core(True))
+    jparams, opt_state, jmetrics = params, tr._tx[True].init(params), []
+    for x in batches:
+        jparams, opt_state, m = step(jparams, opt_state, jnp.asarray(x))
+        jmetrics.append(jax.device_get(m))
+
+    start = params_from_jax(params)
+    model = HopVAE(tcfg, impl="torch", device="cpu")
+    model.load_state_dict(start)
+    trainer = ttrain.Trainer(model, tcfg)
+    trainer.build_optimizer(1, fit_prior=True)
+    metrics = [trainer.train_step(torch.from_numpy(x)) for x in batches]
+    for ours, theirs in zip(metrics, jmetrics):
+        for k in ("loss", "recon_error", "aux"):
+            np.testing.assert_allclose(float(ours[k]), float(theirs[k]), rtol=1e-4, err_msg=k)
+    want, lr = params_from_jax(jparams), tcfg.learning_rate
+    for name, p in model.state_dict().items():
+        if name.startswith("prior."):
+            np.testing.assert_allclose(p.numpy(), want[name].numpy(), rtol=0, atol=0.1 * lr, err_msg=name)
+        else:
+            torch.testing.assert_close(p, start[name], rtol=0, atol=0, msg=name)
+            torch.testing.assert_close(want[name], start[name], rtol=0, atol=0, msg=name)
+
+
+def test_prior_train_golden_pins_the_jax_steps():
+    """The JAX numbers pinned in PRIOR_TRAIN_GOLDEN: the prior's step-0
+    gradient norm (``watch_gradients``) and the loss after each of three
+    prior-only Adam steps at a constant lr of 1e-3."""
+    gold, spec = tdata.PRIOR_TRAIN_GOLDEN, tdata.PRIOR_GOLDENS
+    jcfg = jax_load_config(spec["config"])
+    jcfg.prior, jcfg.gamma = spec["prior"], 1.0
+    model = JaxHopVAE(jcfg)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(jnp.asarray, load_reference_checkpoint(model, params, str(CKPTS / spec["checkpoint"])))
+    tr = JaxTrainer(model, jcfg, mesh=mesh_lib.make_mesh(devices=jax.devices()[:1]))
+    tr.watch_gradients = True
+    tr._tx = {True: jax_make_optimizer(jcfg, 1, prior_only=True, params=params)}
+    step = jax.jit(tr._step_core(True))
+    opt_state, x, losses = tr._tx[True].init(params), jnp.asarray(tdata.golden_input("ffhq64_synthetic4")), []
+    for k in range(len(gold["losses"])):
+        params, opt_state, m = step(params, opt_state, x)
+        losses.append(float(m["loss"]))
+        if k == 0:
+            np.testing.assert_allclose(float(m["grad_norm/prior"]), gold["grad_norm"], rtol=1e-5)
+    np.testing.assert_allclose(losses, gold["losses"], rtol=1e-5)
+
+
+def test_port_holds_the_prior_train_golden():
+    """The port's CPU path (eager lookups, blocked attention) against the
+    pinned JAX numbers, with the tolerances ``chip_smoke.py`` applies on
+    the card, and the backbone left bit-identical."""
+    gold, spec = tdata.PRIOR_TRAIN_GOLDEN, tdata.PRIOR_GOLDENS
+    losses, norm, model = ttrain.prior_train_golden(str(CKPTS), device="cpu", impl="torch")
+    np.testing.assert_allclose(losses, gold["losses"], rtol=gold["losses_rtol"])
+    np.testing.assert_allclose(norm, gold["grad_norm"], rtol=gold["grad_norm_rtol"])
+    stored = state_from_checkpoint(str(CKPTS / spec["checkpoint"]))
+    for name, p in model.state_dict().items():
+        if not name.startswith("prior."):
+            torch.testing.assert_close(p, stored[name], rtol=0, atol=0, msg=name)
+
+
+class _LrTrainer(ttrain.Trainer):
+    """Records the learning rate and the phase of every step."""
+
+    def train_step(self, x):
+        self.seen.append((self.fit_prior, self.optimizer.param_groups[0]["lr"]))
+        return super().train_step(x)
+
+
+def _tiny_prior_trainer(**over):
+    cfg = load_config("mnist_28")
+    for k, v in {**SMALL, **TINY_PRIOR, **over}.items():
+        setattr(cfg, k, v)
+    torch.manual_seed(0)
+    tr = _LrTrainer(HopVAE(cfg, impl="torch", device="cpu"), cfg)
+    tr.seen = []
+    rng = np.random.default_rng(1)
+    ds = tdata.ArrayDataset(rng.standard_normal((16, 28, 28, 1)).astype(np.float32), np.zeros(16, np.int64))
+    return cfg, tr, ds
+
+
+def test_phase_switch_restarts_the_schedule_and_freezes_the_backbone(tmp_path):
+    """At epoch > prior_start a fresh optimizer over the prior alone: its
+    learning rate restarts at learning_rate and decays as a fresh optax
+    schedule does; the records carry fit_prior; the backbone stays
+    bit-identical through the prior phase while the prior trains."""
+    cfg, tr, ds = _tiny_prior_trainer(gamma=0.5, prior_start=0)
+    tr.fit(ds, ds, epochs=1, out_dir=str(tmp_path), eval_every=0, save_every=0)
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.fit(ds, ds, epochs=3, start_epoch=1, out_dir=str(tmp_path), eval_every=0, save_every=0)
+    sched = optax.exponential_decay(1e-3, transition_steps=2, decay_rate=0.5, staircase=True)
+    want = [(False, float(sched(k))) for k in range(2)] + [(True, float(sched(k))) for k in range(4)]
+    assert [p for p, _ in tr.seen] == [p for p, _ in want]
+    np.testing.assert_allclose([lr for _, lr in tr.seen], [lr for _, lr in want], rtol=1e-6)
+    records = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+    assert [bool(r["fit_prior"]) for r in records] == [False, True, True]
+    for name, p in tr.model.state_dict().items():
+        assert torch.equal(p, before[name]) != name.startswith("prior."), name
+
+
+def test_resume_across_the_switch(tmp_path):
+    """A checkpoint of the backbone phase resumed into the prior phase
+    starts a fresh prior optimizer (and says so), as JAX's resume does;
+    the resumed epoch equals that of an uninterrupted run."""
+    cfg, tr, ds = _tiny_prior_trainer(prior_start=0)
+    tr.fit(ds, ds, epochs=1, out_dir=str(tmp_path / "a"), eval_every=0, save_every=1)
+    assert torch.load(tmp_path / "a" / "MNIST-28.pt")["fit_prior"] is False
+    _, resumed, _ = _tiny_prior_trainer(prior_start=0)
+    resumed.fit(ds, ds, epochs=2, out_dir=str(tmp_path / "a"), eval_every=0, save_every=1, resume=True)
+    tr.fit(ds, ds, epochs=2, start_epoch=1, out_dir=str(tmp_path / "b"), eval_every=0, save_every=0)
+    assert resumed.fit_prior and resumed.schedule.last_epoch == tr.schedule.last_epoch == 2
+    for (name, a), b in zip(tr.model.state_dict().items(), resumed.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    ckpt = torch.load(tmp_path / "a" / "MNIST-28.pt")
+    assert ckpt["fit_prior"] is True and ckpt["epoch"] == 1
+    # a resume inside the prior phase restores the prior's optimizer
+    _, again, _ = _tiny_prior_trainer(prior_start=0)
+    again.fit(ds, ds, epochs=2, out_dir=str(tmp_path / "a"), eval_every=0, save_every=0, resume=True)
+    assert again.fit_prior and again.schedule.last_epoch == 2
+    assert again.optimizer.state_dict()["state"].keys() == resumed.optimizer.state_dict()["state"].keys()
