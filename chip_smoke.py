@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Eleven phases, each of which raises on failure:
+Thirteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed).
@@ -29,9 +29,11 @@ Eleven phases, each of which raises on failure:
 7. The causal flash-attention kernels K5-fwd, K5-dkv and K5-dq against
    their plain versions, f32 with TF32 off, at the prior's full width
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
-   prior gives them), at ``prior_heads=1`` (one head of 128) and at small
-   ragged shapes; the backward runs twice and must repeat bit for bit;
-   kernel, plain, bound and SDPA times.
+   prior gives them), at ``prior_heads=1`` (one head of 128), at one head
+   of 256 (``prior_d_model=256``, the 32-row tiles), and at small ragged
+   shapes (one of them at 256); the backward runs twice and must repeat
+   bit for bit; kernel, plain, bound and SDPA times. Then a head of 48
+   through the zero padding to 64, forward and backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
    on the committed grid through K5, and ``HopVAE.forward(fit_prior=True)``
    on the golden batch, against the JAX numbers in ``PRIOR_GOLDENS``.
@@ -43,7 +45,18 @@ Eleven phases, each of which raises on failure:
     ``Trainer.fit`` with every kernel's launch count read around it (K5
     4 a step each, K1 3, K2 and K3 none); images/s, a save and resume,
     and the per-stage device times of one step.
-11. The kernel summary as one JSON line, the card line, and last
+11. The full-width prior phase with one wide head: as phase 10 with
+    ``prior_d_model=256, prior_heads=1``, the prior's leaves of another
+    shape left fresh by the lenient load; K5 launches at head width 256,
+    4 a step each; images/s, stage times, peak memory and a falling loss.
+12. K4, the single-shot fused bottleneck forward, at the shapes the
+    serving path gives the bottleneck (the encoder's tokens of a
+    full-width ffhq_64_scaled batch of 256 with the trained tables; the
+    MNIST golden digits; a ragged case): against its plain version and
+    against the streaming bottleneck's three K1 launches, ``e`` and ``r``
+    within 1e-5, at most 1e-4 of the ``zq`` bins differing; one launch a
+    call.
+13. The kernel summary as one JSON line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -71,6 +84,8 @@ from hopvae_torch.data import (GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, TRAIN
 from hopvae_torch.models.hopvae import PRIOR, HopVAE
 from hopvae_torch.ops import attention_cuda as ac
 from hopvae_torch.ops import hopfield_cuda as hc
+from hopvae_torch.ops.attention import kernel_causal_attention
+from hopvae_torch.ops.bottleneck import LAYERS, streaming_bottleneck
 from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
@@ -103,6 +118,11 @@ BWD_NORMWISE = 5e-5
 # and dV of the backward, which also carry the cancellation in dP - delta
 ATTN_FWD_NORMWISE = 1e-5
 ATTN_BWD_NORMWISE = 5e-5
+# K4 against its plain version and the streaming bottleneck: e and r max
+# abs (r over the tokens whose zq agree), and the share of zq bins that
+# differ (a logit on a rounding edge may flip a bin)
+FUSED_ATOL = 1e-5
+FUSED_ZQ_SHARE = 1e-4
 
 
 def log(*args) -> None:
@@ -642,10 +662,13 @@ ATTENTION_COUNTERS = {
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
+    ("wide B256 S867 h1 dh256", 256, 867, 1, 256),
     ("ragged S5", 2, 5, 2, 8),
     ("ragged S37", 2, 37, 2, 8),
     ("ragged S48", 2, 48, 2, 8),
+    ("ragged S37 dh256", 2, 37, 1, 256),
 )
+PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
 
 
 def attention_bound(kernel: str, b, s, h, dh, exp_per_s) -> tuple[float, str]:
@@ -752,7 +775,37 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
         del q, k, v, g, out, lse, delta, dk, dv, dq
         torch.cuda.empty_cache()
+    rows.append(padded_attention_vs_plain(gen))
     return rows
+
+
+def padded_attention_vs_plain(gen: torch.Generator) -> dict:
+    """A head width the kernels are not built for (48) through the route
+    the prior takes on the card: zero-padded to 64, the kernels, the output
+    sliced back, the gradients by autograd through the pad and the slice;
+    against the plain versions at 48, the backward twice bit for bit."""
+    label, b, s, h, dh = PADDED_CASE
+    q, k, v, g = attention_inputs(b, s, h, dh, gen)
+    scale = 1.0 / math.sqrt(dh)
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    before = ac.causal_attention_fwd.launches
+    out = kernel_causal_attention(*leaves, scale)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want_out, want_lse = ac.causal_attention_fwd_reference(q, k, v, scale)
+        want = ac.causal_attention_bwd_reference(q, k, v, want_out, want_lse, g, scale)
+    errs = {"out": normwise(out.detach(), want_out), **{n: normwise(a, w) for n, a, w in zip(("dQ", "dK", "dV"), grads, want)}}
+    row = {"kernel": "causal_attention (padded 48 -> 64)", "shape": label, "b": b, "s": s, "h": h, "dh": dh,
+           "normwise_err": errs, "max_abs_err": max((a - w).abs().max().item() for a, w in zip(grads, want)),
+           "repeats_bitwise": all(torch.equal(a, c) for a, c in zip(grads, again)),
+           "fwd_launches": ac.causal_attention_fwd.launches - before}
+    log(json.dumps(row))
+    if not (errs["out"] <= ATTN_FWD_NORMWISE and max(errs.values()) <= ATTN_BWD_NORMWISE and row["repeats_bitwise"]
+            and row["fwd_launches"] == 1):
+        raise AssertionError(f"the padded route disagrees with the plain versions at {label}: {row}")
+    return row
 
 
 # ------------------------------------------------------------ phase 8
@@ -873,7 +926,7 @@ def prior_step_stage_ms(trainer, x: torch.Tensor, reps: int = 5) -> dict:
     return {**totals, "step_ms": sum(totals.values())}
 
 
-def phase_prior_train_full_width() -> dict:
+def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
     """The prior phase at full width: ``ffhq_64_scaled`` with
     ``prior=Transformer`` and ``prior_start=-1`` from
     ``Transformer-FFHQ-64.msgpack``, batch 256, production path (kernels +
@@ -881,8 +934,11 @@ def phase_prior_train_full_width() -> dict:
     FFHQ train split. Every kernel's count is set to 0 just before ``fit``
     and read just after: K5's three kernels 4 a step (one per layer), K1 3,
     K2 and K3 none, since the backbone runs without autograd. Then a save
-    and a resume, and the per-stage device times of one step."""
-    cfg = prior_config(prior_start=-1)
+    and a resume, and the per-stage device times of one step. ``over``
+    sets prior keys (phase 11: ``prior_d_model=256, prior_heads=1``, whose
+    prior the checkpoint does not fit: its loss must fall from epoch 1 to
+    epoch 2)."""
+    cfg = prior_config(prior_start=-1, **over)
     torch.manual_seed(cfg.seed)
     counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
 
@@ -928,8 +984,11 @@ def phase_prior_train_full_width() -> dict:
                                       "epoch_seconds", "images_per_sec")} for r in records],
         "images_per_s_epoch_2": records[-1]["images_per_sec"],
         "stage_ms": stages, "resume_restores": restored, "backbone_bit_identical": frozen,
+        "prior": {"d_model": trainer.model.prior.d, "heads": trainer.model.prior.heads,
+                  "head_width": trainer.model.prior.d // trainer.model.prior.heads,
+                  "parameters": sum(p.numel() for p in trainer.model.prior.parameters())},
     }
-    log(json.dumps({"prior_training": res}))
+    log(json.dumps({label: res}))
     layers = trainer.model.prior.n_layers
     want = {**dict.fromkeys(ATTENTION_COUNTERS, layers * steps), "hopfield_stream_fwd": 3 * steps,
             "hopfield_stream_bwd_dx": 0, "hopfield_stream_bwd_dku": 0}
@@ -939,7 +998,100 @@ def phase_prior_train_full_width() -> dict:
         raise AssertionError(f"prior-phase records are missing, not in the prior phase or not finite: {records}")
     if not (all(restored.values()) and frozen):
         raise AssertionError(f"the resume did not restore the trainer, or the backbone moved: {restored}")
+    if over and not records[1]["train_loss_per_batch"] < records[0]["train_loss_per_batch"]:
+        raise AssertionError(f"the fresh prior's loss did not fall from epoch 1 to epoch 2: {records}")
     return res
+
+
+# ------------------------------------------------------------ phase 12
+
+
+def fused_bound(n: int, layers, exp_per_s) -> tuple[float, str]:
+    """Least time of one K4 launch: each lookup's score and value products
+    (2·N·M·(d_in + d_out) FLOPs) and N·M exps; reads x and the six
+    tables, writes e, zq and r."""
+    flops = exps = floats = 0
+    for layer in layers:
+        m, d_in, d_out = layer.lookup_weights.shape[0], layer.d_in, layer.out_proj.weight.shape[0]
+        flops += 2 * n * m * (d_in + d_out)
+        exps += n * m
+        floats += m * (d_in + d_out) + 2 * d_in + d_out
+    return roof(flops, exps, floats + n * (64 + 64 + 3 + 64), exp_per_s)
+
+
+def fused_cases() -> list[tuple]:
+    """``(label, layers, x, num_levels)``: the encoder's tokens of a
+    full-width ffhq_64_scaled batch of 256 with the trained tables (N =
+    73,984, M = 4096), the MNIST golden digits with the trained MNIST
+    tables (N = 3,136, M = 512), and random tables of M = 300 on 37
+    tokens."""
+    cases = []
+    for label, golden, batch in (("ffhq64 b256", "ffhq64_synthetic4", 256), ("mnist b64", "mnist_digits", None)):
+        spec = GOLDENS[golden]
+        cfg = load_config(spec["config"])
+        x = (golden_input(golden) if batch is None
+             else _normalize(synthetic_images(batch, cfg.image_size, seed=10), cfg.data_set))
+        model = HopVAE(cfg, device="cuda")
+        model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / spec["checkpoint"])))
+        with torch.inference_mode():
+            z = model._encode_to_tokens(torch.from_numpy(x).cuda())
+        cases.append((label, model.bottleneck_layers(), z, model.num_levels))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    layers = {}
+    for name, (d_in, d_out) in zip(LAYERS, hc.SUPPORTED):
+        layers[name] = HopfieldLookup(d_in, d_out, 300, device="cuda")
+        layers[name].reset_parameters(generator=g)
+    cases.append(("ragged", layers, torch.randn(37, 64, device="cuda", generator=g), 512))
+    return cases
+
+
+def bins_and_errors(got, want) -> dict:
+    """zq bins that differ, and e's and r's max abs error (r over the
+    tokens whose zq agree: a flipped bin moves that token's r)."""
+    (e, zq, r), (e_w, zq_w, r_w) = got, want
+    same = (zq == zq_w).all(-1)
+    return {"zq_bins_differing": int((zq != zq_w).sum()), "zq_share_differing": float((zq != zq_w).float().mean()),
+            "tokens_with_a_flipped_bin": int((~same).sum()), "e_max_abs_err": (e - e_w).abs().max().item(),
+            "r_max_abs_err": (r - r_w)[same].abs().max().item()}
+
+
+@parity_mode()
+def phase_fused_bottleneck(env: dict) -> list[dict]:
+    """K4 against its plain version and the streaming bottleneck (three K1
+    launches and the steps between them) on the same tables and tokens;
+    one launch a call. At full width the count is set to 0 just before
+    the call and read just after: no entry point routes to K4, so this
+    call is its path."""
+    rows = []
+    for label, layers, x, levels in fused_cases():
+        args = (*(layers[name] for name in LAYERS), x, levels)
+        with torch.inference_mode():
+            hc.bottleneck_fused_fwd.launches = 0
+            got = hc.bottleneck_fused_fwd(*args)
+            torch.cuda.synchronize()
+            launches = hc.bottleneck_fused_fwd.launches
+            want = hc.bottleneck_fused_fwd_reference(*args)
+            stream = streaming_bottleneck(layers, x, levels, impl="cuda")
+            vs_plain, vs_stream = bins_and_errors(got, want), bins_and_errors(got, stream)
+            big = x.numel() > 1e6
+            reps, plain_reps = (10, 3) if big else (50, 20)
+            times = {"ms": cuda_ms(lambda: hc.bottleneck_fused_fwd(*args), reps),
+                     "plain_ms": cuda_ms(lambda: hc.bottleneck_fused_fwd_reference(*args), plain_reps),
+                     "three_k1_ms": cuda_ms(lambda: streaming_bottleneck(layers, x, levels, impl="cuda"), reps)}
+        b_ms, b_by = fused_bound(x.numel() // 64, [layers[name] for name in LAYERS], env["exp_per_s"])
+        row = {"kernel": "hopfield_bottleneck_fused", "shape": label, "n": x.numel() // 64,
+               "m": layers["hopfield"].lookup_weights.shape[0], "launches": launches, "vs_plain": vs_plain,
+               "vs_three_k1": vs_stream, **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": max(vs_plain["e_max_abs_err"], vs_plain["r_max_abs_err"])}
+        log(json.dumps(row))
+        rows.append(row)
+        for name, cmp in (("its plain version", vs_plain), ("the three-K1 bottleneck", vs_stream)):
+            if not (cmp["e_max_abs_err"] <= FUSED_ATOL and cmp["r_max_abs_err"] <= FUSED_ATOL
+                    and cmp["zq_share_differing"] <= FUSED_ZQ_SHARE):
+                raise AssertionError(f"K4 disagrees with {name} at {label}: {row}")
+        if launches != 1:
+            raise AssertionError(f"expected one K4 launch a call, got {launches}")
+    return rows
 
 
 # ------------------------------------------------------------ main
@@ -953,12 +1105,14 @@ REPLACES = {
     "causal_attention_fwd": f"{_MOSAIC}:331 (_flash_attention_kernel), via hopvae_tpu/ops/attention.py:172",
     "causal_attention_bwd_dkv": f"{_MOSAIC}:796 (_flash_attention_dkv_kernel), via hopvae_tpu/ops/attention.py:172",
     "causal_attention_bwd_dq": f"{_MOSAIC}:1146 (_flash_attention_dq_kernel), via hopvae_tpu/ops/attention.py:172",
+    "hopfield_bottleneck_fused": "hopvae_tpu/ops/hopfield_pallas.py:115 (_kernel), via _bottleneck_fwd_pallas:185",
 }
 SOURCES = {
     "causal_attention_fwd": "hopvae_torch/csrc/causal_attention_fwd.cu",
     "causal_attention_bwd_dkv": "hopvae_torch/csrc/causal_attention_bwd.cu",
     "causal_attention_bwd_dq": "hopvae_torch/csrc/causal_attention_bwd.cu",
 }
+WIDE_HEAD = 256  # phase 11's head width: its own K5 entries in the kernel line
 
 
 def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
@@ -984,14 +1138,17 @@ def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
     }
 
 
-def attention_summary(name: str, rows: list[dict], launches: int) -> dict:
+def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = False) -> dict:
     """One K5 kernel's entry: times and bound of one launch at the prior's
     full width (one layer; a step launches it once per layer), errors over
-    every shape, ``launches`` from the prior-phase run."""
-    mine = [r for r in rows if r["kernel"] == name]
-    full = next(r for r in mine if r["shape"].startswith("full"))
+    every shape, ``launches`` from the prior-phase run. ``wide`` makes the
+    entry of head width 256 (32-row tiles; phase 11's prior), from its
+    shapes alone; the other entry holds the widths up to 128."""
+    mine = [r for r in rows if r["kernel"] == name and (r["dh"] == WIDE_HEAD) == wide]
+    full = next(r for r in mine if r["shape"].startswith("wide" if wide else "full"))
     return {
-        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "name": f"{name}_dh{WIDE_HEAD}" if wide else name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
@@ -1041,6 +1198,8 @@ def main() -> int:
     phase_prior_golden()
     phase_prior_train_golden()
     prior_training = phase_prior_train_full_width()
+    wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
+    fused_rows = phase_fused_bottleneck(env)
     launches, prior_launches = training["launches"], prior_training["launches"]
     kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
                               launches_serving=serving["launches"],
@@ -1051,6 +1210,17 @@ def main() -> int:
                                                            for r in bwd_rows if r["kernel"] == name),
                                       launches_prior_phase=prior_launches[name]))
     kernels += [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
+    kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], wide=True)
+                for name in ATTENTION_COUNTERS]
+    full = fused_rows[0]
+    kernels.append({
+        "name": "hopfield_bottleneck_fused", "route": "cuda", "source": "hopvae_torch/csrc/hopfield_bottleneck_fused.cu",
+        "replaces": REPLACES["hopfield_bottleneck_fused"], "launches": full["launches"],
+        "note": "no entry point routes to K4, as in the JAX package; launches counts phase 12's full-width call",
+        "max_abs_err": max(r["max_abs_err"] for r in fused_rows), "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None,
+        "three_k1_ms": full["three_k1_ms"], "shapes": fused_rows,
+    })
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi('name,power.limit')}")
     log(json.dumps({"ok": True, "device": {

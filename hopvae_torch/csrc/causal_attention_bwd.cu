@@ -18,22 +18,25 @@
 // (q k^T, g v^T, dS k), 2 * D * S(S+1)/2 FLOPs each per head, against
 // reading q, k, v, g and writing the gradients once: at B = 256, S = 867,
 // 4 heads of D = 32, 1.47 and 1.10 ms at the f32 peak of the CUDA cores
-// against about 0.2 ms of memory traffic each. The split recomputes the
-// scores and g v^T in both kernels; one fused kernel would need float
-// atomics for dQ, and the backward must repeat bit for bit.
+// against about 0.2 ms of memory traffic each (2.94 and 2.21 ms at one
+// head of D = 256). The split recomputes the scores and g v^T in both
+// kernels; one fused kernel would need float atomics for dQ, and the
+// backward must repeat bit for bit.
 //
 // Design:
-// - K5-dkv: one block of 256 threads per 64 keys of one head. dK and dV
+// - Tiles of T = 64 rows or keys, 32 at D = 256 (causal_attention.cuh
+//   says why).
+// - K5-dkv: one block of 256 threads per T keys of one head. dK and dV
 //   for its keys stay in registers while it walks the query tiles from
 //   its diagonal to the end, so each block alone writes its outputs and
 //   no float atomics are needed. The k and v tiles stay in shared memory;
 //   each q and g tile, with its lse and delta, is staged there in turn.
-// - K5-dq: one block per 64 query rows of one head, walking the key tiles
+// - K5-dq: one block per T query rows of one head, walking the key tiles
 //   up to its diagonal, dQ in registers.
-// - Thread (ty, tx) computes a 4 x 4 block of scores and of g v^T; P and
-//   dS go through shared memory into the products that reduce over rows
-//   (dV, dK) or keys (dQ), where each thread owns 4 rows and D/16
-//   columns of the output.
+// - Thread (ty, tx) computes an R x R block (R = T/16) of scores and of
+//   g v^T; P and dS go through shared memory into the products that
+//   reduce over rows (dV, dK) or keys (dQ), where each thread owns R rows
+//   and D/16 columns of the output.
 // - Both mask key > row on the diagonal tile and rows past S themselves;
 //   the inputs are strided views, read with their own strides.
 // - Plain f32 FMA on the CUDA cores; the score product is the forward's
@@ -45,21 +48,23 @@ namespace {
 
 using namespace causal_attention;
 
-// P and dS of one 64 x 64 tile for rows q0 + ty*4 + i and keys
+// P and dS of one T x T tile for rows q0 + ty*R + i and keys
 // k0 + tx + 16*j, from the q, k, v, g tiles and the rows' lse and delta.
 template <int D>
-__device__ __forceinline__ void probs_and_dscores(float (&p)[4][4], float (&ds)[4][4], const float* q_s,
-                                                  const float* k_s, const float* v_s, const float* g_s,
-                                                  const float* lse_s, const float* dl_s, int q0, int k0,
-                                                  int s, float scale, int ty, int tx) {
+__device__ __forceinline__ void probs_and_dscores(float (&p)[per_thread<D>()][per_thread<D>()],
+                                                  float (&ds)[per_thread<D>()][per_thread<D>()],
+                                                  const float* q_s, const float* k_s, const float* v_s,
+                                                  const float* g_s, const float* lse_s, const float* dl_s,
+                                                  int q0, int k0, int s, float scale, int ty, int tx) {
+  constexpr int R = per_thread<D>();
   dot_tile<D>(p, q_s, k_s, ty, tx);
   dot_tile<D>(ds, g_s, v_s, ty, tx);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int r = ty * R + i;
     const int row = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const bool live = row < s && k0 + tx + 16 * j <= row;
       const float pr = live ? __expf(p[i][j] * scale - lse_s[r]) : 0.f;
       p[i][j] = pr;
@@ -68,11 +73,12 @@ __device__ __forceinline__ void probs_and_dscores(float (&p)[4][4], float (&ds)[
   }
 }
 
-// lse and delta of rows [q0, q0 + 64) of head bh, zeros past S
+// lse and delta of rows [q0, q0 + T) of head bh, zeros past S
+template <int D>
 __device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s, const float* __restrict__ lse,
                                                const float* __restrict__ delta, int bh, int q0, int s) {
   const int r = threadIdx.x;
-  if (r < BLOCK) {
+  if (r < tile<D>()) {
     const bool in = q0 + r < s;
     const size_t at = static_cast<size_t>(bh) * s + q0 + r;
     lse_s[r] = in ? lse[at] : 0.f;
@@ -82,7 +88,7 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s, const 
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * BLOCK * row_stride<D>() + 2 * BLOCK * PS + 2 * BLOCK);
+  return sizeof(float) * (4 * tile<D>() * row_stride<D>() + 2 * tile<D>() * p_stride<D>() + 2 * tile<D>());
 }
 
 template <int D>
@@ -91,17 +97,20 @@ causal_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
                       const float* __restrict__ g, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int s,
                       int h, Strides qs, Strides ks, Strides vs, Strides gs, float scale) {
+  constexpr int T = tile<D>();
+  constexpr int R = per_thread<D>();
   constexpr int RS = row_stride<D>();
+  constexpr int PS = p_stride<D>();
   constexpr int COLS = cols<D>();
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + BLOCK * RS;
-  float* q_s = v_s + BLOCK * RS;
-  float* g_s = q_s + BLOCK * RS;
-  float* p_s = g_s + BLOCK * RS;  // p_s[row][key]
-  float* d_s = p_s + BLOCK * PS;  // dS, d_s[row][key]
-  float* lse_s = d_s + BLOCK * PS;
-  float* dl_s = lse_s + BLOCK;
+  float* v_s = k_s + T * RS;
+  float* q_s = v_s + T * RS;
+  float* g_s = q_s + T * RS;
+  float* p_s = g_s + T * RS;  // p_s[row][key]
+  float* d_s = p_s + T * PS;  // dS, d_s[row][key]
+  float* lse_s = d_s + T * PS;
+  float* dl_s = lse_s + T;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -110,50 +119,48 @@ causal_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   const int b = bh / h;
   const int hh = bh - b * h;
   const int kt = blockIdx.y;  // the longest columns (kt = 0) first
-  const int k0 = kt * BLOCK;
+  const int k0 = kt * T;
   const int n_tiles = gridDim.y;
   const bool owns_cols = tx * COLS < D;
 
   load_tile<D>(k_s, k, ks, b, hh, k0, s);
   load_tile<D>(v_s, v, vs, b, hh, k0, s);
 
-  float acc_k[4][COLS], acc_v[4][COLS];  // keys ty*4+i, columns tx*COLS+c
+  float acc_k[R][COLS], acc_v[R][COLS];  // keys ty*R+i, columns tx*COLS+c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   for (int qt = kt; qt < n_tiles; ++qt) {
-    const int q0 = qt * BLOCK;
+    const int q0 = qt * T;
     load_tile<D>(q_s, q, qs, b, hh, q0, s);
     load_tile<D>(g_s, g, gs, b, hh, q0, s);
-    load_row_stats(lse_s, dl_s, lse, delta, bh, q0, s);
+    load_row_stats<D>(lse_s, dl_s, lse, delta, bh, q0, s);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
+    float p[R][R], ds[R][R];
     probs_and_dscores<D>(p, ds, q_s, k_s, v_s, g_s, lse_s, dl_s, q0, k0, s, scale, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_s[(ty * 4 + i) * PS + tx + 16 * j] = p[i][j];
-        d_s[(ty * 4 + i) * PS + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < R; ++j) {
+        p_s[(ty * R + i) * PS + tx + 16 * j] = p[i][j];
+        d_s[(ty * R + i) * PS + tx + 16 * j] = ds[i][j];
       }
     __syncthreads();
 
     // ---- dV += P^T g, dK += dS^T q, summed over the tile's rows in order
     if (owns_cols) {
 #pragma unroll 4
-      for (int r = 0; r < BLOCK; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_s + r * PS + ty * 4);
-        const float4 dv4 = *reinterpret_cast<const float4*>(d_s + r * PS + ty * 4);
-        float gr[COLS], qr[COLS];
+      for (int r = 0; r < T; ++r) {
+        float pk[R], dk4[R], gr[COLS], qr[COLS];
+        load_vec<R>(pk, p_s + r * PS + ty * R);
+        load_vec<R>(dk4, d_s + r * PS + ty * R);
         load_vec<COLS>(gr, g_s + r * RS + tx * COLS);
         load_vec<COLS>(qr, q_s + r * RS + tx * COLS);
-        const float pk[4] = {pv.x, pv.y, pv.z, pv.w};
-        const float dk4[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < COLS; ++c) {
             acc_v[i][c] = fmaf(pk[i], gr[c], acc_v[i][c]);
@@ -166,8 +173,8 @@ causal_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 
   if (!owns_cols) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int key = k0 + ty * R + i;
     if (key >= s) continue;
     const size_t at = out_offset<D>(b, key, hh, s, h) + tx * COLS;
 #pragma unroll
@@ -184,16 +191,19 @@ causal_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, c
                      const float* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dq, int s, int h, Strides qs,
                      Strides ks, Strides vs, Strides gs, float scale) {
+  constexpr int T = tile<D>();
+  constexpr int R = per_thread<D>();
   constexpr int RS = row_stride<D>();
+  constexpr int PS = p_stride<D>();
   constexpr int COLS = cols<D>();
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* g_s = q_s + BLOCK * RS;
-  float* k_s = g_s + BLOCK * RS;
-  float* v_s = k_s + BLOCK * RS;
-  float* d_s = v_s + BLOCK * RS;  // dS transposed, d_s[key][row]
-  float* lse_s = d_s + 2 * BLOCK * PS;
-  float* dl_s = lse_s + BLOCK;
+  float* g_s = q_s + T * RS;
+  float* k_s = g_s + T * RS;
+  float* v_s = k_s + T * RS;
+  float* d_s = v_s + T * RS;  // dS transposed, d_s[key][row]
+  float* lse_s = d_s + 2 * T * PS;
+  float* dl_s = lse_s + T;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -202,43 +212,45 @@ causal_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   const int b = bh / h;
   const int hh = bh - b * h;
   const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
-  const int q0 = qt * BLOCK;
+  const int q0 = qt * T;
   const bool owns_cols = tx * COLS < D;
 
   load_tile<D>(q_s, q, qs, b, hh, q0, s);
   load_tile<D>(g_s, g, gs, b, hh, q0, s);
-  load_row_stats(lse_s, dl_s, lse, delta, bh, q0, s);
+  load_row_stats<D>(lse_s, dl_s, lse, delta, bh, q0, s);
 
-  float acc[4][COLS];  // rows ty*4+i, columns tx*COLS+c
+  float acc[R][COLS];  // rows ty*R+i, columns tx*COLS+c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * BLOCK;
+    const int k0 = kt * T;
     load_tile<D>(k_s, k, ks, b, hh, k0, s);
     load_tile<D>(v_s, v, vs, b, hh, k0, s);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
+    float p[R][R], ds[R][R];
     probs_and_dscores<D>(p, ds, q_s, k_s, v_s, g_s, lse_s, dl_s, q0, k0, s, scale, ty, tx);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(d_s + (tx + 16 * j) * PS + ty * 4) =
-          make_float4(ds[0][j], ds[1][j], ds[2][j], ds[3][j]);
+    for (int j = 0; j < R; ++j) {
+      float col[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) col[i] = ds[i][j];
+      store_vec<R>(d_s + (tx + 16 * j) * PS + ty * R, col);
+    }
     __syncthreads();
 
     // ---- dQ += dS k, summed over the tile's keys in order
     if (owns_cols) {
 #pragma unroll 4
-      for (int kk = 0; kk < BLOCK; ++kk) {
-        const float4 dv4 = *reinterpret_cast<const float4*>(d_s + kk * PS + ty * 4);
-        float kr[COLS];
+      for (int kk = 0; kk < T; ++kk) {
+        float dr[R], kr[COLS];
+        load_vec<R>(dr, d_s + kk * PS + ty * R);
         load_vec<COLS>(kr, k_s + kk * RS + tx * COLS);
-        const float dr[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
           for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(dr[i], kr[c], acc[i][c]);
       }
@@ -248,8 +260,8 @@ causal_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 
   if (!owns_cols) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
     if (row >= s) continue;
     float* o = dq + out_offset<D>(b, row, hh, s, h) + tx * COLS;
 #pragma unroll
@@ -261,7 +273,8 @@ template <int D, bool DKV>
 int launch(const float* q, const float* k, const float* v, const float* g, const float* lse,
            const float* delta, float* out_a, float* out_b, int b, int s, int h, Strides qs, Strides ks,
            Strides vs, Strides gs, float scale, cudaStream_t stream) {
-  const dim3 grid(b * h, (s + BLOCK - 1) / BLOCK);
+  if (!grid_fits<D>(b, s, h)) return cudaErrorInvalidValue;
+  const dim3 grid(b * h, (s + tile<D>() - 1) / tile<D>());
   if constexpr (DKV) {
     auto kernel = causal_bwd_dkv_kernel<D>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -284,9 +297,6 @@ template <bool DKV>
 int dispatch(const float* q, const float* k, const float* v, const float* g, const float* lse,
              const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs,
              Strides ks, Strides vs, Strides gs, float scale, void* stream) {
-  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
-      (s + BLOCK - 1) / BLOCK > 65535)
-    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8: return launch<8, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
@@ -294,6 +304,7 @@ int dispatch(const float* q, const float* k, const float* v, const float* g, con
     case 32: return launch<32, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 64: return launch<64, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 128: return launch<128, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
+    case 256: return launch<256, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
 // Pieces shared by the streaming Hopfield backward kernels, K2
-// (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu). They
+// (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu), and by
+// the fused bottleneck forward K4 (hopfield_bottleneck_fused.cu). They
 // rebuild the attention tile from the row stats m and l that the forward
 // K1 (hopfield_stream_fwd.cu) wrote, so they compute q and the scores with
 // K1's arithmetic: the state LayerNorm in double, rounded once to f32, and
@@ -29,7 +30,7 @@ static_assert(BLOCK_M == BLOCK_N, "stage_rows stages token and pattern tiles ali
 // shared-memory row stride: widths that are float4 multiples get +4
 // floats, which offsets consecutive rows by 4 banks
 template <int D>
-constexpr int stride_of() { return (D % 4 == 0) ? D + 4 : D; }
+__host__ __device__ constexpr int stride_of() { return (D % 4 == 0) ? D + 4 : D; }
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll

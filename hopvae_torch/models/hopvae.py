@@ -145,22 +145,34 @@ class HopVAE(nn.Module):
         raise NotImplementedError(f"interpolate is {_NOT_PORTED}")
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        """``nn.Module.load_state_dict``, lenient on the prior alone: where
-        the stored ``prior.*`` tensors do not match this model's prior (a
-        checkpoint of another prior family, or none), the model keeps its
-        fresh prior and says so, as the JAX package's lenient load does.
-        Everything else loads as ``strict`` says."""
+        """``nn.Module.load_state_dict``, lenient on the prior alone, as the
+        JAX package's ``lenient_merge`` is: a stored ``prior.*`` tensor loads
+        where this model's prior has one of that name and shape; every
+        other prior tensor keeps its fresh initialization, stored ones with
+        no counterpart are ignored, and a warning lists them. A checkpoint
+        of another prior family (or none) thus leaves the prior fresh, and
+        one of the same family at another width keeps the leaves whose shape
+        still matches. Everything else loads as ``strict`` says."""
         state = dict(state_dict)
         fresh = {k: v for k, v in self.state_dict().items() if k.startswith(PRIOR)}
-        stored = {k: state[k] for k in state if k.startswith(PRIOR)}
-        if {k: tuple(v.shape) for k, v in stored.items()} != {k: tuple(v.shape) for k, v in fresh.items()}:
-            kept = " and kept the prior's fresh initialization" if fresh else ""
+        stored = {k: state.pop(k) for k in list(state) if k.startswith(PRIOR)}
+        if fresh:
+            dropped = [f"{k} (not in checkpoint)" for k in fresh if k not in stored]
+            for k, v in stored.items():
+                if k not in fresh:
+                    dropped.append(f"{k} (in checkpoint, no such param)")
+                elif tuple(v.shape) != tuple(fresh[k].shape):
+                    dropped.append(f"{k} (shape {tuple(v.shape)} != {tuple(fresh[k].shape)})")
+            state.update(fresh)
+            state.update({k: v for k, v in stored.items() if k in fresh and tuple(v.shape) == tuple(fresh[k].shape)})
+            if dropped:
+                shown = ", ".join(dropped[:8]) + (" …" if len(dropped) > 8 else "")
+                print(f"warning: lenient load: {len(dropped)} prior tensor(s) kept the prior's fresh "
+                      f"initialization or were ignored: {shown}", file=sys.stderr)
+        elif stored:
             print(
                 f"warning: lenient load: the checkpoint's prior subtree ({len(stored)} tensors) does not "
-                f"match this model's prior={self.config.prior!r} ({len(fresh)} tensors); dropped it{kept}",
+                f"match this model's prior={self.config.prior!r} (no tensors); dropped it",
                 file=sys.stderr,
             )
-            for k in stored:
-                del state[k]
-            state.update(fresh)
         return super().load_state_dict(state, strict=strict, assign=assign)

@@ -15,7 +15,11 @@ with ``prior_attn``:
 - :func:`flash_causal_attention`: on CUDA tensors the hand-written
   kernels (``ops/attention_cuda.py``: K5 forward, dK/dV and dQ), on CPU
   tensors :func:`blocked_causal_attention`, as the JAX package does off
-  the TPU.
+  the TPU. A head width the kernels are not built for (48, 96, 192) is
+  zero-padded to the next one (64, 128, 256) and the output sliced back:
+  zero columns add nothing to ``q·kᵀ`` and give zero output columns, so
+  this is exact, and autograd through the pad and the slice gives the
+  gradients.
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-from hopvae_torch.ops.attention_cuda import FlashCausalAttention
+from hopvae_torch.ops.attention_cuda import FlashCausalAttention, kernel_width
 
 # Finite stand-in for -inf: exp(x - m) underflows to exactly 0 for masked
 # entries without the NaN of (-inf) - (-inf) in rows whose first block is
@@ -68,15 +73,28 @@ def blocked_causal_attention(q, k, v, *, q_block: int = 256, kv_block: int = 256
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
+def kernel_causal_attention(q, k, v, scale: float):
+    """The kernels' route of :func:`flash_causal_attention`: a head width
+    the kernels are not built for is zero-padded to the next one and the
+    output sliced back; ``scale`` is the caller's, that of the true width.
+    :class:`FlashCausalAttention` takes the plain versions on CPU tensors,
+    so the CPU tests hold this route (the padding too) against JAX."""
+    dh = q.shape[-1]
+    width = kernel_width(dh)
+    if width == dh:
+        return FlashCausalAttention.apply(q, k, v, scale)
+    q, k, v = (F.pad(a, (0, width - dh)) for a in (q, k, v))
+    return FlashCausalAttention.apply(q, k, v, scale)[..., :dh]
+
+
 def flash_causal_attention(q, k, v, *, scale: float | None = None):
     """Causal attention over ``(B, S, heads, dh)``: the hand-written
-    kernels on CUDA tensors (differentiable through
-    :class:`FlashCausalAttention`), :func:`blocked_causal_attention` on
-    CPU tensors."""
+    kernels on CUDA tensors (:func:`kernel_causal_attention`),
+    :func:`blocked_causal_attention` on CPU tensors."""
     scale = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
         return blocked_causal_attention(q, k, v, scale=scale)
-    return FlashCausalAttention.apply(q, k, v, scale)
+    return kernel_causal_attention(q, k, v, scale)
 
 
 def dense_causal_attention(q, k, v, *, scale: float | None = None):

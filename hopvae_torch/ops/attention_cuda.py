@@ -15,9 +15,12 @@ The backward kernels rebuild ``P = exp(scale·QKᵀ − lse)`` from the
 forward's ``lse`` and take ``delta = rowsum(dO ⊙ O)`` from torch, so the
 ``(S, S)`` matrices never reach device memory. The inputs may be strided
 views (the prior's q, k and v are slices of one projection); only the
-head width must be contiguous. Each wrapper launches its kernel on CUDA
-tensors, counting the launch in its ``launches``, and takes its plain
-version on CPU tensors; the plain versions hold the ``(S, S)`` matrices.
+head width must be contiguous, and one of ``HEAD_DIMS`` (64-row tiles up
+to 128, 32-row tiles at 256); :func:`kernel_width` names the built width
+that a narrower head is zero-padded to. Each wrapper launches its kernel
+on CUDA tensors, counting the launch in its ``launches``, and takes its
+plain version on CPU tensors; the plain versions hold the ``(S, S)``
+matrices.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 
 from hopvae_torch.utils.nvcc import bind, launch
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the head widths the kernels are built for
-_NOT_BUILT = "ROADMAP.md, Queue 2: K5 at head width 256"
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths the kernels are built for
+_NOT_BUILT = "ROADMAP.md, Queue 2: K5 at head widths 384 and 512"
 
 
 # ------------------------------------------------------------ plain versions
@@ -114,11 +117,18 @@ def _check(q, k, v, *rest) -> tuple[int, int, int, int]:
     return b, s, h, dh
 
 
+def kernel_width(dh: int) -> int:
+    """The narrowest head width the kernels are built for that holds
+    ``dh``; a wider head raises."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise NotImplementedError(f"the flash kernels are not built for head width {dh} ({_NOT_BUILT})")
+
+
 def _require_kernel(q, dh: int) -> None:
-    if dh == 256:
-        raise NotImplementedError(f"the flash kernels are not built for head width 256 ({_NOT_BUILT})")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head width {dh} not in {HEAD_DIMS}")
+    if kernel_width(dh) != dh:
+        raise ValueError(f"head width {dh} not in {HEAD_DIMS}: flash_causal_attention zero-pads it")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
 

@@ -25,6 +25,12 @@ The backward kernels rebuild the attention from ``m`` and ``l``, so the
 kernel on CUDA tensors (counting the launch in its ``launches``) and
 takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
 and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
+
+K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
+plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
+TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups,
+the sigmoid and the round in one launch. As in the JAX package, no entry
+point routes to it: serving and training run the streaming lookups.
 """
 
 from __future__ import annotations
@@ -250,6 +256,72 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
 
 
 stream_bwd_dku.launches = 0
+
+
+def _folded(layers) -> list:
+    """The three lookups' folded tables, contiguous, in the kernel's order
+    ``(K, U, b, s, t)`` each."""
+    return [[a.contiguous() for a in fold_layer(layer)] for layer in layers]
+
+
+def bottleneck_fused_fwd_reference(hopfield: HopfieldLookup, embedding_to_index: HopfieldLookup,
+                                   index_to_embedding: HopfieldLookup, x: torch.Tensor, num_levels: int):
+    """Plain torch version of K4: ``(e, zq, r)`` of the bottleneck for
+    ``x (..., 64)``, each lookup through :func:`stream_lookup_fwd_reference`
+    with its shift added, the index rounded half to even."""
+    *lead, d = x.shape
+    (k1, u1, b1, s1, t1), (k2, u2, b2, s2, t2), (k3, u3, b3, s3, t3) = _folded(
+        (hopfield, embedding_to_index, index_to_embedding))
+    e = stream_lookup_fwd_reference(x.reshape(-1, d), k1, u1, s1, t1)[0] + b1
+    logits = stream_lookup_fwd_reference(e, k2, u2, s2, t2)[0] + b2
+    zq = torch.round(torch.sigmoid(logits) * (num_levels - 1))
+    r = stream_lookup_fwd_reference(zq / (num_levels - 1), k3, u3, s3, t3)[0] + b3
+    return e.reshape(*lead, d), zq.reshape(*lead, zq.shape[-1]), r.reshape(*lead, d)
+
+
+def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldLookup,
+                         index_to_embedding: HopfieldLookup, x: torch.Tensor, num_levels: int):
+    """K4: ``(e, zq, r)`` of the bottleneck for ``x (..., 64)`` in one
+    launch, the tables folded by :func:`fold_layer`.
+
+    CUDA tensors launch the kernel (counted in
+    ``bottleneck_fused_fwd.launches``); CPU tensors take the plain version.
+    Forward-only: on the card, with autograd on and a parameter or ``x``
+    that needs a gradient, it raises (the streaming bottleneck is the
+    differentiable path)."""
+    layers = (hopfield, embedding_to_index, index_to_embedding)
+    widths = tuple((layer.d_in, layer.out_proj.weight.shape[0]) for layer in layers)
+    if widths != SUPPORTED:
+        raise ValueError(f"the lookups' (d_in, d_out) are {widths}, the kernel takes {SUPPORTED}")
+    if x.dtype != torch.float32 or x.shape[-1] != SUPPORTED[0][0]:
+        raise ValueError(f"x must be float32 (..., {SUPPORTED[0][0]}), got {x.dtype} {tuple(x.shape)}")
+    if num_levels < 2:
+        raise ValueError(f"num_levels must be at least 2, got {num_levels}")
+    if x.device.type == "cpu":
+        return bottleneck_fused_fwd_reference(*layers, x, num_levels)
+    params = [p for layer in layers for p in layer.parameters()]
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *params)):
+        raise RuntimeError("bottleneck_fused_fwd is forward-only: run it under torch.no_grad or "
+                           "torch.inference_mode, or differentiate the streaming bottleneck")
+    _require_cuda(x)
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d).contiguous()
+    n = x2.shape[0]
+    if n == 0:
+        raise ValueError("x needs at least one token")
+    tables = _folded(layers)
+    e = torch.empty(n, d, device=x.device)
+    zq = torch.empty(n, SUPPORTED[1][1], device=x.device)
+    r = torch.empty(n, d, device=x.device)
+    stem = "hopfield_bottleneck_fused"
+    launch(stem, _bind(stem, stem, 19, 5), x.device, x2.data_ptr(),
+           *(a.data_ptr() for table in tables for a in table), e.data_ptr(), zq.data_ptr(), r.data_ptr(),
+           n, *(table[0].shape[0] for table in tables), num_levels)
+    bottleneck_fused_fwd.launches += 1
+    return e.reshape(*lead, d), zq.reshape(*lead, zq.shape[-1]), r.reshape(*lead, d)
+
+
+bottleneck_fused_fwd.launches = 0
 
 
 class StreamLookup(torch.autograd.Function):

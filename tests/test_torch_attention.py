@@ -5,8 +5,9 @@ flash takes the blocked path on CPU tensors, as JAX's does off the TPU)
 against JAX's three, values and gradients, at the shapes of
 ``tests/test_transformer_prior.py``; the plain versions of the K5 kernels
 (``ops/attention_cuda.py``) against torch autograd of the dense backend;
-``FlashCausalAttention`` on CPU tensors; the wrappers' checks. Inputs
-come from numpy with a seed.
+``FlashCausalAttention`` on CPU tensors; head widths of 48 (zero-padded
+to 64 on the kernels' route) and 256 (the 32-row tiles) against JAX's
+flash backend; the wrappers' checks. Inputs come from numpy with a seed.
 """
 
 import math
@@ -117,7 +118,48 @@ def test_wrappers_check_their_inputs():
     meta = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ac.causal_attention_fwd(meta, meta, meta, 0.3)
-    wide = torch.zeros(1, 4, 1, 256, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    wide = torch.zeros(1, 4, 1, 256, device="meta")  # built since the 32-row tiles
+    with pytest.raises(ValueError, match="no kernel"):
         ac.causal_attention_fwd(wide, wide, wide, 0.0625)
+    wider = torch.zeros(1, 4, 1, 384, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ac.causal_attention_fwd(wider, wider, wider, 0.05)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        A.flash_causal_attention(wider, wider, wider)
+    odd = torch.zeros(1, 4, 1, 48, device="meta")  # the wrappers take built widths; the route pads
+    with pytest.raises(ValueError, match="zero-pads"):
+        ac.causal_attention_fwd(odd, odd, odd, 0.1)
     assert ac.causal_attention_fwd.launches == ac.causal_attention_bwd_dq.launches == 0
+
+
+@pytest.mark.parametrize("dh", [48, 256])
+def test_wide_and_padded_heads_match_jax(dh, monkeypatch):
+    """A head width the kernels reach through the zero padding (48 → 64)
+    and the widest they are built for (256, 32-row tiles): the port's flash
+    backend (CPU: blocked), the kernels' route ``kernel_causal_attention``
+    (the padding, then ``FlashCausalAttention`` on the plain versions) and
+    the plain versions themselves, against JAX's ``flash_causal_attention``
+    (blocked off the TPU). Values within rtol 1e-5, atol 1e-6; the
+    gradients of ``sum(out * w)`` within rtol 1e-4, atol 1e-5."""
+    q, k, v, w = _inputs(37, seed=5, h=2, dh=dh)
+    jflash = jax_attention.flash_causal_attention
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in (q, k, v))))
+    jgrads = jax.grad(lambda q, k, v: jnp.sum(jflash(q, k, v) * w), (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    scale = 1 / math.sqrt(dh)
+    widths = []
+    fwd = ac.causal_attention_fwd
+    monkeypatch.setattr(ac, "causal_attention_fwd", lambda q, *rest: widths.append(q.shape[-1]) or fwd(q, *rest))
+    routes = {"flash": A.flash_causal_attention, "kernel route": lambda *a: A.kernel_causal_attention(*a, scale)}
+    for name, fn in routes.items():
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        got = fn(*leaves)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-6, err_msg=name)
+        (got * torch.from_numpy(w)).sum().backward()
+        for leaf, g, n in zip(leaves, jgrads, "qkv"):
+            np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5, err_msg=f"{name} d{n}")
+    assert widths == [ac.kernel_width(dh)] == [64 if dh == 48 else 256]  # the route padded; flash took blocked
+    qt, kt, vt, wt = (torch.from_numpy(a) for a in (q, k, v, w))
+    out, lse = ac.causal_attention_fwd_reference(qt, kt, vt, scale)
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)
+    for n, got, g in zip("qkv", ac.causal_attention_bwd_reference(qt, kt, vt, out, lse, wt, scale), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5, err_msg=f"plain d{n}")

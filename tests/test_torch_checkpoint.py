@@ -154,3 +154,51 @@ def test_lenient_load_keeps_a_fresh_prior_that_does_not_match(capsys):
     assert "dropped it" in capsys.readouterr().err
     HopVAE(load_config("pixelcnn_mnist_28"), impl="torch", device="cpu").load_state_dict(sd)
     assert capsys.readouterr().err == ""
+
+
+def test_lenient_load_of_a_wider_prior_matches_lenient_merge(capsys):
+    """``Transformer-FFHQ-64.msgpack`` (a prior of d 128 in 4 heads) into
+    ffhq_64_scaled with ``prior_d_model=256, prior_heads=1``, the recipe of
+    the one-wide-head prior phase. JAX's ``load_params_lenient`` keeps a
+    prior leaf where the checkpoint's has its shape and the fresh one
+    elsewhere; the port's ``HopVAE.load_state_dict`` keeps the same leaves
+    (the head's bias, of shape (512,), alone), leaves the rest of the prior
+    fresh, loads the backbone whole, and warns of as many leaves as JAX."""
+    import re
+
+    import jax
+    from hopvae_torch import HopVAE, load_config
+    from hopvae_tpu.config import load_config as jax_load_config
+    from hopvae_tpu.models.hopvae import HopVAE as JaxHopVAE
+    from hopvae_tpu.utils.checkpoint import load_params_lenient
+
+    path = CKPTS / "Transformer-FFHQ-64.msgpack"
+    over = {"prior": "Transformer", "prior_d_model": 256, "prior_heads": 1}
+    jcfg, tcfg = jax_load_config("ffhq_64_scaled"), load_config("ffhq_64_scaled")
+    for k, v in over.items():
+        setattr(jcfg, k, v)
+        setattr(tcfg, k, v)
+    jm = JaxHopVAE(jcfg)
+    merged = load_params_lenient(str(path), jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0))))
+    jax_dropped = int(re.search(r"(\d+) subtree\(s\)", capsys.readouterr().err).group(1))
+    stored = params_from_jax(load_msgpack(str(path)))
+    jax_prior = params_from_jax({"prior": jax.device_get(merged["prior"])})
+
+    def from_checkpoint(sd):
+        return {k for k, v in sd.items() if k.startswith("prior.") and k in stored
+                and v.shape == stored[k].shape and torch.equal(v, stored[k])}
+
+    model = HopVAE(tcfg, impl="torch", device="cpu")
+    fresh = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(stored)
+    err = capsys.readouterr().err
+    port_dropped = int(re.search(r"(\d+) prior tensor\(s\) kept the prior's fresh initialization", err).group(1))
+    ours = model.state_dict()
+    assert from_checkpoint(ours) == from_checkpoint(jax_prior) == {"prior.head.bias"}
+    assert port_dropped == jax_dropped == len(fresh_prior := [k for k in fresh if k.startswith("prior.")]) - 1
+    for k in fresh_prior:
+        if k != "prior.head.bias":
+            torch.testing.assert_close(ours[k], fresh[k], rtol=0, atol=0, msg=k)
+    for k, v in ours.items():
+        if not k.startswith("prior."):
+            torch.testing.assert_close(v, stored[k], rtol=0, atol=0, msg=k)

@@ -54,24 +54,49 @@ def _jax(p):
     return jax.tree_util.tree_map(jnp.asarray, p)
 
 
+def _f64_forward(x, k, u, s, t):
+    """The streaming forward ``(out, m, l)`` in float64 numpy from the same
+    folded tables: the arbiter named in a failure's message."""
+    k, u, s, t = (np.asarray(a, np.float64) for a in (k, u, s, t))
+    xc = x - x.mean(-1, keepdims=True)
+    q = xc / np.sqrt((xc**2).mean(-1, keepdims=True) + 1e-5) * s + t
+    sc = q @ k.T / np.sqrt(x.shape[1])
+    m = sc.max(-1, keepdims=True)
+    p = np.exp(sc - m)
+    return p @ u / p.sum(-1, keepdims=True), m, p.sum(-1, keepdims=True)
+
+
+# one compiled program for the Pallas forward, evaluated twice in each test
+_pallas_fwd = jax.jit(hp._attn_call_fwd, static_argnums=5)
+
+
 @pytest.mark.parametrize("n,m,d_in,d_out", SHAPES)
 def test_stream_reference_matches_pallas_forward(n, m, d_in, d_out):
+    """The plain version of K1 against the Pallas forward in interpret
+    mode. The reference runs as one jitted program, twice, and must repeat
+    itself bit for bit; a mismatch names both sides' distance to a float64
+    forward of the same tables, so it says which side moved."""
     rng = np.random.default_rng(n + m)
     p = _np_params(rng, d_in, d_out, m)
     x = rng.standard_normal((n, d_in)).astype(np.float32)
     k, u, _b, s, t = hp._fold_layer(_jax(p))
     with pltpu.force_tpu_interpret_mode():
-        ref = hp._attn_call_fwd(jnp.asarray(x), k, u, s, t, jax.lax.Precision.HIGHEST)
+        ref, again = ([np.asarray(a) for a in _pallas_fwd(jnp.asarray(x), k, u, s, t, jax.lax.Precision.HIGHEST)]
+                      for _ in range(2))
+    for a, b in zip(ref, again):
+        np.testing.assert_array_equal(a, b, err_msg="the interpret-mode reference did not repeat itself")
     with torch.no_grad():
         folded = hc.fold_layer(_torch_layer(p, d_in, d_out))
         for ours, theirs in zip(folded, hp._fold_layer(_jax(p))):
             np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=RTOL, atol=ATOL)
         tk, tu, _tb, ts, tt = folded
-        out, m_stat, l_stat = hc.stream_lookup_fwd_reference(torch.from_numpy(x), tk, tu, ts, tt)
-    assert out.shape == (n, d_out) and m_stat.shape == (n, 1) and l_stat.shape == (n, 1)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref[0]), rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(m_stat.numpy(), np.asarray(ref[1]), rtol=STAT_RTOL)
-    np.testing.assert_allclose(l_stat.numpy(), np.asarray(ref[2]), rtol=STAT_RTOL)
+        got = [a.numpy() for a in hc.stream_lookup_fwd_reference(torch.from_numpy(x), tk, tu, ts, tt)]
+    assert [a.shape for a in got] == [(n, d_out), (n, 1), (n, 1)]
+    exact = _f64_forward(x, k, u, s, t)
+    for name, a, b, e, rtol, atol in zip(("out", "m", "l"), got, ref, exact, (RTOL, STAT_RTOL, STAT_RTOL),
+                                         (ATOL, 0, 0)):
+        arbiter = f"{name}: max |port - f64| {np.abs(a - e).max():.3g}, max |pallas - f64| {np.abs(b - e).max():.3g}"
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=arbiter)
 
 
 @pytest.mark.parametrize("d_in,d_out", [(64, 64), (64, 3), (3, 64)])
@@ -251,3 +276,79 @@ def test_stream_backward_checks_its_inputs():
     with pytest.raises(ValueError, match="CPU tensors"):
         hc.hopfield_lookup_stream(HopfieldLookup(64, 3, 50, device="meta"), torch.zeros(2, 4, 64, device="meta"),
                                   impl="torch")
+
+
+# ------------------------------------------------------------ K4
+
+
+def _bottleneck_params(rng, m):
+    return {
+        "hopfield": _np_params(rng, 64, 64, m),
+        "embedding_to_index": _np_params(rng, 64, 3, m),
+        "index_to_embedding": _np_params(rng, 3, 64, m),
+    }
+
+
+@pytest.mark.parametrize("m,shape", [(256, (2, 40, 64)), (300, (37, 64))])
+def test_fused_reference_matches_pallas_singleshot(m, shape):
+    """K4's plain version against the TPU's single-shot fused kernel
+    ``_bottleneck_fwd_pallas`` in interpret mode, as
+    tests/test_pallas.py::test_singleshot_kernel_matches_reference runs it:
+    at its shapes (M 256, x (2, 40, 64)) and at ragged N and M (37 tokens,
+    M 300). ``e`` and ``r`` within rtol 1e-4, atol 1e-5; ``zq`` equal."""
+    rng = np.random.default_rng(m + shape[0])
+    params = _bottleneck_params(rng, m)
+    x = rng.standard_normal(shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(a) for a in hp._bottleneck_fwd_pallas(_jax(params), jnp.asarray(x), 512)]
+    with torch.no_grad():
+        got = hc.bottleneck_fused_fwd_reference(*_layers(params).values(), torch.from_numpy(x), 512)
+    for name, a, w in zip(("e", "zq", "r"), got, want):
+        assert a.shape == w.shape, name
+        if name == "zq":
+            np.testing.assert_array_equal(a.numpy(), w)
+        else:
+            np.testing.assert_allclose(a.numpy(), w, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_fused_reference_matches_the_streaming_bottleneck():
+    """K4's plain version and the port's streaming bottleneck on its plain
+    path compute the same ``(e, zq, r)``, bit for bit: the same lookups and
+    shifts, and the straight-through round's forward value is the round."""
+    rng = np.random.default_rng(11)
+    params = _bottleneck_params(rng, 600)
+    x = torch.from_numpy(rng.standard_normal((3, 41, 64)).astype(np.float32))
+    layers = _layers(params)
+    with torch.no_grad():
+        got = hc.bottleneck_fused_fwd_reference(*layers.values(), x, 512)
+        want = streaming_bottleneck(layers, x, 512, impl="torch")
+    for name, a, w in zip(("e", "zq", "r"), got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0, msg=name)
+
+
+def test_fused_wrapper_routes_and_checks():
+    """K4's wrapper takes the plain version on CPU tensors (no launch),
+    raises "no kernel" on a meta tensor and "forward-only" with autograd
+    on, and checks the lookups' widths, x and the level count."""
+    rng = np.random.default_rng(12)
+    layers = list(_layers(_bottleneck_params(rng, 70)).values())
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    hc.bottleneck_fused_fwd.launches = 0
+    with torch.no_grad():
+        got = hc.bottleneck_fused_fwd(*layers, x, 512)
+        want = hc.bottleneck_fused_fwd_reference(*layers, x, 512)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    meta = [HopfieldLookup(d_in, d_out, 70, device="meta") for d_in, d_out in hc.SUPPORTED]
+    xm = torch.zeros(5, 64, device="meta")
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+        hc.bottleneck_fused_fwd(*meta, xm, 512)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        hc.bottleneck_fused_fwd(*meta, xm, 512)
+    with pytest.raises(ValueError, match="d_in, d_out"):
+        hc.bottleneck_fused_fwd(meta[0], meta[0], meta[2], xm, 512)
+    with pytest.raises(ValueError, match="float32"):
+        hc.bottleneck_fused_fwd(*layers, x.double(), 512)
+    with pytest.raises(ValueError, match="num_levels"):
+        hc.bottleneck_fused_fwd(*layers, x, 1)
+    assert hc.bottleneck_fused_fwd.launches == 0

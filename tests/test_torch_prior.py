@@ -102,6 +102,25 @@ def test_tiny_prior_matches_jax(heads, kv_heads, attn):
         np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), rtol=5e-4, atol=1e-6, err_msg=name)
 
 
+def test_one_wide_head_prior_matches_jax():
+    """The recipe of ``--set prior_d_model=256 --set prior_heads=1`` at a
+    tiny size: one head of 256, one layer, S = 14·14·3 = 588 ≥ 512, so
+    ``auto`` picks flash on both sides (the K5 kernels at head width 256 on
+    the card; the blocked path on the CPU). Logits and every parameter's
+    NLL gradient at the tolerances of ``test_tiny_prior_matches_jax``."""
+    jprior, params, prior, cfg = _pair(representation_dim=14, prior_d_model=256, prior_heads=1, prior_layers=1)
+    assert prior.blocks[0].attn == jprior.attn == "flash" and prior.seq == 588
+    g = _grid(cfg)
+    want = jax.jit(jprior.forward)(params, jnp.asarray(g))
+    jgrads = jax.jit(jax.grad(lambda p: _jax_nll_bits(jprior.forward(p, jnp.asarray(g)), jnp.asarray(g))))(params)
+    got = prior(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    _nll_bits(got, torch.from_numpy(g)).backward()
+    want_grads = _prior_state(jgrads)
+    for name, p in prior.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), rtol=5e-4, atol=1e-6, err_msg=name)
+
+
 def test_causality():
     """Logits at position p depend on no grid value at or after p."""
     _, _, prior, cfg = _pair()

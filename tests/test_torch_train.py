@@ -311,6 +311,23 @@ def test_cli_trains_the_prior_phase(tmp_path):
     assert ckpt["fit_prior"] is True and "prior.tok_emb" in ckpt["model"]
 
 
+def test_cli_trains_the_prior_phase_with_one_wide_head(tmp_path):
+    """The one-wide-head recipe (``prior_d_model=256``, ``prior_heads=1``)
+    through the prior-phase CLI on the CPU at a small override, with
+    ``prior_attn=flash``: the K5 kernels at head width 256 on the card, the
+    blocked path here. Every epoch is a prior epoch, and the checkpoint
+    holds the 256-wide prior."""
+    out = tmp_path / "wide"
+    over = {**SMALL, "batch_size": 512, **TINY_PRIOR, "prior_d_model": 256, "prior_heads": 1, "prior_layers": 1,
+            "prior_attn": "flash", "prior_start": -1}
+    ttrain.main(["--config", "mnist_28", "--device", "cpu", "--impl", "torch", "--epochs", "1", "--out", str(out),
+                 *(f"--set={k}={v}" for k, v in over.items())])
+    records = [json.loads(l) for l in open(out / "metrics.jsonl") if "Train Reconstruction Error" in l]
+    assert len(records) == 1 and records[0]["fit_prior"] and np.isfinite(records[0]["train_loss_per_batch"])
+    model = torch.load(out / "MNIST-28.pt")["model"]
+    assert model["prior.blocks.0.qkv.weight"].shape == (768, 256) and "prior.blocks.1.qkv.weight" not in model
+
+
 def test_cli_without_card_raises(monkeypatch):
     """No --device means the card; without one the CLI raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

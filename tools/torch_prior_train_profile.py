@@ -1,6 +1,6 @@
 """Profile the port's prior-phase training step on the card (PyTorch/CUDA port).
 
-    python3 tools/torch_prior_train_profile.py [--steps 5] [--trace PATH]
+    python3 tools/torch_prior_train_profile.py [--steps 5] [--trace PATH] [--set KEY=VALUE ...]
 
 Builds ``ffhq_64_scaled`` with ``prior=Transformer`` and ``prior_start=-1``
 from ``checkpoints/Transformer-FFHQ-64.msgpack`` on the production path
@@ -10,6 +10,9 @@ steps, then runs ``--steps`` steps of ``Trainer.train_step`` under
 host clock, the device busy share (the union of GPU activity intervals
 over the window), and device time per step by kernel name and by the
 host op that launched it. ``--trace`` also writes a Chrome trace.
+``--set`` overrides config keys as the train CLI's does, for example
+``--set prior_d_model=256 --set prior_heads=1`` for one head of 256 (the
+checkpoint's prior leaves of another shape then stay fresh).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from hopvae_torch.config import load_config  # noqa: E402
+from hopvae_torch.config import apply_overrides, load_config  # noqa: E402
 from hopvae_torch.data import _normalize, synthetic_images  # noqa: E402
 from hopvae_torch.models.hopvae import HopVAE  # noqa: E402
 from hopvae_torch.train import Trainer, load_weights  # noqa: E402
@@ -38,12 +41,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--trace", default=None, help="write a Chrome trace here")
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE", help="config override")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_prior_train_profile: no CUDA device", file=sys.stderr)
         return 2
     cfg = load_config("ffhq_64_scaled")
     cfg.prior, cfg.prior_start = "Transformer", -1
+    apply_overrides(cfg, args.set, config_name="ffhq_64_scaled")
     model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
     load_weights(model, str(ROOT / "checkpoints" / "Transformer-FFHQ-64.msgpack"))
     trainer = Trainer(model, cfg)
@@ -76,6 +81,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "steps": args.steps,
+        "prior": {"d_model": model.prior.d, "heads": model.prior.heads},
         "wall_ms_per_step": wall_ms / args.steps,
         "device_busy_ms_per_step": busy / args.steps,
         "device_busy_share": busy / wall_ms,
