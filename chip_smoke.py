@@ -30,10 +30,14 @@ Thirteen phases, each of which raises on failure:
    their plain versions, f32 with TF32 off, at the prior's full width
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
    prior gives them), at ``prior_heads=1`` (one head of 128), at one head
-   of 256 (``prior_d_model=256``, the 32-row tiles), and at small ragged
-   shapes (one of them at 256); the backward runs twice and must repeat
-   bit for bit; kernel, plain, bound and SDPA times. Then a head of 48
-   through the zero padding to 64, forward and backward by autograd.
+   of 256 (``prior_d_model=256``), and at small ragged shapes (one at 256,
+   one with views off 16-byte alignment); the backward, whose products
+   run on the tensor cores in three TF32 passes, runs twice and must
+   repeat bit for bit; kernel, plain and SDPA times, the f32 bound
+   (``bound_ms``) and the three-pass TF32 bound (``bound_tc_ms``), and
+   the backward kernels' registers, shared bytes and blocks an SM per
+   width. Then a head of 48 through the zero padding to 64, forward and
+   backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
    on the committed grid through K5, and ``HopVAE.forward(fit_prior=True)``
    on the golden batch, against the JAX numbers in ``PRIOR_GOLDENS``.
@@ -100,6 +104,9 @@ CHECKPOINTS = ROOT / "checkpoints"
 # results per clock per SM (CUDA C++ Programming Guide, compute 9.0).
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# dense TF32 on the tensor cores (NVIDIA data sheet): K5's backward runs its
+# products in three TF32 passes, so its bound counts 3x its FLOPs at it
+TF32_FLOPS = 495e12
 SFU_PER_CLOCK_PER_SM = 16
 
 OUT_ATOL = 1e-4  # out: f32 sums in another order than cuBLAS's
@@ -189,11 +196,13 @@ def phase_environment() -> dict:
 # ------------------------------------------------------------ phase 2
 
 
-def roof(flops: float, exps: float, floats: float, exp_per_s: float) -> tuple[float, str]:
-    """Least time (ms) of a kernel: its FLOPs at the f32 peak and its exps
-    on the SFUs (they overlap) against the f32 words it must move at the
-    HBM rate, each input read once and each output written once."""
-    ops_s = max(flops / F32_FLOPS, exps / exp_per_s)
+def roof(flops: float, exps: float, floats: float, exp_per_s: float, flops_per_s: float = F32_FLOPS
+         ) -> tuple[float, str]:
+    """Least time (ms) of a kernel: its FLOPs at ``flops_per_s`` (the f32
+    peak unless given) and its exps on the SFUs (they overlap) against the
+    f32 words it must move at the HBM rate, each input read once and each
+    output written once."""
+    ops_s = max(flops / flops_per_s, exps / exp_per_s)
     bytes_s = 4 * floats / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
@@ -658,7 +667,8 @@ ATTENTION_COUNTERS = {
     "causal_attention_bwd_dq": ac.causal_attention_bwd_dq,
 }
 # (label, B, S, heads, dh): the prior at full width, at prior_heads=1, and
-# small ragged shapes (S a multiple of no tile, of one tile, below one)
+# small ragged shapes (S a multiple of no tile, of one tile, below one);
+# "misaligned" views take the backward's 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
@@ -667,29 +677,37 @@ ATTENTION_CASES = (
     ("ragged S37", 2, 37, 2, 8),
     ("ragged S48", 2, 48, 2, 8),
     ("ragged S37 dh256", 2, 37, 1, 256),
+    ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
 PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
 
 
-def attention_bound(kernel: str, b, s, h, dh, exp_per_s) -> tuple[float, str]:
+def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
     """Least time of one K5 launch. Each product over the causal triangle
     is 2·dh·S(S+1)/2 FLOPs per head; the forward needs 2 (QKᵀ, PV), dK/dV
     4 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) and dQ 3 (QKᵀ, dO·Vᵀ, dS·K), each with
     one exp per score. Words: q, k, v (and dO, lse, delta) read once, the
-    outputs (out and lse; dK and dV; dQ) written once."""
+    outputs (out and lse; dK and dV; dQ) written once. ``tensor_cores``:
+    three times the FLOPs at the TF32 rate (the backward's three passes)
+    instead of the FLOPs at the f32 rate of the CUDA cores."""
     pairs = b * h * s * (s + 1) / 2
     products = {"fwd": 2, "dkv": 4, "dq": 3}[kernel]
     tensor = b * s * h * dh
     words = {"fwd": 4 * tensor + b * h * s, "dkv": 6 * tensor + 2 * b * h * s,
              "dq": 5 * tensor + 2 * b * h * s}[kernel]
-    return roof(products * 2 * dh * pairs, pairs, words, exp_per_s)
+    flops = products * 2 * dh * pairs
+    if tensor_cores:
+        return roof(3 * flops, pairs, words, exp_per_s, TF32_FLOPS)
+    return roof(flops, pairs, words, exp_per_s)
 
 
-def attention_inputs(b, s, h, dh, g: torch.Generator):
+def attention_inputs(b, s, h, dh, g: torch.Generator, offset: int = 0):
     """q, k, v as strided views of one ``(B, S, 3·h·dh)`` projection, as
-    the prior's split gives them, and a contiguous cotangent."""
-    qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=g)
-    q, k, v = (qkv[..., i * h * dh : (i + 1) * h * dh].view(b, s, h, dh) for i in range(3))
+    the prior's split gives them, and a contiguous cotangent. ``offset``
+    floats before q (and as many more in the row stride) leave the views
+    off the 16-byte alignment the backward's 16-byte copies need."""
+    qkv = torch.randn(b, s, 3 * h * dh + offset, device="cuda", generator=g)
+    q, k, v = (qkv[..., offset + i * h * dh : offset + (i + 1) * h * dh].view(b, s, h, dh) for i in range(3))
     return q, k, v, torch.randn(b, s, h, dh, device="cuda", generator=g)
 
 
@@ -723,11 +741,16 @@ def sdpa_causal_ms(q, k, v, g, reps) -> dict:
 def phase_attention_vs_plain(env: dict) -> list[dict]:
     """K5-fwd, K5-dkv and K5-dq against their plain versions on the same
     inputs, the backward from the kernel's own lse; each backward kernel
-    runs twice and must repeat bit for bit."""
+    runs twice and must repeat bit for bit. Each row carries both bounds
+    (``bound_ms`` at the f32 rate, ``bound_tc_ms`` with three TF32 passes
+    on the tensor cores) and, for the backward, the kernel's registers,
+    shared bytes and blocks an SM at that width as the card reports them."""
+    log(json.dumps({"k5_backward_builds": {dh: {kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}
+                                           for dh in ac.HEAD_DIMS}}))
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for label, b, s, h, dh in ATTENTION_CASES:
-        q, k, v, g = attention_inputs(b, s, h, dh, gen)
+        q, k, v, g = attention_inputs(b, s, h, dh, gen, offset=1 if "misaligned" in label else 0)
         scale = 1.0 / math.sqrt(dh)
         big = b * h * s * s > 1e8
         reps, plain_reps = (10, 3) if big else (50, 20)
@@ -759,6 +782,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
         lib = sdpa_causal_ms(q, k, v, g, reps)
         for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",))):
             b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
+            tc_ms, tc_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"], tensor_cores=True)
             row = {
                 "kernel": f"causal_attention_{'fwd' if kn == 'fwd' else 'bwd_' + kn}", "shape": label,
                 "b": b, "s": s, "h": h, "dh": dh, "normwise_err": dict(zip(names, errs[kn])),
@@ -766,8 +790,10 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 "ms": times[kn][0], "plain_ms": times[kn][1],
                 "library_ms": lib["fwd_ms"] if kn == "fwd" else lib["bwd_ms"],
                 "library_fwd_bwd_ms": lib["fwd_bwd_ms"], "library_backend": lib["backend"],
-                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             }
+            if kn != "fwd":
+                row["build"] = ac.backward_attributes(kn, dh)
             log(json.dumps(row))
             rows.append(row)
             limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
@@ -1152,7 +1178,8 @@ def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = F
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": full["library_ms"],
+        "library_ms": full["library_ms"], "bound_tc_ms": full["bound_tc_ms"],
+        **({"build": full["build"]} if "build" in full else {}),
         "max_normwise_err": max(max(r["normwise_err"].values()) for r in mine),
         "library_fwd_bwd_ms": full["library_fwd_bwd_ms"], "library_backend": full["library_backend"],
         "shapes": mine,

@@ -13,283 +13,429 @@
 // and K5-dkv computes dV = P^T g and dK = scale * dS^T q, K5-dq computes
 // dQ = scale * dS k.
 //
-// What bounds them on an H100: arithmetic. K5-dkv does four products over
-// the causal triangle (q k^T, g v^T, P^T g, dS^T q) and K5-dq three
-// (q k^T, g v^T, dS k), 2 * D * S(S+1)/2 FLOPs each per head, against
-// reading q, k, v, g and writing the gradients once: at B = 256, S = 867,
-// 4 heads of D = 32, 1.47 and 1.10 ms at the f32 peak of the CUDA cores
-// against about 0.2 ms of memory traffic each (2.94 and 2.21 ms at one
-// head of D = 256). The split recomputes the scores and g v^T in both
-// kernels; one fused kernel would need float atomics for dQ, and the
-// backward must repeat bit for bit.
+// What bounds them on an H100: the tensor cores. K5-dkv does four products
+// over the causal triangle (q k^T, g v^T, P^T g, dS^T q) and K5-dq three
+// (q k^T, g v^T, dS k), 2 * D * S(S+1)/2 FLOPs each per head. Every one
+// runs as mma.sync m16n8k8 on TF32 operands in three passes (mma_tf32.cuh),
+// so the ceiling is 495 / 3 = 165 TFLOP/s f32-equivalent: at B = 256,
+// S = 867, one head of D = 256, 1.20 and 0.90 ms, against about 0.2 ms of
+// memory traffic each. One TF32 pass (11 bits of mantissa) would move dQ,
+// dK and dV by about 1e-3 normwise, far past the 5e-5 the port holds them
+// to; three passes keep about 21 bits, which with f32 sums lands where
+// plain f32 does (tests/test_torch_attention_tf32.py emulates both). On
+// the card the tensor cores' truncating sums add a little: 3e-6 normwise
+// at S = 867 (see the design below). P is rebuilt from lse with scores from
+// these products, not from the forward's FMA sums: the two differ by about
+// 1e-7 relative, which moves P by about 1e-6.
+// The split into two kernels recomputes the scores and g v^T in both; one
+// fused kernel would need float atomics for dQ, and the backward must
+// repeat bit for bit.
 //
-// Design:
-// - Tiles of T = 64 rows or keys, 32 at D = 256 (causal_attention.cuh
-//   says why).
-// - K5-dkv: one block of 256 threads per T keys of one head. dK and dV
-//   for its keys stay in registers while it walks the query tiles from
-//   its diagonal to the end, so each block alone writes its outputs and
-//   no float atomics are needed. The k and v tiles stay in shared memory;
-//   each q and g tile, with its lse and delta, is staged there in turn.
-// - K5-dq: one block per T query rows of one head, walking the key tiles
-//   up to its diagonal, dQ in registers.
-// - Thread (ty, tx) computes an R x R block (R = T/16) of scores and of
-//   g v^T; P and dS go through shared memory into the products that
-//   reduce over rows (dV, dK) or keys (dQ), where each thread owns R rows
-//   and D/16 columns of the output.
-// - Both mask key > row on the diagonal tile and rows past S themselves;
-//   the inputs are strided views, read with their own strides.
-// - Plain f32 FMA on the CUDA cores; the score product is the forward's
-//   (same FMA order), so P is rebuilt from the very scores lse summarised.
+// Design (M: the block's resident rows, keys in K5-dkv and query rows in
+// K5-dq; N: the rows it streams, query rows in K5-dkv and keys in K5-dq):
+// - One block owns TM resident rows of one (batch, head) and walks the
+//   streamed tiles of TN rows: K5-dkv from its diagonal to the end, K5-dq
+//   up to its diagonal. Each output belongs to one block and is summed in
+//   a fixed order: no float atomics. Blocks with the most tiles launch
+//   first.
+// - The resident tiles (k, v in K5-dkv; q, g in K5-dq) load once; each
+//   streamed pair (q, g with lse and delta; k, v) arrives by cp.async into
+//   one of two buffers while the other is multiplied. 16-byte copies where
+//   an input's base and strides allow it, 4-byte ones where not; rows past
+//   S are zero-filled and never written.
+// - A warp owns a 16-row slab of the resident tile (the M of an m16
+//   mma). With SPLIT warps a slab, each computes the slab's scores and
+//   g v^T against the whole streamed tile over 1/SPLIT of the head width;
+//   the partial sums meet in shared memory and are added in warp order,
+//   each warp finishing 1/SPLIT of the score n-tiles (P, dS) and handing
+//   them to the others. Each warp owns 1/SPLIT of the output columns, its
+//   dK and dV (or dQ) in accumulator fragments.
+// - The score fragments (C layout) become the A operand of the products
+//   that sum over the streamed rows (dV, dK, dQ) without a transpose: the
+//   k index of those products is permuted so that k = t is streamed row 2t
+//   and k = t + 4 row 2t + 1, which makes C's (c0, c2, c1, c3) an A
+//   fragment; the B operand is read from the same permuted rows. With
+//   SPLIT = 1 they stay in registers; with SPLIT > 1 they go through
+//   shared memory in fragment order (one float4 a lane), in f32.
+// - dK, dV and dQ are summed over each streamed tile in fresh fragments
+//   and added to the running sums after it: the tensor cores' sums
+//   truncate, and chains of a few dozen mma keep that error near 3e-6
+//   normwise at S = 867 (one chain over the whole walk gave 1.5e-5).
+// - Shared memory holds f32 only, rows D + 4 floats apart: D + 4 is 4
+//   times an odd number, so the fragment loads by row g (ldmatrix: eight
+//   16-byte rows in eight bank groups) and those by permuted row 2t
+//   (scalar, banks 8t + g or 8t + 4 + g) hit 32 banks; a tile read in
+//   both roles (q and g in K5-dkv, k in K5-dq) needs no swizzle.
+//
+//   D       TM  TN  SPLIT  warps  shared bytes (dkv / dq)
+//   8..64   64  32  1      4      1024 (D + 4) + 512 / 1024 (D + 4)
+//   128     64  32  2      8      152,064 / 151,552
+//   256     32  32  4      8      216,576 / 216,064
+//   (At D = 256 a 16-row slab of dK and dV over the full width would take
+//   128 accumulators a thread; four warps a slab keep 32 of each. 64-key
+//   tiles with double-buffered q and g would not fit 227 KB.)
+//
+//   Registers and blocks an SM per width (no spills at any width) are in
+//   PERF.md, from causal_attention_bwd_attributes on the card.
+
+#include <cstdint>
 
 #include "causal_attention.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-using namespace causal_attention;
-
-// P and dS of one T x T tile for rows q0 + ty*R + i and keys
-// k0 + tx + 16*j, from the q, k, v, g tiles and the rows' lse and delta.
-template <int D>
-__device__ __forceinline__ void probs_and_dscores(float (&p)[per_thread<D>()][per_thread<D>()],
-                                                  float (&ds)[per_thread<D>()][per_thread<D>()],
-                                                  const float* q_s, const float* k_s, const float* v_s,
-                                                  const float* g_s, const float* lse_s, const float* dl_s,
-                                                  int q0, int k0, int s, float scale, int ty, int tx) {
-  constexpr int R = per_thread<D>();
-  dot_tile<D>(p, q_s, k_s, ty, tx);
-  dot_tile<D>(ds, g_s, v_s, ty, tx);
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty * R + i;
-    const int row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const bool live = row < s && k0 + tx + 16 * j <= row;
-      const float pr = live ? __expf(p[i][j] * scale - lse_s[r]) : 0.f;
-      p[i][j] = pr;
-      ds[i][j] = pr * (ds[i][j] - dl_s[r]);
-    }
-  }
-}
-
-// lse and delta of rows [q0, q0 + T) of head bh, zeros past S
-template <int D>
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s, const float* __restrict__ lse,
-                                               const float* __restrict__ delta, int bh, int q0, int s) {
-  const int r = threadIdx.x;
-  if (r < tile<D>()) {
-    const bool in = q0 + r < s;
-    const size_t at = static_cast<size_t>(bh) * s + q0 + r;
-    lse_s[r] = in ? lse[at] : 0.f;
-    dl_s[r] = in ? delta[at] : 0.f;
-  }
-}
+using causal_attention::out_offset;
+using causal_attention::Strides;
+using namespace tf32x3;
 
 template <int D>
+struct Tiles {
+  static constexpr int TM = D > 128 ? 32 : 64;  // resident rows of a block
+  static constexpr int TN = 32;                 // streamed rows of a tile
+  static constexpr int NT = TN / 8;             // n-tiles of a 16 x TN score slab
+  static constexpr int SPLIT = D > 128 ? 4 : D > 64 ? 2 : 1;  // warps of a 16-row slab
+  static constexpr int WARPS = TM / 16 * SPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int RS = D + 4;              // row stride in shared memory
+  static constexpr int KD = D / SPLIT;          // depth of a warp's part of the scores
+  static constexpr int NTO = NT / SPLIT;        // score n-tiles a warp finishes
+  static constexpr int CT = D / SPLIT / 8;      // output n-tiles of a warp
+  static constexpr int XCH = TM / 16 * SPLIT * NT * 128;  // floats of one exchange
+  static_assert(TM % TN == 0 && NT % SPLIT == 0 && CT >= 1 && KD % 8 == 0, "tiles");
+};
+
+// floats of shared memory: two resident tiles, two buffers of two streamed
+// tiles, K5-dkv's two buffers of the streamed rows' lse and delta, and,
+// when SPLIT > 1, the exchange of partial scores, reused for the hand-over
+// of P and dS (K5-dkv) or dS (K5-dq)
+template <int D, bool DKV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (4 * tile<D>() * row_stride<D>() + 2 * tile<D>() * p_stride<D>() + 2 * tile<D>());
+  using C = Tiles<D>;
+  const size_t stats = DKV ? 4 * C::TN : 0;
+  const size_t exchange = C::SPLIT > 1 ? C::XCH : 0;
+  static_assert(C::SPLIT == 1 || (DKV ? 2 : 1) * C::TM * C::TN <= C::XCH, "the hand-over fits the exchange");
+  return sizeof(float) * (2 * C::TM * C::RS + 4 * C::TN * C::RS + stats + exchange);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-causal_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      const float* __restrict__ g, const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int s,
-                      int h, Strides qs, Strides ks, Strides vs, Strides gs, float scale) {
-  constexpr int T = tile<D>();
-  constexpr int R = per_thread<D>();
-  constexpr int RS = row_stride<D>();
-  constexpr int PS = p_stride<D>();
-  constexpr int COLS = cols<D>();
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + T * RS;
-  float* q_s = v_s + T * RS;
-  float* g_s = q_s + T * RS;
-  float* p_s = g_s + T * RS;  // p_s[row][key]
-  float* d_s = p_s + T * PS;  // dS, d_s[row][key]
-  float* lse_s = d_s + T * PS;
-  float* dl_s = lse_s + T;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bh = blockIdx.x;
-  const int b = bh / h;
-  const int hh = bh - b * h;
-  const int kt = blockIdx.y;  // the longest columns (kt = 0) first
-  const int k0 = kt * T;
-  const int n_tiles = gridDim.y;
-  const bool owns_cols = tx * COLS < D;
-
-  load_tile<D>(k_s, k, ks, b, hh, k0, s);
-  load_tile<D>(v_s, v, vs, b, hh, k0, s);
-
-  float acc_k[R][COLS], acc_v[R][COLS];  // keys ty*R+i, columns tx*COLS+c
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int qt = kt; qt < n_tiles; ++qt) {
-    const int q0 = qt * T;
-    load_tile<D>(q_s, q, qs, b, hh, q0, s);
-    load_tile<D>(g_s, g, gs, b, hh, q0, s);
-    load_row_stats<D>(lse_s, dl_s, lse, delta, bh, q0, s);
-    __syncthreads();
-
-    float p[R][R], ds[R][R];
-    probs_and_dscores<D>(p, ds, q_s, k_s, v_s, g_s, lse_s, dl_s, q0, k0, s, scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        p_s[(ty * R + i) * PS + tx + 16 * j] = p[i][j];
-        d_s[(ty * R + i) * PS + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-
-    // ---- dV += P^T g, dK += dS^T q, summed over the tile's rows in order
-    if (owns_cols) {
-#pragma unroll 4
-      for (int r = 0; r < T; ++r) {
-        float pk[R], dk4[R], gr[COLS], qr[COLS];
-        load_vec<R>(pk, p_s + r * PS + ty * R);
-        load_vec<R>(dk4, d_s + r * PS + ty * R);
-        load_vec<COLS>(gr, g_s + r * RS + tx * COLS);
-        load_vec<COLS>(qr, q_s + r * RS + tx * COLS);
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) {
-            acc_v[i][c] = fmaf(pk[i], gr[c], acc_v[i][c]);
-            acc_k[i][c] = fmaf(dk4[i], qr[c], acc_k[i][c]);
-          }
-      }
+// Stage rows [row0, row0 + ROWS) of head (b, hh) of a strided input into
+// shared memory (ROWS x (D + 4)) by cp.async, zeros past the sequence end.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, Strides st, int b, int hh,
+                                      int row0, int s, bool vec16) {
+  constexpr int RS = D + 4;
+  const float* base = src + b * st.b + hh * st.h;
+  if (vec16) {
+    constexpr int CH = D / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 4;
+      const bool in = row0 + r < s;
+      cp_async16(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
     }
-    __syncthreads();  // the next tile overwrites q_s, g_s, p_s, d_s and the stats
-  }
-
-  if (!owns_cols) return;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + ty * R + i;
-    if (key >= s) continue;
-    const size_t at = out_offset<D>(b, key, hh, s, h) + tx * COLS;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      dk[at + c] = acc_k[i][c] * scale;
-      dv[at + c] = acc_v[i][c];
+  } else {
+    for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
+      const int r = i / D;
+      const int c = i - r * D;
+      const bool in = row0 + r < s;
+      cp_async4(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-causal_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq, int s, int h, Strides qs,
-                     Strides ks, Strides vs, Strides gs, float scale) {
-  constexpr int T = tile<D>();
-  constexpr int R = per_thread<D>();
-  constexpr int RS = row_stride<D>();
-  constexpr int PS = p_stride<D>();
-  constexpr int COLS = cols<D>();
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* g_s = q_s + T * RS;
-  float* k_s = g_s + T * RS;
-  float* v_s = k_s + T * RS;
-  float* d_s = v_s + T * RS;  // dS transposed, d_s[key][row]
-  float* lse_s = d_s + 2 * T * PS;
-  float* dl_s = lse_s + T;
+// The A fragment of rows 0..15 and columns 0..7 of a tile in shared memory.
+template <int RS>
+__device__ __forceinline__ FragA load_a(const float* p, int gq, int tq) {
+  const int lane = 4 * gq + tq;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 4 * (lane >> 4));
+  return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+// The B fragments B[k][n] = Y[n][k] of two n-tiles, rows n = 0..15,
+// columns k = 0..7.
+template <int RS>
+__device__ __forceinline__ void load_b_rows2(FragB& f0, FragB& f1, const float* p, int gq, int tq) {
+  const int lane = 4 * gq + tq;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
+  f0 = split_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  f1 = split_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// The B fragment B[k][n] = Y[k][n] over the permuted k: rows 2t and 2t + 1.
+template <int RS>
+__device__ __forceinline__ FragB load_b_cols(const float* p, int gq, int tq) {
+  return split_b(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
+}
+
+// Sum the SPLIT warps' partial fragments of a slab's score n-tiles: each
+// warp writes its NT partials, then adds up, in warp order, those of the
+// NTO n-tiles it finishes. x: the slab's exchange, [warp][n-tile][lane].
+template <int NT, int NTO, int SPLIT>
+__device__ __forceinline__ void reduce_parts(float (&part)[NT][4], float (&sum)[NTO][4], float4* x, int w, int lane,
+                                             int bar) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) x[(w * NT + j) * 32 + lane] = make_float4(part[j][0], part[j][1], part[j][2], part[j][3]);
+  named_barrier(bar, 32 * SPLIT);
+#pragma unroll
+  for (int jj = 0; jj < NTO; ++jj) {
+    float4 a = x[(w * NTO + jj) * 32 + lane];
+#pragma unroll
+    for (int p = 1; p < SPLIT; ++p) {
+      const float4 b = x[(p * NT + w * NTO + jj) * 32 + lane];
+      a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+    }
+    sum[jj][0] = a.x, sum[jj][1] = a.y, sum[jj][2] = a.z, sum[jj][3] = a.w;
+  }
+  named_barrier(bar, 32 * SPLIT);  // the exchange is free again
+}
+
+template <int D, bool DKV>
+__global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
+causal_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ out_a, float* __restrict__ out_b, int s, int h, Strides qs, Strides ks,
+                  Strides vs, Strides gs, float scale, unsigned vec16) {
+  using C = Tiles<D>;
+  constexpr int TM = C::TM, TN = C::TN, NT = C::NT, RS = C::RS, SPLIT = C::SPLIT, THREADS = C::THREADS;
+  constexpr int NTO = C::NTO, CT = C::CT;
+  extern __shared__ float4 smem4[];
+  float* res0 = reinterpret_cast<float*>(smem4);  // k (dkv) or q (dq)
+  float* res1 = res0 + TM * RS;                    // v (dkv) or g (dq)
+  float* str = res1 + TM * RS;                     // buffer u: streamed tiles at str + u * 2 * TN * RS
+  float* stat = str + 4 * TN * RS;                 // dkv, buffer u: lse, delta at stat + u * 2 * TN
+  float4* xch = reinterpret_cast<float4*>(stat + (DKV ? 4 * TN : 0));  // exchange and hand-over
+
+  // inputs by role: resident 0 and 1, streamed 0 and 1; vec16 has bits q, k, v, g
+  const float* r0p = DKV ? k : q;
+  const float* r1p = DKV ? v : g;
+  const float* s0p = DKV ? q : k;
+  const float* s1p = DKV ? g : v;
+  const Strides r0s = DKV ? ks : qs, r1s = DKV ? vs : gs, s0s = DKV ? qs : ks, s1s = DKV ? gs : vs;
+  const bool r0v = vec16 >> (DKV ? 1 : 0) & 1u, r1v = vec16 >> (DKV ? 2 : 3) & 1u;
+  const bool s0v = vec16 >> (DKV ? 0 : 1) & 1u, s1v = vec16 >> (DKV ? 3 : 2) & 1u;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int slab = warp / SPLIT, part = warp % SPLIT;
+  const int m0 = 16 * slab;  // the warp's resident rows in the tile
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int hh = bh - b * h;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
-  const int q0 = qt * T;
-  const bool owns_cols = tx * COLS < D;
+  const int mt = DKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;  // the longest walks first
+  const int row_m0 = mt * TM;
+  const int first = DKV ? row_m0 / TN : 0;
+  const int last = DKV ? (s - 1) / TN : (min(row_m0 + TM, s) - 1) / TN;
+  const int slab_lo = row_m0 + m0;  // its first resident row (key or query row)
+  float4* x = xch + slab * SPLIT * NT * 32;  // the slab's exchange
+  const int bar = 1 + slab;                  // the slab's named barrier
 
-  load_tile<D>(q_s, q, qs, b, hh, q0, s);
-  load_tile<D>(g_s, g, gs, b, hh, q0, s);
-  load_row_stats<D>(lse_s, dl_s, lse, delta, bh, q0, s);
+  stage<D, TM, THREADS>(res0, r0p, r0s, b, hh, row_m0, s, r0v);
+  stage<D, TM, THREADS>(res1, r1p, r1s, b, hh, row_m0, s, r1v);
 
-  float acc[R][COLS];  // rows ty*R+i, columns tx*COLS+c
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * T;
-    load_tile<D>(k_s, k, ks, b, hh, k0, s);
-    load_tile<D>(v_s, v, vs, b, hh, k0, s);
-    __syncthreads();
-
-    float p[R][R], ds[R][R];
-    probs_and_dscores<D>(p, ds, q_s, k_s, v_s, g_s, lse_s, dl_s, q0, k0, s, scale, ty, tx);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      float col[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) col[i] = ds[i][j];
-      store_vec<R>(d_s + (tx + 16 * j) * PS + ty * R, col);
-    }
-    __syncthreads();
-
-    // ---- dQ += dS k, summed over the tile's keys in order
-    if (owns_cols) {
-#pragma unroll 4
-      for (int kk = 0; kk < T; ++kk) {
-        float dr[R], kr[COLS];
-        load_vec<R>(dr, d_s + kk * PS + ty * R);
-        load_vec<COLS>(kr, k_s + kk * RS + tx * COLS);
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(dr[i], kr[c], acc[i][c]);
+  auto stage_stream = [&](int it, int u) {
+    float* y = str + u * 2 * TN * RS;
+    stage<D, TN, THREADS>(y, s0p, s0s, b, hh, it * TN, s, s0v);
+    stage<D, TN, THREADS>(y + TN * RS, s1p, s1s, b, hh, it * TN, s, s1v);
+    if constexpr (DKV) {
+      float* st = stat + u * 2 * TN;
+      for (int i = threadIdx.x; i < 2 * TN; i += THREADS) {
+        const int r = it * TN + (i % TN);
+        const bool in = r < s;
+        const float* src = (i < TN ? lse : delta) + static_cast<size_t>(bh) * s;
+        cp_async4(st + i, in ? src + r : src, in);
       }
     }
-    __syncthreads();  // the next tile overwrites k_s, v_s and d_s
+    cp_async_commit();
+  };
+  stage_stream(first, 0);
+
+  // K5-dq: lse and delta of the warp's rows gq and gq + 8
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = slab_lo + gq + 8 * e;
+      if (row < s) {
+        lse_r[e] = lse[static_cast<size_t>(bh) * s + row];
+        dl_r[e] = delta[static_cast<size_t>(bh) * s + row];
+      }
+    }
   }
 
-  if (!owns_cols) return;
+  // accumulators: dK and dV (dkv) or dQ (dq, acc0 only), rows gq and gq + 8
+  // of the slab, columns D / SPLIT * part + 8c + 2tq and + 1
+  float acc0[CT][4], acc1[DKV ? CT : 1][4];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[c][e] = acc1[DKV ? c : 0][e] = 0.f;
+
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it < last) stage_stream(it + 1, u ^ 1);
+    const float* y0 = str + u * 2 * TN * RS;  // q (dkv) or k (dq)
+    const float* y1 = y0 + TN * RS;           // g (dkv) or v (dq)
+    const float* st = stat + u * 2 * TN;
+    const int n_lo = it * TN;  // the tile's first streamed row
+
+    // a slab whose keys all exceed its rows (or whose rows are all past S)
+    // in this tile has P = dS = 0: its warps skip the tile together
+    if (DKV ? (slab_lo > n_lo + TN - 1 || n_lo >= s) : (n_lo > slab_lo + 15 || slab_lo >= s)) continue;
+
+    // ---- the warp's part (columns KD * part ..) of the slab's 16 x TN
+    // scores and g v^T, C layout
+    float sc[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = C::KD * part; kk < C::KD * (part + 1); kk += 8) {
+      const FragA xa = load_a<RS>(res0 + m0 * RS + kk, gq, tq);
+      const FragA wa = load_a<RS>(res1 + m0 * RS + kk, gq, tq);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        FragB y0b, y1b, z0b, z1b;
+        load_b_rows2<RS>(y0b, y1b, y0 + 8 * j * RS + kk, gq, tq);
+        load_b_rows2<RS>(z0b, z1b, y1 + 8 * j * RS + kk, gq, tq);
+        mma3(sc[j], xa, y0b);
+        mma3(dp[j], wa, z0b);
+        mma3(sc[j + 1], xa, y1b);
+        mma3(dp[j + 1], wa, z1b);
+      }
+    }
+
+    // ---- the full sums of the n-tiles the warp finishes: j = NTO * part + jj
+    float fs[NTO][4], fd[NTO][4];
+    if constexpr (SPLIT > 1) {
+      reduce_parts<NT, NTO, SPLIT>(sc, fs, x, part, lane, bar);
+      reduce_parts<NT, NTO, SPLIT>(dp, fd, x, part, lane, bar);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fs[j][e] = sc[j][e], fd[j][e] = dp[j][e];
+    }
+
+    // ---- P and dS, in place
+#pragma unroll
+    for (int jj = 0; jj < NTO; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = slab_lo + gq + 8 * (e >> 1);                       // resident row
+        const int n = n_lo + 8 * (NTO * part + jj) + 2 * tq + (e & 1);  // streamed row
+        const int key = DKV ? m : n, row = DKV ? n : m;
+        const float l = DKV ? st[n - n_lo] : lse_r[e >> 1];
+        const float dl = DKV ? st[TN + n - n_lo] : dl_r[e >> 1];
+        const float p = key <= row && row < s ? __expf(fs[jj][e] * scale - l) : 0.f;
+        fs[jj][e] = p;
+        fd[jj][e] = p * (fd[jj][e] - dl);
+      }
+
+    // ---- hand them to the slab's other warps (SPLIT > 1), in A-fragment
+    // order: x[n-tile][lane] holds dS, and in K5-dkv x[NT + n-tile][lane] P
+    if constexpr (SPLIT > 1) {
+#pragma unroll
+      for (int jj = 0; jj < NTO; ++jj) {
+        const int j = NTO * part + jj;
+        x[j * 32 + lane] = make_float4(fd[jj][0], fd[jj][2], fd[jj][1], fd[jj][3]);
+        if constexpr (DKV) x[(NT + j) * 32 + lane] = make_float4(fs[jj][0], fs[jj][2], fs[jj][1], fs[jj][3]);
+      }
+      named_barrier(bar, 32 * SPLIT);
+    }
+
+    // ---- dV += P^T g and dK += dS^T q (dkv), dQ += dS k (dq), over the
+    // tile's streamed rows 8j .. 8j + 7 in order, into the tile's partial
+    // sums o0, o1, added to acc0, acc1 after the tile (the tensor cores'
+    // sums truncate, and short chains keep that error 4x smaller at S = 867)
+    float o0[CT][4], o1[DKV ? CT : 1][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o0[c][e] = o1[DKV ? c : 0][e] = 0.f;
+    const int dc0 = D / SPLIT * part;  // the warp's output columns
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      // rows j with no key <= row, or past S, hold zeros only
+      if (DKV ? (n8 + 7 < slab_lo || n8 >= s) : (n8 > slab_lo + 15 || n8 >= s)) continue;
+      float pa[4], da[4];
+      if constexpr (SPLIT == 1) {
+        pa[0] = fs[j][0], pa[1] = fs[j][2], pa[2] = fs[j][1], pa[3] = fs[j][3];
+        da[0] = fd[j][0], da[1] = fd[j][2], da[2] = fd[j][1], da[3] = fd[j][3];
+      } else {
+        const float4 d4 = x[j * 32 + lane];
+        da[0] = d4.x, da[1] = d4.y, da[2] = d4.z, da[3] = d4.w;
+        if constexpr (DKV) {
+          const float4 p4 = x[(NT + j) * 32 + lane];
+          pa[0] = p4.x, pa[1] = p4.y, pa[2] = p4.z, pa[3] = p4.w;
+        }
+      }
+      const FragA dsa = split_a(da[0], da[1], da[2], da[3]);
+      if constexpr (DKV) {
+        const FragA pfa = split_a(pa[0], pa[1], pa[2], pa[3]);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int col = dc0 + 8 * c;
+          mma3(o1[c], pfa, load_b_cols<RS>(y1 + 8 * j * RS + col, gq, tq));  // dV, g
+          mma3(o0[c], dsa, load_b_cols<RS>(y0 + 8 * j * RS + col, gq, tq));  // dK, q
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+          mma3(o0[c], dsa, load_b_cols<RS>(y0 + 8 * j * RS + dc0 + 8 * c, gq, tq));  // dQ, k
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[c][e] += o0[c][e];
+        if constexpr (DKV) acc1[c][e] += o1[c][e];
+      }
+  }
+
+  // ---- write dK, dV (dkv) or dQ (dq): rows of the slab < S
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
     if (row >= s) continue;
-    float* o = dq + out_offset<D>(b, row, hh, s, h) + tx * COLS;
+    const size_t at = out_offset<D>(b, row, hh, s, h) + D / SPLIT * part + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) o[c] = acc[i][c] * scale;
+    for (int c = 0; c < CT; ++c) {
+      *reinterpret_cast<float2*>(out_a + at + 8 * c) =
+          make_float2(acc0[c][2 * e] * scale, acc0[c][2 * e + 1] * scale);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(out_b + at + 8 * c) = make_float2(acc1[c][2 * e], acc1[c][2 * e + 1]);
+    }
   }
+}
+
+// 16-byte copies need the base and every stride in multiples of 4 floats
+bool vec16_ok(const float* p, Strides st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.s % 4 == 0 && st.h % 4 == 0;
 }
 
 template <int D, bool DKV>
 int launch(const float* q, const float* k, const float* v, const float* g, const float* lse,
            const float* delta, float* out_a, float* out_b, int b, int s, int h, Strides qs, Strides ks,
            Strides vs, Strides gs, float scale, cudaStream_t stream) {
-  if (!grid_fits<D>(b, s, h)) return cudaErrorInvalidValue;
-  const dim3 grid(b * h, (s + tile<D>() - 1) / tile<D>());
-  if constexpr (DKV) {
-    auto kernel = causal_bwd_dkv_kernel<D>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem_bytes<D>()));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem_bytes<D>(), stream>>>(q, k, v, g, lse, delta, out_a, out_b, s, h, qs, ks,
-                                                        vs, gs, scale);
-  } else {
-    auto kernel = causal_bwd_dq_kernel<D>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem_bytes<D>()));
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem_bytes<D>(), stream>>>(q, k, v, g, lse, delta, out_a, s, h, qs, ks, vs, gs,
-                                                        scale);
-  }
+  using C = Tiles<D>;
+  const int m_tiles = (s + C::TM - 1) / C::TM;
+  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL || m_tiles > 65535)
+    return cudaErrorInvalidValue;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
+  auto kernel = causal_bwd_kernel<D, DKV>;
+  constexpr size_t bytes = smem_bytes<D, DKV>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(b * h, m_tiles), C::THREADS, bytes, stream>>>(q, k, v, g, lse, delta, out_a, out_b, s, h, qs, ks,
+                                                              vs, gs, scale, vec16);
   return cudaGetLastError();
 }
 
@@ -307,6 +453,29 @@ int dispatch(const float* q, const float* k, const float* v, const float* g, con
     case 256: return launch<256, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int D, bool DKV>
+int attributes(int* out) {
+  using C = Tiles<D>;
+  auto kernel = causal_bwd_kernel<D, DKV>;
+  constexpr size_t bytes = smem_bytes<D, DKV>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, C::THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(bytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = C::THREADS;
+  out[4] = blocks;
+  out[5] = C::TM;
+  out[6] = C::TN;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -335,4 +504,19 @@ extern "C" int causal_attention_bwd_dq(const float* q, const float* k, const flo
                                        float scale, void* stream) {
   return dispatch<false>(q, k, v, g, lse, delta, dq, nullptr, b, s, h, d, {q_sb, q_ss, q_sh},
                          {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {g_sb, g_ss, g_sh}, scale, stream);
+}
+
+// The kernel of head width d (dkv != 0: K5-dkv, else K5-dq) as built: out
+// receives registers a thread, dynamic shared bytes, local (spill) bytes a
+// thread, threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+extern "C" int causal_attention_bwd_attributes(int d, int dkv, int* out) {
+  switch (d) {
+    case 8: return dkv ? attributes<8, true>(out) : attributes<8, false>(out);
+    case 16: return dkv ? attributes<16, true>(out) : attributes<16, false>(out);
+    case 32: return dkv ? attributes<32, true>(out) : attributes<32, false>(out);
+    case 64: return dkv ? attributes<64, true>(out) : attributes<64, false>(out);
+    case 128: return dkv ? attributes<128, true>(out) : attributes<128, false>(out);
+    case 256: return dkv ? attributes<256, true>(out) : attributes<256, false>(out);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,0 +1,115 @@
+// Tensor-core products in f32 grade, and asynchronous staging, for Hopper
+// (sm_90a): the pieces of the K5 backward (causal_attention_bwd.cu).
+//
+// A product runs as mma.sync m16n8k8 on TF32 operands in three passes.
+// Each f32 operand x splits into big = tf32(x) and small = tf32(x - big),
+// both rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away from
+// zero, 10 mantissa bits), and
+//
+//     a b ~ small_a big_b + big_a small_b + big_a big_b
+//
+// accumulated in f32, the two cross terms first so that they are added
+// before the large one. That keeps about 21 bits of each operand, close to
+// f32, at a third of the TF32 rate (495 / 3 = 165 TFLOP/s on an H100);
+// one TF32 pass keeps 11 bits and moves the attention gradients by about
+// 1e-3 normwise, 12 to 19 times the 5e-5 the port holds them to.
+//
+// Fragment layouts of m16n8k8 (g = lane >> 2, t = lane & 3):
+//   A (16 x 8, row-major):  (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+//   B (8 x 8, k by n):      (k = t, n = g), (k = t + 4, n = g)
+//   C (16 x 8):             (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace tf32x3 {
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, 10 mantissa bits), bit for bit for every finite x, in two
+// integer operations: the backward ran faster so on an H100 than with cvt
+// itself, with the same outputs (PERF.md).
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// An A fragment split into its big and small TF32 parts.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+
+// A B fragment split into its big and small TF32 parts.
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = round_tf32(x);
+  small = round_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB split_b(float b0, float b1) {
+  FragB f;
+  split(b0, f.big[0], f.small[0]);
+  split(b1, f.big[1], f.small[1]);
+  return f;
+}
+
+// ldmatrix of four 8 x 4 f32 blocks: lane l receives word l & 3 of row
+// l >> 2 of each block; lanes 8i .. 8i + 7 address the rows of block i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a b, one TF32 pass
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in three passes: small_a big_b, big_a small_b, then big_a big_b
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// 16-byte copy from device to shared memory; zero-fills when !in (src is
+// then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(in ? 16 : 0));
+}
+
+// 4-byte copy, for inputs whose base or strides are not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
+
+// Barrier `id` (1 to 15) over `threads` threads of the block.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+}  // namespace tf32x3

@@ -13,10 +13,13 @@ Port of the Mosaic flash attention that ``hopvae_tpu/ops/attention.py``
 
 The backward kernels rebuild ``P = exp(scale·QKᵀ − lse)`` from the
 forward's ``lse`` and take ``delta = rowsum(dO ⊙ O)`` from torch, so the
-``(S, S)`` matrices never reach device memory. The inputs may be strided
+``(S, S)`` matrices never reach device memory. K5-fwd runs f32 FMA on the
+CUDA cores; K5-dkv and K5-dq run every product on the tensor cores in
+three TF32 passes of their own (f32-grade, whatever
+``torch.backends.cuda.matmul.allow_tf32`` says). The inputs may be strided
 views (the prior's q, k and v are slices of one projection); only the
-head width must be contiguous, and one of ``HEAD_DIMS`` (64-row tiles up
-to 128, 32-row tiles at 256); :func:`kernel_width` names the built width
+head width must be contiguous, and one of ``HEAD_DIMS``;
+:func:`kernel_width` names the built width
 that a narrower head is zero-padded to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches``, and takes its
 plain version on CPU tensors; the plain versions hold the ``(S, S)``
@@ -29,7 +32,7 @@ import ctypes
 
 import torch
 
-from hopvae_torch.utils.nvcc import bind, launch
+from hopvae_torch.utils.nvcc import bind, launch, load_library
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths the kernels are built for
 _NOT_BUILT = "ROADMAP.md, Queue 2: K5 at head widths 384 and 512"
@@ -202,6 +205,22 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
 
 
 causal_attention_bwd_dq.launches = 0
+
+_ATTRIBUTES = ("registers", "shared_bytes", "spill_bytes", "threads", "blocks_per_sm", "resident_rows",
+               "streamed_rows")
+
+
+def backward_attributes(kernel: str, dh: int) -> dict:
+    """K5-dkv's (``kernel="dkv"``) or K5-dq's (``"dq"``) build at head width
+    ``dh`` as the card reports it: registers and spilled (local) bytes a
+    thread, dynamic shared bytes, threads a block and blocks an SM, and its
+    tiles (resident and streamed rows). Launches nothing."""
+    fn = getattr(load_library("causal_attention_bwd"), "causal_attention_bwd_attributes")
+    out = (ctypes.c_int * len(_ATTRIBUTES))()
+    err = fn(ctypes.c_int(dh), ctypes.c_int(kernel == "dkv"), out)
+    if err != 0:
+        raise RuntimeError(f"causal_attention_bwd_attributes({dh}, {kernel}) failed: cudaError {err}")
+    return dict(zip(_ATTRIBUTES, out))
 
 
 class FlashCausalAttention(torch.autograd.Function):
