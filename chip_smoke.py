@@ -31,12 +31,12 @@ Thirteen phases, each of which raises on failure:
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
    prior gives them), at ``prior_heads=1`` (one head of 128), at one head
    of 256 (``prior_d_model=256``), and at small ragged shapes (one at 256,
-   one with views off 16-byte alignment); the backward, whose products
-   run on the tensor cores in three TF32 passes, runs twice and must
-   repeat bit for bit; kernel, plain and SDPA times, the f32 bound
+   one with views off 16-byte alignment); each kernel, whose products run
+   on the tensor cores in three TF32 passes, runs twice and must repeat
+   bit for bit; kernel, plain and SDPA times, the f32 bound
    (``bound_ms``) and the three-pass TF32 bound (``bound_tc_ms``), and
-   the backward kernels' registers, shared bytes and blocks an SM per
-   width. Then a head of 48 through the zero padding to 64, forward and
+   each kernel's registers, shared bytes and blocks an SM per width.
+   Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
    on the committed grid through K5, and ``HopVAE.forward(fit_prior=True)``
@@ -104,8 +104,8 @@ CHECKPOINTS = ROOT / "checkpoints"
 # results per clock per SM (CUDA C++ Programming Guide, compute 9.0).
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# dense TF32 on the tensor cores (NVIDIA data sheet): K5's backward runs its
-# products in three TF32 passes, so its bound counts 3x its FLOPs at it
+# dense TF32 on the tensor cores (NVIDIA data sheet): K5's kernels run their
+# products in three TF32 passes, so their bound counts 3x the FLOPs at it
 TF32_FLOPS = 495e12
 SFU_PER_CLOCK_PER_SM = 16
 
@@ -121,8 +121,9 @@ BF16_VS_F32_MSE = 1e-3
 # another order (6e-6 at most on an H100)
 BWD_NORMWISE = 5e-5
 # K5 against its plain versions, normwise as above: out and lse of the
-# forward, sums over up to 867 keys in another order than cuBLAS's; dQ, dK
-# and dV of the backward, which also carry the cancellation in dP - delta
+# forward, three-pass TF32 products summed over up to 867 keys in another
+# order than cuBLAS's; dQ, dK and dV of the backward, which also carry the
+# cancellation in dP - delta
 ATTN_FWD_NORMWISE = 1e-5
 ATTN_BWD_NORMWISE = 5e-5
 # K4 against its plain version and the streaming bottleneck: e and r max
@@ -183,14 +184,15 @@ def phase_environment() -> dict:
         for line in nvcc.build_logs.get(stem, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
+    return {"card": card, "build_s": build_s, "exp_per_s": exp_per_s()}
+
+
+def exp_per_s() -> float:
+    """The card's exp rate on the special-function units at its max SM clock."""
     props = torch.cuda.get_device_properties(0)
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     log(f"{props.multi_processor_count} SMs, max SM clock {clock_hz / 1e6:.0f} MHz")
-    return {
-        "card": card,
-        "build_s": build_s,
-        "exp_per_s": props.multi_processor_count * SFU_PER_CLOCK_PER_SM * clock_hz,
-    }
+    return props.multi_processor_count * SFU_PER_CLOCK_PER_SM * clock_hz
 
 
 # ------------------------------------------------------------ phase 2
@@ -688,7 +690,7 @@ def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = Fa
     4 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) and dQ 3 (QKᵀ, dO·Vᵀ, dS·K), each with
     one exp per score. Words: q, k, v (and dO, lse, delta) read once, the
     outputs (out and lse; dK and dV; dQ) written once. ``tensor_cores``:
-    three times the FLOPs at the TF32 rate (the backward's three passes)
+    three times the FLOPs at the TF32 rate (the kernels' three passes)
     instead of the FLOPs at the f32 rate of the CUDA cores."""
     pairs = b * h * s * (s + 1) / 2
     products = {"fwd": 2, "dkv": 4, "dq": 3}[kernel]
@@ -740,13 +742,14 @@ def sdpa_causal_ms(q, k, v, g, reps) -> dict:
 @parity_mode()
 def phase_attention_vs_plain(env: dict) -> list[dict]:
     """K5-fwd, K5-dkv and K5-dq against their plain versions on the same
-    inputs, the backward from the kernel's own lse; each backward kernel
-    runs twice and must repeat bit for bit. Each row carries both bounds
-    (``bound_ms`` at the f32 rate, ``bound_tc_ms`` with three TF32 passes
-    on the tensor cores) and, for the backward, the kernel's registers,
-    shared bytes and blocks an SM at that width as the card reports them."""
-    log(json.dumps({"k5_backward_builds": {dh: {kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}
-                                           for dh in ac.HEAD_DIMS}}))
+    inputs, the backward from the kernel's own lse; each kernel runs twice
+    and must repeat bit for bit. Each row carries both bounds (``bound_ms``
+    at the f32 rate, ``bound_tc_ms`` with three TF32 passes on the tensor
+    cores) and the kernel's registers, shared bytes and blocks an SM at
+    that width as the card reports them."""
+    log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
+                                       **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
+                                  for dh in ac.HEAD_DIMS}}))
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for label, b, s, h, dh in ATTENTION_CASES:
@@ -756,6 +759,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
         reps, plain_reps = (10, 3) if big else (50, 20)
         with torch.inference_mode():
             out, lse = ac.causal_attention_fwd(q, k, v, scale)
+            out2, lse2 = ac.causal_attention_fwd(q, k, v, scale)
             delta = ac.attention_delta(out, g)
             args = (q, k, v, g, lse, delta, scale)
             dk, dv = ac.causal_attention_bwd_dkv(*args)
@@ -764,13 +768,14 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
             dq2 = ac.causal_attention_bwd_dq(*args)
             torch.cuda.synchronize()
             got = {"fwd": (out, lse), "dkv": (dk, dv), "dq": (dq,)}
-            repeats = {"dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2), "dq": torch.equal(dq, dq2)}
+            repeats = {"fwd": torch.equal(out, out2) and torch.equal(lse, lse2),
+                       "dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2), "dq": torch.equal(dq, dq2)}
             want = {"fwd": ac.causal_attention_fwd_reference(q, k, v, scale),
                     "dkv": ac.causal_attention_bwd_dkv_reference(*args),
                     "dq": (ac.causal_attention_bwd_dq_reference(*args),)}
             errs = {kn: [normwise(a, w) for a, w in zip(got[kn], want[kn])] for kn in got}
             abs_errs = {kn: max((a - w).abs().max().item() for a, w in zip(got[kn], want[kn])) for kn in got}
-            del want, got, dk2, dv2, dq2
+            del want, got, out2, lse2, dk2, dv2, dq2
             times = {
                 "fwd": (cuda_ms(lambda: ac.causal_attention_fwd(q, k, v, scale), reps),
                         cuda_ms(lambda: ac.causal_attention_fwd_reference(q, k, v, scale), plain_reps)),
@@ -786,14 +791,13 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
             row = {
                 "kernel": f"causal_attention_{'fwd' if kn == 'fwd' else 'bwd_' + kn}", "shape": label,
                 "b": b, "s": s, "h": h, "dh": dh, "normwise_err": dict(zip(names, errs[kn])),
-                "max_abs_err": abs_errs[kn], "repeats_bitwise": repeats.get(kn, True),
+                "max_abs_err": abs_errs[kn], "repeats_bitwise": repeats[kn],
                 "ms": times[kn][0], "plain_ms": times[kn][1],
                 "library_ms": lib["fwd_ms"] if kn == "fwd" else lib["bwd_ms"],
                 "library_fwd_bwd_ms": lib["fwd_bwd_ms"], "library_backend": lib["backend"],
                 "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
             }
-            if kn != "fwd":
-                row["build"] = ac.backward_attributes(kn, dh)
+            row["build"] = ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
             log(json.dumps(row))
             rows.append(row)
             limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
@@ -1179,7 +1183,7 @@ def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = F
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
         "library_ms": full["library_ms"], "bound_tc_ms": full["bound_tc_ms"],
-        **({"build": full["build"]} if "build" in full else {}),
+        "build": full["build"],
         "max_normwise_err": max(max(r["normwise_err"].values()) for r in mine),
         "library_fwd_bwd_ms": full["library_fwd_bwd_ms"], "library_backend": full["library_backend"],
         "shapes": mine,

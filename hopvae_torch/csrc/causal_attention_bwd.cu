@@ -81,12 +81,16 @@
 #include <cstdint>
 
 #include "causal_attention.cuh"
-#include "mma_tf32.cuh"
 
 namespace {
 
+using causal_attention::load_a;
+using causal_attention::load_b_cols;
+using causal_attention::load_b_rows2;
 using causal_attention::out_offset;
+using causal_attention::stage;
 using causal_attention::Strides;
+using causal_attention::vec16_ok;
 using namespace tf32x3;
 
 template <int D>
@@ -116,57 +120,6 @@ constexpr size_t smem_bytes() {
   const size_t exchange = C::SPLIT > 1 ? C::XCH : 0;
   static_assert(C::SPLIT == 1 || (DKV ? 2 : 1) * C::TM * C::TN <= C::XCH, "the hand-over fits the exchange");
   return sizeof(float) * (2 * C::TM * C::RS + 4 * C::TN * C::RS + stats + exchange);
-}
-
-// Stage rows [row0, row0 + ROWS) of head (b, hh) of a strided input into
-// shared memory (ROWS x (D + 4)) by cp.async, zeros past the sequence end.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, Strides st, int b, int hh,
-                                      int row0, int s, bool vec16) {
-  constexpr int RS = D + 4;
-  const float* base = src + b * st.b + hh * st.h;
-  if (vec16) {
-    constexpr int CH = D / 4;
-    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-      const int r = i / CH;
-      const int c = (i - r * CH) * 4;
-      const bool in = row0 + r < s;
-      cp_async16(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * D; i += THREADS) {
-      const int r = i / D;
-      const int c = i - r * D;
-      const bool in = row0 + r < s;
-      cp_async4(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
-    }
-  }
-}
-
-// The A fragment of rows 0..15 and columns 0..7 of a tile in shared memory.
-template <int RS>
-__device__ __forceinline__ FragA load_a(const float* p, int gq, int tq) {
-  const int lane = 4 * gq + tq;
-  uint32_t r[4];
-  ldmatrix_x4(r, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 4 * (lane >> 4));
-  return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]), __uint_as_float(r[3]));
-}
-
-// The B fragments B[k][n] = Y[n][k] of two n-tiles, rows n = 0..15,
-// columns k = 0..7.
-template <int RS>
-__device__ __forceinline__ void load_b_rows2(FragB& f0, FragB& f1, const float* p, int gq, int tq) {
-  const int lane = 4 * gq + tq;
-  uint32_t r[4];
-  ldmatrix_x4(r, p + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
-  f0 = split_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
-  f1 = split_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
-}
-
-// The B fragment B[k][n] = Y[k][n] over the permuted k: rows 2t and 2t + 1.
-template <int RS>
-__device__ __forceinline__ FragB load_b_cols(const float* p, int gq, int tq) {
-  return split_b(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
 }
 
 // Sum the SPLIT warps' partial fragments of a slab's score n-tiles: each
@@ -414,11 +367,6 @@ causal_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
         *reinterpret_cast<float2*>(out_b + at + 8 * c) = make_float2(acc1[c][2 * e], acc1[c][2 * e + 1]);
     }
   }
-}
-
-// 16-byte copies need the base and every stride in multiples of 4 floats
-bool vec16_ok(const float* p, Strides st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.s % 4 == 0 && st.h % 4 == 0;
 }
 
 template <int D, bool DKV>

@@ -8,182 +8,363 @@
 //     out = softmax(scale * q k^T, causal) v      lse = log sum_j exp(...)
 //
 // row by row, with an online softmax, and writes out (B, S, heads, D) and
-// the row log-sum-exp lse (B, heads, S) that the backward kernels rebuild
-// the probabilities from.
+// the row log-sum-exp lse (B, heads, S), natural log, that the backward
+// kernels (causal_attention_bwd.cu) rebuild the probabilities from.
 //
-// What bounds it on an H100: arithmetic. It does two products over the
-// causal triangle, 2 * 2 * D * S(S+1)/2 FLOPs per head, and moves only q,
-// k, v and out: at B = 256, S = 867, 4 heads of D = 32 that is 49 GFLOP
-// against 0.46 GB, 0.74 ms at the f32 peak of the CUDA cores against
-// 0.14 ms of memory traffic; at one head of D = 256, 99 GFLOP, 1.47 ms.
+// What bounds it on an H100: the tensor cores. It does two products over
+// the causal triangle (q k^T and P v), 2 * D * S(S+1)/2 FLOPs each per
+// head, and both run as mma.sync m16n8k8 on TF32 operands in three passes
+// (mma_tf32.cuh): each operand splits into big and small TF32 parts and
+// small * big, big * small, big * big are summed in f32, which keeps about
+// 21 bits, close to f32. The ceiling is then 495 / 3 = 165 TFLOP/s
+// f32-equivalent: at B = 256, S = 867, 0.60 ms for one head of D = 256 and
+// 0.30 ms for 4 heads of 32 or one of 128, against 0.27 ms and 0.14 ms of
+// memory traffic (q, k, v read once, out and lse written once). One TF32
+// pass (11 bits) would move out by 3.5e-4 to 5.6e-4 normwise and lse by up
+// to 1.3e-3, far past the 1e-5 the port holds them to
+// (tests/test_torch_attention_tf32.py emulates both).
 //
 // Design:
-// - One block of 256 threads takes T query rows of one head (T = 64, or
-//   32 at D = 256: causal_attention.cuh says why) and walks the key tiles
-//   of T up to its diagonal only, so the causal triangle is skipped by the
-//   loop bound; inside the diagonal tile it masks key > row itself, and
-//   rows past S are zero-filled and never written (S = 867 is a multiple
-//   of no tile). Blocks with the most tiles are launched first.
-// - The q tile stays in shared memory; each k and v tile is staged there
-//   in turn. Thread (ty, tx) holds an R x R block of scores (R = T/16),
-//   and the 16 threads of a row (a half-warp) keep the row's running max
-//   and denominator with xor-shuffles, as K1 does; the accumulator of the
-//   row's D outputs is spread over them, D/16 columns each.
-// - The probabilities go through shared memory to the p @ v product.
-// - Plain f32 FMA on the CUDA cores. The inputs are strided views (the
-//   prior's q, k and v are slices of one projection), read with their
-//   own strides; nothing is copied or padded.
+// - One block owns TM query rows of one (batch, head) and walks the key
+//   tiles of TN up to its diagonal only; blocks with the most tiles launch
+//   first. q loads once; each k and v tile arrives by cp.async into one of
+//   two buffers while the other is multiplied: 16-byte copies where an
+//   input's base and strides allow it, 4-byte ones where not. Rows past S
+//   are zero-filled and never written.
+// - A warp owns a 16-row slab of the block's query rows (the M of an m16
+//   mma); with SPLIT warps a slab, each takes 1/SPLIT of the head width:
+//   its part of the score depth and its part of the output columns. The
+//   scores of a key tile land in C fragments; with SPLIT > 1 the warps'
+//   partial sums meet in shared memory and every warp of the slab adds all
+//   of them up in warp order, so each holds the slab's whole score tile,
+//   bit for bit the same in each.
+// - The online softmax runs on those fragments: a row lives in the quad
+//   of lanes 4g .. 4g + 3, so its max takes two xor shuffles; each lane
+//   keeps its part of the row's denominator, summed over the quad once at
+//   the end. The causal mask applies on the slab's diagonal tile only.
+// - P stays in registers: P v takes a permuted k (k = t is key 2t, k = t +
+//   4 key 2t + 1), so P's C fragment (c0, c2, c1, c3) is its A fragment,
+//   and v's B fragment is read from the same permuted rows.
+// - P v of each key tile is summed in fresh fragments, then added to the
+//   rescaled running output: the tensor cores' sums truncate, and short
+//   chains keep that error small (one chain over a whole walk of the K5
+//   backward left 1.5e-5 normwise).
+// - Up to D = 64 each q fragment is split into its TF32 parts once per
+//   block and kept in registers; wider, and for k and v, each fragment is
+//   split where it is used.
+// - Shared memory holds f32 only, rows D + 4 floats apart
+//   (causal_attention.cuh): conflict-free ldmatrix by row and scalar loads
+//   by permuted row.
+// - No float atomics: every output belongs to one warp and every sum runs
+//   in a fixed order, so two launches give the same bits.
+//
+// Tiles per width (TM query rows, TN keys, warps a slab):
+//   D       TM  TN  SPLIT  warps  shared bytes
+//   8..64   64  64  1      4      1280 (D + 4)
+//   128     64  32  1      4      101,376
+//   256     64  32  2      8      216,064
+// - Up to D = 64 a warp holds its slab's outputs over the full width and
+//   q's split fragments (at most 64 registers each); 64-key tiles halve the
+//   barriers and softmax rounds a key of 32-key ones.
+// - At 128 the slab's 16 x 128 outputs take 64 accumulators a lane and the
+//   tile's partial sums 64 more, so q is split per use and the key tiles
+//   hold 32: with 64 the kernel reached 255 registers and ran slower.
+// - At 256 two warps share a slab, 128 columns each, so that 64 query rows
+//   (four slabs) share each k and v tile: q, two buffers of k and v, and
+//   the exchange fill 216,064 of the 232,448 bytes a block may have.
+// tools/torch_attention_fwd_variants.py times these against other tiles
+// (the K5_FWD_* overrides below); PERF.md has the times, and registers,
+// spills and blocks an SM from causal_attention_fwd_attributes.
 
-#include <cmath>
+#include <cstdint>
 
 #include "causal_attention.cuh"
 
+// Build-time overrides for tools/torch_attention_fwd_variants.py; the
+// defaults are the design above.
+#ifndef K5_FWD_Q_PER_USE
+#define K5_FWD_Q_PER_USE 0  // 1: split q per use
+#endif
+#ifndef K5_FWD_SPLIT_128
+#define K5_FWD_SPLIT_128 1  // warps a slab at D = 128
+#endif
+#ifndef K5_FWD_SPLIT_256
+#define K5_FWD_SPLIT_256 2  // warps a slab at D = 256 (TM = 128 / SPLIT)
+#endif
+#ifndef K5_FWD_TN
+#define K5_FWD_TN 64  // keys of a streamed tile up to D = 64
+#endif
+
 namespace {
 
-using namespace causal_attention;
+using causal_attention::load_a;
+using causal_attention::load_b_cols;
+using causal_attention::load_b_rows2;
+using causal_attention::out_offset;
+using causal_attention::stage;
+using causal_attention::Strides;
+using causal_attention::vec16_ok;
+using namespace tf32x3;
 
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float MASKED = -1e30f;
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
+template <int D>
+struct Tiles {
+  static constexpr int SPLIT = D > 128 ? K5_FWD_SPLIT_256 : D > 64 ? K5_FWD_SPLIT_128 : 1;  // warps of a 16-row slab
+  static constexpr int TM = D > 128 ? 128 / SPLIT : 64;  // query rows of a block
+  static constexpr int TN = D > 64 ? 32 : K5_FWD_TN;    // keys of a streamed tile
+  static constexpr int NT = TN / 8;                            // n-tiles of a 16 x TN score slab
+  static constexpr int WARPS = TM / 16 * SPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int RS = D + 4;                             // row stride in shared memory
+  static constexpr int KD = D / SPLIT;  // a warp's depth of the scores and columns of the output
+  static constexpr int CT = KD / 8;     // its k-steps of q k^T and its output n-tiles
+  static constexpr bool Q_REGS = !K5_FWD_Q_PER_USE && KD <= 64;  // q split once, into registers
+  static constexpr int XCH = TM / 16 * SPLIT * NT * 128;        // floats of the exchange
+  static_assert(KD % 8 == 0 && NT % 2 == 0, "tiles");
+};
 
-// every lane ends with the same value: each step adds the same two
-// operands in every lane, and float addition commutes
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
+// floats of shared memory: the q tile, two buffers of a k and a v tile,
+// and, when SPLIT > 1, the exchange of partial scores
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (3 * tile<D>() * row_stride<D>() + tile<D>() * p_stride<D>());
+  using C = Tiles<D>;
+  return sizeof(float) * ((C::TM + 4 * C::TN) * C::RS + (C::SPLIT > 1 ? C::XCH : 0));
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
 causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   float* __restrict__ out, float* __restrict__ lse, int s, int h, Strides qs, Strides ks,
-                  Strides vs, float scale) {
-  constexpr int T = tile<D>();
-  constexpr int R = per_thread<D>();
-  constexpr int RS = row_stride<D>();
-  constexpr int PS = p_stride<D>();
-  constexpr int COLS = cols<D>();
+                  Strides vs, float scale, unsigned vec16) {
+  using C = Tiles<D>;
+  constexpr int TM = C::TM, TN = C::TN, NT = C::NT, RS = C::RS, SPLIT = C::SPLIT, THREADS = C::THREADS;
+  constexpr int CT = C::CT;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + T * RS;
-  float* v_s = k_s + T * RS;
-  float* p_s = v_s + T * RS;  // p_s[key][row]
+  float* kv_s = q_s + TM * RS;                              // buffer u: k at kv_s + u * 2 * TN * RS, then v
+  float4* xch = reinterpret_cast<float4*>(kv_s + 4 * TN * RS);  // the exchange, SPLIT > 1
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int slab = warp / SPLIT, part = warp % SPLIT;
+  const int m0 = 16 * slab;  // the warp's query rows in the tile
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int hh = bh - b * h;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest rows first
-  const int q0 = qt * T;
-  const bool owns_cols = tx * COLS < D;
+  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;  // the longest walks first
+  const int last = (min(row_m0 + TM, s) - 1) / TN;
+  const int slab_lo = row_m0 + m0;  // the slab's first query row
+  const int kd0 = C::KD * part;     // the warp's first column of depth and of output
+  float4* x = xch + slab * SPLIT * NT * 32;  // the slab's exchange, [warp][n-tile][lane]
+  const int bar = 1 + slab;                  // the slab's named barrier
 
-  load_tile<D>(q_s, q, qs, b, hh, q0, s);
+  stage<D, TM, THREADS>(q_s, q, qs, b, hh, row_m0, s, vec16 & 1u);
+  cp_async_commit();
+  auto stage_kv = [&](int it, int u) {
+    float* y = kv_s + u * 2 * TN * RS;
+    stage<D, TN, THREADS>(y, k, ks, b, hh, it * TN, s, vec16 >> 1 & 1u);
+    stage<D, TN, THREADS>(y + TN * RS, v, vs, b, hh, it * TN, s, vec16 >> 2 & 1u);
+    cp_async_commit();
+  };
+  stage_kv(0, 0);
 
-  float m_run[R], l_run[R], acc[R][COLS];
+  // q's A fragments over the warp's depth, split once while tile 0 lands
+  FragA qf[C::Q_REGS ? CT : 1];
+  if constexpr (C::Q_REGS) {
+    cp_async_wait_prior();
+    __syncthreads();  // q has landed
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m_run[i] = MASKED;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CT; ++c) qf[c] = load_a<RS>(q_s + m0 * RS + kd0 + 8 * c, gq, tq);
   }
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * T;
-    load_tile<D>(k_s, k, ks, b, hh, k0, s);
-    load_tile<D>(v_s, v, vs, b, hh, k0, s);
-    __syncthreads();
+  // rows gq and gq + 8 of the slab: the running max of the scaled scores,
+  // the lane's part of the denominator, and the output over the warp's
+  // columns kd0 + 8c + 2tq and + 1
+  float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f};
+  float acc[CT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
-    float sc[R][R];
-    dot_tile<D>(sc, q_s, k_s, ty, tx);
+  for (int it = 0; it <= last; ++it) {
+    const int u = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1 and the exchange
+    if (it < last) stage_kv(it + 1, u ^ 1);
+    const float* kt = kv_s + u * 2 * TN * RS;
+    const float* vt = kt + TN * RS;
+    const int n_lo = it * TN;  // the tile's first key
 
-    // ---- online softmax over the tile's keys, causal mask on the diagonal
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + ty * R + i;
-      float mt = MASKED;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float val = k0 + tx + 16 * j <= row ? sc[i][j] * scale : MASKED;
-        sc[i][j] = val;
-        mt = fmaxf(mt, val);
-      }
-      const float m_new = fmaxf(m_run[i], half_warp_max(mt));
-      const float rescale = __expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float p = k0 + tx + 16 * j <= row ? __expf(sc[i][j] - m_new) : 0.f;
-        sc[i][j] = p;
-        sum += p;
-      }
-      l_run[i] = l_run[i] * rescale + half_warp_sum(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= rescale;
-    }
+    // a slab whose rows all precede the tile's keys (or lie past S) skips
+    // it with all its warps; otherwise key n_lo <= every row of the slab
+    // (both are multiples of 16), so every row has a finite max
+    if (n_lo > slab_lo + 15 || slab_lo >= s) continue;
 
-    // ---- acc += p @ v
+    // ---- the warp's part of the slab's 16 x TN scores, C layout
+    float sc[NT][4];
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      float col[R];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < R; ++i) col[i] = sc[i][j];
-      store_vec<R>(p_s + (tx + 16 * j) * PS + ty * R, col);
-    }
-    __syncthreads();
-    if (owns_cols) {
-#pragma unroll 8
-      for (int jj = 0; jj < T; ++jj) {
-        float pr[R], vv[COLS];
-        load_vec<R>(pr, p_s + jj * PS + ty * R);
-        load_vec<COLS>(vv, v_s + jj * RS + tx * COLS);
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if constexpr (C::Q_REGS) {
 #pragma unroll
-        for (int i = 0; i < R; ++i)
+      for (int c = 0; c < CT; ++c)
 #pragma unroll
-          for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+        for (int j = 0; j < NT; j += 2) {
+          FragB b0, b1;
+          load_b_rows2<RS>(b0, b1, kt + 8 * j * RS + kd0 + 8 * c, gq, tq);
+          mma3(sc[j], qf[c], b0);
+          mma3(sc[j + 1], qf[c], b1);
+        }
+    } else {
+#pragma unroll 2
+      for (int c = 0; c < CT; ++c) {
+        const FragA qa = load_a<RS>(q_s + m0 * RS + kd0 + 8 * c, gq, tq);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          FragB b0, b1;
+          load_b_rows2<RS>(b0, b1, kt + 8 * j * RS + kd0 + 8 * c, gq, tq);
+          mma3(sc[j], qa, b0);
+          mma3(sc[j + 1], qa, b1);
+        }
       }
     }
-    __syncthreads();  // the next tile overwrites k_s, v_s and p_s
+
+    // ---- the slab's whole scores: the SPLIT partials added in warp order
+    // (the exchange is free again after the next __syncthreads)
+    if constexpr (SPLIT > 1) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        x[(part * NT + j) * 32 + lane] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+      named_barrier(bar, 32 * SPLIT);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float4 a = x[j * 32 + lane];
+#pragma unroll
+        for (int p = 1; p < SPLIT; ++p) {
+          const float4 y = x[(p * NT + j) * 32 + lane];
+          a.x += y.x, a.y += y.y, a.z += y.z, a.w += y.w;
+        }
+        sc[j][0] = a.x, sc[j][1] = a.y, sc[j][2] = a.z, sc[j][3] = a.w;
+      }
+    }
+
+    // ---- online softmax: element e of n-tile j is row gq + 8 (e >> 1),
+    // key n_lo + 8j + 2tq + (e & 1)
+    const bool diag = n_lo + TN - 1 > slab_lo;  // some key of the tile exceeds some row of the slab
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = sc[j][e] * scale;
+        if (diag && n_lo + 8 * j + 2 * tq + (e & 1) > slab_lo + gq + 8 * (e >> 1)) val = MASKED;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      alpha[i] = __expf(m_r[i] - mx[i]);  // 0 on the slab's first tile
+      m_r[i] = mx[i];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sc[j][e] - mx[e >> 1]);  // 0 where masked: the max is finite
+        sc[j][e] = p;
+        rsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rsum[i];
+
+    // ---- P v over the tile's keys 8j .. 8j + 7 in order, into fresh
+    // fragments, then out = alpha out + P v
+    float o[CT][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      if (n8 > slab_lo + 15 || n8 >= s) continue;  // P = 0 for every row < S of the slab
+      const FragA pa = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) mma3(o[c], pa, load_b_cols<RS>(vt + 8 * j * RS + kd0 + 8 * c, gq, tq));
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
   }
 
-  // ---- epilogue: out = acc / l and lse = m + log l, rows < S only
+  // ---- the denominators over the quad (every lane ends with the same
+  // sum: each step adds the same two operands, and float addition
+  // commutes); out = acc / l and lse = m + log l, rows < S only
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(FULL, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(FULL, l_r[i], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
     if (row >= s) continue;
-    if (owns_cols) {
-      float* o = out + out_offset<D>(b, row, hh, s, h) + tx * COLS;
+    const size_t at = out_offset<D>(b, row, hh, s, h) + kd0 + 2 * tq;
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) o[c] = acc[i][c] / l_run[i];
-    }
-    if (tx == 0) lse[static_cast<size_t>(bh) * s + row] = m_run[i] + logf(l_run[i]);
+    for (int c = 0; c < CT; ++c)
+      *reinterpret_cast<float2*>(out + at + 8 * c) =
+          make_float2(acc[c][2 * e] / l_r[e], acc[c][2 * e + 1] / l_r[e]);
+    if (part == 0 && tq == 0) lse[static_cast<size_t>(bh) * s + row] = m_r[e] + logf(l_r[e]);
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h,
            Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
-  if (!grid_fits<D>(b, s, h)) return cudaErrorInvalidValue;
+  using C = Tiles<D>;
+  const int m_tiles = (s + C::TM - 1) / C::TM;
+  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL || m_tiles > 65535)
+    return cudaErrorInvalidValue;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
   auto kernel = causal_fwd_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<D>()));
+  constexpr size_t bytes = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (s + tile<D>() - 1) / tile<D>());
-  kernel<<<grid, THREADS, smem_bytes<D>(), stream>>>(q, k, v, out, lse, s, h, qs, ks, vs, scale);
+  kernel<<<dim3(b * h, m_tiles), C::THREADS, bytes, stream>>>(q, k, v, out, lse, s, h, qs, ks, vs, scale, vec16);
   return cudaGetLastError();
+}
+
+template <int D>
+int attributes(int* out) {
+  using C = Tiles<D>;
+  auto kernel = causal_fwd_kernel<D>;
+  constexpr size_t bytes = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, C::THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(bytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = C::THREADS;
+  out[4] = blocks;
+  out[5] = C::TM;
+  out[6] = C::TN;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -207,6 +388,21 @@ extern "C" int causal_attention_fwd(const float* q, const float* k, const float*
     case 64: return launch<64>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 128: return launch<128>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 256: return launch<256>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The kernel of head width d as built: out receives registers a thread,
+// dynamic shared bytes, local (spill) bytes a thread, threads a block,
+// blocks an SM, TM and TN. Returns a cudaError_t.
+extern "C" int causal_attention_fwd_attributes(int d, int* out) {
+  switch (d) {
+    case 8: return attributes<8>(out);
+    case 16: return attributes<16>(out);
+    case 32: return attributes<32>(out);
+    case 64: return attributes<64>(out);
+    case 128: return attributes<128>(out);
+    case 256: return attributes<256>(out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
 // Tensor-core products in f32 grade, and asynchronous staging, for Hopper
-// (sm_90a): the pieces of the K5 backward (causal_attention_bwd.cu).
+// (sm_90a): the pieces of K5's kernels (causal_attention_fwd.cu and
+// causal_attention_bwd.cu).
 //
 // A product runs as mma.sync m16n8k8 on TF32 operands in three passes.
 // Each f32 operand x splits into big = tf32(x) and small = tf32(x - big),
@@ -106,6 +107,9 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;" ::: "memory"); }
+
+// Wait for all but the most recent group of copies.
+__device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.wait_group 1;" ::: "memory"); }
 
 // Barrier `id` (1 to 15) over `threads` threads of the block.
 __device__ __forceinline__ void named_barrier(int id, int threads) {

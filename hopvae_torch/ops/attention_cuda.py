@@ -13,9 +13,8 @@ Port of the Mosaic flash attention that ``hopvae_tpu/ops/attention.py``
 
 The backward kernels rebuild ``P = exp(scale·QKᵀ − lse)`` from the
 forward's ``lse`` and take ``delta = rowsum(dO ⊙ O)`` from torch, so the
-``(S, S)`` matrices never reach device memory. K5-fwd runs f32 FMA on the
-CUDA cores; K5-dkv and K5-dq run every product on the tensor cores in
-three TF32 passes of their own (f32-grade, whatever
+``(S, S)`` matrices never reach device memory. All three run every product
+on the tensor cores in three TF32 passes of their own (f32-grade, whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says). The inputs may be strided
 views (the prior's q, k and v are slices of one projection); only the
 head width must be contiguous, and one of ``HEAD_DIMS``;
@@ -210,17 +209,28 @@ _ATTRIBUTES = ("registers", "shared_bytes", "spill_bytes", "threads", "blocks_pe
                "streamed_rows")
 
 
+def _attributes(stem: str, *args: int) -> dict:
+    fn = getattr(load_library(stem), f"{stem}_attributes")
+    out = (ctypes.c_int * len(_ATTRIBUTES))()
+    err = fn(*(ctypes.c_int(a) for a in args), out)
+    if err != 0:
+        raise RuntimeError(f"{stem}_attributes{args} failed: cudaError {err}")
+    return dict(zip(_ATTRIBUTES, out))
+
+
+def forward_attributes(dh: int) -> dict:
+    """K5-fwd's build at head width ``dh`` as the card reports it:
+    registers and spilled (local) bytes a thread, dynamic shared bytes,
+    threads a block and blocks an SM, and its tiles (query rows resident,
+    keys streamed). Launches nothing."""
+    return _attributes("causal_attention_fwd", dh)
+
+
 def backward_attributes(kernel: str, dh: int) -> dict:
     """K5-dkv's (``kernel="dkv"``) or K5-dq's (``"dq"``) build at head width
-    ``dh`` as the card reports it: registers and spilled (local) bytes a
-    thread, dynamic shared bytes, threads a block and blocks an SM, and its
-    tiles (resident and streamed rows). Launches nothing."""
-    fn = getattr(load_library("causal_attention_bwd"), "causal_attention_bwd_attributes")
-    out = (ctypes.c_int * len(_ATTRIBUTES))()
-    err = fn(ctypes.c_int(dh), ctypes.c_int(kernel == "dkv"), out)
-    if err != 0:
-        raise RuntimeError(f"causal_attention_bwd_attributes({dh}, {kernel}) failed: cudaError {err}")
-    return dict(zip(_ATTRIBUTES, out))
+    ``dh``, as :func:`forward_attributes` reports it (resident and streamed
+    rows: keys and query rows in K5-dkv, query rows and keys in K5-dq)."""
+    return _attributes("causal_attention_bwd", dh, int(kernel == "dkv"))
 
 
 class FlashCausalAttention(torch.autograd.Function):

@@ -25,6 +25,8 @@ The backward kernels rebuild the attention from ``m`` and ``l``, so the
 kernel on CUDA tensors (counting the launch in its ``launches``) and
 takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
 and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
+The plain versions take any ``(d_in, d_out)``; the kernels are built for
+``SUPPORTED``, and the card path raises ``NotImplementedError`` at others.
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
@@ -44,6 +46,7 @@ from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
 from hopvae_torch.utils.nvcc import bind, launch, load_library
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # (d_in, d_out) the kernels are built for
+_NOT_BUILT = "ROADMAP.md, Queue 3: the streaming lookups at other widths"
 IMPLS = ("cuda", "torch")
 
 
@@ -159,8 +162,6 @@ def _check(x2, K, U, s, t, *rest) -> tuple[int, int, int, int]:
                 f"backward shapes disagree: g {tuple(g.shape)} (want {(n, d_out)}), "
                 f"m, l, delta {[tuple(a.shape) for a in stats]} (want {(n, 1)})"
             )
-    if (d_in, d_out) not in SUPPORTED:
-        raise ValueError(f"(d_in, d_out) = {(d_in, d_out)} not in {SUPPORTED}")
     if n == 0 or m == 0:
         raise ValueError("x2 and the tables need at least one row")
     return n, m, d_in, d_out
@@ -179,6 +180,16 @@ def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
     return fn(*sizes)
 
 
+def _require_kernel(x2, d_in: int, d_out: int) -> None:
+    """The card path: a width the kernels are built for, on a CUDA tensor.
+    The plain versions take any width."""
+    if (d_in, d_out) not in SUPPORTED:
+        raise NotImplementedError(
+            f"the streaming kernels are not built for (d_in, d_out) = {(d_in, d_out)}, only {SUPPORTED} "
+            f"({_NOT_BUILT})")
+    _require_cuda(x2)
+
+
 def _require_cuda(x2) -> None:
     if x2.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2.device}")
@@ -195,7 +206,7 @@ def stream_lookup_fwd(x2, K, U, s, t):
     n, m, d_in, d_out = _check(x2, K, U, s, t)
     if x2.device.type == "cpu":
         return stream_lookup_fwd_reference(x2, K, U, s, t)
-    _require_cuda(x2)
+    _require_kernel(x2, d_in, d_out)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x2, K, U, s, t)):
         raise RuntimeError("stream_lookup_fwd is forward-only: differentiate through stream_lookup")
     out = torch.empty(n, d_out, device=x2.device)
@@ -219,7 +230,7 @@ def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
     n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
     if x2.device.type == "cpu":
         return stream_bwd_dx_reference(x2, K, U, s, t, g, m, l, delta)
-    _require_cuda(x2)
+    _require_kernel(x2, d_in, d_out)
     stem = "hopfield_stream_bwd_dx"
     dx = torch.empty(n, d_in, device=x2.device)
     ds = torch.empty(d_in, device=x2.device)
@@ -242,7 +253,7 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
     n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
     if x2.device.type == "cpu":
         return stream_bwd_dku_reference(x2, K, U, s, t, g, m, l, delta)
-    _require_cuda(x2)
+    _require_kernel(x2, d_in, d_out)
     stem = "hopfield_stream_bwd_dku"
     dk = torch.empty(m_pat, d_in, device=x2.device)
     du = torch.empty(m_pat, d_out, device=x2.device)

@@ -91,8 +91,12 @@ class InferenceEngine:
 
 
 def state_from_checkpoint(path: str) -> dict:
-    """A native ``.msgpack`` checkpoint of the JAX package → state_dict."""
-    return params_from_jax(load_msgpack(path))
+    """A checkpoint → ``HopVAE`` state_dict, on the host: the JAX package's
+    native ``.msgpack``, or else the ``.pt`` that ``hopvae_torch.train``
+    writes (its model state; the optimizer's is dropped)."""
+    if path.endswith(".msgpack"):
+        return params_from_jax(load_msgpack(path))
+    return torch.load(path, map_location="cpu")["model"]
 
 
 # ----------------------------------------------------------------- CLI
@@ -130,7 +134,8 @@ def _load_images(paths, config) -> np.ndarray:
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Batch reconstruction of image/.npy files")
     parser.add_argument("--config", default="mnist_28")
-    parser.add_argument("--checkpoint", required=True, help="native .msgpack checkpoint")
+    parser.add_argument("--checkpoint", required=True,
+                        help="the JAX package's native .msgpack, or a .pt written by hopvae_torch.train")
     parser.add_argument("--mode", choices=("reconstruct",), default="reconstruct")
     parser.add_argument("--out", default="served")
     parser.add_argument("--max-batch", type=int, default=256,

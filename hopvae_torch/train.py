@@ -296,11 +296,7 @@ class Trainer:
 def load_weights(model: HopVAE, path: str) -> None:
     """Warm start: the JAX package's native ``.msgpack`` or this trainer's
     ``.pt`` checkpoint."""
-    if path.endswith(".msgpack"):
-        state = state_from_checkpoint(path)
-    else:
-        state = torch.load(path, map_location=model.device)["model"]
-    model.load_state_dict(state)
+    model.load_state_dict(state_from_checkpoint(path))
 
 
 def train_golden(checkpoint_dir: str, device=None, impl: str = "cuda") -> tuple[list, dict, HopVAE]:

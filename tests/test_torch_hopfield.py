@@ -30,6 +30,9 @@ RTOL, ATOL = 1e-4, 1e-5
 STAT_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6  # test_pallas_gradients_match_reference
 SHAPES = [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)]  # ragged in N and M
+# widths the kernels are not built for: the plain versions take them, as
+# the Pallas kernels do
+SHAPES += [(24, 200, 32, 32), (19, 150, 64, 4), (21, 130, 128, 128)]
 
 
 def _np_params(rng, d_in, d_out, m):
@@ -161,10 +164,48 @@ def test_stream_lookup_fwd_checks_its_inputs():
         hc.stream_lookup_fwd(torch.zeros(64, 5).T, k, u, s, t)
     with pytest.raises(ValueError, match="shapes disagree"):
         hc.stream_lookup_fwd(x, torch.zeros(70, 32), u, s, t)
-    with pytest.raises(ValueError, match="not in"):
-        hc.stream_lookup_fwd(torch.zeros(5, 32), torch.zeros(70, 32), u, torch.ones(32), torch.zeros(32))
+    # on the CPU the plain version takes a width the kernels are not built for
+    out, m, l = hc.stream_lookup_fwd(torch.zeros(5, 32), torch.zeros(70, 32), u, torch.ones(32), torch.zeros(32))
+    assert (out.shape, m.shape, l.shape) == ((5, 3), (5, 1), (5, 1))
     with pytest.raises(ValueError, match="at least one row"):
         hc.stream_lookup_fwd(torch.zeros(0, 64), k, u, s, t)
+
+
+@pytest.mark.parametrize("device", ["meta", "cuda"])
+def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
+    """Off the CPU, a width the kernels are not built for raises
+    ``NotImplementedError`` naming ROADMAP Queue 3, in the forward and both
+    backward wrappers, before anything is launched; a built width on a meta
+    tensor reaches the device check. CUDA-typed tensors are faked as meta
+    tensors that report ``device.type == "cuda"``, so no card is needed."""
+    def arrays(n, m, d_in, d_out):
+        a = [torch.zeros(*shape, device="meta") for shape in ((n, d_in), (m, d_in), (m, d_out), (d_in,), (d_in,))]
+        return a, [torch.zeros(*shape, device="meta") for shape in ((n, d_out), (n, 1), (n, 1), (n, 1))]
+
+    class CudaTyped:  # a meta tensor whose device says cuda
+        def __init__(self, t):
+            self.t = t
+
+        def __getattr__(self, name):
+            return getattr(self.t, name)
+
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    fwd, rest = arrays(5, 70, 32, 32)
+    if device == "cuda":
+        fwd, rest = [CudaTyped(a) for a in fwd], [CudaTyped(a) for a in rest]
+    before = (hc.stream_lookup_fwd.launches, hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches)
+    for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
+                 lambda: hc.stream_bwd_dku(*fwd, *rest)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 3: the streaming lookups at other widths"):
+            call()
+    assert (hc.stream_lookup_fwd.launches, hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches) == before
+    if device == "meta":
+        built, _ = arrays(5, 70, 64, 3)
+        with pytest.raises(ValueError, match="no kernel"):
+            hc.stream_lookup_fwd(*built)
 
 
 def test_cuda_impl_on_cpu_tensors_raises():

@@ -9,6 +9,7 @@ import torch
 from hopvae_torch import HopVAE, load_config
 from hopvae_torch.data import GOLDENS, golden_digits, golden_input
 from hopvae_torch.serving import InferenceEngine, main, state_from_checkpoint
+from hopvae_torch.train import Trainer
 
 CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / GOLDENS["mnist_digits"]["checkpoint"]
 
@@ -85,3 +86,33 @@ def test_cli_reconstructs_npy_inputs(tmp_path, capsys):
     mse = float(np.mean((y - golden_input("mnist_digits")[:3]) ** 2))
     assert mse < 0.05  # trained reconstructions of the digits, not noise
     assert "recon MSE" in capsys.readouterr().out
+
+
+def test_cli_serves_a_trainer_checkpoint(tmp_path, state):
+    """Train, then serve: the ``.pt`` that ``Trainer.save`` writes goes
+    through ``serving.main``, and its reconstructions equal
+    ``HopVAE.reconstruct`` of the same state on the same inputs, within
+    1e-5: the CPU's conv kernels sum in an order that depends on the input
+    buffer's alignment (5e-6 between a slice and a fresh copy of the same
+    values)."""
+    name = GOLDENS["mnist_digits"]["config"]
+    cfg = load_config(name)
+    model = HopVAE(cfg, impl="torch", device="cpu")
+    model.load_state_dict(state)
+    trainer = Trainer(model, cfg)
+    trainer.build_optimizer(1)
+    trainer.save(0, str(tmp_path / "run"))
+    ckpt = trainer.checkpoint_path(str(tmp_path / "run"))
+    assert ckpt.endswith("MNIST-28.pt")
+    x = golden_input("mnist_digits")[:3]
+    paths = []
+    for i, a in enumerate(x):
+        np.save(tmp_path / f"x{i}.npy", a)
+        paths.append(str(tmp_path / f"x{i}.npy"))
+    main(["--config", name, "--checkpoint", ckpt, "--out", str(tmp_path / "served"), "--impl", "torch",
+          "--compute-dtype", "float32", "--device", "cpu", *paths])
+    got = np.load(tmp_path / "served" / "reconstructions.npy")
+    model.eval()
+    with torch.inference_mode():
+        want = model.reconstruct(torch.from_numpy(x))[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
