@@ -33,9 +33,10 @@ Thirteen phases, each of which raises on failure:
    of 256 (``prior_d_model=256``), and at small ragged shapes (one at 256,
    one with views off 16-byte alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
-   bit for bit; kernel, plain and SDPA times, the f32 bound
-   (``bound_ms``) and the three-pass TF32 bound (``bound_tc_ms``), and
-   each kernel's registers, shared bytes and blocks an SM per width.
+   bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
+   (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
+   same FLOPs on the f32 CUDA cores (``bound_f32_ms``), and each kernel's
+   registers, shared bytes and blocks an SM per width.
    Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
@@ -669,8 +670,9 @@ ATTENTION_COUNTERS = {
     "causal_attention_bwd_dq": ac.causal_attention_bwd_dq,
 }
 # (label, B, S, heads, dh): the prior at full width, at prior_heads=1, and
-# small ragged shapes (S a multiple of no tile, of one tile, below one);
-# "misaligned" views take the backward's 4-byte copies
+# small ragged shapes (S a multiple of no tile, of one tile, below one) at
+# each of the forward's tile configurations (dh up to 64, 128, 256);
+# "misaligned" views take the 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
@@ -678,6 +680,8 @@ ATTENTION_CASES = (
     ("ragged S5", 2, 5, 2, 8),
     ("ragged S37", 2, 37, 2, 8),
     ("ragged S48", 2, 48, 2, 8),
+    ("ragged S5 dh16", 2, 5, 2, 16),
+    ("ragged S37 dh64", 2, 37, 2, 64),
     ("ragged S37 dh256", 2, 37, 1, 256),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
@@ -743,10 +747,12 @@ def sdpa_causal_ms(q, k, v, g, reps) -> dict:
 def phase_attention_vs_plain(env: dict) -> list[dict]:
     """K5-fwd, K5-dkv and K5-dq against their plain versions on the same
     inputs, the backward from the kernel's own lse; each kernel runs twice
-    and must repeat bit for bit. Each row carries both bounds (``bound_ms``
-    at the f32 rate, ``bound_tc_ms`` with three TF32 passes on the tensor
-    cores) and the kernel's registers, shared bytes and blocks an SM at
-    that width as the card reports them."""
+    and must repeat bit for bit. Each row's ``bound_ms`` (also
+    ``bound_tc_ms``) is the bound of the three TF32 passes the kernels run
+    on the tensor cores; ``bound_f32_ms``, the same FLOPs at the f32 rate of
+    the CUDA cores, is context. Each row also carries the kernel's
+    registers, shared bytes and blocks an SM at that width as the card
+    reports them."""
     log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
                                        **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
                                   for dh in ac.HEAD_DIMS}}))
@@ -786,8 +792,8 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
             }
         lib = sdpa_causal_ms(q, k, v, g, reps)
         for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",))):
-            b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
-            tc_ms, tc_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"], tensor_cores=True)
+            f32_ms, f32_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
+            b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"], tensor_cores=True)
             row = {
                 "kernel": f"causal_attention_{'fwd' if kn == 'fwd' else 'bwd_' + kn}", "shape": label,
                 "b": b, "s": s, "h": h, "dh": dh, "normwise_err": dict(zip(names, errs[kn])),
@@ -795,7 +801,8 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 "ms": times[kn][0], "plain_ms": times[kn][1],
                 "library_ms": lib["fwd_ms"] if kn == "fwd" else lib["bwd_ms"],
                 "library_fwd_bwd_ms": lib["fwd_bwd_ms"], "library_backend": lib["backend"],
-                "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": tc_ms, "bound_tc_by": tc_by,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_tc_ms": b_ms, "bound_f32_ms": f32_ms,
+                "bound_f32_by": f32_by,
             }
             row["build"] = ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
             log(json.dumps(row))
@@ -924,14 +931,23 @@ def prior_step_stage_ms(trainer, x: torch.Tensor, reps: int = 5) -> dict:
     forward without autograd, the prior's forward (bits and loss), the
     prior's backward and Adam. The composed loss must equal the trainer's.
     A spin kernel holds the stream while the host enqueues, as in
-    ``stage_ms``. The timed steps do update the prior."""
+    ``stage_ms``. The timed steps do update the prior. Per timed
+    repetition it also records the step's device ms, the spin's device ms
+    and the host's ms from the spin's launch to the last enqueue: where
+    the host takes longer than the spin, the device waits for it inside
+    the stages. The host enqueues a step in 13 to 25 ms, but the first
+    timed repetition has taken up to 194 ms on an H100's host (and one
+    run's stage means imply about 340), so the spin runs about 500 ms."""
     model, opt = trainer.model, trainer.optimizer
     names = ("backbone_forward", "prior_forward", "prior_backward", "adam")
     totals = dict.fromkeys(names, 0.0)
+    per_rep = {"step_ms": [], "spin_ms": [], "host_ms": []}
     for rep in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 2)]
         opt.zero_grad(set_to_none=True)
-        torch.cuda._sleep(200_000_000)
+        ev[-1].record()
+        torch.cuda._sleep(1_000_000_000)
+        t0 = time.perf_counter()
         ev[0].record()
         with torch.no_grad():
             x_recon, zq, aux = model.backbone(x)
@@ -949,11 +965,15 @@ def prior_step_stage_ms(trainer, x: torch.Tensor, reps: int = 5) -> dict:
             continue
         opt.step()
         ev[4].record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
         for a, name in enumerate(names):
             totals[name] += ev[a].elapsed_time(ev[a + 1]) / reps
+        per_rep["step_ms"].append(ev[0].elapsed_time(ev[4]))
+        per_rep["spin_ms"].append(ev[-1].elapsed_time(ev[0]))
+        per_rep["host_ms"].append(host_ms)
     opt.zero_grad(set_to_none=True)
-    return {**totals, "step_ms": sum(totals.values())}
+    return {**totals, "step_ms": sum(totals.values()), "per_rep": per_rep}
 
 
 def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
@@ -1182,7 +1202,7 @@ def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = F
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": full["ms"], "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-        "library_ms": full["library_ms"], "bound_tc_ms": full["bound_tc_ms"],
+        "library_ms": full["library_ms"], "bound_tc_ms": full["bound_tc_ms"], "bound_f32_ms": full["bound_f32_ms"],
         "build": full["build"],
         "max_normwise_err": max(max(r["normwise_err"].values()) for r in mine),
         "library_fwd_bwd_ms": full["library_fwd_bwd_ms"], "library_backend": full["library_backend"],

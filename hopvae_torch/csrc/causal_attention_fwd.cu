@@ -72,28 +72,13 @@
 // - At 256 two warps share a slab, 128 columns each, so that 64 query rows
 //   (four slabs) share each k and v tile: q, two buffers of k and v, and
 //   the exchange fill 216,064 of the 232,448 bytes a block may have.
-// tools/torch_attention_fwd_variants.py times these against other tiles
-// (the K5_FWD_* overrides below); PERF.md has the times, and registers,
-// spills and blocks an SM from causal_attention_fwd_attributes.
+// tools/torch_attention_fwd_variants.py times this source against copies
+// of it with other tiles; PERF.md has the times, and registers, spills and
+// blocks an SM from causal_attention_fwd_attributes.
 
 #include <cstdint>
 
 #include "causal_attention.cuh"
-
-// Build-time overrides for tools/torch_attention_fwd_variants.py; the
-// defaults are the design above.
-#ifndef K5_FWD_Q_PER_USE
-#define K5_FWD_Q_PER_USE 0  // 1: split q per use
-#endif
-#ifndef K5_FWD_SPLIT_128
-#define K5_FWD_SPLIT_128 1  // warps a slab at D = 128
-#endif
-#ifndef K5_FWD_SPLIT_256
-#define K5_FWD_SPLIT_256 2  // warps a slab at D = 256 (TM = 128 / SPLIT)
-#endif
-#ifndef K5_FWD_TN
-#define K5_FWD_TN 64  // keys of a streamed tile up to D = 64
-#endif
 
 namespace {
 
@@ -111,16 +96,16 @@ constexpr float MASKED = -1e30f;
 
 template <int D>
 struct Tiles {
-  static constexpr int SPLIT = D > 128 ? K5_FWD_SPLIT_256 : D > 64 ? K5_FWD_SPLIT_128 : 1;  // warps of a 16-row slab
-  static constexpr int TM = D > 128 ? 128 / SPLIT : 64;  // query rows of a block
-  static constexpr int TN = D > 64 ? 32 : K5_FWD_TN;    // keys of a streamed tile
+  static constexpr int SPLIT = D > 128 ? 2 : 1;              // warps of a 16-row slab
+  static constexpr int TM = 64;                                // query rows of a block
+  static constexpr int TN = D > 64 ? 32 : 64;                  // keys of a streamed tile
   static constexpr int NT = TN / 8;                            // n-tiles of a 16 x TN score slab
   static constexpr int WARPS = TM / 16 * SPLIT;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int RS = D + 4;                             // row stride in shared memory
   static constexpr int KD = D / SPLIT;  // a warp's depth of the scores and columns of the output
   static constexpr int CT = KD / 8;     // its k-steps of q k^T and its output n-tiles
-  static constexpr bool Q_REGS = !K5_FWD_Q_PER_USE && KD <= 64;  // q split once, into registers
+  static constexpr bool Q_REGS = KD <= 64;  // q split once, into registers
   static constexpr int XCH = TM / 16 * SPLIT * NT * 128;        // floats of the exchange
   static_assert(KD % 8 == 0 && NT % 2 == 0, "tiles");
 };

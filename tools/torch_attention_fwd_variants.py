@@ -1,21 +1,20 @@
 """Compare builds of K5's forward kernel on the card (PyTorch/CUDA port).
 
-    python3 tools/torch_attention_fwd_variants.py [--reps N] [NAME=SOURCE[:-DFLAG,...] ...]
+    python3 tools/torch_attention_fwd_variants.py [--reps N] [NAME=SOURCE ...]
 
 Builds ``hopvae_torch/csrc/causal_attention_fwd.cu`` (as ``change``) and
-each ``NAME=SOURCE`` (a copy of the source elsewhere, for example a parent
-commit unpacked with ``git archive``, or the same source with ``-D`` flags
-after a colon, such as ``q_per_use=hopvae_torch/csrc/causal_attention_fwd.cu:-DK5_FWD_Q_PER_USE=1``)
-with the port's nvcc flags, prints each build's ptxas registers and
-spills, and runs every build twice, in turns, at phase 7's full-width
-shapes of ``chip_smoke.py`` and a few ragged ones (one with views off
+each ``NAME=SOURCE`` (a copy of the source elsewhere beside the headers it
+includes: a parent commit unpacked with ``git archive``, or an edited copy
+with other tiles) with the port's nvcc flags, prints each build's ptxas
+registers and spills, and runs every build twice, in turns, at phase 7's
+full-width shapes of ``chip_smoke.py`` and a few ragged ones (one with views off
 16-byte alignment): the normwise error of ``out`` and ``lse`` against the
 plain version, whether a second launch repeats the first bit for bit,
 whether its outputs equal the ``change`` build's bit for bit, and, at the
 full-width shapes, its time (CUDA events, mean of ``--reps`` launches) beside
 ``F.scaled_dot_product_attention(is_causal=True)``'s forward on the same
-inputs and the f32 and three-pass TF32 bounds of ``chip_smoke.py``. One
-JSON line per build and shape.
+inputs and the bounds of ``chip_smoke.py`` (three TF32 passes, and the
+f32 CUDA cores' as context). One JSON line per build and shape.
 """
 
 from __future__ import annotations
@@ -62,19 +61,18 @@ def call(lib, q, k, v, scale, out, lse) -> None:
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=10)
-    parser.add_argument("builds", nargs="*", metavar="NAME=SOURCE[:-DFLAG,...]")
+    parser.add_argument("builds", nargs="*", metavar="NAME=SOURCE")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_attention_fwd_variants: no CUDA device", file=sys.stderr)
         return 2
-    builds = {"change": (nvcc.CSRC / "causal_attention_fwd.cu", [])}
+    builds = {"change": nvcc.CSRC / "causal_attention_fwd.cu"}
     for arg in args.builds:
-        name, _, spec = arg.partition("=")
-        source, _, flags = spec.partition(":")
-        builds[name] = (Path(source).resolve(), [f for f in flags.split(",") if f])
+        name, _, source = arg.partition("=")
+        builds[name] = Path(source).resolve()
     print(f"card: {cs.smi('name,power.limit')}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(builds)) as pool:
-        futures = {n: pool.submit(build, n, src, fl, tmp) for n, (src, fl) in builds.items()}
+        futures = {n: pool.submit(build, n, src, [], tmp) for n, src in builds.items()}
         libs = {n: f.result() for n, f in futures.items()}
     exps = cs.exp_per_s()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -90,8 +88,8 @@ def main(argv: list[str]) -> int:
                 extra = {
                     "sdpa_fwd_ms": cs.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
                                               args.reps),
-                    "bound_ms": cs.attention_bound("fwd", b, s, h, dh, exps)[0],
-                    "bound_tc_ms": cs.attention_bound("fwd", b, s, h, dh, exps, tensor_cores=True)[0],
+                    "bound_ms": cs.attention_bound("fwd", b, s, h, dh, exps, tensor_cores=True)[0],
+                    "bound_f32_ms": cs.attention_bound("fwd", b, s, h, dh, exps)[0],
                 }
                 del qt, kt, vt
             first = {}
