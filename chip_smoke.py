@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Thirteen phases, each of which raises on failure:
+Fourteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
-   of every kernel in ``hopvae_torch/csrc`` (timed).
+   of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
+   registers and any spill as ptxas reports them.
 2. Each kernel against its plain torch version on the card, in f32 with
    TF32 off, at the shapes the serving and training paths give it: K1
    (the forward), then K2 and K3 (the backward, from K1's row stats and a
    seeded cotangent, each run twice to repeat bit for bit); kernel, plain
-   and library-call times from CUDA events, and the bound of each shape.
+   and library-call times from CUDA events, and the bound of each shape
+   (for K2 and K3, whose products run on the tensor cores in three TF32
+   passes, the three-pass bound as ``bound_ms`` and the f32-core one as
+   ``bound_f32_ms``; and each one's registers, shared bytes and blocks an
+   SM). Then the same at widths no config uses, which the kernels take
+   zero-padded: (32, 32), (64, 4) and (128, 128) at N 4,096, M 512, and a
+   ragged (13, 100) at N 37, M 300.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -36,7 +43,8 @@ Thirteen phases, each of which raises on failure:
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
    (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
    same FLOPs on the f32 CUDA cores (``bound_f32_ms``), and each kernel's
-   registers, shared bytes and blocks an SM per width.
+   registers, shared bytes and blocks an SM per width (K2's and K3's
+   too, at each width of phase 2).
    Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
@@ -61,7 +69,11 @@ Thirteen phases, each of which raises on failure:
     against the streaming bottleneck's three K1 launches, ``e`` and ``r``
     within 1e-5, at most 1e-4 of the ``zq`` bins differing; one launch a
     call.
-13. The kernel summary as one JSON line, the card line, and last
+13. Training at other widths: ``mnist_28`` at ``embedding_dim=32,
+    index_dim=4``, three f32 Adam steps through ``Trainer`` on the kernels
+    against the same steps on the CPU's plain versions, losses within
+    1e-3; K1, K2 and K3 launch 3 times a step.
+14. The kernel summary as one JSON line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -182,9 +194,12 @@ def phase_environment() -> dict:
     build_s = time.perf_counter() - t0
     log(f"built {stems} in {build_s:.1f} s")
     for stem in stems:
+        entry = ""
         for line in nvcc.build_logs.get(stem, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {stem}: {line.strip()}")
+            if "Compiling entry function" in line:  # the mangled name carries the template widths
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+                log(f"  ptxas {stem} {entry}: {line.strip()}")
     return {"card": card, "build_s": build_s, "exp_per_s": exp_per_s()}
 
 
@@ -216,14 +231,21 @@ def bound(n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
     return roof(2 * n * m * (d_in + d_out), n * m, floats, exp_per_s)
 
 
-def bound_bwd(kernel: str, n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
+def bound_bwd(kernel: str, n, m, d_in, d_out, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
     """K2 and K3 read x, K, U, s, t, g, m, l and delta. K2 does the score
     product, g·Uᵀ and dS·K and writes dx, ds, dt; K3 does the score
-    product, g·Uᵀ, Aᵀg and dSᵀq and writes dK, dU."""
+    product, g·Uᵀ, Aᵀg and dSᵀq and writes dK, dU. The FLOPs are those of
+    the real widths. ``tensor_cores``: three times the FLOPs at the TF32
+    rate (the kernels' three passes) instead of the FLOPs at the f32 rate
+    of the CUDA cores."""
     reads = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 3 * n
     if kernel == "dx":
-        return roof(2 * n * m * (2 * d_in + d_out), n * m, reads + n * d_in + 2 * d_in, exp_per_s)
-    return roof(2 * n * m * (2 * d_in + 2 * d_out), n * m, reads + m * (d_in + d_out), exp_per_s)
+        flops, words = 2 * n * m * (2 * d_in + d_out), reads + n * d_in + 2 * d_in
+    else:
+        flops, words = 2 * n * m * (2 * d_in + 2 * d_out), reads + m * (d_in + d_out)
+    if tensor_cores:
+        return roof(3 * flops, n * m, words, exp_per_s, TF32_FLOPS)
+    return roof(flops, n * m, words, exp_per_s)
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -246,14 +268,27 @@ def library_ms(q, k, u, reps) -> tuple[float | None, str]:
         return None, f"refused: {msg}"
 
 
+# (label, N, M, d_in, d_out): widths no config uses, which the CPU tests
+# hold against JAX and the kernels take zero-padded to a built instance,
+# and a ragged case with neither width a multiple of 8
+WIDTH_CASES = (
+    ("width 32x32", 4096, 512, 32, 32),
+    ("width 64x4", 4096, 512, 64, 4),
+    ("width 128x128", 4096, 512, 128, 128),
+    ("width ragged 13x100", 37, 300, 13, 100),
+)
+
+
 def kernel_cases(tables: dict) -> list[tuple]:
     """``(label, n, (K, U, s, t), d_in, d_out)`` at the shapes the main
     paths give the kernels: a full-width ffhq_64_scaled batch of 256, an
-    MNIST batch of 64, and a ragged case."""
+    MNIST batch of 64, and a ragged case; then the width cases."""
     cases = []
     for tag, n, name in (("ffhq64 b256", 73984, "ffhq"), ("mnist b64", 4096, "mnist"), ("ragged", 37, "ragged")):
         for layer, (d_in, d_out) in zip(("L1", "L2", "L3"), hc.SUPPORTED):
             cases.append((f"{tag} {layer}", n, tables[name][layer], d_in, d_out))
+    for label, n, _m, d_in, d_out in WIDTH_CASES:
+        cases.append((label, n, tables["widths"][label], d_in, d_out))
     return cases
 
 
@@ -328,7 +363,10 @@ def normwise(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
     """K2 and K3 against their plain versions at the shapes of phase 2,
     with ``m`` and ``l`` from K1 and a seeded cotangent; each kernel runs
-    twice and must repeat bit for bit."""
+    twice and must repeat bit for bit. Each row's ``bound_ms`` is the bound
+    of the three TF32 passes the kernels run on the tensor cores;
+    ``bound_f32_ms``, the same FLOPs at the f32 rate of the CUDA cores, is
+    context. Each row also carries the kernel's build at its widths."""
     g_gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
@@ -356,12 +394,14 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
             errs = {nm: normwise(a, b) for nm, a, b in zip(names[kernel], got[kernel], want[kernel])}
             abs_err = max((a - b).abs().max().item() for a, b in zip(got[kernel], want[kernel]))
             repeats = all(torch.equal(a, b) for a, b in zip(got[kernel], again[kernel]))
-            b_ms, b_by = bound_bwd(kernel, n, k.shape[0], d_in, d_out, env["exp_per_s"])
+            b_ms, b_by = bound_bwd(kernel, n, k.shape[0], d_in, d_out, env["exp_per_s"], tensor_cores=True)
+            f32_ms, f32_by = bound_bwd(kernel, n, k.shape[0], d_in, d_out, env["exp_per_s"])
             row = {
                 "kernel": f"hopfield_stream_bwd_{kernel}", "shape": label, "n": n, "m": k.shape[0],
                 "d_in": d_in, "d_out": d_out, "normwise_err": errs, "max_abs_err": abs_err,
                 "repeats_bitwise": repeats, "ms": times[kernel][0], "plain_ms": times[kernel][1],
                 "library_ms": lib_ms, "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_f32_ms": f32_ms, "bound_f32_by": f32_by, "build": hc.backward_attributes(kernel, d_in, d_out),
             }
             log(json.dumps(row))
             rows.append(row)
@@ -756,6 +796,10 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
                                        **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
                                   for dh in ac.HEAD_DIMS}}))
+    widths = [*hc.SUPPORTED, *((d_in, d_out) for _l, _n, _m, d_in, d_out in WIDTH_CASES)]
+    log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
+                                                          for kn in ("dx", "dku")}
+                                     for d_in, d_out in widths}}))
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for label, b, s, h, dh in ATTENTION_CASES:
@@ -1144,6 +1188,58 @@ def phase_fused_bottleneck(env: dict) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ phase 13
+
+
+WIDTH_CONFIG = {"embedding_dim": 32, "index_dim": 4}  # lookups (32, 32), (32, 4), (4, 32)
+WIDTH_STEPS = 3
+WIDTH_LOSS_RTOL = 1e-3  # three f32 Adam steps on the card against the CPU's: the train golden lands within 1.3e-4
+
+
+def width_steps(model, cfg, x: torch.Tensor) -> list[float]:
+    """The loss of each of ``WIDTH_STEPS`` Adam steps through ``Trainer``."""
+    trainer = Trainer(model, cfg)
+    trainer.build_optimizer(1)
+    return [float(trainer.train_step(x)["loss"]) for _ in range(WIDTH_STEPS)]
+
+
+@parity_mode()
+def phase_width_training() -> dict:
+    """``mnist_28`` at ``embedding_dim=32, index_dim=4``, widths no config
+    uses, which the kernels take zero-padded to their instances. Random
+    weights from the config's seed, made on the CPU and copied to the card;
+    three f32 Adam steps (constant learning rate) on the 64 committed
+    digits through ``Trainer`` with ``impl="cuda"``, against the same steps
+    on CPU tensors through the plain versions (``impl="torch"``). The
+    counts are set to 0 just before the card's steps and read just after:
+    K1, K2 and K3 launch 3 times a step."""
+    cfg = load_config("mnist_28")
+    for key, val in WIDTH_CONFIG.items():
+        setattr(cfg, key, val)
+    cfg.gamma = 1.0
+    torch.manual_seed(cfg.seed)
+    cpu = HopVAE(cfg, impl="torch", device="cpu")
+    card = HopVAE(cfg, impl="cuda", device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(golden_input("mnist_digits"))
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    losses = width_steps(card, cfg, x.cuda())
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+    plain = width_steps(cpu, cfg, x)
+    rel = [abs(a / b - 1) for a, b in zip(losses, plain)]
+    widths = {name: (layer.d_in, layer.out_proj.weight.shape[0]) for name, layer in card.bottleneck_layers().items()}
+    res = {"config": {"name": "mnist_28", **WIDTH_CONFIG}, "lookup_widths": widths, "losses": losses,
+           "plain_losses": plain, "loss_rel_err": rel, "launches": launches}
+    log(json.dumps({"width_training": res}))
+    if launches != dict.fromkeys(KERNEL_COUNTERS, 3 * WIDTH_STEPS):
+        raise AssertionError(f"expected 3 launches of each kernel per step over {WIDTH_STEPS} steps: {launches}")
+    if not all(math.isfinite(v) for v in losses) or max(rel) > WIDTH_LOSS_RTOL:
+        raise AssertionError(f"the card's losses {losses} are not within {WIDTH_LOSS_RTOL} of the CPU's {plain}")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1211,8 +1307,9 @@ def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = F
 
 
 def folded_tables() -> dict:
-    """The folded tables of each lookup: the trained FFHQ-64 and MNIST
-    checkpoints, and random ones with M = 3000 for the ragged case."""
+    """The folded tables ``(K, U, s, t)`` of each lookup: the trained
+    FFHQ-64 and MNIST checkpoints, random ones with M = 3000 for the ragged
+    case, and random ones for each of ``WIDTH_CASES`` (by its label)."""
     out = {}
     for name, golden in (("ffhq", "ffhq64_synthetic4"), ("mnist", "mnist_digits")):
         spec = GOLDENS[golden]
@@ -1220,17 +1317,23 @@ def folded_tables() -> dict:
         model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / spec["checkpoint"])))
         out[name] = model.bottleneck_layers()
     g = torch.Generator(device="cuda").manual_seed(1)
-    out["ragged"] = {}
-    for j, (d_in, d_out) in enumerate(hc.SUPPORTED):
-        layer = HopfieldLookup(d_in, d_out, 3000, device="cuda")
+
+    def random_layer(d_in, d_out, m):
+        layer = HopfieldLookup(d_in, d_out, m, device="cuda")
         layer.reset_parameters(generator=g)
-        out["ragged"][j] = layer
+        return layer
+
+    out["ragged"] = {j: random_layer(d_in, d_out, 3000) for j, (d_in, d_out) in enumerate(hc.SUPPORTED)}
+    widths = {label: random_layer(d_in, d_out, m) for label, _n, m, d_in, d_out in WIDTH_CASES}
     with torch.inference_mode():
-        return {
+        tables = {
             name: {f"L{j + 1}": tuple(a.contiguous() for a in (k, u, s, t))
                    for j, (k, u, _b, s, t) in enumerate(map(hc.fold_layer, layers.values()))}
             for name, layers in out.items()
         }
+        tables["widths"] = {label: tuple(a.contiguous() for i, a in enumerate(hc.fold_layer(layer)) if i != 2)
+                            for label, layer in widths.items()}
+    return tables
 
 
 def main() -> int:
@@ -1251,15 +1354,20 @@ def main() -> int:
     prior_training = phase_prior_train_full_width()
     wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
     fused_rows = phase_fused_bottleneck(env)
+    width_launches = phase_width_training()["launches"]
     launches, prior_launches = training["launches"], prior_training["launches"]
     kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
                               launches_serving=serving["launches"],
-                              launches_prior_phase=prior_launches["hopfield_stream_fwd"])]
+                              launches_prior_phase=prior_launches["hopfield_stream_fwd"],
+                              launches_width_phase=width_launches["hopfield_stream_fwd"])]
     for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
-        kernels.append(kernel_summary(name, [r for r in bwd_rows if r["kernel"] == name], launches[name],
-                                      max_normwise_err=max(max(r["normwise_err"].values())
-                                                           for r in bwd_rows if r["kernel"] == name),
-                                      launches_prior_phase=prior_launches[name]))
+        mine = [r for r in bwd_rows if r["kernel"] == name]
+        kernels.append(kernel_summary(name, mine, launches[name],
+                                      max_normwise_err=max(max(r["normwise_err"].values()) for r in mine),
+                                      bound_f32_ms=sum(r["bound_f32_ms"] for r in mine if r["shape"].startswith("ffhq64")),
+                                      builds={r["shape"]: r["build"] for r in mine if r["shape"].startswith("ffhq64")},
+                                      launches_prior_phase=prior_launches[name],
+                                      launches_width_phase=width_launches[name]))
     kernels += [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
     kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], wide=True)
                 for name in ATTENTION_COUNTERS]

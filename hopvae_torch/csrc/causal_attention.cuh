@@ -3,11 +3,9 @@
 //
 // Both stage (rows, D) tiles of one (batch, head) of a strided (B, S,
 // heads, D) f32 input into shared memory by cp.async, rows D + 4 floats
-// apart, and read mma.sync m16n8k8 fragments from them (mma_tf32.cuh).
-// D + 4 is 4 times an odd number (D a multiple of 8): the fragment loads
-// by row g (ldmatrix: eight 16-byte rows in eight bank groups) and those
-// by permuted row 2t (scalar, banks 8t + g or 8t + 4 + g) hit 32 banks, so
-// no tile needs a swizzle.
+// apart, and read mma.sync m16n8k8 fragments from them with the loaders of
+// mma_tf32.cuh. D + 4 is 4 times an odd number (D a multiple of 8), so no
+// tile needs a swizzle.
 
 #pragma once
 
@@ -65,31 +63,9 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
-// The A fragment of rows 0..15 and columns 0..7 of a tile in shared memory.
-template <int RS>
-__device__ __forceinline__ FragA load_a(const float* p, int gq, int tq) {
-  const int lane = 4 * gq + tq;
-  uint32_t r[4];
-  tf32x3::ldmatrix_x4(r, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 4 * (lane >> 4));
-  return tf32x3::split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
-                         __uint_as_float(r[3]));
-}
-
-// The B fragments B[k][n] = Y[n][k] of two n-tiles, rows n = 0..15,
-// columns k = 0..7.
-template <int RS>
-__device__ __forceinline__ void load_b_rows2(FragB& f0, FragB& f1, const float* p, int gq, int tq) {
-  const int lane = 4 * gq + tq;
-  uint32_t r[4];
-  tf32x3::ldmatrix_x4(r, p + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
-  f0 = tf32x3::split_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
-  f1 = tf32x3::split_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
-}
-
-// The B fragment B[k][n] = Y[k][n] over the permuted k: rows 2t and 2t + 1.
-template <int RS>
-__device__ __forceinline__ FragB load_b_cols(const float* p, int gq, int tq) {
-  return tf32x3::split_b(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
-}
+// The fragment loaders (mma_tf32.cuh), under this namespace's names.
+using tf32x3::load_a;
+using tf32x3::load_b_cols;
+using tf32x3::load_b_rows2;
 
 }  // namespace causal_attention

@@ -406,24 +406,7 @@ int dispatch(const float* q, const float* k, const float* v, const float* g, con
 template <int D, bool DKV>
 int attributes(int* out) {
   using C = Tiles<D>;
-  auto kernel = causal_bwd_kernel<D, DKV>;
-  constexpr size_t bytes = smem_bytes<D, DKV>();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, C::THREADS, bytes);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(bytes);
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = C::THREADS;
-  out[4] = blocks;
-  out[5] = C::TM;
-  out[6] = C::TN;
-  return cudaSuccess;
+  return kernel_attributes(causal_bwd_kernel<D, DKV>, C::THREADS, smem_bytes<D, DKV>(), C::TM, C::TN, out);
 }
 
 }  // namespace

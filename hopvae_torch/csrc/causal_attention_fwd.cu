@@ -332,24 +332,7 @@ int launch(const float* q, const float* k, const float* v, float* out, float* ls
 template <int D>
 int attributes(int* out) {
   using C = Tiles<D>;
-  auto kernel = causal_fwd_kernel<D>;
-  constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, C::THREADS, bytes);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(bytes);
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = C::THREADS;
-  out[4] = blocks;
-  out[5] = C::TM;
-  out[6] = C::TN;
-  return cudaSuccess;
+  return tf32x3::kernel_attributes(causal_fwd_kernel<D>, C::THREADS, smem_bytes<D>(), C::TM, C::TN, out);
 }
 
 }  // namespace

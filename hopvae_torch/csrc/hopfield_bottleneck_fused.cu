@@ -46,6 +46,80 @@ namespace {
 
 using namespace hopfield_stream;
 
+constexpr int BLOCK_N = 64;   // token rows per tile
+constexpr int BLOCK_M = 64;   // patterns per tile
+constexpr int THREADS = 256;  // a 16x16 grid; 4 threads per token row for the LayerNorm
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// every lane ends with the same value: each step adds the same two
+// operands in every lane, and float addition commutes
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// dst[r][k] = src[row0 + r][k] for r < rows, 0 beyond; dst has row stride S
+template <int D, int S>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int row0, int rows) {
+  for (int idx = threadIdx.x; idx < BLOCK_N * D; idx += THREADS) {
+    const int r = idx / D;
+    const int k = idx - r * D;
+    dst[r * S + k] = r < rows ? src[static_cast<size_t>(row0) * D + idx] : 0.f;
+  }
+}
+
+// acc[i][j] = sum_k a[ty*4+i][k] * b[tx+16j][k] over the width D, both
+// tiles in shared memory with row stride S, in K1's FMA order. Rows of a
+// float4 width are read as float4.
+template <int D, int S>
+__device__ __forceinline__ void tile_products(const float* a_s, const float* b_s, int ty, int tx,
+                                              float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if constexpr (D % 4 == 0) {
+#pragma unroll 4
+    for (int k = 0; k < D; k += 4) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a_s + (ty * 4 + i) * S + k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b_s + (tx + 16 * j) * S + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = acc[i][j];
+          v = fmaf(av[i].x, bv[j].x, v);
+          v = fmaf(av[i].y, bv[j].y, v);
+          v = fmaf(av[i].z, bv[j].z, v);
+          v = fmaf(av[i].w, bv[j].w, v);
+          acc[i][j] = v;
+        }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a_s[(ty * 4 + i) * S + k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = b_s[(tx + 16 * j) * S + k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
 constexpr int WIDE = 64;  // the token and retrieval width
 constexpr int NARROW = 3; // the index width
 constexpr int QS = stride_of<WIDE>();
@@ -182,7 +256,7 @@ bottleneck_fused_kernel(const float* __restrict__ x, Table t1, Table t2, Table t
   // ---- lookup 1: e = softmax(beta LN_1(x) K_1^T) U_1 + b_1
   stage_rows<WIDE, QS>(q_s, x, row0, rows_here);
   __syncthreads();
-  layer_norm_rows<WIDE, QS>(q_s, t1.s, t1.t, nullptr, nullptr);
+  layer_norm_rows<BLOCK_N, QS, THREADS>(q_s, WIDE, t1.s, t1.t);
   // the first pattern tile's barrier orders these writes before any read
   float acc[4][4], l_run[4];
   lookup<WIDE, WIDE>(q_s, k_s, u_s, p_s, t1, beta, acc, l_run);
@@ -200,7 +274,7 @@ bottleneck_fused_kernel(const float* __restrict__ x, Table t1, Table t2, Table t
   __syncthreads();
 
   // ---- lookup 2 and the quantizer: zq = rint(sigmoid(logits) (L - 1))
-  layer_norm_rows<WIDE, QS>(q_s, t2.s, t2.t, nullptr, nullptr);
+  layer_norm_rows<BLOCK_N, QS, THREADS>(q_s, WIDE, t2.s, t2.t);
   float acc3[4][NARROW];
   lookup<WIDE, NARROW>(q_s, k_s, u_s, p_s, t2, beta, acc3, l_run);
   if (tx == 0) {
@@ -219,7 +293,7 @@ bottleneck_fused_kernel(const float* __restrict__ x, Table t1, Table t2, Table t
   __syncthreads();
 
   // ---- lookup 3: r = softmax(beta_i LN_3(zn) K_3^T) U_3 + b_3
-  layer_norm_rows<NARROW, NARROW>(q_s, t3.s, t3.t, nullptr, nullptr);
+  layer_norm_rows<BLOCK_N, NARROW, THREADS>(q_s, NARROW, t3.s, t3.t);
   lookup<NARROW, WIDE>(q_s, k_s, u_s, p_s, t3, beta_i, acc, l_run);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

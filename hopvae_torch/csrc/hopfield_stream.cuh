@@ -1,12 +1,11 @@
 // Pieces shared by the streaming Hopfield backward kernels, K2
 // (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu), and by
 // the fused bottleneck forward K4 (hopfield_bottleneck_fused.cu). They
-// rebuild the attention tile from the row stats m and l that the forward
-// K1 (hopfield_stream_fwd.cu) wrote, so they compute q and the scores with
-// K1's arithmetic: the state LayerNorm in double, rounded once to f32, and
-// the same FMA order in the score product. K1 keeps its own inline copy of
-// that code: built from these functions it ran slower at 64 -> 64 on an
-// H100, from code generation alone (PERF.md).
+// rebuild the attention from the row stats m and l that the forward K1
+// (hopfield_stream_fwd.cu) wrote, so they compute q as K1 does: the state
+// LayerNorm in double over the real width, rounded once to f32. K1 keeps
+// its own inline copy of that code: built from these functions it ran
+// slower at 64 -> 64 on an H100, from code generation alone (PERF.md).
 
 #pragma once
 
@@ -14,36 +13,26 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "mma_tf32.cuh"
 
 namespace hopfield_stream {
 
-constexpr int BLOCK_N = 64;   // token rows per tile
-constexpr int BLOCK_M = 64;   // patterns per tile
-constexpr int THREADS = 256;  // a 16x16 grid; 4 threads per token row for the LayerNorm
 constexpr float LN_EPS = 1e-5f;
 constexpr float MASKED = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-
-static_assert(THREADS == 4 * BLOCK_N, "the LayerNorm gives each row 4 threads");
-static_assert(BLOCK_M == BLOCK_N, "stage_rows stages token and pattern tiles alike");
+constexpr int MAX_WIDTH = 128;  // the widest d_in or d_out the kernels take
 
 // shared-memory row stride: widths that are float4 multiples get +4
 // floats, which offsets consecutive rows by 4 banks
 template <int D>
 __host__ __device__ constexpr int stride_of() { return (D % 4 == 0) ? D + 4 : D; }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-// every lane ends with the same value: each step adds the same two
-// operands in every lane, and float addition commutes
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
+// the tensor cores' width of a real width: the next of 8, 16, 32, 64, 128
+__host__ __device__ constexpr int padded_width(int d) {
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
 // sum over the 4 lanes of one row; the same in each of them
@@ -53,93 +42,114 @@ __device__ __forceinline__ double quad_sum(double v) {
   return v;
 }
 
-// dst[r][k] = src[row0 + r][k] for r < rows, 0 beyond; dst has row stride S
-template <int D, int S>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int row0,
-                                           int rows) {
-  for (int idx = threadIdx.x; idx < BLOCK_N * D; idx += THREADS) {
-    const int r = idx / D;
-    const int k = idx - r * D;
-    dst[r * S + k] = r < rows ? src[static_cast<size_t>(row0) * D + idx] : 0.f;
-  }
-}
-
-// LayerNorm of the BLOCK_N rows of q_s in place, q = (x - mean) * inv * s + t
-// with inv = 1/sqrt(var + eps), over the real width D. All THREADS threads
-// call it: lanes 4r..4r+3 take row r, each its columns k = part (mod 4).
-// It runs in double and rounds once: with D = 3, a row whose values nearly
-// agree loses most digits of x - mean in f32. K1 sums a row in one thread,
-// here four lanes share it (K3 redoes this for every token tile); the two
-// double sums can differ in their last bits, and the rounded f32 q then
-// differs from K1's only where a double lands that close to an f32
-// rounding boundary. The row's mean and inv go to mean_out / inv_out when
-// they are given.
-template <int D, int S>
-__device__ __forceinline__ void layer_norm_rows(float* q_s, const float* __restrict__ s,
-                                                const float* __restrict__ t, double* mean_out,
-                                                double* inv_out) {
-  const int r = threadIdx.x >> 2;
-  const int part = threadIdx.x & 3;
-  float* row = q_s + r * S;
+// The state LayerNorm's mean and inv = 1/sqrt(var + eps) of one row over
+// its real width d, in double. Lanes 4r..4r+3 share the row, each its
+// columns k = part (mod 4); every lane ends with the same two values.
+// With d = 3, a row whose values nearly agree loses most digits of
+// x - mean in f32, hence the double. K1 sums a row in one thread, here
+// four lanes share it: the two double sums can differ in their last bits,
+// and the rounded f32 q then differs from K1's only where a double lands
+// that close to an f32 rounding boundary.
+__device__ __forceinline__ void ln_stats(const float* row, int d, int part, double& mean, double& inv) {
   double sum = 0.0;
-  for (int k = part; k < D; k += 4) sum += row[k];
-  const double mean = quad_sum(sum) / D;
+  for (int k = part; k < d; k += 4) sum += row[k];
+  mean = quad_sum(sum) / d;
   double var = 0.0;
-  for (int k = part; k < D; k += 4) {
+  for (int k = part; k < d; k += 4) {
     const double c = row[k] - mean;
     var += c * c;
   }
-  const double inv = 1.0 / sqrt(quad_sum(var) / D + static_cast<double>(LN_EPS));
-  for (int k = part; k < D; k += 4) row[k] = static_cast<float>((row[k] - mean) * inv * s[k] + t[k]);
-  if (part == 0 && mean_out != nullptr) {
-    mean_out[r] = mean;
-    inv_out[r] = inv;
+  inv = 1.0 / sqrt(quad_sum(var) / d + static_cast<double>(LN_EPS));
+}
+
+// LayerNorm of the ROWS rows of a tile in place, row stride S, over the
+// real width d: q = (x - mean) * inv * s + t. All NT threads call it, 4
+// lanes a row, NT / 4 rows at a time. Columns d and up are left as they
+// are (the callers stage zeros there, so q reads 0 in them).
+template <int ROWS, int S, int NT>
+__device__ __forceinline__ void layer_norm_rows(float* q_s, int d, const float* __restrict__ s,
+                                                const float* __restrict__ t) {
+  static_assert(ROWS % (NT / 4) == 0, "every lane takes part in each pass");
+  const int part = threadIdx.x & 3;
+#pragma unroll 1
+  for (int r = threadIdx.x >> 2; r < ROWS; r += NT / 4) {
+    float* row = q_s + r * S;
+    double mean, inv;
+    ln_stats(row, d, part, mean, inv);
+    for (int k = part; k < d; k += 4) row[k] = static_cast<float>((row[k] - mean) * inv * s[k] + t[k]);
   }
 }
 
-// acc[i][j] = sum_k a[ty*4+i][k] * b[tx+16j][k] over the width D, both
-// tiles in shared memory with row stride S. Rows of a float4 width are
-// read as float4.
-template <int D, int S>
-__device__ __forceinline__ void tile_products(const float* a_s, const float* b_s, int ty, int tx,
-                                              float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  if constexpr (D % 4 == 0) {
-#pragma unroll 4
-    for (int k = 0; k < D; k += 4) {
-      float4 av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a_s + (ty * 4 + i) * S + k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b_s + (tx + 16 * j) * S + k);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = acc[i][j];
-          v = fmaf(av[i].x, bv[j].x, v);
-          v = fmaf(av[i].y, bv[j].y, v);
-          v = fmaf(av[i].z, bv[j].z, v);
-          v = fmaf(av[i].w, bv[j].w, v);
-          acc[i][j] = v;
-        }
+// Rows [row0, row0 + ROWS) of a row-major (rows, d) f32 array into a
+// ROWS x (PD + 4) tile of shared memory by cp.async (the caller commits
+// and waits); columns d..PD - 1 and rows past `rows` are zero-filled.
+// vec16: 16-byte copies, for a base on 16 bytes and d a multiple of 4.
+template <int PD, int ROWS, int NT>
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src, int d, int row0, int rows,
+                                            bool vec16) {
+  constexpr int RS = PD + 4;
+  if (vec16) {
+    constexpr int CH = PD / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 4;
+      const bool in = row0 + r < rows && c < d;
+      tf32x3::cp_async16(dst + r * RS + c, in ? src + static_cast<size_t>(row0 + r) * d + c : src, in);
     }
   } else {
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[(ty * 4 + i) * S + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[(tx + 16 * j) * S + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int i = threadIdx.x; i < ROWS * PD; i += NT) {
+      const int r = i / PD;
+      const int c = i - r * PD;
+      const bool in = row0 + r < rows && c < d;
+      tf32x3::cp_async4(dst + r * RS + c, in ? src + static_cast<size_t>(row0 + r) * d + c : src, in);
     }
+  }
+}
+
+inline bool vec16_ok(const float* p, int d) { return reinterpret_cast<uintptr_t>(p) % 16 == 0 && d % 4 == 0; }
+
+// Blocks of `kernel` the card runs at once (blocks an SM times SMs), with
+// `bytes` of dynamic shared memory, whose limit it sets; 0 on an error.
+template <typename Kernel>
+int concurrent_blocks(Kernel kernel, int threads, size_t bytes) {
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes) != cudaSuccess)
+    return 0;
+  return per_sm * sms;
+}
+
+// The calls K2 and K3 take: a token and a pattern at least, and widths
+// from 1 to MAX_WIDTH.
+inline bool takes(int n, int m_patterns, int d_in, int d_out) {
+  return n > 0 && m_patterns > 0 && d_in >= 1 && d_in <= MAX_WIDTH && d_out >= 1 && d_out <= MAX_WIDTH;
+}
+
+// f(pi, po) with the padded widths of d_in and d_out as
+// std::integral_constant<int, ...> arguments: the dispatch of the 25
+// instances of a K2 or K3 kernel. The caller checks takes().
+template <int PI, typename F>
+int with_out_width(int d_out, F&& f) {
+  switch (padded_width(d_out)) {
+    case 8: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 64>{});
+    default: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 128>{});
+  }
+}
+
+template <typename F>
+int with_widths(int d_in, int d_out, F&& f) {
+  switch (padded_width(d_in)) {
+    case 8: return with_out_width<8>(d_out, f);
+    case 16: return with_out_width<16>(d_out, f);
+    case 32: return with_out_width<32>(d_out, f);
+    case 64: return with_out_width<64>(d_out, f);
+    default: return with_out_width<128>(d_out, f);
   }
 }
 

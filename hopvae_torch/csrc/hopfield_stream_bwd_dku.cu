@@ -1,5 +1,5 @@
-// Streaming modern-Hopfield lookup, backward for the pattern tables, for
-// Hopper (sm_90a).
+// Streaming modern-Hopfield lookup, backward for the pattern tables (K3),
+// for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_stream_bwd_dku_kernel` of
 // hopvae_tpu/ops/hopfield_pallas.py, launched in `_attn_ln_stream_bwd`.
@@ -13,274 +13,330 @@
 //
 // with A = exp(beta * q K^T - m) / l and q = LN(x) * s + t.
 //
-// What bounds it on an H100: arithmetic, 2*N*M*(2*d_in + 2*d_out) FLOPs
-// (the score product, g U^T, A^T g and dS^T q) and N*M exps, against
-// reading the inputs once and writing dK and dU.
+// What bounds it on an H100: the tensor cores. It does four products,
+// 2*N*M*(2*d_in + 2*d_out) FLOPs (K q^T, U g^T, A^T g, dS^T q), each as
+// mma.sync m16n8k8 on TF32 operands in three passes (mma_tf32.cuh): 0.94
+// ms at N = 73,984, M = 4096, d_in = d_out = 64 at 495 / 3 TFLOP/s,
+// against N*M exps and about 40 MB of memory traffic. Three passes for
+// the reason K2 gives (hopfield_stream_bwd_dx.cu).
 //
-// Design:
-// - One block of 256 threads keeps one tile of 64 patterns of K and U in
-//   shared memory and walks a chunk of the token axis in tiles of 64,
-//   rebuilding q (LayerNorm in double, from hopfield_stream.cuh, as K1)
-//   and the attention tile as K1 computed it. Rows >= N and patterns >= M
-//   are masked to A = 0 here; the caller pads nothing.
+// Design (after K5-dkv, causal_attention_bwd.cu):
+// - Widths: any d_in, d_out from 1 to 128, padded with zeros in shared
+//   memory to the next of 8, 16, 32, 64, 128 (the instance built for it);
+//   the LayerNorm and beta use the real width.
+// - A first pass builds q (the state LayerNorm in double over the real
+//   width, rounded once: hopfield_stream.cuh, as K1 and K2 build it) and
+//   1/l once for every token, into the scratch. Built inside the main
+//   kernel, each token's LayerNorm ran once for every block of patterns
+//   that reads it: 64 times at M = 4096.
+// - One block of 4 warps owns 64 patterns (TM) of K and U, a warp a
+//   16-pattern slab, and walks a chunk of the token axis in tiles of 32
+//   (TN), whose q, g, m, 1/l and delta arrive by double-buffered cp.async
+//   (16-byte copies where the base and width allow). Rows past N and
+//   patterns past M are masked to A = 0 here; the caller pads nothing.
+// - K q^T and U g^T come out as C fragments whose rows are patterns: A^T
+//   and dS^T are computed on them in registers and become, through the
+//   permuted k, the A operands of dU += A^T g and dK += dS^T q, with the
+//   g and q tiles as B operands.
+// - dU and dK are summed over each token tile one n-tile at a time in a
+//   fresh fragment, added to the running sums after the tile (the tensor
+//   cores' sums truncate; see K2).
 // - The TPU runs one program per pattern block and sums over the token
 //   blocks in its sequential grid. 64 pattern tiles (M = 4096) or 8
 //   (M = 512) would leave most of the 132 SMs idle, so the token axis is
-//   split into chunks: each block writes its chunk's partial dK and dU,
-//   shaped (chunks, M, d), and a second pass sums the chunks in order. No
+//   split into chunks, as many as fill about 8 waves of the blocks the
+//   card runs at once for the instance (a last wave that is mostly empty
+//   idles the card): each block writes its chunk's partial dK and dU,
+//   shaped (chunks, M, d), and a last pass sums the chunks in order. No
 //   float atomics: the result has the same bits in every run.
-// - Widths of 64: A and dS go through shared memory as [token][pattern],
-//   and thread (ty, tx) accumulates patterns ty*4+i against columns
-//   tx*4+c. Widths of 3: each thread keeps a 4x3 partial for its own
-//   patterns tx+16*j over its own tokens, and the 16 row groups are summed
-//   in order at the end of the chunk. Nothing is padded.
-// - Plain f32 FMA on the CUDA cores.
+//
+//   Shared bytes: 512 (d_in' + d_out' + 8) + 768 for padded widths d_in',
+//   d_out' (K, U, two buffers of q, g and the row stats): 70,400 at
+//   64 -> 64. Registers and blocks an SM per width are in PERF.md, from
+//   hopfield_stream_bwd_dku_attributes on the card.
 
 #include "hopfield_stream.cuh"
 
 namespace {
 
 using namespace hopfield_stream;
+using namespace tf32x3;
 
-// chunks of the token axis: enough blocks to fill the card several times
-// over, or one chunk per token tile
-constexpr int TARGET_BLOCKS = 8 * 132;
+constexpr int TM = 64;  // patterns of a block
+constexpr int TN = 32;  // tokens of a streamed tile
+constexpr int NT = TN / 8;
+constexpr int THREADS = 32 * TM / 16;
+constexpr int Q_ROWS = 32;  // token rows of a block of the first pass
+constexpr int Q_THREADS = 4 * Q_ROWS;
+constexpr int WAVES = 8;    // waves of blocks the chunks of the token axis aim to fill
 
-int chunks_for(int n, int m_patterns) {
-  const int token_tiles = (n + BLOCK_N - 1) / BLOCK_N;
-  const int pattern_tiles = (m_patterns + BLOCK_M - 1) / BLOCK_M;
-  const int want = (TARGET_BLOCKS + pattern_tiles - 1) / pattern_tiles;
-  return want < token_tiles ? want : token_tiles;
-}
-
-template <int D_IN, int D_OUT>
-struct Layout {
-  static constexpr int QS = stride_of<D_IN>();   // q rows, K rows
-  static constexpr int GS = stride_of<D_OUT>();  // g rows, U rows
-  static constexpr int PS = BLOCK_M + 4;          // A and dS as [token][pattern]
-  static constexpr bool WIDE_IN = D_IN % 4 == 0;
-  static constexpr bool WIDE_OUT = D_OUT % 4 == 0;
-  static constexpr int NARROW = WIDE_IN ? D_OUT : D_IN;  // the width of 3, if any
-  static constexpr int FLOATS = BLOCK_M * QS + BLOCK_M * GS           // K, U tiles
-                                + BLOCK_N * QS + BLOCK_N * GS        // q, g tiles
-                                + (WIDE_OUT ? BLOCK_N * PS : 0)      // A
-                                + (WIDE_IN ? BLOCK_N * PS : 0)       // dS
-                                + ((WIDE_IN && WIDE_OUT) ? 0 : 16 * BLOCK_M * NARROW);
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+template <int PI, int PO>
+struct Tiles {
+  static constexpr int QS = PI + 4;  // K rows and q rows in shared memory
+  static constexpr int GS = PO + 4;  // U rows and g rows
+  static constexpr int BUF = TN * (QS + GS) + 3 * TN;  // one buffer: q, g, m, 1/l, delta
+  static constexpr size_t BYTES = sizeof(float) * (TM * (QS + GS) + 2 * BUF);
 };
 
-template <int D_IN, int D_OUT>
-__global__ void __launch_bounds__(THREADS, 2)
-stream_bwd_dku_kernel(const float* __restrict__ x, const float* __restrict__ K,
-                      const float* __restrict__ U, const float* __restrict__ s,
-                      const float* __restrict__ t, const float* __restrict__ g,
-                      const float* __restrict__ m_in, const float* __restrict__ l_in,
-                      const float* __restrict__ delta, float* __restrict__ dk_part,
-                      float* __restrict__ du_part, int n, int m_patterns, int tiles_per_chunk,
-                      float beta) {
-  using L = Layout<D_IN, D_OUT>;
-  constexpr int QS = L::QS;
-  constexpr int GS = L::GS;
-  constexpr int PS = L::PS;
-  constexpr bool WIDE_IN = L::WIDE_IN;
-  constexpr bool WIDE_OUT = L::WIDE_OUT;
-  static_assert(!WIDE_IN || D_IN == 4 * 16, "a wide dK is 16 threads x 4 columns");
-  static_assert(!WIDE_OUT || D_OUT == 4 * 16, "a wide dU is 16 threads x 4 columns");
-  static_assert(WIDE_IN || WIDE_OUT, "one side is 64 wide");
-  // accumulators: wide sides hold [pattern ty*4+i][column tx*4+c], narrow
-  // sides [pattern tx+16*j][column c]
-  constexpr int KW = WIDE_IN ? 4 : D_IN;
-  constexpr int UW = WIDE_OUT ? 4 : D_OUT;
+// q = LN(x) * s + t and il = 1/l of every token: the first pass.
+__global__ void __launch_bounds__(Q_THREADS)
+stream_bwd_query_kernel(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ t,
+                        const float* __restrict__ l_in, int n, int d_in, float* __restrict__ q,
+                        float* __restrict__ il) {
+  constexpr int S = MAX_WIDTH + 1;
+  __shared__ float x_s[Q_ROWS * S];
+  const int row0 = blockIdx.x * Q_ROWS;
+  const int rows_here = min(Q_ROWS, n - row0);
+  for (int i = threadIdx.x; i < Q_ROWS * d_in; i += Q_THREADS) {
+    const int r = i / d_in;
+    x_s[r * S + i - r * d_in] = r < rows_here ? x[static_cast<size_t>(row0) * d_in + i] : 0.f;
+  }
+  __syncthreads();
+  layer_norm_rows<Q_ROWS, S, Q_THREADS>(x_s, d_in, s, t);
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows_here * d_in; i += Q_THREADS) {
+    const int r = i / d_in;
+    q[static_cast<size_t>(row0) * d_in + i] = x_s[r * S + i - r * d_in];
+  }
+  if (threadIdx.x < rows_here) il[row0 + threadIdx.x] = 1.f / l_in[row0 + threadIdx.x];
+}
 
+template <int PI, int PO>
+__global__ void __launch_bounds__(THREADS, 2)
+stream_bwd_dku_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                      const float* __restrict__ g, const float* __restrict__ m_in, const float* __restrict__ il_in,
+                      const float* __restrict__ delta, float* __restrict__ dk_part, float* __restrict__ du_part,
+                      int n, int m_patterns, int d_in, int d_out, int tiles_per_chunk, float beta, unsigned vec16) {
+  using C = Tiles<PI, PO>;
+  constexpr int QS = C::QS, GS = C::GS, CI = PI / 8, CO = PO / 8;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
-  float* u_s = k_s + BLOCK_M * QS;
-  float* q_s = u_s + BLOCK_M * GS;
-  float* g_s = q_s + BLOCK_N * QS;
-  float* a_s = g_s + BLOCK_N * GS;                      // WIDE_OUT only
-  float* d_s = a_s + (WIDE_OUT ? BLOCK_N * PS : 0);     // WIDE_IN only
-  float* red_s = d_s + (WIDE_IN ? BLOCK_N * PS : 0);    // the narrow side's row groups
+  float* u_s = k_s + TM * QS;
+  float* str = u_s + TM * GS;  // buffer u at str + u * BUF: q tile, g tile, then m, 1/l, delta
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int p0 = blockIdx.x * BLOCK_M;
-  const int pats = min(BLOCK_M, m_patterns - p0);
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);  // the warp's slab of patterns
+  const int p0 = blockIdx.x * TM;
   const int chunk = blockIdx.y;
-  const int token_tiles = (n + BLOCK_N - 1) / BLOCK_N;
-  const int tile_end = min(token_tiles, (chunk + 1) * tiles_per_chunk);
+  const int first = chunk * tiles_per_chunk;
+  const int last = min((n + TN - 1) / TN, first + tiles_per_chunk) - 1;
 
-  stage_rows<D_IN, QS>(k_s, K, p0, pats);
-  stage_rows<D_OUT, GS>(u_s, U, p0, pats);
+  stage_async<PI, TM, THREADS>(k_s, K, d_in, p0, m_patterns, vec16 >> 2 & 1u);
+  stage_async<PO, TM, THREADS>(u_s, U, d_out, p0, m_patterns, vec16 >> 3 & 1u);
+  auto stage_tile = [&](int it, int u) {
+    float* y = str + u * C::BUF;
+    stage_async<PI, TN, THREADS>(y, q, d_in, it * TN, n, vec16 & 1u);
+    stage_async<PO, TN, THREADS>(y + TN * QS, g, d_out, it * TN, n, vec16 >> 1 & 1u);
+    float* st = y + TN * (QS + GS);
+    for (int i = threadIdx.x; i < 3 * TN; i += THREADS) {
+      const int r = it * TN + i % TN;
+      const bool in = r < n;
+      const float* src = i < TN ? m_in : i < 2 * TN ? il_in : delta;
+      cp_async4(st + i, in ? src + r : src, in);
+    }
+    cp_async_commit();
+  };
+  stage_tile(first, 0);  // one group with K and U
 
-  float ak[4][KW], au[4][UW];
+  bool live_p[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < KW; ++c) ak[i][c] = 0.f;
-#pragma unroll
-    for (int c = 0; c < UW; ++c) au[i][c] = 0.f;
-  }
+  for (int e = 0; e < 2; ++e) live_p[e] = p0 + m0 + gq + 8 * e < m_patterns;
 
-  for (int tile = chunk * tiles_per_chunk; tile < tile_end; ++tile) {
-    const int row0 = tile * BLOCK_N;
-    const int rows_here = min(BLOCK_N, n - row0);
-    stage_rows<D_IN, QS>(q_s, x, row0, rows_here);
-    stage_rows<D_OUT, GS>(g_s, g, row0, rows_here);
-    __syncthreads();
-    layer_norm_rows<D_IN, QS>(q_s, s, t, nullptr, nullptr);
-    __syncthreads();
+  float dk[CI][4], du[CO][4];
+#pragma unroll
+  for (int c = 0; c < CI; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) du[c][e] = 0.f;
 
-    float sc[4][4], da[4][4];
-    tile_products<D_IN, QS>(q_s, k_s, ty, tx, sc);
-    tile_products<D_OUT, GS>(g_s, u_s, ty, tx, da);
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it < last) stage_tile(it + 1, u ^ 1);
+    const float* y = str + u * C::BUF;  // q
+    const float* gt = y + TN * QS;
+    const float* st = gt + TN * GS;  // m, 1/l, delta of the tile's tokens
+    const int tok_lo = it * TN;
+
+    // ---- the slab's K q^T and U g^T over the tile: rows patterns, columns tokens
+    float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const bool row_live = r < rows_here;
-      const float m_r = row_live ? m_in[row0 + r] : 0.f;
-      const float il_r = row_live ? 1.f / l_in[row0 + r] : 0.f;
-      const float dl_r = row_live ? delta[row0 + r] : 0.f;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tx + 16 * j;
-        const float a = (row_live && p < pats) ? __expf(sc[i][j] * beta - m_r) * il_r : 0.f;
-        const float dsv = a * (da[i][j] - dl_r) * beta;
-        if constexpr (WIDE_OUT) {
-          a_s[r * PS + p] = a;
-        } else {
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-          for (int c = 0; c < D_OUT; ++c) au[j][c] = fmaf(a, g_s[r * GS + c], au[j][c]);
-        }
-        if constexpr (WIDE_IN) {
-          d_s[r * PS + p] = dsv;
-        } else {
+    for (int kk = 0; kk < PI; kk += 8) {
+      const FragA a = load_a<QS>(k_s + m0 * QS + kk, gq, tq);
 #pragma unroll
-          for (int c = 0; c < D_IN; ++c) ak[j][c] = fmaf(dsv, q_s[r * QS + c], ak[j][c]);
-        }
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<QS>(b0, b1, y + 8 * j * QS + kk, gq, tq);
+        mma3(sc[j], a, b0);
+        mma3(sc[j + 1], a, b1);
       }
     }
-    __syncthreads();
-
-    // ---- the 64-wide sides: sum over this tile's tokens
-#pragma unroll 4
-    for (int r = 0; r < BLOCK_N; ++r) {
-      if constexpr (WIDE_OUT) {
-        const float4 av = *reinterpret_cast<const float4*>(a_s + r * PS + ty * 4);
-        const float4 gv = *reinterpret_cast<const float4*>(g_s + r * GS + tx * 4);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          au[i][0] = fmaf(ar[i], gv.x, au[i][0]);
-          au[i][1] = fmaf(ar[i], gv.y, au[i][1]);
-          au[i][2] = fmaf(ar[i], gv.z, au[i][2]);
-          au[i][3] = fmaf(ar[i], gv.w, au[i][3]);
-        }
-      }
-      if constexpr (WIDE_IN) {
-        const float4 dv = *reinterpret_cast<const float4*>(d_s + r * PS + ty * 4);
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + r * QS + tx * 4);
-        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+    for (int kk = 0; kk < PO; kk += 8) {
+      const FragA a = load_a<GS>(u_s + m0 * GS + kk, gq, tq);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ak[i][0] = fmaf(dr[i], qv.x, ak[i][0]);
-          ak[i][1] = fmaf(dr[i], qv.y, ak[i][1]);
-          ak[i][2] = fmaf(dr[i], qv.z, ak[i][2]);
-          ak[i][3] = fmaf(dr[i], qv.w, ak[i][3]);
-        }
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<GS>(b0, b1, gt + 8 * j * GS + kk, gq, tq);
+        mma3(dp[j], a, b0);
+        mma3(dp[j + 1], a, b1);
       }
     }
-    __syncthreads();  // the next tile overwrites q_s, g_s, a_s and d_s
+
+    // ---- A^T and dS^T in place (patterns gq, gq + 8; tokens 8j + 2tq, + 1)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = 8 * j + 2 * tq + (e & 1);
+        const float a = live_p[e >> 1] && tok_lo + tl < n ? __expf(sc[j][e] * beta - st[tl]) * st[TN + tl] : 0.f;
+        sc[j][e] = a;
+        dp[j][e] = a * (dp[j][e] - st[2 * TN + tl]) * beta;
+      }
+
+    // ---- dU += A^T g, then dK += dS^T q, over the tile's tokens, one
+    // n-tile at a time in a fresh fragment
+    FragA fa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fa[j] = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+#pragma unroll
+    for (int c = 0; c < CO; ++c) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<GS>(gt + 8 * j * GS + 8 * c, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) du[c][e] += o[e];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fa[j] = split_a(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
+#pragma unroll
+    for (int c = 0; c < CI; ++c) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<QS>(y + 8 * j * QS + 8 * c, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[c][e] += o[e];
+    }
   }
 
-  // ---- this chunk's partial rows of dK and dU
-  const size_t base = static_cast<size_t>(chunk) * m_patterns + p0;
-  if constexpr (WIDE_IN) {
+  // ---- this chunk's partial rows of dK and dU, (chunks, M, d), real widths
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (ty * 4 + i < pats)
-        *reinterpret_cast<float4*>(dk_part + (base + ty * 4 + i) * D_IN + tx * 4) =
-            make_float4(ak[i][0], ak[i][1], ak[i][2], ak[i][3]);
-  }
-  if constexpr (WIDE_OUT) {
+  for (int e = 0; e < 2; ++e) {
+    if (!live_p[e]) continue;
+    const size_t row = static_cast<size_t>(chunk) * m_patterns + p0 + m0 + gq + 8 * e;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (ty * 4 + i < pats)
-        *reinterpret_cast<float4*>(du_part + (base + ty * 4 + i) * D_OUT + tx * 4) =
-            make_float4(au[i][0], au[i][1], au[i][2], au[i][3]);
-  }
-  if constexpr (!(WIDE_IN && WIDE_OUT)) {
-    // the narrow side: each row group ty holds its tokens' share; sum the
-    // 16 groups in order
-    constexpr int NW = L::NARROW;
-    float* part = WIDE_IN ? du_part : dk_part;
+    for (int c = 0; c < CI; ++c)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int h = 0; h < 2; ++h)
+        if (8 * c + 2 * tq + h < d_in) dk_part[row * d_in + 8 * c + 2 * tq + h] = dk[c][2 * e + h];
 #pragma unroll
-      for (int c = 0; c < NW; ++c)
-        red_s[(ty * BLOCK_M + tx + 16 * j) * NW + c] = WIDE_IN ? au[j][c] : ak[j][c];
-    __syncthreads();
-    if (tid < BLOCK_M * NW) {
-      const int p = tid / NW;
-      float acc = 0.f;
-      for (int grp = 0; grp < 16; ++grp) acc += red_s[(grp * BLOCK_M) * NW + tid];
-      if (p < pats) part[base * NW + tid] = acc;
-    }
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (8 * c + 2 * tq + h < d_out) du_part[row * d_out + 8 * c + 2 * tq + h] = du[c][2 * e + h];
   }
 }
 
-template <int D_IN, int D_OUT>
-int launch(const float* x, const float* K, const float* U, const float* s, const float* t,
-           const float* g, const float* m, const float* l, const float* delta, float* dK,
-           float* dU, float* workspace, int n, int m_patterns, cudaStream_t stream) {
-  using L = Layout<D_IN, D_OUT>;
-  auto kernel = stream_bwd_dku_kernel<D_IN, D_OUT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
+// Chunks of the token axis: about WAVES waves of the blocks the card runs
+// at once (`concurrent`), at most one a token tile.
+int chunks_for(int n, int m_patterns, int concurrent) {
+  const int token_tiles = (n + TN - 1) / TN;
+  const int pattern_tiles = (m_patterns + TM - 1) / TM;
+  int chunks = WAVES * (concurrent > 0 ? concurrent : 1) / pattern_tiles;
+  chunks = chunks > 1 ? chunks : 1;
+  return chunks < token_tiles ? chunks : token_tiles;
+}
+
+template <int PI, int PO>
+int chunks_of(int n, int m_patterns) {
+  return chunks_for(n, m_patterns, concurrent_blocks(stream_bwd_dku_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES));
+}
+
+struct Args {
+  const float *x, *K, *U, *s, *t, *g, *m, *l, *delta;
+  float *dK, *dU, *workspace;
+  int n, m_patterns, d_in, d_out;
+  cudaStream_t stream;
+};
+
+template <int PI, int PO>
+int launch(const Args& a) {
+  using C = Tiles<PI, PO>;
+  auto kernel = stream_bwd_dku_kernel<PI, PO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::BYTES));
   if (err != cudaSuccess) return err;
-  const int chunks = chunks_for(n, m_patterns);
-  const int token_tiles = (n + BLOCK_N - 1) / BLOCK_N;
+  const int chunks = chunks_of<PI, PO>(a.n, a.m_patterns);
+  const int token_tiles = (a.n + TN - 1) / TN;
   const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
-  float* dk_part = workspace;
-  float* du_part = workspace + static_cast<size_t>(chunks) * m_patterns * D_IN;
-  const dim3 grid((m_patterns + BLOCK_M - 1) / BLOCK_M, chunks);
-  kernel<<<grid, THREADS, L::BYTES, stream>>>(x, K, U, s, t, g, m, l, delta, dk_part, du_part, n,
-                                              m_patterns, tiles_per_chunk, beta_of(D_IN));
+  float* q = a.workspace;
+  float* il = q + static_cast<size_t>(a.n) * a.d_in;
+  float* dk_part = il + a.n;
+  float* du_part = dk_part + static_cast<size_t>(chunks) * a.m_patterns * a.d_in;
+  stream_bwd_query_kernel<<<(a.n + Q_ROWS - 1) / Q_ROWS, Q_THREADS, 0, a.stream>>>(a.x, a.s, a.t, a.l, a.n, a.d_in,
+                                                                                 q, il);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = sum_rows(dk_part, chunks, m_patterns * D_IN, dK, stream);
+  const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
+                         vec16_ok(a.U, a.d_out) << 3;
+  const dim3 grid((a.m_patterns + TM - 1) / TM, (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk);
+  kernel<<<grid, THREADS, C::BYTES, a.stream>>>(q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n,
+                                                a.m_patterns, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in),
+                                                vec16);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return sum_rows(du_part, chunks, m_patterns * D_OUT, dU, stream);
+  err = sum_rows(dk_part, grid.y, a.m_patterns * a.d_in, a.dK, a.stream);
+  if (err != cudaSuccess) return err;
+  return sum_rows(du_part, grid.y, a.m_patterns * a.d_out, a.dU, a.stream);
 }
 
 }  // namespace
 
-// Floats of device scratch that hopfield_stream_bwd_dku needs: one
-// partial dK (m_patterns, d_in) and one partial dU (m_patterns, d_out) for
-// each chunk of the token axis.
+// Floats of device scratch that hopfield_stream_bwd_dku needs: q (n, d_in)
+// and 1/l (n), then one partial dK (m_patterns, d_in) and one partial dU
+// (m_patterns, d_out) for each chunk of the token axis.
 extern "C" long long hopfield_stream_bwd_dku_workspace(int n, int m_patterns, int d_in, int d_out) {
-  if (n <= 0 || m_patterns <= 0) return 0;
-  return static_cast<long long>(chunks_for(n, m_patterns)) * m_patterns * (d_in + d_out);
+  if (!takes(n, m_patterns, d_in, d_out)) return 0;
+  const int chunks = with_widths(d_in, d_out, [&](auto pi, auto po) {
+    return chunks_of<decltype(pi)::value, decltype(po)::value>(n, m_patterns);
+  });
+  return static_cast<long long>(n) * (d_in + 1) + static_cast<long long>(chunks) * m_patterns * (d_in + d_out);
 }
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
 // dK (m_patterns, d_in), dU (m_patterns, d_out), and workspace (see
-// above). Launches the kernel and the fixed-order sum of the chunks on
-// `stream`. Returns a cudaError_t; 0 means every launch was accepted.
-extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const float* U,
-                                       const float* s, const float* t, const float* g,
-                                       const float* m, const float* l, const float* delta,
-                                       float* dK, float* dU, float* workspace, int n,
+// above); 1 <= d_in, d_out <= 128. Launches the first pass, the kernel and
+// the fixed-order sums of the chunks on `stream`. Returns a cudaError_t;
+// 0 means every launch was accepted.
+extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const float* U, const float* s,
+                                       const float* t, const float* g, const float* m, const float* l,
+                                       const float* delta, float* dK, float* dU, float* workspace, int n,
                                        int m_patterns, int d_in, int d_out, void* stream) {
-  if (n <= 0 || m_patterns <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_in == 64 && d_out == 64)
-    return launch<64, 64>(x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, st);
-  if (d_in == 64 && d_out == 3)
-    return launch<64, 3>(x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, st);
-  if (d_in == 3 && d_out == 64)
-    return launch<3, 64>(x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, st);
-  return cudaErrorInvalidValue;
+  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
+  const Args a{x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, d_in, d_out,
+               static_cast<cudaStream_t>(stream)};
+  return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
+}
+
+// The kernel built for (d_in, d_out) as the card reports it: out receives
+// registers a thread, dynamic shared bytes, local (spill) bytes a thread,
+// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out) {
+  if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
+  return with_widths(d_in, d_out, [&](auto pi, auto po) {
+    constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
+    return static_cast<int>(
+        kernel_attributes(stream_bwd_dku_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES, TM, TN, out));
+  });
 }

@@ -1,4 +1,4 @@
-// Streaming modern-Hopfield lookup, backward for the token side, for
+// Streaming modern-Hopfield lookup, backward for the token side (K2), for
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_stream_bwd_dx_kernel` (with `_recompute_attn`)
@@ -16,254 +16,377 @@
 // where xhat = (x - mean) * inv is the normalized input. The (N, M)
 // attention never reaches device memory.
 //
-// What bounds it on an H100: arithmetic, 2*N*M*(2*d_in + d_out) FLOPs (the
-// score product, g U^T, and dS K) and N*M exps, against reading x, g, the
-// row stats and the tables once and writing dx.
+// What bounds it on an H100: the tensor cores. It does three products,
+// 2*N*M*(2*d_in + d_out) FLOPs (q K^T, g U^T, dS K), each as mma.sync
+// m16n8k8 on TF32 operands in three passes (mma_tf32.cuh), so the ceiling
+// is 495 / 3 = 165 TFLOP/s: at N = 73,984, M = 4096, d_in = d_out = 64,
+// 0.71 ms, against N*M exps (under 0.1 ms on the SFUs) and about 40 MB of
+// memory traffic. One TF32 pass would move dx by about 1e-3 normwise,
+// past the 5e-5 the port holds it to; three passes land where f32 does
+// (tests/test_torch_hopfield_tf32.py emulates both). A is rebuilt with
+// scores from these products, not K1's FMA sums: the two differ by about
+// 1e-7 relative, which moves A by about 1e-6.
 //
-// Design:
-// - The token side is K1's: one block of 256 threads takes 64 token rows,
-//   keeps q and g in shared memory and walks the pattern axis in tiles of
-//   64 (the loop that stands in for the TPU grid's sequential j axis).
-//   Thread (ty, tx) owns rows ty*4+i and patterns tx+16*j. q and the
-//   scores come from hopfield_stream.cuh, with K1's arithmetic, so
-//   exp(sc - m) / l rebuilds the forward's rows. Rows >= N and patterns >= M are masked
+// Design (after K5-dq, causal_attention_bwd.cu):
+// - Widths: any d_in, d_out from 1 to 128. A width is padded with zeros in
+//   shared memory (never in device memory) to the next of 8, 16, 32, 64,
+//   128, the instance built for it; the LayerNorm's mean and variance,
+//   and beta = 1/sqrt(d_in), use the real width.
+// - One block of 4 warps owns 64 token rows (TM), a warp a 16-row slab.
+//   q (the state LayerNorm in double, over the real width, rounded once:
+//   hopfield_stream.cuh) and g stay in shared memory for the whole walk
+//   over the pattern tiles of 32 (TN), whose K and U arrive by
+//   double-buffered cp.async (16-byte copies where the base and width
+//   allow, 4-byte where not). Patterns past M and rows past N are masked
 //   to A = 0 here; the caller pads nothing.
-// - dq: for d_in = 64, dS goes through shared memory (transposed) and each
-//   thread accumulates a 4x4 block of dq; for d_in = 3, each thread keeps
-//   a 4x3 partial over its own patterns, summed over the half-warp once
-//   at the end. g U^T for d_out = 3 is 3 FMAs deep; nothing is padded.
-// - The LayerNorm backward runs at the row end, in double like the
-//   forward's LayerNorm (inv reaches 1/sqrt(eps) on flat rows), 4 lanes a
-//   row.
-// - ds and dt: the TPU sums them into one resident block across the
-//   sequential token grid. Here each block writes its own partial row
-//   (summed over its rows in a fixed order), and a second pass sums the
-//   partial rows in the order of the blocks. No float atomics: the result
-//   has the same bits in every run.
-// - Plain f32 FMA on the CUDA cores.
+// - The warp's q K^T and g U^T come out as C fragments; A and dS are
+//   computed on them in registers. dS then becomes the A operand of
+//   dq += dS K through the permuted k (C's (c0, c2, c1, c3)), with the K
+//   tile as the B operand: no trip through shared memory.
+// - dq is summed over each pattern tile one n-tile at a time in a fresh
+//   fragment, added to the running sum after the tile: the tensor cores'
+//   sums truncate, and a chain over all 4096 patterns would carry that
+//   error far past a tile's 12 mma. One n-tile at a time needs 4 fresh
+//   registers where a whole fresh row would need d_in / 2.
+// - Few token blocks (the MNIST batch, a ragged call) leave SMs idle, and
+//   a last wave of blocks that is mostly empty idles them at the end, so
+//   the pattern axis is split where that ends the waves sooner, from the
+//   blocks an SM the card reports for the instance (plan_for): each split
+//   writes its partial dq, and a second kernel sums the splits in a fixed
+//   order and runs the LayerNorm backward in double (4 lanes a row),
+//   writing dx and per-block partial rows of ds and dt, which a third
+//   pass sums in order. No float atomics: every output has the same bits
+//   in every run.
+//
+//   Shared bytes: 512 (d_in' + d_out' + 8) for padded widths d_in',
+//   d_out' (q, g, two buffers of K and U): 69,632 at 64 -> 64. Registers and
+//   blocks an SM per width are in PERF.md, from
+//   hopfield_stream_bwd_dx_attributes on the card.
 
 #include "hopfield_stream.cuh"
 
 namespace {
 
 using namespace hopfield_stream;
+using namespace tf32x3;
 
-template <int D_IN, int D_OUT>
-struct Layout {
-  static constexpr int QS = stride_of<D_IN>();   // q rows, K rows, dq rows
-  static constexpr int GS = stride_of<D_OUT>();  // g rows, U rows
-  static constexpr int PS = BLOCK_N + 4;          // transposed dS
-  static constexpr bool WIDE_IN = D_IN % 4 == 0;
-  static constexpr int FLOATS = BLOCK_N * QS + BLOCK_N * GS + BLOCK_M * QS + BLOCK_M * GS +
-                                (WIDE_IN ? BLOCK_M * PS : 0);
-  static constexpr size_t STAT_BYTES = 2 * BLOCK_N * sizeof(double);  // row mean and inv
-  static constexpr size_t BYTES = STAT_BYTES + sizeof(float) * FLOATS;
+constexpr int TM = 64;             // token rows of a block
+constexpr int TN = 32;             // patterns of a streamed tile
+constexpr int NT = TN / 8;         // n-tiles of a warp's 16 x TN scores
+constexpr int THREADS = 32 * TM / 16;
+constexpr int FIN_ROWS = 32;       // token rows of a block of the finishing pass
+constexpr int FIN_THREADS = 4 * FIN_ROWS;
+
+template <int PI, int PO>
+struct Tiles {
+  static constexpr int QS = PI + 4;  // q rows and K rows in shared memory
+  static constexpr int GS = PO + 4;  // g rows and U rows
+  static constexpr int BUF = TN * (QS + GS);  // one buffer of a K and a U tile
+  static constexpr size_t BYTES = sizeof(float) * (TM * (QS + GS) + 2 * BUF);
 };
 
-template <int D_IN, int D_OUT>
+// The pattern axis in `splits` runs of `per` tiles (the last may be short).
+struct Plan {
+  int splits, per;
+};
+
+// The splits whose waves of blocks end soonest: s splits take
+// ceil(T s / C) waves of blocks 1/s as long, for T token blocks and C
+// blocks the card runs at once. At N = 73,984 (T = 1156) and C = 264,
+// two splits take 4.5 block-times where one takes 5; below a wave (MNIST,
+// ragged calls) the splits fill the card. The fewest splits win a tie.
+Plan plan_for(int n, int m_patterns, int concurrent) {
+  const int blocks = (n + TM - 1) / TM;
+  const int tiles = (m_patterns + TN - 1) / TN;
+  const int c = concurrent > 0 ? concurrent : 1;
+  int limit = (4 * c + blocks - 1) / blocks;
+  limit = limit > 4 ? limit : 4;
+  limit = limit < tiles ? limit : tiles;
+  int best = 1;
+  long long best_waves = (blocks + c - 1) / c;
+  for (int s = 2; s <= limit; ++s) {
+    const long long waves = (static_cast<long long>(blocks) * s + c - 1) / c;
+    if (waves * best < best_waves * s) best = s, best_waves = waves;
+  }
+  const int per = (tiles + best - 1) / best;
+  return {(tiles + per - 1) / per, per};
+}
+
+template <int PI, int PO>
 __global__ void __launch_bounds__(THREADS, 2)
-stream_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ K,
-                     const float* __restrict__ U, const float* __restrict__ s,
-                     const float* __restrict__ t, const float* __restrict__ g,
+stream_bwd_dq_kernel(const float* __restrict__ x, const float* __restrict__ K, const float* __restrict__ U,
+                     const float* __restrict__ s, const float* __restrict__ t, const float* __restrict__ g,
                      const float* __restrict__ m_in, const float* __restrict__ l_in,
-                     const float* __restrict__ delta, float* __restrict__ dx,
-                     float* __restrict__ ds_part, float* __restrict__ dt_part, int n,
-                     int m_patterns, float beta) {
-  using L = Layout<D_IN, D_OUT>;
-  constexpr int QS = L::QS;
-  constexpr int GS = L::GS;
-  constexpr bool WIDE_IN = L::WIDE_IN;
-  static_assert(!WIDE_IN || D_IN == 4 * 16, "a wide dq is 16 threads x 4 columns");
-  constexpr int ACC_W = WIDE_IN ? 4 : D_IN;
-
+                     const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
+                     int d_in, int d_out, int per, float beta, unsigned vec16) {
+  using C = Tiles<PI, PO>;
+  constexpr int QS = C::QS, GS = C::GS, CT = PI / 8;
   extern __shared__ float4 smem4[];
-  double* mean_s = reinterpret_cast<double*>(smem4);
-  double* inv_s = mean_s + BLOCK_N;
-  float* q_s = reinterpret_cast<float*>(inv_s + BLOCK_N);
-  float* g_s = q_s + BLOCK_N * QS;
-  float* k_s = g_s + BLOCK_N * GS;
-  float* u_s = k_s + BLOCK_M * QS;
-  float* p_s = u_s + BLOCK_M * GS;  // WIDE_IN only: p_s[pattern][row]
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* g_s = q_s + TM * QS;
+  float* str = g_s + TM * GS;  // buffer u: K tile at str + u * BUF, its U tile TN * QS after
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row0 = blockIdx.x * BLOCK_N;
-  const int rows_here = min(BLOCK_N, n - row0);
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);  // the warp's slab in the block's rows
+  const int row0 = blockIdx.x * TM;
+  const int split = blockIdx.y;
+  const int first = split * per;
+  const int last = min((m_patterns + TN - 1) / TN, first + per) - 1;
 
-  stage_rows<D_IN, QS>(q_s, x, row0, rows_here);
-  stage_rows<D_OUT, GS>(g_s, g, row0, rows_here);
+  stage_async<PI, TM, THREADS>(q_s, x, d_in, row0, n, vec16 & 1u);
+  stage_async<PO, TM, THREADS>(g_s, g, d_out, row0, n, vec16 >> 1 & 1u);
+  cp_async_commit();
+  auto stage_tile = [&](int it, int u) {
+    float* kt = str + u * C::BUF;
+    stage_async<PI, TN, THREADS>(kt, K, d_in, it * TN, m_patterns, vec16 >> 2 & 1u);
+    stage_async<PO, TN, THREADS>(kt + TN * QS, U, d_out, it * TN, m_patterns, vec16 >> 3 & 1u);
+    cp_async_commit();
+  };
+  stage_tile(first, 0);
+
+  // m, 1/l and delta of the warp's rows gq and gq + 8
+  bool live[2];
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + m0 + gq + 8 * e;
+    live[e] = row < n;
+    m_r[e] = live[e] ? m_in[row] : 0.f;
+    il_r[e] = live[e] ? 1.f / l_in[row] : 0.f;
+    dl_r[e] = live[e] ? delta[row] : 0.f;
+  }
+
+  cp_async_wait_prior();  // x and g have landed; the first K, U tile may not have
   __syncthreads();
-  layer_norm_rows<D_IN, QS>(q_s, s, t, mean_s, inv_s);
+  layer_norm_rows<TM, QS, THREADS>(q_s, d_in, s, t);
+  // the first tile's barrier orders these writes before any read
 
-  // row stats; rows past N get A = 0, so their dS and dq are 0
-  float m_r[4], il_r[4], dl_r[4], acc[4][ACC_W];
+  float acc[CT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const bool live = r < rows_here;
-    m_r[i] = live ? m_in[row0 + r] : 0.f;
-    il_r[i] = live ? 1.f / l_in[row0 + r] : 0.f;
-    dl_r[i] = live ? delta[row0 + r] : 0.f;
+  for (int c = 0; c < CT; ++c)
 #pragma unroll
-    for (int c = 0; c < ACC_W; ++c) acc[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
-  for (int p0 = 0; p0 < m_patterns; p0 += BLOCK_M) {
-    const int pats = min(BLOCK_M, m_patterns - p0);
-    stage_rows<D_IN, QS>(k_s, K, p0, pats);
-    stage_rows<D_OUT, GS>(u_s, U, p0, pats);
-    __syncthreads();
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it < last) stage_tile(it + 1, u ^ 1);
+    const float* kt = str + u * C::BUF;
+    const float* ut = kt + TN * QS;
+    const int p_lo = it * TN;
 
-    float sc[4][4], da[4][4];
-    tile_products<D_IN, QS>(q_s, k_s, ty, tx, sc);
-    tile_products<D_OUT, GS>(g_s, u_s, ty, tx, da);
+    // ---- the slab's scores q K^T and g U^T over the tile, C layout
+    float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool live = (tx + 16 * j) < pats && ty * 4 + i < rows_here;
-        const float a = live ? __expf(sc[i][j] * beta - m_r[i]) * il_r[i] : 0.f;
-        sc[i][j] = a * (da[i][j] - dl_r[i]) * beta;  // dS
-      }
-
-    // ---- dq += dS @ K
-    if constexpr (WIDE_IN) {
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(p_s + (tx + 16 * j) * L::PS + ty * 4) =
-            make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-      __syncthreads();
-#pragma unroll 8
-      for (int jj = 0; jj < BLOCK_M; ++jj) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_s + jj * L::PS + ty * 4);
-        const float4 kv = *reinterpret_cast<const float4*>(k_s + jj * QS + tx * 4);
-        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    for (int kk = 0; kk < PI; kk += 8) {
+      const FragA a = load_a<QS>(q_s + m0 * QS + kk, gq, tq);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(pr[i], kv.x, acc[i][0]);
-          acc[i][1] = fmaf(pr[i], kv.y, acc[i][1]);
-          acc[i][2] = fmaf(pr[i], kv.z, acc[i][2]);
-          acc[i][3] = fmaf(pr[i], kv.w, acc[i][3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* krow = k_s + (tx + 16 * j) * QS;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < D_IN; ++c) acc[i][c] = fmaf(sc[i][j], krow[c], acc[i][c]);
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<QS>(b0, b1, kt + 8 * j * QS + kk, gq, tq);
+        mma3(sc[j], a, b0);
+        mma3(sc[j + 1], a, b1);
       }
     }
-    __syncthreads();  // the next tile overwrites k_s, u_s and p_s
-  }
-
-  // ---- dq into q_s (q is no longer read)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if constexpr (WIDE_IN) {
-      *reinterpret_cast<float4*>(q_s + r * QS + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
+    for (int kk = 0; kk < PO; kk += 8) {
+      const FragA a = load_a<GS>(g_s + m0 * GS + kk, gq, tq);
 #pragma unroll
-      for (int c = 0; c < D_IN; ++c) acc[i][c] = half_warp_sum(acc[i][c]);
-      if (tx == 0) {
-#pragma unroll
-        for (int c = 0; c < D_IN; ++c) q_s[r * QS + c] = acc[i][c];
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<GS>(b0, b1, ut + 8 * j * GS + kk, gq, tq);
+        mma3(dp[j], a, b0);
+        mma3(dp[j + 1], a, b1);
       }
     }
-  }
-  __syncthreads();
 
-  // ---- LayerNorm backward in double, 4 lanes a row; dq * xhat into k_s
-  {
-    const int r = tid >> 2;
-    const int part = tid & 3;
-    const bool live = r < rows_here;
-    const double mean = mean_s[r];
-    const double inv = inv_s[r];
-    const float* xrow = x + static_cast<size_t>(row0 + r) * D_IN;
-    double m1 = 0.0, m2 = 0.0;
-    for (int k = part; k < D_IN; k += 4) {
-      const double xhat = ((live ? xrow[k] : 0.f) - mean) * inv;
-      const double dxh = static_cast<double>(q_s[r * QS + k]) * s[k];
-      m1 += dxh;
-      m2 += dxh * xhat;
+    // ---- A and dS on the fragments (rows gq, gq + 8; patterns 8j + 2tq,
+    // + 1), split as A operands of dS K over the permuted k
+    FragA dsa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool in = live[r] && p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns;
+        const float a = in ? __expf(sc[j][e] * beta - m_r[r]) * il_r[r] : 0.f;
+        v[e] = a * (dp[j][e] - dl_r[r]) * beta;
+      }
+      dsa[j] = split_a(v[0], v[2], v[1], v[3]);
     }
-    m1 = quad_sum(m1) / D_IN;
-    m2 = quad_sum(m2) / D_IN;
-    for (int k = part; k < D_IN; k += 4) {
-      const double xhat = ((live ? xrow[k] : 0.f) - mean) * inv;
-      const double dq = q_s[r * QS + k];
-      if (live) dx[static_cast<size_t>(row0 + r) * D_IN + k] =
-          static_cast<float>(inv * (dq * s[k] - m1 - xhat * m2));
-      k_s[r * QS + k] = live ? static_cast<float>(dq * xhat) : 0.f;
+
+    // ---- dq += dS K over the tile's patterns, one n-tile of dq at a time
+    // in a fresh fragment, added to the running sum after the tile
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<QS>(kt + 8 * j * QS + 8 * c, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
     }
   }
-  __syncthreads();
 
-  // ---- this block's partial rows of ds and dt, summed over its rows in order
-  if (tid < D_IN) {
-    double ds_acc = 0.0, dt_acc = 0.0;
-    for (int r = 0; r < BLOCK_N; ++r) {
-      ds_acc += k_s[r * QS + tid];
-      dt_acc += q_s[r * QS + tid];  // rows past N hold dq = 0
-    }
-    ds_part[static_cast<size_t>(blockIdx.x) * D_IN + tid] = static_cast<float>(ds_acc);
-    dt_part[static_cast<size_t>(blockIdx.x) * D_IN + tid] = static_cast<float>(dt_acc);
+  // ---- this split's partial dq, (splits, n, PI), rows < n
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live[e]) continue;
+    float* out = dq_part + (static_cast<size_t>(split) * n + row0 + m0 + gq + 8 * e) * PI + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c) = make_float2(acc[c][2 * e], acc[c][2 * e + 1]);
   }
 }
 
-template <int D_IN, int D_OUT>
-int launch(const float* x, const float* K, const float* U, const float* s, const float* t,
-           const float* g, const float* m, const float* l, const float* delta, float* dx,
-           float* ds, float* dt, float* workspace, int n, int m_patterns, cudaStream_t stream) {
-  using L = Layout<D_IN, D_OUT>;
-  auto kernel = stream_bwd_dx_kernel<D_IN, D_OUT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
+// dq = the sum of the splits' partials in order (in double, rounded once),
+// then the LayerNorm backward in double, 4 lanes a row: dx, and this
+// block's partial rows of ds and dt, each summed over its rows in order.
+__global__ void __launch_bounds__(FIN_THREADS)
+stream_bwd_dx_finish_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                            const float* __restrict__ dq_part, int splits, int pd, int n, int d_in,
+                            float* __restrict__ dx, float* __restrict__ ds_part, float* __restrict__ dt_part) {
+  __shared__ float x_s[FIN_ROWS * MAX_WIDTH];   // x, then dq * xhat
+  __shared__ float dq_s[FIN_ROWS * MAX_WIDTH];  // dq
+  const int row0 = blockIdx.x * FIN_ROWS;
+  const int rows_here = min(FIN_ROWS, n - row0);
+  for (int i = threadIdx.x; i < FIN_ROWS * d_in; i += FIN_THREADS) {
+    const int r = i / d_in;
+    const int k = i - r * d_in;
+    float xv = 0.f, dqv = 0.f;
+    if (r < rows_here) {
+      xv = x[static_cast<size_t>(row0) * d_in + i];
+      double sum = 0.0;
+      for (int sp = 0; sp < splits; ++sp) sum += dq_part[(static_cast<size_t>(sp) * n + row0 + r) * pd + k];
+      dqv = static_cast<float>(sum);
+    }
+    x_s[r * MAX_WIDTH + k] = xv;
+    dq_s[r * MAX_WIDTH + k] = dqv;
+  }
+  __syncthreads();
+
+  {
+    const int r = threadIdx.x >> 2;
+    const int part = threadIdx.x & 3;
+    const bool live = r < rows_here;
+    float* xrow = x_s + r * MAX_WIDTH;
+    const float* dqrow = dq_s + r * MAX_WIDTH;
+    double mean, inv;
+    ln_stats(xrow, d_in, part, mean, inv);
+    double m1 = 0.0, m2 = 0.0;
+    for (int k = part; k < d_in; k += 4) {
+      const double xhat = (xrow[k] - mean) * inv;
+      const double dxh = static_cast<double>(dqrow[k]) * s[k];
+      m1 += dxh;
+      m2 += dxh * xhat;
+    }
+    m1 = quad_sum(m1) / d_in;
+    m2 = quad_sum(m2) / d_in;
+    for (int k = part; k < d_in; k += 4) {
+      const double xhat = (xrow[k] - mean) * inv;
+      const double dq = dqrow[k];
+      if (live) dx[static_cast<size_t>(row0 + r) * d_in + k] = static_cast<float>(inv * (dq * s[k] - m1 - xhat * m2));
+      xrow[k] = live ? static_cast<float>(dq * xhat) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < d_in) {
+    double ds_acc = 0.0, dt_acc = 0.0;
+    for (int r = 0; r < FIN_ROWS; ++r) {
+      ds_acc += x_s[r * MAX_WIDTH + threadIdx.x];
+      dt_acc += dq_s[r * MAX_WIDTH + threadIdx.x];  // rows past N hold dq = 0
+    }
+    ds_part[static_cast<size_t>(blockIdx.x) * d_in + threadIdx.x] = static_cast<float>(ds_acc);
+    dt_part[static_cast<size_t>(blockIdx.x) * d_in + threadIdx.x] = static_cast<float>(dt_acc);
+  }
+}
+
+struct Args {
+  const float *x, *K, *U, *s, *t, *g, *m, *l, *delta;
+  float *dx, *ds, *dt, *workspace;
+  int n, m_patterns, d_in, d_out;
+  cudaStream_t stream;
+};
+
+int fin_blocks(int n) { return (n + FIN_ROWS - 1) / FIN_ROWS; }
+
+// the plan of the instance for padded widths PI, PO on the current card
+template <int PI, int PO>
+Plan plan_of(int n, int m_patterns) {
+  return plan_for(n, m_patterns, concurrent_blocks(stream_bwd_dq_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES));
+}
+
+template <int PI, int PO>
+int launch(const Args& a) {
+  using C = Tiles<PI, PO>;
+  auto kernel = stream_bwd_dq_kernel<PI, PO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::BYTES));
   if (err != cudaSuccess) return err;
-  const int blocks = (n + BLOCK_N - 1) / BLOCK_N;
-  float* ds_part = workspace;
-  float* dt_part = workspace + static_cast<size_t>(blocks) * D_IN;
-  kernel<<<blocks, THREADS, L::BYTES, stream>>>(x, K, U, s, t, g, m, l, delta, dx, ds_part,
-                                                 dt_part, n, m_patterns, beta_of(D_IN));
+  const Plan p = plan_of<PI, PO>(a.n, a.m_patterns);
+  const unsigned vec16 = vec16_ok(a.x, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
+                         vec16_ok(a.U, a.d_out) << 3;
+  float* dq_part = a.workspace;
+  float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * PI;
+  float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
+  kernel<<<dim3((a.n + TM - 1) / TM, p.splits), THREADS, C::BYTES, a.stream>>>(
+      a.x, a.K, a.U, a.s, a.t, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per,
+      beta_of(a.d_in), vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = sum_rows(ds_part, blocks, D_IN, ds, stream);
+  stream_bwd_dx_finish_kernel<<<fin_blocks(a.n), FIN_THREADS, 0, a.stream>>>(
+      a.x, a.s, dq_part, p.splits, PI, a.n, a.d_in, a.dx, ds_part, dt_part);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return sum_rows(dt_part, blocks, D_IN, dt, stream);
+  err = sum_rows(ds_part, fin_blocks(a.n), a.d_in, a.ds, a.stream);
+  if (err != cudaSuccess) return err;
+  return sum_rows(dt_part, fin_blocks(a.n), a.d_in, a.dt, a.stream);
 }
 
 }  // namespace
 
-// Floats of device scratch that hopfield_stream_bwd_dx needs for n tokens
-// of width d_in: one partial row of ds and one of dt for each 64 tokens.
-extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int d_in) {
-  return 2LL * ((n + hopfield_stream::BLOCK_N - 1) / hopfield_stream::BLOCK_N) * d_in;
+// Floats of device scratch that hopfield_stream_bwd_dx needs: each split's
+// partial dq (at the padded width) and one partial row of ds and one of dt
+// for each 32 tokens.
+extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int m_patterns, int d_in, int d_out) {
+  if (!takes(n, m_patterns, d_in, d_out)) return 0;
+  const int splits = with_widths(d_in, d_out, [&](auto pi, auto po) {
+    return plan_of<decltype(pi)::value, decltype(po)::value>(n, m_patterns).splits;
+  });
+  return static_cast<long long>(splits) * n * padded_width(d_in) + 2LL * fin_blocks(n) * d_in;
 }
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
-// dx (n, d_in), ds and dt (d_in), and workspace (see above). Launches the
-// kernel and the fixed-order sum of the partial rows on `stream`.
-// Returns a cudaError_t; 0 means both launches were accepted.
-extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const float* U,
-                                      const float* s, const float* t, const float* g,
-                                      const float* m, const float* l, const float* delta,
-                                      float* dx, float* ds, float* dt, float* workspace, int n,
+// dx (n, d_in), ds and dt (d_in), and workspace (see above); 1 <= d_in,
+// d_out <= 128. Launches the kernel, the finishing pass and the
+// fixed-order sums of the partial rows on `stream`. Returns a cudaError_t;
+// 0 means every launch was accepted.
+extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const float* U, const float* s,
+                                      const float* t, const float* g, const float* m, const float* l,
+                                      const float* delta, float* dx, float* ds, float* dt, float* workspace, int n,
                                       int m_patterns, int d_in, int d_out, void* stream) {
-  if (n <= 0 || m_patterns <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_in == 64 && d_out == 64)
-    return launch<64, 64>(x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, st);
-  if (d_in == 64 && d_out == 3)
-    return launch<64, 3>(x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, st);
-  if (d_in == 3 && d_out == 64)
-    return launch<3, 64>(x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, st);
-  return cudaErrorInvalidValue;
+  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
+  const Args a{x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, d_in, d_out,
+               static_cast<cudaStream_t>(stream)};
+  return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
+}
+
+// The kernel built for (d_in, d_out) as the card reports it: out receives
+// registers a thread, dynamic shared bytes, local (spill) bytes a thread,
+// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) {
+  if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
+  return with_widths(d_in, d_out, [&](auto pi, auto po) {
+    constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
+    return static_cast<int>(kernel_attributes(stream_bwd_dq_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES, TM, TN, out));
+  });
 }

@@ -31,13 +31,20 @@
 //   half-warp, so the row max and row sum are xor-shuffles over 16 lanes.
 //   Each row keeps a running max, a denominator and an f32 accumulator.
 // - d_out = 64: the probabilities go through shared memory (transposed)
-//   and each thread accumulates a 4x4 block of out. d_out = 3: each
-//   thread keeps a 4x3 partial over its own patterns (all of a row's
-//   partials share the same running max, so they rescale alike) and the
-//   partials are summed over the half-warp once, at the end.
+//   and each thread accumulates a 4x4 block of out (4x8 at d_out = 128).
+//   d_out = 3: each thread keeps a 4x3 partial over its own patterns (all
+//   of a row's partials share the same running max, so they rescale
+//   alike) and the partials are summed over the half-warp once, at the end.
 // - Plain f32 FMA on the CUDA cores; widths of 3 need no padding. Rows
 //   of width 64 are read as float4 from shared memory with a row stride
 //   of 68 floats, which keeps those reads free of bank conflicts.
+// - Widths: the three of the bottleneck, (64, 64), (64, 3) and (3, 64),
+//   are built exactly. Any other d_in, d_out from 1 to 128 runs on the
+//   instance of the next built width (d_in: 3, 16, 32, 64, 128; d_out: 3,
+//   8, 64, 128), padded with zeros in shared memory, never in device
+//   memory: x, K, s and t read 0 past d_in, so q does and the scores do not
+//   move; U reads 0 past d_out. The LayerNorm's mean and variance, and
+//   beta, use the real width.
 
 #include <cuda_runtime.h>
 
@@ -76,24 +83,30 @@ template <int D_IN, int D_OUT>
 struct Layout {
   static constexpr int QS = stride_of<D_IN>();   // q rows and K rows
   static constexpr int PS = BLOCK_N + 4;          // transposed probabilities
-  static constexpr bool WIDE_OUT = D_OUT % 4 == 0;
+  static constexpr bool WIDE_OUT = D_OUT >= 64;
   static constexpr int FLOATS =
       BLOCK_N * QS + BLOCK_M * QS + BLOCK_M * D_OUT + (WIDE_OUT ? BLOCK_M * PS : 0);
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
-template <int D_IN, int D_OUT>
+// EXACT: the instance of the real widths d_in = D_IN, d_out = D_OUT, with
+// every width a constant; otherwise the real widths are at most D_IN and
+// D_OUT and the rest is zero padding in shared memory.
+template <int D_IN, int D_OUT, bool EXACT>
 __global__ void __launch_bounds__(THREADS, 2)
 stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
                   const float* __restrict__ U, const float* __restrict__ s,
                   const float* __restrict__ t, float* __restrict__ out,
                   float* __restrict__ m_out, float* __restrict__ l_out,
-                  int n, int m_patterns, float beta) {
+                  int n, int m_patterns, int d_in, int d_out, float beta) {
   using L = Layout<D_IN, D_OUT>;
   constexpr int QS = L::QS;
   constexpr bool WIDE_OUT = L::WIDE_OUT;
-  static_assert(!WIDE_OUT || D_OUT == 4 * 16, "a wide output is 16 threads x 4 columns");
-  constexpr int ACC_W = WIDE_OUT ? 4 : D_OUT;
+  static_assert(!WIDE_OUT || D_OUT == 4 * 16 || D_OUT == 8 * 16, "a wide output is 16 threads x 4 or 8 columns");
+  constexpr int CW = D_OUT / 16;  // WIDE_OUT: a thread's columns
+  constexpr int ACC_W = WIDE_OUT ? CW : D_OUT;
+  const int din = EXACT ? D_IN : d_in;
+  const int dout = EXACT ? D_OUT : d_out;
 
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
@@ -111,28 +124,32 @@ stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
   for (int idx = tid; idx < BLOCK_N * D_IN; idx += THREADS) {
     const int r = idx / D_IN;
     const int k = idx - r * D_IN;
-    q_s[r * QS + k] = r < rows_here ? x[static_cast<size_t>(row0) * D_IN + idx] : 0.f;
+    if constexpr (EXACT)
+      q_s[r * QS + k] = r < rows_here ? x[static_cast<size_t>(row0) * D_IN + idx] : 0.f;
+    else
+      q_s[r * QS + k] = r < rows_here && k < din ? x[static_cast<size_t>(row0 + r) * din + k] : 0.f;
   }
   __syncthreads();
   if (tid < BLOCK_N) {
     // in double, then rounded once to f32: with d_in = 3, a row whose
     // values nearly agree loses most digits of x - mean in f32, and the
-    // plain version (which does the same) would then disagree in them
+    // plain version (which does the same) would then disagree in them.
+    // Over the real width: the padding columns stay 0.
     float* row = q_s + tid * QS;
     double mean = 0.0;
 #pragma unroll 8
-    for (int k = 0; k < D_IN; ++k) mean += row[k];
-    mean /= D_IN;
+    for (int k = 0; k < din; ++k) mean += row[k];
+    mean /= din;
     double var = 0.0;
 #pragma unroll 8
-    for (int k = 0; k < D_IN; ++k) {
+    for (int k = 0; k < din; ++k) {
       const double c = row[k] - mean;
       var += c * c;
     }
-    var /= D_IN;
+    var /= din;
     const double inv = 1.0 / sqrt(var + static_cast<double>(LN_EPS));
 #pragma unroll 8
-    for (int k = 0; k < D_IN; ++k)
+    for (int k = 0; k < din; ++k)
       row[k] = static_cast<float>((row[k] - mean) * inv * s[k] + t[k]);
   }
   // the first tile's barrier below orders these writes before any read
@@ -151,10 +168,20 @@ stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
     for (int idx = tid; idx < BLOCK_M * D_IN; idx += THREADS) {
       const int c = idx / D_IN;
       const int k = idx - c * D_IN;
-      k_s[c * QS + k] = c < pats ? K[static_cast<size_t>(p0) * D_IN + idx] : 0.f;
+      if constexpr (EXACT)
+        k_s[c * QS + k] = c < pats ? K[static_cast<size_t>(p0) * D_IN + idx] : 0.f;
+      else
+        k_s[c * QS + k] = c < pats && k < din ? K[static_cast<size_t>(p0 + c) * din + k] : 0.f;
     }
-    for (int idx = tid; idx < BLOCK_M * D_OUT; idx += THREADS)
-      u_s[idx] = idx < pats * D_OUT ? U[static_cast<size_t>(p0) * D_OUT + idx] : 0.f;
+    for (int idx = tid; idx < BLOCK_M * D_OUT; idx += THREADS) {
+      if constexpr (EXACT) {
+        u_s[idx] = idx < pats * D_OUT ? U[static_cast<size_t>(p0) * D_OUT + idx] : 0.f;
+      } else {
+        const int c = idx / D_OUT;
+        const int k = idx - c * D_OUT;
+        u_s[idx] = c < pats && k < dout ? U[static_cast<size_t>(p0 + c) * dout + k] : 0.f;
+      }
+    }
     __syncthreads();
 
     // ---- scores: rows ty*4+i against patterns tx+16*j
@@ -236,15 +263,19 @@ stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
 #pragma unroll 8
       for (int jj = 0; jj < BLOCK_M; ++jj) {
         const float4 pv = *reinterpret_cast<const float4*>(p_s + jj * L::PS + ty * 4);
-        const float4 uv = *reinterpret_cast<const float4*>(u_s + jj * D_OUT + tx * 4);
+        float4 uv[CW / 4];
+#pragma unroll
+        for (int h = 0; h < CW / 4; ++h) uv[h] = *reinterpret_cast<const float4*>(u_s + jj * D_OUT + tx * CW + 4 * h);
         const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] = fmaf(pr[i], uv.x, acc[i][0]);
-          acc[i][1] = fmaf(pr[i], uv.y, acc[i][1]);
-          acc[i][2] = fmaf(pr[i], uv.z, acc[i][2]);
-          acc[i][3] = fmaf(pr[i], uv.w, acc[i][3]);
-        }
+        for (int h = 0; h < CW / 4; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][4 * h + 0] = fmaf(pr[i], uv[h].x, acc[i][4 * h + 0]);
+            acc[i][4 * h + 1] = fmaf(pr[i], uv[h].y, acc[i][4 * h + 1]);
+            acc[i][4 * h + 2] = fmaf(pr[i], uv[h].z, acc[i][4 * h + 2]);
+            acc[i][4 * h + 3] = fmaf(pr[i], uv[h].w, acc[i][4 * h + 3]);
+          }
       }
     } else {
 #pragma unroll
@@ -269,13 +300,19 @@ stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
     }
     if (r >= rows_here) continue;
     const size_t row = static_cast<size_t>(row0 + r);
-    if constexpr (WIDE_OUT) {
+    if constexpr (WIDE_OUT && EXACT) {
+      static_assert(CW == 4, "the exact wide instance is 64 columns");
       *reinterpret_cast<float4*>(out + row * D_OUT + tx * 4) =
           make_float4(acc[i][0] / l_run[i], acc[i][1] / l_run[i],
                       acc[i][2] / l_run[i], acc[i][3] / l_run[i]);
+    } else if constexpr (WIDE_OUT) {
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+        if (tx * CW + c < dout) out[row * dout + tx * CW + c] = acc[i][c] / l_run[i];
     } else if (tx == 0) {
 #pragma unroll
-      for (int c = 0; c < D_OUT; ++c) out[row * D_OUT + c] = acc[i][c] / l_run[i];
+      for (int c = 0; c < D_OUT; ++c)
+        if (c < dout) out[row * dout + c] = acc[i][c] / l_run[i];
     }
     if (tx == 0) {
       m_out[row] = m_run[i];
@@ -284,34 +321,56 @@ stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
   }
 }
 
-template <int D_IN, int D_OUT>
-int launch(const float* x, const float* K, const float* U, const float* s, const float* t,
-           float* out, float* m, float* l, int n, int m_patterns, cudaStream_t stream) {
+struct Args {
+  const float *x, *K, *U, *s, *t;
+  float *out, *m, *l;
+  int n, m_patterns, d_in, d_out;
+  cudaStream_t stream;
+};
+
+template <int D_IN, int D_OUT, bool EXACT>
+int launch(const Args& a) {
   using L = Layout<D_IN, D_OUT>;
-  auto kernel = stream_fwd_kernel<D_IN, D_OUT>;
+  auto kernel = stream_fwd_kernel<D_IN, D_OUT, EXACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
   if (err != cudaSuccess) return err;
-  const float beta = static_cast<float>(1.0 / sqrt(static_cast<double>(D_IN)));
-  const dim3 grid((n + BLOCK_N - 1) / BLOCK_N);
-  kernel<<<grid, THREADS, L::BYTES, stream>>>(x, K, U, s, t, out, m, l, n, m_patterns, beta);
+  const float beta = static_cast<float>(1.0 / sqrt(static_cast<double>(a.d_in)));
+  const dim3 grid((a.n + BLOCK_N - 1) / BLOCK_N);
+  kernel<<<grid, THREADS, L::BYTES, a.stream>>>(a.x, a.K, a.U, a.s, a.t, a.out, a.m, a.l, a.n, a.m_patterns,
+                                                a.d_in, a.d_out, beta);
   return cudaGetLastError();
+}
+
+// the padded instance of d_out, for the built d_in D_IN
+template <int D_IN>
+int launch_padded(const Args& a) {
+  if (a.d_out <= 3) return launch<D_IN, 3, false>(a);
+  if (a.d_out <= 8) return launch<D_IN, 8, false>(a);
+  if (a.d_out <= 64) return launch<D_IN, 64, false>(a);
+  return launch<D_IN, 128, false>(a);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
-// U (m_patterns, d_out), s and t (d_in), out (n, d_out), m and l (n).
-// Returns a cudaError_t; 0 means the launch was accepted.
+// U (m_patterns, d_out), s and t (d_in), out (n, d_out), m and l (n);
+// 1 <= d_in, d_out <= 128. Returns a cudaError_t; 0 means the launch was
+// accepted.
 extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* U,
                                    const float* s, const float* t, float* out, float* m,
                                    float* l, int n, int m_patterns, int d_in, int d_out,
                                    void* stream) {
-  if (n <= 0 || m_patterns <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_in == 64 && d_out == 64) return launch<64, 64>(x, K, U, s, t, out, m, l, n, m_patterns, st);
-  if (d_in == 64 && d_out == 3) return launch<64, 3>(x, K, U, s, t, out, m, l, n, m_patterns, st);
-  if (d_in == 3 && d_out == 64) return launch<3, 64>(x, K, U, s, t, out, m, l, n, m_patterns, st);
-  return cudaErrorInvalidValue;
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1 || d_in > 128 || d_out > 128)
+    return cudaErrorInvalidValue;
+  const Args a{x, K, U, s, t, out, m, l, n, m_patterns, d_in, d_out, static_cast<cudaStream_t>(stream)};
+  if (d_in == 64 && d_out == 64) return launch<64, 64, true>(a);
+  if (d_in == 64 && d_out == 3) return launch<64, 3, true>(a);
+  if (d_in == 3 && d_out == 64) return launch<3, 64, true>(a);
+  if (d_in <= 3) return launch_padded<3>(a);
+  if (d_in <= 16) return launch_padded<16>(a);
+  if (d_in <= 32) return launch_padded<32>(a);
+  if (d_in <= 64) return launch_padded<64>(a);
+  return launch_padded<128>(a);
 }

@@ -1,6 +1,7 @@
 // Tensor-core products in f32 grade, and asynchronous staging, for Hopper
 // (sm_90a): the pieces of K5's kernels (causal_attention_fwd.cu and
-// causal_attention_bwd.cu).
+// causal_attention_bwd.cu) and of the streaming Hopfield backward, K2 and
+// K3 (hopfield_stream_bwd_dx.cu, hopfield_stream_bwd_dku.cu).
 //
 // A product runs as mma.sync m16n8k8 on TF32 operands in three passes.
 // Each f32 operand x splits into big = tf32(x) and small = tf32(x - big),
@@ -114,6 +115,66 @@ __device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.w
 // Barrier `id` (1 to 15) over `threads` threads of the block.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Fragments read from f32 tiles in shared memory whose rows are RS floats
+// apart. RS is 4 times an odd number (a multiple of 8, plus 4): the loads
+// by row g (ldmatrix: eight 16-byte rows in eight bank groups) and those
+// by permuted row 2t (scalar, banks 8t + g or 8t + 4 + g) hit 32 banks, so
+// no tile needs a swizzle.
+
+// The A fragment of rows 0..15 and columns 0..7 of a tile in shared memory.
+template <int RS>
+__device__ __forceinline__ FragA load_a(const float* p, int gq, int tq) {
+  const int lane = 4 * gq + tq;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 4 * (lane >> 4));
+  return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// The B fragments B[k][n] = Y[n][k] of two n-tiles, rows n = 0..15,
+// columns k = 0..7.
+template <int RS>
+__device__ __forceinline__ void load_b_rows2(FragB& f0, FragB& f1, const float* p, int gq, int tq) {
+  const int lane = 4 * gq + tq;
+  uint32_t r[4];
+  ldmatrix_x4(r, p + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
+  f0 = split_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  f1 = split_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// The B fragment B[k][n] = Y[k][n] over the permuted k: rows 2t and 2t + 1.
+// With it, a C fragment (c0, c1, c2, c3) read as the A fragment
+// (c0, c2, c1, c3) multiplies without a transpose: its k = t is column 2t
+// of C and k = t + 4 column 2t + 1.
+template <int RS>
+__device__ __forceinline__ FragB load_b_cols(const float* p, int gq, int tq) {
+  return split_b(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
+}
+
+// A kernel as built, with `bytes` of dynamic shared memory (whose limit
+// it sets): registers a thread, dynamic shared bytes, local (spill) bytes
+// a thread, threads a block, blocks an SM, and the kernel's two tile
+// sizes (resident and streamed rows), into out[0..6]. Returns a
+// cudaError_t.
+template <typename Kernel>
+cudaError_t kernel_attributes(Kernel kernel, int threads, size_t bytes, int tile_a, int tile_b, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(bytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = threads;
+  out[4] = blocks;
+  out[5] = tile_a;
+  out[6] = tile_b;
+  return cudaSuccess;
 }
 
 }  // namespace tf32x3

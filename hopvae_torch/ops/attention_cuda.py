@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from hopvae_torch.utils.nvcc import bind, launch, load_library
+from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths the kernels are built for
 _NOT_BUILT = "ROADMAP.md, Queue 2: K5 at head widths 384 and 512"
@@ -205,32 +205,19 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
 
 causal_attention_bwd_dq.launches = 0
 
-_ATTRIBUTES = ("registers", "shared_bytes", "spill_bytes", "threads", "blocks_per_sm", "resident_rows",
-               "streamed_rows")
-
-
-def _attributes(stem: str, *args: int) -> dict:
-    fn = getattr(load_library(stem), f"{stem}_attributes")
-    out = (ctypes.c_int * len(_ATTRIBUTES))()
-    err = fn(*(ctypes.c_int(a) for a in args), out)
-    if err != 0:
-        raise RuntimeError(f"{stem}_attributes{args} failed: cudaError {err}")
-    return dict(zip(_ATTRIBUTES, out))
-
-
 def forward_attributes(dh: int) -> dict:
     """K5-fwd's build at head width ``dh`` as the card reports it:
     registers and spilled (local) bytes a thread, dynamic shared bytes,
     threads a block and blocks an SM, and its tiles (query rows resident,
     keys streamed). Launches nothing."""
-    return _attributes("causal_attention_fwd", dh)
+    return kernel_attributes("causal_attention_fwd", dh)
 
 
 def backward_attributes(kernel: str, dh: int) -> dict:
     """K5-dkv's (``kernel="dkv"``) or K5-dq's (``"dq"``) build at head width
     ``dh``, as :func:`forward_attributes` reports it (resident and streamed
     rows: keys and query rows in K5-dkv, query rows and keys in K5-dq)."""
-    return _attributes("causal_attention_bwd", dh, int(kernel == "dkv"))
+    return kernel_attributes("causal_attention_bwd", dh, int(kernel == "dkv"))
 
 
 class FlashCausalAttention(torch.autograd.Function):

@@ -21,12 +21,15 @@ over ``(x2, K, U, s, t)`` with three kernels:
   and ``dU``.
 
 The backward kernels rebuild the attention from ``m`` and ``l``, so the
-``(N, M)`` matrix never reaches device memory. Each wrapper launches its
-kernel on CUDA tensors (counting the launch in its ``launches``) and
-takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
-and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
-The plain versions take any ``(d_in, d_out)``; the kernels are built for
-``SUPPORTED``, and the card path raises ``NotImplementedError`` at others.
+``(N, M)`` matrix never reaches device memory; they run their products on
+the tensor cores in three TF32 passes. Each wrapper launches its kernel
+on CUDA tensors (counting the launch in its ``launches``) and takes its
+plain version on CPU tensors: ``stream_lookup_fwd_reference`` and
+``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices. The
+plain versions take any ``(d_in, d_out)``; the kernels take every width
+from 1 to ``MAX_WIDTH`` (:func:`kernel_takes`, zero-padded in shared
+memory to a built instance), and the card path raises
+``NotImplementedError`` beyond.
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
@@ -43,11 +46,17 @@ import math
 import torch
 
 from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
-from hopvae_torch.utils.nvcc import bind, launch, load_library
+from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
 
-SUPPORTED = ((64, 64), (64, 3), (3, 64))  # (d_in, d_out) the kernels are built for
+SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out), the only ones K4 takes
+MAX_WIDTH = 128  # K1 to K3 take every d_in and d_out from 1 to this
 _NOT_BUILT = "ROADMAP.md, Queue 3: the streaming lookups at other widths"
 IMPLS = ("cuda", "torch")
+
+
+def kernel_takes(d_in: int, d_out: int) -> bool:
+    """Whether K1, K2 and K3 take the widths ``(d_in, d_out)`` on the card."""
+    return 1 <= d_in <= MAX_WIDTH and 1 <= d_out <= MAX_WIDTH
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -181,12 +190,12 @@ def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
 
 
 def _require_kernel(x2, d_in: int, d_out: int) -> None:
-    """The card path: a width the kernels are built for, on a CUDA tensor.
-    The plain versions take any width."""
-    if (d_in, d_out) not in SUPPORTED:
+    """The card path: widths the kernels take, on a CUDA tensor. The plain
+    versions take any width."""
+    if not kernel_takes(d_in, d_out):
         raise NotImplementedError(
-            f"the streaming kernels are not built for (d_in, d_out) = {(d_in, d_out)}, only {SUPPORTED} "
-            f"({_NOT_BUILT})")
+            f"the streaming kernels are not built for (d_in, d_out) = {(d_in, d_out)}, only widths 1 to "
+            f"{MAX_WIDTH} ({_NOT_BUILT})")
     _require_cuda(x2)
 
 
@@ -235,7 +244,7 @@ def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
     dx = torch.empty(n, d_in, device=x2.device)
     ds = torch.empty(d_in, device=x2.device)
     dt = torch.empty(d_in, device=x2.device)
-    work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, d_in), device=x2.device)
+    work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, m_pat, d_in, d_out), device=x2.device)
     launch(stem, _bind(stem, stem, 13, 4), x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dx, ds, dt, work)),
             n, m_pat, d_in, d_out)
@@ -267,6 +276,14 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
 
 
 stream_bwd_dku.launches = 0
+
+def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
+    """K2's (``kernel="dx"``) or K3's (``"dku"``) build for ``(d_in, d_out)``
+    as the card reports it: registers and spilled (local) bytes a thread,
+    dynamic shared bytes, threads a block, blocks an SM, and its tiles
+    (token rows resident and patterns streamed in K2; patterns resident
+    and token rows streamed in K3). Launches nothing."""
+    return kernel_attributes(f"hopfield_stream_bwd_{kernel}", d_in, d_out)
 
 
 def _folded(layers) -> list:

@@ -103,6 +103,24 @@ def launch(name: str, fn, device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+ATTRIBUTES = ("registers", "shared_bytes", "spill_bytes", "threads", "blocks_per_sm", "resident_rows",
+              "streamed_rows")
+
+
+def kernel_attributes(stem: str, *args: int) -> dict:
+    """A kernel of ``csrc/<stem>.cu`` as the card reports it, through its
+    ``<stem>_attributes(args..., out)`` entry: registers and spilled
+    (local) bytes a thread, dynamic shared bytes, threads a block, blocks
+    an SM, and its two tiles (rows resident and rows streamed). Launches
+    nothing."""
+    fn = getattr(load_library(stem), f"{stem}_attributes")
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    err = fn(*(ctypes.c_int(a) for a in args), out)
+    if err != 0:
+        raise RuntimeError(f"{stem}_attributes{args} failed: cudaError {err}")
+    return dict(zip(ATTRIBUTES, out))
+
+
 def build_all() -> list[str]:
     """Build and load every ``csrc/*.cu``, one ``nvcc`` each, all started
     together; returns the stems."""

@@ -30,9 +30,9 @@ RTOL, ATOL = 1e-4, 1e-5
 STAT_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6  # test_pallas_gradients_match_reference
 SHAPES = [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)]  # ragged in N and M
-# widths the kernels are not built for: the plain versions take them, as
-# the Pallas kernels do
-SHAPES += [(24, 200, 32, 32), (19, 150, 64, 4), (21, 130, 128, 128)]
+# other widths, which the kernels take zero-padded to a built instance;
+# the plain versions take them, as the Pallas kernels do
+SHAPES += [(24, 200, 32, 32), (19, 150, 64, 4), (21, 130, 128, 128), (23, 140, 5, 128), (18, 170, 128, 5)]
 
 
 def _np_params(rng, d_in, d_out, m):
@@ -171,17 +171,25 @@ def test_stream_lookup_fwd_checks_its_inputs():
         hc.stream_lookup_fwd(torch.zeros(0, 64), k, u, s, t)
 
 
+def _meta_arrays(n, m, d_in, d_out):
+    """A lookup's forward inputs and the backward's ``(g, m, l, delta)``
+    as meta tensors."""
+    a = [torch.zeros(*shape, device="meta") for shape in ((n, d_in), (m, d_in), (m, d_out), (d_in,), (d_in,))]
+    return a, [torch.zeros(*shape, device="meta") for shape in ((n, d_out), (n, 1), (n, 1), (n, 1))]
+
+
+def _launch_counts():
+    return hc.stream_lookup_fwd.launches, hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches
+
+
 @pytest.mark.parametrize("device", ["meta", "cuda"])
 def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
-    """Off the CPU, a width the kernels are not built for raises
+    """Off the CPU, a width past ``MAX_WIDTH`` (128) raises
     ``NotImplementedError`` naming ROADMAP Queue 3, in the forward and both
-    backward wrappers, before anything is launched; a built width on a meta
-    tensor reaches the device check. CUDA-typed tensors are faked as meta
-    tensors that report ``device.type == "cuda"``, so no card is needed."""
-    def arrays(n, m, d_in, d_out):
-        a = [torch.zeros(*shape, device="meta") for shape in ((n, d_in), (m, d_in), (m, d_out), (d_in,), (d_in,))]
-        return a, [torch.zeros(*shape, device="meta") for shape in ((n, d_out), (n, 1), (n, 1), (n, 1))]
-
+    backward wrappers, before anything is launched; a width the kernels
+    take on a meta tensor reaches the device check. CUDA-typed tensors are
+    faked as meta tensors that report ``device.type == "cuda"``, so no card
+    is needed."""
     class CudaTyped:  # a meta tensor whose device says cuda
         def __init__(self, t):
             self.t = t
@@ -193,19 +201,39 @@ def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
         def device(self):
             return torch.device("cuda")
 
-    fwd, rest = arrays(5, 70, 32, 32)
+    fwd, rest = _meta_arrays(5, 70, 160, 32)
     if device == "cuda":
         fwd, rest = [CudaTyped(a) for a in fwd], [CudaTyped(a) for a in rest]
-    before = (hc.stream_lookup_fwd.launches, hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches)
+    before = _launch_counts()
     for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
                  lambda: hc.stream_bwd_dku(*fwd, *rest)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 3: the streaming lookups at other widths"):
             call()
-    assert (hc.stream_lookup_fwd.launches, hc.stream_bwd_dx.launches, hc.stream_bwd_dku.launches) == before
+    assert _launch_counts() == before
     if device == "meta":
-        built, _ = arrays(5, 70, 64, 3)
+        built, _ = _meta_arrays(5, 70, 64, 3)
         with pytest.raises(ValueError, match="no kernel"):
             hc.stream_lookup_fwd(*built)
+
+
+@pytest.mark.parametrize("d_in,d_out,takes", [
+    (1, 1, True), (3, 64, True), (5, 128, True), (128, 5, True), (33, 7, True), (128, 128, True),
+    (129, 64, False), (64, 129, False), (200, 200, False),
+])
+def test_the_card_takes_every_width_up_to_128(d_in, d_out, takes):
+    """The dispatch rule, on meta tensors: ``kernel_takes`` holds for every
+    width from 1 to 128, where K1, K2 and K3 reach the device check (a meta
+    tensor has no kernel); past 128 all three raise ``NotImplementedError``.
+    Nothing is launched either way."""
+    assert hc.kernel_takes(d_in, d_out) is takes
+    fwd, rest = _meta_arrays(5, 70, d_in, d_out)
+    before = _launch_counts()
+    for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
+                 lambda: hc.stream_bwd_dku(*fwd, *rest)):
+        with pytest.raises(ValueError if takes else NotImplementedError,
+                           match="no kernel for device meta" if takes else "only widths 1 to 128"):
+            call()
+    assert _launch_counts() == before
 
 
 def test_cuda_impl_on_cpu_tensors_raises():

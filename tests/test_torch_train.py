@@ -118,6 +118,26 @@ def test_three_train_steps_match_jax():
     assert compared == len(want) - 3
 
 
+@pytest.mark.parametrize("embedding_dim,index_dim", [(32, 4), (128, 5)])
+def test_three_train_steps_match_jax_at_other_widths(embedding_dim, index_dim):
+    """The lookups at widths no config uses, which the card's kernels take
+    zero-padded (``chip_smoke.py`` phase 13 trains (32, 4) on them): three
+    steps of the eager CPU path against JAX's, the loss and its parts
+    within 1e-4 relative, as at the configs' widths."""
+    jcfg, tcfg = _configs("mnist_28", {**SMALL, "embedding_dim": embedding_dim, "index_dim": index_dim})
+    params = jax.jit(JaxHopVAE(jcfg).init)(jax.random.PRNGKey(1))
+    digits = tdata.golden_input("mnist_digits")
+    batches = [digits[8 * i : 8 * i + 8] for i in range(3)]
+    _, jmetrics = _jax_steps(jcfg, params, batches, steps_per_epoch=1)
+    tr = _torch_trainer(tcfg, params_from_jax(params), steps_per_epoch=1)
+    widths = [(layer.d_in, layer.out_proj.weight.shape[0]) for layer in tr.model.bottleneck_layers().values()]
+    assert widths == [(embedding_dim, embedding_dim), (embedding_dim, index_dim), (index_dim, embedding_dim)]
+    for x, theirs in zip(batches, jmetrics):
+        ours = tr.train_step(torch.from_numpy(x))
+        for k in ("loss", "recon_error", "aux"):
+            np.testing.assert_allclose(float(ours[k]), float(theirs[k]), rtol=1e-4, err_msg=k)
+
+
 def _jax_mnist_params():
     spec = tdata.GOLDENS["mnist_digits"]
     jcfg = jax_load_config(spec["config"])
