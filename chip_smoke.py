@@ -11,14 +11,14 @@ Fourteen phases, each of which raises on failure:
 2. Each kernel against its plain torch version on the card, in f32 with
    TF32 off, at the shapes the serving and training paths give it: K1
    (the forward), then K2 and K3 (the backward, from K1's row stats and a
-   seeded cotangent, each run twice to repeat bit for bit); kernel, plain
+   seeded cotangent), each run twice to repeat bit for bit; kernel, plain
    and library-call times from CUDA events, and the bound of each shape
-   (for K2 and K3, whose products run on the tensor cores in three TF32
-   passes, the three-pass bound as ``bound_ms`` and the f32-core one as
+   (their products run on the tensor cores in three TF32 passes: the
+   three-pass bound as ``bound_ms`` and the f32-core one as
    ``bound_f32_ms``; and each one's registers, shared bytes and blocks an
    SM). Then the same at widths no config uses, which the kernels take
-   zero-padded: (32, 32), (64, 4) and (128, 128) at N 4,096, M 512, and a
-   ragged (13, 100) at N 37, M 300.
+   zero-padded: (32, 32), (64, 4), (128, 128), (256, 256) and (200, 3) at
+   N 4,096, M 512, and a ragged (13, 100) and (130, 250) at N 37, M 300.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -43,8 +43,8 @@ Fourteen phases, each of which raises on failure:
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
    (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
    same FLOPs on the f32 CUDA cores (``bound_f32_ms``), and each kernel's
-   registers, shared bytes and blocks an SM per width (K2's and K3's
-   too, at each width of phase 2).
+   registers, shared bytes and blocks an SM per width (K1's, K2's and
+   K3's too, at each width of phase 2, and K4's at each of phase 12).
    Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
 8. Prior golden: the Transformer prior of ``Transformer-FFHQ-64.msgpack``
@@ -65,16 +65,18 @@ Fourteen phases, each of which raises on failure:
 12. K4, the single-shot fused bottleneck forward, at the shapes the
     serving path gives the bottleneck (the encoder's tokens of a
     full-width ffhq_64_scaled batch of 256 with the trained tables; the
-    MNIST golden digits; a ragged case): against its plain version and
-    against the streaming bottleneck's three K1 launches, ``e`` and ``r``
-    within 1e-5, at most 1e-4 of the ``zq`` bins differing; one launch a
-    call.
+    MNIST golden digits; a ragged case) and at the bottleneck widths
+    (d, di) = (32, 4) and (256, 3) with random tables (N 4,096, M 512):
+    against its plain version and against the streaming bottleneck's
+    three K1 launches, ``e`` and ``r`` within 1e-5, at most 1e-4 of the
+    ``zq`` bins differing; one launch a call; the three-pass bound.
 13. Training at other widths: ``mnist_28`` at ``embedding_dim=32,
-    index_dim=4``, three f32 Adam steps through ``Trainer`` on the kernels
-    against the same steps on the CPU's plain versions, losses within
-    1e-3; K1, K2 and K3 launch 3 times a step.
-14. The kernel summary as one JSON line, the card line, and last
-    ``{"ok": true, "device": {...}}``.
+    index_dim=4`` and at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
+    their 256 instances), three f32 Adam steps each through ``Trainer``
+    on the kernels against the same steps on the CPU's plain versions,
+    losses within 1e-3; K1, K2 and K3 launch 3 times a step.
+14. The run's wall time (the build included), the kernel summary as one
+    JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
 prints no result, without a CUDA card or outside the repository.
@@ -117,7 +119,7 @@ CHECKPOINTS = ROOT / "checkpoints"
 # results per clock per SM (CUDA C++ Programming Guide, compute 9.0).
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# dense TF32 on the tensor cores (NVIDIA data sheet): K5's kernels run their
+# dense TF32 on the tensor cores (NVIDIA data sheet): K1 to K5 run their
 # products in three TF32 passes, so their bound counts 3x the FLOPs at it
 TF32_FLOPS = 495e12
 SFU_PER_CLOCK_PER_SM = 16
@@ -192,7 +194,8 @@ def phase_environment() -> dict:
     t0 = time.perf_counter()
     stems = nvcc.build_all()
     build_s = time.perf_counter() - t0
-    log(f"built {stems} in {build_s:.1f} s")
+    log(f"built {stems} in {build_s:.1f} s; each source's nvcc, all started together, in s: "
+        f"{json.dumps({stem: round(sec, 1) for stem, sec in nvcc.build_seconds.items()})}")
     for stem in stems:
         entry = ""
         for line in nvcc.build_logs.get(stem, "").splitlines():
@@ -225,10 +228,16 @@ def roof(flops: float, exps: float, floats: float, exp_per_s: float, flops_per_s
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def bound(n, m, d_in, d_out, exp_per_s) -> tuple[float, str]:
-    """K1: reads x, K, U, s, t; writes out, m, l."""
+def bound(n, m, d_in, d_out, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
+    """K1: reads x, K, U, s, t; writes out, m, l; the score and value
+    products at the real widths. ``tensor_cores``: three times the FLOPs
+    at the TF32 rate (the kernel's three passes) instead of the FLOPs at
+    the f32 rate of the CUDA cores."""
     floats = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 2 * n
-    return roof(2 * n * m * (d_in + d_out), n * m, floats, exp_per_s)
+    flops = 2 * n * m * (d_in + d_out)
+    if tensor_cores:
+        return roof(3 * flops, n * m, floats, exp_per_s, TF32_FLOPS)
+    return roof(flops, n * m, floats, exp_per_s)
 
 
 def bound_bwd(kernel: str, n, m, d_in, d_out, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
@@ -276,6 +285,9 @@ WIDTH_CASES = (
     ("width 64x4", 4096, 512, 64, 4),
     ("width 128x128", 4096, 512, 128, 128),
     ("width ragged 13x100", 37, 300, 13, 100),
+    ("width 256x256", 4096, 512, 256, 256),
+    ("width 200x3", 4096, 512, 200, 3),
+    ("width ragged 130x250", 37, 300, 130, 250),
 )
 
 
@@ -306,13 +318,20 @@ def state_query(x, s, t) -> torch.Tensor:
 
 @parity_mode()
 def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
+    """K1 against its plain version at every case, run twice to repeat bit
+    for bit. Each row's ``bound_ms`` is the bound of the three TF32 passes
+    it runs on the tensor cores; ``bound_f32_ms``, the same FLOPs at the
+    f32 rate of the CUDA cores, is context. Each row also carries K1's
+    build at its widths."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
         x = case_input(n, d_in, g)
         with torch.inference_mode():
             out, m, l = hc.stream_lookup_fwd(x, k, u, s, t)
+            again = hc.stream_lookup_fwd(x, k, u, s, t)
             torch.cuda.synchronize()
+            repeats = all(torch.equal(a, b) for a, b in zip((out, m, l), again))
             ref_out, ref_m, ref_l = hc.stream_lookup_fwd_reference(x, k, u, s, t)
             err = (out - ref_out).abs().max().item()
             m_err = ((m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max().item()
@@ -322,16 +341,18 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             kernel_ms = cuda_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), reps)
             plain_ms = cuda_ms(lambda: hc.stream_lookup_fwd_reference(x, k, u, s, t), 3 if big else 20)
             lib_ms, backend = library_ms(state_query(x, s, t), k, u, reps)
-        b_ms, b_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"])
+        b_ms, b_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"], tensor_cores=True)
+        f32_ms, f32_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"])
         row = {
             "shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out,
-            "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err,
+            "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err, "repeats_bitwise": repeats,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+            "build": hc.forward_attributes(d_in, d_out),
         }
         log(json.dumps(row))
         rows.append(row)
-        if not (err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL):
+        if not (err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL and repeats):
             raise AssertionError(f"kernel disagrees with its plain version at {label}: {row}")
     return rows
 
@@ -800,6 +821,8 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
                                                           for kn in ("dx", "dku")}
                                      for d_in, d_out in widths}}))
+    log(json.dumps({"k1_builds": {f"{d_in}x{d_out}": hc.forward_attributes(d_in, d_out) for d_in, d_out in widths},
+                    "k4_builds": {f"{d}x{di}": hc.fused_attributes(d, di) for d, di in FUSED_WIDTHS}}))
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for label, b, s, h, dh in ATTENTION_CASES:
@@ -1100,25 +1123,36 @@ def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
 # ------------------------------------------------------------ phase 12
 
 
-def fused_bound(n: int, layers, exp_per_s) -> tuple[float, str]:
+def fused_bound(n: int, layers, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
     """Least time of one K4 launch: each lookup's score and value products
-    (2·N·M·(d_in + d_out) FLOPs) and N·M exps; reads x and the six
-    tables, writes e, zq and r."""
+    (2·N·M·(d_in + d_out) FLOPs, three times over at the TF32 rate with
+    ``tensor_cores``, else once at the f32 rate) and N·M exps; reads x and
+    the six tables, writes e, zq and r."""
     flops = exps = floats = 0
     for layer in layers:
         m, d_in, d_out = layer.lookup_weights.shape[0], layer.d_in, layer.out_proj.weight.shape[0]
         flops += 2 * n * m * (d_in + d_out)
         exps += n * m
         floats += m * (d_in + d_out) + 2 * d_in + d_out
-    return roof(flops, exps, floats + n * (64 + 64 + 3 + 64), exp_per_s)
+    d, di = layers[0].d_in, layers[1].out_proj.weight.shape[0]
+    floats += n * (3 * d + di)
+    if tensor_cores:
+        return roof(3 * flops, exps, floats, exp_per_s, TF32_FLOPS)
+    return roof(flops, exps, floats, exp_per_s)
+
+
+# (d, di) of K4's cases: the configs' bottleneck, and two widths no config
+# uses, which K4 takes zero-padded
+FUSED_WIDTHS = ((64, 3), (32, 4), (256, 3))
 
 
 def fused_cases() -> list[tuple]:
     """``(label, layers, x, num_levels)``: the encoder's tokens of a
     full-width ffhq_64_scaled batch of 256 with the trained tables (N =
     73,984, M = 4096), the MNIST golden digits with the trained MNIST
-    tables (N = 3,136, M = 512), and random tables of M = 300 on 37
-    tokens."""
+    tables (N = 3,136, M = 512), random tables of M = 300 on 37 tokens, and
+    random tables of M = 512 on 4,096 tokens at each other width of
+    ``FUSED_WIDTHS``."""
     cases = []
     for label, golden, batch in (("ffhq64 b256", "ffhq64_synthetic4", 256), ("mnist b64", "mnist_digits", None)):
         spec = GOLDENS[golden]
@@ -1136,6 +1170,12 @@ def fused_cases() -> list[tuple]:
         layers[name] = HopfieldLookup(d_in, d_out, 300, device="cuda")
         layers[name].reset_parameters(generator=g)
     cases.append(("ragged", layers, torch.randn(37, 64, device="cuda", generator=g), 512))
+    for d, di in FUSED_WIDTHS[1:]:
+        layers = {}
+        for name, (d_in, d_out) in zip(LAYERS, ((d, d), (d, di), (di, d))):
+            layers[name] = HopfieldLookup(d_in, d_out, 512, device="cuda")
+            layers[name].reset_parameters(generator=g)
+        cases.append((f"width {d}x{di}", layers, torch.randn(4096, d, device="cuda", generator=g), 512))
     return cases
 
 
@@ -1167,15 +1207,22 @@ def phase_fused_bottleneck(env: dict) -> list[dict]:
             want = hc.bottleneck_fused_fwd_reference(*args)
             stream = streaming_bottleneck(layers, x, levels, impl="cuda")
             vs_plain, vs_stream = bins_and_errors(got, want), bins_and_errors(got, stream)
+            again = hc.bottleneck_fused_fwd(*args)
+            repeats = all(torch.equal(a, b) for a, b in zip(got, again))
             big = x.numel() > 1e6
             reps, plain_reps = (10, 3) if big else (50, 20)
             times = {"ms": cuda_ms(lambda: hc.bottleneck_fused_fwd(*args), reps),
                      "plain_ms": cuda_ms(lambda: hc.bottleneck_fused_fwd_reference(*args), plain_reps),
                      "three_k1_ms": cuda_ms(lambda: streaming_bottleneck(layers, x, levels, impl="cuda"), reps)}
-        b_ms, b_by = fused_bound(x.numel() // 64, [layers[name] for name in LAYERS], env["exp_per_s"])
-        row = {"kernel": "hopfield_bottleneck_fused", "shape": label, "n": x.numel() // 64,
+        d, di = hc.fused_widths([layers[name] for name in LAYERS])
+        n = x.numel() // d
+        b_ms, b_by = fused_bound(n, [layers[name] for name in LAYERS], env["exp_per_s"], tensor_cores=True)
+        f32_ms, f32_by = fused_bound(n, [layers[name] for name in LAYERS], env["exp_per_s"])
+        row = {"kernel": "hopfield_bottleneck_fused", "shape": label, "n": n, "d": d, "di": di,
                "m": layers["hopfield"].lookup_weights.shape[0], "launches": launches, "vs_plain": vs_plain,
-               "vs_three_k1": vs_stream, **times, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "vs_three_k1": vs_stream, "repeats_bitwise": repeats, **times, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+               "build": hc.fused_attributes(d, di),
                "max_abs_err": max(vs_plain["e_max_abs_err"], vs_plain["r_max_abs_err"])}
         log(json.dumps(row))
         rows.append(row)
@@ -1183,15 +1230,17 @@ def phase_fused_bottleneck(env: dict) -> list[dict]:
             if not (cmp["e_max_abs_err"] <= FUSED_ATOL and cmp["r_max_abs_err"] <= FUSED_ATOL
                     and cmp["zq_share_differing"] <= FUSED_ZQ_SHARE):
                 raise AssertionError(f"K4 disagrees with {name} at {label}: {row}")
-        if launches != 1:
-            raise AssertionError(f"expected one K4 launch a call, got {launches}")
+        if launches != 1 or not repeats:
+            raise AssertionError(f"expected one K4 launch a call, repeating bit for bit: {row}")
     return rows
 
 
 # ------------------------------------------------------------ phase 13
 
 
-WIDTH_CONFIG = {"embedding_dim": 32, "index_dim": 4}  # lookups (32, 32), (32, 4), (4, 32)
+# lookups (32, 32), (32, 4), (4, 32); and (200, 200), (200, 3), (3, 200), at
+# the 256 instances
+WIDTH_CONFIGS = ({"embedding_dim": 32, "index_dim": 4}, {"embedding_dim": 200, "index_dim": 3})
 WIDTH_STEPS = 3
 WIDTH_LOSS_RTOL = 1e-3  # three f32 Adam steps on the card against the CPU's: the train golden lands within 1.3e-4
 
@@ -1204,17 +1253,18 @@ def width_steps(model, cfg, x: torch.Tensor) -> list[float]:
 
 
 @parity_mode()
-def phase_width_training() -> dict:
-    """``mnist_28`` at ``embedding_dim=32, index_dim=4``, widths no config
-    uses, which the kernels take zero-padded to their instances. Random
-    weights from the config's seed, made on the CPU and copied to the card;
-    three f32 Adam steps (constant learning rate) on the 64 committed
-    digits through ``Trainer`` with ``impl="cuda"``, against the same steps
-    on CPU tensors through the plain versions (``impl="torch"``). The
-    counts are set to 0 just before the card's steps and read just after:
-    K1, K2 and K3 launch 3 times a step."""
+def phase_width_training(widths: dict) -> dict:
+    """``mnist_28`` at the ``embedding_dim`` and ``index_dim`` of
+    ``widths``, widths no config uses, which the kernels take zero-padded
+    to their instances. Random weights from the config's seed, made on the
+    CPU and copied to the card; three f32 Adam steps (constant learning
+    rate) on the 64 committed digits through ``Trainer`` with
+    ``impl="cuda"``, against the same steps on CPU tensors through the
+    plain versions (``impl="torch"``). The counts are set to 0 just before
+    the card's steps and read just after: K1, K2 and K3 launch 3 times a
+    step."""
     cfg = load_config("mnist_28")
-    for key, val in WIDTH_CONFIG.items():
+    for key, val in widths.items():
         setattr(cfg, key, val)
     cfg.gamma = 1.0
     torch.manual_seed(cfg.seed)
@@ -1229,8 +1279,9 @@ def phase_width_training() -> dict:
     launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
     plain = width_steps(cpu, cfg, x)
     rel = [abs(a / b - 1) for a, b in zip(losses, plain)]
+    cfg_widths = widths
     widths = {name: (layer.d_in, layer.out_proj.weight.shape[0]) for name, layer in card.bottleneck_layers().items()}
-    res = {"config": {"name": "mnist_28", **WIDTH_CONFIG}, "lookup_widths": widths, "losses": losses,
+    res = {"config": {"name": "mnist_28", **cfg_widths}, "lookup_widths": widths, "losses": losses,
            "plain_losses": plain, "loss_rel_err": rel, "launches": launches}
     log(json.dumps({"width_training": res}))
     if launches != dict.fromkeys(KERNEL_COUNTERS, 3 * WIDTH_STEPS):
@@ -1340,6 +1391,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     env = phase_environment()
     tables = folded_tables()
     rows = phase_kernel_vs_plain(env, tables)
@@ -1354,12 +1406,15 @@ def main() -> int:
     prior_training = phase_prior_train_full_width()
     wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
     fused_rows = phase_fused_bottleneck(env)
-    width_launches = phase_width_training()["launches"]
+    width_runs = [phase_width_training(widths)["launches"] for widths in WIDTH_CONFIGS]
+    width_launches = {name: [run[name] for run in width_runs] for name in KERNEL_COUNTERS}
     launches, prior_launches = training["launches"], prior_training["launches"]
     kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
                               launches_serving=serving["launches"],
                               launches_prior_phase=prior_launches["hopfield_stream_fwd"],
-                              launches_width_phase=width_launches["hopfield_stream_fwd"])]
+                              launches_width_phase=width_launches["hopfield_stream_fwd"],
+                              bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),
+                              builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("ffhq64")})]
     for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
         mine = [r for r in bwd_rows if r["kernel"] == name]
         kernels.append(kernel_summary(name, mine, launches[name],
@@ -1378,8 +1433,10 @@ def main() -> int:
         "note": "no entry point routes to K4, as in the JAX package; launches counts phase 12's full-width call",
         "max_abs_err": max(r["max_abs_err"] for r in fused_rows), "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None,
+        "bound_f32_ms": full["bound_f32_ms"], "build": full["build"],
         "three_k1_ms": full["three_k1_ms"], "shapes": fused_rows,
     })
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi('name,power.limit')}")
     log(json.dumps({"ok": True, "device": {

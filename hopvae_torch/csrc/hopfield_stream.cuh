@@ -1,11 +1,11 @@
-// Pieces shared by the streaming Hopfield backward kernels, K2
-// (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu), and by
-// the fused bottleneck forward K4 (hopfield_bottleneck_fused.cu). They
-// rebuild the attention from the row stats m and l that the forward K1
-// (hopfield_stream_fwd.cu) wrote, so they compute q as K1 does: the state
-// LayerNorm in double over the real width, rounded once to f32. K1 keeps
-// its own inline copy of that code: built from these functions it ran
-// slower at 64 -> 64 on an H100, from code generation alone (PERF.md).
+// Pieces shared by the streaming Hopfield kernels: the forward K1
+// (hopfield_stream_fwd.cu), the backward K2 (hopfield_stream_bwd_dx.cu)
+// and K3 (hopfield_stream_bwd_dku.cu), and the fused bottleneck forward K4
+// (hopfield_bottleneck_fused.cu). K2 and K3 rebuild the attention from the
+// row stats m and l that K1 wrote, so all four build q with the same code
+// here: the state LayerNorm in double over the real width, rounded once to
+// f32, four lanes a row. K1's and K4's pattern walk is in
+// hopfield_stream_fwd.cuh.
 
 #pragma once
 
@@ -23,16 +23,11 @@ namespace hopfield_stream {
 constexpr float LN_EPS = 1e-5f;
 constexpr float MASKED = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_WIDTH = 128;  // the widest d_in or d_out the kernels take
+constexpr int MAX_WIDTH = 256;  // the widest d_in or d_out the kernels take
 
-// shared-memory row stride: widths that are float4 multiples get +4
-// floats, which offsets consecutive rows by 4 banks
-template <int D>
-__host__ __device__ constexpr int stride_of() { return (D % 4 == 0) ? D + 4 : D; }
-
-// the tensor cores' width of a real width: the next of 8, 16, 32, 64, 128
+// the tensor cores' width of a real width: the next of 8, 16, 32, 64, 128, 256
 __host__ __device__ constexpr int padded_width(int d) {
-  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // sum over the 4 lanes of one row; the same in each of them
@@ -46,10 +41,7 @@ __device__ __forceinline__ double quad_sum(double v) {
 // its real width d, in double. Lanes 4r..4r+3 share the row, each its
 // columns k = part (mod 4); every lane ends with the same two values.
 // With d = 3, a row whose values nearly agree loses most digits of
-// x - mean in f32, hence the double. K1 sums a row in one thread, here
-// four lanes share it: the two double sums can differ in their last bits,
-// and the rounded f32 q then differs from K1's only where a double lands
-// that close to an f32 rounding boundary.
+// x - mean in f32, hence the double.
 __device__ __forceinline__ void ln_stats(const float* row, int d, int part, double& mean, double& inv) {
   double sum = 0.0;
   for (int k = part; k < d; k += 4) sum += row[k];
@@ -83,25 +75,28 @@ __device__ __forceinline__ void layer_norm_rows(float* q_s, int d, const float* 
 // Rows [row0, row0 + ROWS) of a row-major (rows, d) f32 array into a
 // ROWS x (PD + 4) tile of shared memory by cp.async (the caller commits
 // and waits); columns d..PD - 1 and rows past `rows` are zero-filled.
-// vec16: 16-byte copies, for a base on 16 bytes and d a multiple of 4.
+// ld: the source's row stride, if not d (a window of d columns of wider
+// rows). vec16: 16-byte copies, for a base on 16 bytes and d and the
+// stride multiples of 4.
 template <int PD, int ROWS, int NT>
 __device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src, int d, int row0, int rows,
-                                            bool vec16) {
+                                            bool vec16, int ld = 0) {
   constexpr int RS = PD + 4;
+  const size_t stride = ld ? ld : d;
   if (vec16) {
     constexpr int CH = PD / 4;
     for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
       const int r = i / CH;
       const int c = (i - r * CH) * 4;
       const bool in = row0 + r < rows && c < d;
-      tf32x3::cp_async16(dst + r * RS + c, in ? src + static_cast<size_t>(row0 + r) * d + c : src, in);
+      tf32x3::cp_async16(dst + r * RS + c, in ? src + (row0 + r) * stride + c : src, in);
     }
   } else {
     for (int i = threadIdx.x; i < ROWS * PD; i += NT) {
       const int r = i / PD;
       const int c = i - r * PD;
       const bool in = row0 + r < rows && c < d;
-      tf32x3::cp_async4(dst + r * RS + c, in ? src + static_cast<size_t>(row0 + r) * d + c : src, in);
+      tf32x3::cp_async4(dst + r * RS + c, in ? src + (row0 + r) * stride + c : src, in);
     }
   }
 }
@@ -122,17 +117,20 @@ int concurrent_blocks(Kernel kernel, int threads, size_t bytes) {
   return per_sm * sms;
 }
 
-// The calls K2 and K3 take: a token and a pattern at least, and widths
+// The calls K1, K2 and K3 take: a token and a pattern at least, and widths
 // from 1 to MAX_WIDTH.
 inline bool takes(int n, int m_patterns, int d_in, int d_out) {
   return n > 0 && m_patterns > 0 && d_in >= 1 && d_in <= MAX_WIDTH && d_out >= 1 && d_out <= MAX_WIDTH;
 }
 
 // f(pi, po) with the padded widths of d_in and d_out as
-// std::integral_constant<int, ...> arguments: the dispatch of the 25
-// instances of a K2 or K3 kernel. The caller checks takes().
+// std::integral_constant<int, ...> arguments: the dispatch of the 28
+// instances of a K1, K2 or K3 kernel. While both widths are at most 128,
+// each pads to the next of 8, 16, 32, 64, 128 (25 instances); past 128 a
+// side pads to 256 and the other to 8 or 256 (3 more, not the 11 of every
+// pair: each instance lengthens the build). The caller checks takes().
 template <int PI, typename F>
-int with_out_width(int d_out, F&& f) {
+auto with_out_width(int d_out, F&& f) {
   switch (padded_width(d_out)) {
     case 8: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 8>{});
     case 16: return f(std::integral_constant<int, PI>{}, std::integral_constant<int, 16>{});
@@ -143,7 +141,12 @@ int with_out_width(int d_out, F&& f) {
 }
 
 template <typename F>
-int with_widths(int d_in, int d_out, F&& f) {
+auto with_widths(int d_in, int d_out, F&& f) {
+  if (d_in > 128 || d_out > 128) {
+    if (d_in <= 8) return f(std::integral_constant<int, 8>{}, std::integral_constant<int, 256>{});
+    if (d_out <= 8) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 8>{});
+    return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 256>{});
+  }
   switch (padded_width(d_in)) {
     case 8: return with_out_width<8>(d_out, f);
     case 16: return with_out_width<16>(d_out, f);

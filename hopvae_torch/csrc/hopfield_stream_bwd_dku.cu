@@ -21,9 +21,10 @@
 // the reason K2 gives (hopfield_stream_bwd_dx.cu).
 //
 // Design (after K5-dkv, causal_attention_bwd.cu):
-// - Widths: any d_in, d_out from 1 to 128, padded with zeros in shared
-//   memory to the next of 8, 16, 32, 64, 128 (the instance built for it);
-//   the LayerNorm and beta use the real width.
+// - Widths: any d_in, d_out from 1 to 256, padded with zeros in shared
+//   memory to the instance built for it (hopfield_stream.cuh, with_widths:
+//   8 to 128 each side; 256 with 8 or 256); the LayerNorm and beta use the
+//   real width.
 // - A first pass builds q (the state LayerNorm in double over the real
 //   width, rounded once: hopfield_stream.cuh, as K1 and K2 build it) and
 //   1/l once for every token, into the scratch. Built inside the main
@@ -31,7 +32,8 @@
 //   that reads it: 64 times at M = 4096.
 // - One block of 4 warps owns 64 patterns (TM) of K and U, a warp a
 //   16-pattern slab, and walks a chunk of the token axis in tiles of 32
-//   (TN), whose q, g, m, 1/l and delta arrive by double-buffered cp.async
+//   (TN; 16 where d_in' + d_out' pass 256, for shared memory), whose q, g,
+//   m, 1/l and delta arrive by double-buffered cp.async
 //   (16-byte copies where the base and width allow). Rows past N and
 //   patterns past M are masked to A = 0 here; the caller pads nothing.
 // - K q^T and U g^T come out as C fragments whose rows are patterns: A^T
@@ -41,6 +43,10 @@
 // - dU and dK are summed over each token tile one n-tile at a time in a
 //   fresh fragment, added to the running sums after the tile (the tensor
 //   cores' sums truncate; see K2).
+// - Past a width of 128 a warp's dK and dU would take up to 256
+//   accumulators: two blocks share the patterns, each summing half of the
+//   n-tiles of dK and half of those of dU and each computing the scores in
+//   full.
 // - The TPU runs one program per pattern block and sums over the token
 //   blocks in its sequential grid. 64 pattern tiles (M = 4096) or 8
 //   (M = 512) would leave most of the 132 SMs idle, so the token axis is
@@ -50,9 +56,9 @@
 //   shaped (chunks, M, d), and a last pass sums the chunks in order. No
 //   float atomics: the result has the same bits in every run.
 //
-//   Shared bytes: 512 (d_in' + d_out' + 8) + 768 for padded widths d_in',
-//   d_out' (K, U, two buffers of q, g and the row stats): 70,400 at
-//   64 -> 64. Registers and blocks an SM per width are in PERF.md, from
+//   Shared bytes: 4 (64 + 2 TN) (d_in' + d_out' + 8) + 24 TN for padded
+//   widths d_in', d_out' (K, U, two buffers of q, g and the row stats):
+//   70,400 at 64 -> 64, 200,064 at 256 -> 256. Registers and blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dku_attributes on the card.
 
 #include "hopfield_stream.cuh"
@@ -63,8 +69,6 @@ using namespace hopfield_stream;
 using namespace tf32x3;
 
 constexpr int TM = 64;  // patterns of a block
-constexpr int TN = 32;  // tokens of a streamed tile
-constexpr int NT = TN / 8;
 constexpr int THREADS = 32 * TM / 16;
 constexpr int Q_ROWS = 32;  // token rows of a block of the first pass
 constexpr int Q_THREADS = 4 * Q_ROWS;
@@ -72,6 +76,12 @@ constexpr int WAVES = 8;    // waves of blocks the chunks of the token axis aim 
 
 template <int PI, int PO>
 struct Tiles {
+  static constexpr int TN = PI + PO > 256 ? 16 : 32;  // tokens of a streamed tile
+  static constexpr int NT = TN / 8;
+  static constexpr int PARTS = PI > 128 || PO > 128 ? 2 : 1;  // blocks that share the patterns
+  static constexpr int CI = PI / 8, CO = PO / 8;              // n-tiles of dK and dU
+  static constexpr int CIP = (CI + PARTS - 1) / PARTS;        // a block's n-tiles of dK (the last may hold fewer)
+  static constexpr int COP = (CO + PARTS - 1) / PARTS;        // and of dU
   static constexpr int QS = PI + 4;  // K rows and q rows in shared memory
   static constexpr int GS = PO + 4;  // U rows and g rows
   static constexpr int BUF = TN * (QS + GS) + 3 * TN;  // one buffer: q, g, m, 1/l, delta
@@ -108,7 +118,8 @@ stream_bwd_dku_kernel(const float* __restrict__ q, const float* __restrict__ K, 
                       const float* __restrict__ delta, float* __restrict__ dk_part, float* __restrict__ du_part,
                       int n, int m_patterns, int d_in, int d_out, int tiles_per_chunk, float beta, unsigned vec16) {
   using C = Tiles<PI, PO>;
-  constexpr int QS = C::QS, GS = C::GS, CI = PI / 8, CO = PO / 8;
+  constexpr int QS = C::QS, GS = C::GS, TN = C::TN, NT = C::NT, CI = C::CI, CO = C::CO, CIP = C::CIP,
+                COP = C::COP;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   float* u_s = k_s + TM * QS;
@@ -119,6 +130,7 @@ stream_bwd_dku_kernel(const float* __restrict__ q, const float* __restrict__ K, 
   const int m0 = 16 * (threadIdx.x >> 5);  // the warp's slab of patterns
   const int p0 = blockIdx.x * TM;
   const int chunk = blockIdx.y;
+  const int ci0 = blockIdx.z * CIP, co0 = blockIdx.z * COP;  // the block's first n-tiles of dK and dU
   const int first = chunk * tiles_per_chunk;
   const int last = min((n + TN - 1) / TN, first + tiles_per_chunk) - 1;
 
@@ -143,13 +155,13 @@ stream_bwd_dku_kernel(const float* __restrict__ q, const float* __restrict__ K, 
 #pragma unroll
   for (int e = 0; e < 2; ++e) live_p[e] = p0 + m0 + gq + 8 * e < m_patterns;
 
-  float dk[CI][4], du[CO][4];
+  float dk[CIP][4], du[COP][4];
 #pragma unroll
-  for (int c = 0; c < CI; ++c)
+  for (int c = 0; c < CIP; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[c][e] = 0.f;
 #pragma unroll
-  for (int c = 0; c < CO; ++c)
+  for (int c = 0; c < COP; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) du[c][e] = 0.f;
 
@@ -209,56 +221,64 @@ stream_bwd_dku_kernel(const float* __restrict__ q, const float* __restrict__ K, 
 #pragma unroll
     for (int j = 0; j < NT; ++j) fa[j] = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
 #pragma unroll
-    for (int c = 0; c < CO; ++c) {
+    for (int c = 0; c < COP; ++c) {
+      if (C::PARTS > 1 && co0 + c >= CO) break;
       float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<GS>(gt + 8 * j * GS + 8 * c, gq, tq));
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<GS>(gt + 8 * j * GS + 8 * (co0 + c), gq, tq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) du[c][e] += o[e];
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) fa[j] = split_a(dp[j][0], dp[j][2], dp[j][1], dp[j][3]);
 #pragma unroll
-    for (int c = 0; c < CI; ++c) {
+    for (int c = 0; c < CIP; ++c) {
+      if (C::PARTS > 1 && ci0 + c >= CI) break;
       float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<QS>(y + 8 * j * QS + 8 * c, gq, tq));
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<QS>(y + 8 * j * QS + 8 * (ci0 + c), gq, tq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk[c][e] += o[e];
     }
   }
 
-  // ---- this chunk's partial rows of dK and dU, (chunks, M, d), real widths
+  // ---- this chunk's partial rows of dK and dU, (chunks, M, d), the
+  // block's columns below the real widths
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (!live_p[e]) continue;
     const size_t row = static_cast<size_t>(chunk) * m_patterns + p0 + m0 + gq + 8 * e;
 #pragma unroll
-    for (int c = 0; c < CI; ++c)
+    for (int c = 0; c < CIP; ++c)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (8 * c + 2 * tq + h < d_in) dk_part[row * d_in + 8 * c + 2 * tq + h] = dk[c][2 * e + h];
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * (ci0 + c) + 2 * tq + h;
+        if (col < d_in) dk_part[row * d_in + col] = dk[c][2 * e + h];
+      }
 #pragma unroll
-    for (int c = 0; c < CO; ++c)
+    for (int c = 0; c < COP; ++c)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (8 * c + 2 * tq + h < d_out) du_part[row * d_out + 8 * c + 2 * tq + h] = du[c][2 * e + h];
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * (co0 + c) + 2 * tq + h;
+        if (col < d_out) du_part[row * d_out + col] = du[c][2 * e + h];
+      }
   }
 }
 
 // Chunks of the token axis: about WAVES waves of the blocks the card runs
-// at once (`concurrent`), at most one a token tile.
-int chunks_for(int n, int m_patterns, int concurrent) {
-  const int token_tiles = (n + TN - 1) / TN;
-  const int pattern_tiles = (m_patterns + TM - 1) / TM;
-  int chunks = WAVES * (concurrent > 0 ? concurrent : 1) / pattern_tiles;
+// at once (`concurrent`), at most one a token tile; `blocks` are the
+// pattern tiles times the column parts.
+int chunks_for(int token_tiles, int blocks, int concurrent) {
+  int chunks = WAVES * (concurrent > 0 ? concurrent : 1) / blocks;
   chunks = chunks > 1 ? chunks : 1;
   return chunks < token_tiles ? chunks : token_tiles;
 }
 
 template <int PI, int PO>
 int chunks_of(int n, int m_patterns) {
-  return chunks_for(n, m_patterns, concurrent_blocks(stream_bwd_dku_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES));
+  using C = Tiles<PI, PO>;
+  return chunks_for((n + C::TN - 1) / C::TN, (m_patterns + TM - 1) / TM * C::PARTS,
+                    concurrent_blocks(stream_bwd_dku_kernel<PI, PO>, THREADS, C::BYTES));
 }
 
 struct Args {
@@ -276,7 +296,7 @@ int launch(const Args& a) {
                                          static_cast<int>(C::BYTES));
   if (err != cudaSuccess) return err;
   const int chunks = chunks_of<PI, PO>(a.n, a.m_patterns);
-  const int token_tiles = (a.n + TN - 1) / TN;
+  const int token_tiles = (a.n + C::TN - 1) / C::TN;
   const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
   float* q = a.workspace;
   float* il = q + static_cast<size_t>(a.n) * a.d_in;
@@ -288,7 +308,7 @@ int launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
-  const dim3 grid((a.m_patterns + TM - 1) / TM, (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk);
+  const dim3 grid((a.m_patterns + TM - 1) / TM, (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk, C::PARTS);
   kernel<<<grid, THREADS, C::BYTES, a.stream>>>(q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n,
                                                 a.m_patterns, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in),
                                                 vec16);
@@ -316,7 +336,7 @@ extern "C" long long hopfield_stream_bwd_dku_workspace(int n, int m_patterns, in
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
 // dK (m_patterns, d_in), dU (m_patterns, d_out), and workspace (see
-// above); 1 <= d_in, d_out <= 128. Launches the first pass, the kernel and
+// above); 1 <= d_in, d_out <= 256. Launches the first pass, the kernel and
 // the fixed-order sums of the chunks on `stream`. Returns a cudaError_t;
 // 0 means every launch was accepted.
 extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const float* U, const float* s,
@@ -336,7 +356,7 @@ extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out)
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
-    return static_cast<int>(
-        kernel_attributes(stream_bwd_dku_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES, TM, TN, out));
+    using C = Tiles<PI, PO>;
+    return static_cast<int>(kernel_attributes(stream_bwd_dku_kernel<PI, PO>, THREADS, C::BYTES, TM, C::TN, out));
   });
 }

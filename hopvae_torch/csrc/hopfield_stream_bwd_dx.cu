@@ -28,14 +28,16 @@
 // 1e-7 relative, which moves A by about 1e-6.
 //
 // Design (after K5-dq, causal_attention_bwd.cu):
-// - Widths: any d_in, d_out from 1 to 128. A width is padded with zeros in
-//   shared memory (never in device memory) to the next of 8, 16, 32, 64,
-//   128, the instance built for it; the LayerNorm's mean and variance,
-//   and beta = 1/sqrt(d_in), use the real width.
+// - Widths: any d_in, d_out from 1 to 256. A width is padded with zeros in
+//   shared memory (never in device memory) to the instance built for it
+//   (hopfield_stream.cuh, with_widths: 8 to 128 each side; 256 with 8 or
+//   256); the LayerNorm's mean and variance, and beta = 1/sqrt(d_in), use
+//   the real width.
 // - One block of 4 warps owns 64 token rows (TM), a warp a 16-row slab.
 //   q (the state LayerNorm in double, over the real width, rounded once:
 //   hopfield_stream.cuh) and g stay in shared memory for the whole walk
-//   over the pattern tiles of 32 (TN), whose K and U arrive by
+//   over the pattern tiles of 32 (TN; 16 where d_in' + d_out' pass 256,
+//   for shared memory), whose K and U arrive by
 //   double-buffered cp.async (16-byte copies where the base and width
 //   allow, 4-byte where not). Patterns past M and rows past N are masked
 //   to A = 0 here; the caller pads nothing.
@@ -48,6 +50,9 @@
 //   sums truncate, and a chain over all 4096 patterns would carry that
 //   error far past a tile's 12 mma. One n-tile at a time needs 4 fresh
 //   registers where a whole fresh row would need d_in / 2.
+// - At d_in 256 a warp's dq would take 128 accumulators: two blocks share
+//   the token rows, each summing half of dq's columns and each computing
+//   the scores in full.
 // - Few token blocks (the MNIST batch, a ragged call) leave SMs idle, and
 //   a last wave of blocks that is mostly empty idles them at the end, so
 //   the pattern axis is split where that ends the waves sooner, from the
@@ -58,8 +63,9 @@
 //   pass sums in order. No float atomics: every output has the same bits
 //   in every run.
 //
-//   Shared bytes: 512 (d_in' + d_out' + 8) for padded widths d_in',
-//   d_out' (q, g, two buffers of K and U): 69,632 at 64 -> 64. Registers and
+//   Shared bytes: 4 (64 + 2 TN) (d_in' + d_out' + 8) for padded widths
+//   d_in', d_out' (q, g, two buffers of K and U): 69,632 at 64 -> 64,
+//   199,680 at 256 -> 256. Registers and
 //   blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dx_attributes on the card.
 
@@ -71,14 +77,16 @@ using namespace hopfield_stream;
 using namespace tf32x3;
 
 constexpr int TM = 64;             // token rows of a block
-constexpr int TN = 32;             // patterns of a streamed tile
-constexpr int NT = TN / 8;         // n-tiles of a warp's 16 x TN scores
 constexpr int THREADS = 32 * TM / 16;
 constexpr int FIN_ROWS = 32;       // token rows of a block of the finishing pass
 constexpr int FIN_THREADS = 4 * FIN_ROWS;
 
 template <int PI, int PO>
 struct Tiles {
+  static constexpr int TN = PI + PO > 256 ? 16 : 32;  // patterns of a streamed tile
+  static constexpr int NT = TN / 8;                     // n-tiles of a warp's 16 x TN scores
+  static constexpr int PARTS = PI > 128 ? 2 : 1;        // blocks that share the token rows, a part of dq each
+  static constexpr int CTP = PI / 8 / PARTS;            // a block's n-tiles of dq
   static constexpr int QS = PI + 4;  // q rows and K rows in shared memory
   static constexpr int GS = PO + 4;  // g rows and U rows
   static constexpr int BUF = TN * (QS + GS);  // one buffer of a K and a U tile
@@ -90,14 +98,13 @@ struct Plan {
   int splits, per;
 };
 
-// The splits whose waves of blocks end soonest: s splits take
-// ceil(T s / C) waves of blocks 1/s as long, for T token blocks and C
-// blocks the card runs at once. At N = 73,984 (T = 1156) and C = 264,
-// two splits take 4.5 block-times where one takes 5; below a wave (MNIST,
-// ragged calls) the splits fill the card. The fewest splits win a tie.
-Plan plan_for(int n, int m_patterns, int concurrent) {
-  const int blocks = (n + TM - 1) / TM;
-  const int tiles = (m_patterns + TN - 1) / TN;
+// The splits of the pattern axis whose waves of blocks end soonest: s
+// splits take ceil(T s / C) waves of blocks 1/s as long, for T blocks (of
+// tokens, times the column parts) and C blocks the card runs at once. At
+// N = 73,984 (T = 1156) and C = 264, two splits take 4.5 block-times where
+// one takes 5; below a wave (MNIST, ragged calls) the splits fill the
+// card. The fewest splits win a tie; every split holds a tile at least.
+Plan plan_for(int blocks, int tiles, int concurrent) {
   const int c = concurrent > 0 ? concurrent : 1;
   int limit = (4 * c + blocks - 1) / blocks;
   limit = limit > 4 ? limit : 4;
@@ -120,7 +127,7 @@ stream_bwd_dq_kernel(const float* __restrict__ x, const float* __restrict__ K, c
                      const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
                      int d_in, int d_out, int per, float beta, unsigned vec16) {
   using C = Tiles<PI, PO>;
-  constexpr int QS = C::QS, GS = C::GS, CT = PI / 8;
+  constexpr int QS = C::QS, GS = C::GS, TN = C::TN, NT = C::NT, CTP = C::CTP;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   float* g_s = q_s + TM * QS;
@@ -131,6 +138,7 @@ stream_bwd_dq_kernel(const float* __restrict__ x, const float* __restrict__ K, c
   const int m0 = 16 * (threadIdx.x >> 5);  // the warp's slab in the block's rows
   const int row0 = blockIdx.x * TM;
   const int split = blockIdx.y;
+  const int c0 = blockIdx.z * CTP;  // the block's first n-tile of dq
   const int first = split * per;
   const int last = min((m_patterns + TN - 1) / TN, first + per) - 1;
 
@@ -162,9 +170,9 @@ stream_bwd_dq_kernel(const float* __restrict__ x, const float* __restrict__ K, c
   layer_norm_rows<TM, QS, THREADS>(q_s, d_in, s, t);
   // the first tile's barrier orders these writes before any read
 
-  float acc[CT][4];
+  float acc[CTP][4];
 #pragma unroll
-  for (int c = 0; c < CT; ++c)
+  for (int c = 0; c < CTP; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
 
@@ -225,25 +233,27 @@ stream_bwd_dq_kernel(const float* __restrict__ x, const float* __restrict__ K, c
     // ---- dq += dS K over the tile's patterns, one n-tile of dq at a time
     // in a fresh fragment, added to the running sum after the tile
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
+    for (int c = 0; c < CTP; ++c) {
       float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<QS>(kt + 8 * j * QS + 8 * c, gq, tq));
+      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<QS>(kt + 8 * j * QS + 8 * (c0 + c), gq, tq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
     }
   }
 
-  // ---- this split's partial dq, (splits, n, PI), rows < n
+  // ---- this split's partial dq, (splits, n, PI), rows < n, the block's columns
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (!live[e]) continue;
-    float* out = dq_part + (static_cast<size_t>(split) * n + row0 + m0 + gq + 8 * e) * PI + 2 * tq;
+    float* out = dq_part + (static_cast<size_t>(split) * n + row0 + m0 + gq + 8 * e) * PI + 8 * c0 + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < CT; ++c)
+    for (int c = 0; c < CTP; ++c)
       *reinterpret_cast<float2*>(out + 8 * c) = make_float2(acc[c][2 * e], acc[c][2 * e + 1]);
   }
 }
+
+constexpr size_t FIN_BYTES = sizeof(float) * 2 * FIN_ROWS * MAX_WIDTH;
 
 // dq = the sum of the splits' partials in order (in double, rounded once),
 // then the LayerNorm backward in double, 4 lanes a row: dx, and this
@@ -252,8 +262,9 @@ __global__ void __launch_bounds__(FIN_THREADS)
 stream_bwd_dx_finish_kernel(const float* __restrict__ x, const float* __restrict__ s,
                             const float* __restrict__ dq_part, int splits, int pd, int n, int d_in,
                             float* __restrict__ dx, float* __restrict__ ds_part, float* __restrict__ dt_part) {
-  __shared__ float x_s[FIN_ROWS * MAX_WIDTH];   // x, then dq * xhat
-  __shared__ float dq_s[FIN_ROWS * MAX_WIDTH];  // dq
+  extern __shared__ float fin_s[];
+  float* x_s = fin_s;                          // x, then dq * xhat
+  float* dq_s = fin_s + FIN_ROWS * MAX_WIDTH;  // dq
   const int row0 = blockIdx.x * FIN_ROWS;
   const int rows_here = min(FIN_ROWS, n - row0);
   for (int i = threadIdx.x; i < FIN_ROWS * d_in; i += FIN_THREADS) {
@@ -297,14 +308,14 @@ stream_bwd_dx_finish_kernel(const float* __restrict__ x, const float* __restrict
   }
   __syncthreads();
 
-  if (threadIdx.x < d_in) {
+  for (int k = threadIdx.x; k < d_in; k += FIN_THREADS) {
     double ds_acc = 0.0, dt_acc = 0.0;
     for (int r = 0; r < FIN_ROWS; ++r) {
-      ds_acc += x_s[r * MAX_WIDTH + threadIdx.x];
-      dt_acc += dq_s[r * MAX_WIDTH + threadIdx.x];  // rows past N hold dq = 0
+      ds_acc += x_s[r * MAX_WIDTH + k];
+      dt_acc += dq_s[r * MAX_WIDTH + k];  // rows past N hold dq = 0
     }
-    ds_part[static_cast<size_t>(blockIdx.x) * d_in + threadIdx.x] = static_cast<float>(ds_acc);
-    dt_part[static_cast<size_t>(blockIdx.x) * d_in + threadIdx.x] = static_cast<float>(dt_acc);
+    ds_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(ds_acc);
+    dt_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(dt_acc);
   }
 }
 
@@ -320,7 +331,9 @@ int fin_blocks(int n) { return (n + FIN_ROWS - 1) / FIN_ROWS; }
 // the plan of the instance for padded widths PI, PO on the current card
 template <int PI, int PO>
 Plan plan_of(int n, int m_patterns) {
-  return plan_for(n, m_patterns, concurrent_blocks(stream_bwd_dq_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES));
+  using C = Tiles<PI, PO>;
+  return plan_for((n + TM - 1) / TM * C::PARTS, (m_patterns + C::TN - 1) / C::TN,
+                  concurrent_blocks(stream_bwd_dq_kernel<PI, PO>, THREADS, C::BYTES));
 }
 
 template <int PI, int PO>
@@ -336,12 +349,15 @@ int launch(const Args& a) {
   float* dq_part = a.workspace;
   float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * PI;
   float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
-  kernel<<<dim3((a.n + TM - 1) / TM, p.splits), THREADS, C::BYTES, a.stream>>>(
+  kernel<<<dim3((a.n + TM - 1) / TM, p.splits, C::PARTS), THREADS, C::BYTES, a.stream>>>(
       a.x, a.K, a.U, a.s, a.t, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per,
       beta_of(a.d_in), vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  stream_bwd_dx_finish_kernel<<<fin_blocks(a.n), FIN_THREADS, 0, a.stream>>>(
+  err = cudaFuncSetAttribute(stream_bwd_dx_finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(FIN_BYTES));
+  if (err != cudaSuccess) return err;
+  stream_bwd_dx_finish_kernel<<<fin_blocks(a.n), FIN_THREADS, FIN_BYTES, a.stream>>>(
       a.x, a.s, dq_part, p.splits, PI, a.n, a.d_in, a.dx, ds_part, dt_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -357,17 +373,18 @@ int launch(const Args& a) {
 // for each 32 tokens.
 extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int m_patterns, int d_in, int d_out) {
   if (!takes(n, m_patterns, d_in, d_out)) return 0;
-  const int splits = with_widths(d_in, d_out, [&](auto pi, auto po) {
-    return plan_of<decltype(pi)::value, decltype(po)::value>(n, m_patterns).splits;
+  return with_widths(d_in, d_out, [&](auto pi, auto po) -> long long {
+    constexpr int PI = decltype(pi)::value;
+    const int splits = plan_of<PI, decltype(po)::value>(n, m_patterns).splits;
+    return static_cast<long long>(splits) * n * PI + 2LL * fin_blocks(n) * d_in;
   });
-  return static_cast<long long>(splits) * n * padded_width(d_in) + 2LL * fin_blocks(n) * d_in;
 }
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
 // dx (n, d_in), ds and dt (d_in), and workspace (see above); 1 <= d_in,
-// d_out <= 128. Launches the kernel, the finishing pass and the
+// d_out <= 256. Launches the kernel, the finishing pass and the
 // fixed-order sums of the partial rows on `stream`. Returns a cudaError_t;
 // 0 means every launch was accepted.
 extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const float* U, const float* s,
@@ -387,6 +404,7 @@ extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) 
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
-    return static_cast<int>(kernel_attributes(stream_bwd_dq_kernel<PI, PO>, THREADS, Tiles<PI, PO>::BYTES, TM, TN, out));
+    using C = Tiles<PI, PO>;
+    return static_cast<int>(kernel_attributes(stream_bwd_dq_kernel<PI, PO>, THREADS, C::BYTES, TM, C::TN, out));
   });
 }

@@ -1,4 +1,4 @@
-// Streaming modern-Hopfield lookup, forward, for Hopper (sm_90a).
+// Streaming modern-Hopfield lookup, forward (K1), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_stream_fwd_kernel` of
 // hopvae_tpu/ops/hopfield_pallas.py (launched by `_attn_call_fwd`). For
@@ -14,309 +14,100 @@
 // and a pattern-sharded log-sum-exp merge reuse). The caller adds the
 // output shift b.
 //
-// What bounds it on an H100: arithmetic. Per lookup it does
-// 2*N*M*(d_in+d_out) FLOPs and N*M exps, while it must move only
-// x, out, m, l and the two tables (at most ~1 MB each); at N = 73,984,
-// M = 4096 that is 77.6 GFLOP for d_in = d_out = 64 against ~40 MB.
+// What bounds it on an H100: the tensor cores. It does two products,
+// 2*N*M*(d_in + d_out) FLOPs, each as mma.sync m16n8k8 on TF32 operands
+// in three passes (mma_tf32.cuh), so the ceiling is 495 / 3 = 165
+// TFLOP/s: at N = 73,984 and M = 4096, 0.470 ms for 64 -> 64 and 0.246 ms
+// each for 64 -> 3 and 3 -> 64 (their narrow side counted at its real
+// width), 0.962 ms a step of the three; against N*M exps (0.07 ms a
+// lookup on the SFUs) and about 40 MB of memory traffic. f32 grade is
+// required: K2 and K3 rebuild the attention from this kernel's m and l,
+// and one TF32 pass would move them by 25 to 170 times the 1e-5 the port
+// holds them to (tests/test_torch_hopfield_tf32.py emulates both).
 //
-// Design:
-// - One block of 256 threads takes BLOCK_N = 64 token rows. It runs the
-//   LayerNorm once and keeps q in shared memory for the whole pattern loop.
-// - The block walks the pattern axis in tiles of BLOCK_M = 64 (the loop
-//   that stands in for the TPU grid's sequential j axis), staging each K
-//   and U tile in shared memory. Rows >= M are masked to -1e30 here; the
-//   caller pads nothing.
-// - Thread (ty, tx) of the 16x16 grid owns rows ty*4+i and the tile's
-//   patterns tx+16*j (i, j < 4). The 16 threads that share a row are one
-//   half-warp, so the row max and row sum are xor-shuffles over 16 lanes.
-//   Each row keeps a running max, a denominator and an f32 accumulator.
-// - d_out = 64: the probabilities go through shared memory (transposed)
-//   and each thread accumulates a 4x4 block of out (4x8 at d_out = 128).
-//   d_out = 3: each thread keeps a 4x3 partial over its own patterns (all
-//   of a row's partials share the same running max, so they rescale
-//   alike) and the partials are summed over the half-warp once, at the end.
-// - Plain f32 FMA on the CUDA cores; widths of 3 need no padding. Rows
-//   of width 64 are read as float4 from shared memory with a row stride
-//   of 68 floats, which keeps those reads free of bank conflicts.
-// - Widths: the three of the bottleneck, (64, 64), (64, 3) and (3, 64),
-//   are built exactly. Any other d_in, d_out from 1 to 128 runs on the
-//   instance of the next built width (d_in: 3, 16, 32, 64, 128; d_out: 3,
-//   8, 64, 128), padded with zeros in shared memory, never in device
-//   memory: x, K, s and t read 0 past d_in, so q does and the scores do not
-//   move; U reads 0 past d_out. The LayerNorm's mean and variance, and
-//   beta, use the real width.
+// Design (the walk is hopfield_stream_fwd.cuh, shared with K4):
+// - Widths: any d_in, d_out from 1 to 256, padded with zeros in shared
+//   memory (never in device memory) to a built instance (hopfield_stream.cuh,
+//   with_widths: 8 to 128 each side; 256 with 8 or 256); the LayerNorm's
+//   mean and variance, and beta, use the real width. d_in 3 is one 8-deep
+//   k step; d_out 3 one 8-wide n tile.
+// - One block of 4 warps owns 64 token rows and loads them once: x by
+//   cp.async, then the state LayerNorm in double over the real width,
+//   rounded once (hopfield_stream.cuh, as K2 and K3 build q). It walks
+//   every pattern tile as the shared walk does; rows past N and patterns
+//   past M are masked here, the caller pads nothing.
+// - At d_out 256 two column windows of 128 are blocks of their own, each
+//   recomputing the scores (m and l come from the first, the same bits in
+//   both).
+// - Grid: a block per 64 tokens and window, each walking every pattern
+//   tile. Splitting the pattern axis over two blocks, its partial outputs
+//   and row stats merged by a second kernel as K2 does, ran 3.5% slower at
+//   64 -> 64 with N = 73,984 on an H100 (PERF.md): it doubles each
+//   token's LayerNorm and the pipeline's fill. No float atomics: every
+//   output has the same bits in every run.
+//
+// Shared bytes: 256 (d_in' + 4) for the queries and 2 TN (d_in' + c + 8) * 4
+// for two buffers of a K tile and its U window of c = min(d_out', 128)
+// columns (TN 64 up to widths of 64, else 32, or 16 past a sum of 256):
+// 87,040 at 64 -> 64. Registers and blocks an SM per width are in PERF.md,
+// from hopfield_stream_fwd_attributes on the card.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
+#include "hopfield_stream_fwd.cuh"
 
 namespace {
 
-constexpr int BLOCK_N = 64;
-constexpr int BLOCK_M = 64;
-constexpr int THREADS = 256;
-constexpr float LN_EPS = 1e-5f;
-constexpr float MASKED = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace hopfield_stream;
+using namespace hopfield_fwd;
+using namespace tf32x3;
 
-// shared-memory row stride: widths that are float4 multiples get +4
-// floats, which offsets consecutive rows by 4 banks
-template <int D>
-constexpr int stride_of() { return (D % 4 == 0) ? D + 4 : D; }
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-
-// every lane ends with the same value: each step adds the same two
-// operands in every lane, and float addition commutes
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-  return v;
-}
-
-template <int D_IN, int D_OUT>
-struct Layout {
-  static constexpr int QS = stride_of<D_IN>();   // q rows and K rows
-  static constexpr int PS = BLOCK_N + 4;          // transposed probabilities
-  static constexpr bool WIDE_OUT = D_OUT >= 64;
-  static constexpr int FLOATS =
-      BLOCK_N * QS + BLOCK_M * QS + BLOCK_M * D_OUT + (WIDE_OUT ? BLOCK_M * PS : 0);
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+template <int PI, int PO>
+struct Tiles {
+  static constexpr int CW = window<PO>();
+  static constexpr int WINDOWS = PO / CW;
+  using W = Walk<PI, CW>;
+  static constexpr size_t BYTES = sizeof(float) * (TM * W::QS + 2 * W::BUF);
 };
 
-// EXACT: the instance of the real widths d_in = D_IN, d_out = D_OUT, with
-// every width a constant; otherwise the real widths are at most D_IN and
-// D_OUT and the rest is zero padding in shared memory.
-template <int D_IN, int D_OUT, bool EXACT>
-__global__ void __launch_bounds__(THREADS, 2)
-stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K,
-                  const float* __restrict__ U, const float* __restrict__ s,
-                  const float* __restrict__ t, float* __restrict__ out,
-                  float* __restrict__ m_out, float* __restrict__ l_out,
-                  int n, int m_patterns, int d_in, int d_out, float beta) {
-  using L = Layout<D_IN, D_OUT>;
-  constexpr int QS = L::QS;
-  constexpr bool WIDE_OUT = L::WIDE_OUT;
-  static_assert(!WIDE_OUT || D_OUT == 4 * 16 || D_OUT == 8 * 16, "a wide output is 16 threads x 4 or 8 columns");
-  constexpr int CW = D_OUT / 16;  // WIDE_OUT: a thread's columns
-  constexpr int ACC_W = WIDE_OUT ? CW : D_OUT;
-  const int din = EXACT ? D_IN : d_in;
-  const int dout = EXACT ? D_OUT : d_out;
-
+template <int PI, int PO>
+__global__ void __launch_bounds__(THREADS)
+stream_fwd_kernel(const float* __restrict__ x, const float* __restrict__ K, const float* __restrict__ U,
+                  const float* __restrict__ s, const float* __restrict__ t, float* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int n, int m_patterns, int d_in,
+                  int d_out, float beta, unsigned vec16) {
+  using C = Tiles<PI, PO>;
+  using W = typename C::W;
+  constexpr int CO = W::CO;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + BLOCK_N * QS;
-  float* u_s = k_s + BLOCK_M * QS;
-  float* p_s = u_s + BLOCK_M * D_OUT;  // WIDE_OUT only: p_s[pattern][row]
+  float* buf = q_s + TM * W::QS;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int row0 = blockIdx.x * BLOCK_N;
-  const int rows_here = min(BLOCK_N, n - row0);
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int row0 = blockIdx.x * TM;
+  const int col0 = blockIdx.y * C::CW;
 
-  // ---- stage the x tile (one contiguous chunk) and LayerNorm it in place
-  for (int idx = tid; idx < BLOCK_N * D_IN; idx += THREADS) {
-    const int r = idx / D_IN;
-    const int k = idx - r * D_IN;
-    if constexpr (EXACT)
-      q_s[r * QS + k] = r < rows_here ? x[static_cast<size_t>(row0) * D_IN + idx] : 0.f;
-    else
-      q_s[r * QS + k] = r < rows_here && k < din ? x[static_cast<size_t>(row0 + r) * din + k] : 0.f;
-  }
-  __syncthreads();
-  if (tid < BLOCK_N) {
-    // in double, then rounded once to f32: with d_in = 3, a row whose
-    // values nearly agree loses most digits of x - mean in f32, and the
-    // plain version (which does the same) would then disagree in them.
-    // Over the real width: the padding columns stay 0.
-    float* row = q_s + tid * QS;
-    double mean = 0.0;
-#pragma unroll 8
-    for (int k = 0; k < din; ++k) mean += row[k];
-    mean /= din;
-    double var = 0.0;
-#pragma unroll 8
-    for (int k = 0; k < din; ++k) {
-      const double c = row[k] - mean;
-      var += c * c;
-    }
-    var /= din;
-    const double inv = 1.0 / sqrt(var + static_cast<double>(LN_EPS));
-#pragma unroll 8
-    for (int k = 0; k < din; ++k)
-      row[k] = static_cast<float>((row[k] - mean) * inv * s[k] + t[k]);
-  }
-  // the first tile's barrier below orders these writes before any read
+  load_queries<PI>(q_s, x, s, t, d_in, row0, n, vec16 & 1u);
+  float acc[CO][4], m_r[2], l_r[2];
+  walk<PI, C::CW>(q_s, buf, K, U, m_patterns, d_in, d_out, col0, beta, vec16 >> 1 & 1u, vec16 >> 2 & 1u, acc,
+                  m_r, l_r);
+  quad_denominators(l_r);
 
-  float m_run[4], l_run[4], acc[4][ACC_W];
+  // ---- out = acc / l at the window's columns < d_out, and the row stats
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = MASKED;
-    l_run[i] = 0.f;
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + m0 + gq + 8 * e;
+    if (row >= n) continue;
 #pragma unroll
-    for (int c = 0; c < ACC_W; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int p0 = 0; p0 < m_patterns; p0 += BLOCK_M) {
-    const int pats = min(BLOCK_M, m_patterns - p0);
-    for (int idx = tid; idx < BLOCK_M * D_IN; idx += THREADS) {
-      const int c = idx / D_IN;
-      const int k = idx - c * D_IN;
-      if constexpr (EXACT)
-        k_s[c * QS + k] = c < pats ? K[static_cast<size_t>(p0) * D_IN + idx] : 0.f;
-      else
-        k_s[c * QS + k] = c < pats && k < din ? K[static_cast<size_t>(p0 + c) * din + k] : 0.f;
-    }
-    for (int idx = tid; idx < BLOCK_M * D_OUT; idx += THREADS) {
-      if constexpr (EXACT) {
-        u_s[idx] = idx < pats * D_OUT ? U[static_cast<size_t>(p0) * D_OUT + idx] : 0.f;
-      } else {
-        const int c = idx / D_OUT;
-        const int k = idx - c * D_OUT;
-        u_s[idx] = c < pats && k < dout ? U[static_cast<size_t>(p0 + c) * dout + k] : 0.f;
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = col0 + 8 * c + 2 * tq + h;
+        if (col < d_out) out[static_cast<size_t>(row) * d_out + col] = acc[c][2 * e + h] / l_r[e];
       }
-    }
-    __syncthreads();
-
-    // ---- scores: rows ty*4+i against patterns tx+16*j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-
-    if constexpr (D_IN % 4 == 0) {
-#pragma unroll 4
-      for (int k = 0; k < D_IN; k += 4) {
-        float4 qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(q_s + (ty * 4 + i) * QS + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * QS + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float a = sc[i][j];
-            a = fmaf(qv[i].x, kv[j].x, a);
-            a = fmaf(qv[i].y, kv[j].y, a);
-            a = fmaf(qv[i].z, kv[j].z, a);
-            a = fmaf(qv[i].w, kv[j].w, a);
-            sc[i][j] = a;
-          }
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < D_IN; ++k) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * QS + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * QS + k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-      }
-    }
-
-    // ---- online softmax: scale, mask, running max and denominator
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = MASKED;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v = (tx + 16 * j) < pats ? sc[i][j] * beta : MASKED;
-        sc[i][j] = v;
-        mt = fmaxf(mt, v);
-      }
-      const float m_new = fmaxf(m_run[i], half_warp_max(mt));
-      const float rescale = __expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __expf(sc[i][j] - m_new);
-        sc[i][j] = p;
-        sum += p;
-      }
-      l_run[i] = l_run[i] * rescale + half_warp_sum(sum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < ACC_W; ++c) acc[i][c] *= rescale;
-    }
-
-    // ---- acc += p @ U
-    if constexpr (WIDE_OUT) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<float4*>(p_s + (tx + 16 * j) * L::PS + ty * 4) =
-            make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-      __syncthreads();
-#pragma unroll 8
-      for (int jj = 0; jj < BLOCK_M; ++jj) {
-        const float4 pv = *reinterpret_cast<const float4*>(p_s + jj * L::PS + ty * 4);
-        float4 uv[CW / 4];
-#pragma unroll
-        for (int h = 0; h < CW / 4; ++h) uv[h] = *reinterpret_cast<const float4*>(u_s + jj * D_OUT + tx * CW + 4 * h);
-        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-        for (int h = 0; h < CW / 4; ++h)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][4 * h + 0] = fmaf(pr[i], uv[h].x, acc[i][4 * h + 0]);
-            acc[i][4 * h + 1] = fmaf(pr[i], uv[h].y, acc[i][4 * h + 1]);
-            acc[i][4 * h + 2] = fmaf(pr[i], uv[h].z, acc[i][4 * h + 2]);
-            acc[i][4 * h + 3] = fmaf(pr[i], uv[h].w, acc[i][4 * h + 3]);
-          }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* urow = u_s + (tx + 16 * j) * D_OUT;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < D_OUT; ++c) acc[i][c] = fmaf(sc[i][j], urow[c], acc[i][c]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites k_s, u_s and p_s
-  }
-
-  // ---- epilogue: out = acc / l, and the row stats
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if constexpr (!WIDE_OUT) {
-#pragma unroll
-      for (int c = 0; c < D_OUT; ++c) acc[i][c] = half_warp_sum(acc[i][c]);
-    }
-    if (r >= rows_here) continue;
-    const size_t row = static_cast<size_t>(row0 + r);
-    if constexpr (WIDE_OUT && EXACT) {
-      static_assert(CW == 4, "the exact wide instance is 64 columns");
-      *reinterpret_cast<float4*>(out + row * D_OUT + tx * 4) =
-          make_float4(acc[i][0] / l_run[i], acc[i][1] / l_run[i],
-                      acc[i][2] / l_run[i], acc[i][3] / l_run[i]);
-    } else if constexpr (WIDE_OUT) {
-#pragma unroll
-      for (int c = 0; c < CW; ++c)
-        if (tx * CW + c < dout) out[row * dout + tx * CW + c] = acc[i][c] / l_run[i];
-    } else if (tx == 0) {
-#pragma unroll
-      for (int c = 0; c < D_OUT; ++c)
-        if (c < dout) out[row * dout + c] = acc[i][c] / l_run[i];
-    }
-    if (tx == 0) {
-      m_out[row] = m_run[i];
-      l_out[row] = l_run[i];
+    if (blockIdx.y == 0 && tq == 0) {
+      m_out[row] = m_r[e];
+      l_out[row] = l_r[e];
     }
   }
 }
@@ -328,27 +119,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D_IN, int D_OUT, bool EXACT>
+template <int PI, int PO>
 int launch(const Args& a) {
-  using L = Layout<D_IN, D_OUT>;
-  auto kernel = stream_fwd_kernel<D_IN, D_OUT, EXACT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::BYTES));
+  using C = Tiles<PI, PO>;
+  auto kernel = stream_fwd_kernel<PI, PO>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::BYTES));
   if (err != cudaSuccess) return err;
-  const float beta = static_cast<float>(1.0 / sqrt(static_cast<double>(a.d_in)));
-  const dim3 grid((a.n + BLOCK_N - 1) / BLOCK_N);
-  kernel<<<grid, THREADS, L::BYTES, a.stream>>>(a.x, a.K, a.U, a.s, a.t, a.out, a.m, a.l, a.n, a.m_patterns,
-                                                a.d_in, a.d_out, beta);
+  const unsigned vec16 = vec16_ok(a.x, a.d_in) | vec16_ok(a.K, a.d_in) << 1 | vec16_ok(a.U, a.d_out) << 2;
+  kernel<<<dim3((a.n + TM - 1) / TM, C::WINDOWS), THREADS, C::BYTES, a.stream>>>(
+      a.x, a.K, a.U, a.s, a.t, a.out, a.m, a.l, a.n, a.m_patterns, a.d_in, a.d_out, beta_of(a.d_in), vec16);
   return cudaGetLastError();
-}
-
-// the padded instance of d_out, for the built d_in D_IN
-template <int D_IN>
-int launch_padded(const Args& a) {
-  if (a.d_out <= 3) return launch<D_IN, 3, false>(a);
-  if (a.d_out <= 8) return launch<D_IN, 8, false>(a);
-  if (a.d_out <= 64) return launch<D_IN, 64, false>(a);
-  return launch<D_IN, 128, false>(a);
 }
 
 }  // namespace
@@ -356,21 +137,24 @@ int launch_padded(const Args& a) {
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), out (n, d_out), m and l (n);
-// 1 <= d_in, d_out <= 128. Returns a cudaError_t; 0 means the launch was
+// 1 <= d_in, d_out <= 256. Returns a cudaError_t; 0 means the launch was
 // accepted.
-extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* U,
-                                   const float* s, const float* t, float* out, float* m,
-                                   float* l, int n, int m_patterns, int d_in, int d_out,
+extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* U, const float* s, const float* t,
+                                   float* out, float* m, float* l, int n, int m_patterns, int d_in, int d_out,
                                    void* stream) {
-  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1 || d_in > 128 || d_out > 128)
-    return cudaErrorInvalidValue;
+  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   const Args a{x, K, U, s, t, out, m, l, n, m_patterns, d_in, d_out, static_cast<cudaStream_t>(stream)};
-  if (d_in == 64 && d_out == 64) return launch<64, 64, true>(a);
-  if (d_in == 64 && d_out == 3) return launch<64, 3, true>(a);
-  if (d_in == 3 && d_out == 64) return launch<3, 64, true>(a);
-  if (d_in <= 3) return launch_padded<3>(a);
-  if (d_in <= 16) return launch_padded<16>(a);
-  if (d_in <= 32) return launch_padded<32>(a);
-  if (d_in <= 64) return launch_padded<64>(a);
-  return launch_padded<128>(a);
+  return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
+}
+
+// The kernel built for (d_in, d_out) as the card reports it: out receives
+// registers a thread, dynamic shared bytes, local (spill) bytes a thread,
+// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
+  if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
+  return with_widths(d_in, d_out, [&](auto pi, auto po) {
+    constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
+    using C = Tiles<PI, PO>;
+    return static_cast<int>(kernel_attributes(stream_fwd_kernel<PI, PO>, THREADS, C::BYTES, TM, C::W::TN, out));
+  });
 }

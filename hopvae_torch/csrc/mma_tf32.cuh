@@ -1,7 +1,8 @@
 // Tensor-core products in f32 grade, and asynchronous staging, for Hopper
 // (sm_90a): the pieces of K5's kernels (causal_attention_fwd.cu and
-// causal_attention_bwd.cu) and of the streaming Hopfield backward, K2 and
-// K3 (hopfield_stream_bwd_dx.cu, hopfield_stream_bwd_dku.cu).
+// causal_attention_bwd.cu) and of the streaming Hopfield kernels K1 to K4
+// (hopfield_stream_fwd.cu, hopfield_stream_bwd_dx.cu,
+// hopfield_stream_bwd_dku.cu, hopfield_bottleneck_fused.cu).
 //
 // A product runs as mma.sync m16n8k8 on TF32 operands in three passes.
 // Each f32 operand x splits into big = tf32(x) and small = tf32(x - big),

@@ -21,11 +21,11 @@ over ``(x2, K, U, s, t)`` with three kernels:
   and ``dU``.
 
 The backward kernels rebuild the attention from ``m`` and ``l``, so the
-``(N, M)`` matrix never reaches device memory; they run their products on
-the tensor cores in three TF32 passes. Each wrapper launches its kernel
-on CUDA tensors (counting the launch in its ``launches``) and takes its
-plain version on CPU tensors: ``stream_lookup_fwd_reference`` and
-``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices. The
+``(N, M)`` matrix never reaches device memory. All three run their
+products on the tensor cores in three TF32 passes. Each wrapper launches
+its kernel on CUDA tensors (counting the launch in its ``launches``) and
+takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
+and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices. The
 plain versions take any ``(d_in, d_out)``; the kernels take every width
 from 1 to ``MAX_WIDTH`` (:func:`kernel_takes`, zero-padded in shared
 memory to a built instance), and the card path raises
@@ -33,9 +33,11 @@ memory to a built instance), and the card path raises
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
-TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups,
-the sigmoid and the round in one launch. As in the JAX package, no entry
-point routes to it: serving and training run the streaming lookups.
+TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups
+(K1's pattern walk three times), the sigmoid and the round in one launch,
+for lookups that chain as ``(d, d), (d, di), (di, d)`` with ``d`` and
+``di`` up to ``MAX_WIDTH``. As in the JAX package, no entry point routes
+to it: serving and training run the streaming lookups.
 """
 
 from __future__ import annotations
@@ -48,14 +50,15 @@ import torch
 from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
 from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
 
-SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out), the only ones K4 takes
-MAX_WIDTH = 128  # K1 to K3 take every d_in and d_out from 1 to this
+SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at the configs' default widths
+MAX_WIDTH = 256  # K1 to K4 take every d_in and d_out from 1 to this
 _NOT_BUILT = "ROADMAP.md, Queue 3: the streaming lookups at other widths"
 IMPLS = ("cuda", "torch")
 
 
 def kernel_takes(d_in: int, d_out: int) -> bool:
-    """Whether K1, K2 and K3 take the widths ``(d_in, d_out)`` on the card."""
+    """Whether K1, K2 and K3 (and K4, for each of its lookups) take the
+    widths ``(d_in, d_out)`` on the card."""
     return 1 <= d_in <= MAX_WIDTH and 1 <= d_out <= MAX_WIDTH
 
 
@@ -277,6 +280,21 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
 
 stream_bwd_dku.launches = 0
 
+
+def forward_attributes(d_in: int, d_out: int) -> dict:
+    """K1's build for ``(d_in, d_out)`` as the card reports it: registers
+    and spilled (local) bytes a thread, dynamic shared bytes, threads a
+    block, blocks an SM, and its tiles (token rows resident, patterns
+    streamed). Launches nothing."""
+    return kernel_attributes("hopfield_stream_fwd", d_in, d_out)
+
+
+def fused_attributes(d: int, di: int) -> dict:
+    """K4's build for the bottleneck widths ``(d, di)``, as
+    :func:`forward_attributes` (the streamed tile is its first lookup's)."""
+    return kernel_attributes("hopfield_bottleneck_fused", d, di)
+
+
 def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
     """K2's (``kernel="dx"``) or K3's (``"dku"``) build for ``(d_in, d_out)``
     as the card reports it: registers and spilled (local) bytes a thread,
@@ -292,10 +310,20 @@ def _folded(layers) -> list:
     return [[a.contiguous() for a in fold_layer(layer)] for layer in layers]
 
 
+def fused_widths(layers) -> tuple[int, int]:
+    """``(d, di)`` of three lookups that chain as the bottleneck's do,
+    ``(d, d), (d, di), (di, d)``; ``ValueError`` where they do not."""
+    widths = tuple((layer.d_in, layer.out_proj.weight.shape[0]) for layer in layers)
+    (d, d1), (d2, di), (di3, d3) = widths
+    if not d == d1 == d2 == d3 or di != di3:
+        raise ValueError(f"the lookups' (d_in, d_out) are {widths}: they must chain as (d, d), (d, di), (di, d)")
+    return d, di
+
+
 def bottleneck_fused_fwd_reference(hopfield: HopfieldLookup, embedding_to_index: HopfieldLookup,
                                    index_to_embedding: HopfieldLookup, x: torch.Tensor, num_levels: int):
     """Plain torch version of K4: ``(e, zq, r)`` of the bottleneck for
-    ``x (..., 64)``, each lookup through :func:`stream_lookup_fwd_reference`
+    ``x (..., d)``, each lookup through :func:`stream_lookup_fwd_reference`
     with its shift added, the index rounded half to even."""
     *lead, d = x.shape
     (k1, u1, b1, s1, t1), (k2, u2, b2, s2, t2), (k3, u3, b3, s3, t3) = _folded(
@@ -309,44 +337,47 @@ def bottleneck_fused_fwd_reference(hopfield: HopfieldLookup, embedding_to_index:
 
 def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldLookup,
                          index_to_embedding: HopfieldLookup, x: torch.Tensor, num_levels: int):
-    """K4: ``(e, zq, r)`` of the bottleneck for ``x (..., 64)`` in one
-    launch, the tables folded by :func:`fold_layer`.
+    """K4: ``(e, zq, r)`` of the bottleneck for ``x (..., d)`` in one
+    launch, the tables folded by :func:`fold_layer`; the lookups chain as
+    ``(d, d), (d, di), (di, d)`` (:func:`fused_widths`).
 
     CUDA tensors launch the kernel (counted in
     ``bottleneck_fused_fwd.launches``); CPU tensors take the plain version.
-    Forward-only: on the card, with autograd on and a parameter or ``x``
-    that needs a gradient, it raises (the streaming bottleneck is the
-    differentiable path)."""
+    On the card ``d`` or ``di`` past ``MAX_WIDTH`` raises
+    ``NotImplementedError``. Forward-only: on the card, with autograd on
+    and a parameter or ``x`` that needs a gradient, it raises (the
+    streaming bottleneck is the differentiable path)."""
     layers = (hopfield, embedding_to_index, index_to_embedding)
-    widths = tuple((layer.d_in, layer.out_proj.weight.shape[0]) for layer in layers)
-    if widths != SUPPORTED:
-        raise ValueError(f"the lookups' (d_in, d_out) are {widths}, the kernel takes {SUPPORTED}")
-    if x.dtype != torch.float32 or x.shape[-1] != SUPPORTED[0][0]:
-        raise ValueError(f"x must be float32 (..., {SUPPORTED[0][0]}), got {x.dtype} {tuple(x.shape)}")
+    d, di = fused_widths(layers)
+    if x.dtype != torch.float32 or x.shape[-1] != d:
+        raise ValueError(f"x must be float32 (..., {d}), got {x.dtype} {tuple(x.shape)}")
     if num_levels < 2:
         raise ValueError(f"num_levels must be at least 2, got {num_levels}")
     if x.device.type == "cpu":
         return bottleneck_fused_fwd_reference(*layers, x, num_levels)
+    if not kernel_takes(d, di):
+        raise NotImplementedError(
+            f"the fused bottleneck is not built for (d, di) = {(d, di)}, only widths 1 to {MAX_WIDTH} ({_NOT_BUILT})")
     params = [p for layer in layers for p in layer.parameters()]
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *params)):
         raise RuntimeError("bottleneck_fused_fwd is forward-only: run it under torch.no_grad or "
                            "torch.inference_mode, or differentiate the streaming bottleneck")
     _require_cuda(x)
-    *lead, d = x.shape
+    *lead, _ = x.shape
     x2 = x.reshape(-1, d).contiguous()
     n = x2.shape[0]
     if n == 0:
         raise ValueError("x needs at least one token")
     tables = _folded(layers)
     e = torch.empty(n, d, device=x.device)
-    zq = torch.empty(n, SUPPORTED[1][1], device=x.device)
+    zq = torch.empty(n, di, device=x.device)
     r = torch.empty(n, d, device=x.device)
     stem = "hopfield_bottleneck_fused"
-    launch(stem, _bind(stem, stem, 19, 5), x.device, x2.data_ptr(),
+    launch(stem, _bind(stem, stem, 19, 7), x.device, x2.data_ptr(),
            *(a.data_ptr() for table in tables for a in table), e.data_ptr(), zq.data_ptr(), r.data_ptr(),
-           n, *(table[0].shape[0] for table in tables), num_levels)
+           n, *(table[0].shape[0] for table in tables), d, di, num_levels)
     bottleneck_fused_fwd.launches += 1
-    return e.reshape(*lead, d), zq.reshape(*lead, zq.shape[-1]), r.reshape(*lead, d)
+    return e.reshape(*lead, d), zq.reshape(*lead, di), r.reshape(*lead, d)
 
 
 bottleneck_fused_fwd.launches = 0

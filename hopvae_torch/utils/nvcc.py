@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -29,8 +30,9 @@ FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# ptxas register / shared-memory report of each build, by stem
+# ptxas register / shared-memory report of each build, and its seconds, by stem
 build_logs: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -60,12 +62,14 @@ def _build(stem: str) -> Path:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(
             [nvcc_path(), *FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {stem}.cu:\n{proc.stdout}{proc.stderr}")
+        build_seconds[stem] = time.perf_counter() - t0
         build_logs[stem] = proc.stdout + proc.stderr
         os.replace(tmp, out)
     finally:

@@ -33,6 +33,8 @@ SHAPES = [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)]  # ragged in N 
 # other widths, which the kernels take zero-padded to a built instance;
 # the plain versions take them, as the Pallas kernels do
 SHAPES += [(24, 200, 32, 32), (19, 150, 64, 4), (21, 130, 128, 128), (23, 140, 5, 128), (18, 170, 128, 5)]
+# widths past 128, which the kernels take at their 256 instances
+SHAPES += [(17, 140, 256, 256), (19, 150, 200, 3), (16, 130, 3, 200)]
 
 
 def _np_params(rng, d_in, d_out, m):
@@ -184,7 +186,7 @@ def _launch_counts():
 
 @pytest.mark.parametrize("device", ["meta", "cuda"])
 def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
-    """Off the CPU, a width past ``MAX_WIDTH`` (128) raises
+    """Off the CPU, a width past ``MAX_WIDTH`` (256) raises
     ``NotImplementedError`` naming ROADMAP Queue 3, in the forward and both
     backward wrappers, before anything is launched; a width the kernels
     take on a meta tensor reaches the device check. CUDA-typed tensors are
@@ -201,7 +203,7 @@ def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
         def device(self):
             return torch.device("cuda")
 
-    fwd, rest = _meta_arrays(5, 70, 160, 32)
+    fwd, rest = _meta_arrays(5, 70, 300, 32)
     if device == "cuda":
         fwd, rest = [CudaTyped(a) for a in fwd], [CudaTyped(a) for a in rest]
     before = _launch_counts()
@@ -218,20 +220,21 @@ def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
 
 @pytest.mark.parametrize("d_in,d_out,takes", [
     (1, 1, True), (3, 64, True), (5, 128, True), (128, 5, True), (33, 7, True), (128, 128, True),
-    (129, 64, False), (64, 129, False), (200, 200, False),
+    (129, 64, True), (64, 129, True), (200, 200, True), (256, 3, True), (256, 256, True),
+    (257, 64, False), (64, 257, False), (300, 300, False),
 ])
 def test_the_card_takes_every_width_up_to_128(d_in, d_out, takes):
     """The dispatch rule, on meta tensors: ``kernel_takes`` holds for every
-    width from 1 to 128, where K1, K2 and K3 reach the device check (a meta
-    tensor has no kernel); past 128 all three raise ``NotImplementedError``.
-    Nothing is launched either way."""
+    width from 1 to ``MAX_WIDTH`` (256), where K1, K2 and K3 reach the
+    device check (a meta tensor has no kernel); past it all three raise
+    ``NotImplementedError``. Nothing is launched either way."""
     assert hc.kernel_takes(d_in, d_out) is takes
     fwd, rest = _meta_arrays(5, 70, d_in, d_out)
     before = _launch_counts()
     for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
                  lambda: hc.stream_bwd_dku(*fwd, *rest)):
         with pytest.raises(ValueError if takes else NotImplementedError,
-                           match="no kernel for device meta" if takes else "only widths 1 to 128"):
+                           match="no kernel for device meta" if takes else "only widths 1 to 256"):
             call()
     assert _launch_counts() == before
 
@@ -244,11 +247,11 @@ def test_cuda_impl_on_cpu_tensors_raises():
         hc.hopfield_lookup_stream(layer, torch.zeros(2, 4, 64), impl="pallas")
 
 
-def _layers(params):
+def _layers(params, d=64, di=3):
     return {
-        "hopfield": _torch_layer(params["hopfield"], 64, 64),
-        "embedding_to_index": _torch_layer(params["embedding_to_index"], 64, 3),
-        "index_to_embedding": _torch_layer(params["index_to_embedding"], 3, 64),
+        "hopfield": _torch_layer(params["hopfield"], d, d),
+        "embedding_to_index": _torch_layer(params["embedding_to_index"], d, di),
+        "index_to_embedding": _torch_layer(params["index_to_embedding"], di, d),
     }
 
 
@@ -350,28 +353,36 @@ def test_stream_backward_checks_its_inputs():
 # ------------------------------------------------------------ K4
 
 
-def _bottleneck_params(rng, m):
+def _bottleneck_params(rng, m, d=64, di=3):
     return {
-        "hopfield": _np_params(rng, 64, 64, m),
-        "embedding_to_index": _np_params(rng, 64, 3, m),
-        "index_to_embedding": _np_params(rng, 3, 64, m),
+        "hopfield": _np_params(rng, d, d, m),
+        "embedding_to_index": _np_params(rng, d, di, m),
+        "index_to_embedding": _np_params(rng, di, d, m),
     }
 
 
-@pytest.mark.parametrize("m,shape", [(256, (2, 40, 64)), (300, (37, 64))])
+# the index width di of the fused cases, by their token width d
+FUSED_INDEX_DIM = {64: 3, 32: 4, 256: 3}
+
+
+@pytest.mark.parametrize("m,shape", [(256, (2, 40, 64)), (300, (37, 64)), (256, (2, 40, 32)), (300, (37, 256))])
 def test_fused_reference_matches_pallas_singleshot(m, shape):
     """K4's plain version against the TPU's single-shot fused kernel
     ``_bottleneck_fwd_pallas`` in interpret mode, as
     tests/test_pallas.py::test_singleshot_kernel_matches_reference runs it:
-    at its shapes (M 256, x (2, 40, 64)) and at ragged N and M (37 tokens,
-    M 300). ``e`` and ``r`` within rtol 1e-4, atol 1e-5; ``zq`` equal."""
+    at its shapes (M 256, x (2, 40, 64)), at ragged N and M (37 tokens,
+    M 300), and at the bottleneck widths (d, di) = (32, 4) and (256, 3),
+    which K4 takes zero-padded. ``e`` and ``r`` within rtol 1e-4, atol
+    1e-5; ``zq`` equal."""
+    d = shape[-1]
+    di = FUSED_INDEX_DIM[d]
     rng = np.random.default_rng(m + shape[0])
-    params = _bottleneck_params(rng, m)
+    params = _bottleneck_params(rng, m, d, di)
     x = rng.standard_normal(shape).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         want = [np.asarray(a) for a in hp._bottleneck_fwd_pallas(_jax(params), jnp.asarray(x), 512)]
     with torch.no_grad():
-        got = hc.bottleneck_fused_fwd_reference(*_layers(params).values(), torch.from_numpy(x), 512)
+        got = hc.bottleneck_fused_fwd_reference(*_layers(params, d, di).values(), torch.from_numpy(x), 512)
     for name, a, w in zip(("e", "zq", "r"), got, want):
         assert a.shape == w.shape, name
         if name == "zq":
@@ -398,7 +409,10 @@ def test_fused_reference_matches_the_streaming_bottleneck():
 def test_fused_wrapper_routes_and_checks():
     """K4's wrapper takes the plain version on CPU tensors (no launch),
     raises "no kernel" on a meta tensor and "forward-only" with autograd
-    on, and checks the lookups' widths, x and the level count."""
+    on, and checks the lookups' widths, x and the level count: lookups that
+    chain as (d, d), (d, di), (di, d) reach the device check at any d, di
+    up to 256, a chain that breaks raises ``ValueError``, and past 256 the
+    card path raises ``NotImplementedError`` naming ROADMAP Queue 3."""
     rng = np.random.default_rng(12)
     layers = list(_layers(_bottleneck_params(rng, 70)).values())
     x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
@@ -416,6 +430,20 @@ def test_fused_wrapper_routes_and_checks():
         hc.bottleneck_fused_fwd(*meta, xm, 512)
     with pytest.raises(ValueError, match="d_in, d_out"):
         hc.bottleneck_fused_fwd(meta[0], meta[0], meta[2], xm, 512)
+    for d, di in ((32, 4), (256, 3), (3, 256), (200, 130)):
+        chained = [HopfieldLookup(a, b, 70, device="meta") for a, b in ((d, d), (d, di), (di, d))]
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
+            hc.bottleneck_fused_fwd(*chained, torch.zeros(5, d, device="meta"), 512)
+    for widths in (((32, 32), (32, 4), (5, 32)), ((32, 32), (32, 4), (4, 64)), ((32, 64), (64, 4), (4, 32))):
+        broken = [HopfieldLookup(a, b, 70, device="meta") for a, b in widths]
+        with pytest.raises(ValueError, match="must chain"):
+            hc.bottleneck_fused_fwd(*broken, torch.zeros(5, widths[0][0], device="meta"), 512)
+    for d, di in ((300, 3), (64, 257)):
+        wide = [HopfieldLookup(a, b, 70, device="meta") for a, b in ((d, d), (d, di), (di, d))]
+        with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 3"):
+            hc.bottleneck_fused_fwd(*wide, torch.zeros(5, d, device="meta"), 512)
+    with pytest.raises(ValueError, match=r"\(\.\.\., 64\)"):
+        hc.bottleneck_fused_fwd(*meta, torch.zeros(5, 32, device="meta"), 512)
     with pytest.raises(ValueError, match="float32"):
         hc.bottleneck_fused_fwd(*layers, x.double(), 512)
     with pytest.raises(ValueError, match="num_levels"):
