@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Fourteen phases, each of which raises on failure:
+Fifteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -18,7 +18,9 @@ Fourteen phases, each of which raises on failure:
    ``bound_f32_ms``; and each one's registers, shared bytes and blocks an
    SM). Then the same at widths no config uses, which the kernels take
    zero-padded: (32, 32), (64, 4), (128, 128), (256, 256) and (200, 3) at
-   N 4,096, M 512, and a ragged (13, 100) and (130, 250) at N 37, M 300.
+   N 4,096, M 512, and a ragged (13, 100) and (130, 250) at N 37, M 300;
+   and past 256, on the wide variants: (512, 512), (384, 3) and (3, 384)
+   at N 4,096, M 512, and a ragged (300, 700) at N 37, M 300.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -37,8 +39,9 @@ Fourteen phases, each of which raises on failure:
    their plain versions, f32 with TF32 off, at the prior's full width
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
    prior gives them), at ``prior_heads=1`` (one head of 128), at one head
-   of 256 (``prior_d_model=256``), and at small ragged shapes (one at 256,
-   one with views off 16-byte alignment); each kernel, whose products run
+   of 256 (``prior_d_model=256``), at one head of 384 and one of 512 (the
+   wide kernels), and at small ragged shapes (one at 256, one at 768, one
+   with views off 16-byte alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
    (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
@@ -66,16 +69,30 @@ Fourteen phases, each of which raises on failure:
     serving path gives the bottleneck (the encoder's tokens of a
     full-width ffhq_64_scaled batch of 256 with the trained tables; the
     MNIST golden digits; a ragged case) and at the bottleneck widths
-    (d, di) = (32, 4) and (256, 3) with random tables (N 4,096, M 512):
+    (d, di) = (32, 4), (256, 3), (384, 3) and (64, 300) with random
+    tables (N 4,096, M 512; the last two on the wide walk):
     against its plain version and against the streaming bottleneck's
     three K1 launches, ``e`` and ``r`` within 1e-5, at most 1e-4 of the
     ``zq`` bins differing; one launch a call; the three-pass bound.
 13. Training at other widths: ``mnist_28`` at ``embedding_dim=32,
-    index_dim=4`` and at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
-    their 256 instances), three f32 Adam steps each through ``Trainer``
-    on the kernels against the same steps on the CPU's plain versions,
-    losses within 1e-3; K1, K2 and K3 launch 3 times a step.
-14. The run's wall time (the build included), the kernel summary as one
+    index_dim=4``, at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
+    their 256 instances) and at ``embedding_dim=384`` (their wide
+    variants), three f32 Adam steps each through ``Trainer`` on the
+    kernels against the same steps on the CPU's plain versions, losses
+    within 1e-3, K1, K2 and K3 3 launches a step; and the prior phase of
+    ``pixelcnn_mnist_28`` with ``prior=Transformer, prior_d_model=512,
+    prior_heads=1, prior_attn=flash`` (K5's wide kernels at a head of 512,
+    4 launches a step each; K1 3), three prior-only steps the same way.
+14. Serving ``interpolate`` and ``sample`` at full width: ``ffhq_64_scaled``
+    with ``Transformer-FFHQ-64.msgpack``, ``max_batch=256``, the
+    production path, ``interpolate`` under ``prior=Transformer`` and
+    ``sample`` under ``prior=None`` through ``InferenceEngine``, with every
+    kernel's count read around the requests (K1 3 and K5-fwd 4 a call;
+    K1 1 a call); images/s and stage times; then the f32 path against
+    ``SERVING_GOLDENS``: the interpolation of the ``ffhq64_synthetic4``
+    batch with its reverse (its grid's flipped bins counted) and the
+    decode of the committed grid.
+15. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -98,8 +115,8 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
-from hopvae_torch.data import (GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, TRAIN_GOLDEN, get_datasets, golden_grid,
-                               golden_input, synthetic_images, _normalize)
+from hopvae_torch.data import (GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, SERVING_GOLDENS, TRAIN_GOLDEN, get_datasets,
+                               golden_grid, golden_input, image_stats, interp_grid, synthetic_images, _normalize)
 from hopvae_torch.models.hopvae import PRIOR, HopVAE
 from hopvae_torch.ops import attention_cuda as ac
 from hopvae_torch.ops import hopfield_cuda as hc
@@ -279,7 +296,8 @@ def library_ms(q, k, u, reps) -> tuple[float | None, str]:
 
 # (label, N, M, d_in, d_out): widths no config uses, which the CPU tests
 # hold against JAX and the kernels take zero-padded to a built instance,
-# and a ragged case with neither width a multiple of 8
+# and a ragged case with neither width a multiple of 8; then widths past
+# 256, on the wide variants
 WIDTH_CASES = (
     ("width 32x32", 4096, 512, 32, 32),
     ("width 64x4", 4096, 512, 64, 4),
@@ -288,6 +306,10 @@ WIDTH_CASES = (
     ("width 256x256", 4096, 512, 256, 256),
     ("width 200x3", 4096, 512, 200, 3),
     ("width ragged 130x250", 37, 300, 130, 250),
+    ("wide 512x512", 4096, 512, 512, 512),
+    ("wide 384x3", 4096, 512, 384, 3),
+    ("wide 3x384", 4096, 512, 3, 384),
+    ("wide ragged 300x700", 37, 300, 300, 700),
 )
 
 
@@ -730,23 +752,28 @@ ATTENTION_COUNTERS = {
     "causal_attention_bwd_dkv": ac.causal_attention_bwd_dkv,
     "causal_attention_bwd_dq": ac.causal_attention_bwd_dq,
 }
-# (label, B, S, heads, dh): the prior at full width, at prior_heads=1, and
-# small ragged shapes (S a multiple of no tile, of one tile, below one) at
-# each of the forward's tile configurations (dh up to 64, 128, 256);
+# (label, B, S, heads, dh): the prior at full width, at prior_heads=1, at
+# one head of 256, 384 and 512, and small ragged shapes (S a multiple of no
+# tile, of one tile, below one) at each of the forward's tile
+# configurations (dh up to 64, 128, 256, and the wide kernels past it);
 # "misaligned" views take the 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
     ("wide B256 S867 h1 dh256", 256, 867, 1, 256),
+    ("wide384 B256 S867 h1 dh384", 256, 867, 1, 384),
+    ("wide512 B256 S867 h1 dh512", 256, 867, 1, 512),
     ("ragged S5", 2, 5, 2, 8),
     ("ragged S37", 2, 37, 2, 8),
     ("ragged S48", 2, 48, 2, 8),
     ("ragged S5 dh16", 2, 5, 2, 16),
     ("ragged S37 dh64", 2, 37, 2, 64),
     ("ragged S37 dh256", 2, 37, 1, 256),
+    ("ragged S37 dh768", 2, 37, 1, 768),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
 PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
+WIDE_HEADS = (384, 512)  # the head widths of phase 7's full-width cases on the wide kernels
 
 
 def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
@@ -816,7 +843,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     reports them."""
     log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
                                        **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
-                                  for dh in ac.HEAD_DIMS}}))
+                                  for dh in (*ac.HEAD_DIMS, *WIDE_HEADS)}}))
     widths = [*hc.SUPPORTED, *((d_in, d_out) for _l, _n, _m, d_in, d_out in WIDTH_CASES)]
     log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
                                                           for kn in ("dx", "dku")}
@@ -1141,9 +1168,9 @@ def fused_bound(n: int, layers, exp_per_s, tensor_cores: bool = False) -> tuple[
     return roof(flops, exps, floats, exp_per_s)
 
 
-# (d, di) of K4's cases: the configs' bottleneck, and two widths no config
-# uses, which K4 takes zero-padded
-FUSED_WIDTHS = ((64, 3), (32, 4), (256, 3))
+# (d, di) of K4's cases: the configs' bottleneck, two widths no config
+# uses, which K4 takes zero-padded, and two past 256 (the wide walk)
+FUSED_WIDTHS = ((64, 3), (32, 4), (256, 3), (384, 3), (64, 300))
 
 
 def fused_cases() -> list[tuple]:
@@ -1238,33 +1265,43 @@ def phase_fused_bottleneck(env: dict) -> list[dict]:
 # ------------------------------------------------------------ phase 13
 
 
-# lookups (32, 32), (32, 4), (4, 32); and (200, 200), (200, 3), (3, 200), at
-# the 256 instances
-WIDTH_CONFIGS = ({"embedding_dim": 32, "index_dim": 4}, {"embedding_dim": 200, "index_dim": 3})
+# (config, overrides, prior phase): the lookups (32, 32), (32, 4), (4, 32);
+# (200, 200), (200, 3), (3, 200) at the 256 instances; (384, 384),
+# (384, 3), (3, 384) on the wide variants; and the prior phase with one
+# head of 512 (K5's wide kernels; S = 8 * 8 * 3 = 192 takes flash only
+# when asked)
+WIDTH_RUNS = (
+    ("mnist_28", {"embedding_dim": 32, "index_dim": 4}, False),
+    ("mnist_28", {"embedding_dim": 200, "index_dim": 3}, False),
+    ("mnist_28", {"embedding_dim": 384}, False),
+    ("pixelcnn_mnist_28", {"prior": "Transformer", "prior_d_model": 512, "prior_heads": 1, "prior_attn": "flash"},
+     True),
+)
 WIDTH_STEPS = 3
 WIDTH_LOSS_RTOL = 1e-3  # three f32 Adam steps on the card against the CPU's: the train golden lands within 1.3e-4
 
 
-def width_steps(model, cfg, x: torch.Tensor) -> list[float]:
-    """The loss of each of ``WIDTH_STEPS`` Adam steps through ``Trainer``."""
+def width_steps(model, cfg, x: torch.Tensor, fit_prior: bool) -> list[float]:
+    """The loss of each of ``WIDTH_STEPS`` Adam steps through ``Trainer``,
+    of the backbone or, with ``fit_prior``, of the prior alone."""
     trainer = Trainer(model, cfg)
-    trainer.build_optimizer(1)
+    trainer.build_optimizer(1, fit_prior=fit_prior)
     return [float(trainer.train_step(x)["loss"]) for _ in range(WIDTH_STEPS)]
 
 
 @parity_mode()
-def phase_width_training(widths: dict) -> dict:
-    """``mnist_28`` at the ``embedding_dim`` and ``index_dim`` of
-    ``widths``, widths no config uses, which the kernels take zero-padded
-    to their instances. Random weights from the config's seed, made on the
-    CPU and copied to the card; three f32 Adam steps (constant learning
-    rate) on the 64 committed digits through ``Trainer`` with
-    ``impl="cuda"``, against the same steps on CPU tensors through the
-    plain versions (``impl="torch"``). The counts are set to 0 just before
-    the card's steps and read just after: K1, K2 and K3 launch 3 times a
-    step."""
-    cfg = load_config("mnist_28")
-    for key, val in widths.items():
+def phase_width_training(config: str, over: dict, fit_prior: bool) -> dict:
+    """``config`` with the keys of ``over``, widths no config uses: the
+    backbone's lookups at other widths, or a prior with one wide head.
+    Random weights from the config's seed, made on the CPU and copied to
+    the card; three f32 Adam steps (constant learning rate) on the 64
+    committed digits through ``Trainer`` with ``impl="cuda"``, against the
+    same steps on CPU tensors through the plain versions (``impl="torch"``).
+    The counts are set to 0 just before the card's steps and read just
+    after: K1, K2 and K3 launch 3 times a step; in the prior phase K1 3
+    times and K5's three kernels once a layer."""
+    cfg = load_config(config)
+    for key, val in over.items():
         setattr(cfg, key, val)
     cfg.gamma = 1.0
     torch.manual_seed(cfg.seed)
@@ -1272,22 +1309,182 @@ def phase_width_training(widths: dict) -> dict:
     card = HopVAE(cfg, impl="cuda", device="cuda")
     card.load_state_dict(cpu.state_dict())
     x = torch.from_numpy(golden_input("mnist_digits"))
-    for fn in KERNEL_COUNTERS.values():
+    counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
+    for fn in counters.values():
         fn.launches = 0
-    losses = width_steps(card, cfg, x.cuda())
+    losses = width_steps(card, cfg, x.cuda(), fit_prior)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
-    plain = width_steps(cpu, cfg, x)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    plain = width_steps(cpu, cfg, x, fit_prior)
     rel = [abs(a / b - 1) for a, b in zip(losses, plain)]
-    cfg_widths = widths
     widths = {name: (layer.d_in, layer.out_proj.weight.shape[0]) for name, layer in card.bottleneck_layers().items()}
-    res = {"config": {"name": "mnist_28", **cfg_widths}, "lookup_widths": widths, "losses": losses,
+    res = {"config": {"name": config, **over}, "prior_phase": fit_prior, "lookup_widths": widths, "losses": losses,
            "plain_losses": plain, "loss_rel_err": rel, "launches": launches}
     log(json.dumps({"width_training": res}))
-    if launches != dict.fromkeys(KERNEL_COUNTERS, 3 * WIDTH_STEPS):
-        raise AssertionError(f"expected 3 launches of each kernel per step over {WIDTH_STEPS} steps: {launches}")
+    a_step = dict.fromkeys(KERNEL_COUNTERS, 3) | dict.fromkeys(ATTENTION_COUNTERS, 0)
+    if fit_prior:
+        a_step |= {"hopfield_stream_bwd_dx": 0, "hopfield_stream_bwd_dku": 0}
+        a_step |= dict.fromkeys(ATTENTION_COUNTERS, card.prior.n_layers)
+    if launches != {name: n * WIDTH_STEPS for name, n in a_step.items()}:
+        raise AssertionError(f"expected {a_step} launches a step over {WIDTH_STEPS} steps: {launches}")
     if not all(math.isfinite(v) for v in losses) or max(rel) > WIDTH_LOSS_RTOL:
         raise AssertionError(f"the card's losses {losses} are not within {WIDTH_LOSS_RTOL} of the CPU's {plain}")
+    return res
+
+
+# ------------------------------------------------------------ phase 14
+
+
+def serving_config(prior: str):
+    """``ffhq_64_scaled`` with the given prior, for ``PRIOR_GOLDENS``' checkpoint."""
+    cfg = load_config(PRIOR_GOLDENS["config"])
+    cfg.prior = prior
+    return cfg
+
+
+def spin_and_time(stages, reps: int = 5) -> dict:
+    """Device ms of each named stage of ``stages`` (``(name, fn)`` pairs, each
+    taking the previous one's result), mean of ``reps`` after one untimed
+    pass; a spin kernel of about 200 ms holds the stream while the host
+    enqueues, so the events bracket the device work. Returns the times and
+    the last stage's result of the untimed pass."""
+    totals = dict.fromkeys((name for name, _ in stages), 0.0)
+    first = None
+    with torch.inference_mode():
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+            torch.cuda._sleep(400_000_000)
+            ev[0].record()
+            val = None
+            for a, (_name, fn) in enumerate(stages):
+                val = fn(val)
+                ev[a + 1].record()
+            torch.cuda.synchronize()
+            if rep == 0:
+                first = val
+                continue
+            for a, (name, _fn) in enumerate(stages):
+                totals[name] += ev[a].elapsed_time(ev[a + 1]) / reps
+    return {"stage_ms": totals, "result": first}
+
+
+def interpolate_stages(model, x, y) -> list:
+    """``HopVAE.interpolate`` as timed stages: both encodes, the two
+    lookups with the clamp and the round, the prior's reconstruct, the
+    third lookup and the decoder."""
+    b, r, di, top = x.shape[0], model.representation_dim, model.index_dim, model.num_levels - 1
+    return [
+        ("encode", lambda _: (model._encode_to_tokens(x) + model._encode_to_tokens(y)) / 2),
+        ("lookup_1", lambda z: model._lookup("hopfield", z)),
+        ("lookup_2", lambda e: straight_through_round(
+            (1.0 - F.relu(1.0 - F.relu(model._lookup("embedding_to_index", e)))) * top)),
+        ("prior", lambda zq: model.prior.reconstruct(zq.reshape(b, r, r, di))),
+        ("lookup_3", lambda grid: model._lookup("index_to_embedding", (grid / top).reshape(b, r * r, di))),
+        ("decoder", model._tokens_to_image),
+    ]
+
+
+def sample_stages(model, n: int, seed: int) -> list:
+    """``HopVAE.sample`` as timed stages: the prior's draw, the third
+    lookup of ``int(grid) / (L - 1)`` and the decoder."""
+    r, di, top = model.representation_dim, model.index_dim, model.num_levels - 1
+    gen = torch.Generator(device="cuda")
+    return [
+        ("prior", lambda _: model.prior.sample(n, generator=gen.manual_seed(seed), device=model.device)),
+        ("lookup_3", lambda grid: model._lookup(
+            "index_to_embedding", (grid.to(torch.int32).float() / top).reshape(n, r * r, di))),
+        ("decoder", model._tokens_to_image),
+    ]
+
+
+def counted(fn):
+    """``fn()`` with every kernel's count set to 0 just before it and read
+    just after: ``(result, ms on the host clock, launches)``."""
+    counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS, "hopfield_bottleneck_fused": hc.bottleneck_fused_fwd}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, {name: c.launches for name, c in counters.items()}
+
+
+def phase_serving_modes() -> dict:
+    """``interpolate`` (prior=Transformer) and ``sample`` (prior=None)
+    through ``InferenceEngine`` at ``max_batch=256`` on the production path,
+    with ``Transformer-FFHQ-64.msgpack`` (its prior subtree dropped with a
+    lenient-load warning under prior=None): requests of 256, 256 and 100
+    pairs, and three seeds of 256 samples, each with the kernels' counts
+    read around it; images/s; stage times at 256. Then the f32 path
+    against ``SERVING_GOLDENS``."""
+    state = state_from_checkpoint(str(CHECKPOINTS / PRIOR_GOLDENS["checkpoint"]))
+    cfg_t, cfg_n = serving_config("Transformer"), serving_config("None")
+    interp = InferenceEngine(cfg_t, state, max_batch=256, ops=("interpolate",))
+    sampler = InferenceEngine(cfg_n, state, max_batch=256, n_sample=256, ops=("sample",))
+    n_layers = interp.model.prior.n_layers
+    want_interp = {**dict.fromkeys((*KERNEL_COUNTERS, *ATTENTION_COUNTERS, "hopfield_bottleneck_fused"), 0),
+                   "hopfield_stream_fwd": 3, "causal_attention_fwd": n_layers}
+    want_sample = {**dict.fromkeys(want_interp, 0), "hopfield_stream_fwd": 1}
+    requests, wall = [], {"interpolate": 0.0, "sample": 0.0}
+    for j, b in enumerate((256, 256, 100)):
+        x, y = (_normalize(synthetic_images(b, cfg_t.image_size, seed=s), cfg_t.data_set) for s in (20 + j, 40 + j))
+        out, ms, launches = counted(lambda: interp.interpolate(x, y))
+        wall["interpolate"] += ms
+        requests.append({"op": "interpolate", "batch": b, "ms": ms, "launches": launches,
+                         "finite": bool(np.isfinite(out).all()), "shape_ok": out.shape == x.shape})
+    for seed in range(3):
+        out, ms, launches = counted(lambda: sampler.sample(seed))
+        wall["sample"] += ms
+        requests.append({"op": "sample", "batch": 256, "seed": seed, "ms": ms, "launches": launches,
+                         "finite": bool(np.isfinite(out).all()), "shape_ok": out.shape == (256, 64, 64, 3)})
+    x, y = (torch.from_numpy(_normalize(synthetic_images(256, 64, seed=s), "FFHQ")).cuda() for s in (20, 40))
+    i_stages = spin_and_time(interpolate_stages(interp.model, x, y))
+    s_stages = spin_and_time(sample_stages(sampler.model, 256, 0))
+    with torch.inference_mode():
+        i_same = torch.equal(i_stages.pop("result"), interp.model.interpolate(x, y))
+        s_same = torch.equal(s_stages.pop("result"),
+                             sampler.model.sample(256, generator=torch.Generator(device="cuda").manual_seed(0)))
+    res = {
+        "requests": requests,
+        "interpolate_pairs_per_s": 612e3 / wall["interpolate"],
+        "samples_per_s": 768e3 / wall["sample"],
+        "interpolate_b256": {**i_stages, "composes": i_same},
+        "sample_b256": {**s_stages, "composes": s_same},
+        "launches_interpolate": requests[0]["launches"], "launches_sample": requests[3]["launches"],
+    }
+    # the f32 path (kernels, f32 convs) against the JAX goldens
+    spec = SERVING_GOLDENS
+    x4 = golden_input("ffhq64_synthetic4")
+    y4 = x4[::-1].copy()
+    with parity_mode():
+        f32 = InferenceEngine(cfg_t, state, max_batch=4, compute_dtype=None, ops=("interpolate",))
+        f32s = InferenceEngine(cfg_n, state, max_batch=4, n_sample=4, compute_dtype=None, ops=("sample",))
+        with torch.inference_mode():
+            grid = f32.model.interpolation_grid(torch.from_numpy(x4).cuda(), torch.from_numpy(y4).cuda())
+            decoded = f32s.model.decode_grid(torch.from_numpy(golden_grid()).cuda()).cpu().numpy()
+        out4 = f32.interpolate(x4, y4)
+        sampled = f32s.sample(0)
+    flipped = int((grid.cpu().numpy() != interp_grid()).sum())
+    i_rel = np.abs(image_stats(out4) / np.asarray(spec["interpolate"]["stats"]) - 1).max()
+    d_rel = np.abs(image_stats(decoded) / np.asarray(spec["decode"]["stats"]) - 1).max()
+    res["f32_goldens"] = {"interpolate_flipped_bins": flipped, "interpolate_bins": int(grid.numel()),
+                          "interpolate_stats_rel_err": float(i_rel), "decode_stats_rel_err": float(d_rel),
+                          "sample_finite": bool(np.isfinite(sampled).all())}
+    log(json.dumps({"serving_modes": res}))
+    bad = [r for r in requests
+           if r["launches"] != (want_interp if r["op"] == "interpolate" else want_sample)
+           or not (r["finite"] and r["shape_ok"])]
+    if bad:
+        raise AssertionError(f"expected {want_interp} launches an interpolate and {want_sample} a sample, "
+                             f"finite outputs of the request's shape: {bad}")
+    if not (i_same and s_same):
+        raise AssertionError("the timed stages do not compose to HopVAE.interpolate and HopVAE.sample")
+    gold = res["f32_goldens"]
+    if flipped > spec["interpolate"]["max_flipped_bins"] or max(i_rel, d_rel) > spec["stats_rtol"]:
+        raise AssertionError(f"the f32 path is off SERVING_GOLDENS: {gold}")
+    if not gold["sample_finite"]:
+        raise AssertionError("the f32 samples are not finite")
     return res
 
 
@@ -1312,14 +1509,19 @@ SOURCES = {
 WIDE_HEAD = 256  # phase 11's head width: its own K5 entries in the kernel line
 
 
-def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
-    """One kernel's entry. Times and bounds are those of one full-width
-    batch-256 step: the sum over its three lookups. ``launches`` is the
-    count from the training run."""
-    full = [r for r in rows if r["shape"].startswith("ffhq64")]
+def kernel_summary(name: str, rows: list[dict], launches: int, prefix: str = "ffhq64", **extra) -> dict:
+    """One kernel's entry. Times and bounds are those of the rows whose
+    shape starts with ``prefix``, summed: by default one full-width
+    batch-256 step, its three lookups (``launches`` the count from the
+    training run); ``prefix="wide"`` gives the entry of the wide variant,
+    its rows past 256 alone, timed at (512, 512), N 4,096."""
+    if prefix == "wide":
+        rows = [r for r in rows if r["shape"].startswith("wide")]
+        prefix = "wide 512x512"
+    full = [r for r in rows if r["shape"].startswith(prefix)]
     lib = [r["library_ms"] for r in full]
     return {
-        "name": name,
+        "name": name if prefix.startswith("ffhq64") else f"{name}_wide",
         "route": "cuda",
         "source": SOURCES.get(name, f"hopvae_torch/csrc/{name}.cu"),
         "replaces": REPLACES[name],
@@ -1335,16 +1537,25 @@ def kernel_summary(name: str, rows: list[dict], launches: int, **extra) -> dict:
     }
 
 
-def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = False) -> dict:
+def attention_summary(name: str, rows: list[dict], launches: int, group: str = "narrow") -> dict:
     """One K5 kernel's entry: times and bound of one launch at the prior's
     full width (one layer; a step launches it once per layer), errors over
-    every shape, ``launches`` from the prior-phase run. ``wide`` makes the
-    entry of head width 256 (32-row tiles; phase 11's prior), from its
-    shapes alone; the other entry holds the widths up to 128."""
-    mine = [r for r in rows if r["kernel"] == name and (r["dh"] == WIDE_HEAD) == wide]
-    full = next(r for r in mine if r["shape"].startswith("wide" if wide else "full"))
+    every shape of its group, ``launches`` from the run that is its path.
+    ``group``: ``"narrow"`` the widths up to 128 (the prior-phase run);
+    ``"dh256"`` the head width 256 (32-row tiles; phase 11's prior);
+    ``"wide"`` the wide kernels past 256, timed at one head of 512 (phase
+    13's prior), the head of 384 in ``by_width``."""
+    in_group = {"narrow": lambda dh: dh <= 128, "dh256": lambda dh: dh == WIDE_HEAD, "wide": lambda dh: dh > WIDE_HEAD}
+    mine = [r for r in rows if r["kernel"] == name and in_group[group](r["dh"])]
+    head = {"narrow": "full", "dh256": "wide B256", "wide": "wide512"}[group]
+    full = next(r for r in mine if r["shape"].startswith(head))
+    extra = {}
+    if group == "wide":
+        extra["by_width"] = {r["dh"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "build")}
+                             for r in mine if r["b"] == 256}
     return {
-        "name": f"{name}_dh{WIDE_HEAD}" if wide else name, "route": "cuda", "source": SOURCES[name],
+        "name": {"narrow": name, "dh256": f"{name}_dh{WIDE_HEAD}", "wide": f"{name}_wide"}[group], "route": "cuda",
+        "source": SOURCES[name],
         "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -1353,6 +1564,7 @@ def attention_summary(name: str, rows: list[dict], launches: int, wide: bool = F
         "build": full["build"],
         "max_normwise_err": max(max(r["normwise_err"].values()) for r in mine),
         "library_fwd_bwd_ms": full["library_fwd_bwd_ms"], "library_backend": full["library_backend"],
+        **extra,
         "shapes": mine,
     }
 
@@ -1406,36 +1618,61 @@ def main() -> int:
     prior_training = phase_prior_train_full_width()
     wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
     fused_rows = phase_fused_bottleneck(env)
-    width_runs = [phase_width_training(widths)["launches"] for widths in WIDTH_CONFIGS]
+    width_runs = [phase_width_training(*run)["launches"] for run in WIDTH_RUNS]
     width_launches = {name: [run[name] for run in width_runs] for name in KERNEL_COUNTERS}
+    serving_modes = phase_serving_modes()
+    modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],
+             "launches_serving_sample": serving_modes["launches_sample"]}
     launches, prior_launches = training["launches"], prior_training["launches"]
-    kernels = [kernel_summary("hopfield_stream_fwd", rows, launches["hopfield_stream_fwd"],
+    wide_lookup_run, wide_prior_run = width_runs[2], width_runs[3]  # embedding_dim=384; a prior head of 512
+    kernels = [kernel_summary("hopfield_stream_fwd", [r for r in rows if not r["shape"].startswith("wide")],
+                              launches["hopfield_stream_fwd"],
                               launches_serving=serving["launches"],
                               launches_prior_phase=prior_launches["hopfield_stream_fwd"],
                               launches_width_phase=width_launches["hopfield_stream_fwd"],
+                              launches_serving_modes={k: v["hopfield_stream_fwd"] for k, v in modes.items()},
                               bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),
                               builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("ffhq64")})]
+    kernels.append(kernel_summary("hopfield_stream_fwd", rows, wide_lookup_run["hopfield_stream_fwd"], prefix="wide",
+                                  note="launches: phase 13 at embedding_dim=384",
+                                  builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("wide")}))
     for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
         mine = [r for r in bwd_rows if r["kernel"] == name]
-        kernels.append(kernel_summary(name, mine, launches[name],
-                                      max_normwise_err=max(max(r["normwise_err"].values()) for r in mine),
+        narrow = [r for r in mine if not r["shape"].startswith("wide")]
+        kernels.append(kernel_summary(name, narrow, launches[name],
+                                      max_normwise_err=max(max(r["normwise_err"].values()) for r in narrow),
                                       bound_f32_ms=sum(r["bound_f32_ms"] for r in mine if r["shape"].startswith("ffhq64")),
                                       builds={r["shape"]: r["build"] for r in mine if r["shape"].startswith("ffhq64")},
                                       launches_prior_phase=prior_launches[name],
                                       launches_width_phase=width_launches[name]))
-    kernels += [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
-    kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], wide=True)
+        kernels.append(kernel_summary(name, mine, wide_lookup_run[name], prefix="wide",
+                                      note="launches: phase 13 at embedding_dim=384",
+                                      max_normwise_err=max(max(r["normwise_err"].values()) for r in mine
+                                                           if r["shape"].startswith("wide")),
+                                      builds={r["shape"]: r["build"] for r in mine if r["shape"].startswith("wide")}))
+    narrow_k5 = [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
+    narrow_k5[0]["launches_serving_interpolate"] = modes["launches_serving_interpolate"]["causal_attention_fwd"]
+    kernels += narrow_k5
+    kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], group="dh256")
                 for name in ATTENTION_COUNTERS]
-    full = fused_rows[0]
-    kernels.append({
-        "name": "hopfield_bottleneck_fused", "route": "cuda", "source": "hopvae_torch/csrc/hopfield_bottleneck_fused.cu",
-        "replaces": REPLACES["hopfield_bottleneck_fused"], "launches": full["launches"],
-        "note": "no entry point routes to K4, as in the JAX package; launches counts phase 12's full-width call",
-        "max_abs_err": max(r["max_abs_err"] for r in fused_rows), "ms": full["ms"], "plain_ms": full["plain_ms"],
-        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None,
-        "bound_f32_ms": full["bound_f32_ms"], "build": full["build"],
-        "three_k1_ms": full["three_k1_ms"], "shapes": fused_rows,
-    })
+    kernels += [attention_summary(name, attn_rows, wide_prior_run[name], group="wide") for name in ATTENTION_COUNTERS]
+    for full in (fused_rows[0], next(r for r in fused_rows if r["shape"] == "width 384x3")):
+        wide = full["d"] > hc.BUILT_WIDTH
+        mine = [r for r in fused_rows if (max(r["d"], r["di"]) > hc.BUILT_WIDTH) == wide]
+        kernels.append({
+            "name": "hopfield_bottleneck_fused_wide" if wide else "hopfield_bottleneck_fused", "route": "cuda",
+            "source": "hopvae_torch/csrc/hopfield_bottleneck_fused.cu",
+            "replaces": REPLACES["hopfield_bottleneck_fused"], "launches": full["launches"],
+            "note": ("no entry point routes to K4, as in the JAX package; launches counts phase 12's call at "
+                     f"{full['shape']}"),
+            "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None,
+            "bound_f32_ms": full["bound_f32_ms"], "build": full["build"],
+            "three_k1_ms": full["three_k1_ms"], "shapes": mine,
+        })
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels of a path were launched no time in its run: {missing}")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi('name,power.limit')}")

@@ -77,6 +77,19 @@
 //
 //   Registers and blocks an SM per width (no spills at any width) are in
 //   PERF.md, from causal_attention_bwd_attributes on the card.
+//
+// Past 256 (any multiple of 128; the wide kernels below, one instance
+// each for every such width) the resident tiles no longer fit beside the
+// streamed ones, and a warp's dK and dV over the full width would take
+// too many registers. A block owns 64 resident rows and one window of
+// output columns (a grid axis: 64 columns in K5-dkv, 128 in K5-dq). Per
+// streamed tile it streams the four inputs in depth chunks of 64, each
+// chunk's products summed in fresh fragments and added to the score and
+// g v^T fragments before the exp,
+// then the tile's window of the streamed rows (q and g, or k) for its
+// outputs. Every window block recomputes the scores over the full depth.
+// Shared bytes: 104,448 (two buffers of a chunk of 64 + 64 resident and
+// 32 + 32 streamed rows).
 
 #include <cstdint>
 
@@ -387,6 +400,250 @@ int launch(const float* q, const float* k, const float* v, const float* g, const
   return cudaGetLastError();
 }
 
+
+// ---- head widths past 256: the wide kernels, one instance each for every
+// multiple of 128 (the width d is a runtime argument)
+namespace wide {
+constexpr int TM = 64;        // resident rows of a block, a warp a 16-row slab
+constexpr int TN = 32;        // streamed rows of a tile
+constexpr int NT = TN / 8;    // n-tiles of a 16 x TN score slab
+constexpr int DC = 64;        // depth of a streamed chunk
+constexpr int THREADS = 32 * TM / 16;
+constexpr int RC = DC + 4;    // row stride of a chunk
+constexpr int STEP = 128;     // the wide widths: multiples of this past 256
+template <bool DKV>
+struct Window {
+  static constexpr int CW = DKV ? 64 : 128;  // output columns of a block (dK and dV, or dQ)
+  static constexpr int CT = CW / 8;          // a warp's output n-tiles
+  static constexpr int RW = CW + 4;          // row stride of a window tile
+};
+// one buffer: a chunk item (two resident chunks of TM rows, two streamed
+// ones of TN), or a window item (the streamed window tiles, K5-dkv's two
+// with the tile's lse and delta)
+template <bool DKV>
+__host__ __device__ constexpr int slot() {
+  constexpr int chunk = (2 * TM + 2 * TN) * RC;
+  constexpr int window = (DKV ? 2 : 1) * TN * Window<DKV>::RW + (DKV ? 2 * TN : 0);
+  return chunk > window ? chunk : window;
+}
+template <bool DKV>
+__host__ __device__ constexpr size_t bytes() { return sizeof(float) * 2 * slot<DKV>(); }
+}  // namespace wide
+
+template <bool DKV>
+__global__ void __launch_bounds__(wide::THREADS)
+causal_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ out_a, float* __restrict__ out_b, int s, int h, int d, Strides qs,
+                       Strides ks, Strides vs, Strides gs, float scale, unsigned vec16) {
+  using namespace wide;
+  using Wn = Window<DKV>;
+  constexpr int CW = Wn::CW, CT = Wn::CT, RW = Wn::RW, SLOT = slot<DKV>();
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+
+  // inputs by role, as in causal_bwd_kernel
+  const float* r0p = DKV ? k : q;
+  const float* r1p = DKV ? v : g;
+  const float* s0p = DKV ? q : k;
+  const float* s1p = DKV ? g : v;
+  const Strides r0s = DKV ? ks : qs, r1s = DKV ? vs : gs, s0s = DKV ? qs : ks, s1s = DKV ? gs : vs;
+  const bool r0v = vec16 >> (DKV ? 1 : 0) & 1u, r1v = vec16 >> (DKV ? 2 : 3) & 1u;
+  const bool s0v = vec16 >> (DKV ? 0 : 1) & 1u, s1v = vec16 >> (DKV ? 3 : 2) & 1u;
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int mt = DKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  const int row_m0 = mt * TM;
+  const int col0 = blockIdx.z * CW;  // the block's window of output columns
+  const int first = DKV ? row_m0 / TN : 0;
+  const int last = DKV ? (s - 1) / TN : (min(row_m0 + TM, s) - 1) / TN;
+  const int slab_lo = row_m0 + m0;
+  const int chunks = d / DC;
+  const int per_tile = chunks + 1;  // items of a streamed tile: the depth chunks, then the window
+  const int items = (last - first + 1) * per_tile;
+
+  auto stage_item = [&](int i, int u) {
+    float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    if (sub < chunks) {
+      const int c0 = sub * DC;
+      stage<DC, TM, THREADS>(y, r0p + c0, r0s, b, hh, row_m0, s, r0v);
+      stage<DC, TM, THREADS>(y + TM * RC, r1p + c0, r1s, b, hh, row_m0, s, r1v);
+      stage<DC, TN, THREADS>(y + 2 * TM * RC, s0p + c0, s0s, b, hh, it * TN, s, s0v);
+      stage<DC, TN, THREADS>(y + 2 * TM * RC + TN * RC, s1p + c0, s1s, b, hh, it * TN, s, s1v);
+    } else {
+      stage<CW, TN, THREADS>(y, s0p + col0, s0s, b, hh, it * TN, s, s0v);  // q (dkv) or k (dq)
+      if constexpr (DKV) {
+        stage<CW, TN, THREADS>(y + TN * RW, s1p + col0, s1s, b, hh, it * TN, s, s1v);  // g
+        float* st = y + 2 * TN * RW;
+        for (int j = threadIdx.x; j < 2 * TN; j += THREADS) {
+          const int r = it * TN + (j % TN);
+          const bool in = r < s;
+          const float* src = (j < TN ? lse : delta) + static_cast<size_t>(bh) * s;
+          cp_async4(st + j, in ? src + r : src, in);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  stage_item(0, 0);
+
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = slab_lo + gq + 8 * e;
+      if (row < s) {
+        lse_r[e] = lse[static_cast<size_t>(bh) * s + row];
+        dl_r[e] = delta[static_cast<size_t>(bh) * s + row];
+      }
+    }
+  }
+
+  float acc0[CT][4], acc1[DKV ? CT : 1][4], sc[NT][4], dp[NT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[c][e] = acc1[DKV ? c : 0][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    const int u = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    const float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    const int n_lo = it * TN;
+    if (DKV ? (slab_lo > n_lo + TN - 1 || n_lo >= s) : (n_lo > slab_lo + 15 || slab_lo >= s)) continue;
+
+    if (sub < chunks) {
+      // ---- this chunk's part of the slab's scores and g v^T, in fresh
+      // fragments (short chains of the truncating sums), then added
+      float ps[NT][4], pd[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[j][e] = pd[j][e] = 0.f;
+      const float* y0 = y + 2 * TM * RC;  // streamed chunk 0
+      const float* y1 = y0 + TN * RC;     // streamed chunk 1
+#pragma unroll 2
+      for (int kk = 0; kk < DC; kk += 8) {
+        const FragA xa = load_a<RC>(y + m0 * RC + kk, gq, tq);
+        const FragA wa = load_a<RC>(y + TM * RC + m0 * RC + kk, gq, tq);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          FragB y0b, y1b, z0b, z1b;
+          load_b_rows2<RC>(y0b, y1b, y0 + 8 * j * RC + kk, gq, tq);
+          load_b_rows2<RC>(z0b, z1b, y1 + 8 * j * RC + kk, gq, tq);
+          mma3(ps[j], xa, y0b);
+          mma3(pd[j], wa, z0b);
+          mma3(ps[j + 1], xa, y1b);
+          mma3(pd[j + 1], wa, z1b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = sub == 0 ? ps[j][e] : sc[j][e] + ps[j][e];
+          dp[j][e] = sub == 0 ? pd[j][e] : dp[j][e] + pd[j][e];
+        }
+      continue;
+    }
+
+    // ---- the window: P and dS on the whole sums, then the outputs
+    const float* w0 = y;         // q (dkv) or k (dq), the window's columns
+    const float* w1 = y + TN * RW;  // g (dkv)
+    const float* st = y + 2 * TN * RW;
+    float fs[NT][4], fd[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = slab_lo + gq + 8 * (e >> 1);
+        const int n = n_lo + 8 * j + 2 * tq + (e & 1);
+        const int key = DKV ? m : n, row = DKV ? n : m;
+        const float l = DKV ? st[n - n_lo] : lse_r[e >> 1];
+        const float dl = DKV ? st[TN + n - n_lo] : dl_r[e >> 1];
+        const float p = key <= row && row < s ? __expf(sc[j][e] * scale - l) : 0.f;
+        fs[j][e] = p;
+        fd[j][e] = p * (dp[j][e] - dl);
+      }
+    float o0[CT][4], o1[DKV ? CT : 1][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o0[c][e] = o1[DKV ? c : 0][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      if (DKV ? (n8 + 7 < slab_lo || n8 >= s) : (n8 > slab_lo + 15 || n8 >= s)) continue;
+      const FragA dsa = split_a(fd[j][0], fd[j][2], fd[j][1], fd[j][3]);
+      if constexpr (DKV) {
+        const FragA pfa = split_a(fs[j][0], fs[j][2], fs[j][1], fs[j][3]);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          mma3(o1[c], pfa, load_b_cols<RW>(w1 + 8 * j * RW + 8 * c, gq, tq));  // dV, g
+          mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dK, q
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dQ, k
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[c][e] += o0[c][e];
+        if constexpr (DKV) acc1[c][e] += o1[c][e];
+      }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
+    if (row >= s) continue;
+    const size_t at = (static_cast<size_t>(b) * s + row) * static_cast<size_t>(h) * d + static_cast<size_t>(hh) * d +
+                      col0 + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      *reinterpret_cast<float2*>(out_a + at + 8 * c) =
+          make_float2(acc0[c][2 * e] * scale, acc0[c][2 * e + 1] * scale);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(out_b + at + 8 * c) = make_float2(acc1[c][2 * e], acc1[c][2 * e + 1]);
+    }
+  }
+}
+
+template <bool DKV>
+int launch_wide(const float* q, const float* k, const float* v, const float* g, const float* lse,
+                const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs, Strides ks,
+                Strides vs, Strides gs, float scale, cudaStream_t stream) {
+  using namespace wide;
+  const int m_tiles = (s + TM - 1) / TM;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
+      m_tiles > 65535)
+    return cudaErrorInvalidValue;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
+  auto kernel = causal_bwd_wide_kernel<DKV>;
+  constexpr size_t bytes = wide::bytes<DKV>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(b * h, m_tiles, d / Window<DKV>::CW), THREADS, bytes, stream>>>(q, k, v, g, lse, delta, out_a, out_b,
+                                                                               s, h, d, qs, ks, vs, gs, scale, vec16);
+  return cudaGetLastError();
+}
+
 template <bool DKV>
 int dispatch(const float* q, const float* k, const float* v, const float* g, const float* lse,
              const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs,
@@ -399,7 +656,7 @@ int dispatch(const float* q, const float* k, const float* v, const float* g, con
     case 64: return launch<64, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 128: return launch<128, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 256: return launch<256, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_wide<DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, qs, ks, vs, gs, scale, st);
   }
 }
 
@@ -415,8 +672,9 @@ int attributes(int* out) {
 // of out) are device pointers to strided (B, S, heads, D) f32 arrays whose
 // D axis is contiguous, with their batch, sequence and head strides in
 // elements; lse and delta are contiguous (B, heads, S); dk, dv and dq are
-// contiguous (B, S, heads, D). Each returns a cudaError_t; 0 means the
-// launch was accepted.
+// contiguous (B, S, heads, D); D is 8, 16, 32, 64, 128, 256 or a multiple
+// of 128 past 256. Each returns a cudaError_t; 0 means the launch was
+// accepted.
 extern "C" int causal_attention_bwd_dkv(const float* q, const float* k, const float* v, const float* g,
                                         const float* lse, const float* delta, float* dk, float* dv, int b,
                                         int s, int h, int d, long long q_sb, long long q_ss, long long q_sh,
@@ -448,6 +706,11 @@ extern "C" int causal_attention_bwd_attributes(int d, int dkv, int* out) {
     case 64: return dkv ? attributes<64, true>(out) : attributes<64, false>(out);
     case 128: return dkv ? attributes<128, true>(out) : attributes<128, false>(out);
     case 256: return dkv ? attributes<256, true>(out) : attributes<256, false>(out);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 256 || d % wide::STEP != 0) return cudaErrorInvalidValue;
+      return dkv ? kernel_attributes(causal_bwd_wide_kernel<true>, wide::THREADS, wide::bytes<true>(), wide::TM,
+                                     wide::TN, out)
+                 : kernel_attributes(causal_bwd_wide_kernel<false>, wide::THREADS, wide::bytes<false>(), wide::TM,
+                                     wide::TN, out);
   }
 }

@@ -72,6 +72,15 @@
 // - At 256 two warps share a slab, 128 columns each, so that 64 query rows
 //   (four slabs) share each k and v tile: q, two buffers of k and v, and
 //   the exchange fill 216,064 of the 232,448 bytes a block may have.
+// - Past 256 (any multiple of 128: the wide kernel below, one instance
+//   for every such width) q no longer stays resident beside the k and v
+//   tiles. A block owns 64 query rows and one window of 128 output
+//   columns (a grid axis): per key tile it streams q and k in depth
+//   chunks of 64, each chunk's products summed in fresh fragments and
+//   added to the score fragments before the exp, then the tile's v window. Every window block
+//   recomputes the same scores in the same order, so m and l agree bit
+//   for bit across windows; the first writes lse. Shared bytes: 52,224
+//   (two buffers of a 64 + 32 row chunk, or a 32 x 128 v window).
 // tools/torch_attention_fwd_variants.py times this source against copies
 // of it with other tiles; PERF.md has the times, and registers, spills and
 // blocks an SM from causal_attention_fwd_attributes.
@@ -335,13 +344,202 @@ int attributes(int* out) {
   return tf32x3::kernel_attributes(causal_fwd_kernel<D>, C::THREADS, smem_bytes<D>(), C::TM, C::TN, out);
 }
 
+
+// ---- head widths past 256: the wide kernel, one instance for every
+// multiple of 128 (the width d is a runtime argument)
+namespace wide {
+constexpr int TM = 64;                // query rows of a block, a warp a 16-row slab
+constexpr int TN = 32;                // keys of a streamed tile
+constexpr int NT = TN / 8;            // n-tiles of a 16 x TN score slab
+constexpr int DC = 64;                // depth of a streamed chunk of q and k
+constexpr int CW = 128;               // output columns of a block: its window
+constexpr int CT = CW / 8;            // a warp's output n-tiles
+constexpr int THREADS = 32 * TM / 16;
+constexpr int RC = DC + 4, RW = CW + 4;  // row strides of a chunk and of a v window
+// one buffer: a chunk of q (TM rows) and of k (TN rows), or a v window
+constexpr int SLOT = (TM + TN) * RC > TN * RW ? (TM + TN) * RC : TN * RW;
+constexpr size_t BYTES = sizeof(float) * 2 * SLOT;
+constexpr int STEP = 128;             // the wide widths: multiples of this past 256
+}  // namespace wide
+
+__global__ void __launch_bounds__(wide::THREADS)
+causal_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       float* __restrict__ out, float* __restrict__ lse, int s, int h, int d, Strides qs,
+                       Strides ks, Strides vs, float scale, unsigned vec16) {
+  using namespace wide;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);  // the warp's query rows in the tile
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;  // the longest walks first
+  const int col0 = blockIdx.z * CW;                       // the block's window
+  const int last = (min(row_m0 + TM, s) - 1) / TN;
+  const int slab_lo = row_m0 + m0;
+  const int chunks = d / DC;
+  const int per_tile = chunks + 1;  // items of a key tile: the depth chunks, then the v window
+  const int items = (last + 1) * per_tile;
+  const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u, vv = vec16 >> 2 & 1u;
+
+  auto stage_item = [&](int i, int u) {
+    float* y = buf + u * SLOT;
+    const int it = i / per_tile, sub = i - it * per_tile;
+    if (sub < chunks) {
+      stage<DC, TM, THREADS>(y, q + sub * DC, qs, b, hh, row_m0, s, vq);
+      stage<DC, TN, THREADS>(y + TM * RC, k + sub * DC, ks, b, hh, it * TN, s, vk);
+    } else {
+      stage<CW, TN, THREADS>(y, v + col0, vs, b, hh, it * TN, s, vv);
+    }
+    cp_async_commit();
+  };
+  stage_item(0, 0);
+
+  float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f};
+  float acc[CT][4], sc[NT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+
+  for (int i = 0; i < items; ++i) {
+    const int u = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    const float* y = buf + u * SLOT;
+    const int it = i / per_tile, sub = i - it * per_tile;
+    const int n_lo = it * TN;
+    if (n_lo > slab_lo + 15 || slab_lo >= s) continue;  // as in causal_fwd_kernel
+
+    if (sub < chunks) {
+      // ---- this chunk's part of the slab's 16 x TN scores, in fresh
+      // fragments (the tensor cores' sums truncate: short chains), then
+      // added to sc
+      float part[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < DC / 8; ++c) {
+        const FragA qa = load_a<RC>(y + m0 * RC + 8 * c, gq, tq);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          FragB b0, b1;
+          load_b_rows2<RC>(b0, b1, y + TM * RC + 8 * j * RC + 8 * c, gq, tq);
+          mma3(part[j], qa, b0);
+          mma3(part[j + 1], qa, b1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = sub == 0 ? part[j][e] : sc[j][e] + part[j][e];
+      continue;
+    }
+
+    // ---- the v window: online softmax on the whole scores, then P v
+    const bool diag = n_lo + TN - 1 > slab_lo;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = sc[j][e] * scale;
+        if (diag && n_lo + 8 * j + 2 * tq + (e & 1) > slab_lo + gq + 8 * (e >> 1)) val = MASKED;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = __expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sc[j][e] - mx[e >> 1]);
+        sc[j][e] = p;
+        rsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rsum[r];
+
+    float o[CT][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      if (n8 > slab_lo + 15 || n8 >= s) continue;
+      const FragA pa = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) mma3(o[c], pa, load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
+    if (row >= s) continue;
+    const size_t at = (static_cast<size_t>(b) * s + row) * static_cast<size_t>(h) * d + static_cast<size_t>(hh) * d +
+                      col0 + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+      *reinterpret_cast<float2*>(out + at + 8 * c) =
+          make_float2(acc[c][2 * e] / l_r[e], acc[c][2 * e + 1] / l_r[e]);
+    if (blockIdx.z == 0 && tq == 0) lse[static_cast<size_t>(bh) * s + row] = m_r[e] + logf(l_r[e]);
+  }
+}
+
+int launch_wide(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h, int d,
+                Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  using namespace wide;
+  const int m_tiles = (s + TM - 1) / TM;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
+      m_tiles > 65535 || d / CW > 65535)
+    return cudaErrorInvalidValue;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
+  cudaError_t err = cudaFuncSetAttribute(causal_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(BYTES));
+  if (err != cudaSuccess) return err;
+  causal_fwd_wide_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, out, lse, s, h, d, qs,
+                                                                                 ks, vs, scale, vec16);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). q, k, v are device pointers to
 // strided (B, S, heads, D) f32 arrays whose D axis is contiguous, with
 // their batch, sequence and head strides in elements; out is a contiguous
-// (B, S, heads, D) and lse a contiguous (B, heads, S). Returns a
-// cudaError_t; 0 means the launch was accepted.
+// (B, S, heads, D) and lse a contiguous (B, heads, S); D is 8, 16, 32,
+// 64, 128, 256 or a multiple of 128 past 256. Returns a cudaError_t; 0
+// means the launch was accepted.
 extern "C" int causal_attention_fwd(const float* q, const float* k, const float* v, float* out, float* lse,
                                     int b, int s, int h, int d, long long q_sb, long long q_ss,
                                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -356,7 +554,7 @@ extern "C" int causal_attention_fwd(const float* q, const float* k, const float*
     case 64: return launch<64>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 128: return launch<128>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 256: return launch<256>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
-    default: return cudaErrorInvalidValue;
+    default: return launch_wide(q, k, v, out, lse, b, s, h, d, qs, ks, vs, scale, st);
   }
 }
 
@@ -371,6 +569,8 @@ extern "C" int causal_attention_fwd_attributes(int d, int* out) {
     case 64: return attributes<64>(out);
     case 128: return attributes<128>(out);
     case 256: return attributes<256>(out);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d <= 256 || d % wide::STEP != 0) return cudaErrorInvalidValue;
+      return tf32x3::kernel_attributes(causal_fwd_wide_kernel, wide::THREADS, wide::BYTES, wide::TM, wide::TN, out);
   }
 }

@@ -51,8 +51,17 @@
 // Shared bytes: 512 (max(d', di') + 4) for the two query tiles and the
 // widest stage's two buffers of a K tile and its U window: 104,448 at
 // d = 64, di = 3.
+//
+// Past 256 (d or di; hopfield_bottleneck_fused_wide, one instance for
+// every width) a block's e, or its query tiles, no longer fit beside the
+// buffers, so each stage runs the wide walk of hopfield_wide.cuh as a
+// launch of its own, e and zq / (L - 1) going through device memory (e and
+// zq are outputs anyway): the query build and the walk with the shift for
+// e, again with the sigmoid and the round for zq, again with the shift for
+// r. Six launches of one call, the arithmetic of each step as above.
 
 #include "hopfield_stream_fwd.cuh"
+#include "hopfield_wide.cuh"
 
 namespace {
 
@@ -178,7 +187,8 @@ bool fused_takes(int d, int di) { return d >= 1 && d <= MAX_WIDTH && di >= 1 && 
 // K_i (m_i, d_in), U_i (m_i, d_out), the shift b_i (d_out) and the state
 // LayerNorm's s_i, t_i (d_in), with (d_in, d_out) = (d, d), (d, di) and
 // (di, d); the outputs e (n, d), zq (n, di) and r (n, d); 1 <= d, di <=
-// 256. Returns a cudaError_t; 0 means the launch was accepted.
+// 256 (wider: hopfield_bottleneck_fused_wide). Returns a cudaError_t; 0
+// means the launch was accepted.
 extern "C" int hopfield_bottleneck_fused(const float* x, const float* k1, const float* u1, const float* b1,
                                          const float* s1, const float* t1, const float* k2, const float* u2,
                                          const float* b2, const float* s2, const float* t2, const float* k3,
@@ -205,9 +215,13 @@ extern "C" int hopfield_bottleneck_fused(const float* x, const float* k1, const 
 
 // The kernel built for (d, di) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and the first stage's TN. Returns a
-// cudaError_t.
+// threads a block, blocks an SM, TM and the first stage's TN; past 256
+// the wide walk's. Returns a cudaError_t.
 extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
+  if (d >= 1 && di >= 1 && hopfield_wide::wide(d, di))
+    return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::SHIFT>,
+                                              hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
+                                              hopfield_wide::TN, out));
   if (!fused_takes(d, di)) return cudaErrorInvalidValue;
   return with_fused_widths(d, di, [&](auto pd, auto pdi) {
     constexpr int PD = decltype(pd)::value, PDI = decltype(pdi)::value;
@@ -215,4 +229,40 @@ extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
     return static_cast<int>(
         kernel_attributes(bottleneck_fused_kernel<PD, PDI>, THREADS, C::BYTES, TM, C::W1::TN, out));
   });
+}
+
+// Floats of device scratch that hopfield_bottleneck_fused_wide needs: one
+// stage's queries (n, max(d, di)) and zq / (L - 1) (n, di).
+extern "C" long long hopfield_bottleneck_fused_workspace(int n, int d, int di) {
+  if (n <= 0 || d < 1 || di < 1) return 0;
+  return static_cast<long long>(n) * ((d > di ? d : di) + di);
+}
+
+// The same as hopfield_bottleneck_fused through the wide walk
+// (hopfield_wide.cuh), the route past 256, with workspace as above.
+// Launches the three stages' query builds and walks on `stream`.
+extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, const float* u1, const float* b1,
+                                              const float* s1, const float* t1, const float* k2, const float* u2,
+                                              const float* b2, const float* s2, const float* t2, const float* k3,
+                                              const float* u3, const float* b3, const float* s3, const float* t3,
+                                              float* e, float* zq, float* r, float* workspace, int n, int m1, int m2,
+                                              int m3, int d, int di, int num_levels, void* stream) {
+  using namespace hopfield_wide;
+  if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || num_levels < 2 || d < 1 || di < 1 || windows(d) > 65535 ||
+      windows(di) > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float levels = static_cast<float>(num_levels - 1);
+  float* q = workspace;
+  float* zn = workspace + static_cast<size_t>(n) * (d > di ? d : di);
+  cudaError_t err = build_queries(x, s1, t1, n, d, q, nullptr, nullptr, st);
+  if (err == cudaSuccess)
+    err = launch_fwd_wide<SHIFT>(q, k1, u1, b1, e, nullptr, nullptr, nullptr, n, m1, d, d, beta_of(d), levels, st);
+  if (err == cudaSuccess) err = build_queries(e, s2, t2, n, d, q, nullptr, nullptr, st);
+  if (err == cudaSuccess)
+    err = launch_fwd_wide<QUANTIZE>(q, k2, u2, b2, zq, nullptr, nullptr, zn, n, m2, d, di, beta_of(d), levels, st);
+  if (err == cudaSuccess) err = build_queries(zn, s3, t3, n, di, q, nullptr, nullptr, st);
+  if (err == cudaSuccess)
+    err = launch_fwd_wide<SHIFT>(q, k3, u3, b3, r, nullptr, nullptr, nullptr, n, m3, di, d, beta_of(di), levels, st);
+  return static_cast<int>(err);
 }

@@ -5,7 +5,7 @@
 // row stats m and l that K1 wrote, so all four build q with the same code
 // here: the state LayerNorm in double over the real width, rounded once to
 // f32, four lanes a row. K1's and K4's pattern walk is in
-// hopfield_stream_fwd.cuh.
+// hopfield_stream_fwd.cuh; the variants past MAX_WIDTH in hopfield_wide.cuh.
 
 #pragma once
 
@@ -23,7 +23,7 @@ namespace hopfield_stream {
 constexpr float LN_EPS = 1e-5f;
 constexpr float MASKED = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_WIDTH = 256;  // the widest d_in or d_out the kernels take
+constexpr int MAX_WIDTH = 256;  // the widest d_in or d_out of a built instance (past it: hopfield_wide.cuh)
 
 // the tensor cores' width of a real width: the next of 8, 16, 32, 64, 128, 256
 __host__ __device__ constexpr int padded_width(int d) {
@@ -117,8 +117,8 @@ int concurrent_blocks(Kernel kernel, int threads, size_t bytes) {
   return per_sm * sms;
 }
 
-// The calls K1, K2 and K3 take: a token and a pattern at least, and widths
-// from 1 to MAX_WIDTH.
+// The calls K1, K2 and K3 take on their built instances: a token and a
+// pattern at least, and widths from 1 to MAX_WIDTH.
 inline bool takes(int n, int m_patterns, int d_in, int d_out) {
   return n > 0 && m_patterns > 0 && d_in >= 1 && d_in <= MAX_WIDTH && d_out >= 1 && d_out <= MAX_WIDTH;
 }

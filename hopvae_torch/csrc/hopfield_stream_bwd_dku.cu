@@ -60,8 +60,16 @@
 //   widths d_in', d_out' (K, U, two buffers of q, g and the row stats):
 //   70,400 at 64 -> 64, 200,064 at 256 -> 256. Registers and blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dku_attributes on the card.
+// - Past 256 on either side (one wide instance for every width,
+//   hopfield_wide.cuh): the first pass builds q and 1/l at any width; a
+//   block owns 64 patterns and one window of 128 columns of dK or of dU
+//   (a grid axis); per token tile the chunks of K and q stream through
+//   (and, for dK, those of U and g), their products summed into the
+//   fragments, then the window of q's or g's columns with the tile's row
+//   stats. Each window block recomputes the scores.
 
 #include "hopfield_stream.cuh"
+#include "hopfield_wide.cuh"
 
 namespace {
 
@@ -319,14 +327,182 @@ int launch(const Args& a) {
   return sum_rows(du_part, grid.y, a.m_patterns * a.d_out, a.dU, a.stream);
 }
 
+
+// ---- past 256: the wide variant (hopfield_wide.cuh), one instance for
+// every width
+
+// dK's window [col0, col0 + CW) of d_in (blockIdx.z < windows(d_in)) or
+// dU's of d_out, for the block's TM patterns, over its chunk of the token
+// tiles of the built q: per tile the chunks of K and q, for dK those of U
+// and g, then the window of q (dK) or g (dU) with m, 1/l and delta.
+__global__ void __launch_bounds__(hopfield_wide::THREADS, 2)
+stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                           const float* __restrict__ g, const float* __restrict__ m_in,
+                           const float* __restrict__ il_in, const float* __restrict__ delta,
+                           float* __restrict__ dk_part, float* __restrict__ du_part, int n, int m_patterns, int d_in,
+                           int d_out, int tiles_per_chunk, float beta, unsigned vec16) {
+  using namespace hopfield_wide;
+  constexpr int tm = hopfield_wide::TM, tn = hopfield_wide::TN;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int p0 = blockIdx.x * tm;
+  const int chunk = blockIdx.y;
+  const int wi = windows(d_in);
+  const bool for_dk = static_cast<int>(blockIdx.z) < wi;
+  const int col0 = (for_dk ? blockIdx.z : blockIdx.z - wi) * CW;
+  const int d_win = for_dk ? d_in : d_out;  // the width of the block's output
+  const int first = chunk * tiles_per_chunk;
+  const int last = min((n + tn - 1) / tn, first + tiles_per_chunk) - 1;
+  const int nci = chunks(d_in), nco = for_dk ? chunks(d_out) : 0;
+  const int per_tile = nci + nco + 1;
+  const int items = (last - first + 1) * per_tile;
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+
+  auto stage_item = [&](int i, int u) {
+    float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    if (sub < nci) {
+      stage_cols<DC, tm>(y, K, d_in, sub * DC, p0, m_patterns, kv);
+      stage_cols<DC, tn>(y + tm * RC, q, d_in, sub * DC, it * tn, n, qv);
+    } else if (sub < nci + nco) {
+      stage_cols<DC, tm>(y, U, d_out, (sub - nci) * DC, p0, m_patterns, uv);
+      stage_cols<DC, tn>(y + tm * RC, g, d_out, (sub - nci) * DC, it * tn, n, gv);
+    } else {
+      if (for_dk)
+        stage_cols<CW, tn>(y, q, d_in, col0, it * tn, n, qv);
+      else
+        stage_cols<CW, tn>(y, g, d_out, col0, it * tn, n, gv);
+      float* st = y + tn * RW;  // m, 1/l, delta of the tile's tokens
+      for (int j = threadIdx.x; j < 3 * tn; j += hopfield_wide::THREADS) {
+        const int r = it * tn + j % tn;
+        const bool in = r < n;
+        const float* src = j < tn ? m_in : j < 2 * tn ? il_in : delta;
+        cp_async4(st + j, in ? src + r : src, in);
+      }
+    }
+    cp_async_commit();
+  };
+  stage_item(0, 0);
+
+  bool live_p[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) live_p[e] = p0 + m0 + gq + 8 * e < m_patterns;
+  float acc[CO][4], sc[NT][4], dp[NT][4];
+#pragma unroll
+  for (int c = 0; c < CO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  zero(sc);
+  zero(dp);
+
+  for (int i = 0; i < items; ++i) {
+    const int u = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    const float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    if (sub < nci) {
+      if (sub == 0) zero(sc), zero(dp);
+      chunk_product(sc, y, m0, gq, tq);
+      continue;
+    }
+    if (sub < nci + nco) {
+      chunk_product(dp, y, m0, gq, tq);
+      continue;
+    }
+    // ---- A^T (and dS^T for dK) on the fragments (patterns gq, gq + 8;
+    // tokens 8j + 2tq, + 1), then the window's outputs over the tile's tokens
+    const int tok_lo = it * tn;
+    const float* st = y + tn * RW;
+    FragA fa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = 8 * j + 2 * tq + (e & 1);
+        const float a =
+            live_p[e >> 1] && tok_lo + tl < n ? __expf(sc[j][e] * beta - st[tl]) * st[tn + tl] : 0.f;
+        v[e] = for_dk ? a * (dp[j][e] - st[2 * tn + tl]) * beta : a;
+      }
+      fa[j] = split_a(v[0], v[2], v[1], v[3]);
+    }
+#pragma unroll
+    for (int c = 0; c < CO; ++c) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
+    }
+  }
+
+  // ---- this chunk's partial rows of dK or dU, (chunks, M, d), the
+  // window's columns below the width
+  float* part = for_dk ? dk_part : du_part;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live_p[e]) continue;
+    const size_t row = static_cast<size_t>(chunk) * m_patterns + p0 + m0 + gq + 8 * e;
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = col0 + 8 * c + 2 * tq + hh;
+        if (col < d_win) part[row * d_win + col] = acc[c][2 * e + hh];
+      }
+  }
+}
+
+int chunks_wide(int n, int m_patterns, int d_in, int d_out) {
+  using namespace hopfield_wide;
+  return chunks_for((n + hopfield_wide::TN - 1) / hopfield_wide::TN,
+                    (m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM * (windows(d_in) + windows(d_out)),
+                    concurrent_blocks(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS, BYTES));
+}
+
+int launch_wide(const Args& a) {
+  using namespace hopfield_wide;
+  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dku_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(BYTES));
+  if (err != cudaSuccess) return err;
+  const int chunks = chunks_wide(a.n, a.m_patterns, a.d_in, a.d_out);
+  const int token_tiles = (a.n + hopfield_wide::TN - 1) / hopfield_wide::TN;
+  const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
+  float* q = a.workspace;
+  float* il = q + static_cast<size_t>(a.n) * a.d_in;
+  float* dk_part = il + a.n;
+  float* du_part = dk_part + static_cast<size_t>(chunks) * a.m_patterns * a.d_in;
+  err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, a.l, il, a.stream);
+  if (err != cudaSuccess) return err;
+  const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
+                         vec16_ok(a.U, a.d_out) << 3;
+  const dim3 grid((a.m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM,
+                  (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk, windows(a.d_in) + windows(a.d_out));
+  stream_bwd_dku_wide_kernel<<<grid, hopfield_wide::THREADS, BYTES, a.stream>>>(
+      q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, tiles_per_chunk,
+      beta_of(a.d_in), vec16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = sum_rows(dk_part, grid.y, a.m_patterns * a.d_in, a.dK, a.stream);
+  if (err != cudaSuccess) return err;
+  return sum_rows(du_part, grid.y, a.m_patterns * a.d_out, a.dU, a.stream);
+}
+
 }  // namespace
 
 // Floats of device scratch that hopfield_stream_bwd_dku needs: q (n, d_in)
 // and 1/l (n), then one partial dK (m_patterns, d_in) and one partial dU
 // (m_patterns, d_out) for each chunk of the token axis.
 extern "C" long long hopfield_stream_bwd_dku_workspace(int n, int m_patterns, int d_in, int d_out) {
-  if (!takes(n, m_patterns, d_in, d_out)) return 0;
-  const int chunks = with_widths(d_in, d_out, [&](auto pi, auto po) {
+  const bool wide = n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out);
+  if (!wide && !takes(n, m_patterns, d_in, d_out)) return 0;
+  const int chunks = wide ? chunks_wide(n, m_patterns, d_in, d_out) : with_widths(d_in, d_out, [&](auto pi, auto po) {
     return chunks_of<decltype(pi)::value, decltype(po)::value>(n, m_patterns);
   });
   return static_cast<long long>(n) * (d_in + 1) + static_cast<long long>(chunks) * m_patterns * (d_in + d_out);
@@ -336,23 +512,30 @@ extern "C" long long hopfield_stream_bwd_dku_workspace(int n, int m_patterns, in
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
 // dK (m_patterns, d_in), dU (m_patterns, d_out), and workspace (see
-// above); 1 <= d_in, d_out <= 256. Launches the first pass, the kernel and
-// the fixed-order sums of the chunks on `stream`. Returns a cudaError_t;
-// 0 means every launch was accepted.
+// above); any d_in, d_out >= 1 (past 256 the wide variant). Launches the
+// first pass, the kernel and the fixed-order sums of the chunks on
+// `stream`. Returns a cudaError_t; 0 means every launch was accepted.
 extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const float* U, const float* s,
                                        const float* t, const float* g, const float* m, const float* l,
                                        const float* delta, float* dK, float* dU, float* workspace, int n,
                                        int m_patterns, int d_in, int d_out, void* stream) {
-  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   const Args a{x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, d_in, d_out,
                static_cast<cudaStream_t>(stream)};
+  if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return hopfield_wide::windows(d_in) + hopfield_wide::windows(d_out) > 65535 ? cudaErrorInvalidValue
+                                                                                : launch_wide(a);
+  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+// threads a block, blocks an SM, TM and TN; past 256 the wide variant's.
+// Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out) {
+  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return static_cast<int>(kernel_attributes(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS,
+                                              hopfield_wide::BYTES, hopfield_wide::TM, hopfield_wide::TN, out));
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;

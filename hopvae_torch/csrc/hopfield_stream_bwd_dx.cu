@@ -68,8 +68,16 @@
 //   199,680 at 256 -> 256. Registers and
 //   blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dx_attributes on the card.
+// - Past 256 on either side (one wide instance for every width,
+//   hopfield_wide.cuh): q is built first into the scratch; per pattern
+//   tile the chunks of q and K, then those of g and U, stream through
+//   (their products summed into the score and g U^T fragments), then the
+//   window of K's columns that the block sums dq over (windows of 128 on
+//   a grid axis, each recomputing the scores). The finishing pass reads
+//   x, dq and q's scratch (reused for dq * xhat) from device memory.
 
 #include "hopfield_stream.cuh"
+#include "hopfield_wide.cuh"
 
 namespace {
 
@@ -366,12 +374,233 @@ int launch(const Args& a) {
   return sum_rows(dt_part, fin_blocks(a.n), a.d_in, a.dt, a.stream);
 }
 
+
+// ---- past 256: the wide variant (hopfield_wide.cuh), one instance for
+// every width
+
+// dq over the window [col0, col0 + CW) of d_in for the block's TM token
+// rows of the built q, over its split of the pattern tiles: per tile the
+// chunks of q and K, those of g and U, then K's window.
+__global__ void __launch_bounds__(hopfield_wide::THREADS, 2)
+stream_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                          const float* __restrict__ g, const float* __restrict__ m_in, const float* __restrict__ l_in,
+                          const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
+                          int d_in, int d_out, int per, float beta, unsigned vec16) {
+  using namespace hopfield_wide;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int row0 = blockIdx.x * hopfield_wide::TM;
+  const int split = blockIdx.y;
+  const int col0 = blockIdx.z * CW;
+  const int first = split * per;
+  const int last = min((m_patterns + hopfield_wide::TN - 1) / hopfield_wide::TN, first + per) - 1;
+  const int nci = chunks(d_in), nco = chunks(d_out);
+  const int per_tile = nci + nco + 1;
+  const int items = (last - first + 1) * per_tile;
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+
+  auto stage_item = [&](int i, int u) {
+    float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    constexpr int tm = hopfield_wide::TM, tn = hopfield_wide::TN;
+    if (sub < nci) {
+      stage_cols<DC, tm>(y, q, d_in, sub * DC, row0, n, qv);
+      stage_cols<DC, tn>(y + tm * RC, K, d_in, sub * DC, it * tn, m_patterns, kv);
+    } else if (sub < nci + nco) {
+      stage_cols<DC, tm>(y, g, d_out, (sub - nci) * DC, row0, n, gv);
+      stage_cols<DC, tn>(y + tm * RC, U, d_out, (sub - nci) * DC, it * tn, m_patterns, uv);
+    } else {
+      stage_cols<CW, tn>(y, K, d_in, col0, it * tn, m_patterns, kv);
+    }
+    cp_async_commit();
+  };
+  stage_item(0, 0);
+
+  bool live[2];
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + m0 + gq + 8 * e;
+    live[e] = row < n;
+    m_r[e] = live[e] ? m_in[row] : 0.f;
+    il_r[e] = live[e] ? 1.f / l_in[row] : 0.f;
+    dl_r[e] = live[e] ? delta[row] : 0.f;
+  }
+  float acc[CO][4], sc[NT][4], dp[NT][4];
+#pragma unroll
+  for (int c = 0; c < CO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  zero(sc);
+  zero(dp);
+
+  for (int i = 0; i < items; ++i) {
+    const int u = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    const float* y = buf + u * SLOT;
+    const int it = first + i / per_tile, sub = i % per_tile;
+    if (sub < nci) {
+      if (sub == 0) zero(sc), zero(dp);
+      chunk_product(sc, y, m0, gq, tq);
+      continue;
+    }
+    if (sub < nci + nco) {
+      chunk_product(dp, y, m0, gq, tq);
+      continue;
+    }
+    // ---- A and dS on the fragments, then dq += dS K over the window
+    const int p_lo = it * hopfield_wide::TN;
+    FragA dsa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool in = live[r] && p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns;
+        const float a = in ? __expf(sc[j][e] * beta - m_r[r]) * il_r[r] : 0.f;
+        v[e] = a * (dp[j][e] - dl_r[r]) * beta;
+      }
+      dsa[j] = split_a(v[0], v[2], v[1], v[3]);
+    }
+#pragma unroll
+    for (int c = 0; c < CO; ++c) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
+    }
+  }
+
+  // ---- this split's partial dq, (splits, n, d_in), the window's columns < d_in
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live[e]) continue;
+    float* out = dq_part + (static_cast<size_t>(split) * n + row0 + m0 + gq + 8 * e) * d_in;
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = col0 + 8 * c + 2 * tq + hh;
+        if (col < d_in) out[col] = acc[c][2 * e + hh];
+      }
+  }
+}
+
+// The finishing pass of the wide variant: as stream_bwd_dx_finish_kernel,
+// reading x and the splits' dq from device memory (a row at a time, 4
+// lanes a row) and keeping dq * xhat in xdq (n, d_in) for the column sums.
+__global__ void __launch_bounds__(FIN_THREADS)
+stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                                 const float* __restrict__ dq_part, int splits, int n, int d_in,
+                                 float* __restrict__ dx, float* __restrict__ xdq, float* __restrict__ ds_part,
+                                 float* __restrict__ dt_part) {
+  const int row0 = blockIdx.x * FIN_ROWS;
+  const int rows_here = min(FIN_ROWS, n - row0);
+  // dq of token row r, column k: the splits summed in order, in double
+  auto dq_at = [&](int r, int k) {
+    double sum = 0.0;
+    for (int sp = 0; sp < splits; ++sp) sum += dq_part[(static_cast<size_t>(sp) * n + r) * d_in + k];
+    return static_cast<float>(sum);
+  };
+  {
+    const int r = threadIdx.x >> 2;
+    const int part = threadIdx.x & 3;
+    const bool live = r < rows_here;
+    const int row = row0 + (live ? r : 0);  // rows past n take the block's first (the shuffles need all lanes)
+    const float* xrow = x + static_cast<size_t>(row) * d_in;
+    double mean, inv;
+    ln_stats(xrow, d_in, part, mean, inv);
+    double m1 = 0.0, m2 = 0.0;
+    for (int k = part; k < d_in; k += 4) {
+      const double xhat = (xrow[k] - mean) * inv;
+      const double dxh = static_cast<double>(dq_at(row, k)) * s[k];
+      m1 += dxh;
+      m2 += dxh * xhat;
+    }
+    m1 = quad_sum(m1) / d_in;
+    m2 = quad_sum(m2) / d_in;
+    if (live) {
+      for (int k = part; k < d_in; k += 4) {
+        const double xhat = (xrow[k] - mean) * inv;
+        const double dq = dq_at(row, k);
+        dx[static_cast<size_t>(row) * d_in + k] = static_cast<float>(inv * (dq * s[k] - m1 - xhat * m2));
+        xdq[static_cast<size_t>(row) * d_in + k] = static_cast<float>(dq * xhat);
+      }
+    }
+  }
+  __syncthreads();  // the block's xdq rows are written
+
+  for (int k = threadIdx.x; k < d_in; k += FIN_THREADS) {
+    double ds_acc = 0.0, dt_acc = 0.0;
+    for (int r = 0; r < rows_here; ++r) {
+      ds_acc += xdq[static_cast<size_t>(row0 + r) * d_in + k];
+      dt_acc += dq_at(row0 + r, k);
+    }
+    ds_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(ds_acc);
+    dt_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(dt_acc);
+  }
+}
+
+Plan plan_wide(int n, int m_patterns, int d_in) {
+  using namespace hopfield_wide;
+  return plan_for((n + hopfield_wide::TM - 1) / hopfield_wide::TM * windows(d_in),
+                  (m_patterns + hopfield_wide::TN - 1) / hopfield_wide::TN,
+                  concurrent_blocks(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, BYTES));
+}
+
+// Floats of the wide variant's scratch: q (n, d_in), later dq * xhat; each
+// split's partial dq (n, d_in); one partial row of ds and of dt for each 32
+// tokens.
+long long workspace_wide(int n, int m_patterns, int d_in) {
+  const int splits = plan_wide(n, m_patterns, d_in).splits;
+  return static_cast<long long>(1 + splits) * n * d_in + 2LL * fin_blocks(n) * d_in;
+}
+
+int launch_wide(const Args& a) {
+  using namespace hopfield_wide;
+  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(BYTES));
+  if (err != cudaSuccess) return err;
+  const Plan p = plan_wide(a.n, a.m_patterns, a.d_in);
+  float* q = a.workspace;
+  float* dq_part = q + static_cast<size_t>(a.n) * a.d_in;
+  float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * a.d_in;
+  float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
+  err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, nullptr, nullptr, a.stream);
+  if (err != cudaSuccess) return err;
+  const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
+                         vec16_ok(a.U, a.d_out) << 3;
+  stream_bwd_dq_wide_kernel<<<dim3((a.n + hopfield_wide::TM - 1) / hopfield_wide::TM, p.splits, windows(a.d_in)),
+                              hopfield_wide::THREADS, BYTES, a.stream>>>(
+      q, a.K, a.U, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per, beta_of(a.d_in),
+      vec16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stream_bwd_dx_finish_wide_kernel<<<fin_blocks(a.n), FIN_THREADS, 0, a.stream>>>(
+      a.x, a.s, dq_part, p.splits, a.n, a.d_in, a.dx, q, ds_part, dt_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = sum_rows(ds_part, fin_blocks(a.n), a.d_in, a.ds, a.stream);
+  if (err != cudaSuccess) return err;
+  return sum_rows(dt_part, fin_blocks(a.n), a.d_in, a.dt, a.stream);
+}
+
 }  // namespace
 
 // Floats of device scratch that hopfield_stream_bwd_dx needs: each split's
 // partial dq (at the padded width) and one partial row of ds and one of dt
-// for each 32 tokens.
+// for each 32 tokens; past 256, the wide variant's (workspace_wide).
 extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int m_patterns, int d_in, int d_out) {
+  if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return workspace_wide(n, m_patterns, d_in);
   if (!takes(n, m_patterns, d_in, d_out)) return 0;
   return with_widths(d_in, d_out, [&](auto pi, auto po) -> long long {
     constexpr int PI = decltype(pi)::value;
@@ -383,24 +612,30 @@ extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int m_patterns, int
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), g (n, d_out), m, l and delta (n),
-// dx (n, d_in), ds and dt (d_in), and workspace (see above); 1 <= d_in,
-// d_out <= 256. Launches the kernel, the finishing pass and the
-// fixed-order sums of the partial rows on `stream`. Returns a cudaError_t;
-// 0 means every launch was accepted.
+// dx (n, d_in), ds and dt (d_in), and workspace (see above); any d_in,
+// d_out >= 1 (past 256 the wide variant). Launches the kernel, the
+// finishing pass and the fixed-order sums of the partial rows on
+// `stream`. Returns a cudaError_t; 0 means every launch was accepted.
 extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const float* U, const float* s,
                                       const float* t, const float* g, const float* m, const float* l,
                                       const float* delta, float* dx, float* ds, float* dt, float* workspace, int n,
                                       int m_patterns, int d_in, int d_out, void* stream) {
-  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   const Args a{x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, d_in, d_out,
                static_cast<cudaStream_t>(stream)};
+  if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return hopfield_wide::windows(d_in) > 65535 ? cudaErrorInvalidValue : launch_wide(a);
+  if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+// threads a block, blocks an SM, TM and TN; past 256 the wide variant's.
+// Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) {
+  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return static_cast<int>(kernel_attributes(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, hopfield_wide::BYTES,
+                                              hopfield_wide::TM, hopfield_wide::TN, out));
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;

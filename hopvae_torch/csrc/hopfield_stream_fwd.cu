@@ -51,8 +51,14 @@
 // columns (TN 64 up to widths of 64, else 32, or 16 past a sum of 256):
 // 87,040 at 64 -> 64. Registers and blocks an SM per width are in PERF.md,
 // from hopfield_stream_fwd_attributes on the card.
+//
+// Past 256 on either side (hopfield_stream_fwd_wide, one instance for
+// every width): q is built first into the scratch, then the wide walk of
+// hopfield_wide.cuh streams q and K in depth chunks of 64 and covers
+// d_out in windows of 128, blocks of their own.
 
 #include "hopfield_stream_fwd.cuh"
+#include "hopfield_wide.cuh"
 
 namespace {
 
@@ -137,8 +143,8 @@ int launch(const Args& a) {
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous f32 arrays: x (n, d_in), K (m_patterns, d_in),
 // U (m_patterns, d_out), s and t (d_in), out (n, d_out), m and l (n);
-// 1 <= d_in, d_out <= 256. Returns a cudaError_t; 0 means the launch was
-// accepted.
+// 1 <= d_in, d_out <= 256 (wider: hopfield_stream_fwd_wide). Returns a
+// cudaError_t; 0 means the launch was accepted.
 extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* U, const float* s, const float* t,
                                    float* out, float* m, float* l, int n, int m_patterns, int d_in, int d_out,
                                    void* stream) {
@@ -147,11 +153,36 @@ extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* 
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
+// Floats of device scratch that hopfield_stream_fwd_wide needs: q (n, d_in).
+extern "C" long long hopfield_stream_fwd_workspace(int n, int m_patterns, int d_in, int d_out) {
+  return n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 ? static_cast<long long>(n) * d_in : 0;
+}
+
+// The same through the wide walk (hopfield_wide.cuh), the route past 256,
+// with workspace as above. Launches the query build and the walk on
+// `stream`.
+extern "C" int hopfield_stream_fwd_wide(const float* x, const float* K, const float* U, const float* s,
+                                        const float* t, float* out, float* m, float* l, float* workspace, int n,
+                                        int m_patterns, int d_in, int d_out, void* stream) {
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1 || hopfield_wide::windows(d_out) > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = hopfield_wide::build_queries(x, s, t, n, d_in, workspace, nullptr, nullptr, st);
+  if (err != cudaSuccess) return err;
+  return hopfield_wide::launch_fwd_wide<hopfield_wide::PLAIN>(workspace, K, U, nullptr, out, m, l, nullptr, n,
+                                                              m_patterns, d_in, d_out, beta_of(d_in), 0.f, st);
+}
+
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN. Returns a cudaError_t.
+// threads a block, blocks an SM, TM and TN; past 256 the wide walk's.
+// Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
-  if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
+  if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  if (hopfield_wide::wide(d_in, d_out))
+    return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::PLAIN>,
+                                              hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
+                                              hopfield_wide::TN, out));
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
     using C = Tiles<PI, PO>;

@@ -13,7 +13,9 @@ The port's own copies of ``hopvae_tpu/data`` (importing any
   64 rendered digits (``hopvae_tpu.data.render_digits(64, 28, seed=0)``),
   the golden input on hosts without PIL;
 - :func:`golden_grid`: the committed ``assets/ffhq64_grid4.npy``, the JAX
-  package's quantized grid of the ``ffhq64_synthetic4`` batch.
+  package's quantized grid of the ``ffhq64_synthetic4`` batch;
+  :func:`interp_grid`: ``assets/ffhq64_interp_grid4.npy``, its
+  interpolation grid (``SERVING_GOLDENS``).
 
 :func:`synthetic_images` upsamples with numpy where the JAX package
 calls ``jax.image.resize``, whose f32 sums run in another order. The two
@@ -38,6 +40,7 @@ MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
 ASSETS = Path(__file__).resolve().parent / "assets"
 GOLDEN_DIGITS = ASSETS / "digits_28_seed0_64.npy"
 GOLDEN_GRID = ASSETS / "ffhq64_grid4.npy"
+INTERP_GRID = ASSETS / "ffhq64_interp_grid4.npy"
 
 # Recon MSE and aux loss of the JAX package's f32 forward (impl="xla") on
 # the golden inputs below, with the named checkpoint from checkpoints/.
@@ -107,6 +110,33 @@ PRIOR_GOLDENS = {
     "max_flipped_bins": 2,
 }
 
+# Serving with PRIOR_GOLDENS' model (ffhq_64_scaled, prior=Transformer,
+# Transformer-FFHQ-64.msgpack), JAX f32 (impl="xla"): HopVAE.interpolate of
+# the ffhq64_synthetic4 batch paired with its reverse (image i with image
+# 3 - i), and the decode that HopVAE.sample runs after its prior, of
+# golden_grid(). "grid" is interpolate's level grid after the prior's
+# reconstruct (assets/ffhq64_interp_grid4.npy, interp_grid()); "stats" are
+# each output image's mean |v| and mean v². Made, and held, by
+# tests/test_torch_sample.py::test_serving_goldens_match_jax, which
+# recomputes them with the JAX package:
+#     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_sample.py -k goldens
+# Before the prior every pre-round level lies at least 4.4e-5 of a level
+# from a rounding edge, and the prior's argmax leads by at least 2.8e-4 in
+# logit; a level that moves by one moves an image's stats by at most
+# 1.5e-4 relative (the port on the CPU, five random bins).
+SERVING_GOLDENS = {
+    "interpolate": {
+        "stats": [[0.5098177194595337, 0.44744181632995605], [0.5093593001365662, 0.4523080885410309],
+                  [0.5093593001365662, 0.4523080885410309], [0.5098177194595337, 0.44744181632995605]],
+        "max_flipped_bins": 4,
+    },
+    "decode": {
+        "stats": [[0.024585964158177376, 0.0009112516418099403], [0.03067040629684925, 0.0015446488978341222],
+                  [0.026895442977547646, 0.001050979015417397], [0.022470392286777496, 0.0007796580903232098]],
+    },
+    "stats_rtol": 1e-3,
+}
+
 # Three prior-phase steps of the JAX package (Trainer._step_core(True) with
 # make_optimizer(prior_only=True), impl="xla", f32, constant lr 1e-3) on
 # the ffhq64_synthetic4 batch from PRIOR_GOLDENS' weights: the loss of
@@ -142,6 +172,19 @@ def golden_grid() -> np.ndarray:
     """(4, 17, 17, 3) float32 levels: the JAX quantized grid of the
     ``ffhq64_synthetic4`` batch (stored as uint16)."""
     return np.load(GOLDEN_GRID).astype(np.float32)
+
+
+def interp_grid() -> np.ndarray:
+    """(4, 17, 17, 3) float32 levels: the JAX interpolation grid of
+    ``SERVING_GOLDENS`` (stored as uint16)."""
+    return np.load(INTERP_GRID).astype(np.float32)
+
+
+def image_stats(images: np.ndarray) -> np.ndarray:
+    """Each image's mean |v| and mean v², ``(N, 2)`` in float64: the
+    serving goldens' measure."""
+    flat = np.asarray(images, np.float64).reshape(len(images), -1)
+    return np.stack([np.abs(flat).mean(-1), (flat**2).mean(-1)], -1)
 
 
 def golden_input(name: str) -> np.ndarray:

@@ -9,7 +9,15 @@ Port of ``hopvae_tpu/models/hopvae.py``:
   retrieval ``e``. With ``fit_prior`` it adds the prior's teacher-forced
   cross-entropy in bits over the quantized grid, its gradient stopped.
 - ``prior``: ``get_prior(config)``; the PixelCNN prior is not ported, so
-  a PixelCNN config builds the backbone alone and ``fit_prior`` raises.
+  a PixelCNN config builds the backbone alone, and ``fit_prior``,
+  ``sample`` and ``interpolate`` raise.
+- ``sample``: the prior's grid, ``/ (L-1)``, the index→embedding lookup
+  and the decoder (:meth:`HopVAE.decode_grid`); the Transformer prior's
+  sampler is not ported and raises.
+- ``interpolate``: the average of two batches' latents through the
+  ``hopfield`` and ``embedding_to_index`` lookups, a relu-pair clamp, the
+  straight-through round, ``prior.reconstruct`` and the decode; no
+  gradient flows out.
 - ``post_vq_conv`` parameters exist but are never applied (kept so
   checkpoints load as they are).
 
@@ -35,9 +43,10 @@ from hopvae_torch.models.layers import Decoder, Encoder
 from hopvae_torch.models.priors import PIXELCNN_NOT_PORTED, get_prior
 from hopvae_torch.ops.bottleneck import IMPLS, LAYERS, hopfield_bottleneck
 from hopvae_torch.ops.conv import conv2d
-from hopvae_torch.ops.hopfield import HopfieldLookup
+from hopvae_torch.ops.hopfield import HopfieldLookup, hopfield_lookup
+from hopvae_torch.ops.hopfield_cuda import hopfield_lookup_stream
+from hopvae_torch.ops.ste import straight_through_round
 
-_NOT_PORTED = "not ported yet: sampling and interpolation come in a later slice (ROADMAP.md, Queue 1 item 7)"
 PRIOR = "prior."
 
 
@@ -119,11 +128,10 @@ class HopVAE(nn.Module):
     def prior_bits(self, zq: torch.Tensor) -> torch.Tensor:
         """The prior's teacher-forced cross-entropy in bits, averaged over
         the grid ``zq``, whose gradient is stopped."""
-        if self.prior is None:
-            raise NotImplementedError(PIXELCNN_NOT_PORTED)
+        prior = self._require_prior()
         b, r = zq.shape[0], self.representation_dim
         grid = zq.detach().reshape(b, r, r, self.index_dim)
-        logp = F.log_softmax(self.prior(grid), dim=-1)
+        logp = F.log_softmax(prior(grid), dim=-1)
         ce = -torch.gather(logp, -1, grid.to(torch.int64)[..., None])[..., 0]
         return torch.mean(ce) * math.log2(math.e)  # nats → bits
 
@@ -138,11 +146,58 @@ class HopVAE(nn.Module):
     def reconstruct(self, x: torch.Tensor):
         return self.forward(x)
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError(f"sample is {_NOT_PORTED}")
+    def _lookup(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """One lookup of the bottleneck outside ``backbone``, by ``impl``:
+        the streaming kernels (K1 on the card) or the eager lookup."""
+        layer = getattr(self, name)
+        return hopfield_lookup_stream(layer, x, "cuda") if self.impl == "cuda" else hopfield_lookup(layer, x)
 
-    def interpolate(self, *args, **kwargs):
-        raise NotImplementedError(f"interpolate is {_NOT_PORTED}")
+    def _require_prior(self):
+        if self.prior is None:
+            raise NotImplementedError(PIXELCNN_NOT_PORTED)
+        return self.prior
+
+    def decode_grid(self, grid: torch.Tensor) -> torch.Tensor:
+        """A level grid ``(B, r, r, index_dim)`` of levels in ``[0, L-1]`` →
+        images ``(B, H, W, C)``: ``grid / (L-1)``, the ``index_to_embedding``
+        lookup and the decoder (JAX's ``sample`` and ``interpolate`` after
+        their prior step)."""
+        b, r = grid.shape[0], self.representation_dim
+        tokens = (grid / (self.num_levels - 1)).reshape(b, r * r, self.index_dim)
+        return self._tokens_to_image(self._lookup("index_to_embedding", tokens))
+
+    @torch.no_grad()
+    def sample(self, num_samples: int = 1, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``num_samples`` unconditional images from the prior's grid, drawn
+        with ``generator`` (on the model's device). The Transformer prior's
+        sampler is not ported (ROADMAP.md, Queue 1 item 6) and raises."""
+        grid = self._require_prior().sample(num_samples, generator=generator, device=self.device)
+        return self.decode_grid(grid.to(torch.int32).float())
+
+    @torch.no_grad()
+    def interpolation_grid(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The level grid ``(B, r, r, index_dim)`` that :meth:`interpolate`
+        decodes, for two batches of one shape: the average of their
+        latents through the ``hopfield`` and ``embedding_to_index`` lookups,
+        clamped to ``[0, 1]`` by a relu pair (not the forward's sigmoid),
+        rounded to ``L`` levels, then ``prior.reconstruct`` (the identity
+        under ``prior="None"``, the teacher-forced argmax under the
+        Transformer prior)."""
+        b, r = x.shape[0], self.representation_dim
+        z = (self._encode_to_tokens(x) + self._encode_to_tokens(y)) / 2
+        zi = self._lookup("embedding_to_index", self._lookup("hopfield", z))
+        zi = 1.0 - F.relu(1.0 - F.relu(zi))
+        zq = straight_through_round(zi * (self.num_levels - 1))
+        return self._require_prior().reconstruct(zq.reshape(b, r, r, self.index_dim))
+
+    @torch.no_grad()
+    def interpolate(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Latent-space interpolation of two normalized NHWC batches: the
+        decode of :meth:`interpolation_grid`; ``x`` unchanged where the
+        shapes differ, as in the JAX package. No gradient flows out."""
+        if x.shape != y.shape:
+            return x
+        return self.decode_grid(self.interpolation_grid(x, y))
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """``nn.Module.load_state_dict``, lenient on the prior alone, as the

@@ -16,8 +16,9 @@ over ``(i, j)`` with the channel innermost, so position ``p = (i·r + j)·C
 - ``prior_attn="auto"`` takes dense below S = 512, else flash for head
   widths ≤ 128 or a multiple of 128 (JAX's rule), else blocked. Flash on
   CUDA tensors runs the hand-written kernels (K5), built for head widths
-  8 to 256; a narrower width that is not built (48, 96) is zero-padded to
-  the next one, and 384 and 512 raise (ROADMAP.md, Queue 2).
+  8 to 256 and, past 256, every multiple of 128 (one wide instance); any
+  other width under ``prior_attn=flash`` (48, 96, 320) is zero-padded to
+  the next one the kernels take.
 
 Parameters keep the JAX names (``tok_emb``, ``bos``, ``pos_emb``,
 ``blocks.<i>.{ln1, qkv, out, ln2, mlp_in, mlp_out}``, ``ln_f``, ``head``),

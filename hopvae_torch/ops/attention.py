@@ -15,8 +15,9 @@ with ``prior_attn``:
 - :func:`flash_causal_attention`: on CUDA tensors the hand-written
   kernels (``ops/attention_cuda.py``: K5 forward, dK/dV and dQ), on CPU
   tensors :func:`blocked_causal_attention`, as the JAX package does off
-  the TPU. A head width the kernels are not built for (48, 96, 192) is
-  zero-padded to the next one (64, 128, 256) and the output sliced back:
+  the TPU. A head width the kernels do not take (48, 96, 192; 320 past
+  256) is zero-padded to the next one (64, 128, 256; the next multiple of
+  128) and the output sliced back:
   zero columns add nothing to ``q·kᵀ`` and give zero output columns, so
   this is exact, and autograd through the pad and the slice gives the
   gradients.
@@ -75,8 +76,9 @@ def blocked_causal_attention(q, k, v, *, q_block: int = 256, kv_block: int = 256
 
 def kernel_causal_attention(q, k, v, scale: float):
     """The kernels' route of :func:`flash_causal_attention`: a head width
-    the kernels are not built for is zero-padded to the next one and the
-    output sliced back; ``scale`` is the caller's, that of the true width.
+    the kernels do not take is zero-padded to the next one they take
+    (:func:`~hopvae_torch.ops.attention_cuda.kernel_width`) and the output
+    sliced back; ``scale`` is the caller's, that of the true width.
     :class:`FlashCausalAttention` takes the plain versions on CPU tensors,
     so the CPU tests hold this route (the padding too) against JAX."""
     dh = q.shape[-1]

@@ -17,9 +17,12 @@ forward's ``lse`` and take ``delta = rowsum(dO ⊙ O)`` from torch, so the
 on the tensor cores in three TF32 passes of their own (f32-grade, whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says). The inputs may be strided
 views (the prior's q, k and v are slices of one projection); only the
-head width must be contiguous, and one of ``HEAD_DIMS``;
-:func:`kernel_width` names the built width
-that a narrower head is zero-padded to. Each wrapper launches its kernel
+head width must be contiguous. The kernels take the head widths of
+``HEAD_DIMS`` on built instances, and every multiple of ``WIDE_STEP`` past
+the last of them on one wide instance each (q, k, v and g streamed in
+depth chunks, the outputs in column windows on a grid axis, each window
+recomputing the scores); :func:`kernel_width` names the width that any
+other head is zero-padded to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches``, and takes its
 plain version on CPU tensors; the plain versions hold the ``(S, S)``
 matrices.
@@ -33,8 +36,8 @@ import torch
 
 from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch
 
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths the kernels are built for
-_NOT_BUILT = "ROADMAP.md, Queue 2: K5 at head widths 384 and 512"
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths of the built instances
+WIDE_STEP = 128  # past HEAD_DIMS[-1], the wide kernels take every multiple of this
 
 
 # ------------------------------------------------------------ plain versions
@@ -120,17 +123,20 @@ def _check(q, k, v, *rest) -> tuple[int, int, int, int]:
 
 
 def kernel_width(dh: int) -> int:
-    """The narrowest head width the kernels are built for that holds
-    ``dh``; a wider head raises."""
+    """The narrowest head width the kernels take that holds ``dh``: one of
+    ``HEAD_DIMS``, or past them the next multiple of ``WIDE_STEP``."""
+    if dh < 1:
+        raise ValueError(f"head width must be at least 1, got {dh}")
     for width in HEAD_DIMS:
         if dh <= width:
             return width
-    raise NotImplementedError(f"the flash kernels are not built for head width {dh} ({_NOT_BUILT})")
+    return -(-dh // WIDE_STEP) * WIDE_STEP
 
 
 def _require_kernel(q, dh: int) -> None:
     if kernel_width(dh) != dh:
-        raise ValueError(f"head width {dh} not in {HEAD_DIMS}: flash_causal_attention zero-pads it")
+        raise ValueError(f"head width {dh} is not one the kernels take ({HEAD_DIMS} or a multiple of "
+                         f"{WIDE_STEP} past them): flash_causal_attention zero-pads it")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
 
@@ -206,10 +212,10 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
 causal_attention_bwd_dq.launches = 0
 
 def forward_attributes(dh: int) -> dict:
-    """K5-fwd's build at head width ``dh`` as the card reports it:
-    registers and spilled (local) bytes a thread, dynamic shared bytes,
-    threads a block and blocks an SM, and its tiles (query rows resident,
-    keys streamed). Launches nothing."""
+    """K5-fwd's build at head width ``dh`` as the card reports it (past
+    256 the wide instance's): registers and spilled (local) bytes a
+    thread, dynamic shared bytes, threads a block and blocks an SM, and
+    its tiles (query rows resident, keys streamed). Launches nothing."""
     return kernel_attributes("causal_attention_fwd", dh)
 
 

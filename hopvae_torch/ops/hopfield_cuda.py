@@ -25,19 +25,24 @@ The backward kernels rebuild the attention from ``m`` and ``l``, so the
 products on the tensor cores in three TF32 passes. Each wrapper launches
 its kernel on CUDA tensors (counting the launch in its ``launches``) and
 takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
-and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices. The
-plain versions take any ``(d_in, d_out)``; the kernels take every width
-from 1 to ``MAX_WIDTH`` (:func:`kernel_takes`, zero-padded in shared
-memory to a built instance), and the card path raises
-``NotImplementedError`` beyond.
+and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
+
+Widths: the plain versions and the kernels take every ``(d_in, d_out)``
+of at least 1 (:func:`kernel_takes`), as the Pallas kernels do. Up to
+``BUILT_WIDTH`` on both sides a call runs on a built instance, zero-padded
+in shared memory; past it on either side on the wide variants
+(``csrc/hopfield_wide.cuh``: q built first, every product's depth streamed
+in chunks of 64, the outputs in column windows of 128 on a grid axis).
+:func:`kernel_route` names the route.
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
 TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups
 (K1's pattern walk three times), the sigmoid and the round in one launch,
-for lookups that chain as ``(d, d), (d, di), (di, d)`` with ``d`` and
-``di`` up to ``MAX_WIDTH``. As in the JAX package, no entry point routes
-to it: serving and training run the streaming lookups.
+for lookups that chain as ``(d, d), (d, di), (di, d)``; past
+``BUILT_WIDTH`` its three stages run the wide walk, one launch each. As in
+the JAX package, no entry point routes to it: serving and training run
+the streaming lookups.
 """
 
 from __future__ import annotations
@@ -51,15 +56,22 @@ from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
 from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at the configs' default widths
-MAX_WIDTH = 256  # K1 to K4 take every d_in and d_out from 1 to this
-_NOT_BUILT = "ROADMAP.md, Queue 3: the streaming lookups at other widths"
+BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
 IMPLS = ("cuda", "torch")
 
 
 def kernel_takes(d_in: int, d_out: int) -> bool:
     """Whether K1, K2 and K3 (and K4, for each of its lookups) take the
-    widths ``(d_in, d_out)`` on the card."""
-    return 1 <= d_in <= MAX_WIDTH and 1 <= d_out <= MAX_WIDTH
+    widths ``(d_in, d_out)`` on the card: every width of at least 1."""
+    return d_in >= 1 and d_out >= 1
+
+
+def kernel_route(d_in: int, d_out: int) -> str:
+    """``"instance"`` where both widths are at most ``BUILT_WIDTH`` (a
+    built instance, zero-padded), ``"wide"`` past it on either side."""
+    if not kernel_takes(d_in, d_out):
+        raise ValueError(f"widths must be at least 1, got {(d_in, d_out)}")
+    return "instance" if max(d_in, d_out) <= BUILT_WIDTH else "wide"
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -192,16 +204,6 @@ def _workspace_floats(stem: str, name: str, *sizes: int) -> int:
     return fn(*sizes)
 
 
-def _require_kernel(x2, d_in: int, d_out: int) -> None:
-    """The card path: widths the kernels take, on a CUDA tensor. The plain
-    versions take any width."""
-    if not kernel_takes(d_in, d_out):
-        raise NotImplementedError(
-            f"the streaming kernels are not built for (d_in, d_out) = {(d_in, d_out)}, only widths 1 to "
-            f"{MAX_WIDTH} ({_NOT_BUILT})")
-    _require_cuda(x2)
-
-
 def _require_cuda(x2) -> None:
     if x2.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2.device}")
@@ -218,15 +220,19 @@ def stream_lookup_fwd(x2, K, U, s, t):
     n, m, d_in, d_out = _check(x2, K, U, s, t)
     if x2.device.type == "cpu":
         return stream_lookup_fwd_reference(x2, K, U, s, t)
-    _require_kernel(x2, d_in, d_out)
+    _require_cuda(x2)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x2, K, U, s, t)):
         raise RuntimeError("stream_lookup_fwd is forward-only: differentiate through stream_lookup")
     out = torch.empty(n, d_out, device=x2.device)
     m_stat = torch.empty(n, 1, device=x2.device)
     l_stat = torch.empty(n, 1, device=x2.device)
-    fn = _bind("hopfield_stream_fwd", "hopfield_stream_fwd", 8, 4)
-    launch("hopfield_stream_fwd", fn, x2.device,
-            *(a.data_ptr() for a in (x2, K, U, s, t, out, m_stat, l_stat)), n, m, d_in, d_out)
+    stem = "hopfield_stream_fwd"
+    ptrs = [a.data_ptr() for a in (x2, K, U, s, t, out, m_stat, l_stat)]
+    if kernel_route(d_in, d_out) == "wide":
+        work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, m, d_in, d_out), device=x2.device)
+        launch(stem, _bind(stem, f"{stem}_wide", 9, 4), x2.device, *ptrs, work.data_ptr(), n, m, d_in, d_out)
+    else:
+        launch(stem, _bind(stem, stem, 8, 4), x2.device, *ptrs, n, m, d_in, d_out)
     stream_lookup_fwd.launches += 1
     return out, m_stat, l_stat
 
@@ -242,7 +248,7 @@ def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
     n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
     if x2.device.type == "cpu":
         return stream_bwd_dx_reference(x2, K, U, s, t, g, m, l, delta)
-    _require_kernel(x2, d_in, d_out)
+    _require_cuda(x2)
     stem = "hopfield_stream_bwd_dx"
     dx = torch.empty(n, d_in, device=x2.device)
     ds = torch.empty(d_in, device=x2.device)
@@ -265,7 +271,7 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
     n, m_pat, d_in, d_out = _check(x2, K, U, s, t, g, m, l, delta)
     if x2.device.type == "cpu":
         return stream_bwd_dku_reference(x2, K, U, s, t, g, m, l, delta)
-    _require_kernel(x2, d_in, d_out)
+    _require_cuda(x2)
     stem = "hopfield_stream_bwd_dku"
     dk = torch.empty(m_pat, d_in, device=x2.device)
     du = torch.empty(m_pat, d_out, device=x2.device)
@@ -342,11 +348,11 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
     ``(d, d), (d, di), (di, d)`` (:func:`fused_widths`).
 
     CUDA tensors launch the kernel (counted in
-    ``bottleneck_fused_fwd.launches``); CPU tensors take the plain version.
-    On the card ``d`` or ``di`` past ``MAX_WIDTH`` raises
-    ``NotImplementedError``. Forward-only: on the card, with autograd on
-    and a parameter or ``x`` that needs a gradient, it raises (the
-    streaming bottleneck is the differentiable path)."""
+    ``bottleneck_fused_fwd.launches``, once a call: past ``BUILT_WIDTH``
+    the call's three stages run the wide walk as launches of their own);
+    CPU tensors take the plain version. Forward-only: on the card, with
+    autograd on and a parameter or ``x`` that needs a gradient, it raises
+    (the streaming bottleneck is the differentiable path)."""
     layers = (hopfield, embedding_to_index, index_to_embedding)
     d, di = fused_widths(layers)
     if x.dtype != torch.float32 or x.shape[-1] != d:
@@ -355,9 +361,6 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
         raise ValueError(f"num_levels must be at least 2, got {num_levels}")
     if x.device.type == "cpu":
         return bottleneck_fused_fwd_reference(*layers, x, num_levels)
-    if not kernel_takes(d, di):
-        raise NotImplementedError(
-            f"the fused bottleneck is not built for (d, di) = {(d, di)}, only widths 1 to {MAX_WIDTH} ({_NOT_BUILT})")
     params = [p for layer in layers for p in layer.parameters()]
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x, *params)):
         raise RuntimeError("bottleneck_fused_fwd is forward-only: run it under torch.no_grad or "
@@ -373,9 +376,14 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
     zq = torch.empty(n, di, device=x.device)
     r = torch.empty(n, d, device=x.device)
     stem = "hopfield_bottleneck_fused"
-    launch(stem, _bind(stem, stem, 19, 7), x.device, x2.data_ptr(),
-           *(a.data_ptr() for table in tables for a in table), e.data_ptr(), zq.data_ptr(), r.data_ptr(),
-           n, *(table[0].shape[0] for table in tables), d, di, num_levels)
+    ptrs = [x2.data_ptr(), *(a.data_ptr() for table in tables for a in table), e.data_ptr(), zq.data_ptr(),
+            r.data_ptr()]
+    sizes = (n, *(table[0].shape[0] for table in tables), d, di, num_levels)
+    if kernel_route(d, di) == "wide":
+        work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, d, di), device=x.device)
+        launch(stem, _bind(stem, f"{stem}_wide", 20, 7), x.device, *ptrs, work.data_ptr(), *sizes)
+    else:
+        launch(stem, _bind(stem, stem, 19, 7), x.device, *ptrs, *sizes)
     bottleneck_fused_fwd.launches += 1
     return e.reshape(*lead, d), zq.reshape(*lead, di), r.reshape(*lead, d)
 

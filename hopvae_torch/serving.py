@@ -1,17 +1,22 @@
-"""Serving: reconstruct and encode over a fixed batch shape on the card.
+"""Serving: reconstruct, encode, sample and interpolate on the card.
 
-Port of the reconstruct/encode half of ``hopvae_tpu/serving.py``:
+Port of ``hopvae_tpu/serving.py``:
 
 - ``InferenceEngine`` builds the model at ``max_batch``, pads ragged
-  batches up to it and slices results back. Where the JAX engine
-  compiles ahead of time, this one warms up at construction: the first
-  call builds the CUDA kernel and launches it, so no request pays that.
-- The default is the production setting: the streaming kernel
+  batches up to it and slices results back; ``sample`` draws
+  ``n_sample`` images from a seed. Where the JAX engine compiles ahead of
+  time, this one warms up the ops it serves at construction: the first
+  call builds the CUDA kernels and launches them, so no request pays
+  that.
+- The default is the production setting: the streaming kernels
   (``impl="cuda"``) and bf16 conv stacks. ``impl="torch"``,
   ``compute_dtype=None`` is the f32 parity path.
-- ``python -m hopvae_torch.serving --mode reconstruct`` is a batch
-  processor over ``.npy`` inputs (image files need PIL) that writes the
-  reconstructions as one ``.npy``.
+- ``python -m hopvae_torch.serving --mode reconstruct|sample|interpolate``
+  is a batch processor over ``.npy`` inputs (image files need PIL) that
+  writes a PNG grid (``reconstructions.png``, ``samples.png`` or
+  ``interpolations.png``) and the images as ``.npy`` beside it.
+- Under a PixelCNN config ``sample`` and ``interpolate`` raise (ROADMAP.md,
+  Queue 1 item 5), and the Transformer prior's ``sample`` too (item 6).
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ from hopvae_torch.config import apply_overrides, load_config
 from hopvae_torch.data import MNIST_MEAN, MNIST_STD
 from hopvae_torch.models.hopvae import HopVAE
 from hopvae_torch.utils.checkpoint import load_msgpack, params_from_jax
+from hopvae_torch.utils.metrics import denormalize, save_image_grid
 
-OPS = ("reconstruct", "encode")
+OPS = ("reconstruct", "encode", "sample", "interpolate")
+DEFAULT_OPS = ("reconstruct", "encode")  # sample and interpolate need a ported prior
+GRIDS = {"reconstruct": "reconstructions", "sample": "samples", "interpolate": "interpolations"}
 
 
 class InferenceEngine:
@@ -40,18 +48,19 @@ class InferenceEngine:
         impl: str = "cuda",
         compute_dtype: torch.dtype | None = torch.bfloat16,
         device=None,
-        ops: tuple = OPS,
+        n_sample: int = 16,
+        ops: tuple = DEFAULT_OPS,
     ):
         """``state`` is a ``HopVAE`` state_dict (see
         ``hopvae_torch.utils.checkpoint.params_from_jax``); ``ops`` names
-        the entry points to warm up."""
+        the entry points to serve, each warmed up here; ``n_sample`` is the
+        number of images a ``sample`` call draws."""
         unknown = [op for op in ops if op not in OPS]
         if unknown:
-            raise NotImplementedError(
-                f"ops {unknown} are not ported yet (ROADMAP.md, Queue 1); this engine serves {OPS}"
-            )
+            raise ValueError(f"unknown ops {unknown}; this engine serves {OPS}")
         self.config = config
         self.max_batch = max_batch
+        self.n_sample = n_sample
         self.ops = tuple(ops)
         self.model = HopVAE(config, impl=impl, compute_dtype=compute_dtype, device=device)
         self.model.load_state_dict(state)
@@ -60,7 +69,12 @@ class InferenceEngine:
         s, c = config.image_size, config.num_channels
         warm = np.zeros((max_batch, s, s, c), np.float32)
         for op in self.ops:
-            getattr(self, op)(warm)
+            if op == "sample":
+                self.sample(0)
+            elif op == "interpolate":
+                self.interpolate(warm, warm)
+            else:
+                getattr(self, op)(warm)
 
     def _pad(self, x: np.ndarray) -> tuple[torch.Tensor, int]:
         x = np.asarray(x, np.float32)
@@ -88,6 +102,25 @@ class InferenceEngine:
         self._require("encode")
         xp, n = self._pad(x)
         return self.model._encode_to_tokens(xp)[:n].cpu().numpy()
+
+    @torch.inference_mode()
+    def sample(self, seed: int = 0) -> np.ndarray:
+        """``n_sample`` unconditional images, drawn from a generator on the
+        engine's device seeded with ``seed`` (torch's draws, not JAX's)."""
+        self._require("sample")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return self.model.sample(self.n_sample, generator=gen).cpu().numpy()
+
+    @torch.inference_mode()
+    def interpolate(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+        """Pairwise latent-space interpolation of two normalized NHWC
+        batches of equal size (unpadded)."""
+        self._require("interpolate")
+        xp, n = self._pad(x)
+        yp, m = self._pad(y)
+        if n != m:
+            raise ValueError(f"interpolate needs equal batch sizes, got {n} and {m}")
+        return self.model.interpolate(xp, yp)[:n].cpu().numpy()
 
 
 def state_from_checkpoint(path: str) -> dict:
@@ -132,20 +165,23 @@ def _load_images(paths, config) -> np.ndarray:
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Batch reconstruction of image/.npy files")
+    parser = argparse.ArgumentParser(description="Batch inference over image/.npy files")
     parser.add_argument("--config", default="mnist_28")
     parser.add_argument("--checkpoint", required=True,
                         help="the JAX package's native .msgpack, or a .pt written by hopvae_torch.train")
-    parser.add_argument("--mode", choices=("reconstruct",), default="reconstruct")
+    parser.add_argument("--mode", choices=("reconstruct", "sample", "interpolate"), default="reconstruct")
     parser.add_argument("--out", default="served")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--n-sample", type=int, default=16)
     parser.add_argument("--max-batch", type=int, default=256,
-                        help="engine batch size cap; more inputs are chunked through it")
+                        help="engine batch size cap; more inputs (or pairs) are chunked through it")
     parser.add_argument("--impl", default="cuda", choices=("cuda", "torch"))
     parser.add_argument("--compute-dtype", default="bfloat16", choices=("float32", "bfloat16"))
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         help="override a config key (repeatable)")
-    parser.add_argument("inputs", nargs="+", help="image/.npy files")
+    parser.add_argument("inputs", nargs="*",
+                        help="image/.npy files (reconstruct; interpolate pairs the first half with the second)")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
@@ -155,20 +191,36 @@ def main(argv=None):
         parser.error(str(e))
     if not os.path.exists(args.checkpoint):
         parser.error(f"checkpoint not found: {args.checkpoint}")
-    x = _load_images(args.inputs, config)
+    # the input counts are checked before the engine builds and warms up
+    if args.mode == "interpolate" and (len(args.inputs) < 2 or len(args.inputs) % 2):
+        parser.error("interpolate mode needs an even number (≥2) of input files")
+    if args.mode == "reconstruct" and not args.inputs:
+        parser.error("reconstruct mode needs input files")
+    x = _load_images(args.inputs, config) if args.mode != "sample" else None
+    batch = {"reconstruct": len(args.inputs), "interpolate": len(args.inputs) // 2, "sample": 1}[args.mode]
     engine = InferenceEngine(
         config, state_from_checkpoint(args.checkpoint),
-        max_batch=min(len(x), args.max_batch), impl=args.impl,
+        max_batch=min(batch, args.max_batch), impl=args.impl,
         compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
-        device=args.device, ops=("reconstruct",),
+        device=args.device, n_sample=args.n_sample, ops=(args.mode,),
     )
-    y = np.concatenate(
-        [engine.reconstruct(x[i : i + engine.max_batch]) for i in range(0, len(x), engine.max_batch)]
-    )
+    step = engine.max_batch
+    if args.mode == "reconstruct":
+        y = np.concatenate([engine.reconstruct(x[i : i + step]) for i in range(0, len(x), step)])
+        note = f"recon MSE {float(np.mean((y - x) ** 2)):.6f}"
+    elif args.mode == "interpolate":
+        first, second = x[: batch], x[batch:]
+        y = np.concatenate([engine.interpolate(first[i : i + step], second[i : i + step])
+                            for i in range(0, batch, step)])
+        note = "interpolations"
+    else:
+        y = engine.sample(args.seed)
+        note = f"samples, seed {args.seed}"
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, "reconstructions.npy")
-    np.save(path, y)
-    print(f"wrote {path} ({len(y)} images, recon MSE {float(np.mean((y - x) ** 2)):.6f})")
+    stem = os.path.join(args.out, GRIDS[args.mode])
+    save_image_grid(f"{stem}.png", denormalize(y, config.data_set))
+    np.save(f"{stem}.npy", y)
+    print(f"wrote {stem}.png and {stem}.npy ({len(y)} images, {note})")
 
 
 if __name__ == "__main__":

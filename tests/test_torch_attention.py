@@ -121,21 +121,24 @@ def test_wrappers_check_their_inputs():
     wide = torch.zeros(1, 4, 1, 256, device="meta")  # built since the 32-row tiles
     with pytest.raises(ValueError, match="no kernel"):
         ac.causal_attention_fwd(wide, wide, wide, 0.0625)
-    wider = torch.zeros(1, 4, 1, 384, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ac.causal_attention_fwd(wider, wider, wider, 0.05)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        A.flash_causal_attention(wider, wider, wider)
-    odd = torch.zeros(1, 4, 1, 48, device="meta")  # the wrappers take built widths; the route pads
-    with pytest.raises(ValueError, match="zero-pads"):
-        ac.causal_attention_fwd(odd, odd, odd, 0.1)
+    for width in (384, 512, 1024):  # past 256 the wide kernels take every multiple of 128
+        wider = torch.zeros(1, 4, 1, width, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            ac.causal_attention_fwd(wider, wider, wider, 0.05)
+        with pytest.raises(ValueError, match="no kernel"):
+            A.flash_causal_attention(wider, wider, wider)
+    for width in (48, 320):  # the wrappers take the kernels' widths; the route pads
+        odd = torch.zeros(1, 4, 1, width, device="meta")
+        with pytest.raises(ValueError, match="zero-pads"):
+            ac.causal_attention_fwd(odd, odd, odd, 0.1)
     assert ac.causal_attention_fwd.launches == ac.causal_attention_bwd_dq.launches == 0
 
 
-@pytest.mark.parametrize("dh", [48, 256])
+@pytest.mark.parametrize("dh", [48, 256, 384])
 def test_wide_and_padded_heads_match_jax(dh, monkeypatch):
-    """A head width the kernels reach through the zero padding (48 → 64)
-    and the widest they are built for (256, 32-row tiles): the port's flash
+    """A head width the kernels reach through the zero padding (48 → 64),
+    the widest of their built instances (256, 32-row tiles) and one of the
+    wide kernels (384, depth chunks and column windows): the port's flash
     backend (CPU: blocked), the kernels' route ``kernel_causal_attention``
     (the padding, then ``FlashCausalAttention`` on the plain versions) and
     the plain versions themselves, against JAX's ``flash_causal_attention``
@@ -157,7 +160,7 @@ def test_wide_and_padded_heads_match_jax(dh, monkeypatch):
         (got * torch.from_numpy(w)).sum().backward()
         for leaf, g, n in zip(leaves, jgrads, "qkv"):
             np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5, err_msg=f"{name} d{n}")
-    assert widths == [ac.kernel_width(dh)] == [64 if dh == 48 else 256]  # the route padded; flash took blocked
+    assert widths == [ac.kernel_width(dh)] == [{48: 64, 256: 256, 384: 384}[dh]]  # the route padded; flash took blocked
     qt, kt, vt, wt = (torch.from_numpy(a) for a in (q, k, v, w))
     out, lse = ac.causal_attention_fwd_reference(qt, kt, vt, scale)
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-6)

@@ -35,6 +35,8 @@ SHAPES = [(40, 300, 64, 64), (37, 600, 64, 3), (16, 256, 3, 64)]  # ragged in N 
 SHAPES += [(24, 200, 32, 32), (19, 150, 64, 4), (21, 130, 128, 128), (23, 140, 5, 128), (18, 170, 128, 5)]
 # widths past 128, which the kernels take at their 256 instances
 SHAPES += [(17, 140, 256, 256), (19, 150, 200, 3), (16, 130, 3, 200)]
+# widths past 256, which the kernels take on their wide variants
+SHAPES += [(15, 130, 384, 3), (14, 120, 3, 384), (13, 110, 300, 520)]
 
 
 def _np_params(rng, d_in, d_out, m):
@@ -185,13 +187,14 @@ def _launch_counts():
 
 
 @pytest.mark.parametrize("device", ["meta", "cuda"])
-def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
-    """Off the CPU, a width past ``MAX_WIDTH`` (256) raises
-    ``NotImplementedError`` naming ROADMAP Queue 3, in the forward and both
-    backward wrappers, before anything is launched; a width the kernels
-    take on a meta tensor reaches the device check. CUDA-typed tensors are
-    faked as meta tensors that report ``device.type == "cuda"``, so no card
-    is needed."""
+def test_card_path_at_an_unbuilt_width_names_the_roadmap(device, monkeypatch):
+    """Past ``BUILT_WIDTH`` (256) the card path takes the wide variants
+    (the ROADMAP item that this test once named is done): no width raises.
+    On meta tensors the forward and both backward wrappers reach the
+    device check; on CUDA-typed tensors (meta tensors that report
+    ``device.type == "cuda"``, so no card is needed), with the launcher
+    recording instead of launching, K1 calls its ``_wide`` entry with a
+    scratch and K2 and K3 their entries with theirs."""
     class CudaTyped:  # a meta tensor whose device says cuda
         def __init__(self, t):
             self.t = t
@@ -203,38 +206,53 @@ def test_card_path_at_an_unbuilt_width_names_the_roadmap(device):
         def device(self):
             return torch.device("cuda")
 
+    assert hc.kernel_route(300, 32) == "wide"
     fwd, rest = _meta_arrays(5, 70, 300, 32)
-    if device == "cuda":
-        fwd, rest = [CudaTyped(a) for a in fwd], [CudaTyped(a) for a in rest]
-    before = _launch_counts()
-    for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
-                 lambda: hc.stream_bwd_dku(*fwd, *rest)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 3: the streaming lookups at other widths"):
-            call()
-    assert _launch_counts() == before
+    calls = (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
+             lambda: hc.stream_bwd_dku(*fwd, *rest))
     if device == "meta":
-        built, _ = _meta_arrays(5, 70, 64, 3)
-        with pytest.raises(ValueError, match="no kernel"):
-            hc.stream_lookup_fwd(*built)
+        before = _launch_counts()
+        for call in calls:
+            with pytest.raises(ValueError, match="no kernel"):
+                call()
+        assert _launch_counts() == before
+        return
+    fwd[:], rest[:] = [CudaTyped(a) for a in fwd], [CudaTyped(a) for a in rest]
+    entries, scratch = [], []
+    monkeypatch.setattr(hc, "_bind", lambda stem, name, n_ptrs, n_ints: (name, n_ptrs, n_ints))
+    monkeypatch.setattr(hc, "_workspace_floats", lambda stem, name, *sizes: scratch.append((name, sizes)) or 1)
+    monkeypatch.setattr(hc, "launch", lambda stem, fn, device, *args: entries.append((fn, len(args))))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *shape, device=None, **kw: empty(*shape, device="meta", **kw))
+    before = _launch_counts()
+    for call in calls:
+        call()
+    assert [b - a for a, b in zip(before, _launch_counts())] == [1, 1, 1]
+    assert entries == [(("hopfield_stream_fwd_wide", 9, 4), 13), (("hopfield_stream_bwd_dx", 13, 4), 17),
+                       (("hopfield_stream_bwd_dku", 12, 4), 16)]
+    assert [name for name, _ in scratch] == ["hopfield_stream_fwd_workspace", "hopfield_stream_bwd_dx_workspace",
+                                            "hopfield_stream_bwd_dku_workspace"]
+    assert {sizes for _, sizes in scratch} == {(5, 70, 300, 32)}
 
 
-@pytest.mark.parametrize("d_in,d_out,takes", [
-    (1, 1, True), (3, 64, True), (5, 128, True), (128, 5, True), (33, 7, True), (128, 128, True),
-    (129, 64, True), (64, 129, True), (200, 200, True), (256, 3, True), (256, 256, True),
-    (257, 64, False), (64, 257, False), (300, 300, False),
+@pytest.mark.parametrize("d_in,d_out,wide", [
+    (1, 1, False), (3, 64, False), (5, 128, False), (128, 5, False), (33, 7, False), (128, 128, False),
+    (129, 64, False), (64, 129, False), (200, 200, False), (256, 3, False), (256, 256, False),
+    (257, 64, True), (64, 257, True), (300, 300, True),
 ])
-def test_the_card_takes_every_width_up_to_128(d_in, d_out, takes):
+def test_the_card_takes_every_width_up_to_128(d_in, d_out, wide):
     """The dispatch rule, on meta tensors: ``kernel_takes`` holds for every
-    width from 1 to ``MAX_WIDTH`` (256), where K1, K2 and K3 reach the
-    device check (a meta tensor has no kernel); past it all three raise
-    ``NotImplementedError``. Nothing is launched either way."""
-    assert hc.kernel_takes(d_in, d_out) is takes
+    width of at least 1; up to ``BUILT_WIDTH`` (256) on both sides the
+    route is a built instance, past it the wide variants. K1, K2 and K3
+    reach the device check either way (a meta tensor has no kernel), and
+    nothing is launched."""
+    assert hc.kernel_takes(d_in, d_out)
+    assert hc.kernel_route(d_in, d_out) == ("wide" if wide else "instance")
     fwd, rest = _meta_arrays(5, 70, d_in, d_out)
     before = _launch_counts()
     for call in (lambda: hc.stream_lookup_fwd(*fwd), lambda: hc.stream_bwd_dx(*fwd, *rest),
                  lambda: hc.stream_bwd_dku(*fwd, *rest)):
-        with pytest.raises(ValueError if takes else NotImplementedError,
-                           match="no kernel for device meta" if takes else "only widths 1 to 256"):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             call()
     assert _launch_counts() == before
 
@@ -411,8 +429,8 @@ def test_fused_wrapper_routes_and_checks():
     raises "no kernel" on a meta tensor and "forward-only" with autograd
     on, and checks the lookups' widths, x and the level count: lookups that
     chain as (d, d), (d, di), (di, d) reach the device check at any d, di
-    up to 256, a chain that breaks raises ``ValueError``, and past 256 the
-    card path raises ``NotImplementedError`` naming ROADMAP Queue 3."""
+    (past 256 too, where the wide walk runs the stages), and a chain that
+    breaks raises ``ValueError``."""
     rng = np.random.default_rng(12)
     layers = list(_layers(_bottleneck_params(rng, 70)).values())
     x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
@@ -438,9 +456,9 @@ def test_fused_wrapper_routes_and_checks():
         broken = [HopfieldLookup(a, b, 70, device="meta") for a, b in widths]
         with pytest.raises(ValueError, match="must chain"):
             hc.bottleneck_fused_fwd(*broken, torch.zeros(5, widths[0][0], device="meta"), 512)
-    for d, di in ((300, 3), (64, 257)):
+    for d, di in ((300, 3), (64, 257), (384, 3), (64, 300)):
         wide = [HopfieldLookup(a, b, 70, device="meta") for a, b in ((d, d), (d, di), (di, d))]
-        with torch.no_grad(), pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 3"):
+        with torch.no_grad(), pytest.raises(ValueError, match="no kernel"):
             hc.bottleneck_fused_fwd(*wide, torch.zeros(5, d, device="meta"), 512)
     with pytest.raises(ValueError, match=r"\(\.\.\., 64\)"):
         hc.bottleneck_fused_fwd(*meta, torch.zeros(5, 32, device="meta"), 512)

@@ -203,14 +203,20 @@ def test_input_shape_check_and_unported_methods():
         tm(torch.zeros(2, 1, 28, 28))
     with pytest.raises(ValueError, match="expected NHWC"):
         tm(torch.zeros(2, 32, 32, 1))
-    for call in (tm.sample, tm.interpolate):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    # sample and interpolate are ported (prior="None" here): a sample's
+    # images, and x unchanged where the two batches' shapes differ
+    x = torch.zeros(2, 28, 28, 1)
+    assert tm.sample(2, generator=torch.Generator().manual_seed(0)).shape == (2, 28, 28, 1)
+    assert tm.interpolate(x, torch.zeros(3, 28, 28, 1)) is x
     assert {"post_vq_conv.weight", "post_vq_conv.bias"} <= tm.state_dict().keys()
     # fit_prior: the uniform prior of prior="None" scores about log2(L) bits;
     # the PixelCNN prior is not ported
     _, aux = tm(torch.zeros(1, 28, 28, 1), fit_prior=True)
     assert abs(aux.item() - np.log2(cfg.num_levels)) < 0.5
     cfg.prior = "PixelCNN"
+    pixelcnn = HopVAE(cfg, impl="torch", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        HopVAE(cfg, impl="torch", device="cpu")(torch.zeros(1, 28, 28, 1), fit_prior=True)
+        pixelcnn(torch.zeros(1, 28, 28, 1), fit_prior=True)
+    for call in (lambda: pixelcnn.sample(1), lambda: pixelcnn.interpolate(x, x)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
+            call()

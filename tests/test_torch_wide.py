@@ -1,0 +1,245 @@
+"""Widths past 256: the dispatch of K1 to K5, their routes against JAX,
+and the wide kernels' precision scheme emulated on the CPU.
+
+Past a width of 256 the streaming lookups (K1 to K4) run their wide
+variants and K5 its wide instances (every multiple of 128): each product's
+depth streamed in chunks of 64, each chunk's three-pass TF32 products
+summed in a fresh sum and added to the running one, the outputs in column
+windows. The plain versions that the CPU runs hold the same functions at
+any width; ``tests/test_torch_hopfield.py`` holds them against the Pallas
+kernels in interpret mode at (384, 3), (3, 384) and (300, 520). Here:
+the dispatch rule; a head of 320 through the kernels' zero padding and a
+Transformer prior with one head of 512 against JAX; and the chunked
+three-pass scheme at width 512 against the plain versions, within the
+limits ``chip_smoke.py`` holds the kernels to. Measured here (N 300, M
+1024, 512 → 512; K5 at B 2, S 48, one head of 512), three passes: K1 out
+6.9e-7, m 5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise
+at most 1.3e-6; K5 forward 5.1e-7, backward 5.6e-7. One pass: K1's m
+3.0e-4 and l 1.1e-3 from float64, K2 and K3 7.1e-4, K5's forward 4.6e-4.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hopvae_tpu.ops import attention as jax_attention
+from hopvae_torch.ops import attention as A
+from hopvae_torch.ops import attention_cuda as ac
+from hopvae_torch.ops import hopfield_cuda as hc
+from test_torch_hopfield_tf32 import (BWD_NORMWISE, OUT_ATOL, STAT_RTOL, _float64_backward, _float64_forward,
+                                      _forward_errors, _normwise, round_tf32)
+from test_torch_attention_tf32 import ATTN_BWD_NORMWISE, ATTN_FWD_NORMWISE
+from test_torch_prior import _jax_nll_bits, _nll_bits, _pair, _prior_state
+
+DC = 64  # the wide kernels' depth chunk
+TILE = 32  # their streamed tile (patterns in K1, K2; tokens in K3; keys in K5)
+
+
+@pytest.mark.parametrize("width,padded", [(257, 384), (300, 384), (384, 384), (512, 512), (1000, 1024)])
+def test_widths_past_256_are_taken(width, padded):
+    """K1 to K4 take every width on their wide variants, whichever side is
+    past 256; K5 takes every multiple of 128 past 256, and its route pads
+    any other width to the next one. Nothing raises."""
+    for d_in, d_out in ((width, 3), (3, width), (width, width)):
+        assert hc.kernel_takes(d_in, d_out) and hc.kernel_route(d_in, d_out) == "wide"
+    assert ac.kernel_width(width) == padded
+    assert ac.kernel_width(padded) == padded
+
+
+def test_padded_wide_head_matches_jax(monkeypatch):
+    """A head of 320 through ``kernel_causal_attention``: zero-padded to
+    384, the wide kernels' width, then ``FlashCausalAttention`` on the
+    plain versions, against JAX's ``flash_causal_attention`` (blocked off
+    the TPU). Values within rtol 1e-5, atol 1e-6; the gradients of
+    ``sum(out * w)`` within rtol 1e-4, atol 1e-5 (tests/test_torch_attention.py)."""
+    rng = np.random.default_rng(9)
+    q, k, v, w = (rng.standard_normal((2, 37, 1, 320), dtype=np.float32) for _ in range(4))
+    jflash = jax_attention.flash_causal_attention
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in (q, k, v))))
+    jgrads = jax.grad(lambda q, k, v: jnp.sum(jflash(q, k, v) * w), (0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    widths = []
+    fwd = ac.causal_attention_fwd
+    monkeypatch.setattr(ac, "causal_attention_fwd", lambda q, *rest: widths.append(q.shape[-1]) or fwd(q, *rest))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = A.kernel_causal_attention(*leaves, 1 / math.sqrt(320))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-6)
+    (got * torch.from_numpy(w)).sum().backward()
+    for leaf, g, name in zip(leaves, jgrads, "qkv"):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+    assert widths == [384]
+
+
+def test_one_head_of_512_prior_matches_jax():
+    """``--set prior_d_model=512 --set prior_heads=1 --set prior_attn=flash``
+    at a tiny size (one layer, S = 48): the head of 512 takes the wide
+    kernels unpadded on the card, the blocked path on the CPU. Logits
+    within rtol 1e-4, atol 1e-5 and every parameter's NLL gradient within
+    rtol 5e-4, atol 1e-6 of JAX (tests/test_torch_prior.py)."""
+    jprior, params, prior, cfg = _pair(prior_d_model=512, prior_heads=1, prior_layers=1, prior_attn="flash")
+    assert prior.blocks[0].attn == jprior.attn == "flash" and ac.kernel_width(512) == 512
+    rng = np.random.default_rng(6)
+    g = rng.integers(0, cfg.num_levels, (2, 4, 4, 3)).astype(np.float32)
+    want = jax.jit(jprior.forward)(params, jnp.asarray(g))
+    jgrads = jax.jit(jax.grad(lambda p: _jax_nll_bits(jprior.forward(p, jnp.asarray(g)), jnp.asarray(g))))(params)
+    got = prior(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    _nll_bits(got, torch.from_numpy(g)).backward()
+    want_grads = _prior_state(jgrads)
+    for name, p in prior.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), rtol=5e-4, atol=1e-6, err_msg=name)
+
+
+# ------------------------------------------------------------ the scheme at 512
+
+
+def chunked_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, chunk: int = DC) -> torch.Tensor:
+    """``a @ b`` over the last axis of ``a`` as the wide kernels run a
+    product: 8-deep steps of one or three TF32 passes (small·big,
+    big·small, big·big), each ``chunk`` of the depth summed in a fresh f32
+    sum that is added to the running one."""
+    a_big, b_big = round_tf32(a), round_tf32(b)
+    a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
+    total = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    for c0 in range(0, a.shape[-1], chunk):
+        part = torch.zeros_like(total)
+        for k0 in range(c0, min(c0 + chunk, a.shape[-1]), 8):
+            ka, kb = (..., slice(k0, k0 + 8)), (..., slice(k0, k0 + 8), slice(None))
+            if passes == 3:
+                part = part + a_small[ka] @ b_big[kb]
+                part = part + a_big[ka] @ b_small[kb]
+            part = part + a_big[ka] @ b_big[kb]
+        total = total + part
+    return total
+
+
+def wide_forward(x2, K, U, s, t, passes):
+    """``(out, m, l)`` of the wide forward walk: the scores over depth
+    chunks, an online softmax over pattern tiles of 32, each tile's ``P U``
+    in a fresh sum, the denominator a compensated sum."""
+    beta = 1.0 / math.sqrt(x2.shape[1])
+    q = hc._query(hc._state_ln(x2)[0], s, t)
+    n = x2.shape[0]
+    m, l, l_lo = torch.full((n, 1), -1e30), torch.zeros(n, 1), torch.zeros(n, 1)
+    acc = torch.zeros(n, U.shape[1])
+    for p0 in range(0, K.shape[0], TILE):
+        sc = chunked_tf32(q, K[p0:p0 + TILE].T.contiguous(), passes) * beta
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        a, b = l * alpha, l_lo * alpha + p.sum(-1, keepdim=True)
+        total = a + b
+        bb = total - a
+        l, l_lo = total, (a - (total - bb)) + (b - bb)
+        acc = acc * alpha + chunked_tf32(p, U[p0:p0 + TILE].contiguous(), passes, chunk=TILE)
+        m = m_new
+    l = l + l_lo
+    return acc / l, m, l
+
+
+def wide_backward(x2, K, U, s, t, g, m, l, delta, passes):
+    """``(dx, dK, dU, ds, dt)`` of the wide K2 and K3: ``q Kᵀ`` and ``g Uᵀ``
+    over depth chunks, ``dS K`` over pattern tiles and ``Aᵀ g``, ``dSᵀ q``
+    over token tiles, each tile in a fresh sum; the LayerNorm backward in
+    float64."""
+    beta = 1.0 / math.sqrt(x2.shape[1])
+    xhat, inv = hc._state_ln(x2)
+    q = hc._query(xhat, s, t)
+    a = torch.exp(chunked_tf32(q, K.T.contiguous(), passes) * beta - m) / l
+    dsc = a * (chunked_tf32(g, U.T.contiguous(), passes) - delta) * beta
+    dq = chunked_tf32(dsc, K, passes, chunk=TILE).double()
+    dxhat = dq * s.double()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dk = chunked_tf32(dsc.T.contiguous(), q, passes, chunk=TILE)
+    du = chunked_tf32(a.T.contiguous(), g, passes, chunk=TILE)
+    return dx.float(), dk, du, (dq * xhat).sum(0).float(), dq.sum(0).float()
+
+
+def _lookup_case(d_in=512, d_out=512, n=300, m_patterns=1024, seed=3):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, k, u, g = f(n, d_in), f(m_patterns, d_in), f(m_patterns, d_out), f(n, d_out)
+    s, t = 1 + 0.2 * f(d_in), 0.2 * f(d_in)
+    out, m, l = hc.stream_lookup_fwd_reference(x, k, u, s, t)
+    return x, k, u, s, t, g, m, l, (g * out).sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_wide_lookup_forward_scheme_at_512(passes):
+    """The wide K1 at 512 → 512 with three passes: out, m and l within
+    ``OUT_ATOL`` and ``STAT_RTOL`` of the f32 plain version, and no farther
+    from float64 than twice the plain version's distance, or 5e-8, 5e-7
+    and 2e-6. With one pass the row stats miss ``STAT_RTOL`` from float64."""
+    x, k, u, s, t, *_ = _lookup_case()
+    got = wide_forward(x, k, u, s, t, passes)
+    exact = _float64_forward(x, k, u, s, t)
+    if passes == 1:
+        assert max(_forward_errors(got, exact)[1:]) > STAT_RTOL
+        return
+    plain = hc.stream_lookup_fwd_reference(x, k, u, s, t)
+    out_err, m_err, l_err = _forward_errors(got, plain)
+    assert out_err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL
+    for mine, theirs, floor in zip(_forward_errors(got, exact), _forward_errors(plain, exact), (5e-8, 5e-7, 2e-6)):
+        assert mine <= max(2 * theirs, floor)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_wide_lookup_backward_scheme_at_512(passes):
+    """The wide K2 and K3 at 512 → 512 with three passes: each of dx, dK,
+    dU, ds, dt within ``BWD_NORMWISE`` of the f32 plain version, and within
+    twice its distance from float64 (or 2e-6). One pass misses
+    ``BWD_NORMWISE`` from float64."""
+    args = _lookup_case(seed=4)
+    got = wide_backward(*args, passes=passes)
+    exact = _float64_backward(args)
+    if passes == 1:
+        assert _normwise(got, exact) > BWD_NORMWISE
+        return
+    plain = hc.stream_lookup_bwd_reference(*args)
+    for a, b in zip(got, plain):
+        assert _normwise([a], [b]) <= BWD_NORMWISE
+    assert _normwise(got, exact) <= max(2 * _normwise(plain, exact), 2e-6)
+
+
+def _wide_attention(q, k, v, g, scale, passes):
+    """K5's wide kernels' products on the plain forward and backward: ``q kᵀ``
+    and ``g vᵀ`` over depth chunks, ``P v``, ``Pᵀ g``, ``dSᵀ q`` and ``dS k``
+    over key or query tiles of 32, each in a fresh sum. ``(out, lse, dq,
+    dk, dv)``."""
+    qh, kh, vh, gh = (a.transpose(1, 2) for a in (q, k, v, g))
+    s = q.shape[1]
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = chunked_tf32(qh, kh.transpose(-1, -2).contiguous(), passes) * scale
+    lse = torch.logsumexp(torch.where(mask, scores, float("-inf")), dim=-1)
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    out = chunked_tf32(p, vh, passes, chunk=TILE)
+    delta = (gh * out).sum(-1)
+    ds = p * (chunked_tf32(gh, vh.transpose(-1, -2).contiguous(), passes) - delta[..., None])
+    dq = chunked_tf32(ds, kh, passes, chunk=TILE) * scale
+    dk = chunked_tf32(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=TILE) * scale
+    dv = chunked_tf32(p.transpose(-1, -2).contiguous(), gh, passes, chunk=TILE)
+    return [out.transpose(1, 2), lse] + [a.transpose(1, 2) for a in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_wide_attention_scheme_at_512(passes):
+    """K5's wide kernels at one head of 512 (B 2, S 48): with three passes
+    out and lse within ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within
+    ``ATTN_BWD_NORMWISE`` of the plain versions; one pass misses the
+    forward's limit from float64."""
+    rng = np.random.default_rng(2)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 48, 1, 512), dtype=np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(512)
+    got = _wide_attention(q, k, v, g, scale, passes)
+    if passes == 1:
+        exact = ac.causal_attention_fwd_reference(q.double(), k.double(), v.double(), scale)
+        assert _normwise(got[:2], list(exact)) > ATTN_FWD_NORMWISE
+        return
+    out, lse = ac.causal_attention_fwd_reference(q, k, v, scale)
+    assert _normwise(got[:2], [out, lse]) <= ATTN_FWD_NORMWISE
+    plain = ac.causal_attention_bwd_reference(q, k, v, out, lse, g, scale)
+    assert _normwise(got[2:], list(plain)) <= ATTN_BWD_NORMWISE

@@ -9,7 +9,8 @@ port's nvcc flags, prints each build's ptxas registers and spills, and runs
 every build twice, in turns, at phase 7's full-width shapes of
 ``chip_smoke.py`` and a few ragged ones: the normwise error of dQ, dK and
 dV against the plain versions, whether a second launch repeats the first
-bit for bit, whether its outputs equal the ``change`` build's bit for bit,
+bit for bit, whether its outputs equal the ``change`` build's bit for bit
+(a build that does not take a head width reports ``refused``),
 and the time of each kernel (CUDA events). One JSON line per build and
 shape.
 """
@@ -61,6 +62,8 @@ def call(lib, name: str, args, outs) -> None:
     strides = [st for a in (q, k, v, g) for st in a.stride()[:3]]
     err = fn(*(a.data_ptr() for a in (q, k, v, g, lse, delta, *outs)), b, s, h, dh, *strides, scale,
              torch.cuda.current_stream().cuda_stream)
+    if err == 1:  # cudaErrorInvalidValue: a head width the build does not take
+        raise ValueError("refused")
     if err:
         raise RuntimeError(f"{name}: cudaError {err}")
 
@@ -91,9 +94,13 @@ def main(argv: list[str]) -> int:
             for name in [*libs, *reversed(libs)]:
                 lib = libs[name]
                 got, again = ([torch.empty(want[0].shape, device="cuda") for _ in range(3)] for _ in range(2))
-                for outs in (got, again):
-                    call(lib, "causal_attention_bwd_dkv", args, outs[:2])
-                    call(lib, "causal_attention_bwd_dq", args, outs[2:])
+                try:
+                    for outs in (got, again):
+                        call(lib, "causal_attention_bwd_dkv", args, outs[:2])
+                        call(lib, "causal_attention_bwd_dq", args, outs[2:])
+                except ValueError:
+                    print(json.dumps({"build": name, "shape": label, "refused": True}), flush=True)
+                    continue
                 torch.cuda.synchronize()
                 row = {"build": name, "shape": label,
                        "normwise_err": {n: cs.normwise(a, w) for n, a, w in zip(("dK", "dV", "dQ"), got, want)},

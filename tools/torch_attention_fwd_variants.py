@@ -10,7 +10,9 @@ registers and spills, and runs every build twice, in turns, at phase 7's
 full-width shapes of ``chip_smoke.py`` and a few ragged ones (one with views off
 16-byte alignment): the normwise error of ``out`` and ``lse`` against the
 plain version, whether a second launch repeats the first bit for bit,
-whether its outputs equal the ``change`` build's bit for bit, and, at the
+whether its outputs equal the ``change`` build's bit for bit (a build
+that does not take a head width, such as a parent's past 256, reports
+``refused``), and, at the
 full-width shapes, its time (CUDA events, mean of ``--reps`` launches) beside
 ``F.scaled_dot_product_attention(is_causal=True)``'s forward on the same
 inputs and the bounds of ``chip_smoke.py`` (three TF32 passes, and the
@@ -54,6 +56,8 @@ def call(lib, q, k, v, scale, out, lse) -> None:
     strides = [st for a in (q, k, v) for st in a.stride()[:3]]
     err = fn(*(a.data_ptr() for a in (q, k, v, out, lse)), b, s, h, dh, *strides, scale,
              torch.cuda.current_stream().cuda_stream)
+    if err == 1:  # cudaErrorInvalidValue: a head width the build does not take
+        raise ValueError("refused")
     if err:
         raise RuntimeError(f"causal_attention_fwd: cudaError {err}")
 
@@ -97,8 +101,12 @@ def main(argv: list[str]) -> int:
                 lib = libs[name]
                 got, again = ((torch.empty(b, s, h, dh, device="cuda"), torch.empty(b, h, s, device="cuda"))
                               for _ in range(2))
-                for outs in (got, again):
-                    call(lib, q, k, v, scale, *outs)
+                try:
+                    for outs in (got, again):
+                        call(lib, q, k, v, scale, *outs)
+                except ValueError:
+                    print(json.dumps({"build": name, "shape": label, "refused": True}), flush=True)
+                    continue
                 torch.cuda.synchronize()
                 row = {"build": name, "shape": label,
                        "normwise_err": {n: cs.normwise(a, w) for n, a, w in zip(("out", "lse"), got, want)},
