@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Fifteen phases, each of which raises on failure:
+Sixteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -92,7 +92,23 @@ Fifteen phases, each of which raises on failure:
     ``SERVING_GOLDENS``: the interpolation of the ``ffhq64_synthetic4``
     batch with its reverse (its grid's flipped bins counted) and the
     decode of the committed grid.
-15. The run's wall time (the build included), the kernel summary as one
+15. The Transformer prior's KV-cached decode and ``sample`` (``Transformer-
+    FFHQ-64.msgpack``): (a) f32 with TF32 off, ``decode_logits`` of the
+    committed grid (B 4, S 867) within 1e-5 normwise of ``forward``
+    through K5 (and its logits outside rtol, atol 2e-5 counted), and its bits with f32, bf16, int8 and int4 caches within
+    1e-4 (f32) or 1e-3 of ``DECODE_GOLDENS``; (b) ``sample(4, _gumbel=...)``
+    on the CUDA graphs with the committed noise, f32 and int8 caches, draw
+    for draw against JAX's grids (a diverging row only at a printed near
+    tie, a top-two margin under 1e-4), every cache row written; (c) the
+    graphs against the eager step at 256 samples, int8, bit for bit; (d)
+    ``sample`` of 256 through ``InferenceEngine`` on the production path
+    (int8 caches), three requests with every kernel's count read around
+    each (K1 1 a call, the rest 0), samples/s, the stages' device times,
+    each segment's step on its graph and eagerly with its parts (the
+    prefix read back as f32, the two cache products), capture time and
+    peak memory; the prior alone with bf16 and f32 caches; (e) ``ffhq_128``
+    with ``Transformer-FFHQ-128.msgpack``, 64 samples, S 3267, once.
+16. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -115,8 +131,9 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
-from hopvae_torch.data import (GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, SERVING_GOLDENS, TRAIN_GOLDEN, get_datasets,
-                               golden_grid, golden_input, image_stats, interp_grid, synthetic_images, _normalize)
+from hopvae_torch.data import (DECODE_GOLDENS, GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, SERVING_GOLDENS,
+                               TRAIN_GOLDEN, get_datasets, golden_grid, golden_input, gumbel_noise, image_stats,
+                               interp_grid, sample_grid, synthetic_images, _normalize)
 from hopvae_torch.models.hopvae import PRIOR, HopVAE
 from hopvae_torch.ops import attention_cuda as ac
 from hopvae_torch.ops import hopfield_cuda as hc
@@ -1488,6 +1505,260 @@ def phase_serving_modes() -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 15
+
+
+# decode_logits (f32 caches) against forward: JAX's own gate at its tiny
+# test sizes is rtol and atol 2e-5 elementwise (tests/test_torch_decode.py
+# holds the port to it there); at full width on the trained checkpoint JAX's
+# own decode misses it on the CPU (10 of 1.78 M logits, worst 1.6 times the
+# bound: a logit near 0 carries the f32 error of hidden states of order 1),
+# so the card is held normwise, max|decode - forward| / max|forward|, to
+# K5's forward limit (JAX's own is 3.4e-6), and the elementwise count is
+# reported beside it
+DECODE_TOL = 2e-5
+DECODE_NORMWISE = ATTN_FWD_NORMWISE
+DECODE_DTYPES = ("float32", "bfloat16", "int8", "int4")
+
+
+def decode_prior(cache_dtype: str | None = None, config: str = PRIOR_GOLDENS["config"],
+                 checkpoint: str = PRIOR_GOLDENS["checkpoint"], **kw) -> HopVAE:
+    """A ``HopVAE`` with the Transformer prior and the checkpoint's weights,
+    its ``prior_cache_dtype`` as given (else the auto rule)."""
+    cfg = load_config(config)
+    cfg.prior = "Transformer"
+    if cache_dtype is not None:
+        cfg.prior_cache_dtype = cache_dtype
+    model = HopVAE(cfg, device="cuda", **kw)
+    model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / checkpoint)))
+    return model.eval()
+
+
+def graphed(prior, mode: str, b: int, cache_dtype: str):
+    """The prior's captured decoder for (mode, batch, cache dtype)."""
+    return next(dec for key, dec in prior._graphed.items() if key[:3] == (mode, b, cache_dtype))
+
+
+def grid_bits(logits: torch.Tensor, grid: torch.Tensor) -> float:
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return float(-torch.gather(logp, -1, grid.long()[..., None]).mean()) * math.log2(math.e)
+
+
+def caches_written(dec) -> bool:
+    """Every position of every layer's caches holds a row (a step index
+    frozen into a graph would write one position and leave the rest 0)."""
+    for cache in dec.caches:
+        if "ks" in cache and not bool((cache["ks"] > 0).all() and (cache["vs"] > 0).all()):
+            return False
+        if not all(bool((cache[n].float().abs().amax(dim=-1) > 0).all()) for n in ("k", "v")):
+            return False
+    return True
+
+
+def draw_check(prior, noise: torch.Tensor, want: np.ndarray, cache_dtype: str) -> dict:
+    """The graph path's draws with ``noise`` against JAX's grid ``want``: rows
+    that differ, each with its first differing step and the top-two margin
+    of ``logits + noise`` there (teacher-forced on JAX's grid)."""
+    got = prior.sample(want.shape[0], _gumbel=noise).cpu().numpy()
+    b = want.shape[0]
+    rows = []
+    for row in np.nonzero((got != want).reshape(b, -1).any(axis=1))[0]:
+        t = int(np.argmax(got[row].reshape(-1) != want[row].reshape(-1)))
+        logits = prior.decode_logits(torch.from_numpy(want).cuda(), cache_dtype).reshape(b, prior.seq, -1)
+        top2 = torch.topk(logits[row, t] + noise[t, row], 2).values
+        rows.append({"row": int(row), "first_step": t, "margin": float(top2[0] - top2[1])})
+    return {"draws": int(got.size), "differ": int((got != want).sum()), "diverging_rows": rows}
+
+
+def step_times(dec, reps: int = 12) -> list[dict]:
+    """Device ms of one step of each segment: replayed from its graph, run
+    eagerly, and its parts over the layers (the caches' prefix read back as
+    f32, the two cache products), from CUDA events; the caches are zeroed
+    first (the times do not depend on their values)."""
+    out = []
+    b, prior = dec.batch, dec.prior
+    kv, g, dh = prior.kv_heads, prior.heads // prior.kv_heads, prior.d // prior.heads
+    for k, (start, stop) in enumerate(dec.segments):
+        n = min(reps, stop - start)
+
+        def run(fn):
+            dec.reset(start)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(n):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return ev[0].elapsed_time(ev[1]) / n
+
+        graph_ms = run(dec.graphs[k].replay)
+        eager_ms = run(lambda: dec.step(k))
+        keys = [c["k"][:, :, :stop].float() for c in dec.caches]
+        values = [c["v"][:, :, :stop].float() for c in dec.caches]
+        q = torch.randn(b, kv, g, dh, device="cuda")
+        att = torch.softmax(torch.randn(b, kv, g, stop, device="cuda"), dim=-1)
+        dequant = cuda_ms(lambda: [c[name][:, :, :stop].float() for c in dec.caches for name in ("k", "v")],
+                          reps=10)
+        qk = cuda_ms(lambda: [torch.matmul(q, kk.transpose(-1, -2)) for kk in keys], reps=10)
+        av = cuda_ms(lambda: [torch.matmul(att, vv) for vv in values], reps=10)
+        out.append({"segment": k, "positions": stop - start, "prefix": stop, "graph_ms": graph_ms,
+                    "eager_ms": eager_ms, "dequant_ms": dequant, "qk_ms": qk, "av_ms": av,
+                    "rest_ms": graph_ms - dequant - qk - av})
+    return out
+
+
+def mean_step(steps: list[dict], key: str) -> float:
+    """A key of ``step_times`` averaged over the positions (each segment
+    weighs its count)."""
+    return sum(r[key] * r["positions"] for r in steps) / sum(r["positions"] for r in steps)
+
+
+def decode_serving(label: str, config: str, checkpoint: str, n: int, requests: int, want: dict) -> dict:
+    """``InferenceEngine(ops=("sample",))`` under the Transformer prior on
+    the production path (caches ``auto``): its build with the graphs'
+    capture, ``requests`` seeded calls with every kernel's count read
+    around each, samples/s on the host clock, each segment's step times,
+    the draws' range, the caches' rows and the peak memory."""
+    cfg = load_config(config)
+    cfg.prior = "Transformer"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, state_from_checkpoint(str(CHECKPOINTS / checkpoint)), max_batch=1, n_sample=n,
+                          ops=("sample",))
+    build_s = time.perf_counter() - t0
+    prior = eng.model.prior
+    dec = graphed(prior, "sample", n, prior.cache_dtype)
+    calls, wall = [], 0.0
+    for seed in range(requests):
+        out, ms, launches = counted(lambda: eng.sample(seed))
+        wall += ms
+        calls.append({"seed": seed, "ms": ms, "launches": launches, "finite": bool(np.isfinite(out).all()),
+                      "shape_ok": out.shape == (n, cfg.image_size, cfg.image_size, cfg.num_channels)})
+    draws_in_range = bool((dec.out >= 0).all() and (dec.out < prior.num_levels).all())
+    written = caches_written(dec)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        steps = step_times(dec)
+    res = {"config": config, "checkpoint": checkpoint, "batch": n, "seq": prior.seq, "cache_dtype": prior.cache_dtype,
+           "segments": len(dec.segments), "engine_build_s": build_s, "capture_s": dec.capture_s,
+           "samples_per_s": 1e3 * n * requests / wall, "requests": calls, "draws_in_range": draws_in_range,
+           "caches_written": written, "peak_gib": peak / 2**30,
+           "step_graph_ms": mean_step(steps, "graph_ms"), "step_eager_ms": mean_step(steps, "eager_ms"),
+           "steps": steps}
+    bad = [c for c in calls if c["launches"] != want or not (c["finite"] and c["shape_ok"])]
+    if bad or not (draws_in_range and written):
+        raise AssertionError(f"{label}: expected {want} launches a sample, finite images, draws in range and "
+                             f"every cache row written: {bad}, {draws_in_range}, {written}")
+    res["engine"] = eng
+    return res
+
+
+@parity_mode()
+def phase_decode_checks() -> dict:
+    """The Transformer prior's KV-cached decode on the card, f32 with TF32
+    off: (a) teacher-forced ``decode_logits`` against ``forward`` through K5,
+    and the bits of each cache dtype against ``DECODE_GOLDENS``; (b) the
+    graph path's draws with the committed noise against JAX's grids, and
+    the caches' rows; (c) graph against eager at batch 256."""
+    spec = DECODE_GOLDENS
+    res = {}
+    prior = decode_prior("float32").prior
+    grid = torch.from_numpy(golden_grid()).cuda()
+    # (a)
+    with torch.inference_mode():
+        fwd, _, fwd_launches = counted(lambda: prior(grid))
+        dec_logits, _, dec_launches = counted(lambda: prior.decode_logits(grid))
+    ratio = (dec_logits - fwd).abs() / (DECODE_TOL + DECODE_TOL * fwd.abs())
+    bits = {cdt: grid_bits(prior.decode_logits(grid, cdt), grid) for cdt in DECODE_DTYPES}
+    res["teacher_forced"] = {
+        "max_abs_err": float((dec_logits - fwd).abs().max()), "normwise_err": normwise(dec_logits, fwd),
+        "outside_rtol_atol_2e-5": int((ratio > 1).sum()), "worst_ratio_to_2e-5": float(ratio.max()),
+        "logits": dec_logits.numel(), "forward_k5_fwd_launches": fwd_launches["causal_attention_fwd"],
+        "decode_launches": {k: v for k, v in dec_launches.items() if v},
+        "bits": bits, "jax_bits": spec["bits"],
+        "bits_err": {cdt: abs(bits[cdt] - spec["bits"][cdt]) for cdt in DECODE_DTYPES},
+    }
+    # (b)
+    noise = torch.from_numpy(gumbel_noise()).cuda()
+    draws = {}
+    for cdt in ("float32", "int8"):
+        prior.cache_dtype = cdt
+        draws[cdt] = draw_check(prior, noise, sample_grid(cdt), cdt)
+        draws[cdt]["caches_written"] = caches_written(graphed(prior, "sample", 4, cdt))
+    res["draws_vs_jax"] = draws
+    # (c)
+    prior.cache_dtype = "int8"
+    graph_grid = prior.sample(256, generator=torch.Generator(device="cuda").manual_seed(7))
+    t0 = time.perf_counter()
+    eager_grid = prior.sample(256, generator=torch.Generator(device="cuda").manual_seed(7), eager=True)
+    torch.cuda.synchronize()
+    res["graph_vs_eager"] = {"batch": 256, "cache_dtype": "int8", "equal": bool(torch.equal(graph_grid, eager_grid)),
+                             "eager_s": time.perf_counter() - t0}
+    log(json.dumps({"decode_checks": res}))
+    tf = res["teacher_forced"]
+    if tf["normwise_err"] > DECODE_NORMWISE or tf["forward_k5_fwd_launches"] != 4 or tf["decode_launches"]:
+        raise AssertionError(f"decode_logits is off forward through K5 (normwise {DECODE_NORMWISE}), or the "
+                             f"launches are not K5-fwd 4 for forward and none for the decode: {tf}")
+    off = {cdt: e for cdt, e in tf["bits_err"].items() if e > spec["bits_atol"][cdt]}
+    if off:
+        raise AssertionError(f"decode bits off DECODE_GOLDENS: {off}")
+    for cdt, d in draws.items():
+        ties = [r for r in d["diverging_rows"] if r["margin"] >= spec["near_tie"]]
+        if ties or not d["caches_written"]:
+            raise AssertionError(f"{cdt} draws off JAX's grid away from a near tie, or cache rows unwritten: {d}")
+    if not res["graph_vs_eager"]["equal"]:
+        raise AssertionError("the graph path's draws differ from the eager path's")
+    return res
+
+
+def phase_decode_serving() -> dict:
+    """``sample`` under the Transformer prior on the production path (bf16
+    convs, K1; matmuls in f32, torch's default): (d) ffhq_64_scaled at 256
+    samples a call through ``InferenceEngine`` (int8 caches, auto), three
+    requests with every kernel's count read around each, the stages' device
+    times, each segment's step; then the prior alone with bf16 and f32
+    caches; (e) ffhq_128 with ``Transformer-FFHQ-128.msgpack`` at 64 a
+    call, S 3267, once."""
+    want = {**dict.fromkeys((*KERNEL_COUNTERS, *ATTENTION_COUNTERS, "hopfield_bottleneck_fused"), 0),
+            "hopfield_stream_fwd": 1}
+    serving = decode_serving("ffhq_64_scaled sample", PRIOR_GOLDENS["config"], PRIOR_GOLDENS["checkpoint"], 256, 3,
+                             want)
+    eng = serving.pop("engine")
+    stages = spin_and_time(sample_stages(eng.model, 256, 0), reps=2)
+    with torch.inference_mode():
+        same = torch.equal(stages.pop("result"),
+                           eng.model.sample(256, generator=torch.Generator(device="cuda").manual_seed(0)))
+    serving["stage_ms"], serving["stages_compose"] = stages["stage_ms"], same
+    del eng
+    by_dtype = {}
+    for cdt in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        prior = decode_prior(cdt).prior
+        gen = torch.Generator(device="cuda")
+        prior.sample(256, generator=gen.manual_seed(0))  # captures the graphs
+        torch.cuda.synchronize()  # sample returns before its replays end
+        t0 = time.perf_counter()
+        prior.sample(256, generator=gen.manual_seed(1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dec = graphed(prior, "sample", 256, cdt)
+        with torch.inference_mode():
+            steps = step_times(dec)
+        by_dtype[cdt] = {"prior_samples_per_s": 256 / wall, "capture_s": dec.capture_s,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "step_graph_ms": mean_step(steps, "graph_ms"), "step_eager_ms": mean_step(steps, "eager_ms"),
+                         "steps": steps}
+        del prior, dec
+    serving["prior_only"] = by_dtype
+    log(json.dumps({"decode_serving": serving}))
+    if not same:
+        raise AssertionError("the timed stages do not compose to HopVAE.sample")
+    large = decode_serving("ffhq_128 sample", "ffhq_128", "Transformer-FFHQ-128.msgpack", 64, 1, want)
+    del large["engine"]
+    log(json.dumps({"decode_ffhq128": large}))
+    return {"serving": serving, "ffhq128": large, "launches_sample": serving["requests"][0]["launches"]}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1621,8 +1892,11 @@ def main() -> int:
     width_runs = [phase_width_training(*run)["launches"] for run in WIDTH_RUNS]
     width_launches = {name: [run[name] for run in width_runs] for name in KERNEL_COUNTERS}
     serving_modes = phase_serving_modes()
+    phase_decode_checks()
+    decode = phase_decode_serving()
     modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],
-             "launches_serving_sample": serving_modes["launches_sample"]}
+             "launches_serving_sample": serving_modes["launches_sample"],
+             "launches_serving_sample_transformer": decode["launches_sample"]}
     launches, prior_launches = training["launches"], prior_training["launches"]
     wide_lookup_run, wide_prior_run = width_runs[2], width_runs[3]  # embedding_dim=384; a prior head of 512
     kernels = [kernel_summary("hopfield_stream_fwd", [r for r in rows if not r["shape"].startswith("wide")],

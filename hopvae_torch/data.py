@@ -15,7 +15,8 @@ The port's own copies of ``hopvae_tpu/data`` (importing any
 - :func:`golden_grid`: the committed ``assets/ffhq64_grid4.npy``, the JAX
   package's quantized grid of the ``ffhq64_synthetic4`` batch;
   :func:`interp_grid`: ``assets/ffhq64_interp_grid4.npy``, its
-  interpolation grid (``SERVING_GOLDENS``).
+  interpolation grid (``SERVING_GOLDENS``); :func:`sample_grid`: JAX's
+  draws of ``DECODE_GOLDENS`` with the noise of :func:`gumbel_noise`.
 
 :func:`synthetic_images` upsamples with numpy where the JAX package
 calls ``jax.image.resize``, whose f32 sums run in another order. The two
@@ -152,6 +153,29 @@ PRIOR_TRAIN_GOLDEN = {
 }
 
 
+# The Transformer prior's KV-cached decode with PRIOR_GOLDENS' model (the
+# JAX package, f32 CPU; tests/test_torch_decode_goldens.py recomputes it):
+# "bits" are the teacher-forced bits of golden_grid() through JAX's
+# decode_logits with each cache dtype (f32 lands 2e-7 from forward's
+# PRIOR_GOLDENS bits); "noise" the numpy recipe of gumbel_noise(); "grids"
+# JAX's draws at batch 4 with that noise fed to argmax(logits + noise[t])
+# (assets/ffhq64_sample_grid4_*.npy, uint16), and "min_margin" the smallest
+# top-two margin of logits + noise along each of the 4 rows, the floor under
+# the card's near-tie rule ("near_tie").
+DECODE_GOLDENS = {
+    "config": "ffhq_64_scaled",
+    "checkpoint": "Transformer-FFHQ-64.msgpack",
+    "prior": "Transformer",
+    "bits": {"float32": 1.1245952, "bfloat16": 1.1247342, "int8": 1.1243891, "int4": 1.1783848},
+    "bits_atol": {"float32": 1e-4, "bfloat16": 1e-3, "int8": 1e-3, "int4": 1e-3},
+    "noise": {"generator": "numpy.random.default_rng", "seed": 10, "shape": (867, 4, 512)},
+    "grids": {"float32": "ffhq64_sample_grid4_f32.npy", "int8": "ffhq64_sample_grid4_int8.npy"},
+    "min_margin": {"float32": [2.0514e-3, 1.7595e-3, 9.8600e-3, 2.0504e-4],
+                   "int8": [1.9770e-3, 1.0462e-3, 2.1915e-3, 1.9016e-3]},
+    "near_tie": 1e-4,
+}
+
+
 def _normalize(x_uint8: np.ndarray, data_set: str) -> np.ndarray:
     x = x_uint8.astype(np.float32) / 255.0
     if data_set == "MNIST":
@@ -161,6 +185,17 @@ def _normalize(x_uint8: np.ndarray, data_set: str) -> np.ndarray:
     else:  # CIFAR10 / FFHQ: Normalize((.5,.5,.5),(1,1,1))
         x = x - 0.5
     return x
+
+
+def gumbel_noise(shape: tuple = None, seed: int = None) -> np.ndarray:
+    """Gumbel noise ``-log(-log(u))`` in f32, ``u`` uniform from
+    ``np.random.default_rng(seed)`` raised to f32's ``tiny``; by default
+    ``DECODE_GOLDENS``' recipe, the ``(S, B, L)`` noise of its draws."""
+    spec = DECODE_GOLDENS["noise"]
+    shape = spec["shape"] if shape is None else shape
+    seed = spec["seed"] if seed is None else seed
+    u = np.random.default_rng(seed).random(shape, dtype=np.float32)
+    return -np.log(-np.log(np.maximum(u, np.finfo(np.float32).tiny)))
 
 
 def golden_digits() -> np.ndarray:
@@ -178,6 +213,11 @@ def interp_grid() -> np.ndarray:
     """(4, 17, 17, 3) float32 levels: the JAX interpolation grid of
     ``SERVING_GOLDENS`` (stored as uint16)."""
     return np.load(INTERP_GRID).astype(np.float32)
+
+
+def sample_grid(cache_dtype: str) -> np.ndarray:
+    """JAX's draws of ``DECODE_GOLDENS`` with that cache dtype, float32."""
+    return np.load(ASSETS / DECODE_GOLDENS["grids"][cache_dtype]).astype(np.float32)
 
 
 def image_stats(images: np.ndarray) -> np.ndarray:

@@ -11,9 +11,9 @@ Port of ``hopvae_tpu/models/hopvae.py``:
 - ``prior``: ``get_prior(config)``; the PixelCNN prior is not ported, so
   a PixelCNN config builds the backbone alone, and ``fit_prior``,
   ``sample`` and ``interpolate`` raise.
-- ``sample``: the prior's grid, ``/ (L-1)``, the index→embedding lookup
-  and the decoder (:meth:`HopVAE.decode_grid`); the Transformer prior's
-  sampler is not ported and raises.
+- ``sample``: the prior's grid (the Transformer prior's KV-cached
+  decode, or the Normal prior's uniform levels), ``/ (L-1)``, the
+  index→embedding lookup and the decoder (:meth:`HopVAE.decode_grid`).
 - ``interpolate``: the average of two batches' latents through the
   ``hopfield`` and ``embedding_to_index`` lookups, a relu-pair clamp, the
   straight-through round, ``prior.reconstruct`` and the decode; no
@@ -169,8 +169,8 @@ class HopVAE(nn.Module):
     @torch.no_grad()
     def sample(self, num_samples: int = 1, generator: torch.Generator | None = None) -> torch.Tensor:
         """``num_samples`` unconditional images from the prior's grid, drawn
-        with ``generator`` (on the model's device). The Transformer prior's
-        sampler is not ported (ROADMAP.md, Queue 1 item 6) and raises."""
+        with ``generator`` (on the model's device), then decoded: one
+        ``index_to_embedding`` lookup (K1 on the card) and the decoder."""
         grid = self._require_prior().sample(num_samples, generator=generator, device=self.device)
         return self.decode_grid(grid.to(torch.int32).float())
 

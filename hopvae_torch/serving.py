@@ -15,8 +15,10 @@ Port of ``hopvae_tpu/serving.py``:
   is a batch processor over ``.npy`` inputs (image files need PIL) that
   writes a PNG grid (``reconstructions.png``, ``samples.png`` or
   ``interpolations.png``) and the images as ``.npy`` beside it.
-- Under a PixelCNN config ``sample`` and ``interpolate`` raise (ROADMAP.md,
-  Queue 1 item 5), and the Transformer prior's ``sample`` too (item 6).
+- ``sample`` draws from the config's prior: under ``prior=Transformer``
+  its KV-cached decode, whose CUDA graphs the warm-up captures, so no
+  request pays for them. Under a PixelCNN config ``sample`` and
+  ``interpolate`` raise (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations

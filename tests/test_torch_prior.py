@@ -161,10 +161,13 @@ def test_config_rules_match_jax():
     tcfg.prior = "PixelCNN"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_prior(tcfg)
+    # the KV-cached decode runs (tests/test_torch_decode.py holds it against JAX)
     prior = TransformerPrior(_tiny_configs()[1])
-    for call in (prior.sample, prior.decode_logits):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    g = torch.from_numpy(_grid(prior))
+    with torch.no_grad():
+        torch.testing.assert_close(prior.decode_logits(g), prior(g), rtol=2e-5, atol=2e-5)
+    drawn = prior.sample(2, generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == (2, 4, 4, 3) and drawn.min() >= 0 and drawn.max() <= 15
 
 
 def test_reconstruct_and_interpolate_match_jax():
