@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Sixteen phases, each of which raises on failure:
+Seventeen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -108,7 +108,28 @@ Sixteen phases, each of which raises on failure:
     prefix read back as f32, the two cache products), capture time and
     peak memory; the prior alone with bf16 and f32 caches; (e) ``ffhq_128``
     with ``Transformer-FFHQ-128.msgpack``, 64 samples, S 3267, once.
-16. The run's wall time (the build included), the kernel summary as one
+16. The PixelCNN prior: (a) the anchor (``PixelCNN-MNIST-28.msgpack``),
+    f32, its bits on the committed grid within 1e-4 and
+    ``forward(fit_prior=True)`` on the golden digits within 1e-3 of
+    ``PIXELCNN_GOLDENS`` (at most 2 bins of its grid off the committed
+    one), and the sampler's step, teacher-forced on a finished grid,
+    within 1e-5 normwise of ``forward`` of it, on its graph and eagerly
+    alike; (b) ``sample(4, _gumbel=...)`` on the CUDA graphs with the
+    committed noise, draw for draw against JAX's grid (a diverging row
+    only at a printed near tie), every cell of the grid written (a second
+    run with the cells preset to -1 leaves none and draws the same); (c)
+    the graphs against the eager step at 256 samples, bit for bit; (d)
+    ``PIXELCNN_TRAIN_GOLDEN`` through ``Trainer`` twice, bit for bit, the
+    backbone untouched; (e) ``ffhq_64_scaled`` with its own PixelCNN prior
+    (fresh from the seed) and the FFHQ-64 checkpoint's backbone, batch
+    256, production path: the prior phase as phase 10 (K1 3 a step, K2,
+    K3 and K5 none, the loss falling), ``sample`` of 256 through
+    ``InferenceEngine`` (three requests, K1 1 a call; samples/s, a pixel
+    step's ms on the graph and eagerly, capture s, peak GiB, stage
+    times) and ``interpolate`` of 256 pairs (three requests, K1 3 a
+    call); (f) ``ffhq_128`` (r 33, 1,089 pixel steps), ``sample`` of 64
+    once, draws in [0, 511], every cell written.
+17. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -131,14 +152,16 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
-from hopvae_torch.data import (DECODE_GOLDENS, GOLDENS, PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, SERVING_GOLDENS,
-                               TRAIN_GOLDEN, get_datasets, golden_grid, golden_input, gumbel_noise, image_stats,
-                               interp_grid, sample_grid, synthetic_images, _normalize)
+from hopvae_torch.data import (DECODE_GOLDENS, GOLDENS, PIXELCNN_GOLDENS, PIXELCNN_TRAIN_GOLDEN, PRIOR_GOLDENS,
+                               PRIOR_TRAIN_GOLDEN, SERVING_GOLDENS, TRAIN_GOLDEN, get_datasets, golden_grid,
+                               golden_input, gumbel_noise, image_stats, interp_grid, pixelcnn_grid, pixelcnn_noise,
+                               pixelcnn_sample_grid, sample_grid, synthetic_images, _normalize)
 from hopvae_torch.models.hopvae import PRIOR, HopVAE
 from hopvae_torch.ops import attention_cuda as ac
 from hopvae_torch.ops import hopfield_cuda as hc
 from hopvae_torch.ops.attention import kernel_causal_attention
 from hopvae_torch.ops.bottleneck import LAYERS, streaming_bottleneck
+from hopvae_torch.ops.conv import full_f32
 from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
@@ -474,9 +497,10 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
 
 
 def engine_for(golden: str, **kw) -> InferenceEngine:
+    """A reconstruct and encode engine for one entry of ``GOLDENS``."""
     spec = GOLDENS[golden]
     state = state_from_checkpoint(str(CHECKPOINTS / spec["checkpoint"]))
-    return InferenceEngine(load_config(spec["config"]), state, **kw)
+    return InferenceEngine(load_config(spec["config"]), state, ops=("reconstruct", "encode"), **kw)
 
 
 def phase_mnist_golden() -> dict:
@@ -1093,12 +1117,13 @@ def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
     ``Transformer-FFHQ-64.msgpack``, batch 256, production path (kernels +
     bf16 conv stacks), 2 epochs through ``Trainer.fit`` on the synthetic
     FFHQ train split. Every kernel's count is set to 0 just before ``fit``
-    and read just after: K5's three kernels 4 a step (one per layer), K1 3,
-    K2 and K3 none, since the backbone runs without autograd. Then a save
-    and a resume, and the per-stage device times of one step. ``over``
-    sets prior keys (phase 11: ``prior_d_model=256, prior_heads=1``, whose
-    prior the checkpoint does not fit: its loss must fall from epoch 1 to
-    epoch 2)."""
+    and read just after: K5's three kernels 4 a step (one per layer; none
+    under the PixelCNN prior), K1 3, K2 and K3 none, since the backbone
+    runs without autograd. Then a save and a resume, and the per-stage
+    device times of one step. ``over`` sets prior keys (phase 11:
+    ``prior_d_model=256, prior_heads=1``; phase 16: ``prior="PixelCNN"``,
+    fresh from the seed), whose prior the checkpoint does not fit: its
+    loss must fall from epoch 1 to epoch 2."""
     cfg = prior_config(prior_start=-1, **over)
     torch.manual_seed(cfg.seed)
     counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
@@ -1145,12 +1170,16 @@ def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
                                       "epoch_seconds", "images_per_sec")} for r in records],
         "images_per_s_epoch_2": records[-1]["images_per_sec"],
         "stage_ms": stages, "resume_restores": restored, "backbone_bit_identical": frozen,
-        "prior": {"d_model": trainer.model.prior.d, "heads": trainer.model.prior.heads,
-                  "head_width": trainer.model.prior.d // trainer.model.prior.heads,
-                  "parameters": sum(p.numel() for p in trainer.model.prior.parameters())},
     }
+    prior = trainer.model.prior
+    if cfg.prior == "Transformer":
+        res["prior"] = {"d_model": prior.d, "heads": prior.heads, "head_width": prior.d // prior.heads}
+        layers = prior.n_layers
+    else:
+        res["prior"] = {"features": prior.features, "res_blocks": prior.n_res}
+        layers = 0
+    res["prior"]["parameters"] = sum(p.numel() for p in prior.parameters())
     log(json.dumps({label: res}))
-    layers = trainer.model.prior.n_layers
     want = {**dict.fromkeys(ATTENTION_COUNTERS, layers * steps), "hopfield_stream_fwd": 3 * steps,
             "hopfield_stream_bwd_dx": 0, "hopfield_stream_bwd_dku": 0}
     if launches != want:
@@ -1759,6 +1788,263 @@ def phase_decode_serving() -> dict:
     return {"serving": serving, "ffhq128": large, "launches_sample": serving["requests"][0]["launches"]}
 
 
+# ------------------------------------------------------------ phase 16
+
+
+# the sampler's teacher-forced logits (its step on a finished grid) against
+# forward of that grid, max|a - b| / max|b|: the invariant that makes the
+# column-incremental sampler exact (tests/test_pixelcnn_fast_sampler.py
+# pins it for JAX); the CPU port lands 6e-8 absolute
+PIXELCNN_STEP_NORMWISE = 1e-5
+
+
+def pixelcnn_anchor(**kw) -> HopVAE:
+    """The anchor: ``pixelcnn_mnist_28`` with ``PixelCNN-MNIST-28.msgpack``."""
+    spec = PIXELCNN_GOLDENS
+    model = HopVAE(load_config(spec["config"]), device="cuda", **kw)
+    model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / spec["checkpoint"])))
+    return model.eval()
+
+
+def written(prior, mode: str, b: int, run) -> dict:
+    """Run ``run()`` again with the grid's cells preset to -1 by the
+    captured sampler of (``mode``, ``b``)'s reset: every cell must be
+    overwritten (a pixel index frozen into the graph would leave cells at
+    -1), and the result must equal the first run's (the preset reaches no
+    logit). Also the step index after the run, which must be r², and
+    whether both cache planes of every block hold a vector at every
+    column."""
+    sampler = prior._samplers[(mode, b)]
+    r = prior.representation_dim
+    first = run().clone()
+    reset = sampler.reset
+
+    def preset():
+        reset()
+        sampler.grid[:, 3:, 3 : r + 3].fill_(-1.0)
+
+    sampler.reset = preset  # the instance's, over the class's method
+    try:
+        again = run().clone()
+    finally:
+        del sampler.reset
+    cells = sampler.grid[:, 3:, 3 : r + 3]
+    return {"cells_written": bool((cells >= 0).all()), "preset_reaches_nothing": bool(torch.equal(first, again)),
+            "steps": int(sampler.s), "caches_filled": all(bool((hb[:, :, 1 : r + 1].abs().amax(-1) > 0).all())
+                                                          for hb in sampler.hbufs)}
+
+
+def pixel_step_ms(sampler, reps: int = 2) -> dict:
+    """Device ms of one pixel step, replayed from its graph and run eagerly,
+    each over the r² steps of a grid (the noise is whatever the buffer
+    holds: the times do not depend on it), mean of ``reps``."""
+    r = sampler.prior.representation_dim
+
+    def run(fn):
+        total = 0.0
+        for _ in range(reps):
+            sampler.reset()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(r * r):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            total += ev[0].elapsed_time(ev[1]) / (r * r) / reps
+        return total
+
+    with torch.inference_mode(), full_f32():
+        return {"graph_ms": run(sampler.graph.replay), "eager_ms": run(sampler.step)}
+
+
+@parity_mode()
+def phase_pixelcnn_checks() -> dict:
+    """The PixelCNN anchor on the card, f32 with TF32 off: (a) its bits on
+    the committed grid and ``forward(fit_prior=True)`` on the golden digits
+    against ``PIXELCNN_GOLDENS``, and the sampler's step, teacher-forced on
+    a finished grid, against ``forward`` of it; (b) ``sample(4)`` with the
+    committed noise on the graphs against JAX's draws, every cell written;
+    (c) the graphs against the eager step at 256 samples; (d) the
+    prior-train golden twice."""
+    spec = PIXELCNN_GOLDENS
+    res = {}
+    model = pixelcnn_anchor(impl="cuda")
+    prior = model.prior
+    grid = torch.from_numpy(pixelcnn_grid()).cuda()
+    x = torch.from_numpy(golden_input(spec["input"])).cuda()
+    # (a)
+    with torch.inference_mode():
+        bits, _, bits_launches = counted(lambda: float(model.prior_bits(grid.reshape(len(grid), -1, grid.shape[-1]))))
+        (_, loss), _, loss_launches = counted(lambda: model(x, fit_prior=True))
+        _, zq, _ = model.backbone(x)
+        finished = prior.sample(4, generator=torch.Generator(device="cuda").manual_seed(3))
+        fwd = prior(finished)
+        steps = prior.step_logits(finished)
+        eager_steps = prior.step_logits(finished, eager=True)
+    flipped = int((zq.reshape(grid.shape) != grid).sum())
+    res["anchor"] = {
+        "bits": bits, "jax_bits": spec["bits"], "bits_rel_err": abs(bits / spec["bits"] - 1),
+        "loss": float(loss), "jax_loss": spec["loss"], "loss_rel_err": abs(float(loss) / spec["loss"] - 1),
+        "flipped_bins": flipped, "bits_launches": {k: v for k, v in bits_launches.items() if v},
+        "fit_prior_launches": {k: v for k, v in loss_launches.items() if v},
+        "step_logits_normwise_err": normwise(steps, fwd), "step_logits_max_abs_err": float((steps - fwd).abs().max()),
+        "step_logits_graph_equals_eager": bool(torch.equal(steps, eager_steps)),
+    }
+    # (b)
+    noise = torch.from_numpy(pixelcnn_noise()).cuda()
+    want = pixelcnn_sample_grid()
+    got = prior.sample(4, _gumbel=noise).cpu().numpy()
+    rows = []
+    if (got != want).any():
+        with torch.inference_mode():
+            logits = prior.step_logits(torch.from_numpy(want).cuda())  # (B, r, r, C, L)
+        r, c = prior.representation_dim, prior.index_dim
+        for row in np.nonzero((got != want).reshape(4, -1).any(axis=1))[0]:
+            t = int(np.argmax(got[row].reshape(-1) != want[row].reshape(-1)))
+            pix, ch = divmod(t, c)
+            y = logits[row].reshape(r * r, c, -1)[pix, ch] + noise[pix, ch, row]
+            top2 = torch.topk(y, 2).values
+            rows.append({"row": int(row), "first_draw": t, "margin": float(top2[0] - top2[1])})
+    res["draws_vs_jax"] = {"draws": int(got.size), "differ": int((got != want).sum()), "diverging_rows": rows,
+                           **written(prior, "sample", 4, lambda: prior.sample(4, _gumbel=noise))}
+    # (c)
+    gen = torch.Generator(device="cuda")
+    graph_grid = prior.sample(256, generator=gen.manual_seed(7))
+    t0 = time.perf_counter()
+    eager_grid = prior.sample(256, generator=gen.manual_seed(7), eager=True)
+    torch.cuda.synchronize()
+    res["graph_vs_eager"] = {"batch": 256, "equal": bool(torch.equal(graph_grid, eager_grid)),
+                             "eager_s": time.perf_counter() - t0}
+    # (d)
+    gold = PIXELCNN_TRAIN_GOLDEN
+    stored = state_from_checkpoint(str(CHECKPOINTS / gold["checkpoint"]))
+    start = {k: v for k, v in stored.items() if not k.startswith(PRIOR)}
+    runs = [prior_train_golden(str(CHECKPOINTS), device="cuda", impl="cuda", gold=gold) for _ in range(2)]
+    (losses, norm, trained), (losses2, norm2, trained2) = runs
+    repeats = losses == losses2 and norm == norm2 and all(
+        torch.equal(a, b) for a, b in zip(trained.state_dict().values(), trained2.state_dict().values()))
+    after = backbone_state(trained)
+    frozen = start.keys() == after.keys() and all(torch.equal(start[k], after[k].cpu()) for k in start)
+    loss_rel = [abs(a / b - 1) for a, b in zip(losses, gold["losses"])]
+    res["train_golden"] = {"losses": losses, "jax_losses": gold["losses"], "loss_rel_err": loss_rel,
+                           "grad_norm": norm, "grad_norm_rel_err": abs(norm / gold["grad_norm"] - 1),
+                           "repeats_bitwise": repeats, "backbone_bit_identical": frozen}
+    log(json.dumps({"pixelcnn_checks": res}))
+    a = res["anchor"]
+    if a["bits_rel_err"] > spec["bits_rtol"] or a["bits_launches"]:
+        raise AssertionError(f"the anchor's bits are off PIXELCNN_GOLDENS, or the prior launched a kernel: {a}")
+    if a["loss_rel_err"] > spec["loss_rtol"] or flipped > spec["max_flipped_bins"]:
+        raise AssertionError(f"the fit_prior loss or the grid is off PIXELCNN_GOLDENS: {a}")
+    if a["fit_prior_launches"] != {"hopfield_stream_fwd": 3}:
+        raise AssertionError(f"expected K1 3 launches in forward(fit_prior=True) and no other: {a}")
+    if a["step_logits_normwise_err"] > PIXELCNN_STEP_NORMWISE or not a["step_logits_graph_equals_eager"]:
+        raise AssertionError(f"the sampler's step logits are off forward (normwise {PIXELCNN_STEP_NORMWISE}), "
+                             f"or its graph off its eager step: {a}")
+    d = res["draws_vs_jax"]
+    ties = [r for r in d["diverging_rows"] if r["margin"] >= spec["near_tie"]]
+    r2 = prior.representation_dim**2
+    if ties or not (d["cells_written"] and d["preset_reaches_nothing"] and d["caches_filled"] and d["steps"] == r2):
+        raise AssertionError(f"draws off JAX's grid away from a near tie, or cells unwritten: {d}")
+    if not res["graph_vs_eager"]["equal"]:
+        raise AssertionError("the graph path's draws differ from the eager path's")
+    t = res["train_golden"]
+    if loss_rel[0] > gold["loss0_rtol"] or max(loss_rel) > gold["losses_rtol"] \
+            or t["grad_norm_rel_err"] > gold["grad_norm_rtol"]:
+        raise AssertionError(f"the PixelCNN prior-train golden is off JAX's: {t}")
+    if not (repeats and frozen):
+        raise AssertionError(f"the PixelCNN prior-train golden does not repeat, or moved the backbone: {t}")
+    return res
+
+
+def pixelcnn_sampling(label: str, config: str, checkpoint: str, n: int, requests: int) -> dict:
+    """``InferenceEngine(ops=("sample",))`` under the config's PixelCNN prior,
+    fresh from the config's seed (the checkpoint's backbone; its Transformer
+    prior is dropped with a lenient-load warning), production path: its
+    build with the graph's capture, ``requests`` seeded calls with every
+    kernel's count read around each (K1 1 a call, the rest 0), samples/s on
+    the host clock, the draws' range, every cell written, a pixel step's
+    device ms on its graph and eagerly, peak memory."""
+    cfg = load_config(config)
+    torch.manual_seed(cfg.seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, state_from_checkpoint(str(CHECKPOINTS / checkpoint)), max_batch=1, n_sample=n,
+                          ops=("sample",))
+    build_s = time.perf_counter() - t0
+    prior = eng.model.prior
+    sampler = prior._samplers[("sample", n)]
+    want = {**dict.fromkeys((*KERNEL_COUNTERS, *ATTENTION_COUNTERS, "hopfield_bottleneck_fused"), 0),
+            "hopfield_stream_fwd": 1}
+    calls, wall = [], 0.0
+    for seed in range(requests):
+        out, ms, launches = counted(lambda: eng.sample(seed))
+        wall += ms
+        calls.append({"seed": seed, "ms": ms, "launches": launches, "finite": bool(np.isfinite(out).all()),
+                      "shape_ok": out.shape == (n, cfg.image_size, cfg.image_size, cfg.num_channels)})
+    drawn = sampler.grid[:, 3:, 3 : prior.representation_dim + 3]
+    in_range = bool((drawn >= 0).all() and (drawn < prior.num_levels).all())
+    gen = torch.Generator(device="cuda")
+    check = written(prior, "sample", n, lambda: prior.sample(n, generator=gen.manual_seed(0)))
+    peak = torch.cuda.max_memory_allocated()
+    res = {"config": config, "batch": n, "pixel_steps": prior.representation_dim**2,
+           "features": prior.features, "res_blocks": prior.n_res, "engine_build_s": build_s,
+           "capture_s": sampler.capture_s, "samples_per_s": 1e3 * n * requests / wall, "requests": calls,
+           "draws_in_range": in_range, **check, "peak_gib": peak / 2**30, **pixel_step_ms(sampler)}
+    bad = [c for c in calls if c["launches"] != want or not (c["finite"] and c["shape_ok"])]
+    if bad or not (in_range and check["cells_written"] and check["preset_reaches_nothing"]
+                   and check["caches_filled"] and check["steps"] == prior.representation_dim**2):
+        raise AssertionError(f"{label}: expected {want} launches a sample, finite images, draws in range and every "
+                             f"cell written: {bad}, {res}")
+    res["engine"] = eng
+    return res
+
+
+def phase_pixelcnn_full_width() -> dict:
+    """(e) ffhq_64_scaled with its own PixelCNN prior (96 features, 4
+    blocks, fresh from the seed) and the FFHQ-64 checkpoint's backbone,
+    batch 256, the production path: the prior phase (2 epochs of
+    ``Trainer.fit``, as phase 10: K1 3 a step, K2, K3 and K5 none, the loss
+    falling), ``sample`` of 256 through ``InferenceEngine`` (three
+    requests, K1 1 a call) with its stages' device times, and
+    ``interpolate`` of 256 pairs (three requests, K1 3 a call); (f)
+    ``ffhq_128`` (r 33, 1,089 pixel steps), ``sample`` of 64 once."""
+    training = phase_prior_train_full_width("pixelcnn_prior_training", prior="PixelCNN")
+    serving = pixelcnn_sampling("ffhq_64_scaled sample", "ffhq_64_scaled", GOLDENS["ffhq64_synthetic4"]["checkpoint"],
+                                256, 3)
+    eng = serving.pop("engine")
+    stages = spin_and_time(sample_stages(eng.model, 256, 0), reps=2)
+    with torch.inference_mode():
+        same = torch.equal(stages.pop("result"),
+                           eng.model.sample(256, generator=torch.Generator(device="cuda").manual_seed(0)))
+    serving["stage_ms"], serving["stages_compose"] = stages["stage_ms"], same
+    state = {k: v for k, v in eng.model.state_dict().items()}
+    del eng
+    cfg = load_config("ffhq_64_scaled")
+    interp = InferenceEngine(cfg, state, max_batch=256, ops=("interpolate",))
+    want = {**dict.fromkeys((*KERNEL_COUNTERS, *ATTENTION_COUNTERS, "hopfield_bottleneck_fused"), 0),
+            "hopfield_stream_fwd": 3}
+    calls, wall = [], 0.0
+    for j in range(3):
+        x, y = (_normalize(synthetic_images(256, cfg.image_size, seed=s), cfg.data_set) for s in (60 + j, 80 + j))
+        out, ms, launches = counted(lambda: interp.interpolate(x, y))
+        wall += ms
+        calls.append({"batch": 256, "ms": ms, "launches": launches, "finite": bool(np.isfinite(out).all()),
+                      "shape_ok": out.shape == x.shape})
+    interpolate = {"requests": calls, "pairs_per_s": 768e3 / wall}
+    del interp
+    large = pixelcnn_sampling("ffhq_128 sample", "ffhq_128", "Transformer-FFHQ-128.msgpack", 64, 1)
+    del large["engine"]
+    res = {"prior_phase": training, "sample": serving, "interpolate": interpolate, "ffhq128": large}
+    log(json.dumps({"pixelcnn_full_width": {k: v for k, v in res.items() if k != "prior_phase"}}))
+    bad = [c for c in calls if c["launches"] != want or not (c["finite"] and c["shape_ok"])]
+    if bad:
+        raise AssertionError(f"expected {want} launches an interpolate and finite images: {bad}")
+    if not same:
+        raise AssertionError("the timed stages do not compose to HopVAE.sample")
+    return {"launches_prior_phase": training["launches"], "launches_sample": serving["requests"][0]["launches"],
+            "launches_interpolate": calls[0]["launches"], "steps": training["steps"]}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1894,15 +2180,20 @@ def main() -> int:
     serving_modes = phase_serving_modes()
     phase_decode_checks()
     decode = phase_decode_serving()
+    phase_pixelcnn_checks()
+    pixelcnn = phase_pixelcnn_full_width()
     modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],
              "launches_serving_sample": serving_modes["launches_sample"],
-             "launches_serving_sample_transformer": decode["launches_sample"]}
+             "launches_serving_sample_transformer": decode["launches_sample"],
+             "launches_serving_sample_pixelcnn": pixelcnn["launches_sample"],
+             "launches_serving_interpolate_pixelcnn": pixelcnn["launches_interpolate"]}
     launches, prior_launches = training["launches"], prior_training["launches"]
     wide_lookup_run, wide_prior_run = width_runs[2], width_runs[3]  # embedding_dim=384; a prior head of 512
     kernels = [kernel_summary("hopfield_stream_fwd", [r for r in rows if not r["shape"].startswith("wide")],
                               launches["hopfield_stream_fwd"],
                               launches_serving=serving["launches"],
                               launches_prior_phase=prior_launches["hopfield_stream_fwd"],
+                              launches_pixelcnn_prior_phase=pixelcnn["launches_prior_phase"]["hopfield_stream_fwd"],
                               launches_width_phase=width_launches["hopfield_stream_fwd"],
                               launches_serving_modes={k: v["hopfield_stream_fwd"] for k, v in modes.items()},
                               bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),

@@ -16,7 +16,10 @@ The port's own copies of ``hopvae_tpu/data`` (importing any
   package's quantized grid of the ``ffhq64_synthetic4`` batch;
   :func:`interp_grid`: ``assets/ffhq64_interp_grid4.npy``, its
   interpolation grid (``SERVING_GOLDENS``); :func:`sample_grid`: JAX's
-  draws of ``DECODE_GOLDENS`` with the noise of :func:`gumbel_noise`.
+  draws of ``DECODE_GOLDENS`` with the noise of :func:`gumbel_noise`;
+  :func:`pixelcnn_grid` and :func:`pixelcnn_sample_grid`: the quantized
+  grid of the 64 golden digits and JAX's PixelCNN draws of
+  ``PIXELCNN_GOLDENS`` with the noise of :func:`pixelcnn_noise`.
 
 :func:`synthetic_images` upsamples with numpy where the JAX package
 calls ``jax.image.resize``, whose f32 sums run in another order. The two
@@ -42,6 +45,8 @@ ASSETS = Path(__file__).resolve().parent / "assets"
 GOLDEN_DIGITS = ASSETS / "digits_28_seed0_64.npy"
 GOLDEN_GRID = ASSETS / "ffhq64_grid4.npy"
 INTERP_GRID = ASSETS / "ffhq64_interp_grid4.npy"
+PIXELCNN_GRID = ASSETS / "mnist28_grid64.npy"
+PIXELCNN_SAMPLE_GRID = ASSETS / "mnist28_pixelcnn_sample_grid4.npy"
 
 # Recon MSE and aux loss of the JAX package's f32 forward (impl="xla") on
 # the golden inputs below, with the named checkpoint from checkpoints/.
@@ -145,6 +150,10 @@ SERVING_GOLDENS = {
 # of the prior's gradient at step 0. The first Adam step moves each
 # weight by about lr, which throws the trained prior off (8.72 bits).
 PRIOR_TRAIN_GOLDEN = {
+    "config": "ffhq_64_scaled",
+    "prior": "Transformer",
+    "checkpoint": "Transformer-FFHQ-64.msgpack",
+    "input": "ffhq64_synthetic4",
     "learning_rate": 1e-3,
     "losses": [1.1248483657836914, 8.723876953125, 2.5462441444396973],
     "grad_norm": 4.6580376625061035,
@@ -175,6 +184,57 @@ DECODE_GOLDENS = {
     "near_tie": 1e-4,
 }
 
+# The PixelCNN prior of PixelCNN-MNIST-28.msgpack (pixelcnn_mnist_28), JAX
+# f32 (impl="xla"; tests/test_torch_pixelcnn_goldens.py recomputes all of
+# it): "bits" are the prior's teacher-forced bits of the 64 golden digits'
+# quantized grid (assets/mnist28_grid64.npy, pixelcnn_grid()), "loss" the
+# second output of HopVAE.forward(fit_prior=True) on those digits, the bits
+# plus the aux loss. The card holds the bits within bits_rtol on the
+# committed grid, and the loss within loss_rtol with at most
+# max_flipped_bins bins of its own grid off the committed one: one
+# pre-round level of the batch lies 1.08e-4 of a level from a rounding
+# edge. "noise" is the numpy recipe of pixelcnn_noise(), the (r², C, B, L)
+# Gumbel noise of JAX's draws at batch 4 with argmax(logits + noise) as the
+# draw (assets/mnist28_pixelcnn_sample_grid4.npy, pixelcnn_sample_grid(),
+# uint16), and "min_margin" the smallest top-two margin of logits + noise
+# along each of the 4 rows, the floor under the card's near-tie rule.
+PIXELCNN_GOLDENS = {
+    "config": "pixelcnn_mnist_28",
+    "checkpoint": "PixelCNN-MNIST-28.msgpack",
+    "input": "mnist_digits",
+    "bits": 1.2058744430541992,
+    "loss": 1.2059112787246704,
+    "bits_rtol": 1e-4,
+    "loss_rtol": 1e-3,
+    "max_flipped_bins": 2,
+    "noise": {"generator": "numpy.random.default_rng", "seed": 11, "shape": (192, 4, 512)},
+    "min_margin": [2.5478e-2, 7.1940e-3, 4.7438e-2, 5.3350e-2],
+    "near_tie": 1e-4,
+}
+
+# Three prior-phase steps of the JAX package as PRIOR_TRAIN_GOLDEN's, with
+# PIXELCNN_GOLDENS' model on the 64 golden digits: the loss of each step
+# (recon + bits + aux; step k's is taken after k Adam updates) and the
+# global norm of the prior's gradient at step 0. The step-0 loss is held
+# within loss0_rtol, the later ones within losses_rtol: f32 sums in another
+# order move pre-activations across their relu's kink, so the deep blocks'
+# step-0 gradients differ from JAX's by up to 2.7e-3 normwise (the port on
+# the CPU), a few weights' gradients of 1e-9 to 1e-5 change sign, and Adam
+# steps each of those by 2·lr the other way: the CPU port lands 9e-7, 5e-5
+# and 1.1e-3 off the three losses.
+PIXELCNN_TRAIN_GOLDEN = {
+    "config": "pixelcnn_mnist_28",
+    "prior": "PixelCNN",
+    "checkpoint": "PixelCNN-MNIST-28.msgpack",
+    "input": "mnist_digits",
+    "learning_rate": 1e-3,
+    "losses": [1.2132176160812378, 5.654932498931885, 2.1508164405822754],
+    "grad_norm": 3.748903274536133,
+    "loss0_rtol": 1e-4,
+    "losses_rtol": 5e-3,
+    "grad_norm_rtol": 2e-3,
+}
+
 
 def _normalize(x_uint8: np.ndarray, data_set: str) -> np.ndarray:
     x = x_uint8.astype(np.float32) / 255.0
@@ -196,6 +256,25 @@ def gumbel_noise(shape: tuple = None, seed: int = None) -> np.ndarray:
     seed = spec["seed"] if seed is None else seed
     u = np.random.default_rng(seed).random(shape, dtype=np.float32)
     return -np.log(-np.log(np.maximum(u, np.finfo(np.float32).tiny)))
+
+
+def pixelcnn_noise() -> np.ndarray:
+    """``PIXELCNN_GOLDENS``' noise as the PixelCNN sampler takes it:
+    ``(r², C, B, L)`` = ``(64, 3, 4, 512)``."""
+    spec = PIXELCNN_GOLDENS["noise"]
+    return gumbel_noise(spec["shape"], spec["seed"]).reshape(64, 3, *spec["shape"][1:])
+
+
+def pixelcnn_grid() -> np.ndarray:
+    """(64, 8, 8, 3) float32 levels: the JAX quantized grid of the 64
+    golden digits under ``PIXELCNN_GOLDENS``' checkpoint."""
+    return np.load(PIXELCNN_GRID).astype(np.float32)
+
+
+def pixelcnn_sample_grid() -> np.ndarray:
+    """(4, 8, 8, 3) float32 levels: JAX's PixelCNN draws of
+    ``PIXELCNN_GOLDENS`` with :func:`pixelcnn_noise`."""
+    return np.load(PIXELCNN_SAMPLE_GRID).astype(np.float32)
 
 
 def golden_digits() -> np.ndarray:

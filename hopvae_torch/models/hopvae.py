@@ -8,12 +8,12 @@ Port of ``hopvae_tpu/models/hopvae.py``:
   loss ``mean((r - e)**2)``; the decoder sees the pre-quantization
   retrieval ``e``. With ``fit_prior`` it adds the prior's teacher-forced
   cross-entropy in bits over the quantized grid, its gradient stopped.
-- ``prior``: ``get_prior(config)``; the PixelCNN prior is not ported, so
-  a PixelCNN config builds the backbone alone, and ``fit_prior``,
-  ``sample`` and ``interpolate`` raise.
-- ``sample``: the prior's grid (the Transformer prior's KV-cached
-  decode, or the Normal prior's uniform levels), ``/ (L-1)``, the
-  index→embedding lookup and the decoder (:meth:`HopVAE.decode_grid`).
+- ``prior``: ``get_prior(config)``, the PixelCNN, Transformer or Normal
+  prior.
+- ``sample``: the prior's grid (the PixelCNN's column-incremental
+  sampler, the Transformer prior's KV-cached decode, or the Normal
+  prior's uniform levels), ``/ (L-1)``, the index→embedding lookup and
+  the decoder (:meth:`HopVAE.decode_grid`).
 - ``interpolate``: the average of two batches' latents through the
   ``hopfield`` and ``embedding_to_index`` lookups, a relu-pair clamp, the
   straight-through round, ``prior.reconstruct`` and the decode; no
@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hopvae_torch.models.layers import Decoder, Encoder
-from hopvae_torch.models.priors import PIXELCNN_NOT_PORTED, get_prior
+from hopvae_torch.models.priors import get_prior
 from hopvae_torch.ops.bottleneck import IMPLS, LAYERS, hopfield_bottleneck
 from hopvae_torch.ops.conv import conv2d
 from hopvae_torch.ops.hopfield import HopfieldLookup, hopfield_lookup
@@ -85,7 +85,7 @@ class HopVAE(nn.Module):
         self.index_to_embedding = HopfieldLookup(di, d, m, dev)
         self.post_vq_conv = nn.Conv2d(di, di, 1, device=dev)  # never applied
         self.decoder = Decoder(d, config.num_channels, h, nres, hres, dev)
-        self.prior = None if config.prior == "PixelCNN" else get_prior(config, device=dev)
+        self.prior = get_prior(config, device=dev)
 
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
@@ -128,10 +128,9 @@ class HopVAE(nn.Module):
     def prior_bits(self, zq: torch.Tensor) -> torch.Tensor:
         """The prior's teacher-forced cross-entropy in bits, averaged over
         the grid ``zq``, whose gradient is stopped."""
-        prior = self._require_prior()
         b, r = zq.shape[0], self.representation_dim
         grid = zq.detach().reshape(b, r, r, self.index_dim)
-        logp = F.log_softmax(prior(grid), dim=-1)
+        logp = F.log_softmax(self.prior(grid), dim=-1)
         ce = -torch.gather(logp, -1, grid.to(torch.int64)[..., None])[..., 0]
         return torch.mean(ce) * math.log2(math.e)  # nats → bits
 
@@ -152,11 +151,6 @@ class HopVAE(nn.Module):
         layer = getattr(self, name)
         return hopfield_lookup_stream(layer, x, "cuda") if self.impl == "cuda" else hopfield_lookup(layer, x)
 
-    def _require_prior(self):
-        if self.prior is None:
-            raise NotImplementedError(PIXELCNN_NOT_PORTED)
-        return self.prior
-
     def decode_grid(self, grid: torch.Tensor) -> torch.Tensor:
         """A level grid ``(B, r, r, index_dim)`` of levels in ``[0, L-1]`` →
         images ``(B, H, W, C)``: ``grid / (L-1)``, the ``index_to_embedding``
@@ -171,7 +165,7 @@ class HopVAE(nn.Module):
         """``num_samples`` unconditional images from the prior's grid, drawn
         with ``generator`` (on the model's device), then decoded: one
         ``index_to_embedding`` lookup (K1 on the card) and the decoder."""
-        grid = self._require_prior().sample(num_samples, generator=generator, device=self.device)
+        grid = self.prior.sample(num_samples, generator=generator, device=self.device)
         return self.decode_grid(grid.to(torch.int32).float())
 
     @torch.no_grad()
@@ -182,13 +176,13 @@ class HopVAE(nn.Module):
         clamped to ``[0, 1]`` by a relu pair (not the forward's sigmoid),
         rounded to ``L`` levels, then ``prior.reconstruct`` (the identity
         under ``prior="None"``, the teacher-forced argmax under the
-        Transformer prior)."""
+        PixelCNN and Transformer priors)."""
         b, r = x.shape[0], self.representation_dim
         z = (self._encode_to_tokens(x) + self._encode_to_tokens(y)) / 2
         zi = self._lookup("embedding_to_index", self._lookup("hopfield", z))
         zi = 1.0 - F.relu(1.0 - F.relu(zi))
         zq = straight_through_round(zi * (self.num_levels - 1))
-        return self._require_prior().reconstruct(zq.reshape(b, r, r, self.index_dim))
+        return self.prior.reconstruct(zq.reshape(b, r, r, self.index_dim))
 
     @torch.no_grad()
     def interpolate(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,13 @@ the weight gradients otherwise take algorithms whose sums change order
 from run to run (on an H100, up to one bf16 step in the decoder's
 output, at no gain in speed). Under autograd the conv runs inside
 :class:`_Deterministic`, whose backward differentiates it under the same
-flag; without a gradient it is called directly, with the same numbers.
+flags; without a gradient it is called directly, with the same numbers.
+
+``full_f32=True`` also turns TF32 off for the conv, forward and backward,
+whatever ``torch.backends.cudnn.allow_tf32`` says (cuDNN's default is
+TF32 for f32 convs): the PixelCNN prior's convs, which the JAX package
+runs at ``Precision.HIGHEST``, take it. :func:`full_f32` is the same pin
+as a context, for matmuls and convs alike.
 """
 
 from __future__ import annotations
@@ -36,40 +42,54 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def _deterministic():
+def full_f32():
+    """f32 matmuls and convs without TF32 inside the block, whatever the
+    global flags say; the flags are restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def _deterministic(f32: bool = False):
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        yield
+        with full_f32() if f32 else contextlib.nullcontext():
+            yield
     finally:
         torch.backends.cudnn.deterministic = saved
 
 
 class _Deterministic(torch.autograd.Function):
-    """``compute(*args)`` with cuDNN's deterministic flag set in the
-    forward and in the backward. The forward records the inner graph of
-    ``compute``; the backward differentiates that graph under the flag."""
+    """``compute(*args)`` with cuDNN's deterministic flag (and with
+    ``f32``, TF32 off) in the forward and in the backward. The forward
+    records the inner graph of ``compute``; the backward differentiates
+    that graph under the same flags."""
 
     @staticmethod
-    def forward(ctx, compute, *args):
-        with torch.enable_grad(), _deterministic():
+    def forward(ctx, compute, f32, *args):
+        with torch.enable_grad(), _deterministic(f32):
             leaves = [None if a is None else a.detach().requires_grad_(a.requires_grad) for a in args]
             out = compute(*leaves)
-        ctx.graph = (leaves, out)
+        ctx.graph = (leaves, out, f32)
         return out.detach()
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        leaves, out = ctx.graph
+        leaves, out, f32 = ctx.graph
         del ctx.graph
         wanted = [a for a in leaves if a is not None and a.requires_grad]
-        with _deterministic():
+        with _deterministic(f32):
             grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (None, *(next(grads) if a is not None and a.requires_grad else None for a in leaves))
+        return (None, None, *(next(grads) if a is not None and a.requires_grad else None for a in leaves))
 
 
-def _apply(fn, x, weight, bias, **kw) -> torch.Tensor:
+def _apply(fn, x, weight, bias, f32: bool = False, **kw) -> torch.Tensor:
     def compute(x, weight, bias):
         w = weight.to(x.dtype)
         if bias is None or x.dtype == torch.float32:
@@ -79,14 +99,15 @@ def _apply(fn, x, weight, bias, **kw) -> torch.Tensor:
 
     args = (x, weight, bias)
     if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
-        return _Deterministic.apply(compute, *args)
-    with _deterministic():
+        return _Deterministic.apply(compute, f32, *args)
+    with _deterministic(f32):
         return compute(*args)
 
 
-def conv2d(x, weight, bias=None, *, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """torch ``nn.Conv2d(stride, padding)``; output ``floor((H+2p-k)/s)+1``."""
-    return _apply(F.conv2d, x, weight, bias, stride=stride, padding=padding)
+def conv2d(x, weight, bias=None, *, stride: int = 1, padding: int = 0, full_f32: bool = False) -> torch.Tensor:
+    """torch ``nn.Conv2d(stride, padding)``; output ``floor((H+2p-k)/s)+1``.
+    ``full_f32``: no TF32, forward and backward."""
+    return _apply(F.conv2d, x, weight, bias, f32=full_f32, stride=stride, padding=padding)
 
 
 def conv_transpose2d(x, weight, bias=None, *, stride: int = 1, padding: int = 0) -> torch.Tensor:

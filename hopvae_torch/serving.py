@@ -15,10 +15,10 @@ Port of ``hopvae_tpu/serving.py``:
   is a batch processor over ``.npy`` inputs (image files need PIL) that
   writes a PNG grid (``reconstructions.png``, ``samples.png`` or
   ``interpolations.png``) and the images as ``.npy`` beside it.
-- ``sample`` draws from the config's prior: under ``prior=Transformer``
-  its KV-cached decode, whose CUDA graphs the warm-up captures, so no
-  request pays for them. Under a PixelCNN config ``sample`` and
-  ``interpolate`` raise (ROADMAP.md, Queue 1 item 5).
+- ``sample`` draws from the config's prior: under ``prior=PixelCNN`` its
+  column-incremental sampler, under ``prior=Transformer`` its KV-cached
+  decode, whose CUDA graphs the warm-up captures, so no request pays for
+  them. An engine serves all four ops by default, as JAX's does.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ from hopvae_torch.utils.checkpoint import load_msgpack, params_from_jax
 from hopvae_torch.utils.metrics import denormalize, save_image_grid
 
 OPS = ("reconstruct", "encode", "sample", "interpolate")
-DEFAULT_OPS = ("reconstruct", "encode")  # sample and interpolate need a ported prior
 GRIDS = {"reconstruct": "reconstructions", "sample": "samples", "interpolate": "interpolations"}
 
 
@@ -51,12 +50,12 @@ class InferenceEngine:
         compute_dtype: torch.dtype | None = torch.bfloat16,
         device=None,
         n_sample: int = 16,
-        ops: tuple = DEFAULT_OPS,
+        ops: tuple = OPS,
     ):
         """``state`` is a ``HopVAE`` state_dict (see
         ``hopvae_torch.utils.checkpoint.params_from_jax``); ``ops`` names
-        the entry points to serve, each warmed up here; ``n_sample`` is the
-        number of images a ``sample`` call draws."""
+        the entry points to serve (all four by default), each warmed up
+        here; ``n_sample`` is the number of images a ``sample`` call draws."""
         unknown = [op for op in ops if op not in OPS]
         if unknown:
             raise ValueError(f"unknown ops {unknown}; this engine serves {OPS}")

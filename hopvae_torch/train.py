@@ -5,6 +5,8 @@
     python -m hopvae_torch.train --config ffhq_64_scaled --production \
         --set prior=Transformer --set prior_start=-1 \
         --checkpoint checkpoints/Transformer-FFHQ-64.msgpack      # the prior phase
+    python -m hopvae_torch.train --config pixelcnn_mnist_28 --set prior_start=-1 \
+        --checkpoint checkpoints/PixelCNN-MNIST-28.msgpack        # the PixelCNN's
 
 What it keeps from the JAX driver:
 
@@ -27,11 +29,17 @@ What it keeps from the JAX driver:
   backbone backward. A resume across the switch starts a fresh prior
   optimizer, as JAX's does.
 
+- ``evaluate``: the recon-MSE sweep, then JAX's PNG grids
+  ``epoch{epoch:04d}_{name}.png`` in ``out_dir``: 16 samples drawn with the
+  seed ``seed + epoch``, the last batch's inputs and reconstructions, the
+  interpolation of the first two test batches and those two batches
+  (``test_Y``, ``test_Z``); in ``fit`` and under ``--eval-only``.
+
 The step runs eagerly: the forward under autograd, the backward through
 the streaming kernels (``impl="cuda"``) or the eager lookups
-(``impl="torch"``), the prior's attention through the flash kernels on
-the card. Not ported yet (``ROADMAP.md``): the PixelCNN prior, the sample
-and interpolation grids of ``evaluate``, gradient watching, profiling,
+(``impl="torch"``), the Transformer prior's attention through the flash
+kernels on the card, the PixelCNN prior's convs through cuDNN in full
+f32. Not ported yet (``ROADMAP.md``): gradient watching, profiling,
 multi-GPU and CUDA graphs for the step.
 """
 
@@ -46,12 +54,10 @@ import numpy as np
 import torch
 
 from hopvae_torch.config import apply_overrides, load_config
-from hopvae_torch.data import (PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN, TRAIN_GOLDEN, get_datasets, golden_input,
-                               iterate_batches)
+from hopvae_torch.data import PRIOR_TRAIN_GOLDEN, TRAIN_GOLDEN, get_datasets, golden_input, iterate_batches
 from hopvae_torch.models.hopvae import HopVAE, resolve_device
-from hopvae_torch.models.priors import PIXELCNN_NOT_PORTED
 from hopvae_torch.serving import state_from_checkpoint
-from hopvae_torch.utils.metrics import MetricLogger
+from hopvae_torch.utils.metrics import MetricLogger, denormalize, save_image_grid
 
 
 def prior_has_parameters(config) -> bool:
@@ -69,11 +75,12 @@ def make_optimizer(config, model: torch.nn.Module, steps_per_epoch: int, *, prio
     ``prior_only`` over those of ``model.prior`` alone: the learning rate
     at optimizer step ``k`` is ``learning_rate * gamma ** (k //
     steps_per_epoch)``, the value of ``optax.exponential_decay(staircase=
-    True)`` at update ``k``. Step the schedule after each optimizer step."""
+    True)`` at update ``k``. Step the schedule after each optimizer step.
+    A prior without parameters raises ``ValueError`` under ``prior_only``."""
     if prior_only:
-        if model.prior is None:
-            raise NotImplementedError(PIXELCNN_NOT_PORTED)
         model = model.prior
+        if not any(True for _ in model.parameters()):
+            raise ValueError(f"the prior {type(model).__name__} has no parameters to train")
     optimizer = torch.optim.Adam(model.parameters(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     per_epoch, gamma = max(steps_per_epoch, 1), config.gamma
     schedule = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: gamma ** (step // per_epoch))
@@ -194,7 +201,7 @@ class Trainer:
                 t_epoch,
             )
             if eval_every and not epoch % eval_every:
-                self.evaluate(test_ds, epoch=epoch, logger=logger)
+                self.evaluate(test_ds, epoch=epoch, logger=logger, out_dir=out_dir)
             if save_every and (not epoch % save_every or epoch == epochs - 1):
                 self.save(epoch, out_dir)
 
@@ -226,17 +233,40 @@ class Trainer:
     # -------------------------------------------------------------- eval
 
     @torch.inference_mode()
-    def evaluate(self, test_ds, *, epoch: int = 0, logger: MetricLogger | None = None) -> float:
+    def evaluate(self, test_ds, *, epoch: int = 0, logger: MetricLogger | None = None, out_dir: str | None = None,
+                 n_sample_images: int = 16) -> float:
         """Recon-MSE sweep over ``test_ds`` in order, ragged last batch
         kept: "Test Reconstruction Error" = sum of the per-batch MSEs over
-        ``len(test_ds)``, with one fetch at the end."""
-        mses = []
-        for bx, _ in iterate_batches(test_ds, self.config.batch_size, shuffle=False):
+        ``len(test_ds)``, with one fetch at the end. With ``out_dir`` it
+        also writes the grids of JAX's ``evaluate`` there, each of at most
+        ``n_sample_images`` images: ``samples`` (drawn with the seed
+        ``seed + epoch``), ``inputs`` and ``reconstructions`` of the last
+        batch, ``interpolations`` of the second test batch with the first
+        (when both have one shape), and those two batches as ``test_Y``
+        and ``test_Z``."""
+        cfg, model = self.config, self.model
+        mses, first, last = [], [], None
+        for bx, _ in iterate_batches(test_ds, cfg.batch_size, shuffle=False):
             x = torch.from_numpy(bx).to(self.device)
-            x_recon, _ = self.model(x)
+            x_recon, _ = model(x)
             mses.append(torch.mean((x_recon - x) ** 2))
+            if len(first) < 2:
+                first.append(x)
+            last = (x, x_recon)
         total = float(torch.stack(mses).cpu().numpy().astype(np.float64).sum()) if mses else 0.0
         err = total / len(test_ds)
+        if out_dir is not None:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed + epoch)
+            grids = {"samples": model.sample(n_sample_images, generator=gen)}
+            if last is not None:
+                grids["inputs"], grids["reconstructions"] = last
+            if len(first) == 2:
+                if first[0].shape == first[1].shape:
+                    grids["interpolations"] = model.interpolate(first[1], first[0])
+                grids["test_Y"], grids["test_Z"] = first
+            for name, images in grids.items():
+                save_image_grid(os.path.join(out_dir, f"epoch{epoch:04d}_{name}.png"),
+                                denormalize(images[:n_sample_images].cpu().numpy(), cfg.data_set))
         if logger is not None:
             logger.log({"Test Reconstruction Error": err, "epoch": epoch}, step=epoch)
         return err
@@ -324,22 +354,23 @@ def train_golden(checkpoint_dir: str, device=None, impl: str = "cuda") -> tuple[
     return losses, norms, model
 
 
-def prior_train_golden(checkpoint_dir: str, device=None, impl: str = "cuda") -> tuple[list, float, HopVAE]:
-    """The prior-train golden of ``PRIOR_TRAIN_GOLDEN``: ffhq_64_scaled with
-    the Transformer prior of ``PRIOR_GOLDENS``' checkpoint on the
-    ``ffhq64_synthetic4`` batch, f32, prior-only Adam at a constant
+def prior_train_golden(checkpoint_dir: str, device=None, impl: str = "cuda",
+                       gold: dict = PRIOR_TRAIN_GOLDEN) -> tuple[list, float, HopVAE]:
+    """A prior-train golden: ``PRIOR_TRAIN_GOLDEN`` (ffhq_64_scaled with the
+    Transformer prior of ``Transformer-FFHQ-64.msgpack`` on the
+    ``ffhq64_synthetic4`` batch) or ``PIXELCNN_TRAIN_GOLDEN`` (the PixelCNN
+    anchor on the 64 golden digits): f32, prior-only Adam at a constant
     learning rate. Returns the loss of each step (step k's is taken after
     k updates), the global norm of the prior's gradient at step 0, and the
     trained model."""
-    spec, gold = PRIOR_GOLDENS, PRIOR_TRAIN_GOLDEN
-    config = load_config(spec["config"])
-    config.prior = spec["prior"]
+    config = load_config(gold["config"])
+    config.prior = gold["prior"]
     config.learning_rate, config.gamma = gold["learning_rate"], 1.0
     model = HopVAE(config, impl=impl, device=device)
-    model.load_state_dict(state_from_checkpoint(os.path.join(checkpoint_dir, spec["checkpoint"])))
+    model.load_state_dict(state_from_checkpoint(os.path.join(checkpoint_dir, gold["checkpoint"])))
     trainer = Trainer(model, config)
     trainer.build_optimizer(1, fit_prior=True)
-    x = torch.from_numpy(golden_input("ffhq64_synthetic4")).to(model.device)
+    x = torch.from_numpy(golden_input(gold["input"])).to(model.device)
     losses, norm = [], None
     for step in range(len(gold["losses"])):
         losses.append(float(trainer.train_step(x)["loss"]))
@@ -387,7 +418,7 @@ def main(argv=None):
     train_ds, _val_ds, test_ds = get_datasets(config, args.data)
     trainer = Trainer(model, config)
     if args.eval_only:
-        print(f"Test Reconstruction Error: {trainer.evaluate(test_ds):.6f}")
+        print(f"Test Reconstruction Error: {trainer.evaluate(test_ds, out_dir=args.out):.6f}")
         return
     trainer.fit(train_ds, test_ds, epochs=args.epochs, out_dir=args.out, resume=args.resume)
 

@@ -11,10 +11,13 @@ its parameter pytree into a torch ``state_dict``.
   HWIO of a transposed conv → ``(I, O, kH, kW)``, a Linear ``(d_in,
   d_out)`` kernel → ``weight (d_out, d_in)``, LayerNorm ``scale`` →
   ``weight``; ``lookup_weights``, biases and the Transformer prior's
-  embeddings stay as they are, and its ``blocks`` list becomes the
-  ``ModuleList`` index. A ``prior`` subtree of another family (the
-  PixelCNN's, which the port does not have) is left out; the model's
-  lenient ``load_state_dict`` then keeps its fresh prior and says so.
+  embeddings stay as they are, and its ``blocks`` list (the PixelCNN's
+  ``res`` list) becomes the ``ModuleList`` index. The PixelCNN prior's
+  stored causality masks are checked against the port's own
+  (``pixelcnn._group_mask``), and a mismatch raises; they are not loaded,
+  since the port keeps them as buffers. A ``prior`` subtree of another
+  shape is left out; the model's lenient ``load_state_dict`` then keeps
+  its fresh prior and says so.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from hopvae_torch.models.priors.pixelcnn import PIXELCNN_KEYS, _group_mask
 
 _EXT_NDARRAY = 1
 # the leaves of a Transformer prior subtree, and those kept as they are
@@ -136,23 +141,48 @@ def _leaf(path: tuple, a) -> tuple[str, np.ndarray]:
     return ".".join((*parents, name)), np.array(a, order="C")  # a writable copy
 
 
+def _items(node):
+    return node.items() if isinstance(node, Mapping) else ((str(i), v) for i, v in enumerate(node))
+
+
+def check_pixelcnn_masks(prior: Mapping) -> None:
+    """Raise ``ValueError`` unless every stored ``mask`` of a PixelCNN prior
+    subtree equals ``_group_mask`` at its conv's shape: mask A on
+    ``conv_in``, mask B elsewhere, in ``C`` groups (``conv_in``'s input
+    channels)."""
+    n_groups = np.shape(prior["conv_in"]["kernel"])[2]
+    convs = [("conv_in", prior["conv_in"], "A"), ("conv_out1", prior["conv_out1"], "B"),
+             ("conv_out2", prior["conv_out2"], "B")]
+    convs += [(f"res/{i}/{name}", block[name], "B") for i, block in _items(prior["res"]) for name in ("conv_a", "conv_b")]
+    for name, conv, kind in convs:
+        if "mask" not in conv:
+            continue
+        want = _group_mask(*np.shape(conv["kernel"]), n_groups, mask_type=kind)
+        if not np.array_equal(np.asarray(conv["mask"], np.float32), want):
+            raise ValueError(f"prior/{name}/mask is not the PixelCNN's mask {kind} at {want.shape} in "
+                             f"{n_groups} groups")
+
+
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX parameter pytree (numpy or JAX leaves; lists as lists or as
     maps keyed by index) → a ``HopVAE`` state_dict. A ``prior`` subtree is
-    mapped when it is a Transformer prior's and left out otherwise."""
+    mapped when it is a Transformer or PixelCNN prior's (the PixelCNN's
+    masks checked, not loaded) and left out otherwise."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
-        if isinstance(node, Mapping):
-            items = node.items()
-        elif isinstance(node, (list, tuple)):
-            items = ((str(i), v) for i, v in enumerate(node))
-        else:
+        if not isinstance(node, (Mapping, list, tuple)):
             name, arr = _leaf(path, node)
             out[name] = torch.from_numpy(arr)
             return
-        for k, v in items:
-            if not path and k == "prior" and not (isinstance(v, Mapping) and TRANSFORMER_PRIOR_KEYS <= v.keys()):
+        for k, v in _items(node):
+            if not path and k == "prior":
+                keys = v.keys() if isinstance(v, Mapping) else ()
+                if PIXELCNN_KEYS <= keys:
+                    check_pixelcnn_masks(v)
+                elif not TRANSFORMER_PRIOR_KEYS <= keys:
+                    continue
+            if path[:1] == ("prior",) and k == "mask":
                 continue
             walk(v, (*path, str(k)))
 

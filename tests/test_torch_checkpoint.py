@@ -130,30 +130,48 @@ def test_transformer_prior_subtree_maps_onto_the_prior():
 
 
 def test_lenient_load_keeps_a_fresh_prior_that_does_not_match(capsys):
-    """A PixelCNN checkpoint under prior=Transformer, and a Transformer
-    checkpoint under the backbone-only PixelCNN config: the backbone loads,
-    the prior keeps its fresh initialization, and a warning names the
-    dropped subtree. A matching checkpoint loads without one."""
+    """A PixelCNN checkpoint under prior=Transformer, a Transformer
+    checkpoint under a PixelCNN config, and a PixelCNN checkpoint under
+    prior=None: the backbone loads, the prior keeps its fresh
+    initialization, and a warning names the dropped subtree. The PixelCNN
+    subtree now loads into the PixelCNN prior, without a warning, each
+    tensor flax's leaf (conv kernels HWIO → OIHW); a stored mask that is
+    not the causality mask raises."""
     from hopvae_torch import HopVAE, load_config
 
     cfg = load_config("pixelcnn_mnist_28")
     cfg.prior, cfg.prior_d_model, cfg.prior_layers = "Transformer", 32, 1
     model = HopVAE(cfg, impl="torch", device="cpu")
     fresh = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("prior.")}
-    sd = params_from_jax(load_msgpack(str(CKPTS / "PixelCNN-MNIST-28.msgpack")))
-    assert not any(k.startswith("prior.") for k in sd)
+    path = CKPTS / "PixelCNN-MNIST-28.msgpack"
+    sd = params_from_jax(load_msgpack(str(path)))
+    assert len([k for k in sd if k.startswith("prior.")]) == 2 * (2 + 2 * 4 + 1)
     model.load_state_dict(sd)
     assert "kept the prior's fresh initialization" in capsys.readouterr().err
     for k, v in fresh.items():
         torch.testing.assert_close(model.state_dict()[k], v, rtol=0, atol=0)
     torch.testing.assert_close(model.state_dict()["hopfield.lookup_weights"], sd["hopfield.lookup_weights"])
 
-    backbone_only = HopVAE(load_config("ffhq_64_scaled"), impl="torch", device="cpu")
-    assert backbone_only.prior is None
-    backbone_only.load_state_dict(params_from_jax(load_msgpack(str(CKPTS / "Transformer-FFHQ-64.msgpack"))))
+    pixelcnn = HopVAE(load_config("ffhq_64_scaled"), impl="torch", device="cpu")
+    pixelcnn.load_state_dict(params_from_jax(load_msgpack(str(CKPTS / "Transformer-FFHQ-64.msgpack"))))
+    assert "kept the prior's fresh initialization" in capsys.readouterr().err
+    cfg = load_config("pixelcnn_mnist_28")
+    cfg.prior = "None"
+    HopVAE(cfg, impl="torch", device="cpu").load_state_dict(sd)
     assert "dropped it" in capsys.readouterr().err
-    HopVAE(load_config("pixelcnn_mnist_28"), impl="torch", device="cpu").load_state_dict(sd)
+
+    anchor = HopVAE(load_config("pixelcnn_mnist_28"), impl="torch", device="cpu")
+    anchor.load_state_dict(sd)
     assert capsys.readouterr().err == ""
+    theirs = serialization.msgpack_restore(path.read_bytes())["prior"]
+    np.testing.assert_array_equal(anchor.prior.res[3].conv_a.weight.detach().numpy(),
+                                  theirs["res"]["3"]["conv_a"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(anchor.prior.conv_out2.bias.detach().numpy(), theirs["conv_out2"]["bias"])
+    np.testing.assert_array_equal(anchor.prior.conv_in.mask.numpy(), theirs["conv_in"]["mask"].transpose(3, 2, 0, 1))
+    tree = load_msgpack(str(path))
+    tree["prior"]["res"]["1"]["conv_a"]["mask"][1, 1] = 1.0  # the center tap seeing later groups
+    with pytest.raises(ValueError, match="prior/res/1/conv_a/mask"):
+        params_from_jax(tree)
 
 
 def test_lenient_load_of_a_wider_prior_matches_lenient_merge(capsys):

@@ -38,6 +38,7 @@ from hopvae_torch import load_config
 from hopvae_torch.data import gumbel_noise
 from hopvae_torch.models.priors import get_prior
 from hopvae_torch.models.priors.decode import Decoder
+from hopvae_torch.models.priors.pixelcnn import PixelCNNPrior
 from hopvae_torch.models.priors.transformer import QMAX, TransformerPrior, _quantize_token, gumbel_
 from hopvae_torch.serving import InferenceEngine, main, state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
@@ -286,10 +287,13 @@ def test_engine_and_cli_sample_under_the_transformer_prior(mnist_transformer, tm
 
 
 def test_error_messages():
-    """The PixelCNN prior still raises with Queue 1 item 5's message; no
-    module of the port names item 6, whose decode is ported."""
+    """The PixelCNN prior is ported: ``get_prior`` builds it, and an unknown
+    prior name raises; no module of the port names item 5 or item 6 of
+    the ROADMAP's queue, both ported."""
     cfg = load_config("pixelcnn_mnist_28")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
+    assert isinstance(get_prior(cfg), PixelCNNPrior)
+    cfg.prior = "Glow"
+    with pytest.raises(ValueError, match="unknown prior 'Glow'"):
         get_prior(cfg)
-    named = [p for p in PORT.rglob("*.py") if "item 6" in p.read_text()]
+    named = [p for p in PORT.rglob("*.py") if "item 6" in p.read_text() or "item 5" in p.read_text()]
     assert not named

@@ -209,14 +209,15 @@ def test_input_shape_check_and_unported_methods():
     assert tm.sample(2, generator=torch.Generator().manual_seed(0)).shape == (2, 28, 28, 1)
     assert tm.interpolate(x, torch.zeros(3, 28, 28, 1)) is x
     assert {"post_vq_conv.weight", "post_vq_conv.bias"} <= tm.state_dict().keys()
-    # fit_prior: the uniform prior of prior="None" scores about log2(L) bits;
-    # the PixelCNN prior is not ported
+    # fit_prior: the uniform prior of prior="None" scores about log2(L) bits,
+    # and so does a fresh PixelCNN prior, whose sample and interpolate
+    # return images (tests/test_torch_pixelcnn.py holds them against JAX)
     _, aux = tm(torch.zeros(1, 28, 28, 1), fit_prior=True)
     assert abs(aux.item() - np.log2(cfg.num_levels)) < 0.5
-    cfg.prior = "PixelCNN"
+    cfg.prior, cfg.prior_num_filters, cfg.prior_num_res_blocks = "PixelCNN", 12, 1
     pixelcnn = HopVAE(cfg, impl="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pixelcnn(torch.zeros(1, 28, 28, 1), fit_prior=True)
-    for call in (lambda: pixelcnn.sample(1), lambda: pixelcnn.interpolate(x, x)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
-            call()
+    _, aux = pixelcnn(torch.zeros(1, 28, 28, 1), fit_prior=True)
+    assert abs(aux.item() - np.log2(cfg.num_levels)) < 0.5
+    drawn = pixelcnn.sample(2, generator=torch.Generator().manual_seed(0))
+    between = pixelcnn.interpolate(x, x)
+    assert drawn.shape == between.shape == (2, 28, 28, 1) and torch.isfinite(drawn).all()

@@ -26,7 +26,7 @@ from hopvae_tpu.ops.bottleneck import bottleneck_params, hopfield_bottleneck as 
 from hopvae_tpu.ops.hopfield import hopfield_lookup
 from hopvae_torch import HopVAE, load_config
 from hopvae_torch.data import PRIOR_GOLDENS, golden_grid, golden_input
-from hopvae_torch.models.priors import NormalPrior, TransformerPrior, get_prior
+from hopvae_torch.models.priors import NormalPrior, PixelCNNPrior, TransformerPrior, get_prior
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
 
@@ -159,7 +159,9 @@ def test_config_rules_match_jax():
     tcfg.prior = "None"
     assert isinstance(get_prior(tcfg), NormalPrior)
     tcfg.prior = "PixelCNN"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert isinstance(get_prior(tcfg, device="meta"), PixelCNNPrior)
+    tcfg.prior = "Glow"
+    with pytest.raises(ValueError, match="unknown prior"):
         get_prior(tcfg)
     # the KV-cached decode runs (tests/test_torch_decode.py holds it against JAX)
     prior = TransformerPrior(_tiny_configs()[1])

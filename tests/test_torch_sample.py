@@ -44,6 +44,17 @@ CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 MNIST_CKPT = CKPTS / GOLDENS["mnist_digits"]["checkpoint"]
 
 
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for a test that runs an eager sampler's many
+    tiny ops: under several test workers on a few cores torch's thread
+    pool spins against theirs (``test_torch_decode.py::one_torch_thread``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_grid(jm, params, x, y):
     """JAX's interpolation grid: the steps of ``HopVAE.interpolate`` up to
     the prior's reconstruct, and the pre-round levels."""
@@ -203,20 +214,24 @@ def test_engine_interpolates_with_padding(mnist_state):
         eng.reconstruct(x[:1])
 
 
-def test_engine_samples_from_a_seed(mnist_state):
+def test_engine_samples_from_a_seed(mnist_state, one_thread):
     """``n_sample`` images a call, the same for the same seed and others
-    for another; a PixelCNN config, whose prior is not ported, raises at
-    the warm-up naming its ROADMAP item; an unknown op raises."""
+    for another; under a PixelCNN config (the anchor's prior) the engine
+    warms up and serves ``sample`` and ``interpolate`` too, and an engine
+    serves all four ops by default, as JAX's does; an unknown op raises."""
     eng = _engine(mnist_state, n_sample=5, ops=("sample",))
     a, b, c = eng.sample(3), eng.sample(3), eng.sample(4)
     assert a.shape == (5, 28, 28, 1) and a.dtype == np.float32 and np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
     assert OPS == ("reconstruct", "encode", "sample", "interpolate")
-    cfg = load_config("pixelcnn_mnist_28")
-    for op in ("sample", "interpolate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
-            InferenceEngine(cfg, mnist_state, max_batch=2, impl="torch", compute_dtype=None, device="cpu", ops=(op,))
+    eng = InferenceEngine(load_config("pixelcnn_mnist_28"), mnist_state, max_batch=2, impl="torch",
+                          compute_dtype=None, device="cpu", n_sample=3)
+    assert eng.ops == OPS
+    x = golden_input("mnist_digits")
+    drawn, between = eng.sample(5), eng.interpolate(x[:2], x[2:4])
+    assert drawn.shape == (3, 28, 28, 1) and between.shape == (2, 28, 28, 1)
+    assert np.isfinite(drawn).all() and np.isfinite(between).all()
     with pytest.raises(ValueError, match="unknown ops"):
         _engine(mnist_state, ops=("decode",))
 

@@ -20,8 +20,10 @@ def state():
 
 
 def _engine(state, max_batch=8, **kw):
+    """An engine of the MNIST golden's config, reconstruct and encode unless
+    ``ops`` says otherwise."""
     cfg = load_config(GOLDENS["mnist_digits"]["config"])
-    kw = {"impl": "torch", "compute_dtype": None, "device": "cpu", **kw}
+    kw = {"impl": "torch", "compute_dtype": None, "device": "cpu", "ops": ("reconstruct", "encode"), **kw}
     return cfg, InferenceEngine(cfg, state, max_batch=max_batch, **kw)
 
 
@@ -43,8 +45,13 @@ def test_reconstruct_rejects_oversize_batch(state):
 
 
 def test_engine_rejects_unported_and_unwarmed_ops(state):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _engine(state, ops=("reconstruct", "sample"))
+    """Every op of the JAX engine is served (sample under the anchor's
+    PixelCNN prior too); a name that is none of them raises, and so does
+    an op the engine did not warm up."""
+    _, eng = _engine(state, max_batch=2, ops=("reconstruct", "sample"), n_sample=2)
+    assert eng.sample(0).shape == (2, 28, 28, 1)
+    with pytest.raises(ValueError, match="unknown ops"):
+        _engine(state, ops=("reconstruct", "denoise"))
     _, eng = _engine(state, max_batch=2, ops=("encode",))
     with pytest.raises(RuntimeError, match="reconstruct"):
         eng.reconstruct(np.zeros((1, 28, 28, 1), np.float32))

@@ -39,6 +39,7 @@ from hopvae_torch import train as ttrain
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
 from hopvae_torch.utils.metrics import MetricLogger, denormalize
+from test_torch_sample import one_thread  # noqa: F401 (a fixture)
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 SMALL = {"num_hiddens": 16, "num_residual_hiddens": 8, "num_embeddings": 64, "batch_size": 8}
@@ -184,13 +185,13 @@ def test_schedule_matches_optax():
         opt.step()
         schedule.step()
     np.testing.assert_allclose(got, [float(want(k)) for k in range(10)], rtol=1e-6)
-    # prior_only: the prior's parameters alone; a prior the port lacks raises
+    # prior_only: the prior's parameters alone; a prior without parameters raises
     model = torch.nn.Module()
     model.backbone, model.prior = torch.nn.Linear(2, 1), torch.nn.Linear(3, 1)
     opt, _ = ttrain.make_optimizer(cfg, model, steps_per_epoch, prior_only=True)
     assert [p for g in opt.param_groups for p in g["params"]] == list(model.prior.parameters())
-    model.prior = None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    model.prior = torch.nn.ReLU()
+    with pytest.raises(ValueError, match="no parameters"):
         ttrain.make_optimizer(cfg, model, 4, prior_only=True)
 
 
@@ -276,14 +277,23 @@ def test_save_and_resume_round_trip(tmp_path):
     assert [r["epoch"] for r in records] == [0, 1, 2]
 
 
-def test_fit_evaluates_and_raises_at_the_prior_phase(tmp_path):
-    cfg, tr, ds = _tiny(tmp_path, prior="PixelCNN", prior_start=0)
+def test_fit_evaluates_and_raises_at_the_prior_phase(tmp_path, one_thread):
+    """A PixelCNN config evaluates in epoch 0, then trains its prior phase
+    (a fresh PixelCNN, the backbone frozen); an unknown prior raises at the
+    phase check; a prior without parameters never switches."""
+    cfg, tr, ds = _tiny(tmp_path, prior="PixelCNN", prior_start=0, prior_num_filters=12, prior_num_res_blocks=1)
     tr.fit(ds, ds, epochs=1, out_dir=str(tmp_path), save_every=0)
     records = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
     test_err = [r["Test Reconstruction Error"] for r in records if "Test Reconstruction Error" in r]
     assert len(test_err) == 1 and test_err[0] == pytest.approx(tr.evaluate(ds), rel=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.fit(ds, ds, epochs=2, start_epoch=1, out_dir=str(tmp_path), save_every=0)
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.fit(ds, ds, epochs=2, start_epoch=1, out_dir=str(tmp_path), eval_every=0, save_every=0)
+    assert tr.fit_prior and json.loads(open(tmp_path / "metrics.jsonl").readlines()[-1])["fit_prior"]
+    for name, p in tr.model.state_dict().items():
+        assert torch.equal(p, before[name]) != name.startswith("prior."), name
+    cfg.prior = "Glow"
+    with pytest.raises(ValueError, match="unknown prior"):
+        tr.fit(ds, ds, epochs=3, start_epoch=2, out_dir=str(tmp_path), eval_every=0, save_every=0)
     cfg.prior = "None"  # a prior without parameters never switches
     tr.fit(ds, ds, epochs=2, start_epoch=1, out_dir=str(tmp_path), eval_every=0, save_every=0)
 

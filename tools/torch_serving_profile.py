@@ -61,7 +61,7 @@ def main(argv=None) -> int:
         return 2
     cfg = load_config("ffhq_64_scaled")
     state = state_from_checkpoint(str(ROOT / "checkpoints" / "Transformer-FFHQ-64.msgpack"))
-    engine = InferenceEngine(cfg, state, max_batch=256)
+    engine = InferenceEngine(cfg, state, max_batch=256, ops=("reconstruct",))
     x = _normalize(synthetic_images(256, cfg.image_size, seed=3), cfg.data_set)
     engine.reconstruct(x)
     torch.cuda.synchronize()
