@@ -40,13 +40,15 @@ Seventeen phases, each of which raises on failure:
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
    prior gives them), at ``prior_heads=1`` (one head of 128), at one head
    of 256 (``prior_d_model=256``), at one head of 384 and one of 512 (the
-   wide kernels), and at small ragged shapes (one at 256, one at 768, one
-   with views off 16-byte alignment); each kernel, whose products run
+   wide kernels), and at small ragged shapes (one at 256; at 768, 1280,
+   2560 and 8192, the backward's cluster plans; two with views off 16-byte
+   alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
    (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
    same FLOPs on the f32 CUDA cores (``bound_f32_ms``), and each kernel's
-   registers, shared bytes and blocks an SM per width (K1's, K2's and
+   registers, shared bytes and blocks an SM per width (past 256 also the
+   backward's cluster: blocks, slice, clusters the card holds; K1's, K2's and
    K3's too, at each width of phase 2, and K4's at each of phase 12).
    Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
@@ -796,8 +798,10 @@ ATTENTION_COUNTERS = {
 # (label, B, S, heads, dh): the prior at full width, at prior_heads=1, at
 # one head of 256, 384 and 512, and small ragged shapes (S a multiple of no
 # tile, of one tile, below one) at each of the forward's tile
-# configurations (dh up to 64, 128, 256, and the wide kernels past it);
-# "misaligned" views take the 4-byte copies
+# configurations (dh up to 64, 128, 256, and the wide kernels past it) and
+# at each of the backward's cluster plans past 256 (slices of 128, 256 and
+# 512; 16 blocks, a non-portable cluster, at 8192); "misaligned" views take
+# the 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
@@ -811,10 +815,13 @@ ATTENTION_CASES = (
     ("ragged S37 dh64", 2, 37, 2, 64),
     ("ragged S37 dh256", 2, 37, 1, 256),
     ("ragged S37 dh768", 2, 37, 1, 768),
+    ("ragged S37 dh1280", 2, 37, 1, 1280),
+    ("ragged S37 dh2560", 2, 37, 1, 2560),
+    ("ragged S37 dh8192", 2, 37, 1, 8192),
+    ("ragged S37 dh384 misaligned", 2, 37, 1, 384),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
 PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
-WIDE_HEADS = (384, 512)  # the head widths of phase 7's full-width cases on the wide kernels
 
 
 def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
@@ -884,7 +891,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     reports them."""
     log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
                                        **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
-                                  for dh in (*ac.HEAD_DIMS, *WIDE_HEADS)}}))
+                                  for dh in sorted({*ac.HEAD_DIMS, *(c[4] for c in ATTENTION_CASES)})}}))
     widths = [*hc.SUPPORTED, *((d_in, d_out) for _l, _n, _m, d_in, d_out in WIDTH_CASES)]
     log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
                                                           for kn in ("dx", "dku")}

@@ -78,18 +78,61 @@
 //   Registers and blocks an SM per width (no spills at any width) are in
 //   PERF.md, from causal_attention_bwd_attributes on the card.
 //
-// Past 256 (any multiple of 128; the wide kernels below, one instance
-// each for every such width) the resident tiles no longer fit beside the
-// streamed ones, and a warp's dK and dV over the full width would take
-// too many registers. A block owns 64 resident rows and one window of
-// output columns (a grid axis: 64 columns in K5-dkv, 128 in K5-dq). Per
-// streamed tile it streams the four inputs in depth chunks of 64, each
-// chunk's products summed in fresh fragments and added to the score and
-// g v^T fragments before the exp,
-// then the tile's window of the streamed rows (q and g, or k) for its
-// outputs. Every window block recomputes the scores over the full depth.
-// Shared bytes: 104,448 (two buffers of a chunk of 64 + 64 resident and
-// 32 + 32 streamed rows).
+// Past 256 (any multiple of 128 up to 8192; the cluster kernels below,
+// the width a runtime argument) the resident tiles no longer fit one block
+// beside the streamed ones, and a warp's dK and dV over the full width
+// would take too many registers. So the depth is split across the blocks
+// of a thread-block cluster (Hopper's distributed shared memory), one
+// level above SPLIT's split across the warps of a slab:
+// - A cluster of R blocks on the grid's z axis shares one (batch, head)
+//   and one resident tile; block rank r owns the depth slice [r SL,
+//   r SL + SL) of all four inputs (the last slice may be 128 narrower per
+//   missing chunk). Its resident slice (k, v or q, g) is staged once and
+//   stays for the whole walk; each streamed tile's slice (q, g with lse and
+//   delta, or k, v) arrives by cp.async into one of NB buffers (three where
+//   they fit: the copies then start two tiles ahead).
+// - Per streamed tile, each warp (a 16-row slab, a 64-column part of the
+//   slice) computes its partial scores and g v^T over its 64 columns in
+//   fresh fragments (chains of 8 steps, as the chunks of 64 the narrow
+//   instances' warps run) and writes them to its own shared memory. After
+//   a cluster barrier, n-tile j of a slab is finished by the warp of part
+//   j / R in rank j % R: it reads every rank's partials of that n-tile
+//   (mapa, ld.shared::cluster), sums each rank's parts in a fresh sum and
+//   adds the ranks in rank order (the order is fixed: two launches give
+//   equal bits), builds P and dS and leaves them in its shared memory in
+//   A-fragment order (the reduce-scatter). After a second barrier every
+//   warp reads the slab's P and dS from their finishers (the all-gather)
+//   and runs the output products on its own 64 columns of the streamed
+//   slice already in its shared memory. So q k^T and g v^T are computed
+//   once per (resident tile, streamed tile) and no output window
+//   recomputes them. A slab's causal skip is the same in every rank; a
+//   warp that skips still meets both barriers, and every block ends with
+//   a barrier, so none leaves while another may read its shared memory.
+// - The two barriers a tile are split into arrive and wait, and the walk
+//   runs one tile behind in the outputs: while barrier 0 of tile t is
+//   pending, a warp runs tile t - 1's outputs; while barrier 1 is pending,
+//   tile t + 1's partials. A warp reads tile t - 1's P and dS before it
+//   arrives at tile t's barrier 0, after which their finishers rewrite
+//   them; the partials of tile t + 1 wait in registers until barrier 1.
+// - The operands split into big and small TF32 parts as mma_tf32.cuh
+//   says, the small part truncated by the tensor cores instead of rounded
+//   (split<true>): an error of the same order, two integer operations
+//   fewer a value. K5-dkv runs its outputs in two groups of 32 columns and
+//   its finishers read one rank at a time, to stay within 255 registers.
+// - R = n / J rounded up for a head of n chunks of 128, J chunks a slice:
+//
+//   n        J  SL   TM  TN  R        NB (dkv / dq)  shared bytes (dkv / dq)
+//   3..8     1  128  64  32  3..8     3 / 3          218,880 / 209,920
+//   9..16    2  256  32  16  5..8     3 / 3          187,264 / 184,832
+//   17..64   4  512  16  16  5..16    2 / 2          216,832 / 215,552
+//
+//   8 warps a block, one block an SM. Clusters past 8 blocks (n past 32)
+//   are non-portable, opted in at the launch; past 64 chunks (8192) a
+//   cluster would need more than 16 blocks, and the width is refused.
+//   The launch sets the cluster size at run time (cudaLaunchKernelEx);
+//   causal_attention_bwd_cluster reports it, the slice width and whether
+//   the card can hold such a cluster at once. A launch that fails returns
+//   its error; nothing falls back.
 
 #include <cstdint>
 
@@ -401,46 +444,126 @@ int launch(const float* q, const float* k, const float* v, const float* g, const
 }
 
 
-// ---- head widths past 256: the wide kernels, one instance each for every
-// multiple of 128 (the width d is a runtime argument)
+// ---- head widths past 256: the cluster kernels (see the header), one
+// instance for each slice of at most J chunks of 128 (the width d is a
+// runtime argument)
 namespace wide {
-constexpr int TM = 64;        // resident rows of a block, a warp a 16-row slab
-constexpr int TN = 32;        // streamed rows of a tile
-constexpr int NT = TN / 8;    // n-tiles of a 16 x TN score slab
-constexpr int DC = 64;        // depth of a streamed chunk
-constexpr int THREADS = 32 * TM / 16;
-constexpr int RC = DC + 4;    // row stride of a chunk
-constexpr int STEP = 128;     // the wide widths: multiples of this past 256
-template <bool DKV>
-struct Window {
-  static constexpr int CW = DKV ? 64 : 128;  // output columns of a block (dK and dV, or dQ)
-  static constexpr int CT = CW / 8;          // a warp's output n-tiles
-  static constexpr int RW = CW + 4;          // row stride of a window tile
+constexpr int STEP = 128;       // the wide widths: multiples of this past 256
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int PORTABLE = 8;     // blocks of a portable cluster
+constexpr int MAX_RANKS = 16;   // blocks of a non-portable cluster
+template <int J>
+struct Cfg {
+  static constexpr int TM = J == 1 ? 64 : J == 2 ? 32 : 16;  // resident rows of a block
+  static constexpr int TN = J == 1 ? 32 : 16;                // streamed rows of a tile
+  static constexpr int NT = TN / 8;                          // n-tiles of a 16 x TN score slab
+  static constexpr int SLABS = TM / 16;                      // 16-row slabs
+  static constexpr int WS = WARPS / SLABS;                   // warps of a slab, one part of the slice each
+  static constexpr int SL = STEP * J;                        // slice width at most
+  static constexpr int PART = SL / WS;                       // a warp's columns of the slice
+  static constexpr int RS = SL + 4;                          // row stride in shared memory
+  static constexpr int XCH = SLABS * WS * 2 * NT * 32;       // float4s of the partials (scores, g v^T)
+  static_assert(PART % 16 == 0 && NT % 2 == 0 && NT <= 2 * WS, "tiles");
 };
-// one buffer: a chunk item (two resident chunks of TM rows, two streamed
-// ones of TN), or a window item (the streamed window tiles, K5-dkv's two
-// with the tile's lse and delta)
-template <bool DKV>
-__host__ __device__ constexpr int slot() {
-  constexpr int chunk = (2 * TM + 2 * TN) * RC;
-  constexpr int window = (DKV ? 2 : 1) * TN * Window<DKV>::RW + (DKV ? 2 * TN : 0);
-  return chunk > window ? chunk : window;
+// shared bytes with NB buffers of the streamed slices: the resident
+// slices, the streamed ones (with K5-dkv's lse and delta), the partials,
+// the hand-over of dS (and P)
+template <int J, bool DKV>
+__host__ __device__ constexpr size_t bytes_with(int nb) {
+  using C = Cfg<J>;
+  return sizeof(float) * (2 * C::TM * C::RS + nb * (2 * C::TN * C::RS + (DKV ? 2 * C::TN : 0))) +
+         sizeof(float4) * (C::XCH + C::SLABS * (DKV ? 2 : 1) * C::NT * 32);
 }
-template <bool DKV>
-__host__ __device__ constexpr size_t bytes() { return sizeof(float) * 2 * slot<DKV>(); }
+// streamed buffers: three where they fit (a tile's copies then start two
+// tiles ahead), else two
+template <int J, bool DKV>
+__host__ __device__ constexpr int buffers() { return bytes_with<J, DKV>(3) <= 232448 ? 3 : 2; }
+template <int J, bool DKV>
+__host__ __device__ constexpr size_t bytes() { return bytes_with<J, DKV>(buffers<J, DKV>()); }
+// chunks of 128 in a block's slice for a head of n chunks; 0: refused
+inline int chunks_per_rank(int n) {
+  return n <= PORTABLE ? 1 : n <= 2 * PORTABLE ? 2 : n <= 4 * MAX_RANKS ? 4 : 0;
+}
 }  // namespace wide
 
-template <bool DKV>
-__global__ void __launch_bounds__(wide::THREADS)
-causal_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       const float* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ out_a, float* __restrict__ out_b, int s, int h, int d, Strides qs,
-                       Strides ks, Strides vs, Strides gs, float scale, unsigned vec16) {
+// The block's rank in its cluster and the cluster's size.
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_ranks() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives, and what each wrote to shared memory before its arrival is
+// visible to all after their wait (release, acquire). Between the two a
+// thread may work, but not arrive again.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;" ::: "memory"); }
+
+// The float4 at p in the shared memory of block `rank` of the cluster (a
+// generic load the compiler may schedule freely between the barriers).
+__device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
+  uint64_t r;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return *reinterpret_cast<const float4*>(r);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) { a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w; }
+
+// Stage rows [row0, row0 + ROWS) of columns [0, cols) of a strided input
+// (src: the slice's first column; cols a multiple of 128) into shared
+// memory, rows RS floats apart, zeros past the sequence end; as
+// causal_attention::stage, with the width at run time, a chunk of 128
+// columns at a time (the index math in shifts).
+template <int RS, int ROWS>
+__device__ __forceinline__ void stage_slice(float* dst, const float* __restrict__ src, Strides st, int b, int hh,
+                                            int row0, int s, bool vec16, int cols) {
+  const float* base = src + b * st.b + hh * st.h;
+  for (int c0 = 0; c0 < cols; c0 += wide::STEP) {
+    if (vec16) {
+      for (int i = threadIdx.x; i < ROWS * wide::STEP / 4; i += wide::THREADS) {
+        const int r = i / (wide::STEP / 4);
+        const int c = c0 + (i % (wide::STEP / 4)) * 4;
+        const bool in = row0 + r < s;
+        cp_async16(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * wide::STEP; i += wide::THREADS) {
+        const int r = i / wide::STEP;
+        const int c = c0 + i % wide::STEP;
+        const bool in = row0 + r < s;
+        cp_async4(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
+      }
+    }
+  }
+}
+
+template <int J, bool DKV>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+causal_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ g, const float* __restrict__ lse,
+                          const float* __restrict__ delta, float* __restrict__ out_a, float* __restrict__ out_b, int s,
+                          int h, int d, Strides qs, Strides ks, Strides vs, Strides gs, float scale, unsigned vec16) {
   using namespace wide;
-  using Wn = Window<DKV>;
-  constexpr int CW = Wn::CW, CT = Wn::CT, RW = Wn::RW, SLOT = slot<DKV>();
+  using C = Cfg<J>;
+  constexpr int TM = C::TM, TN = C::TN, NT = C::NT, WS = C::WS, SL = C::SL, RS = C::RS;
+  constexpr int PART = C::PART;
+  constexpr int NB = buffers<J, DKV>();  // streamed buffers
+  constexpr int CT = PART / 8;           // a warp's output n-tiles
+  constexpr int HO = DKV ? 2 : 1;        // hand-over arrays: dS (and P)
+  constexpr int BUF = 2 * TN * RS + (DKV ? 2 * TN : 0);  // floats of a streamed buffer
   extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+  float* res0 = reinterpret_cast<float*>(smem4);  // k (dkv) or q (dq): the resident slice
+  float* res1 = res0 + TM * RS;                    // v (dkv) or g (dq)
+  float* str = res1 + TM * RS;                     // buffer u at str + u * BUF: the streamed slices, lse, delta
+  float4* xch = reinterpret_cast<float4*>(str + NB * BUF);  // [slab][part][sc, dp][n-tile][lane]
+  float4* hand = xch + C::XCH;                              // [slab][dS, P][n-tile][lane]
 
   // inputs by role, as in causal_bwd_kernel
   const float* r0p = DKV ? k : q;
@@ -451,47 +574,55 @@ causal_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool r0v = vec16 >> (DKV ? 1 : 0) & 1u, r1v = vec16 >> (DKV ? 2 : 3) & 1u;
   const bool s0v = vec16 >> (DKV ? 0 : 1) & 1u, s1v = vec16 >> (DKV ? 3 : 2) & 1u;
 
+  const int rank = cluster_rank(), ranks = cluster_ranks();
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int m0 = 16 * (threadIdx.x >> 5);
+  const int slab = warp / WS, part = warp % WS;
+  const int m0 = 16 * slab;
   const int bh = blockIdx.x;
   const int b = bh / h;
   const int hh = bh - b * h;
-  const int mt = DKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  const int mt = DKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;  // the longest walks first
   const int row_m0 = mt * TM;
-  const int col0 = blockIdx.z * CW;  // the block's window of output columns
   const int first = DKV ? row_m0 / TN : 0;
   const int last = DKV ? (s - 1) / TN : (min(row_m0 + TM, s) - 1) / TN;
   const int slab_lo = row_m0 + m0;
-  const int chunks = d / DC;
-  const int per_tile = chunks + 1;  // items of a streamed tile: the depth chunks, then the window
-  const int items = (last - first + 1) * per_tile;
+  const int c0 = rank * SL;                  // the block's slice: columns c0 .. c0 + cols
+  const int cols = min(SL, d - c0);          // a multiple of 128
+  const int pc = PART * part;                // the warp's part of it
+  const bool mine = pc < cols;
+  const int fin = part * ranks + rank;       // the warp finishes n-tile `fin` of its slab if fin < NT
 
-  auto stage_item = [&](int i, int u) {
-    float* y = buf + u * SLOT;
-    const int it = first + i / per_tile, sub = i % per_tile;
-    if (sub < chunks) {
-      const int c0 = sub * DC;
-      stage<DC, TM, THREADS>(y, r0p + c0, r0s, b, hh, row_m0, s, r0v);
-      stage<DC, TM, THREADS>(y + TM * RC, r1p + c0, r1s, b, hh, row_m0, s, r1v);
-      stage<DC, TN, THREADS>(y + 2 * TM * RC, s0p + c0, s0s, b, hh, it * TN, s, s0v);
-      stage<DC, TN, THREADS>(y + 2 * TM * RC + TN * RC, s1p + c0, s1s, b, hh, it * TN, s, s1v);
-    } else {
-      stage<CW, TN, THREADS>(y, s0p + col0, s0s, b, hh, it * TN, s, s0v);  // q (dkv) or k (dq)
+  // tile `it` into buffer it % NB (nothing past the last); one commit group either way
+  auto stage_stream = [&](int it) {
+    if (it <= last) {
+      float* y = str + (it % NB) * BUF;
+      stage_slice<RS, TN>(y, s0p + c0, s0s, b, hh, it * TN, s, s0v, cols);
+      stage_slice<RS, TN>(y + TN * RS, s1p + c0, s1s, b, hh, it * TN, s, s1v, cols);
       if constexpr (DKV) {
-        stage<CW, TN, THREADS>(y + TN * RW, s1p + col0, s1s, b, hh, it * TN, s, s1v);  // g
-        float* st = y + 2 * TN * RW;
-        for (int j = threadIdx.x; j < 2 * TN; j += THREADS) {
-          const int r = it * TN + (j % TN);
+        float* st = y + 2 * TN * RS;
+        for (int i = threadIdx.x; i < 2 * TN; i += THREADS) {
+          const int r = it * TN + (i % TN);
           const bool in = r < s;
-          const float* src = (j < TN ? lse : delta) + static_cast<size_t>(bh) * s;
-          cp_async4(st + j, in ? src + r : src, in);
+          const float* src = (i < TN ? lse : delta) + static_cast<size_t>(bh) * s;
+          cp_async4(st + i, in ? src + r : src, in);
         }
       }
     }
     cp_async_commit();
   };
-  stage_item(0, 0);
+  // a slab with no key <= row in tile it, or no row < S, skips it in every
+  // block of the cluster alike; its warps still meet every barrier
+  auto live = [&](int it) {
+    const int n_lo = it * TN;
+    return DKV ? !(slab_lo > n_lo + TN - 1 || n_lo >= s) : !(n_lo > slab_lo + 15 || slab_lo >= s);
+  };
+
+  stage_slice<RS, TM>(res0, r0p + c0, r0s, b, hh, row_m0, s, r0v, cols);
+  stage_slice<RS, TM>(res1, r1p + c0, r1s, b, hh, row_m0, s, r1v, cols);
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_stream(first + i);  // the resident slices go with the first
 
   float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
   if constexpr (!DKV) {
@@ -505,116 +636,198 @@ causal_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float acc0[CT][4], acc1[DKV ? CT : 1][4], sc[NT][4], dp[NT][4];
+  float acc0[CT][4], acc1[DKV ? CT : 1][4];
 #pragma unroll
   for (int c = 0; c < CT; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc0[c][e] = acc1[DKV ? c : 0][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+  float4* xw = xch + (slab * WS + part) * 2 * NT * 32 + lane;  // the warp's partials
+  const float4* xs = xch + slab * WS * 2 * NT * 32 + lane;     // the slab's, part 0
 
-  for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
-    cp_async_wait_all();
-    __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
-    const float* y = buf + u * SLOT;
-    const int it = first + i / per_tile, sub = i % per_tile;
-    const int n_lo = it * TN;
-    if (DKV ? (slab_lo > n_lo + TN - 1 || n_lo >= s) : (n_lo > slab_lo + 15 || slab_lo >= s)) continue;
-
-    if (sub < chunks) {
-      // ---- this chunk's part of the slab's scores and g v^T, in fresh
-      // fragments (short chains of the truncating sums), then added
-      float ps[NT][4], pd[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ps[j][e] = pd[j][e] = 0.f;
-      const float* y0 = y + 2 * TM * RC;  // streamed chunk 0
-      const float* y1 = y0 + TN * RC;     // streamed chunk 1
-#pragma unroll 2
-      for (int kk = 0; kk < DC; kk += 8) {
-        const FragA xa = load_a<RC>(y + m0 * RC + kk, gq, tq);
-        const FragA wa = load_a<RC>(y + TM * RC + m0 * RC + kk, gq, tq);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          FragB y0b, y1b, z0b, z1b;
-          load_b_rows2<RC>(y0b, y1b, y0 + 8 * j * RC + kk, gq, tq);
-          load_b_rows2<RC>(z0b, z1b, y1 + 8 * j * RC + kk, gq, tq);
-          mma3(ps[j], xa, y0b);
-          mma3(pd[j], wa, z0b);
-          mma3(ps[j + 1], xa, y1b);
-          mma3(pd[j + 1], wa, z1b);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[j][e] = sub == 0 ? ps[j][e] : sc[j][e] + ps[j][e];
-          dp[j][e] = sub == 0 ? pd[j][e] : dp[j][e] + pd[j][e];
-        }
-      continue;
-    }
-
-    // ---- the window: P and dS on the whole sums, then the outputs
-    const float* w0 = y;         // q (dkv) or k (dq), the window's columns
-    const float* w1 = y + TN * RW;  // g (dkv)
-    const float* st = y + 2 * TN * RW;
-    float fs[NT][4], fd[NT][4];
+  // ---- the warp's partial scores and g v^T of tile it over its PART
+  // columns, in fresh fragments
+  float sc[NT][4], dp[NT][4];
+  auto partials = [&](int it) {
+    const float* y0 = str + (it % NB) * BUF;
+    const float* y1 = y0 + TN * RS;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = slab_lo + gq + 8 * (e >> 1);
-        const int n = n_lo + 8 * j + 2 * tq + (e & 1);
-        const int key = DKV ? m : n, row = DKV ? n : m;
-        const float l = DKV ? st[n - n_lo] : lse_r[e >> 1];
-        const float dl = DKV ? st[TN + n - n_lo] : dl_r[e >> 1];
-        const float p = key <= row && row < s ? __expf(sc[j][e] * scale - l) : 0.f;
-        fs[j][e] = p;
-        fd[j][e] = p * (dp[j][e] - dl);
-      }
-    float o0[CT][4], o1[DKV ? CT : 1][4];
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    if (!(live(it) && mine)) return;
+#pragma unroll 2
+    for (int kk = pc; kk < pc + PART; kk += 8) {
+      const FragA xa = load_a<RS, true>(res0 + m0 * RS + kk, gq, tq);
+      const FragA wa = load_a<RS, true>(res1 + m0 * RS + kk, gq, tq);
 #pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o0[c][e] = o1[DKV ? c : 0][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n8 = n_lo + 8 * j;
-      if (DKV ? (n8 + 7 < slab_lo || n8 >= s) : (n8 > slab_lo + 15 || n8 >= s)) continue;
-      const FragA dsa = split_a(fd[j][0], fd[j][2], fd[j][1], fd[j][3]);
-      if constexpr (DKV) {
-        const FragA pfa = split_a(fs[j][0], fs[j][2], fs[j][1], fs[j][3]);
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          mma3(o1[c], pfa, load_b_cols<RW>(w1 + 8 * j * RW + 8 * c, gq, tq));  // dV, g
-          mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dK, q
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dQ, k
+      for (int j = 0; j < NT; j += 2) {
+        FragB y0b, y1b, z0b, z1b;
+        load_b_rows2<RS, true>(y0b, y1b, y0 + 8 * j * RS + kk, gq, tq);
+        load_b_rows2<RS, true>(z0b, z1b, y1 + 8 * j * RS + kk, gq, tq);
+        mma3(sc[j], xa, y0b);
+        mma3(dp[j], wa, z0b);
+        mma3(sc[j + 1], xa, y1b);
+        mma3(dp[j + 1], wa, z1b);
       }
     }
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc0[c][e] += o0[c][e];
-        if constexpr (DKV) acc1[c][e] += o1[c][e];
-      }
-  }
+  };
 
+  // ---- reduce-scatter of tile it: n-tile j = fin of the slab, summed over
+  // each rank's parts in a fresh sum, the ranks added in rank order; then P
+  // and dS, handed over in A-fragment order
+  auto finish = [&](int it) {
+    if (!(live(it) && fin < NT)) return;
+    const int j = fin;
+    const int n_lo = it * TN;
+    const float* st = str + (it % NB) * BUF + 2 * TN * RS;
+    constexpr int RG = DKV ? 1 : 8 / WS;  // ranks whose partials are loaded at once (K5-dkv: registers)
+    float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), td = ts;
+    for (int r0 = 0; r0 < ranks; r0 += RG) {
+      float4 ps[RG][WS], pd[RG][WS];
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+        for (int p = 0; p < WS; ++p)
+          if (r0 + rr < ranks && PART * p < min(SL, d - (r0 + rr) * SL)) {
+            ps[rr][p] = ld_cluster(xs + (2 * p * NT + j) * 32, r0 + rr);
+            pd[rr][p] = ld_cluster(xs + ((2 * p + 1) * NT + j) * 32, r0 + rr);
+          }
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) {
+        const int r = r0 + rr, parts = r < ranks ? min(SL, d - r * SL) / PART : 0;
+#pragma unroll
+        for (int p = 1; p < WS; ++p)
+          if (p < parts) add4(ps[rr][0], ps[rr][p]), add4(pd[rr][0], pd[rr][p]);
+        if (r == 0) {
+          ts = ps[rr][0], td = pd[rr][0];
+        } else if (r < ranks) {
+          add4(ts, ps[rr][0]), add4(td, pd[rr][0]);
+        }
+      }
+    }
+    float fs[4] = {ts.x, ts.y, ts.z, ts.w}, fd[4] = {td.x, td.y, td.z, td.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = slab_lo + gq + 8 * (e >> 1);
+      const int n = n_lo + 8 * j + 2 * tq + (e & 1);
+      const int key = DKV ? m : n, row = DKV ? n : m;
+      const float l = DKV ? st[n - n_lo] : lse_r[e >> 1];
+      const float dl = DKV ? st[TN + n - n_lo] : dl_r[e >> 1];
+      const float p = key <= row && row < s ? __expf(fs[e] * scale - l) : 0.f;
+      fs[e] = p;
+      fd[e] = p * (fd[e] - dl);
+    }
+    float4* hw = hand + slab * HO * NT * 32 + lane;
+    hw[j * 32] = make_float4(fd[0], fd[2], fd[1], fd[3]);
+    if constexpr (DKV) hw[(NT + j) * 32] = make_float4(fs[0], fs[2], fs[1], fs[3]);
+  };
+
+  // ---- all-gather of tile it: the slab's dS (and P) from their finishers
+  float4 dsj[NT], pj[DKV ? NT : 1];
+  auto gather = [&](int it) {
+    if (!(live(it) && mine)) return;
+    const float4* hr = hand + slab * HO * NT * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      dsj[j] = ld_cluster(hr + j * 32, j % ranks);
+      if constexpr (DKV) pj[j] = ld_cluster(hr + (NT + j) * 32, j % ranks);
+    }
+  };
+
+  // ---- the outputs of tile it over the warp's PART columns: dV += P^T g
+  // and dK += dS^T q (dkv), dQ += dS k (dq), over the tile's streamed rows
+  // 8j .. 8j + 7 in order, in fresh fragments added to the running sums
+  // after the tile
+  auto outputs = [&](int it) {
+    if (!(live(it) && mine)) return;
+    const int n_lo = it * TN;
+    const float* y0 = str + (it % NB) * BUF;
+    const float* y1 = y0 + TN * RS;
+    // K5-dkv in two groups of columns, each with its fresh fragments (the
+    // sums per column are the same; fewer registers are live)
+    constexpr int CH = DKV ? 2 : 1, CG = CT / CH;
+#pragma unroll
+    for (int hf = 0; hf < CH; ++hf) {
+      float o0[CG][4], o1[DKV ? CG : 1][4];
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o0[c][e] = o1[DKV ? c : 0][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n8 = n_lo + 8 * j;
+        if (DKV ? (n8 + 7 < slab_lo || n8 >= s) : (n8 > slab_lo + 15 || n8 >= s)) continue;
+        const FragA dsa = split_a<true>(dsj[j].x, dsj[j].y, dsj[j].z, dsj[j].w);
+        if constexpr (DKV) {
+          const FragA pfa = split_a<true>(pj[j].x, pj[j].y, pj[j].z, pj[j].w);
+#pragma unroll
+          for (int c = 0; c < CG; ++c) {
+            const int col = pc + 8 * (hf * CG + c);
+            mma3(o1[c], pfa, load_b_cols<RS, true>(y1 + 8 * j * RS + col, gq, tq));  // dV, g
+            mma3(o0[c], dsa, load_b_cols<RS, true>(y0 + 8 * j * RS + col, gq, tq));  // dK, q
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < CG; ++c)
+            mma3(o0[c], dsa, load_b_cols<RS, true>(y0 + 8 * j * RS + pc + 8 * c, gq, tq));  // dQ, k
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc0[hf * CG + c][e] += o0[c][e];
+          if constexpr (DKV) acc1[hf * CG + c][e] += o1[c][e];
+        }
+    }
+  };
+
+  // ---- the walk, one tile behind in the outputs: while a cluster barrier
+  // is pending, the warps run the previous tile's outputs (barrier 0) or the
+  // next tile's partials (barrier 1). A warp reads tile it - 1's hand-over
+  // before it arrives at tile it's barrier 0, after which it is rewritten.
+  if constexpr (NB == 3) cp_async_wait_prior();
+  else cp_async_wait_all();
+  __syncthreads();  // the resident slices and tile `first` have landed
+  partials(first);
+  for (int it = first; it <= last; ++it) {
+    if (live(it) && mine) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        xw[j * 32] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+        xw[(NT + j) * 32] = make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+      }
+    }
+    if (it > first) gather(it - 1);
+    cluster_arrive();  // barrier 0: tile it's partials are in place; tile it - 1's P and dS are read
+    if (it > first) outputs(it - 1);
+    if constexpr (NB == 3) cp_async_wait_all();  // tile it + 1, staged a tile ago
+    __syncthreads();  // every warp is done with tile it - 1's buffer (NB 3: tile it + 1 has landed)
+    stage_stream(it - 1 + NB);
+    cluster_wait();
+    finish(it);
+    cluster_arrive();  // barrier 1: tile it's P and dS are in place; tile it's partials are read
+    if (it < last) {
+      if constexpr (NB == 2) {
+        cp_async_wait_all();
+        __syncthreads();  // tile it + 1 has landed
+      }
+      partials(it + 1);
+    }
+    cluster_wait();
+  }
+  gather(last);
+  outputs(last);
+  cluster_arrive();  // no block leaves while another may still read its shared memory
+  cluster_wait();
+
+  if (!mine) return;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int row = slab_lo + gq + 8 * e;
     if (row >= s) continue;
     const size_t at = (static_cast<size_t>(b) * s + row) * static_cast<size_t>(h) * d + static_cast<size_t>(hh) * d +
-                      col0 + 2 * tq;
+                      c0 + pc + 2 * tq;
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       *reinterpret_cast<float2*>(out_a + at + 8 * c) =
@@ -625,23 +838,94 @@ causal_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The launch configuration of the cluster kernel at width d (J chunks a
+// slice, `ranks` blocks a cluster, grid (b * h, m_tiles, ranks)), with the
+// kernel's attributes set; `config` and `attr` are filled in.
+template <int J, bool DKV>
+cudaError_t cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr, int b, int s, int h, int ranks,
+                           cudaStream_t stream) {
+  using C = wide::Cfg<J>;
+  const int m_tiles = (s + C::TM - 1) / C::TM;
+  if (m_tiles > 65535) return cudaErrorInvalidValue;
+  auto kernel = causal_bwd_cluster_kernel<J, DKV>;
+  constexpr size_t bytes = wide::bytes<J, DKV>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess && ranks > wide::PORTABLE)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  config = cudaLaunchConfig_t{};
+  config.gridDim = dim3(b * h, m_tiles, ranks);
+  config.blockDim = dim3(wide::THREADS);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = ranks;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int J, bool DKV>
+int launch_cluster(const float* q, const float* k, const float* v, const float* g, const float* lse,
+                   const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, int ranks, Strides qs,
+                   Strides ks, Strides vs, Strides gs, float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<J, DKV>(config, attr, b, s, h, ranks, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
+  return cudaLaunchKernelEx(&config, causal_bwd_cluster_kernel<J, DKV>, q, k, v, g, lse, delta, out_a, out_b, s, h,
+                            d, qs, ks, vs, gs, scale, vec16);
+}
+
+// The wide width d: J (chunks of 128 a slice) and the blocks of a cluster;
+// false if d is not a width the cluster kernels take.
+inline bool wide_plan(int d, int& j, int& ranks) {
+  if (d <= 256 || d % wide::STEP != 0) return false;
+  const int n = d / wide::STEP;
+  j = wide::chunks_per_rank(n);
+  ranks = j ? (n + j - 1) / j : 0;
+  return j != 0;
+}
+
 template <bool DKV>
 int launch_wide(const float* q, const float* k, const float* v, const float* g, const float* lse,
                 const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs, Strides ks,
                 Strides vs, Strides gs, float scale, cudaStream_t stream) {
-  using namespace wide;
-  const int m_tiles = (s + TM - 1) / TM;
-  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
-      m_tiles > 65535)
+  int j, ranks;
+  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL || !wide_plan(d, j, ranks))
     return cudaErrorInvalidValue;
-  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
-  auto kernel = causal_bwd_wide_kernel<DKV>;
-  constexpr size_t bytes = wide::bytes<DKV>();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  switch (j) {
+    case 1: return launch_cluster<1, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, ranks, qs, ks, vs, gs, scale, stream);
+    case 2: return launch_cluster<2, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, ranks, qs, ks, vs, gs, scale, stream);
+    default: return launch_cluster<4, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, ranks, qs, ks, vs, gs, scale, stream);
+  }
+}
+
+// The cluster kernel's build at width d: blocks a cluster, slice width at
+// most, and the clusters the card can hold at once (a cluster of these
+// blocks launches only if it is at least 1), into out[0..2].
+template <int J, bool DKV>
+int cluster_attributes(int ranks, int* out) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<J, DKV>(config, attr, 1, 1, 1, ranks, nullptr);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(b * h, m_tiles, d / Window<DKV>::CW), THREADS, bytes, stream>>>(q, k, v, g, lse, delta, out_a, out_b,
-                                                                               s, h, d, qs, ks, vs, gs, scale, vec16);
-  return cudaGetLastError();
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, causal_bwd_cluster_kernel<J, DKV>, &config);
+  if (err != cudaSuccess) return err;
+  out[0] = ranks;
+  out[1] = wide::Cfg<J>::SL;
+  out[2] = clusters;
+  return cudaSuccess;
+}
+
+template <int J, bool DKV>
+int wide_attributes(int* out) {
+  using C = wide::Cfg<J>;
+  return kernel_attributes(causal_bwd_cluster_kernel<J, DKV>, wide::THREADS, wide::bytes<J, DKV>(), C::TM, C::TN, out);
 }
 
 template <bool DKV>
@@ -673,8 +957,8 @@ int attributes(int* out) {
 // D axis is contiguous, with their batch, sequence and head strides in
 // elements; lse and delta are contiguous (B, heads, S); dk, dv and dq are
 // contiguous (B, S, heads, D); D is 8, 16, 32, 64, 128, 256 or a multiple
-// of 128 past 256. Each returns a cudaError_t; 0 means the launch was
-// accepted.
+// of 128 past 256 up to 8192. Each returns a cudaError_t; 0 means the
+// launch was accepted.
 extern "C" int causal_attention_bwd_dkv(const float* q, const float* k, const float* v, const float* g,
                                         const float* lse, const float* delta, float* dk, float* dv, int b,
                                         int s, int h, int d, long long q_sb, long long q_ss, long long q_sh,
@@ -706,11 +990,24 @@ extern "C" int causal_attention_bwd_attributes(int d, int dkv, int* out) {
     case 64: return dkv ? attributes<64, true>(out) : attributes<64, false>(out);
     case 128: return dkv ? attributes<128, true>(out) : attributes<128, false>(out);
     case 256: return dkv ? attributes<256, true>(out) : attributes<256, false>(out);
-    default:
-      if (d <= 256 || d % wide::STEP != 0) return cudaErrorInvalidValue;
-      return dkv ? kernel_attributes(causal_bwd_wide_kernel<true>, wide::THREADS, wide::bytes<true>(), wide::TM,
-                                     wide::TN, out)
-                 : kernel_attributes(causal_bwd_wide_kernel<false>, wide::THREADS, wide::bytes<false>(), wide::TM,
-                                     wide::TN, out);
+    default: {
+      int j, ranks;
+      if (!wide_plan(d, j, ranks)) return cudaErrorInvalidValue;
+      if (j == 1) return dkv ? wide_attributes<1, true>(out) : wide_attributes<1, false>(out);
+      if (j == 2) return dkv ? wide_attributes<2, true>(out) : wide_attributes<2, false>(out);
+      return dkv ? wide_attributes<4, true>(out) : wide_attributes<4, false>(out);
+    }
   }
+}
+
+// The cluster kernel of head width d past 256 (dkv != 0: K5-dkv, else
+// K5-dq): out receives the blocks of a cluster, the slice width at most,
+// and the clusters the card can hold at once (0: it cannot launch).
+// Returns a cudaError_t.
+extern "C" int causal_attention_bwd_cluster(int d, int dkv, int* out) {
+  int j, ranks;
+  if (!wide_plan(d, j, ranks)) return cudaErrorInvalidValue;
+  if (j == 1) return dkv ? cluster_attributes<1, true>(ranks, out) : cluster_attributes<1, false>(ranks, out);
+  if (j == 2) return dkv ? cluster_attributes<2, true>(ranks, out) : cluster_attributes<2, false>(ranks, out);
+  return dkv ? cluster_attributes<4, true>(ranks, out) : cluster_attributes<4, false>(ranks, out);
 }

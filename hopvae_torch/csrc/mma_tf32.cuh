@@ -48,24 +48,33 @@ struct FragB {
   uint32_t big[2], small[2];
 };
 
+// TRUNC: the small part is passed whole, and the tensor cores, which read
+// the top 19 bits of a TF32 operand, truncate it instead of rounding it (an
+// error of at most 2^-22 |x| either way), for two integer operations less
+// a value. The wide backward (causal_attention_bwd.cu's cluster kernels)
+// splits so; every other kernel rounds both parts.
+template <bool TRUNC = false>
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = round_tf32(x);
-  small = round_tf32(x - __uint_as_float(big));
+  const float rest = x - __uint_as_float(big);
+  small = TRUNC ? __float_as_uint(rest) : round_tf32(rest);
 }
 
+template <bool TRUNC = false>
 __device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
   FragA f;
-  split(a0, f.big[0], f.small[0]);
-  split(a1, f.big[1], f.small[1]);
-  split(a2, f.big[2], f.small[2]);
-  split(a3, f.big[3], f.small[3]);
+  split<TRUNC>(a0, f.big[0], f.small[0]);
+  split<TRUNC>(a1, f.big[1], f.small[1]);
+  split<TRUNC>(a2, f.big[2], f.small[2]);
+  split<TRUNC>(a3, f.big[3], f.small[3]);
   return f;
 }
 
+template <bool TRUNC = false>
 __device__ __forceinline__ FragB split_b(float b0, float b1) {
   FragB f;
-  split(b0, f.big[0], f.small[0]);
-  split(b1, f.big[1], f.small[1]);
+  split<TRUNC>(b0, f.big[0], f.small[0]);
+  split<TRUNC>(b1, f.big[1], f.small[1]);
   return f;
 }
 
@@ -125,32 +134,33 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // no tile needs a swizzle.
 
 // The A fragment of rows 0..15 and columns 0..7 of a tile in shared memory.
-template <int RS>
+template <int RS, bool TRUNC = false>
 __device__ __forceinline__ FragA load_a(const float* p, int gq, int tq) {
   const int lane = 4 * gq + tq;
   uint32_t r[4];
   ldmatrix_x4(r, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * RS + 4 * (lane >> 4));
-  return split_a(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]), __uint_as_float(r[3]));
+  return split_a<TRUNC>(__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                        __uint_as_float(r[3]));
 }
 
 // The B fragments B[k][n] = Y[n][k] of two n-tiles, rows n = 0..15,
 // columns k = 0..7.
-template <int RS>
+template <int RS, bool TRUNC = false>
 __device__ __forceinline__ void load_b_rows2(FragB& f0, FragB& f1, const float* p, int gq, int tq) {
   const int lane = 4 * gq + tq;
   uint32_t r[4];
   ldmatrix_x4(r, p + ((lane & 7) + 8 * (lane >> 4)) * RS + 4 * ((lane >> 3) & 1));
-  f0 = split_b(__uint_as_float(r[0]), __uint_as_float(r[1]));
-  f1 = split_b(__uint_as_float(r[2]), __uint_as_float(r[3]));
+  f0 = split_b<TRUNC>(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  f1 = split_b<TRUNC>(__uint_as_float(r[2]), __uint_as_float(r[3]));
 }
 
 // The B fragment B[k][n] = Y[k][n] over the permuted k: rows 2t and 2t + 1.
 // With it, a C fragment (c0, c1, c2, c3) read as the A fragment
 // (c0, c2, c1, c3) multiplies without a transpose: its k = t is column 2t
 // of C and k = t + 4 column 2t + 1.
-template <int RS>
+template <int RS, bool TRUNC = false>
 __device__ __forceinline__ FragB load_b_cols(const float* p, int gq, int tq) {
-  return split_b(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
+  return split_b<TRUNC>(p[2 * tq * RS + gq], p[(2 * tq + 1) * RS + gq]);
 }
 
 // A kernel as built, with `bytes` of dynamic shared memory (whose limit

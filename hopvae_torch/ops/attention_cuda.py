@@ -19,10 +19,12 @@ on the tensor cores in three TF32 passes of their own (f32-grade, whatever
 views (the prior's q, k and v are slices of one projection); only the
 head width must be contiguous. The kernels take the head widths of
 ``HEAD_DIMS`` on built instances, and every multiple of ``WIDE_STEP`` past
-the last of them on one wide instance each (q, k, v and g streamed in
-depth chunks, the outputs in column windows on a grid axis, each window
-recomputing the scores); :func:`kernel_width` names the width that any
-other head is zero-padded to. Each wrapper launches its kernel
+the last of them on wide instances: the forward streams q, k and v in
+depth chunks; the backward splits the depth across the blocks of a
+thread-block cluster, which compute each tile's scores once (up to
+``BWD_WIDE_MAX``, :func:`backward_attributes` names the cluster);
+:func:`kernel_width` names the width that any other head is zero-padded
+to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches``, and takes its
 plain version on CPU tensors; the plain versions hold the ``(S, S)``
 matrices.
@@ -34,10 +36,11 @@ import ctypes
 
 import torch
 
-from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch
+from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths of the built instances
 WIDE_STEP = 128  # past HEAD_DIMS[-1], the wide kernels take every multiple of this
+BWD_WIDE_MAX = 8192  # the widest head of the backward: a cluster of 16 blocks of 512 columns
 
 
 # ------------------------------------------------------------ plain versions
@@ -133,10 +136,12 @@ def kernel_width(dh: int) -> int:
     return -(-dh // WIDE_STEP) * WIDE_STEP
 
 
-def _require_kernel(q, dh: int) -> None:
+def _require_kernel(q, dh: int, widest: int | None = None) -> None:
     if kernel_width(dh) != dh:
         raise ValueError(f"head width {dh} is not one the kernels take ({HEAD_DIMS} or a multiple of "
                          f"{WIDE_STEP} past them): flash_causal_attention zero-pads it")
+    if widest is not None and dh > widest:
+        raise ValueError(f"head width {dh} is past {widest}, the widest the backward kernels take")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
 
@@ -181,7 +186,7 @@ def causal_attention_bwd_dkv(q, k, v, g, lse, delta, scale: float):
     b, s, h, dh = _check(q, k, v, g, lse, delta)
     if q.device.type == "cpu":
         return causal_attention_bwd_dkv_reference(q, k, v, g, lse, delta, scale)
-    _require_kernel(q, dh)
+    _require_kernel(q, dh, BWD_WIDE_MAX)
     dk = torch.empty(b, s, h, dh, device=q.device)
     dv = torch.empty(b, s, h, dh, device=q.device)
     _launch("causal_attention_bwd_dkv", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g), (b, s, h, dh),
@@ -201,7 +206,7 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
     b, s, h, dh = _check(q, k, v, g, lse, delta)
     if q.device.type == "cpu":
         return causal_attention_bwd_dq_reference(q, k, v, g, lse, delta, scale)
-    _require_kernel(q, dh)
+    _require_kernel(q, dh, BWD_WIDE_MAX)
     dq = torch.empty(b, s, h, dh, device=q.device)
     _launch("causal_attention_bwd_dq", (q, k, v, g, lse, delta, dq), (q, k, v, g), (b, s, h, dh),
             scale, q.device)
@@ -222,8 +227,19 @@ def forward_attributes(dh: int) -> dict:
 def backward_attributes(kernel: str, dh: int) -> dict:
     """K5-dkv's (``kernel="dkv"``) or K5-dq's (``"dq"``) build at head width
     ``dh``, as :func:`forward_attributes` reports it (resident and streamed
-    rows: keys and query rows in K5-dkv, query rows and keys in K5-dq)."""
-    return kernel_attributes("causal_attention_bwd", dh, int(kernel == "dkv"))
+    rows: keys and query rows in K5-dkv, query rows and keys in K5-dq).
+    Past 256 also the cluster: its blocks, the depth slice a block owns at
+    most, the clusters the card holds at once and whether that is positive
+    (a cluster that cannot be held cannot launch). Launches nothing."""
+    dkv = int(kernel == "dkv")
+    attrs = kernel_attributes("causal_attention_bwd", dh, dkv)
+    if dh > HEAD_DIMS[-1]:
+        out = (ctypes.c_int * 3)()
+        err = load_library("causal_attention_bwd").causal_attention_bwd_cluster(dh, dkv, out)
+        if err != 0:
+            raise RuntimeError(f"causal_attention_bwd_cluster({dh}, {dkv}) failed: cudaError {err}")
+        attrs.update(cluster=out[0], slice=out[1], active_clusters=out[2], cluster_ok=out[2] > 0)
+    return attrs
 
 
 class FlashCausalAttention(torch.autograd.Function):

@@ -2,20 +2,26 @@
 and the wide kernels' precision scheme emulated on the CPU.
 
 Past a width of 256 the streaming lookups (K1 to K4) run their wide
-variants and K5 its wide instances (every multiple of 128): each product's
-depth streamed in chunks of 64, each chunk's three-pass TF32 products
-summed in a fresh sum and added to the running one, the outputs in column
-windows. The plain versions that the CPU runs hold the same functions at
-any width; ``tests/test_torch_hopfield.py`` holds them against the Pallas
-kernels in interpret mode at (384, 3), (3, 384) and (300, 520). Here:
-the dispatch rule; a head of 320 through the kernels' zero padding and a
-Transformer prior with one head of 512 against JAX; and the chunked
-three-pass scheme at width 512 against the plain versions, within the
-limits ``chip_smoke.py`` holds the kernels to. Measured here (N 300, M
-1024, 512 → 512; K5 at B 2, S 48, one head of 512), three passes: K1 out
-6.9e-7, m 5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise
-at most 1.3e-6; K5 forward 5.1e-7, backward 5.6e-7. One pass: K1's m
-3.0e-4 and l 1.1e-3 from float64, K2 and K3 7.1e-4, K5's forward 4.6e-4.
+variants and K5-fwd its wide instance (every multiple of 128): each
+product's depth streamed in chunks of 64, each chunk's three-pass TF32
+products summed in a fresh sum and added to the running one, the outputs
+in column windows. K5's backward splits the depth across the blocks of a
+cluster instead: each block's slice of 128 in warp parts of 64, each part
+in a fresh sum, the parts of a slice added in order, the slices in rank
+order, the small TF32 parts truncated (``cluster_tf32``). The plain
+versions that the CPU runs hold the same functions at any width;
+``tests/test_torch_hopfield.py`` holds them against the Pallas kernels in
+interpret mode at (384, 3), (3, 384) and (300, 520). Here: the dispatch
+rule; a head of 320 through the kernels' zero padding and a Transformer
+prior with one head of 512 against JAX; and the three-pass schemes at
+width 512 (the cluster's also at 384) against the plain versions, within
+the limits ``chip_smoke.py`` holds the kernels to. Measured here (N 300,
+M 1024, 512 → 512; K5 at B 2, S 48, one head of 512), three passes: K1
+out 6.9e-7, m 5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise
+at most 1.3e-6; K5 forward 5.1e-7, backward 5.6e-7 (the cluster's order
+7.0e-7, 1.0e-6 at 384). One pass: K1's m 3.0e-4 and l 1.1e-3 from
+float64, K2 and K3 7.1e-4, K5's forward 4.6e-4, the cluster's backward
+5.7e-4 to 6.8e-4.
 """
 
 import math
@@ -97,13 +103,21 @@ def test_one_head_of_512_prior_matches_jax():
 # ------------------------------------------------------------ the scheme at 512
 
 
-def chunked_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, chunk: int = DC) -> torch.Tensor:
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """The top 19 bits of f32 values, as the tensor cores read a TF32
+    operand passed whole (truncation)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def chunked_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, chunk: int = DC, trunc: bool = False) -> torch.Tensor:
     """``a @ b`` over the last axis of ``a`` as the wide kernels run a
     product: 8-deep steps of one or three TF32 passes (small·big,
     big·small, big·big), each ``chunk`` of the depth summed in a fresh f32
-    sum that is added to the running one."""
+    sum that is added to the running one. ``trunc``: the small parts
+    truncated, not rounded (the wide backward's split)."""
     a_big, b_big = round_tf32(a), round_tf32(b)
-    a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
+    small = trunc_tf32 if trunc else round_tf32
+    a_small, b_small = small(a - a_big), small(b - b_big)
     total = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
     for c0 in range(0, a.shape[-1], chunk):
         part = torch.zeros_like(total)
@@ -205,11 +219,29 @@ def test_wide_lookup_backward_scheme_at_512(passes):
     assert _normwise(got, exact) <= max(2 * _normwise(plain, exact), 2e-6)
 
 
-def _wide_attention(q, k, v, g, scale, passes):
+def cluster_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, slice_: int = 128, part: int = DC) -> torch.Tensor:
+    """``a @ b`` over the last axis of ``a`` as the wide backward's cluster
+    sums its scores and ``g vᵀ``: a block's slice of ``slice_`` columns in
+    warp parts of ``part``, each part's 8-deep steps in a fresh sum (small
+    parts truncated); a slice's parts added in order in a fresh sum, the
+    slices added in rank order."""
+    total = None
+    for s0 in range(0, a.shape[-1], slice_):
+        rank_sum = None
+        for p0 in range(s0, min(s0 + slice_, a.shape[-1]), part):
+            piece = chunked_tf32(a[..., p0:p0 + part], b[..., p0:p0 + part, :], passes, chunk=part, trunc=True)
+            rank_sum = piece if rank_sum is None else rank_sum + piece
+        total = rank_sum if total is None else total + rank_sum
+    return total
+
+
+def _wide_attention(q, k, v, g, scale, passes, cluster: bool = False):
     """K5's wide kernels' products on the plain forward and backward: ``q kᵀ``
     and ``g vᵀ`` over depth chunks, ``P v``, ``Pᵀ g``, ``dSᵀ q`` and ``dS k``
-    over key or query tiles of 32, each in a fresh sum. ``(out, lse, dq,
-    dk, dv)``."""
+    over key or query tiles of 32, each in a fresh sum. With ``cluster``
+    the backward rebuilds the scores (and P from the forward's lse) and
+    ``g vᵀ`` in the cluster's order (:func:`cluster_tf32`), and its output
+    products truncate the small parts. ``(out, lse, dq, dk, dv)``."""
     qh, kh, vh, gh = (a.transpose(1, 2) for a in (q, k, v, g))
     s = q.shape[1]
     mask = torch.ones(s, s, dtype=torch.bool).tril()
@@ -218,28 +250,58 @@ def _wide_attention(q, k, v, g, scale, passes):
     p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
     out = chunked_tf32(p, vh, passes, chunk=TILE)
     delta = (gh * out).sum(-1)
-    ds = p * (chunked_tf32(gh, vh.transpose(-1, -2).contiguous(), passes) - delta[..., None])
-    dq = chunked_tf32(ds, kh, passes, chunk=TILE) * scale
-    dk = chunked_tf32(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=TILE) * scale
-    dv = chunked_tf32(p.transpose(-1, -2).contiguous(), gh, passes, chunk=TILE)
+    product, tiled = chunked_tf32, chunked_tf32
+    if cluster:
+        tiled = lambda x, y, passes, chunk: chunked_tf32(x, y, passes, chunk, trunc=True)  # noqa: E731
+        product = cluster_tf32
+        scores = cluster_tf32(qh, kh.transpose(-1, -2).contiguous(), passes) * scale
+        p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    ds = p * (product(gh, vh.transpose(-1, -2).contiguous(), passes) - delta[..., None])
+    dq = tiled(ds, kh, passes, chunk=TILE) * scale
+    dk = tiled(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=TILE) * scale
+    dv = tiled(p.transpose(-1, -2).contiguous(), gh, passes, chunk=TILE)
     return [out.transpose(1, 2), lse] + [a.transpose(1, 2) for a in (dq, dk, dv)]
 
 
-@pytest.mark.parametrize("passes", [3, 1])
-def test_wide_attention_scheme_at_512(passes):
-    """K5's wide kernels at one head of 512 (B 2, S 48): with three passes
-    out and lse within ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within
-    ``ATTN_BWD_NORMWISE`` of the plain versions; one pass misses the
-    forward's limit from float64."""
+@pytest.mark.parametrize("passes,dh,cluster",
+                         [(3, 512, False), (1, 512, False), (3, 384, True), (1, 384, True), (3, 512, True),
+                          (1, 512, True)],
+                         ids=["3", "1", "3-cluster384", "1-cluster384", "3-cluster512", "1-cluster512"])
+def test_wide_attention_scheme_at_512(passes, dh, cluster):
+    """K5's wide kernels at one head of 512 (B 2, S 48), and the cluster
+    backward's order at 384 and 512: with three passes out and lse within
+    ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within ``ATTN_BWD_NORMWISE`` of
+    the plain versions; one pass misses the forward's limit from float64
+    (and, in the cluster's order, the backward's)."""
     rng = np.random.default_rng(2)
-    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 48, 1, 512), dtype=np.float32)) for _ in range(4))
-    scale = 1 / math.sqrt(512)
-    got = _wide_attention(q, k, v, g, scale, passes)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 48, 1, dh), dtype=np.float32)) for _ in range(4))
+    scale = 1 / math.sqrt(dh)
+    got = _wide_attention(q, k, v, g, scale, passes, cluster=cluster)
     if passes == 1:
-        exact = ac.causal_attention_fwd_reference(q.double(), k.double(), v.double(), scale)
+        q64, k64, v64, g64 = (a.double() for a in (q, k, v, g))
+        exact = ac.causal_attention_fwd_reference(q64, k64, v64, scale)
         assert _normwise(got[:2], list(exact)) > ATTN_FWD_NORMWISE
+        if cluster:
+            exact_bwd = ac.causal_attention_bwd_reference(q64, k64, v64, *exact, g64, scale)
+            assert _normwise(got[2:], list(exact_bwd)) > ATTN_BWD_NORMWISE
         return
     out, lse = ac.causal_attention_fwd_reference(q, k, v, scale)
     assert _normwise(got[:2], [out, lse]) <= ATTN_FWD_NORMWISE
     plain = ac.causal_attention_bwd_reference(q, k, v, out, lse, g, scale)
     assert _normwise(got[2:], list(plain)) <= ATTN_BWD_NORMWISE
+
+
+@pytest.mark.parametrize("width", [8320, 16384])
+def test_backward_refuses_past_the_widest_cluster(width):
+    """Past ``BWD_WIDE_MAX`` (a cluster of 16 blocks of 512 columns) the
+    backward wrappers raise before any launch; up to it, a multiple of 128
+    gets as far as the device check (meta tensors: no kernel)."""
+    def args(dh):
+        t = torch.empty(1, 4, 1, dh, device="meta")
+        return (t, t, t, t, torch.empty(1, 1, 4, device="meta"), torch.empty(1, 1, 4, device="meta"), 1.0)
+
+    for fn in (ac.causal_attention_bwd_dkv, ac.causal_attention_bwd_dq):
+        with pytest.raises(ValueError, match="widest the backward kernels take"):
+            fn(*args(width))
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(*args(ac.BWD_WIDE_MAX))
