@@ -40,15 +40,16 @@ Seventeen phases, each of which raises on failure:
    (B 256, S 867, 4 heads of 32, strided views of one projection as the
    prior gives them), at ``prior_heads=1`` (one head of 128), at one head
    of 256 (``prior_d_model=256``), at one head of 384 and one of 512 (the
-   wide kernels), and at small ragged shapes (one at 256; at 768, 1280,
-   2560 and 8192, the backward's cluster plans; two with views off 16-byte
-   alignment); each kernel, whose products run
+   wide kernels: forward and backward on a thread-block cluster), and at
+   small ragged shapes (one at 256; at 768, 1280, 2560 and 8192, the
+   clusters' plans; the forward alone at 8320, its window kernel; two with
+   views off 16-byte alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
    (``bound_ms``, also ``bound_tc_ms``) and, for context, the bound of the
    same FLOPs on the f32 CUDA cores (``bound_f32_ms``), and each kernel's
    registers, shared bytes and blocks an SM per width (past 256 also the
-   backward's cluster: blocks, slice, clusters the card holds; K1's, K2's and
+   cluster: blocks, slice, clusters the card holds; K1's, K2's and
    K3's too, at each width of phase 2, and K4's at each of phase 12).
    Then a head of 48 through the zero padding to 64, forward and
    backward by autograd.
@@ -798,10 +799,11 @@ ATTENTION_COUNTERS = {
 # (label, B, S, heads, dh): the prior at full width, at prior_heads=1, at
 # one head of 256, 384 and 512, and small ragged shapes (S a multiple of no
 # tile, of one tile, below one) at each of the forward's tile
-# configurations (dh up to 64, 128, 256, and the wide kernels past it) and
-# at each of the backward's cluster plans past 256 (slices of 128, 256 and
-# 512; 16 blocks, a non-portable cluster, at 8192); "misaligned" views take
-# the 4-byte copies
+# configurations (dh up to 64, 128, 256) and at each cluster plan of the
+# wide kernels past 256, forward and backward (slices of 128, 256 and 512;
+# 16 blocks, a non-portable cluster, at 8192); past 8192 the forward alone
+# (its window kernel: the backward refuses the width); "misaligned" views
+# take the 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
@@ -818,10 +820,17 @@ ATTENTION_CASES = (
     ("ragged S37 dh1280", 2, 37, 1, 1280),
     ("ragged S37 dh2560", 2, 37, 1, 2560),
     ("ragged S37 dh8192", 2, 37, 1, 8192),
+    ("ragged S37 dh8320", 2, 37, 1, 8320),
     ("ragged S37 dh384 misaligned", 2, 37, 1, 384),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
 PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
+
+
+def attention_kernels(dh: int) -> tuple[str, ...]:
+    """The K5 kernels that take head width ``dh``: past ``BWD_WIDE_MAX``
+    the forward alone (the backward wrappers raise there)."""
+    return ("fwd", "dkv", "dq") if dh <= ac.BWD_WIDE_MAX else ("fwd",)
 
 
 def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
@@ -889,8 +898,8 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     the CUDA cores, is context. Each row also carries the kernel's
     registers, shared bytes and blocks an SM at that width as the card
     reports them."""
-    log(json.dumps({"k5_builds": {dh: {"fwd": ac.forward_attributes(dh),
-                                       **{kn: ac.backward_attributes(kn, dh) for kn in ("dkv", "dq")}}
+    log(json.dumps({"k5_builds": {dh: {kn: ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
+                                       for kn in attention_kernels(dh)}
                                   for dh in sorted({*ac.HEAD_DIMS, *(c[4] for c in ATTENTION_CASES)})}}))
     widths = [*hc.SUPPORTED, *((d_in, d_out) for _l, _n, _m, d_in, d_out in WIDTH_CASES)]
     log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
@@ -905,35 +914,28 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
         scale = 1.0 / math.sqrt(dh)
         big = b * h * s * s > 1e8
         reps, plain_reps = (10, 3) if big else (50, 20)
+        kernels = attention_kernels(dh)
         with torch.inference_mode():
             out, lse = ac.causal_attention_fwd(q, k, v, scale)
-            out2, lse2 = ac.causal_attention_fwd(q, k, v, scale)
             delta = ac.attention_delta(out, g)
             args = (q, k, v, g, lse, delta, scale)
-            dk, dv = ac.causal_attention_bwd_dkv(*args)
-            dq = ac.causal_attention_bwd_dq(*args)
-            dk2, dv2 = ac.causal_attention_bwd_dkv(*args)
-            dq2 = ac.causal_attention_bwd_dq(*args)
+            calls = {"fwd": (lambda: ac.causal_attention_fwd(q, k, v, scale),
+                             lambda: ac.causal_attention_fwd_reference(q, k, v, scale)),
+                     "dkv": (lambda: ac.causal_attention_bwd_dkv(*args),
+                             lambda: ac.causal_attention_bwd_dkv_reference(*args)),
+                     "dq": (lambda: (ac.causal_attention_bwd_dq(*args),),
+                            lambda: (ac.causal_attention_bwd_dq_reference(*args),))}
+            got = {kn: (out, lse) if kn == "fwd" else calls[kn][0]() for kn in kernels}
+            again = {kn: calls[kn][0]() for kn in kernels}
             torch.cuda.synchronize()
-            got = {"fwd": (out, lse), "dkv": (dk, dv), "dq": (dq,)}
-            repeats = {"fwd": torch.equal(out, out2) and torch.equal(lse, lse2),
-                       "dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2), "dq": torch.equal(dq, dq2)}
-            want = {"fwd": ac.causal_attention_fwd_reference(q, k, v, scale),
-                    "dkv": ac.causal_attention_bwd_dkv_reference(*args),
-                    "dq": (ac.causal_attention_bwd_dq_reference(*args),)}
+            repeats = {kn: all(torch.equal(a, c) for a, c in zip(got[kn], again[kn])) for kn in kernels}
+            want = {kn: calls[kn][1]() for kn in kernels}
             errs = {kn: [normwise(a, w) for a, w in zip(got[kn], want[kn])] for kn in got}
             abs_errs = {kn: max((a - w).abs().max().item() for a, w in zip(got[kn], want[kn])) for kn in got}
-            del want, got, out2, lse2, dk2, dv2, dq2
-            times = {
-                "fwd": (cuda_ms(lambda: ac.causal_attention_fwd(q, k, v, scale), reps),
-                        cuda_ms(lambda: ac.causal_attention_fwd_reference(q, k, v, scale), plain_reps)),
-                "dkv": (cuda_ms(lambda: ac.causal_attention_bwd_dkv(*args), reps),
-                        cuda_ms(lambda: ac.causal_attention_bwd_dkv_reference(*args), plain_reps)),
-                "dq": (cuda_ms(lambda: ac.causal_attention_bwd_dq(*args), reps),
-                       cuda_ms(lambda: ac.causal_attention_bwd_dq_reference(*args), plain_reps)),
-            }
+            del want, got, again
+            times = {kn: (cuda_ms(calls[kn][0], reps), cuda_ms(calls[kn][1], plain_reps)) for kn in kernels}
         lib = sdpa_causal_ms(q, k, v, g, reps)
-        for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",))):
+        for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",)))[:len(kernels)]:
             f32_ms, f32_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
             b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"], tensor_cores=True)
             row = {
@@ -952,7 +954,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
             limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
             if not (max(errs[kn]) <= limit and row["repeats_bitwise"]):
                 raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
-        del q, k, v, g, out, lse, delta, dk, dv, dq
+        del q, k, v, g, out, lse, delta, args, calls
         torch.cuda.empty_cache()
     rows.append(padded_attention_vs_plain(gen))
     return rows

@@ -129,6 +129,9 @@
 //   8 warps a block, one block an SM. Clusters past 8 blocks (n past 32)
 //   are non-portable, opted in at the launch; past 64 chunks (8192) a
 //   cluster would need more than 16 blocks, and the width is refused.
+//   The plan, the cluster's helpers and its launch configuration are
+//   causal_attention_cluster.cuh's, shared with the forward's cluster
+//   kernel (causal_attention_fwd.cu), which sums q k^T in this order.
 //   The launch sets the cluster size at run time (cudaLaunchKernelEx);
 //   causal_attention_bwd_cluster reports it, the slice width and whether
 //   the card can hold such a cluster at once. A launch that fails returns
@@ -136,7 +139,7 @@
 
 #include <cstdint>
 
-#include "causal_attention.cuh"
+#include "causal_attention_cluster.cuh"
 
 namespace {
 
@@ -147,6 +150,16 @@ using causal_attention::out_offset;
 using causal_attention::stage;
 using causal_attention::Strides;
 using causal_attention::vec16_ok;
+using causal_attention::add4;
+using causal_attention::cluster_arrive;
+using causal_attention::cluster_attributes;
+using causal_attention::cluster_config;
+using causal_attention::cluster_rank;
+using causal_attention::cluster_ranks;
+using causal_attention::cluster_wait;
+using causal_attention::ld_cluster;
+using causal_attention::stage_slice;
+using causal_attention::wide_plan;
 using namespace tf32x3;
 
 template <int D>
@@ -448,24 +461,10 @@ int launch(const float* q, const float* k, const float* v, const float* g, const
 // instance for each slice of at most J chunks of 128 (the width d is a
 // runtime argument)
 namespace wide {
-constexpr int STEP = 128;       // the wide widths: multiples of this past 256
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int PORTABLE = 8;     // blocks of a portable cluster
-constexpr int MAX_RANKS = 16;   // blocks of a non-portable cluster
+using namespace causal_attention::wide;
+// float4s of the partials: [slab][part][scores, g v^T][n-tile][lane]
 template <int J>
-struct Cfg {
-  static constexpr int TM = J == 1 ? 64 : J == 2 ? 32 : 16;  // resident rows of a block
-  static constexpr int TN = J == 1 ? 32 : 16;                // streamed rows of a tile
-  static constexpr int NT = TN / 8;                          // n-tiles of a 16 x TN score slab
-  static constexpr int SLABS = TM / 16;                      // 16-row slabs
-  static constexpr int WS = WARPS / SLABS;                   // warps of a slab, one part of the slice each
-  static constexpr int SL = STEP * J;                        // slice width at most
-  static constexpr int PART = SL / WS;                       // a warp's columns of the slice
-  static constexpr int RS = SL + 4;                          // row stride in shared memory
-  static constexpr int XCH = SLABS * WS * 2 * NT * 32;       // float4s of the partials (scores, g v^T)
-  static_assert(PART % 16 == 0 && NT % 2 == 0 && NT <= 2 * WS, "tiles");
-};
+constexpr int XCH = Cfg<J>::SLABS * Cfg<J>::WS * 2 * Cfg<J>::NT * 32;
 // shared bytes with NB buffers of the streamed slices: the resident
 // slices, the streamed ones (with K5-dkv's lse and delta), the partials,
 // the hand-over of dS (and P)
@@ -473,7 +472,7 @@ template <int J, bool DKV>
 __host__ __device__ constexpr size_t bytes_with(int nb) {
   using C = Cfg<J>;
   return sizeof(float) * (2 * C::TM * C::RS + nb * (2 * C::TN * C::RS + (DKV ? 2 * C::TN : 0))) +
-         sizeof(float4) * (C::XCH + C::SLABS * (DKV ? 2 : 1) * C::NT * 32);
+         sizeof(float4) * (XCH<J> + C::SLABS * (DKV ? 2 : 1) * C::NT * 32);
 }
 // streamed buffers: three where they fit (a tile's copies then start two
 // tiles ahead), else two
@@ -481,68 +480,7 @@ template <int J, bool DKV>
 __host__ __device__ constexpr int buffers() { return bytes_with<J, DKV>(3) <= 232448 ? 3 : 2; }
 template <int J, bool DKV>
 __host__ __device__ constexpr size_t bytes() { return bytes_with<J, DKV>(buffers<J, DKV>()); }
-// chunks of 128 in a block's slice for a head of n chunks; 0: refused
-inline int chunks_per_rank(int n) {
-  return n <= PORTABLE ? 1 : n <= 2 * PORTABLE ? 2 : n <= 4 * MAX_RANKS ? 4 : 0;
-}
 }  // namespace wide
-
-// The block's rank in its cluster and the cluster's size.
-__device__ __forceinline__ int cluster_rank() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ int cluster_ranks() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-// The cluster barrier, split: every thread of every block of the cluster
-// arrives, and what each wrote to shared memory before its arrival is
-// visible to all after their wait (release, acquire). Between the two a
-// thread may work, but not arrive again.
-__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); }
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;" ::: "memory"); }
-
-// The float4 at p in the shared memory of block `rank` of the cluster (a
-// generic load the compiler may schedule freely between the barriers).
-__device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
-  uint64_t r;
-  asm("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
-  return *reinterpret_cast<const float4*>(r);
-}
-
-__device__ __forceinline__ void add4(float4& a, const float4& b) { a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w; }
-
-// Stage rows [row0, row0 + ROWS) of columns [0, cols) of a strided input
-// (src: the slice's first column; cols a multiple of 128) into shared
-// memory, rows RS floats apart, zeros past the sequence end; as
-// causal_attention::stage, with the width at run time, a chunk of 128
-// columns at a time (the index math in shifts).
-template <int RS, int ROWS>
-__device__ __forceinline__ void stage_slice(float* dst, const float* __restrict__ src, Strides st, int b, int hh,
-                                            int row0, int s, bool vec16, int cols) {
-  const float* base = src + b * st.b + hh * st.h;
-  for (int c0 = 0; c0 < cols; c0 += wide::STEP) {
-    if (vec16) {
-      for (int i = threadIdx.x; i < ROWS * wide::STEP / 4; i += wide::THREADS) {
-        const int r = i / (wide::STEP / 4);
-        const int c = c0 + (i % (wide::STEP / 4)) * 4;
-        const bool in = row0 + r < s;
-        cp_async16(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
-      }
-    } else {
-      for (int i = threadIdx.x; i < ROWS * wide::STEP; i += wide::THREADS) {
-        const int r = i / wide::STEP;
-        const int c = c0 + i % wide::STEP;
-        const bool in = row0 + r < s;
-        cp_async4(dst + r * RS + c, in ? base + (row0 + r) * st.s + c : base, in);
-      }
-    }
-  }
-}
 
 template <int J, bool DKV>
 __global__ void __launch_bounds__(wide::THREADS, 1)
@@ -563,7 +501,7 @@ causal_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__
   float* res1 = res0 + TM * RS;                    // v (dkv) or g (dq)
   float* str = res1 + TM * RS;                     // buffer u at str + u * BUF: the streamed slices, lse, delta
   float4* xch = reinterpret_cast<float4*>(str + NB * BUF);  // [slab][part][sc, dp][n-tile][lane]
-  float4* hand = xch + C::XCH;                              // [slab][dS, P][n-tile][lane]
+  float4* hand = xch + XCH<J>;                              // [slab][dS, P][n-tile][lane]
 
   // inputs by role, as in causal_bwd_kernel
   const float* r0p = DKV ? k : q;
@@ -838,56 +776,18 @@ causal_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-// The launch configuration of the cluster kernel at width d (J chunks a
-// slice, `ranks` blocks a cluster, grid (b * h, m_tiles, ranks)), with the
-// kernel's attributes set; `config` and `attr` are filled in.
-template <int J, bool DKV>
-cudaError_t cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr, int b, int s, int h, int ranks,
-                           cudaStream_t stream) {
-  using C = wide::Cfg<J>;
-  const int m_tiles = (s + C::TM - 1) / C::TM;
-  if (m_tiles > 65535) return cudaErrorInvalidValue;
-  auto kernel = causal_bwd_cluster_kernel<J, DKV>;
-  constexpr size_t bytes = wide::bytes<J, DKV>();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess && ranks > wide::PORTABLE)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  config = cudaLaunchConfig_t{};
-  config.gridDim = dim3(b * h, m_tiles, ranks);
-  config.blockDim = dim3(wide::THREADS);
-  config.dynamicSmemBytes = bytes;
-  config.stream = stream;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = ranks;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  return cudaSuccess;
-}
-
 template <int J, bool DKV>
 int launch_cluster(const float* q, const float* k, const float* v, const float* g, const float* lse,
                    const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, int ranks, Strides qs,
                    Strides ks, Strides vs, Strides gs, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<J, DKV>(config, attr, b, s, h, ranks, stream);
+  cudaError_t err = cluster_config(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), wide::Cfg<J>::TM,
+                                   config, attr, b, s, h, ranks, stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
   return cudaLaunchKernelEx(&config, causal_bwd_cluster_kernel<J, DKV>, q, k, v, g, lse, delta, out_a, out_b, s, h,
                             d, qs, ks, vs, gs, scale, vec16);
-}
-
-// The wide width d: J (chunks of 128 a slice) and the blocks of a cluster;
-// false if d is not a width the cluster kernels take.
-inline bool wide_plan(int d, int& j, int& ranks) {
-  if (d <= 256 || d % wide::STEP != 0) return false;
-  const int n = d / wide::STEP;
-  j = wide::chunks_per_rank(n);
-  ranks = j ? (n + j - 1) / j : 0;
-  return j != 0;
 }
 
 template <bool DKV>
@@ -904,22 +804,11 @@ int launch_wide(const float* q, const float* k, const float* v, const float* g, 
   }
 }
 
-// The cluster kernel's build at width d: blocks a cluster, slice width at
-// most, and the clusters the card can hold at once (a cluster of these
-// blocks launches only if it is at least 1), into out[0..2].
+// The cluster kernel's build at width d (see cluster_attributes).
 template <int J, bool DKV>
-int cluster_attributes(int ranks, int* out) {
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<J, DKV>(config, attr, 1, 1, 1, ranks, nullptr);
-  if (err != cudaSuccess) return err;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, causal_bwd_cluster_kernel<J, DKV>, &config);
-  if (err != cudaSuccess) return err;
-  out[0] = ranks;
-  out[1] = wide::Cfg<J>::SL;
-  out[2] = clusters;
-  return cudaSuccess;
+int wide_cluster(int ranks, int* out) {
+  return cluster_attributes(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), wide::Cfg<J>::TM,
+                            wide::Cfg<J>::SL, ranks, out);
 }
 
 template <int J, bool DKV>
@@ -1007,7 +896,7 @@ extern "C" int causal_attention_bwd_attributes(int d, int dkv, int* out) {
 extern "C" int causal_attention_bwd_cluster(int d, int dkv, int* out) {
   int j, ranks;
   if (!wide_plan(d, j, ranks)) return cudaErrorInvalidValue;
-  if (j == 1) return dkv ? cluster_attributes<1, true>(ranks, out) : cluster_attributes<1, false>(ranks, out);
-  if (j == 2) return dkv ? cluster_attributes<2, true>(ranks, out) : cluster_attributes<2, false>(ranks, out);
-  return dkv ? cluster_attributes<4, true>(ranks, out) : cluster_attributes<4, false>(ranks, out);
+  if (j == 1) return dkv ? wide_cluster<1, true>(ranks, out) : wide_cluster<1, false>(ranks, out);
+  if (j == 2) return dkv ? wide_cluster<2, true>(ranks, out) : wide_cluster<2, false>(ranks, out);
+  return dkv ? wide_cluster<4, true>(ranks, out) : wide_cluster<4, false>(ranks, out);
 }

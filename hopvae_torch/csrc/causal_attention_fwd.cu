@@ -72,22 +72,54 @@
 // - At 256 two warps share a slab, 128 columns each, so that 64 query rows
 //   (four slabs) share each k and v tile: q, two buffers of k and v, and
 //   the exchange fill 216,064 of the 232,448 bytes a block may have.
-// - Past 256 (any multiple of 128: the wide kernel below, one instance
-//   for every such width) q no longer stays resident beside the k and v
-//   tiles. A block owns 64 query rows and one window of 128 output
-//   columns (a grid axis): per key tile it streams q and k in depth
-//   chunks of 64, each chunk's products summed in fresh fragments and
-//   added to the score fragments before the exp, then the tile's v window. Every window block
-//   recomputes the same scores in the same order, so m and l agree bit
-//   for bit across windows; the first writes lse. Shared bytes: 52,224
-//   (two buffers of a 64 + 32 row chunk, or a 32 x 128 v window).
+// - Past 256 (any multiple of 128 up to 8192; the cluster kernel below,
+//   the width a runtime argument) q no longer fits one block beside the k
+//   and v tiles, so the depth is split across the blocks of a thread-block
+//   cluster, on the backward's plan (causal_attention_cluster.cuh: slices
+//   of 128, 256 or 512, up to 16 blocks): block rank r keeps its slice of
+//   q for the whole walk and streams that slice of each key tile's k and v
+//   into one of NB buffers. Per key tile each warp (a 16-row slab, a
+//   64-column part of the slice) computes its partial q k^T over its 64
+//   columns in a fresh sum; the slab's parts are added in part order in
+//   shared memory (the rank sum); after one cluster barrier every warp
+//   reads every rank's sums of its slab over DSMEM and adds them in rank
+//   order: the backward's order, so every rank and warp holds the same
+//   scores bit for bit, and the same m and l. Each warp then runs P v on
+//   its own 64 columns of the v slice already in its shared memory; rank 0
+//   writes lse. q is read once, k and v once per query tile, and no block
+//   recomputes the scores. The operands split with the small part
+//   truncated (split<true>), as the backward's cluster kernels do.
+// - Latency bounds it (8 warps an SM, every one in step with the cluster
+//   barrier), so each wait has work beside it: the barrier is split into
+//   arrive and wait, with the previous tile's P v between them (the rank
+//   sums double-buffered, P v one tile behind); the rank sums are loaded
+//   (up to 16 float4 a lane at once) before the next tile's partial
+//   scores, which run while they are in flight; with four buffers (slices
+//   of 128 and 256) tile t + 2's copies go into tile t - 2's buffer after
+//   tile t's barrier, which also makes tile t + 1's copies visible, so the
+//   walk has no block barrier of its own. Shared bytes 201,728 / 178,688 /
+//   175,360 (two buffers) at slices of 128 / 256 / 512; one block an SM.
+//   Measured on an H100 (PERF.md): reading the rank sums after the partial
+//   scores, two ranks at a time, ran 7% to 9% slower; three buffers and a
+//   block barrier a tile up to 11% slower at 384 (within noise at 512);
+//   two blocks an SM, with 16-key tiles (100,864 bytes, 128 registers,
+//   152 bytes of spill) 8% to 11% slower, with 4 warps and 32 query rows
+//   a block (100,864 bytes, the same bits) 4% to 11% slower.
+// - Past 8192 a cluster would need more than 16 blocks; there the window
+//   kernel runs (a route by width): a block owns 64 query rows and one
+//   window of 128 output columns (a grid axis); per key tile it streams q
+//   and k in depth chunks of 64, each chunk's products summed in fresh
+//   fragments and added to the score fragments before the exp, then the
+//   tile's v window. Every window block recomputes the same scores in the
+//   same order, so m and l agree bit for bit across windows; the first
+//   writes lse. Shared bytes: 52,224.
 // tools/torch_attention_fwd_variants.py times this source against copies
 // of it with other tiles; PERF.md has the times, and registers, spills and
 // blocks an SM from causal_attention_fwd_attributes.
 
 #include <cstdint>
 
-#include "causal_attention.cuh"
+#include "causal_attention_cluster.cuh"
 
 namespace {
 
@@ -98,10 +130,64 @@ using causal_attention::out_offset;
 using causal_attention::stage;
 using causal_attention::Strides;
 using causal_attention::vec16_ok;
+using causal_attention::add4;
+using causal_attention::cluster_arrive;
+using causal_attention::cluster_attributes;
+using causal_attention::cluster_config;
+using causal_attention::cluster_rank;
+using causal_attention::cluster_ranks;
+using causal_attention::cluster_wait;
+using causal_attention::ld_cluster;
+using causal_attention::stage_slice;
+using causal_attention::wide_plan;
 using namespace tf32x3;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float MASKED = -1e30f;
+
+// The online softmax of a slab's 16 x 8NT scores of one key tile, in C
+// fragments: element e of n-tile j is row slab_lo + gq + 8 (e >> 1), key
+// n_lo + 8j + 2tq + (e & 1). The scores are scaled and masked (some key
+// of the tile exceeds some row of the slab on its diagonal tile only); a
+// row's max takes two xor shuffles over its quad. m_r is the running max,
+// l_r the lane's part of the denominator, alpha the factor that rescales
+// the running output (0 on the slab's first tile), and sc becomes
+// P = exp(score - max), 0 where masked: the slab's first live tile holds
+// a key at or before each of its rows, so the max is finite.
+template <int NT>
+__device__ __forceinline__ void online_softmax(float (&sc)[NT][4], float (&m_r)[2], float (&l_r)[2],
+                                               float (&alpha)[2], int n_lo, int slab_lo, float scale, int gq,
+                                               int tq) {
+  const bool diag = n_lo + 8 * NT - 1 > slab_lo;
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float val = sc[j][e] * scale;
+      if (diag && n_lo + 8 * j + 2 * tq + (e & 1) > slab_lo + gq + 8 * (e >> 1)) val = MASKED;
+      sc[j][e] = val;
+      mx[e >> 1] = fmaxf(mx[e >> 1], val);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    alpha[i] = __expf(m_r[i] - mx[i]);
+    m_r[i] = mx[i];
+  }
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(sc[j][e] - mx[e >> 1]);
+      sc[j][e] = p;
+      rsum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rsum[i];
+}
 
 template <int D>
 struct Tiles {
@@ -247,38 +333,8 @@ causal_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, cons
       }
     }
 
-    // ---- online softmax: element e of n-tile j is row gq + 8 (e >> 1),
-    // key n_lo + 8j + 2tq + (e & 1)
-    const bool diag = n_lo + TN - 1 > slab_lo;  // some key of the tile exceeds some row of the slab
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = sc[j][e] * scale;
-        if (diag && n_lo + 8 * j + 2 * tq + (e & 1) > slab_lo + gq + 8 * (e >> 1)) val = MASKED;
-        sc[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
     float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      alpha[i] = __expf(m_r[i] - mx[i]);  // 0 on the slab's first tile
-      m_r[i] = mx[i];
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[j][e] - mx[e >> 1]);  // 0 where masked: the max is finite
-        sc[j][e] = p;
-        rsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rsum[i];
+    online_softmax(sc, m_r, l_r, alpha, n_lo, slab_lo, scale, gq, tq);
 
     // ---- P v over the tile's keys 8j .. 8j + 7 in order, into fresh
     // fragments, then out = alpha out + P v
@@ -345,9 +401,9 @@ int attributes(int* out) {
 }
 
 
-// ---- head widths past 256: the wide kernel, one instance for every
-// multiple of 128 (the width d is a runtime argument)
-namespace wide {
+// ---- head widths past 8192: the window kernel, one instance for every
+// multiple of 128 past 256 (the width d is a runtime argument)
+namespace window {
 constexpr int TM = 64;                // query rows of a block, a warp a 16-row slab
 constexpr int TN = 32;                // keys of a streamed tile
 constexpr int NT = TN / 8;            // n-tiles of a 16 x TN score slab
@@ -360,13 +416,13 @@ constexpr int RC = DC + 4, RW = CW + 4;  // row strides of a chunk and of a v wi
 constexpr int SLOT = (TM + TN) * RC > TN * RW ? (TM + TN) * RC : TN * RW;
 constexpr size_t BYTES = sizeof(float) * 2 * SLOT;
 constexpr int STEP = 128;             // the wide widths: multiples of this past 256
-}  // namespace wide
+}  // namespace window
 
-__global__ void __launch_bounds__(wide::THREADS)
-causal_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       float* __restrict__ out, float* __restrict__ lse, int s, int h, int d, Strides qs,
-                       Strides ks, Strides vs, float scale, unsigned vec16) {
-  using namespace wide;
+__global__ void __launch_bounds__(window::THREADS)
+causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         float* __restrict__ out, float* __restrict__ lse, int s, int h, int d, Strides qs,
+                         Strides ks, Strides vs, float scale, unsigned vec16) {
+  using namespace window;
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
 
@@ -447,36 +503,8 @@ causal_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // ---- the v window: online softmax on the whole scores, then P v
-    const bool diag = n_lo + TN - 1 > slab_lo;
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float val = sc[j][e] * scale;
-        if (diag && n_lo + 8 * j + 2 * tq + (e & 1) > slab_lo + gq + 8 * (e >> 1)) val = MASKED;
-        sc[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      alpha[r] = __expf(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[j][e] - mx[e >> 1]);
-        sc[j][e] = p;
-        rsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rsum[r];
+    online_softmax(sc, m_r, l_r, alpha, n_lo, slab_lo, scale, gq, tq);
 
     float o[CT][4];
 #pragma unroll
@@ -516,30 +544,327 @@ causal_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-int launch_wide(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h, int d,
-                Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
-  using namespace wide;
+int launch_window(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h,
+                  int d, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  using namespace window;
   const int m_tiles = (s + TM - 1) / TM;
   if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
       m_tiles > 65535 || d / CW > 65535)
     return cudaErrorInvalidValue;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
-  cudaError_t err = cudaFuncSetAttribute(causal_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(causal_fwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(BYTES));
   if (err != cudaSuccess) return err;
-  causal_fwd_wide_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, out, lse, s, h, d, qs,
-                                                                                 ks, vs, scale, vec16);
+  causal_fwd_window_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, out, lse, s, h, d,
+                                                                                   qs, ks, vs, scale, vec16);
   return cudaGetLastError();
 }
 
+
+// ---- head widths past 256 up to 8192: the cluster kernel (see the
+// header), one instance for each slice of at most J chunks of 128 (the
+// width d is a runtime argument)
+namespace wide {
+using namespace causal_attention::wide;
+template <int J>
+struct Fwd {
+  using C = Cfg<J>;
+  static constexpr int XCH = C::SLABS * C::WS * C::NT * 32;  // float4s: [slab][part][n-tile][lane]
+  static constexpr int SUMS = C::SLABS * C::NT * 32;         // float4s of one buffer of rank sums: [slab][n-tile][lane]
+  static constexpr int BUF = 2 * C::TN * C::RS;              // floats of a streamed buffer: k, then v
+  static constexpr int RG = 16 / C::NT;                      // ranks whose sums are loaded at once
+};
+// shared bytes with NB streamed buffers: the resident q slice, the
+// streamed k and v slices, the warps' partial scores, two buffers of the
+// slabs' rank sums
+template <int J>
+__host__ __device__ constexpr size_t bytes_with(int nb) {
+  using C = Cfg<J>;
+  using F = Fwd<J>;
+  return sizeof(float) * (C::TM * C::RS + nb * F::BUF) + sizeof(float4) * (F::XCH + 2 * F::SUMS);
+}
+// streamed buffers: four where they fit (a tile's copies then start two
+// tiles ahead, with no block barrier of their own), else two
+template <int J>
+__host__ __device__ constexpr int buffers() { return bytes_with<J>(4) <= 232448 ? 4 : 2; }
+template <int J>
+__host__ __device__ constexpr size_t bytes() { return bytes_with<J>(buffers<J>()); }
+}  // namespace wide
+
+template <int J>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+causal_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          float* __restrict__ out, float* __restrict__ lse, int s, int h, int d, Strides qs,
+                          Strides ks, Strides vs, float scale, unsigned vec16) {
+  using namespace wide;
+  using C = Cfg<J>;
+  using F = Fwd<J>;
+  constexpr int TM = C::TM, TN = C::TN, NT = C::NT, WS = C::WS, SL = C::SL, RS = C::RS, PART = C::PART;
+  constexpr int NB = buffers<J>();  // streamed buffers
+  constexpr int CT = PART / 8;      // a warp's output n-tiles
+  constexpr int RG = F::RG;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);                // the resident q slice
+  float* str = q_s + TM * RS;                                   // buffer u at str + u * BUF: k, then v
+  float4* xch = reinterpret_cast<float4*>(str + NB * F::BUF);  // the warps' partial scores
+  float4* sums = xch + F::XCH;                                  // [tile & 1][slab][n-tile][lane]
+
+  const int rank = cluster_rank(), ranks = cluster_ranks();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int slab = warp / WS, part = warp % WS;
+  const int m0 = 16 * slab;
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;  // the longest walks first
+  const int last = (min(row_m0 + TM, s) - 1) / TN;
+  const int slab_lo = row_m0 + m0;
+  const int c0 = rank * SL;          // the block's slice: columns c0 .. c0 + cols
+  const int cols = min(SL, d - c0);  // a multiple of 128
+  const int parts = cols / PART;     // the slab's warps with columns in this slice
+  const int pc = PART * part;        // the warp's part of it
+  const bool mine = part < parts;
+  float4* xs = xch + slab * WS * NT * 32 + lane;  // the slab's partials, [part][n-tile]
+
+  // tile `it` into buffer it % NB (nothing past the last); one commit group either way
+  auto stage_kv = [&](int it) {
+    if (it <= last) {
+      float* y = str + (it % NB) * F::BUF;
+      stage_slice<RS, TN>(y, k + c0, ks, b, hh, it * TN, s, vec16 >> 1 & 1u, cols);
+      stage_slice<RS, TN>(y + TN * RS, v + c0, vs, b, hh, it * TN, s, vec16 >> 2 & 1u, cols);
+    }
+    cp_async_commit();
+  };
+  // a slab whose rows all precede tile it's keys, or lie past S, skips it
+  // in every block of the cluster alike; its warps still meet every
+  // cluster barrier
+  auto live = [&](int it) { return !(it * TN > slab_lo + 15 || slab_lo >= s); };
+
+  stage_slice<RS, TM>(q_s, q + c0, qs, b, hh, row_m0, s, vec16 & 1u, cols);
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) stage_kv(i);  // the q slice goes with the first
+
+  // rows gq and gq + 8 of the slab: the running max, the lane's part of
+  // the denominator, the last tile's rescale, the output over the warp's
+  // columns c0 + pc + 8c + 2tq and + 1
+  float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+  float acc[CT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float sc[NT][4];  // the warp's partial scores of the next tile
+  float pr[NT][4];  // the slab's whole scores of a tile, then its P
+
+  // ---- the warp's partial scores of tile it over its PART columns, in a
+  // fresh sum (chains of 8 steps, as the backward's)
+  auto partials = [&](int it) {
+    const float* y = str + (it % NB) * F::BUF;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if (!(live(it) && mine)) return;
+#pragma unroll 2
+    for (int kk = pc; kk < pc + PART; kk += 8) {
+      const FragA qa = load_a<RS, true>(q_s + m0 * RS + kk, gq, tq);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<RS, true>(b0, b1, y + 8 * j * RS + kk, gq, tq);
+        mma3(sc[j], qa, b0);
+        mma3(sc[j + 1], qa, b1);
+      }
+    }
+  };
+
+  // ---- the slab's rank sum of tile it: the parts' partials added in part
+  // order, n-tile j by the slab's warp j % WS, into sums buffer it & 1
+  auto rank_sum = [&](int it) {
+    if (!live(it)) return;
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) xs[(part * NT + j) * 32] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+    }
+    named_barrier(1 + slab, 32 * WS);
+    float4* sw = sums + ((it & 1) * C::SLABS + slab) * NT * 32 + lane;
+    for (int j = part; j < NT; j += WS) {
+      float4 a = xs[j * 32];
+      for (int p = 1; p < parts; ++p) add4(a, xs[(p * NT + j) * 32]);
+      sw[j * 32] = a;
+    }
+  };
+
+  // ---- the slab's whole scores of tile it: every rank's sums, read over
+  // DSMEM RG ranks at a time and added in rank order, so every rank and
+  // every warp of the slab holds the same bits; then the online softmax
+  // turns them into P. The first group is loaded before the next tile's
+  // partials, which hide its latency.
+  float4 ps[RG][NT];
+  auto load_group = [&](int it, int r0) {
+    const float4* sr = sums + ((it & 1) * C::SLABS + slab) * NT * 32 + lane;
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (r0 + rr < ranks) ps[rr][j] = ld_cluster(sr + j * 32, r0 + rr);
+  };
+  auto softmax = [&](int it) {
+    float4 t[NT];
+    for (int r0 = 0; r0 < ranks; r0 += RG) {
+      if (r0 > 0) load_group(it, r0);
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (r0 + rr == 0) {
+            t[j] = ps[rr][j];
+          } else if (r0 + rr < ranks) {
+            add4(t[j], ps[rr][j]);
+          }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) pr[j][0] = t[j].x, pr[j][1] = t[j].y, pr[j][2] = t[j].z, pr[j][3] = t[j].w;
+    online_softmax(pr, m_r, l_r, alpha, it * TN, slab_lo, scale, gq, tq);
+  };
+
+  // ---- P v of tile it over the warp's PART columns of the v slice, the
+  // tile's keys 8j .. 8j + 7 in order, in fresh fragments; then
+  // out = alpha out + P v
+  auto pv = [&](int it) {
+    if (!(live(it) && mine)) return;
+    const int n_lo = it * TN;
+    const float* y = str + (it % NB) * F::BUF + TN * RS;
+    float o[CT][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      if (n8 > slab_lo + 15 || n8 >= s) continue;  // P = 0 for every row < S of the slab
+      const FragA pa = split_a<true>(pr[j][0], pr[j][2], pr[j][1], pr[j][3]);
+#pragma unroll
+      for (int c = 0; c < CT; ++c) mma3(o[c], pa, load_b_cols<RS, true>(y + 8 * j * RS + pc + 8 * c, gq, tq));
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
+  };
+
+  // ---- the walk, one tile behind in P v: while tile it's cluster barrier
+  // is pending, the warps run tile it - 1's P v; after it, tile it + 1's
+  // partials run while tile it's rank sums are in flight. A warp reads
+  // tile it's rank sums before it arrives at tile it + 1's barrier, and
+  // they are rewritten (tile it + 2) only after it. With four buffers the
+  // cluster barrier also orders the copies: each thread waits for its own
+  // copies of tile it + 1 before it arrives at tile it's barrier (they are
+  // everyone's after it), and tile it + 2 goes into tile it - 2's buffer,
+  // whose P v every warp ran before arriving at it.
+  if constexpr (NB == 4) cp_async_wait_prior();
+  else cp_async_wait_all();
+  __syncthreads();  // the q slice and tile 0 have landed
+  partials(0);
+  for (int it = 0; it <= last; ++it) {
+    rank_sum(it);
+    if constexpr (NB == 4) cp_async_wait_all();  // this thread's copies of tile it + 1
+    cluster_arrive();  // tile it's rank sums are in place; tile it - 1's are read
+    if (it > 0) pv(it - 1);
+    if constexpr (NB == 2) {
+      __syncthreads();  // every warp is done with tile it - 1's buffer
+      stage_kv(it + 1);
+    }
+    cluster_wait();
+    if constexpr (NB == 4) stage_kv(it + 2);
+    const bool own = live(it) && mine;
+    if (own) load_group(it, 0);
+    if (it < last) {
+      if constexpr (NB == 2) {
+        cp_async_wait_all();
+        __syncthreads();  // tile it + 1 has landed
+      }
+      partials(it + 1);
+    }
+    if (own) softmax(it);
+  }
+  pv(last);
+  cluster_arrive();  // no block leaves while another may still read its shared memory
+  cluster_wait();
+
+  if (!mine) return;
+  // ---- the denominators over the quad; out = acc / l and lse = m + log l
+  // (rank 0's first warp of the slab), rows < S only
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(FULL, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(FULL, l_r[i], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
+    if (row >= s) continue;
+    const size_t at = (static_cast<size_t>(b) * s + row) * static_cast<size_t>(h) * d + static_cast<size_t>(hh) * d +
+                      c0 + pc + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+      *reinterpret_cast<float2*>(out + at + 8 * c) =
+          make_float2(acc[c][2 * e] / l_r[e], acc[c][2 * e + 1] / l_r[e]);
+    if (rank == 0 && part == 0 && tq == 0) lse[static_cast<size_t>(bh) * s + row] = m_r[e] + logf(l_r[e]);
+  }
+}
+
+template <int J>
+int launch_cluster(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h, int d,
+                   int ranks, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::TM, config, attr, b,
+                                   s, h, ranks, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
+  return cudaLaunchKernelEx(&config, causal_fwd_cluster_kernel<J>, q, k, v, out, lse, s, h, d, qs, ks, vs, scale,
+                            vec16);
+}
+
+// Past 256: the cluster kernel up to 8192, the window kernel past it (a
+// route by width: a cluster of more than 16 blocks cannot launch).
+int launch_wide(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h, int d,
+                Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  int j, ranks;
+  if (!wide_plan(d, j, ranks)) return launch_window(q, k, v, out, lse, b, s, h, d, qs, ks, vs, scale, stream);
+  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL) return cudaErrorInvalidValue;
+  switch (j) {
+    case 1: return launch_cluster<1>(q, k, v, out, lse, b, s, h, d, ranks, qs, ks, vs, scale, stream);
+    case 2: return launch_cluster<2>(q, k, v, out, lse, b, s, h, d, ranks, qs, ks, vs, scale, stream);
+    default: return launch_cluster<4>(q, k, v, out, lse, b, s, h, d, ranks, qs, ks, vs, scale, stream);
+  }
+}
+
+template <int J>
+int wide_attributes(int* out) {
+  using C = wide::Cfg<J>;
+  return kernel_attributes(causal_fwd_cluster_kernel<J>, wide::THREADS, wide::bytes<J>(), C::TM, C::TN, out);
+}
+
+template <int J>
+int wide_cluster(int ranks, int* out) {
+  return cluster_attributes(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::TM, wide::Cfg<J>::SL, ranks,
+                            out);
+}
 }  // namespace
 
 // Plain C entry point (bound with ctypes). q, k, v are device pointers to
 // strided (B, S, heads, D) f32 arrays whose D axis is contiguous, with
 // their batch, sequence and head strides in elements; out is a contiguous
 // (B, S, heads, D) and lse a contiguous (B, heads, S); D is 8, 16, 32,
-// 64, 128, 256 or a multiple of 128 past 256. Returns a cudaError_t; 0
-// means the launch was accepted.
+// 64, 128, 256 or a multiple of 128 past 256 (the cluster kernel up to
+// 8192, the window kernel past it). Returns a cudaError_t; 0 means the
+// launch was accepted; a cluster that fails to launch returns its error.
 extern "C" int causal_attention_fwd(const float* q, const float* k, const float* v, float* out, float* lse,
                                     int b, int s, int h, int d, long long q_sb, long long q_ss,
                                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
@@ -569,8 +894,24 @@ extern "C" int causal_attention_fwd_attributes(int d, int* out) {
     case 64: return attributes<64>(out);
     case 128: return attributes<128>(out);
     case 256: return attributes<256>(out);
-    default:
-      if (d <= 256 || d % wide::STEP != 0) return cudaErrorInvalidValue;
-      return tf32x3::kernel_attributes(causal_fwd_wide_kernel, wide::THREADS, wide::BYTES, wide::TM, wide::TN, out);
+    default: {
+      int j, ranks;
+      if (wide_plan(d, j, ranks)) return j == 1 ? wide_attributes<1>(out) : j == 2 ? wide_attributes<2>(out)
+                                                                                    : wide_attributes<4>(out);
+      if (d <= 256 || d % window::STEP != 0) return cudaErrorInvalidValue;
+      return tf32x3::kernel_attributes(causal_fwd_window_kernel, window::THREADS, window::BYTES, window::TM,
+                                       window::TN, out);
+    }
   }
+}
+
+// The cluster kernel of head width d past 256 up to 8192: out receives the
+// blocks of a cluster, the slice width at most, and the clusters the card
+// can hold at once (0: it cannot launch). Returns a cudaError_t.
+extern "C" int causal_attention_fwd_cluster(int d, int* out) {
+  int j, ranks;
+  if (!wide_plan(d, j, ranks)) return cudaErrorInvalidValue;
+  if (j == 1) return wide_cluster<1>(ranks, out);
+  if (j == 2) return wide_cluster<2>(ranks, out);
+  return wide_cluster<4>(ranks, out);
 }

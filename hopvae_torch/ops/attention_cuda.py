@@ -19,10 +19,12 @@ on the tensor cores in three TF32 passes of their own (f32-grade, whatever
 views (the prior's q, k and v are slices of one projection); only the
 head width must be contiguous. The kernels take the head widths of
 ``HEAD_DIMS`` on built instances, and every multiple of ``WIDE_STEP`` past
-the last of them on wide instances: the forward streams q, k and v in
-depth chunks; the backward splits the depth across the blocks of a
-thread-block cluster, which compute each tile's scores once (up to
-``BWD_WIDE_MAX``, :func:`backward_attributes` names the cluster);
+the last of them on wide instances: up to ``BWD_WIDE_MAX`` the forward
+and the backward split the depth across the blocks of a thread-block
+cluster, which compute each tile's scores once
+(:func:`forward_attributes` and :func:`backward_attributes` name the
+cluster); past it the forward streams q, k and v in depth chunks over
+windows of output columns, and the backward raises.
 :func:`kernel_width` names the width that any other head is zero-padded
 to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches``, and takes its
@@ -40,7 +42,7 @@ from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_librar
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths of the built instances
 WIDE_STEP = 128  # past HEAD_DIMS[-1], the wide kernels take every multiple of this
-BWD_WIDE_MAX = 8192  # the widest head of the backward: a cluster of 16 blocks of 512 columns
+BWD_WIDE_MAX = 8192  # the widest cluster, 16 blocks of 512 columns: the backward's widest head
 
 
 # ------------------------------------------------------------ plain versions
@@ -216,12 +218,29 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
 
 causal_attention_bwd_dq.launches = 0
 
+def _cluster(attrs: dict, stem: str, name: str, *args: int) -> dict:
+    """``attrs`` with the cluster that ``lib.name(args..., out)`` reports:
+    its blocks, the depth slice a block owns at most, the clusters the card
+    holds at once and whether that is positive (a cluster that cannot be
+    held cannot launch)."""
+    out = (ctypes.c_int * 3)()
+    err = getattr(load_library(stem), name)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}{args} failed: cudaError {err}")
+    return {**attrs, "cluster": out[0], "slice": out[1], "active_clusters": out[2], "cluster_ok": out[2] > 0}
+
+
 def forward_attributes(dh: int) -> dict:
     """K5-fwd's build at head width ``dh`` as the card reports it (past
     256 the wide instance's): registers and spilled (local) bytes a
     thread, dynamic shared bytes, threads a block and blocks an SM, and
-    its tiles (query rows resident, keys streamed). Launches nothing."""
-    return kernel_attributes("causal_attention_fwd", dh)
+    its tiles (query rows resident, keys streamed). Past 256 up to
+    ``BWD_WIDE_MAX`` also the cluster, as :func:`backward_attributes`
+    reports it. Launches nothing."""
+    attrs = kernel_attributes("causal_attention_fwd", dh)
+    if HEAD_DIMS[-1] < dh <= BWD_WIDE_MAX:
+        attrs = _cluster(attrs, "causal_attention_fwd", "causal_attention_fwd_cluster", dh)
+    return attrs
 
 
 def backward_attributes(kernel: str, dh: int) -> dict:
@@ -234,11 +253,7 @@ def backward_attributes(kernel: str, dh: int) -> dict:
     dkv = int(kernel == "dkv")
     attrs = kernel_attributes("causal_attention_bwd", dh, dkv)
     if dh > HEAD_DIMS[-1]:
-        out = (ctypes.c_int * 3)()
-        err = load_library("causal_attention_bwd").causal_attention_bwd_cluster(dh, dkv, out)
-        if err != 0:
-            raise RuntimeError(f"causal_attention_bwd_cluster({dh}, {dkv}) failed: cudaError {err}")
-        attrs.update(cluster=out[0], slice=out[1], active_clusters=out[2], cluster_ok=out[2] > 0)
+        attrs = _cluster(attrs, "causal_attention_bwd", "causal_attention_bwd_cluster", dh, dkv)
     return attrs
 
 

@@ -138,7 +138,7 @@ def test_wrappers_check_their_inputs():
 def test_wide_and_padded_heads_match_jax(dh, monkeypatch):
     """A head width the kernels reach through the zero padding (48 → 64),
     the widest of their built instances (256, 32-row tiles) and one of the
-    wide kernels (384, depth chunks and column windows): the port's flash
+    wide kernels (384, a cluster of three blocks): the port's flash
     backend (CPU: blocked), the kernels' route ``kernel_causal_attention``
     (the padding, then ``FlashCausalAttention`` on the plain versions) and
     the plain versions themselves, against JAX's ``flash_causal_attention``

@@ -2,26 +2,30 @@
 and the wide kernels' precision scheme emulated on the CPU.
 
 Past a width of 256 the streaming lookups (K1 to K4) run their wide
-variants and K5-fwd its wide instance (every multiple of 128): each
-product's depth streamed in chunks of 64, each chunk's three-pass TF32
-products summed in a fresh sum and added to the running one, the outputs
-in column windows. K5's backward splits the depth across the blocks of a
-cluster instead: each block's slice of 128 in warp parts of 64, each part
-in a fresh sum, the parts of a slice added in order, the slices in rank
-order, the small TF32 parts truncated (``cluster_tf32``). The plain
-versions that the CPU runs hold the same functions at any width;
-``tests/test_torch_hopfield.py`` holds them against the Pallas kernels in
-interpret mode at (384, 3), (3, 384) and (300, 520). Here: the dispatch
-rule; a head of 320 through the kernels' zero padding and a Transformer
-prior with one head of 512 against JAX; and the three-pass schemes at
-width 512 (the cluster's also at 384) against the plain versions, within
-the limits ``chip_smoke.py`` holds the kernels to. Measured here (N 300,
-M 1024, 512 → 512; K5 at B 2, S 48, one head of 512), three passes: K1
-out 6.9e-7, m 5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise
-at most 1.3e-6; K5 forward 5.1e-7, backward 5.6e-7 (the cluster's order
-7.0e-7, 1.0e-6 at 384). One pass: K1's m 3.0e-4 and l 1.1e-3 from
-float64, K2 and K3 7.1e-4, K5's forward 4.6e-4, the cluster's backward
-5.7e-4 to 6.8e-4.
+variants: each product's depth streamed in chunks of 64, each chunk's
+three-pass TF32 products summed in a fresh sum and added to the running
+one, the outputs in column windows. K5-fwd past 8192 runs the same way
+(its window kernel). Up to 8192 K5's forward and backward split the
+depth across the blocks of a cluster instead: each block's slice of 128
+(256 past 1024, 512 past 2048) in warp parts of 64, each part in a fresh
+sum, the parts of a slice added in order, the slices in rank order, the
+small TF32 parts truncated (``cluster_tf32``); the products over keys or
+query rows by tiles of 32 (16 past 1024). The plain versions that the CPU
+runs hold the same functions at any width; ``tests/test_torch_hopfield.py``
+holds them against the Pallas kernels in interpret mode at (384, 3),
+(3, 384) and (300, 520). Here: the dispatch rule; a head of 320 through
+the kernels' zero padding and a Transformer prior with one head of 512
+against JAX; and the three-pass schemes at width 512 (the cluster's also
+at 384 and 1280) against the plain versions, within the limits
+``chip_smoke.py`` holds the kernels to. Measured here (N 300, M 1024,
+512 → 512; K5 at B 2, S 48, one head), three passes: K1 out 6.9e-7, m
+5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise at most
+1.3e-6; K5 in the window kernel's order at 512 forward 5.1e-7, backward
+5.6e-7; in the cluster's order at 384, 512 and 1280 forward 4.5e-7,
+5.5e-7 and 3.1e-7, backward 1.1e-6, 4.8e-7 and 8.4e-7. One pass: K1's m
+3.0e-4 and l 1.1e-3 from float64, K2 and K3 7.1e-4, K5's forward 4.6e-4
+(the cluster's order 3.6e-4 to 4.6e-4), the cluster's backward 5.7e-4 to
+6.8e-4.
 """
 
 import math
@@ -235,44 +239,58 @@ def cluster_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, slice_: int = 12
     return total
 
 
+def _cluster_plan(dh: int) -> tuple[int, int]:
+    """The cluster's slice width and key (or query) tile at head width
+    ``dh``, as ``wide_plan`` and ``Cfg`` (``csrc/causal_attention_cluster.cuh``)
+    choose them: slices of 128 up to 1024, then 256 up to 2048, then 512;
+    tiles of 32 rows at slices of 128, else 16."""
+    n = dh // 128
+    chunks = 1 if n <= 8 else 2 if n <= 16 else 4
+    return 128 * chunks, TILE if chunks == 1 else 16
+
+
 def _wide_attention(q, k, v, g, scale, passes, cluster: bool = False):
     """K5's wide kernels' products on the plain forward and backward: ``q kᵀ``
     and ``g vᵀ`` over depth chunks, ``P v``, ``Pᵀ g``, ``dSᵀ q`` and ``dS k``
     over key or query tiles of 32, each in a fresh sum. With ``cluster``
-    the backward rebuilds the scores (and P from the forward's lse) and
-    ``g vᵀ`` in the cluster's order (:func:`cluster_tf32`), and its output
-    products truncate the small parts. ``(out, lse, dq, dk, dv)``."""
+    the products run in the cluster kernels' order: ``q kᵀ`` (the
+    forward's scores, and the backward's, which rebuild P from the
+    forward's lse) and ``g vᵀ`` through :func:`cluster_tf32`, the products
+    over key or query tiles in the plan's tiles with the small parts
+    truncated. ``(out, lse, dq, dk, dv)``."""
     qh, kh, vh, gh = (a.transpose(1, 2) for a in (q, k, v, g))
     s = q.shape[1]
     mask = torch.ones(s, s, dtype=torch.bool).tril()
-    scores = chunked_tf32(qh, kh.transpose(-1, -2).contiguous(), passes) * scale
+    product, tiled, tile = chunked_tf32, chunked_tf32, TILE
+    if cluster:
+        slice_, tile = _cluster_plan(q.shape[-1])
+        tiled = lambda x, y, passes, chunk: chunked_tf32(x, y, passes, chunk, trunc=True)  # noqa: E731
+        product = lambda x, y, passes: cluster_tf32(x, y, passes, slice_=slice_)  # noqa: E731
+    scores = product(qh, kh.transpose(-1, -2).contiguous(), passes) * scale
     lse = torch.logsumexp(torch.where(mask, scores, float("-inf")), dim=-1)
     p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
-    out = chunked_tf32(p, vh, passes, chunk=TILE)
+    out = tiled(p, vh, passes, chunk=tile)
     delta = (gh * out).sum(-1)
-    product, tiled = chunked_tf32, chunked_tf32
-    if cluster:
-        tiled = lambda x, y, passes, chunk: chunked_tf32(x, y, passes, chunk, trunc=True)  # noqa: E731
-        product = cluster_tf32
-        scores = cluster_tf32(qh, kh.transpose(-1, -2).contiguous(), passes) * scale
-        p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
     ds = p * (product(gh, vh.transpose(-1, -2).contiguous(), passes) - delta[..., None])
-    dq = tiled(ds, kh, passes, chunk=TILE) * scale
-    dk = tiled(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=TILE) * scale
-    dv = tiled(p.transpose(-1, -2).contiguous(), gh, passes, chunk=TILE)
+    dq = tiled(ds, kh, passes, chunk=tile) * scale
+    dk = tiled(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=tile) * scale
+    dv = tiled(p.transpose(-1, -2).contiguous(), gh, passes, chunk=tile)
     return [out.transpose(1, 2), lse] + [a.transpose(1, 2) for a in (dq, dk, dv)]
 
 
 @pytest.mark.parametrize("passes,dh,cluster",
                          [(3, 512, False), (1, 512, False), (3, 384, True), (1, 384, True), (3, 512, True),
-                          (1, 512, True)],
-                         ids=["3", "1", "3-cluster384", "1-cluster384", "3-cluster512", "1-cluster512"])
+                          (1, 512, True), (3, 1280, True), (1, 1280, True)],
+                         ids=["3", "1", "3-cluster384", "1-cluster384", "3-cluster512", "1-cluster512",
+                              "3-cluster1280", "1-cluster1280"])
 def test_wide_attention_scheme_at_512(passes, dh, cluster):
-    """K5's wide kernels at one head of 512 (B 2, S 48), and the cluster
-    backward's order at 384 and 512: with three passes out and lse within
-    ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within ``ATTN_BWD_NORMWISE`` of
-    the plain versions; one pass misses the forward's limit from float64
-    (and, in the cluster's order, the backward's)."""
+    """K5's wide kernels at one head of 512 (B 2, S 48) in the window
+    kernel's order, and the cluster kernels' order (forward and backward)
+    at 384, 512 and 1280 (slices of 256, tiles of 16): with three passes
+    out and lse within ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within
+    ``ATTN_BWD_NORMWISE`` of the plain versions; one pass misses the
+    forward's limit from float64 (and, in the cluster's order, the
+    backward's)."""
     rng = np.random.default_rng(2)
     q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 48, 1, dh), dtype=np.float32)) for _ in range(4))
     scale = 1 / math.sqrt(dh)
@@ -295,7 +313,8 @@ def test_wide_attention_scheme_at_512(passes, dh, cluster):
 def test_backward_refuses_past_the_widest_cluster(width):
     """Past ``BWD_WIDE_MAX`` (a cluster of 16 blocks of 512 columns) the
     backward wrappers raise before any launch; up to it, a multiple of 128
-    gets as far as the device check (meta tensors: no kernel)."""
+    gets as far as the device check (meta tensors: no kernel). The forward
+    takes the width either way (past it, its window kernel)."""
     def args(dh):
         t = torch.empty(1, 4, 1, dh, device="meta")
         return (t, t, t, t, torch.empty(1, 1, 4, device="meta"), torch.empty(1, 1, 4, device="meta"), 1.0)
@@ -305,3 +324,7 @@ def test_backward_refuses_past_the_widest_cluster(width):
             fn(*args(width))
         with pytest.raises(ValueError, match="no kernel for device meta"):
             fn(*args(ac.BWD_WIDE_MAX))
+    for dh in (width, ac.BWD_WIDE_MAX):
+        t = args(dh)[0]
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            ac.causal_attention_fwd(t, t, t, 1.0)

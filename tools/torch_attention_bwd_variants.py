@@ -6,8 +6,9 @@ Builds ``hopvae_torch/csrc/causal_attention_bwd.cu`` (as ``change``) and
 each ``NAME=SOURCE`` (a copy of the source elsewhere, for example a parent
 commit unpacked with ``git archive``; ``-D`` flags after a colon) with the
 port's nvcc flags, prints each build's ptxas registers and spills, and runs
-every build twice, in turns, at phase 7's full-width shapes of
-``chip_smoke.py`` and a few ragged ones: the normwise error of dQ, dK and
+every build twice, in turns, at every shape of phase 7 of
+``chip_smoke.py`` that the backward takes and one more ragged one: the
+normwise error of dQ, dK and
 dV against the plain versions, whether a second launch repeats the first
 bit for bit, whether its outputs equal the ``change`` build's bit for bit
 (a build that does not take a head width reports ``refused``),
@@ -36,8 +37,7 @@ import chip_smoke as cs  # noqa: E402
 from hopvae_torch.ops import attention_cuda as ac  # noqa: E402
 from hopvae_torch.utils import nvcc  # noqa: E402
 
-CASES = [c for c in cs.ATTENTION_CASES if c[1] == 256] + [
-    ("ragged S37 dh8", 2, 37, 2, 8), ("ragged S37 dh256", 2, 37, 1, 256), ("ragged S48 dh128", 2, 48, 2, 128)]
+CASES = [c for c in cs.ATTENTION_CASES if c[4] <= ac.BWD_WIDE_MAX] + [("ragged S48 dh128", 2, 48, 2, 128)]
 
 
 def build(name: str, source: Path, flags: list[str], out_dir: str):
@@ -84,7 +84,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(3)
     with cs.parity_mode(), torch.inference_mode():
         for label, b, s, h, dh in CASES:
-            q, k, v, g = cs.attention_inputs(b, s, h, dh, gen)
+            q, k, v, g = cs.attention_inputs(b, s, h, dh, gen, offset=1 if "misaligned" in label else 0)
             scale = 1 / math.sqrt(dh)
             out, lse = ac.causal_attention_fwd_reference(q, k, v, scale)
             args = (q, k, v, g, lse, ac.attention_delta(out, g), scale)

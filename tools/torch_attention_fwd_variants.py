@@ -5,18 +5,21 @@
 Builds ``hopvae_torch/csrc/causal_attention_fwd.cu`` (as ``change``) and
 each ``NAME=SOURCE`` (a copy of the source elsewhere beside the headers it
 includes: a parent commit unpacked with ``git archive``, or an edited copy
-with other tiles) with the port's nvcc flags, prints each build's ptxas
-registers and spills, and runs every build twice, in turns, at phase 7's
-full-width shapes of ``chip_smoke.py`` and a few ragged ones (one with views off
-16-byte alignment): the normwise error of ``out`` and ``lse`` against the
-plain version, whether a second launch repeats the first bit for bit,
-whether its outputs equal the ``change`` build's bit for bit (a build
-that does not take a head width, such as a parent's past 256, reports
-``refused``), and, at the
-full-width shapes, its time (CUDA events, mean of ``--reps`` launches) beside
+with other tiles) with the port's nvcc flags,
+prints each build's ptxas registers and spills, and runs every build
+twice, in turns, at every shape of phase 7 of ``chip_smoke.py`` and a
+few more ragged ones (one with views off 16-byte alignment): the
+normwise error of ``out`` and ``lse`` against the plain version, whether
+a second launch repeats the first bit for bit, whether its outputs equal
+the ``change`` build's bit for bit (a build that does not take a head
+width reports ``refused``), and, at the full-width shapes, its time (CUDA
+events, mean of ``--reps`` launches) beside
 ``F.scaled_dot_product_attention(is_causal=True)``'s forward on the same
 inputs and the bounds of ``chip_smoke.py`` (three TF32 passes, and the
-f32 CUDA cores' as context). One JSON line per build and shape.
+f32 CUDA cores' as context), and the build's registers, spills, shared
+bytes, blocks an SM and, past 256, its cluster (blocks, slice, clusters
+the card holds) where the build reports them. One JSON line per build and
+shape.
 """
 
 from __future__ import annotations
@@ -42,10 +45,8 @@ from hopvae_torch.ops import attention_cuda as ac  # noqa: E402
 from hopvae_torch.utils import nvcc  # noqa: E402
 from torch_attention_bwd_variants import build  # noqa: E402
 
-CASES = [c for c in cs.ATTENTION_CASES if c[1] == 256] + [
-    ("ragged S5 dh16", 2, 5, 2, 16), ("ragged S37 dh8", 2, 37, 2, 8), ("ragged S48 dh64", 2, 48, 2, 64),
-    ("ragged S37 dh256", 2, 37, 1, 256), ("ragged S48 dh128", 2, 48, 2, 128),
-    ("ragged S37 dh32 misaligned", 2, 37, 2, 32)]
+CASES = [*cs.ATTENTION_CASES, ("ragged S48 dh64", 2, 48, 2, 64), ("ragged S48 dh128", 2, 48, 2, 128),
+         ("ragged S48 dh512", 2, 48, 1, 512)]
 
 
 def call(lib, q, k, v, scale, out, lse) -> None:
@@ -60,6 +61,23 @@ def call(lib, q, k, v, scale, out, lse) -> None:
         raise ValueError("refused")
     if err:
         raise RuntimeError(f"causal_attention_fwd: cudaError {err}")
+
+
+def attributes(lib, dh: int) -> dict:
+    """The build's kernel at head width ``dh`` as the card reports it
+    (``causal_attention_fwd_attributes``), and its cluster where the build
+    has ``causal_attention_fwd_cluster``."""
+    out = (ctypes.c_int * len(nvcc.ATTRIBUTES))()
+    entries = [getattr(lib, n) for n in ("causal_attention_fwd_attributes", "causal_attention_fwd_cluster")
+               if hasattr(lib, n)]
+    for fn in entries:
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    if entries[0](dh, out):
+        return {}
+    attrs = dict(zip(nvcc.ATTRIBUTES, out))
+    if len(entries) > 1 and entries[1](dh, out) == 0:
+        attrs.update(cluster=out[0], slice=out[1], active_clusters=out[2])
+    return attrs
 
 
 def main(argv: list[str]) -> int:
@@ -115,7 +133,7 @@ def main(argv: list[str]) -> int:
                 row["equals_change"] = all(torch.equal(a, c) for a, c in zip(got, first["change"]))
                 if timed:
                     row["ms"] = cs.cuda_ms(lambda: call(lib, q, k, v, scale, *got), args.reps)
-                    row.update(extra)
+                    row.update(extra, attrs=attributes(lib, dh))
                 print(json.dumps(row), flush=True)
             del q, k, v, want, first
             torch.cuda.empty_cache()
