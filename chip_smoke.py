@@ -19,8 +19,11 @@ Seventeen phases, each of which raises on failure:
    SM). Then the same at widths no config uses, which the kernels take
    zero-padded: (32, 32), (64, 4), (128, 128), (256, 256) and (200, 3) at
    N 4,096, M 512, and a ragged (13, 100) and (130, 250) at N 37, M 300;
-   and past 256, on the wide variants: (512, 512), (384, 3) and (3, 384)
-   at N 4,096, M 512, and a ragged (300, 700) at N 37, M 300.
+   and past 256, on the wide variants: (512, 512), (384, 384), (384, 3)
+   and (3, 384) at N 4,096, M 512 (the last three phase 13's lookups at
+   ``embedding_dim=384``), a ragged (300, 700) and (1280, 3) (the backward's
+   cluster with slices of 256) at N 37, M 300, and (8320, 3) at N 37, M
+   64 (past the backward's widest cluster: its window kernels).
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -82,7 +85,8 @@ Seventeen phases, each of which raises on failure:
     their 256 instances) and at ``embedding_dim=384`` (their wide
     variants), three f32 Adam steps each through ``Trainer`` on the
     kernels against the same steps on the CPU's plain versions, losses
-    within 1e-3, K1, K2 and K3 3 launches a step; and the prior phase of
+    within 1e-3, K1, K2 and K3 3 launches a step, the device ms of each
+    step on the card from CUDA events logged; and the prior phase of
     ``pixelcnn_mnist_28`` with ``prior=Transformer, prior_d_model=512,
     prior_heads=1, prior_attn=flash`` (K5's wide kernels at a head of 512,
     4 launches a step each; K1 3), three prior-only steps the same way.
@@ -340,7 +344,8 @@ def library_ms(q, k, u, reps) -> tuple[float | None, str]:
 # (label, N, M, d_in, d_out): widths no config uses, which the CPU tests
 # hold against JAX and the kernels take zero-padded to a built instance,
 # and a ragged case with neither width a multiple of 8; then widths past
-# 256, on the wide variants
+# 256, on the wide variants (K2 and K3 on a cluster up to 8192: 1280 takes
+# slices of 256; 8320 their window kernels)
 WIDTH_CASES = (
     ("width 32x32", 4096, 512, 32, 32),
     ("width 64x4", 4096, 512, 64, 4),
@@ -350,9 +355,12 @@ WIDTH_CASES = (
     ("width 200x3", 4096, 512, 200, 3),
     ("width ragged 130x250", 37, 300, 130, 250),
     ("wide 512x512", 4096, 512, 512, 512),
+    ("wide 384x384", 4096, 512, 384, 384),
     ("wide 384x3", 4096, 512, 384, 3),
     ("wide 3x384", 4096, 512, 3, 384),
     ("wide ragged 300x700", 37, 300, 300, 700),
+    ("wide ragged 1280x3", 37, 300, 1280, 3),
+    ("wide ragged 8320x3", 37, 64, 8320, 3),
 )
 
 
@@ -1336,12 +1344,25 @@ WIDTH_STEPS = 3
 WIDTH_LOSS_RTOL = 1e-3  # three f32 Adam steps on the card against the CPU's: the train golden lands within 1.3e-4
 
 
-def width_steps(model, cfg, x: torch.Tensor, fit_prior: bool) -> list[float]:
+def width_steps(model, cfg, x: torch.Tensor, fit_prior: bool) -> tuple[list[float], list[float]]:
     """The loss of each of ``WIDTH_STEPS`` Adam steps through ``Trainer``,
-    of the backbone or, with ``fit_prior``, of the prior alone."""
+    of the backbone or, with ``fit_prior``, of the prior alone; and, for
+    inputs on the card, each step's device ms from CUDA events (the first
+    includes the kernels' first launches)."""
     trainer = Trainer(model, cfg)
     trainer.build_optimizer(1, fit_prior=fit_prior)
-    return [float(trainer.train_step(x)["loss"]) for _ in range(WIDTH_STEPS)]
+    losses, ms = [], []
+    for _ in range(WIDTH_STEPS):
+        if x.is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = trainer.train_step(x)
+        if x.is_cuda:
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        losses.append(float(out["loss"]))
+    return losses, ms
 
 
 @parity_mode()
@@ -1354,7 +1375,8 @@ def phase_width_training(config: str, over: dict, fit_prior: bool) -> dict:
     same steps on CPU tensors through the plain versions (``impl="torch"``).
     The counts are set to 0 just before the card's steps and read just
     after: K1, K2 and K3 launch 3 times a step; in the prior phase K1 3
-    times and K5's three kernels once a layer."""
+    times and K5's three kernels once a layer. Each card step's device ms
+    is logged (``step_ms``, from CUDA events): a reading, with no limit."""
     cfg = load_config(config)
     for key, val in over.items():
         setattr(cfg, key, val)
@@ -1367,14 +1389,14 @@ def phase_width_training(config: str, over: dict, fit_prior: bool) -> dict:
     counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
     for fn in counters.values():
         fn.launches = 0
-    losses = width_steps(card, cfg, x.cuda(), fit_prior)
+    losses, step_ms = width_steps(card, cfg, x.cuda(), fit_prior)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    plain = width_steps(cpu, cfg, x, fit_prior)
+    plain, _ = width_steps(cpu, cfg, x, fit_prior)
     rel = [abs(a / b - 1) for a, b in zip(losses, plain)]
     widths = {name: (layer.d_in, layer.out_proj.weight.shape[0]) for name, layer in card.bottleneck_layers().items()}
     res = {"config": {"name": config, **over}, "prior_phase": fit_prior, "lookup_widths": widths, "losses": losses,
-           "plain_losses": plain, "loss_rel_err": rel, "launches": launches}
+           "plain_losses": plain, "loss_rel_err": rel, "launches": launches, "step_ms": step_ms}
     log(json.dumps({"width_training": res}))
     a_step = dict.fromkeys(KERNEL_COUNTERS, 3) | dict.fromkeys(ATTENTION_COUNTERS, 0)
     if fit_prior:

@@ -130,8 +130,10 @@
 //   are non-portable, opted in at the launch; past 64 chunks (8192) a
 //   cluster would need more than 16 blocks, and the width is refused.
 //   The plan, the cluster's helpers and its launch configuration are
-//   causal_attention_cluster.cuh's, shared with the forward's cluster
-//   kernel (causal_attention_fwd.cu), which sums q k^T in this order.
+//   cluster.cuh's (the head width's plan causal_attention_cluster.cuh's),
+//   shared with the forward's cluster kernel (causal_attention_fwd.cu),
+//   which sums q k^T in this order, and with the wide Hopfield backward
+//   (hopfield_cluster.cuh).
 //   The launch sets the cluster size at run time (cudaLaunchKernelEx);
 //   causal_attention_bwd_cluster reports it, the slice width and whether
 //   the card can hold such a cluster at once. A launch that fails returns
@@ -782,8 +784,10 @@ int launch_cluster(const float* q, const float* k, const float* v, const float* 
                    Strides ks, Strides vs, Strides gs, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), wide::Cfg<J>::TM,
-                                   config, attr, b, s, h, ranks, stream);
+  dim3 grid;
+  cudaError_t err = causal_attention::attention_grid(b, s, h, wide::Cfg<J>::TM, ranks, grid);
+  if (err == cudaSuccess)
+    err = cluster_config(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), grid, config, attr, stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2 | vec16_ok(g, gs) << 3;
   return cudaLaunchKernelEx(&config, causal_bwd_cluster_kernel<J, DKV>, q, k, v, g, lse, delta, out_a, out_b, s, h,
@@ -807,8 +811,7 @@ int launch_wide(const float* q, const float* k, const float* v, const float* g, 
 // The cluster kernel's build at width d (see cluster_attributes).
 template <int J, bool DKV>
 int wide_cluster(int ranks, int* out) {
-  return cluster_attributes(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), wide::Cfg<J>::TM,
-                            wide::Cfg<J>::SL, ranks, out);
+  return cluster_attributes(causal_bwd_cluster_kernel<J, DKV>, wide::bytes<J, DKV>(), wide::Cfg<J>::SL, ranks, out);
 }
 
 template <int J, bool DKV>

@@ -75,7 +75,7 @@
 // - Past 256 (any multiple of 128 up to 8192; the cluster kernel below,
 //   the width a runtime argument) q no longer fits one block beside the k
 //   and v tiles, so the depth is split across the blocks of a thread-block
-//   cluster, on the backward's plan (causal_attention_cluster.cuh: slices
+//   cluster, on the backward's plan (cluster.cuh: slices
 //   of 128, 256 or 512, up to 16 blocks): block rank r keeps its slice of
 //   q for the whole walk and streams that slice of each key tile's k and v
 //   into one of NB buffers. Per key tile each warp (a 16-row slab, a
@@ -823,8 +823,10 @@ int launch_cluster(const float* q, const float* k, const float* v, float* out, f
                    int ranks, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::TM, config, attr, b,
-                                   s, h, ranks, stream);
+  dim3 grid;
+  cudaError_t err = causal_attention::attention_grid(b, s, h, wide::Cfg<J>::TM, ranks, grid);
+  if (err == cudaSuccess)
+    err = cluster_config(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), grid, config, attr, stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
   return cudaLaunchKernelEx(&config, causal_fwd_cluster_kernel<J>, q, k, v, out, lse, s, h, d, qs, ks, vs, scale,
@@ -853,8 +855,7 @@ int wide_attributes(int* out) {
 
 template <int J>
 int wide_cluster(int ranks, int* out) {
-  return cluster_attributes(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::TM, wide::Cfg<J>::SL, ranks,
-                            out);
+  return cluster_attributes(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::SL, ranks, out);
 }
 }  // namespace
 

@@ -60,14 +60,25 @@
 //   widths d_in', d_out' (K, U, two buffers of q, g and the row stats):
 //   70,400 at 64 -> 64, 200,064 at 256 -> 256. Registers and blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dku_attributes on the card.
-// - Past 256 on either side (one wide instance for every width,
-//   hopfield_wide.cuh): the first pass builds q and 1/l at any width; a
-//   block owns 64 patterns and one window of 128 columns of dK or of dU
-//   (a grid axis); per token tile the chunks of K and q stream through
-//   (and, for dK, those of U and g), their products summed into the
-//   fragments, then the window of q's or g's columns with the tile's row
-//   stats. Each window block recomputes the scores.
+// - Past 256 on either side the first pass builds q and 1/l at any width
+//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in past 128,
+//   dK and dU run on a thread-block cluster (hopfield_cluster.cuh): the
+//   depth split across the blocks of a cluster, each tile's scores
+//   computed once, every output column summed by the block whose slice
+//   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.51 ms against
+//   the window kernel's 1.09; PERF.md); the chunks of the token axis plan
+//   from the clusters the card holds at once and each cluster's fixed
+//   cost (cluster_chunks). Elsewhere the window kernel (one instance for
+//   every width): a block owns 64 patterns and one window of 128 columns
+//   of dK or of dU (a grid axis); per token tile the chunks of K and q
+//   stream through (and, for dK, those of U and g), their products summed
+//   into the fragments, then the window of q's or g's columns with the
+//   tile's row stats. Each window block recomputes the scores: at d_in up
+//   to 128 only a K q^T of that depth (dK has one window, which alone
+//   computes U g^T), and the window kernel ran faster there (at (3, 384):
+//   0.246 ms against the cluster's 0.377), so the route is by width.
 
+#include "hopfield_cluster.cuh"
 #include "hopfield_stream.cuh"
 #include "hopfield_wide.cuh"
 
@@ -459,39 +470,70 @@ stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// The chunks of the token axis past 256: the cluster kernel's plan
+// (hopfield_cluster::cluster_chunks, clusters of pattern tiles) where it
+// runs, else about WAVES waves of the window kernel's blocks.
 int chunks_wide(int n, int m_patterns, int d_in, int d_out) {
   using namespace hopfield_wide;
+  int j, ranks;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) {
+    int tm, tn;
+    hopfield_cluster::tile_rows(j, tm, tn);
+    return hopfield_cluster::cluster_chunks((n + tn - 1) / tn, (m_patterns + tm - 1) / tm,
+                                            hopfield_cluster::concurrent_clusters<true>(j, ranks));
+  }
   return chunks_for((n + hopfield_wide::TN - 1) / hopfield_wide::TN,
                     (m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM * (windows(d_in) + windows(d_out)),
                     concurrent_blocks(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS, BYTES));
 }
 
+// Past 256: the cluster kernel (hopfield_cluster.cuh) where its plan takes
+// the widths, else the window kernel (a route by width; see the header).
 int launch_wide(const Args& a) {
   using namespace hopfield_wide;
-  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dku_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(BYTES));
-  if (err != cudaSuccess) return err;
+  int j, ranks;
+  const bool clustered = hopfield_cluster::plan(a.d_in, a.d_out, j, ranks);
+  if (!clustered && windows(a.d_in) + windows(a.d_out) > 65535) return cudaErrorInvalidValue;
   const int chunks = chunks_wide(a.n, a.m_patterns, a.d_in, a.d_out);
-  const int token_tiles = (a.n + hopfield_wide::TN - 1) / hopfield_wide::TN;
-  const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
   float* q = a.workspace;
   float* il = q + static_cast<size_t>(a.n) * a.d_in;
   float* dk_part = il + a.n;
   float* du_part = dk_part + static_cast<size_t>(chunks) * a.m_patterns * a.d_in;
-  err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, a.l, il, a.stream);
+  cudaError_t err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, a.l, il, a.stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
-  const dim3 grid((a.m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM,
-                  (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk, windows(a.d_in) + windows(a.d_out));
-  stream_bwd_dku_wide_kernel<<<grid, hopfield_wide::THREADS, BYTES, a.stream>>>(
-      q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, tiles_per_chunk,
-      beta_of(a.d_in), vec16);
-  err = cudaGetLastError();
+  int parts;  // the chunks the launch writes
+  if (clustered) {
+    err = hopfield_cluster::with_chunks(j, [&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      using C = cluster::Cfg<J>;
+      const int token_tiles = (a.n + C::TN - 1) / C::TN;
+      const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
+      parts = (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+      const unsigned cvec16 = (vec16 >> 2 & 3u) | (vec16 & 3u) << 2;  // K, U resident; q, g streamed
+      return hopfield_cluster::launch_cluster<J, true>(
+          dim3((a.m_patterns + C::TM - 1) / C::TM, parts, ranks), a.K, a.U, q, a.g, a.m, il, a.delta, dk_part,
+          du_part, a.m_patterns, a.n, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in), cvec16, a.stream);
+    });
+  } else {
+    err = cudaFuncSetAttribute(stream_bwd_dku_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(BYTES));
+    if (err != cudaSuccess) return err;
+    const int token_tiles = (a.n + hopfield_wide::TN - 1) / hopfield_wide::TN;
+    const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
+    parts = (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+    const dim3 grid((a.m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM, parts,
+                    windows(a.d_in) + windows(a.d_out));
+    stream_bwd_dku_wide_kernel<<<grid, hopfield_wide::THREADS, BYTES, a.stream>>>(
+        q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, tiles_per_chunk,
+        beta_of(a.d_in), vec16);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  err = sum_rows(dk_part, grid.y, a.m_patterns * a.d_in, a.dK, a.stream);
+  err = sum_rows(dk_part, parts, a.m_patterns * a.d_in, a.dK, a.stream);
   if (err != cudaSuccess) return err;
-  return sum_rows(du_part, grid.y, a.m_patterns * a.d_out, a.dU, a.stream);
+  return sum_rows(du_part, parts, a.m_patterns * a.d_out, a.dU, a.stream);
 }
 
 }  // namespace
@@ -522,17 +564,20 @@ extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const flo
   const Args a{x, K, U, s, t, g, m, l, delta, dK, dU, workspace, n, m_patterns, d_in, d_out,
                static_cast<cudaStream_t>(stream)};
   if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
-    return hopfield_wide::windows(d_in) + hopfield_wide::windows(d_out) > 65535 ? cudaErrorInvalidValue
-                                                                                : launch_wide(a);
+    return launch_wide(a);
   if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN; past 256 the wide variant's.
-// Returns a cudaError_t.
+// threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
+// where its plan takes the widths (hopfield_cluster::plan), else the
+// window kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out) {
+  int j, ranks;
+  if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
+    return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, true, out));
   if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
     return static_cast<int>(kernel_attributes(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS,
                                               hopfield_wide::BYTES, hopfield_wide::TM, hopfield_wide::TN, out));
@@ -542,4 +587,13 @@ extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out)
     using C = Tiles<PI, PO>;
     return static_cast<int>(kernel_attributes(stream_bwd_dku_kernel<PI, PO>, THREADS, C::BYTES, TM, C::TN, out));
   });
+}
+
+// The cluster kernel of (d_in, d_out) where its plan takes the widths
+// (hopfield_cluster::plan; else cudaErrorInvalidValue): out receives the
+// blocks of a cluster, the slice width at most, and the clusters the card
+// can hold at once (0: it cannot launch). Returns a cudaError_t.
+extern "C" int hopfield_stream_bwd_dku_cluster(int d_in, int d_out, int* out) {
+  if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, false, out));
 }

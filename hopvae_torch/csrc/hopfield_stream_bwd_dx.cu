@@ -68,14 +68,27 @@
 //   199,680 at 256 -> 256. Registers and
 //   blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dx_attributes on the card.
-// - Past 256 on either side (one wide instance for every width,
-//   hopfield_wide.cuh): q is built first into the scratch; per pattern
-//   tile the chunks of q and K, then those of g and U, stream through
-//   (their products summed into the score and g U^T fragments), then the
-//   window of K's columns that the block sums dq over (windows of 128 on
-//   a grid axis, each recomputing the scores). The finishing pass reads
-//   x, dq and q's scratch (reused for dq * xhat) from device memory.
+// - Past 256 on either side q is built first into the scratch
+//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in past
+//   128, dq runs on a thread-block cluster (hopfield_cluster.cuh): the
+//   depth split across the blocks of a cluster, each tile's scores
+//   computed once, every output column summed by the block whose slice
+//   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.47 ms against
+//   the window kernel's 0.80; PERF.md). Elsewhere the window kernel (one
+//   instance for every width): per pattern tile the chunks of q and K,
+//   then those of g and U, stream through (their products summed into the
+//   score and g U^T fragments), then the window of K's columns that the
+//   block sums dq over (windows of 128 on a grid axis, each recomputing
+//   the scores). At d_in up to 128 dq has one window, nothing of weight is
+//   recomputed, and the window kernel ran faster (at (3, 384): 0.113 ms
+//   against the cluster's 0.268), so the route is by width. The splits
+//   of the pattern axis plan from the clusters (or blocks) the card holds
+//   at once. The finishing pass, a warp a row, reads x and the splits' dq
+//   from device memory, keeps dq in q's scratch and dq * xhat over split
+//   0's partial for the column sums (with 4 lanes a row it took 0.26 ms of
+//   0.71 at 512 -> 512, N 4,096; a warp a row 0.034).
 
+#include "hopfield_cluster.cuh"
 #include "hopfield_stream.cuh"
 #include "hopfield_wide.cuh"
 
@@ -494,97 +507,138 @@ stream_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
+constexpr int WIDE_FIN_THREADS = 32 * FIN_ROWS;  // the wide finishing pass: a warp a row
+
+// sum over the 32 lanes of a warp; the same in each
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
 // The finishing pass of the wide variant: as stream_bwd_dx_finish_kernel,
-// reading x and the splits' dq from device memory (a row at a time, 4
-// lanes a row) and keeping dq * xhat in xdq (n, d_in) for the column sums.
-__global__ void __launch_bounds__(FIN_THREADS)
-stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                                 const float* __restrict__ dq_part, int splits, int n, int d_in,
-                                 float* __restrict__ dx, float* __restrict__ xdq, float* __restrict__ ds_part,
-                                 float* __restrict__ dt_part) {
+// a warp a row, its lanes on neighbouring columns of x and of the splits'
+// dq in device memory. dq (the splits summed in order, in double, rounded
+// once) goes into dqs (n, d_in), dq * xhat over split 0's partial (each
+// element read by its own lane first); then the block's column sums of
+// both, over its rows in order.
+__global__ void __launch_bounds__(WIDE_FIN_THREADS)
+stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __restrict__ s, float* __restrict__ dq_part,
+                                 int splits, int n, int d_in, float* __restrict__ dx, float* __restrict__ dqs,
+                                 float* __restrict__ ds_part, float* __restrict__ dt_part) {
+  const int lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * FIN_ROWS;
   const int rows_here = min(FIN_ROWS, n - row0);
-  // dq of token row r, column k: the splits summed in order, in double
-  auto dq_at = [&](int r, int k) {
+  const int r = threadIdx.x >> 5;
+  if (r < rows_here) {
+    const size_t at = static_cast<size_t>(row0 + r) * d_in;
+    const float* xrow = x + at;
     double sum = 0.0;
-    for (int sp = 0; sp < splits; ++sp) sum += dq_part[(static_cast<size_t>(sp) * n + r) * d_in + k];
-    return static_cast<float>(sum);
-  };
-  {
-    const int r = threadIdx.x >> 2;
-    const int part = threadIdx.x & 3;
-    const bool live = r < rows_here;
-    const int row = row0 + (live ? r : 0);  // rows past n take the block's first (the shuffles need all lanes)
-    const float* xrow = x + static_cast<size_t>(row) * d_in;
-    double mean, inv;
-    ln_stats(xrow, d_in, part, mean, inv);
+    for (int k = lane; k < d_in; k += 32) sum += xrow[k];
+    const double mean = warp_sum(sum) / d_in;
+    double var = 0.0;
+    for (int k = lane; k < d_in; k += 32) {
+      const double c = xrow[k] - mean;
+      var += c * c;
+    }
+    const double inv = 1.0 / sqrt(warp_sum(var) / d_in + static_cast<double>(LN_EPS));
     double m1 = 0.0, m2 = 0.0;
-    for (int k = part; k < d_in; k += 4) {
+    for (int k = lane; k < d_in; k += 32) {
+      double acc = 0.0;
+      for (int sp = 0; sp < splits; ++sp) acc += dq_part[static_cast<size_t>(sp) * n * d_in + at + k];
+      const float dq = static_cast<float>(acc);
+      dqs[at + k] = dq;
       const double xhat = (xrow[k] - mean) * inv;
-      const double dxh = static_cast<double>(dq_at(row, k)) * s[k];
+      const double dxh = static_cast<double>(dq) * s[k];
       m1 += dxh;
       m2 += dxh * xhat;
     }
-    m1 = quad_sum(m1) / d_in;
-    m2 = quad_sum(m2) / d_in;
-    if (live) {
-      for (int k = part; k < d_in; k += 4) {
-        const double xhat = (xrow[k] - mean) * inv;
-        const double dq = dq_at(row, k);
-        dx[static_cast<size_t>(row) * d_in + k] = static_cast<float>(inv * (dq * s[k] - m1 - xhat * m2));
-        xdq[static_cast<size_t>(row) * d_in + k] = static_cast<float>(dq * xhat);
-      }
+    m1 = warp_sum(m1) / d_in;
+    m2 = warp_sum(m2) / d_in;
+    for (int k = lane; k < d_in; k += 32) {
+      const double xhat = (xrow[k] - mean) * inv;
+      const double dq = dqs[at + k];
+      dx[at + k] = static_cast<float>(inv * (dq * s[k] - m1 - xhat * m2));
+      dq_part[at + k] = static_cast<float>(dq * xhat);
     }
   }
-  __syncthreads();  // the block's xdq rows are written
+  __syncthreads();  // the block's rows of dqs and dq * xhat are written
 
-  for (int k = threadIdx.x; k < d_in; k += FIN_THREADS) {
+  for (int k = threadIdx.x; k < d_in; k += WIDE_FIN_THREADS) {
     double ds_acc = 0.0, dt_acc = 0.0;
-    for (int r = 0; r < rows_here; ++r) {
-      ds_acc += xdq[static_cast<size_t>(row0 + r) * d_in + k];
-      dt_acc += dq_at(row0 + r, k);
+    for (int rr = 0; rr < rows_here; ++rr) {
+      const size_t at = static_cast<size_t>(row0 + rr) * d_in + k;
+      ds_acc += dq_part[at];
+      dt_acc += dqs[at];
     }
     ds_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(ds_acc);
     dt_part[static_cast<size_t>(blockIdx.x) * d_in + k] = static_cast<float>(dt_acc);
   }
 }
 
-Plan plan_wide(int n, int m_patterns, int d_in) {
+// The splits of the pattern axis past 256: from the cluster kernel's
+// clusters of token tiles where it runs, else the window kernel's blocks.
+Plan plan_wide(int n, int m_patterns, int d_in, int d_out) {
   using namespace hopfield_wide;
+  int j, ranks;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) {
+    int tm, tn;
+    hopfield_cluster::tile_rows(j, tm, tn);
+    return plan_for((n + tm - 1) / tm, (m_patterns + tn - 1) / tn,
+                    hopfield_cluster::concurrent_clusters<false>(j, ranks));
+  }
   return plan_for((n + hopfield_wide::TM - 1) / hopfield_wide::TM * windows(d_in),
                   (m_patterns + hopfield_wide::TN - 1) / hopfield_wide::TN,
                   concurrent_blocks(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, BYTES));
 }
 
-// Floats of the wide variant's scratch: q (n, d_in), later dq * xhat; each
-// split's partial dq (n, d_in); one partial row of ds and of dt for each 32
-// tokens.
-long long workspace_wide(int n, int m_patterns, int d_in) {
-  const int splits = plan_wide(n, m_patterns, d_in).splits;
+// Floats of the wide variant's scratch: q (n, d_in), later dq; each
+// split's partial dq (n, d_in), split 0's later dq * xhat; one partial row
+// of ds and of dt for each 32 tokens.
+long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
+  const int splits = plan_wide(n, m_patterns, d_in, d_out).splits;
   return static_cast<long long>(1 + splits) * n * d_in + 2LL * fin_blocks(n) * d_in;
 }
 
-int launch_wide(const Args& a) {
+// dq of every split past 256: the cluster kernel (hopfield_cluster.cuh)
+// where its plan takes the widths, else the window kernel (a route by
+// width; see the header).
+int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part) {
   using namespace hopfield_wide;
+  const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
+                         vec16_ok(a.U, a.d_out) << 3;
+  int j, ranks;
+  if (hopfield_cluster::plan(a.d_in, a.d_out, j, ranks)) {
+    return hopfield_cluster::with_chunks(j, [&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      const int tiles = (a.n + cluster::Cfg<J>::TM - 1) / cluster::Cfg<J>::TM;
+      return static_cast<int>(hopfield_cluster::launch_cluster<J, false>(
+          dim3(tiles, p.splits, ranks), q, a.g, a.K, a.U, a.m, a.l, a.delta, dq_part, nullptr, a.n, a.m_patterns,
+          a.d_in, a.d_out, p.per, beta_of(a.d_in), vec16, a.stream));
+    });
+  }
+  if (windows(a.d_in) > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(stream_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(BYTES));
   if (err != cudaSuccess) return err;
-  const Plan p = plan_wide(a.n, a.m_patterns, a.d_in);
-  float* q = a.workspace;
-  float* dq_part = q + static_cast<size_t>(a.n) * a.d_in;
-  float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * a.d_in;
-  float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
-  err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, nullptr, nullptr, a.stream);
-  if (err != cudaSuccess) return err;
-  const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
-                         vec16_ok(a.U, a.d_out) << 3;
   stream_bwd_dq_wide_kernel<<<dim3((a.n + hopfield_wide::TM - 1) / hopfield_wide::TM, p.splits, windows(a.d_in)),
                               hopfield_wide::THREADS, BYTES, a.stream>>>(
       q, a.K, a.U, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per, beta_of(a.d_in),
       vec16);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+int launch_wide(const Args& a) {
+  const Plan p = plan_wide(a.n, a.m_patterns, a.d_in, a.d_out);
+  float* q = a.workspace;
+  float* dq_part = q + static_cast<size_t>(a.n) * a.d_in;
+  float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * a.d_in;
+  float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
+  cudaError_t err = hopfield_wide::build_queries(a.x, a.s, a.t, a.n, a.d_in, q, nullptr, nullptr, a.stream);
   if (err != cudaSuccess) return err;
-  stream_bwd_dx_finish_wide_kernel<<<fin_blocks(a.n), FIN_THREADS, 0, a.stream>>>(
+  err = static_cast<cudaError_t>(launch_dq_wide(a, p, q, dq_part));
+  if (err != cudaSuccess) return err;
+  stream_bwd_dx_finish_wide_kernel<<<fin_blocks(a.n), WIDE_FIN_THREADS, 0, a.stream>>>(
       a.x, a.s, dq_part, p.splits, a.n, a.d_in, a.dx, q, ds_part, dt_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -600,7 +654,7 @@ int launch_wide(const Args& a) {
 // for each 32 tokens; past 256, the wide variant's (workspace_wide).
 extern "C" long long hopfield_stream_bwd_dx_workspace(int n, int m_patterns, int d_in, int d_out) {
   if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
-    return workspace_wide(n, m_patterns, d_in);
+    return workspace_wide(n, m_patterns, d_in, d_out);
   if (!takes(n, m_patterns, d_in, d_out)) return 0;
   return with_widths(d_in, d_out, [&](auto pi, auto po) -> long long {
     constexpr int PI = decltype(pi)::value;
@@ -623,16 +677,20 @@ extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const floa
   const Args a{x, K, U, s, t, g, m, l, delta, dx, ds, dt, workspace, n, m_patterns, d_in, d_out,
                static_cast<cudaStream_t>(stream)};
   if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
-    return hopfield_wide::windows(d_in) > 65535 ? cudaErrorInvalidValue : launch_wide(a);
+    return launch_wide(a);
   if (!takes(n, m_patterns, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN; past 256 the wide variant's.
-// Returns a cudaError_t.
+// threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
+// where its plan takes the widths (hopfield_cluster::plan), else the
+// window kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) {
+  int j, ranks;
+  if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
+    return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, true, out));
   if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
     return static_cast<int>(kernel_attributes(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, hopfield_wide::BYTES,
                                               hopfield_wide::TM, hopfield_wide::TN, out));
@@ -642,4 +700,13 @@ extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) 
     using C = Tiles<PI, PO>;
     return static_cast<int>(kernel_attributes(stream_bwd_dq_kernel<PI, PO>, THREADS, C::BYTES, TM, C::TN, out));
   });
+}
+
+// The cluster kernel of (d_in, d_out) where its plan takes the widths
+// (hopfield_cluster::plan; else cudaErrorInvalidValue): out receives the
+// blocks of a cluster, the slice width at most, and the clusters the card
+// can hold at once (0: it cannot launch). Returns a cudaError_t.
+extern "C" int hopfield_stream_bwd_dx_cluster(int d_in, int d_out, int* out) {
+  if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, false, out));
 }

@@ -19,7 +19,8 @@
 // - cover the output columns in windows of CW = 128 on a grid axis (K1's
 //   out, K2's dq, K3's dK and dU): each window block recomputes the scores
 //   over the full depth, the window's tile arriving as the tile's last
-//   item.
+//   item. K2 and K3 take these window kernels only where their cluster
+//   (hopfield_cluster.cuh) does not run: past 8192, or d_in up to 128.
 // Shared bytes: 52,224 (two buffers of a 64 + 32 row chunk), whatever the
 // widths. Registers and blocks an SM are in PERF.md, from the kernels'
 // attributes entries on the card.

@@ -33,7 +33,10 @@ of at least 1 (:func:`kernel_takes`), as the Pallas kernels do. Up to
 in shared memory; past it on either side on the wide variants
 (``csrc/hopfield_wide.cuh``: q built first, every product's depth streamed
 in chunks of 64, the outputs in column windows of 128 on a grid axis).
-:func:`kernel_route` names the route.
+:func:`kernel_route` names the route. The wide K2 and K3 run on a
+thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split across
+the blocks of a cluster, each tile's scores computed once) where
+:func:`backward_cluster` says so, and on the window kernels elsewhere.
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
@@ -57,6 +60,8 @@ from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_librar
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at the configs' default widths
 BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
+BWD_CLUSTER_MAX = 8192  # the wide K2 and K3 run on a cluster up to this wider side (16 blocks of 512 columns)
+WINDOW_IN = 128  # and past this d_in (up to it dq and dK have one window, and the window kernels ran faster)
 IMPLS = ("cuda", "torch")
 
 
@@ -72,6 +77,15 @@ def kernel_route(d_in: int, d_out: int) -> str:
     if not kernel_takes(d_in, d_out):
         raise ValueError(f"widths must be at least 1, got {(d_in, d_out)}")
     return "instance" if max(d_in, d_out) <= BUILT_WIDTH else "wide"
+
+
+def backward_cluster(d_in: int, d_out: int) -> bool:
+    """Whether K2 and K3 run on their thread-block cluster at ``(d_in,
+    d_out)``: past ``BUILT_WIDTH`` and up to ``BWD_CLUSTER_MAX`` on the
+    wider side, with ``d_in`` past ``WINDOW_IN`` (``plan`` in
+    ``csrc/hopfield_cluster.cuh``). Other wide widths take the window
+    kernels."""
+    return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= BWD_CLUSTER_MAX
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -306,8 +320,20 @@ def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
     as the card reports it: registers and spilled (local) bytes a thread,
     dynamic shared bytes, threads a block, blocks an SM, and its tiles
     (token rows resident and patterns streamed in K2; patterns resident
-    and token rows streamed in K3). Launches nothing."""
-    return kernel_attributes(f"hopfield_stream_bwd_{kernel}", d_in, d_out)
+    and token rows streamed in K3). Where they run on their cluster
+    (:func:`backward_cluster`) also the cluster: its blocks, the depth
+    slice a block owns at most, the clusters the card holds at once and
+    whether that is positive (a cluster that cannot be held cannot
+    launch). Launches nothing."""
+    stem = f"hopfield_stream_bwd_{kernel}"
+    attrs = kernel_attributes(stem, d_in, d_out)
+    if backward_cluster(d_in, d_out):
+        out = (ctypes.c_int * 3)()
+        err = getattr(load_library(stem), f"{stem}_cluster")(d_in, d_out, out)
+        if err != 0:
+            raise RuntimeError(f"{stem}_cluster{(d_in, d_out)} failed: cudaError {err}")
+        attrs |= {"cluster": out[0], "slice": out[1], "active_clusters": out[2], "cluster_ok": out[2] > 0}
+    return attrs
 
 
 def _folded(layers) -> list:

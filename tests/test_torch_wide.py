@@ -5,25 +5,30 @@ Past a width of 256 the streaming lookups (K1 to K4) run their wide
 variants: each product's depth streamed in chunks of 64, each chunk's
 three-pass TF32 products summed in a fresh sum and added to the running
 one, the outputs in column windows. K5-fwd past 8192 runs the same way
-(its window kernel). Up to 8192 K5's forward and backward split the
-depth across the blocks of a cluster instead: each block's slice of 128
-(256 past 1024, 512 past 2048) in warp parts of 64, each part in a fresh
-sum, the parts of a slice added in order, the slices in rank order, the
-small TF32 parts truncated (``cluster_tf32``); the products over keys or
-query rows by tiles of 32 (16 past 1024). The plain versions that the CPU
+(its window kernel), and so do K2 and K3 past 8192 or with d_in up to
+128. Elsewhere up to 8192 K5's forward and backward and the lookups'
+backward K2 and K3 split the depth across the blocks of a cluster
+instead: each block's slice of 128 (256 past 1024, 512 past 2048) in warp
+parts of 64, each part in a fresh sum, the parts of a slice added in
+order, the slices in rank order, the small TF32 parts truncated
+(``cluster_tf32``); the products over keys, query rows, patterns or
+tokens by tiles of 32 (16 past 1024). The plain versions that the CPU
 runs hold the same functions at any width; ``tests/test_torch_hopfield.py``
 holds them against the Pallas kernels in interpret mode at (384, 3),
 (3, 384) and (300, 520). Here: the dispatch rule; a head of 320 through
 the kernels' zero padding and a Transformer prior with one head of 512
 against JAX; and the three-pass schemes at width 512 (the cluster's also
-at 384 and 1280) against the plain versions, within the limits
+at 384 and 1280; K2's and K3's at 512 → 512, (384, 3), (3, 384) and
+(300, 700)) against the plain versions, within the limits
 ``chip_smoke.py`` holds the kernels to. Measured here (N 300, M 1024,
 512 → 512; K5 at B 2, S 48, one head), three passes: K1 out 6.9e-7, m
 5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise at most
-1.3e-6; K5 in the window kernel's order at 512 forward 5.1e-7, backward
-5.6e-7; in the cluster's order at 384, 512 and 1280 forward 4.5e-7,
-5.5e-7 and 3.1e-7, backward 1.1e-6, 4.8e-7 and 8.4e-7. One pass: K1's m
-3.0e-4 and l 1.1e-3 from float64, K2 and K3 7.1e-4, K5's forward 4.6e-4
+1.3e-6, in the cluster's order 1.5e-6, 2.7e-6, 3.7e-6 and 1.8e-6 at the
+four widths (from float64 4.7e-7 to 1.2e-6); K5 in the window kernel's
+order at 512 forward 5.1e-7, backward 5.6e-7; in the cluster's order at
+384, 512 and 1280 forward 4.5e-7, 5.5e-7 and 3.1e-7, backward 1.1e-6,
+4.8e-7 and 8.4e-7. One pass: K1's m 3.0e-4 and l 1.1e-3 from float64, K2
+and K3 7.1e-4 (the cluster's order 7.1e-4 to 5.2e-3), K5's forward 4.6e-4
 (the cluster's order 3.6e-4 to 4.6e-4), the cluster's backward 5.7e-4 to
 6.8e-4.
 """
@@ -57,8 +62,20 @@ def test_widths_past_256_are_taken(width, padded):
     any other width to the next one. Nothing raises."""
     for d_in, d_out in ((width, 3), (3, width), (width, width)):
         assert hc.kernel_takes(d_in, d_out) and hc.kernel_route(d_in, d_out) == "wide"
+    # K2 and K3 on their cluster wherever d_in passes 128; (3, width) on the window kernels
+    assert hc.backward_cluster(width, 3) and hc.backward_cluster(width, width) and not hc.backward_cluster(3, width)
     assert ac.kernel_width(width) == padded
     assert ac.kernel_width(padded) == padded
+
+
+@pytest.mark.parametrize("d_in,d_out,cluster", [(129, 300, True), (128, 300, False), (8192, 3, True),
+                                                (8320, 3, False), (3, 8192, False), (256, 256, False)])
+def test_lookup_backward_route(d_in, d_out, cluster):
+    """Where K2 and K3 run on their cluster (``hopfield_cluster::plan``):
+    past 256 on the wider side up to 8192, with d_in past 128 (up to it dq
+    and dK have one window, and the window kernels ran faster); elsewhere
+    past 256 on the window kernels, up to 256 on the built instances."""
+    assert hc.backward_cluster(d_in, d_out) == cluster
 
 
 def test_padded_wide_head_matches_jax(monkeypatch):
@@ -159,21 +176,32 @@ def wide_forward(x2, K, U, s, t, passes):
     return acc / l, m, l
 
 
-def wide_backward(x2, K, U, s, t, g, m, l, delta, passes):
+def wide_backward(x2, K, U, s, t, g, m, l, delta, passes, cluster: bool = False):
     """``(dx, dK, dU, ds, dt)`` of the wide K2 and K3: ``q Kᵀ`` and ``g Uᵀ``
     over depth chunks, ``dS K`` over pattern tiles and ``Aᵀ g``, ``dSᵀ q``
     over token tiles, each tile in a fresh sum; the LayerNorm backward in
-    float64."""
+    float64. With ``cluster`` in the cluster kernel's order: ``q Kᵀ`` and
+    ``g Uᵀ`` through :func:`cluster_tf32` with the slice the plan picks
+    from the wider side (a narrower side's slices past its width are
+    empty, and its last slice and part hold only its real columns, as the
+    kernel's zero padding leaves them), the products over pattern or token
+    tiles of the plan's tile in fresh sums with the small parts truncated."""
     beta = 1.0 / math.sqrt(x2.shape[1])
     xhat, inv = hc._state_ln(x2)
     q = hc._query(xhat, s, t)
-    a = torch.exp(chunked_tf32(q, K.T.contiguous(), passes) * beta - m) / l
-    dsc = a * (chunked_tf32(g, U.T.contiguous(), passes) - delta) * beta
-    dq = chunked_tf32(dsc, K, passes, chunk=TILE).double()
+    scores = lambda a, b: chunked_tf32(a, b, passes)  # noqa: E731
+    tiled = lambda a, b: chunked_tf32(a, b, passes, chunk=TILE)  # noqa: E731
+    if cluster:
+        slice_, tile = _cluster_plan(max(x2.shape[1], U.shape[1]))
+        scores = lambda a, b: cluster_tf32(a, b, passes, slice_=slice_)  # noqa: E731
+        tiled = lambda a, b: chunked_tf32(a, b, passes, chunk=tile, trunc=True)  # noqa: E731
+    a = torch.exp(scores(q, K.T.contiguous()) * beta - m) / l
+    dsc = a * (scores(g, U.T.contiguous()) - delta) * beta
+    dq = tiled(dsc, K).double()
     dxhat = dq * s.double()
     dx = inv * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    dk = chunked_tf32(dsc.T.contiguous(), q, passes, chunk=TILE)
-    du = chunked_tf32(a.T.contiguous(), g, passes, chunk=TILE)
+    dk = tiled(dsc.T.contiguous(), q)
+    du = tiled(a.T.contiguous(), g)
     return dx.float(), dk, du, (dq * xhat).sum(0).float(), dq.sum(0).float()
 
 
@@ -205,14 +233,22 @@ def test_wide_lookup_forward_scheme_at_512(passes):
         assert mine <= max(2 * theirs, floor)
 
 
-@pytest.mark.parametrize("passes", [3, 1])
-def test_wide_lookup_backward_scheme_at_512(passes):
-    """The wide K2 and K3 at 512 → 512 with three passes: each of dx, dK,
-    dU, ds, dt within ``BWD_NORMWISE`` of the f32 plain version, and within
-    twice its distance from float64 (or 2e-6). One pass misses
-    ``BWD_NORMWISE`` from float64."""
-    args = _lookup_case(seed=4)
-    got = wide_backward(*args, passes=passes)
+@pytest.mark.parametrize("passes,d_in,d_out,order", [
+    (3, 512, 512, "window"), (1, 512, 512, "window"),
+    (3, 512, 512, "cluster"), (1, 512, 512, "cluster"), (3, 384, 3, "cluster"), (1, 384, 3, "cluster"),
+    (3, 3, 384, "cluster"), (1, 3, 384, "cluster"), (3, 300, 700, "cluster"), (1, 300, 700, "cluster"),
+], ids=["3", "1", "3-cluster512x512", "1-cluster512x512", "3-cluster384x3", "1-cluster384x3", "3-cluster3x384",
+        "1-cluster3x384", "3-cluster300x700", "1-cluster300x700"])
+def test_wide_lookup_backward_scheme_at_512(passes, d_in, d_out, order):
+    """The wide K2 and K3 in the window kernels' order at 512 → 512, and
+    in the cluster kernel's order at 512 → 512, (384, 3), (3, 384) and
+    (300, 700) (N 300, M 1024): with three passes each of dx, dK, dU, ds,
+    dt within ``BWD_NORMWISE`` of the f32 plain version, and within twice
+    its distance from float64 (or 2e-6). One pass misses ``BWD_NORMWISE``
+    from float64. (On the card (3, 384) takes the window kernels, which
+    ran faster there: ``hc.backward_cluster``.)"""
+    args = _lookup_case(d_in, d_out, seed=4)
+    got = wide_backward(*args, passes=passes, cluster=order == "cluster")
     exact = _float64_backward(args)
     if passes == 1:
         assert _normwise(got, exact) > BWD_NORMWISE
@@ -240,11 +276,13 @@ def cluster_tf32(a: torch.Tensor, b: torch.Tensor, passes: int, slice_: int = 12
 
 
 def _cluster_plan(dh: int) -> tuple[int, int]:
-    """The cluster's slice width and key (or query) tile at head width
-    ``dh``, as ``wide_plan`` and ``Cfg`` (``csrc/causal_attention_cluster.cuh``)
-    choose them: slices of 128 up to 1024, then 256 up to 2048, then 512;
-    tiles of 32 rows at slices of 128, else 16."""
-    n = dh // 128
+    """The cluster's slice width and streamed tile at depth ``dh`` (K5's
+    head width, the wider of K2's and K3's widths), as ``wide_plan``
+    (``csrc/causal_attention_cluster.cuh``), ``hopfield_cluster::plan`` and
+    ``Cfg`` (``csrc/cluster.cuh``) choose them: slices of 128 up to 1024,
+    then 256 up to 2048, then 512; tiles of 32 rows at slices of 128, else
+    16."""
+    n = -(-dh // 128)
     chunks = 1 if n <= 8 else 2 if n <= 16 else 4
     return 128 * chunks, TILE if chunks == 1 else 16
 

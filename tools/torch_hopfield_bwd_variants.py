@@ -9,12 +9,21 @@ example a parent commit unpacked with ``git archive``; ``-D`` flags after a
 colon) with the port's nvcc flags, prints each build's ptxas registers and
 spills, and runs every build twice, in turns, at the shapes of phase 2 of
 ``chip_smoke.py`` (the trained FFHQ-64 and MNIST tables, a ragged case,
-and its width cases), on the same inputs, the row stats from the plain
-forward. Per build and shape, one JSON line: K1's and the backward's
-normwise errors against the plain versions, whether a second launch
-repeats the first bit for bit, whether the outputs equal the ``change``
-build's, and each kernel's time (CUDA events) at the large shapes. A build that refuses a
-width (cudaErrorInvalidValue) is reported as refusing it.
+and its width cases) and at 512 -> 512 with random tables at the full
+scale of ffhq_64_scaled (N 73,984, M 4,096), on the same inputs, the row
+stats from the plain forward. Per build and shape, one JSON line: K1's and
+the backward's normwise errors against the plain versions, whether a
+second launch repeats the first bit for bit, whether the outputs equal the
+``change`` build's, and each kernel's time (CUDA events) at the large
+shapes and every shape past 256, where one ``torch.autograd.grad``
+through SDPA with the same cotangent (the library's K2 + K3) is timed
+too. A build that refuses a width
+(cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
+``mnist_28`` at ``embedding_dim=384`` on each build's K1 to K3, in turns,
+three rounds: three f32 Adam steps from the same weights, the losses,
+each step's ms between CUDA events (host gaps included) and the device's
+busy ms a step (``torch.profiler``: every kernel, and the lookups' K1 to
+K3 with their passes alone), one JSON line a run.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -37,7 +47,8 @@ from hopvae_torch.ops import hopfield_cuda as hc  # noqa: E402
 from hopvae_torch.utils import nvcc  # noqa: E402
 
 STEMS = ("hopfield_stream_fwd", "hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku")
-WORKSPACE_FLOATS = 1 << 26  # more than any build asks for at these shapes
+FULL_CASE = ("wide full 512x512", 73984, 4096, 512, 512)  # (label, N, M, d_in, d_out), random tables
+WIDTH_ROUNDS = 3  # rounds of phase 13's run on every build, in turns (its steps take the host 10 to 20 ms)
 
 
 def build(name: str, csrc: Path, flags: list[str], out_dir: str) -> dict:
@@ -84,6 +95,55 @@ def run(libs, args, work):
     return out
 
 
+def workspace(libs, n: int, mp: int, d_in: int, d_out: int):
+    """Device scratch for the backward of every build at these sizes: the
+    most any build's workspace entry asks for."""
+    floats = 1
+    for build in libs.values():
+        for stem in STEMS[1:]:
+            fn = getattr(build[stem], f"{stem}_workspace")
+            fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+            floats = max(floats, fn(n, mp, d_in, d_out))
+    return torch.empty(floats, device="cuda")
+
+
+def cases() -> list[tuple]:
+    """Phase 2's cases, then FULL_CASE with random tables."""
+    label, n, mp, d_in, d_out = FULL_CASE
+    layer = cs.HopfieldLookup(d_in, d_out, mp, device="cuda")
+    layer.reset_parameters(generator=torch.Generator(device="cuda").manual_seed(5))
+    with torch.inference_mode():
+        tables = tuple(a.contiguous() for i, a in enumerate(hc.fold_layer(layer)) if i != 2)
+    return [*cs.kernel_cases(cs.folded_tables()), (label, n, tables, d_in, d_out)]
+
+
+def width_steps(libs) -> None:
+    """Phase 13's run at ``embedding_dim=384`` on each build's K1 to K3, in
+    turns, ``WIDTH_ROUNDS`` times (each build's libraries stand in for the
+    port's own)."""
+    config, over, fit_prior = cs.WIDTH_RUNS[2]
+    cfg = cs.load_config(config)
+    for key, val in over.items():
+        setattr(cfg, key, val)
+    cfg.gamma = 1.0
+    x = torch.from_numpy(cs.golden_input("mnist_digits")).cuda()
+    torch.manual_seed(cfg.seed)
+    state = cs.HopVAE(cfg, impl="torch", device="cpu").state_dict()  # the same weights for every build
+    for name in [*libs, *reversed(libs)] * WIDTH_ROUNDS:
+        nvcc._loaded.update(libs[name])
+        model = cs.HopVAE(cfg, impl="cuda", device="cuda")
+        model.load_state_dict(state)
+        with cs.parity_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            losses, ms = cs.width_steps(model, cfg, x, fit_prior)
+        kernel_ms = {e.key: e.device_time_total / 1e3 / len(ms) for e in prof.key_averages() if e.device_time_total > 0}
+        lookup = [v for k, v in kernel_ms.items() if "hopfield" in k or "stream_" in k]  # K1 to K3 and their passes
+        busy = {"all": sum(kernel_ms.values()), "lookups": sum(lookup)}
+        print(json.dumps({"build": name, "width_run": {"config": config, **over}, "losses": losses, "step_ms": ms,
+                          "device_busy_ms_a_step": busy}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_hopfield_bwd_variants: no CUDA device", file=sys.stderr)
@@ -97,18 +157,19 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(build, n, src, fl, tmp) for n, (src, fl) in builds.items()}
         libs = {n: f.result() for n, f in futures.items()}
-    work = torch.empty(WORKSPACE_FLOATS, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = {"fwd": ("out", "m", "l"), "dx": ("dx", "ds", "dt"), "dku": ("dK", "dU")}
     with cs.parity_mode(), torch.inference_mode():
-        for label, n, (k, u, s, t), d_in, d_out in cs.kernel_cases(cs.folded_tables()):
+        for label, n, (k, u, s, t), d_in, d_out in cases():
             x = cs.case_input(n, d_in, gen)
             g = torch.randn(n, d_out, device="cuda", generator=gen)
             out, m, l = hc.stream_lookup_fwd_reference(x, k, u, s, t)
             args = (x, k, u, s, t, g, m, l, (g * out).sum(-1, keepdim=True))
             want = {"fwd": (out, m, l), "dx": hc.stream_bwd_dx_reference(*args),
                     "dku": hc.stream_bwd_dku_reference(*args)}
-            timed = n * k.shape[0] > 1e7
+            work = workspace(libs, n, k.shape[0], d_in, d_out)
+            timed = n * k.shape[0] > 1e7 or label.startswith("wide")
+            reps = 3 if n * k.shape[0] > 1e8 else 10
             first = {}
             for name in [*libs, *reversed(libs)]:
                 got, again = run(libs[name], args, work), run(libs[name], args, work)
@@ -129,10 +190,15 @@ def main(argv: list[str]) -> int:
                         stem = STEMS[("fwd", "dx", "dku").index(kernel)]
                         ptrs = (x, k, u, s, t, *outs) if kernel == "fwd" else (*args, *outs, work)
                         row[kernel]["ms"] = cs.cuda_ms(
-                            lambda: call(libs[name][stem], stem, ptrs, (n, k.shape[0], d_in, d_out)), 10)
+                            lambda: call(libs[name][stem], stem, ptrs, (n, k.shape[0], d_in, d_out)), reps)
                 print(json.dumps(row), flush=True)
-            del x, g, out, m, l, args, want, first
+            if label.startswith("wide"):
+                with torch.inference_mode(False):  # autograd through SDPA on fresh copies of the inference tensors
+                    lib_ms, backend = cs.library_bwd_ms(cs.state_query(x, s, t), k, u, g.clone(), reps)
+                print(json.dumps({"shape": label, "library_bwd_ms": lib_ms, "library_backend": backend}), flush=True)
+            del x, g, out, m, l, args, want, first, work
             torch.cuda.empty_cache()
+    width_steps(libs)
     return 0
 
 
