@@ -21,9 +21,14 @@ Seventeen phases, each of which raises on failure:
    N 4,096, M 512, and a ragged (13, 100) and (130, 250) at N 37, M 300;
    and past 256, on the wide variants: (512, 512), (384, 384), (384, 3)
    and (3, 384) at N 4,096, M 512 (the last three phase 13's lookups at
-   ``embedding_dim=384``), a ragged (300, 700) and (1280, 3) (the backward's
-   cluster with slices of 256) at N 37, M 300, and (8320, 3) at N 37, M
-   64 (past the backward's widest cluster: its window kernels).
+   ``embedding_dim=384``), a ragged (300, 700), (1280, 3), (1280, 300)
+   (the clusters with slices of 256; K1's at (1280, 3) is the window
+   kernel) and (300, 2304) (slices of 512) at N 37, M 300, and (8320, 3)
+   at N 37, M 64 (past the widest cluster: the window kernels). Past 256
+   each K1 row names its route (the cluster or the window kernel) and
+   holds the rows of the attention rebuilt from its ``m`` and ``l``, the
+   scores summed in K2's and K3's order, to sum to 1 within
+   ``ROW_SUM_ATOL``.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -75,18 +80,22 @@ Seventeen phases, each of which raises on failure:
     serving path gives the bottleneck (the encoder's tokens of a
     full-width ffhq_64_scaled batch of 256 with the trained tables; the
     MNIST golden digits; a ragged case) and at the bottleneck widths
-    (d, di) = (32, 4), (256, 3), (384, 3) and (64, 300) with random
-    tables (N 4,096, M 512; the last two on the wide walk):
+    (d, di) = (32, 4), (256, 3), (384, 3), (64, 300) and (384, 300) with
+    random tables (N 4,096, M 512; the last three on K1's wide route,
+    stage by stage: the cluster or the window kernel, at (384, 300) the
+    cluster for all three):
     against its plain version and against the streaming bottleneck's
     three K1 launches, ``e`` and ``r`` within 1e-5, at most 1e-4 of the
     ``zq`` bins differing; one launch a call; the three-pass bound.
 13. Training at other widths: ``mnist_28`` at ``embedding_dim=32,
     index_dim=4``, at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
     their 256 instances) and at ``embedding_dim=384`` (their wide
-    variants), three f32 Adam steps each through ``Trainer`` on the
-    kernels against the same steps on the CPU's plain versions, losses
-    within 1e-3, K1, K2 and K3 3 launches a step, the device ms of each
-    step on the card from CUDA events logged; and the prior phase of
+    variants: K1 on its cluster at (384, 384), K2 and K3 also at (384,
+    3), the window kernels elsewhere), three f32 Adam steps each through
+    ``Trainer`` on the kernels against the same steps on the CPU's plain
+    versions, losses within 1e-3, K1, K2 and K3 3 launches a step, the
+    device ms of each step on the card from CUDA events logged; and the
+    prior phase of
     ``pixelcnn_mnist_28`` with ``prior=Transformer, prior_d_model=512,
     prior_heads=1, prior_attn=flash`` (K5's wide kernels at a head of 512,
     4 launches a step each; K1 3), three prior-only steps the same way.
@@ -190,6 +199,14 @@ SFU_PER_CLOCK_PER_SM = 16
 
 OUT_ATOL = 1e-4  # out: f32 sums in another order than cuBLAS's
 STAT_RTOL = 1e-5  # m (floored at |m| = 1: it enters only as exp(sc - m)) and l
+# |row sum - 1| of the attention rebuilt from the wide K1's m and l with
+# torch's exp (rebuilt_rows_err). l sums the kernels' __expf, whose error
+# torch's exp does not share: sound builds read 2.4e-7 to 1.05e-6 on an
+# H100, the window kernel among them (PERF.md); l without a tile of
+# 32 patterns, or without a rank's sums, reads about 0.1 (the CPU
+# emulation at 512 -> 512). The CPU tests hold the emulated kernels, one
+# exp on both sides, to 1.5e-7 (tests/test_torch_wide.py).
+ROW_SUM_ATOL = 2e-6
 # The production path (kernel + bf16 conv stacks) is held to the MNIST
 # golden within 1%, and its recon to the JAX package's own bound on its
 # bf16 path: mean((r16 - r32)^2) < 1e-3 (tests/test_resume_and_dtype.py).
@@ -344,8 +361,9 @@ def library_ms(q, k, u, reps) -> tuple[float | None, str]:
 # (label, N, M, d_in, d_out): widths no config uses, which the CPU tests
 # hold against JAX and the kernels take zero-padded to a built instance,
 # and a ragged case with neither width a multiple of 8; then widths past
-# 256, on the wide variants (K2 and K3 on a cluster up to 8192: 1280 takes
-# slices of 256; 8320 their window kernels)
+# 256, on the wide variants (on a cluster up to 8192, K1 with both widths
+# past 128: 1280 takes slices of 256, 2304 slices of 512; 8320 the window
+# kernels)
 WIDTH_CASES = (
     ("width 32x32", 4096, 512, 32, 32),
     ("width 64x4", 4096, 512, 64, 4),
@@ -360,6 +378,8 @@ WIDTH_CASES = (
     ("wide 3x384", 4096, 512, 3, 384),
     ("wide ragged 300x700", 37, 300, 300, 700),
     ("wide ragged 1280x3", 37, 300, 1280, 3),
+    ("wide ragged 1280x300", 37, 300, 1280, 300),
+    ("wide ragged 300x2304", 37, 300, 300, 2304),
     ("wide ragged 8320x3", 37, 64, 8320, 3),
 )
 
@@ -389,16 +409,74 @@ def state_query(x, s, t) -> torch.Tensor:
     return (xhat * s + t).contiguous()
 
 
+def lookup_route(d_in: int, d_out: int) -> str:
+    """K1's route at these widths: a built instance, the cluster or the
+    window kernel (``hc.kernel_route``, ``hc.forward_cluster``)."""
+    if hc.kernel_route(d_in, d_out) == "instance":
+        return "instance"
+    return "cluster" if hc.forward_cluster(d_in, d_out) else "window"
+
+
+def tf32(x: torch.Tensor, trunc: bool = False) -> torch.Tensor:
+    """f32 values as TF32: rounded as ``cvt.rna`` rounds, or truncated (the
+    top 19 bits, as the tensor cores read a small part passed whole)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits if trunc else bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def scores_in_order(q: torch.Tensor, k: torch.Tensor, group: int, trunc: bool) -> torch.Tensor:
+    """``q Kᵀ`` as the wide kernels sum it: three TF32 passes a k-step of
+    8 (small·big, big·small, big·big), each part of 64 columns in a fresh
+    sum, the parts of a group of ``group`` columns added in order, the
+    groups in order (the cluster's groups are its ranks' slices, the
+    window kernels' their chunks of 64); ``trunc``: the small parts
+    truncated (the clusters), else rounded."""
+    kt = k.T.contiguous()
+    qb, kb = tf32(q), tf32(kt)
+    qs, ks = tf32(q - qb, trunc), tf32(kt - kb, trunc)
+    d = q.shape[1]
+    total = None
+    for g0 in range(0, d, group):
+        rank_sum = None
+        for p0 in range(g0, min(g0 + group, d), 64):
+            part = torch.zeros(q.shape[0], kt.shape[1], device=q.device)
+            for k0 in range(p0, min(p0 + 64, d), 8):
+                at = slice(k0, k0 + 8)
+                part = part + qs[:, at] @ kb[at]
+                part = part + qb[:, at] @ ks[at]
+                part = part + qb[:, at] @ kb[at]
+            rank_sum = part if rank_sum is None else rank_sum + part
+        total = rank_sum if total is None else total + rank_sum
+    return total
+
+
+def rebuilt_rows_err(x, k, s, t, m, l, d_out: int) -> float:
+    """max |row sum - 1| of the attention ``exp(beta s - m) / l`` rebuilt
+    from K1's ``m`` and ``l`` with the scores summed in K2's and K3's order
+    (the cluster's slices, or the window kernels' chunks of 64), in f32 as
+    the CPU tests rebuild it, with torch's ``exp``."""
+    d_in = x.shape[1]
+    q = hc._query(hc._state_ln(x)[0], s, t)
+    if hc.backward_cluster(d_in, d_out):
+        sc = scores_in_order(q, k, hc.backward_attributes("dx", d_in, d_out)["slice"], trunc=True)
+    else:
+        sc = scores_in_order(q, k, 64, trunc=False)
+    a = torch.exp(sc * (1.0 / math.sqrt(d_in)) - m) / l
+    return float((a.double().sum(-1) - 1).abs().max())
+
+
 @parity_mode()
 def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
     """K1 against its plain version at every case, run twice to repeat bit
     for bit. Each row's ``bound_ms`` is the bound of the three TF32 passes
     it runs on the tensor cores; ``bound_f32_ms``, the same FLOPs at the
     f32 rate of the CUDA cores, is context. Each row also carries K1's
-    build at its widths."""
+    route and build at its widths (past 256 with the cluster where it
+    runs) and, past 256, ``rebuilt_rows_err`` of its stats."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
+        route = lookup_route(d_in, d_out)
         x = case_input(n, d_in, g)
         with torch.inference_mode():
             out, m, l = hc.stream_lookup_fwd(x, k, u, s, t)
@@ -409,6 +487,7 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             err = (out - ref_out).abs().max().item()
             m_err = ((m - ref_m).abs() / ref_m.abs().clamp_min(1.0)).max().item()
             l_err = ((l - ref_l).abs() / ref_l).max().item()
+            rows_err = rebuilt_rows_err(x, k, s, t, m, l, d_out) if route != "instance" else None
             big = n * k.shape[0] > 1e8
             reps = 10 if big else 50
             kernel_ms = cuda_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), reps)
@@ -417,8 +496,9 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
         b_ms, b_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"], tensor_cores=True)
         f32_ms, f32_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"])
         row = {
-            "shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out,
-            "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err, "repeats_bitwise": repeats,
+            "shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out, "route": route,
+            "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err, "rebuilt_row_sum_err": rows_err,
+            "repeats_bitwise": repeats,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
             "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
             "build": hc.forward_attributes(d_in, d_out),
@@ -427,6 +507,8 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
         rows.append(row)
         if not (err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL and repeats):
             raise AssertionError(f"kernel disagrees with its plain version at {label}: {row}")
+        if rows_err is not None and not rows_err <= ROW_SUM_ATOL:
+            raise AssertionError(f"the attention rebuilt from K1's stats does not sum to 1 at {label}: {row}")
     return rows
 
 
@@ -1232,8 +1314,9 @@ def fused_bound(n: int, layers, exp_per_s, tensor_cores: bool = False) -> tuple[
 
 
 # (d, di) of K4's cases: the configs' bottleneck, two widths no config
-# uses, which K4 takes zero-padded, and two past 256 (the wide walk)
-FUSED_WIDTHS = ((64, 3), (32, 4), (256, 3), (384, 3), (64, 300))
+# uses, which K4 takes zero-padded, and three past 256 (K1's wide route;
+# at (384, 300) every stage on the cluster)
+FUSED_WIDTHS = ((64, 3), (32, 4), (256, 3), (384, 3), (64, 300), (384, 300))
 
 
 def fused_cases() -> list[tuple]:
@@ -2206,7 +2289,8 @@ def main() -> int:
     prior_training = phase_prior_train_full_width()
     wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
     fused_rows = phase_fused_bottleneck(env)
-    width_runs = [phase_width_training(*run)["launches"] for run in WIDTH_RUNS]
+    width_results = [phase_width_training(*run) for run in WIDTH_RUNS]
+    width_runs = [res["launches"] for res in width_results]
     width_launches = {name: [run[name] for run in width_runs] for name in KERNEL_COUNTERS}
     serving_modes = phase_serving_modes()
     phase_decode_checks()
@@ -2230,7 +2314,11 @@ def main() -> int:
                               bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),
                               builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("ffhq64")})]
     kernels.append(kernel_summary("hopfield_stream_fwd", rows, wide_lookup_run["hopfield_stream_fwd"], prefix="wide",
-                                  note="launches: phase 13 at embedding_dim=384",
+                                  note="launches: phase 13 at embedding_dim=384 (its lookups' routes: phase13_routes)",
+                                  routes={r["shape"]: r["route"] for r in rows if r["shape"].startswith("wide")},
+                                  phase13_routes={f"{a}x{b}": lookup_route(a, b)
+                                                  for a, b in width_results[2]["lookup_widths"].values()},
+                                  cluster=hc.forward_attributes(512, 512),
                                   builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("wide")}))
     for name in ("hopfield_stream_bwd_dx", "hopfield_stream_bwd_dku"):
         mine = [r for r in bwd_rows if r["kernel"] == name]

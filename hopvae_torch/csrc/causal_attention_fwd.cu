@@ -563,33 +563,8 @@ int launch_window(const float* q, const float* k, const float* v, float* out, fl
 
 // ---- head widths past 256 up to 8192: the cluster kernel (see the
 // header), one instance for each slice of at most J chunks of 128 (the
-// width d is a runtime argument)
-namespace wide {
-using namespace causal_attention::wide;
-template <int J>
-struct Fwd {
-  using C = Cfg<J>;
-  static constexpr int XCH = C::SLABS * C::WS * C::NT * 32;  // float4s: [slab][part][n-tile][lane]
-  static constexpr int SUMS = C::SLABS * C::NT * 32;         // float4s of one buffer of rank sums: [slab][n-tile][lane]
-  static constexpr int BUF = 2 * C::TN * C::RS;              // floats of a streamed buffer: k, then v
-  static constexpr int RG = 16 / C::NT;                      // ranks whose sums are loaded at once
-};
-// shared bytes with NB streamed buffers: the resident q slice, the
-// streamed k and v slices, the warps' partial scores, two buffers of the
-// slabs' rank sums
-template <int J>
-__host__ __device__ constexpr size_t bytes_with(int nb) {
-  using C = Cfg<J>;
-  using F = Fwd<J>;
-  return sizeof(float) * (C::TM * C::RS + nb * F::BUF) + sizeof(float4) * (F::XCH + 2 * F::SUMS);
-}
-// streamed buffers: four where they fit (a tile's copies then start two
-// tiles ahead, with no block barrier of their own), else two
-template <int J>
-__host__ __device__ constexpr int buffers() { return bytes_with<J>(4) <= 232448 ? 4 : 2; }
-template <int J>
-__host__ __device__ constexpr size_t bytes() { return bytes_with<J>(buffers<J>()); }
-}  // namespace wide
+// width d is a runtime argument); its shared memory is cluster.cuh's Fwd
+namespace wide = causal_attention::wide;
 
 template <int J>
 __global__ void __launch_bounds__(wide::THREADS, 1)
@@ -600,8 +575,8 @@ causal_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__
   using C = Cfg<J>;
   using F = Fwd<J>;
   constexpr int TM = C::TM, TN = C::TN, NT = C::NT, WS = C::WS, SL = C::SL, RS = C::RS, PART = C::PART;
-  constexpr int NB = buffers<J>();  // streamed buffers
-  constexpr int CT = PART / 8;      // a warp's output n-tiles
+  constexpr int NB = fwd_buffers<J>();  // streamed buffers
+  constexpr int CT = PART / 8;          // a warp's output n-tiles
   constexpr int RG = F::RG;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);                // the resident q slice
@@ -826,7 +801,7 @@ int launch_cluster(const float* q, const float* k, const float* v, float* out, f
   dim3 grid;
   cudaError_t err = causal_attention::attention_grid(b, s, h, wide::Cfg<J>::TM, ranks, grid);
   if (err == cudaSuccess)
-    err = cluster_config(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), grid, config, attr, stream);
+    err = cluster_config(causal_fwd_cluster_kernel<J>, wide::fwd_bytes<J>(), grid, config, attr, stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
   return cudaLaunchKernelEx(&config, causal_fwd_cluster_kernel<J>, q, k, v, out, lse, s, h, d, qs, ks, vs, scale,
@@ -850,12 +825,12 @@ int launch_wide(const float* q, const float* k, const float* v, float* out, floa
 template <int J>
 int wide_attributes(int* out) {
   using C = wide::Cfg<J>;
-  return kernel_attributes(causal_fwd_cluster_kernel<J>, wide::THREADS, wide::bytes<J>(), C::TM, C::TN, out);
+  return kernel_attributes(causal_fwd_cluster_kernel<J>, wide::THREADS, wide::fwd_bytes<J>(), C::TM, C::TN, out);
 }
 
 template <int J>
 int wide_cluster(int ranks, int* out) {
-  return cluster_attributes(causal_fwd_cluster_kernel<J>, wide::bytes<J>(), wide::Cfg<J>::SL, ranks, out);
+  return cluster_attributes(causal_fwd_cluster_kernel<J>, wide::fwd_bytes<J>(), wide::Cfg<J>::SL, ranks, out);
 }
 }  // namespace
 

@@ -1,7 +1,8 @@
 // The thread-block cluster shared by the kernels that split a product's
 // depth across the blocks of a cluster on the grid's z axis: K5's wide
 // forward and backward (causal_attention_cluster.cuh) and the wide
-// Hopfield backward K2 and K3 (hopfield_cluster.cuh). Block rank r owns
+// Hopfield forward K1 (with K4's wide stages) and backward K2 and K3
+// (hopfield_cluster.cuh). Block rank r owns
 // the depth slice [r SL, r SL + SL), keeps its resident slice in shared
 // memory for the whole walk and streams that slice of each tile. A warp
 // owns a 16-row slab and a part of PART = 64 columns of the slice; its
@@ -43,6 +44,30 @@ struct Cfg {
   static constexpr int RS = SL + 4;                          // row stride in shared memory
   static_assert(PART % 16 == 0 && NT % 2 == 0 && NT <= 2 * WS, "tiles");
 };
+// The cluster forwards' shared memory (K5-fwd's, K1's): the resident q
+// slice, NB streamed buffers of two slices (k and v; K and U), the warps'
+// partial scores, two buffers of the slabs' rank sums.
+template <int J>
+struct Fwd {
+  using C = Cfg<J>;
+  static constexpr int XCH = C::SLABS * C::WS * C::NT * 32;  // float4s: [slab][part][n-tile][lane]
+  static constexpr int SUMS = C::SLABS * C::NT * 32;         // float4s of one buffer of rank sums: [slab][n-tile][lane]
+  static constexpr int BUF = 2 * C::TN * C::RS;              // floats of a streamed buffer: two slices
+  static constexpr int RG = 16 / C::NT;                      // ranks whose sums are loaded at once
+};
+template <int J>
+__host__ __device__ constexpr size_t fwd_bytes_with(int nb) {
+  using C = Cfg<J>;
+  using F = Fwd<J>;
+  return sizeof(float) * (C::TM * C::RS + nb * F::BUF) + sizeof(float4) * (F::XCH + 2 * F::SUMS);
+}
+// streamed buffers: four where they fit (a tile's copies then start two
+// tiles ahead, with no block barrier of their own), else two
+template <int J>
+__host__ __device__ constexpr int fwd_buffers() { return fwd_bytes_with<J>(4) <= 232448 ? 4 : 2; }
+template <int J>
+__host__ __device__ constexpr size_t fwd_bytes() { return fwd_bytes_with<J>(fwd_buffers<J>()); }
+
 // chunks of 128 in a block's slice for a depth of n chunks; 0: refused
 inline int chunks_per_rank(int n) {
   return n <= PORTABLE ? 1 : n <= 2 * PORTABLE ? 2 : n <= 4 * MAX_RANKS ? 4 : 0;

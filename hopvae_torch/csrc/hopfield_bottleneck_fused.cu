@@ -52,14 +52,17 @@
 // widest stage's two buffers of a K tile and its U window: 104,448 at
 // d = 64, di = 3.
 //
-// Past 256 (d or di; hopfield_bottleneck_fused_wide, one instance for
-// every width) a block's e, or its query tiles, no longer fit beside the
-// buffers, so each stage runs the wide walk of hopfield_wide.cuh as a
-// launch of its own, e and zq / (L - 1) going through device memory (e and
-// zq are outputs anyway): the query build and the walk with the shift for
-// e, again with the sigmoid and the round for zq, again with the shift for
+// Past 256 (d or di; hopfield_bottleneck_fused_wide, the widths at run
+// time) a block's e, or its query tiles, no longer fit beside the
+// buffers, so each stage runs as K1's wide route, a launch of its own, e
+// and zq / (L - 1) going through device memory (e and zq are outputs
+// anyway): the query build, then the stage's kernel (the cluster of
+// hopfield_cluster.cuh where the stage's d_in and d_out pass 128, else
+// the window kernel of hopfield_wide.cuh; fwd_plan) with the shift for e,
+// again with the sigmoid and the round for zq, again with the shift for
 // r. Six launches of one call, the arithmetic of each step as above.
 
+#include "hopfield_cluster.cuh"
 #include "hopfield_stream_fwd.cuh"
 #include "hopfield_wide.cuh"
 
@@ -216,12 +219,18 @@ extern "C" int hopfield_bottleneck_fused(const float* x, const float* k1, const 
 // The kernel built for (d, di) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and the first stage's TN; past 256
-// the wide walk's. Returns a cudaError_t.
+// the first stage's, (d, d): the cluster kernel where it runs
+// (hopfield_cluster::fwd_plan), else the window kernel. Returns a
+// cudaError_t.
 extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
-  if (d >= 1 && di >= 1 && hopfield_wide::wide(d, di))
+  int j, ranks;
+  if (d >= 1 && di >= 1 && hopfield_wide::wide(d, di)) {
+    if (hopfield_cluster::fwd_plan(d, d, j, ranks))
+      return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::SHIFT>(d, d, true, out));
     return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::SHIFT>,
                                               hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
                                               hopfield_wide::TN, out));
+  }
   if (!fused_takes(d, di)) return cudaErrorInvalidValue;
   return with_fused_widths(d, di, [&](auto pd, auto pdi) {
     constexpr int PD = decltype(pd)::value, PDI = decltype(pdi)::value;
@@ -231,6 +240,15 @@ extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
   });
 }
 
+// The cluster kernel of a wide stage of widths (d_in, d_out) where it runs
+// (hopfield_cluster::fwd_plan; else cudaErrorInvalidValue): out receives
+// the blocks of a cluster, the slice width at most, and the clusters the
+// card can hold at once (0: it cannot launch). Returns a cudaError_t.
+extern "C" int hopfield_bottleneck_fused_cluster(int d_in, int d_out, int* out) {
+  if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::SHIFT>(d_in, d_out, false, out));
+}
+
 // Floats of device scratch that hopfield_bottleneck_fused_wide needs: one
 // stage's queries (n, max(d, di)) and zq / (L - 1) (n, di).
 extern "C" long long hopfield_bottleneck_fused_workspace(int n, int d, int di) {
@@ -238,9 +256,12 @@ extern "C" long long hopfield_bottleneck_fused_workspace(int n, int d, int di) {
   return static_cast<long long>(n) * ((d > di ? d : di) + di);
 }
 
-// The same as hopfield_bottleneck_fused through the wide walk
-// (hopfield_wide.cuh), the route past 256, with workspace as above.
-// Launches the three stages' query builds and walks on `stream`.
+// The same as hopfield_bottleneck_fused past 256, with workspace as
+// above: each stage's query build, then the stage through
+// hopfield_cluster::launch_fwd (the route of K1's wide forward: the
+// cluster kernel up to 8192 on the stage's wider side, else the window
+// kernel) with the shift for e, the sigmoid and the round for zq, the
+// shift for r. Launches on `stream`.
 extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, const float* u1, const float* b1,
                                               const float* s1, const float* t1, const float* k2, const float* u2,
                                               const float* b2, const float* s2, const float* t2, const float* k3,
@@ -248,6 +269,7 @@ extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, c
                                               float* e, float* zq, float* r, float* workspace, int n, int m1, int m2,
                                               int m3, int d, int di, int num_levels, void* stream) {
   using namespace hopfield_wide;
+  using hopfield_cluster::launch_fwd;
   if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || num_levels < 2 || d < 1 || di < 1 || windows(d) > 65535 ||
       windows(di) > 65535)
     return cudaErrorInvalidValue;
@@ -255,14 +277,15 @@ extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, c
   const float levels = static_cast<float>(num_levels - 1);
   float* q = workspace;
   float* zn = workspace + static_cast<size_t>(n) * (d > di ? d : di);
+  float* none = nullptr;  // the stages write no row stats
   cudaError_t err = build_queries(x, s1, t1, n, d, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd_wide<SHIFT>(q, k1, u1, b1, e, nullptr, nullptr, nullptr, n, m1, d, d, beta_of(d), levels, st);
+    err = launch_fwd<SHIFT>(q, k1, u1, b1, e, none, none, none, n, m1, d, d, beta_of(d), levels, st);
   if (err == cudaSuccess) err = build_queries(e, s2, t2, n, d, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd_wide<QUANTIZE>(q, k2, u2, b2, zq, nullptr, nullptr, zn, n, m2, d, di, beta_of(d), levels, st);
+    err = launch_fwd<QUANTIZE>(q, k2, u2, b2, zq, none, none, zn, n, m2, d, di, beta_of(d), levels, st);
   if (err == cudaSuccess) err = build_queries(zn, s3, t3, n, di, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd_wide<SHIFT>(q, k3, u3, b3, r, nullptr, nullptr, nullptr, n, m3, di, d, beta_of(di), levels, st);
+    err = launch_fwd<SHIFT>(q, k3, u3, b3, r, none, none, none, n, m3, di, d, beta_of(di), levels, st);
   return static_cast<int>(err);
 }

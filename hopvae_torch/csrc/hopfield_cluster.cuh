@@ -1,9 +1,12 @@
-// The wide streaming Hopfield backward on a thread-block cluster: K2's dq
-// (hopfield_stream_bwd_dx.cu) and K3's dK and dU
-// (hopfield_stream_bwd_dku.cu) past a width of 256 on either side, up to
-// 8192 on the wider one, with d_in past 128 (plan, below).
+// The wide streaming Hopfield lookups on a thread-block cluster, past a
+// width of 256 on either side and up to 8192 on the wider one: the
+// backward, K2's dq (hopfield_stream_bwd_dx.cu) and K3's dK and dU
+// (hopfield_stream_bwd_dku.cu), with d_in past 128 (plan, below); and the
+// forward, K1 (hopfield_stream_fwd.cu) and K4's three stages
+// (hopfield_bottleneck_fused.cu), with d_in and d_out past 128 (fwd_plan;
+// the forward is described at stream_fwd_cluster_kernel).
 //
-// Both are one kernel, stream_bwd_cluster_kernel<J, DKU>, with the roles
+// The backward is one kernel, stream_bwd_cluster_kernel<J, DKU>, with the roles
 // of K5's cluster backward (causal_attention_bwd.cu: K2 is its dq, K3 its
 // dkv): R blocks on the grid's z axis share TM resident rows (K2 tokens,
 // K3 patterns) and split the depth on cluster.cuh's plan, from the wider
@@ -40,19 +43,22 @@
 // one per split of K2's pattern axis or chunk of K3's token axis, summed
 // in a fixed order by the callers: no float atomics.
 //
-//   J  SL   TM  TN  NB (K2 / K3)  shared bytes (K2 / K3)
-//   1  128  64  32  3 / 3         209,920 / 219,264
-//   2  256  32  16  3 / 3         184,832 / 187,456
-//   4  512  16  16  2 / 2         215,552 / 216,960
+//   J  SL   TM  TN  NB (K2 / K3 / K1)  shared bytes (K2 / K3 / K1)
+//   1  128  64  32  3 / 3 / 4          209,920 / 219,264 / 201,728
+//   2  256  32  16  3 / 3 / 4          184,832 / 187,456 / 178,688
+//   4  512  16  16  2 / 2 / 2          215,552 / 216,960 / 175,360
 
 #pragma once
 
 #include "cluster.cuh"
 #include "hopfield_stream.cuh"
+#include "hopfield_wide.cuh"
 
 namespace hopfield_cluster {
 
 using namespace cluster;
+using hopfield_stream::FULL;
+using hopfield_stream::MASKED;
 using hopfield_stream::MAX_WIDTH;
 using tf32x3::cp_async16;
 using tf32x3::cp_async4;
@@ -65,17 +71,23 @@ using tf32x3::load_a;
 using tf32x3::load_b_cols;
 using tf32x3::load_b_rows2;
 using tf32x3::mma3;
+using tf32x3::named_barrier;
 using tf32x3::split_a;
+using hopfield_wide::Epilogue;
+using hopfield_wide::PLAIN;
+using hopfield_wide::QUANTIZE;
+using hopfield_wide::SHIFT;
 
-// The cluster of a lookup of widths (d_in, d_out): J (chunks of 128 a
-// slice) and the blocks of a cluster, from the wider side; false where
-// both widths are at most MAX_WIDTH (the built instances), where d_in is at
-// most WINDOW_IN, or where the wider is past 8192 (a cluster of more than
-// 16 blocks): the window kernels of hopfield_wide.cuh take those. At d_in
-// up to 128 dq and dK have one window, so the window kernels compute
-// g U^T once and recompute only a q K^T of that depth; there they ran
-// faster on an H100 (at (3, 384), N 4,096, M 512: K2 0.113 ms against the
-// cluster's 0.268, K3 0.246 against 0.377; PERF.md).
+// The cluster of a lookup of widths (d_in, d_out) in the backward: J
+// (chunks of 128 a slice) and the blocks of a cluster, from the wider
+// side; false where both widths are at most MAX_WIDTH (the built
+// instances), where d_in is at most WINDOW_IN, or where the wider is past
+// 8192 (a cluster of more than 16 blocks): the window kernels of
+// hopfield_wide.cuh take those. At d_in up to 128 dq and dK have one
+// window, so the window kernels compute g U^T once and recompute only a
+// q K^T of that depth; there they ran faster on an H100 (at (3, 384), N
+// 4,096, M 512: K2 0.113 ms against the cluster's 0.268, K3 0.246 against
+// 0.377; PERF.md).
 constexpr int WINDOW_IN = 128;
 inline bool plan(int d_in, int d_out, int& j, int& ranks) {
   const int d = d_in > d_out ? d_in : d_out;
@@ -533,6 +545,377 @@ cudaError_t cluster_build(int d_in, int d_out, bool attributes, int* out) {
     auto kernel = stream_bwd_cluster_kernel<J, DKU>;
     return attributes ? tf32x3::kernel_attributes(kernel, cluster::THREADS, bytes<J, DKU>(), C::TM, C::TN, out)
                       : cluster_attributes(kernel, bytes<J, DKU>(), C::SL, ranks, out);
+  });
+}
+
+// ---- the wide forward on the cluster: K1 (hopfield_stream_fwd.cu) and
+// K4's three stages (hopfield_bottleneck_fused.cu)
+
+// The cluster of the forward (K1, K4's stages): plan's, with d_out past
+// WINDOW_IN too. At d_out up to 128 the window kernel has one window and
+// computes each score once; there it ran faster on an H100 (N 4,096, M
+// 512: K1 at (384, 3) 0.222 to 0.227 ms against the cluster's 0.251, and
+// at (3, 384), d_in up to 128, 0.119 against 0.216; K4 at (64, 300)
+// 0.372 to 0.381 against 0.473 with its (300, 64) stage on the cluster;
+// PERF.md).
+inline bool fwd_plan(int d_in, int d_out, int& j, int& ranks) {
+  return d_out > WINDOW_IN && plan(d_in, d_out, j, ranks);
+}
+
+// The wide forward: out = softmax(beta q K^T) U for TM token rows of the
+// built q (n, d_in), with K5's cluster forward schedule
+// (causal_attention_fwd.cu) and no mask but the patterns past M. The grid
+// is (token tiles, 1, ranks); each cluster walks every pattern tile. Rank r keeps
+// columns [r SL, r SL + SL) of q in shared memory for the whole walk and
+// streams those columns of each tile's K and U; a narrower side leaves
+// the higher ranks' slices empty, and a slice is zero-padded in shared
+// memory to the next multiple of 8. Per tile each warp (a 16-row slab, a
+// part of PART columns) sums its partial scores in a fresh sum, the
+// slab's parts add in part order (the rank sum), and after one cluster
+// barrier every warp with output columns reads the sums of every rank
+// with columns of q over DSMEM and adds them in rank order: every rank
+// and warp holds the same scores, m and l bit for bit (K2's and K3's
+// clusters sum the scores in this order too). Then the online softmax,
+// the denominator a compensated sum, and P U over the warp's PART columns
+// of the U slice, one tile behind. Rows past n compute nothing and write
+// nothing, but meet every barrier. Every product is three-pass TF32 with
+// the small part truncated; no float atomics. The epilogue is MODE's
+// (hopfield_wide.cuh; rank 0 writes m and l). vec16 bits: q, K, U.
+//
+// What bounds it on an H100: latency, as K5's forward. At 512 -> 512 a
+// tile is 192 mma.sync a warp, under a microsecond at the TF32 rate, but
+// takes about 6 us: the 8 warps of an SM wait in step on the cluster
+// barrier, the DSMEM loads of the rank sums and the softmax's exps and
+// shuffles (255 registers and no spill at J 1, one block an SM, 201,728
+// shared bytes; PERF.md). At N 4,096 the 64 clusters of 4 blocks run in
+// three waves of 30. The pattern axis is not split: a split merged by
+// log-sum-exp ran 0.7% slower at 512 -> 512, N 4,096, and only fewer
+// token tiles than a wave (N below about 1,900 at 512 -> 512), which no
+// config gives, would leave SMs idle.
+template <int J, int MODE>
+__global__ void __launch_bounds__(cluster::THREADS, 1)
+stream_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                          const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ m_out,
+                          float* __restrict__ l_out, float* __restrict__ zn_out, int n, int m_patterns, int d_in,
+                          int d_out, float beta, float levels, unsigned vec16) {
+  using C = Cfg<J>;
+  using F = Fwd<J>;
+  constexpr int TM = C::TM, TN = C::TN, NT = C::NT, WS = C::WS, SL = C::SL, RS = C::RS, PART = C::PART;
+  constexpr int NB = fwd_buffers<J>();  // streamed buffers
+  constexpr int CT = PART / 8;          // a warp's output n-tiles
+  constexpr int RG = F::RG;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);                // the resident q slice
+  float* str = q_s + TM * RS;                                   // buffer u at str + u * BUF: K, then U
+  float4* xch = reinterpret_cast<float4*>(str + NB * F::BUF);  // the warps' partial scores
+  float4* sums = xch + F::XCH;                                  // [tile & 1][slab][n-tile][lane]
+
+  const int rank = cluster_rank();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int slab = warp / WS, part = warp % WS;
+  const int m0 = 16 * slab;
+  const int row0 = blockIdx.x * TM;
+  const int slab_lo = row0 + m0;
+  const int last = (m_patterns + TN - 1) / TN - 1;
+  const int c0 = rank * SL;  // the block's slice of each side: columns c0 .. c0 + cols
+  const int cols_in = slice_cols(d_in, rank, SL), cols_out = slice_cols(d_out, rank, SL);
+  const int kc_in = (cols_in + 7) & ~7, kc_out = (cols_out + 7) & ~7;  // rounded up to the k-steps
+  const int ranks_in = (d_in + SL - 1) / SL;                          // the ranks whose sums make the scores
+  const int parts = (cols_in + PART - 1) / PART;                      // the slab's warps with columns of q
+  const int pc = PART * part;                                         // the warp's part of each slice
+  const bool mine_in = part < parts, mine_out = pc < cols_out;
+  // a slab past the token rows skips every tile, in every rank alike; its
+  // warps still meet every cluster barrier
+  const bool live = slab_lo < n;
+  const bool own = live && mine_out;  // the warp needs the whole scores
+  float4* xs = xch + slab * WS * NT * 32 + lane;  // the slab's partials, [part][n-tile]
+
+  // tile `it` into buffer it % NB (nothing past the last); one commit group either way
+  auto stage_ku = [&](int it) {
+    if (it <= last) {
+      float* y = str + (it % NB) * F::BUF;
+      stage_slice<RS, TN>(y, K, d_in, c0, kc_in, it * TN, m_patterns, vec16 >> 1 & 1u);
+      stage_slice<RS, TN>(y + TN * RS, U, d_out, c0, kc_out, it * TN, m_patterns, vec16 >> 2 & 1u);
+    }
+    cp_async_commit();
+  };
+  stage_slice<RS, TM>(q_s, q, d_in, c0, kc_in, row0, n, vec16 & 1u);
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) stage_ku(i);  // the q slice goes with the first
+
+  // rows gq and gq + 8 of the slab: the running max, the lane's part of
+  // the denominator and its compensation, the last tile's rescale, the
+  // output over the warp's columns c0 + pc + 8c + 2tq and + 1
+  float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f}, l_lo[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+  float acc[CT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float sc[NT][4];  // the warp's partial scores of the next tile
+  float pr[NT][4];  // the slab's whole scores of a tile, then its P
+
+  // ---- the warp's partial scores of tile it over its part of the q
+  // slice, in a fresh sum
+  auto partials = [&](int it) {
+    const float* y = str + (it % NB) * F::BUF;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    if (!(live && mine_in)) return;
+    auto step = [&](int kk) {
+      const FragA qa = load_a<RS, true>(q_s + m0 * RS + kk, gq, tq);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        FragB b0, b1;
+        load_b_rows2<RS, true>(b0, b1, y + 8 * j * RS + kk, gq, tq);
+        mma3(sc[j], qa, b0);
+        mma3(sc[j + 1], qa, b1);
+      }
+    };
+    if (pc + PART <= kc_in) {  // a whole part: a loop of known length
+#pragma unroll 2
+      for (int kk = 0; kk < PART; kk += 8) step(pc + kk);
+    } else {
+      for (int kk = pc; kk < kc_in; kk += 8) step(kk);
+    }
+  };
+
+  // ---- the slab's rank sum of tile it: the parts' partials added in part
+  // order, n-tile j by the slab's warp j % WS, into sums buffer it & 1
+  // (nothing where the slice holds no column of q)
+  auto rank_sum = [&](int it) {
+    if (!live || parts == 0) return;
+    if (mine_in) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) xs[(part * NT + j) * 32] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+    }
+    named_barrier(1 + slab, 32 * WS);
+    float4* sw = sums + ((it & 1) * C::SLABS + slab) * NT * 32 + lane;
+    for (int j = part; j < NT; j += WS) {
+      float4 a = xs[j * 32];
+      for (int p = 1; p < parts; ++p) add4(a, xs[(p * NT + j) * 32]);
+      sw[j * 32] = a;
+    }
+  };
+
+  // ---- the slab's whole scores of tile it: the sums of the ranks with
+  // columns of q, read over DSMEM RG ranks at a time and added in rank
+  // order; then the online softmax turns them into P. The first group is
+  // loaded before the next tile's partials, which hide its latency.
+  float4 ps[RG][NT];
+  auto load_group = [&](int it, int r0) {
+    const float4* sr = sums + ((it & 1) * C::SLABS + slab) * NT * 32 + lane;
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (r0 + rr < ranks_in) ps[rr][j] = ld_cluster(sr + j * 32, r0 + rr);
+  };
+  auto softmax = [&](int it) {
+    float4 t[NT];
+    for (int r0 = 0; r0 < ranks_in; r0 += RG) {
+      if (r0 > 0) load_group(it, r0);
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (r0 + rr == 0) {
+            t[j] = ps[rr][j];
+          } else if (r0 + rr < ranks_in) {
+            add4(t[j], ps[rr][j]);
+          }
+        }
+    }
+    const int p_lo = it * TN;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float v[4] = {t[j].x, t[j].y, t[j].z, t[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float val = p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns ? v[e] * beta : MASKED;
+        pr[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = __expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(pr[j][e] - mx[e >> 1]);
+        pr[j][e] = p;
+        rsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the compensated sum of hopfield_wide.cuh
+      const float a = __fmul_rn(l_r[r], alpha[r]);
+      const float b = __fadd_rn(__fmul_rn(l_lo[r], alpha[r]), rsum[r]);
+      const float sum = __fadd_rn(a, b);
+      const float bb = __fsub_rn(sum, a);
+      l_lo[r] = __fadd_rn(__fsub_rn(a, __fsub_rn(sum, bb)), __fsub_rn(b, bb));
+      l_r[r] = sum;
+    }
+  };
+
+  // ---- P U of tile it over the warp's PART columns of the U slice, the
+  // tile's patterns 8j .. 8j + 7 in order, in fresh fragments; then
+  // out = alpha out + P U
+  auto pu = [&](int it) {
+    if (!own) return;
+    const int p_lo = it * TN;
+    const float* y = str + (it % NB) * F::BUF + TN * RS;
+    float o[CT][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+    const int ct = min(CT, (kc_out - pc) / 8);  // the warp's n-tiles below d_out
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (p_lo + 8 * j >= m_patterns) continue;  // P = 0 past the patterns
+      const FragA pa = split_a<true>(pr[j][0], pr[j][2], pr[j][1], pr[j][3]);
+      if (ct == CT) {  // a whole part
+#pragma unroll
+        for (int c = 0; c < CT; ++c) mma3(o[c], pa, load_b_cols<RS, true>(y + 8 * j * RS + pc + 8 * c, gq, tq));
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; ++c)
+          if (c < ct) mma3(o[c], pa, load_b_cols<RS, true>(y + 8 * j * RS + pc + 8 * c, gq, tq));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
+  };
+
+  // ---- the walk, one tile behind in P U (K5's forward schedule): while
+  // tile it's cluster barrier is pending, the warps run tile it - 1's P U;
+  // after it, tile it + 1's partials run while tile it's rank sums are in
+  // flight. With four buffers the cluster barrier also orders the copies.
+  if constexpr (NB == 4) cp_async_wait_prior();
+  else cp_async_wait_all();
+  __syncthreads();  // the q slice and tile 0 have landed
+  partials(0);
+  for (int it = 0; it <= last; ++it) {
+    rank_sum(it);
+    if constexpr (NB == 4) cp_async_wait_all();  // this thread's copies of tile it + 1
+    cluster_arrive();  // tile it's rank sums are in place; tile it - 1's are read
+    if (it > 0) pu(it - 1);
+    if constexpr (NB == 2) {
+      __syncthreads();  // every warp is done with tile it - 1's buffer
+      stage_ku(it + 1);
+    }
+    cluster_wait();
+    if constexpr (NB == 4) stage_ku(it + 2);
+    if (own) load_group(it, 0);
+    if (it < last) {
+      if constexpr (NB == 2) {
+        cp_async_wait_all();
+        __syncthreads();  // tile it + 1 has landed
+      }
+      partials(it + 1);
+    }
+    if (own) softmax(it);
+  }
+  pu(last);
+  cluster_arrive();  // no block leaves while another may still read its shared memory
+  cluster_wait();
+
+  if (!own) return;
+  // ---- the denominators over the quad; out = acc / l at the warp's
+  // columns below d_out, through MODE's epilogue; m and l from rank 0's
+  // first warp of the slab
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += l_lo[r];
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = pc + 8 * c + 2 * tq + hh;
+        if (col >= cols_out) continue;
+        const size_t at = static_cast<size_t>(row) * d_out + c0 + col;
+        const float v = acc[c][2 * e + hh] / l_r[e];
+        if constexpr (MODE == PLAIN) {
+          out[at] = v;
+        } else if constexpr (MODE == SHIFT) {
+          out[at] = v + bias[c0 + col];
+        } else {
+          const float zq = rintf(1.f / (1.f + expf(-(v + bias[c0 + col]))) * levels);
+          out[at] = zq;
+          zn_out[at] = zq / levels;
+        }
+      }
+    if (MODE == PLAIN && rank == 0 && part == 0 && tq == 0) {
+      m_out[row] = m_r[e];
+      l_out[row] = l_r[e];
+    }
+  }
+}
+
+// The wide forward over the built q (n, d_in), the route past 256: the
+// cluster kernel where fwd_plan takes the widths, else the window kernel
+// (hopfield_wide.cuh); a route by width, and a refused launch returns its
+// error.
+template <int MODE>
+cudaError_t launch_fwd(const float* q, const float* K, const float* U, const float* bias, float* out, float* m,
+                       float* l, float* zn, int n, int m_patterns, int d_in, int d_out, float beta, float levels,
+                       cudaStream_t stream) {
+  int j, ranks;
+  if (!fwd_plan(d_in, d_out, j, ranks))
+    return hopfield_wide::launch_fwd_wide<MODE>(q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta,
+                                                levels, stream);
+  return with_chunks(j, [&](auto jj) {
+    constexpr int J = decltype(jj)::value;
+    using C = Cfg<J>;
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    auto kernel = stream_fwd_cluster_kernel<J, MODE>;
+    cudaError_t err =
+        cluster_config(kernel, fwd_bytes<J>(), dim3((n + C::TM - 1) / C::TM, 1, ranks), config, attr, stream);
+    if (err != cudaSuccess) return err;
+    const unsigned vec16 = hopfield_stream::vec16_ok(q, d_in) | hopfield_stream::vec16_ok(K, d_in) << 1 |
+                           hopfield_stream::vec16_ok(U, d_out) << 2;
+    err = cudaLaunchKernelEx(&config, kernel, q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta,
+                             levels, vec16);
+    return err == cudaSuccess ? cudaGetLastError() : err;
+  });
+}
+
+// The forward's cluster kernel (MODE's instance) for (d_in, d_out):
+// tf32x3::kernel_attributes into out[0..6] (attributes) or
+// cluster_attributes into out[0..2]; cudaErrorInvalidValue where plan
+// refuses the widths.
+template <int MODE>
+cudaError_t fwd_cluster_build(int d_in, int d_out, bool attributes, int* out) {
+  int j, ranks;
+  if (!fwd_plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
+  return with_chunks(j, [&](auto jj) {
+    constexpr int J = decltype(jj)::value;
+    using C = Cfg<J>;
+    auto kernel = stream_fwd_cluster_kernel<J, MODE>;
+    return attributes ? tf32x3::kernel_attributes(kernel, cluster::THREADS, fwd_bytes<J>(), C::TM, C::TN, out)
+                      : cluster_attributes(kernel, fwd_bytes<J>(), C::SL, ranks, out);
   });
 }
 

@@ -52,11 +52,18 @@
 // 87,040 at 64 -> 64. Registers and blocks an SM per width are in PERF.md,
 // from hopfield_stream_fwd_attributes on the card.
 //
-// Past 256 on either side (hopfield_stream_fwd_wide, one instance for
-// every width): q is built first into the scratch, then the wide walk of
-// hopfield_wide.cuh streams q and K in depth chunks of 64 and covers
-// d_out in windows of 128, blocks of their own.
+// Past 256 on either side (hopfield_stream_fwd_wide, the widths at run
+// time): q is built first into the scratch, then, where d_in and d_out
+// both pass 128, up to 8192 on the wider side, the cluster kernel of
+// hopfield_cluster.cuh (stream_fwd_cluster_kernel): the depth split
+// across the blocks of a thread-block cluster, each tile's scores
+// computed once; elsewhere the window kernel of hopfield_wide.cuh, which
+// streams q and K in depth chunks of 64 and covers d_out in windows of
+// 128, blocks of their own, each recomputing the scores. A route by width (fwd_plan); a refused launch
+// returns its error. The cluster is bound by latency (about 6 us a tile
+// of 32 patterns at 512 -> 512 on an H100; PERF.md).
 
+#include "hopfield_cluster.cuh"
 #include "hopfield_stream_fwd.cuh"
 #include "hopfield_wide.cuh"
 
@@ -158,9 +165,9 @@ extern "C" long long hopfield_stream_fwd_workspace(int n, int m_patterns, int d_
   return n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 ? static_cast<long long>(n) * d_in : 0;
 }
 
-// The same through the wide walk (hopfield_wide.cuh), the route past 256,
-// with workspace as above. Launches the query build and the walk on
-// `stream`.
+// The same past 256, with workspace as above: the query build, then the
+// cluster kernel up to 8192 on the wider side, the window kernel past it
+// (hopfield_cluster::launch_fwd, a route by width). Launches on `stream`.
 extern "C" int hopfield_stream_fwd_wide(const float* x, const float* K, const float* U, const float* s,
                                         const float* t, float* out, float* m, float* l, float* workspace, int n,
                                         int m_patterns, int d_in, int d_out, void* stream) {
@@ -169,16 +176,20 @@ extern "C" int hopfield_stream_fwd_wide(const float* x, const float* K, const fl
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = hopfield_wide::build_queries(x, s, t, n, d_in, workspace, nullptr, nullptr, st);
   if (err != cudaSuccess) return err;
-  return hopfield_wide::launch_fwd_wide<hopfield_wide::PLAIN>(workspace, K, U, nullptr, out, m, l, nullptr, n,
-                                                              m_patterns, d_in, d_out, beta_of(d_in), 0.f, st);
+  return hopfield_cluster::launch_fwd<hopfield_wide::PLAIN>(workspace, K, U, nullptr, out, m, l, nullptr, n,
+                                                            m_patterns, d_in, d_out, beta_of(d_in), 0.f, st);
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
-// threads a block, blocks an SM, TM and TN; past 256 the wide walk's.
+// threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
+// where it runs (hopfield_cluster::fwd_plan), else the window kernel's.
 // Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  int j, ranks;
+  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks))
+    return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, true, out));
   if (hopfield_wide::wide(d_in, d_out))
     return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::PLAIN>,
                                               hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
@@ -188,4 +199,13 @@ extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
     using C = Tiles<PI, PO>;
     return static_cast<int>(kernel_attributes(stream_fwd_kernel<PI, PO>, THREADS, C::BYTES, TM, C::W::TN, out));
   });
+}
+
+// The cluster kernel of (d_in, d_out) where it runs
+// (hopfield_cluster::fwd_plan; else cudaErrorInvalidValue): out receives
+// the blocks of a cluster, the slice width at most, and the clusters the
+// card can hold at once (0: it cannot launch). Returns a cudaError_t.
+extern "C" int hopfield_stream_fwd_cluster(int d_in, int d_out, int* out) {
+  if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, false, out));
 }

@@ -19,8 +19,11 @@
 // - cover the output columns in windows of CW = 128 on a grid axis (K1's
 //   out, K2's dq, K3's dK and dU): each window block recomputes the scores
 //   over the full depth, the window's tile arriving as the tile's last
-//   item. K2 and K3 take these window kernels only where their cluster
-//   (hopfield_cluster.cuh) does not run: past 8192, or d_in up to 128.
+//   item. They run only where the clusters (hopfield_cluster.cuh) do not:
+//   K2 and K3 past 8192 or with d_in up to 128, K1 and K4's stages past
+//   8192 or with d_in or d_out up to 128. There a lookup has one window
+//   of its output, or scores at most 128 deep, and the window kernels ran
+//   faster on an H100 (PERF.md).
 // Shared bytes: 52,224 (two buffers of a 64 + 32 row chunk), whatever the
 // widths. Registers and blocks an SM are in PERF.md, from the kernels'
 // attributes entries on the card.
@@ -121,9 +124,10 @@ inline cudaError_t build_queries(const float* x, const float* s, const float* t,
   return cudaGetLastError();
 }
 
-// What the wide forward writes for out = softmax(beta q K^T) U / l:
-// PLAIN (K1) out, and m and l from the first window; SHIFT (K4's e and r)
-// out + b; QUANTIZE (K4's zq) rint(sigmoid(out + b) * levels), and zq /
+// What the wide forward (the window kernel below, or the cluster's in
+// hopfield_cluster.cuh) writes for out = softmax(beta q K^T) U / l: PLAIN
+// (K1) out, and m and l (here from the first window); SHIFT (K4's e and
+// r) out + b; QUANTIZE (K4's zq) rint(sigmoid(out + b) * levels), and zq /
 // levels into zn.
 enum Epilogue { PLAIN, SHIFT, QUANTIZE };
 

@@ -30,22 +30,24 @@ and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
 Widths: the plain versions and the kernels take every ``(d_in, d_out)``
 of at least 1 (:func:`kernel_takes`), as the Pallas kernels do. Up to
 ``BUILT_WIDTH`` on both sides a call runs on a built instance, zero-padded
-in shared memory; past it on either side on the wide variants
-(``csrc/hopfield_wide.cuh``: q built first, every product's depth streamed
-in chunks of 64, the outputs in column windows of 128 on a grid axis).
-:func:`kernel_route` names the route. The wide K2 and K3 run on a
-thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split across
-the blocks of a cluster, each tile's scores computed once) where
-:func:`backward_cluster` says so, and on the window kernels elsewhere.
+in shared memory; past it on either side on the wide variants, q built
+first (:func:`kernel_route` names the route). The wide kernels run on a
+thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split
+across the blocks of a cluster, each tile's scores computed once) where
+:func:`forward_cluster` (K1) and :func:`backward_cluster` (K2, K3) say
+so, and elsewhere on the window kernels (``csrc/hopfield_wide.cuh``: every
+product's depth streamed in chunks of 64, the outputs in column windows of
+128 on a grid axis, each window recomputing the scores).
 
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
 TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups
 (K1's pattern walk three times), the sigmoid and the round in one launch,
 for lookups that chain as ``(d, d), (d, di), (di, d)``; past
-``BUILT_WIDTH`` its three stages run the wide walk, one launch each. As in
-the JAX package, no entry point routes to it: serving and training run
-the streaming lookups.
+``BUILT_WIDTH`` each of its three stages takes K1's wide route (cluster or
+window kernel by the stage's widths), a launch each. As in the JAX
+package, no entry point routes to it: serving and training run the
+streaming lookups.
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_librar
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at the configs' default widths
 BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
-BWD_CLUSTER_MAX = 8192  # the wide K2 and K3 run on a cluster up to this wider side (16 blocks of 512 columns)
-WINDOW_IN = 128  # and past this d_in (up to it dq and dK have one window, and the window kernels ran faster)
+CLUSTER_MAX = 8192  # the wide K1 to K4 run on a cluster up to this wider side (16 blocks of 512 columns)
+WINDOW_IN = 128  # and past this d_in (K1: and d_out), where the window kernels have more than one window
 IMPLS = ("cuda", "torch")
 
 
@@ -79,13 +81,23 @@ def kernel_route(d_in: int, d_out: int) -> str:
     return "instance" if max(d_in, d_out) <= BUILT_WIDTH else "wide"
 
 
+def forward_cluster(d_in: int, d_out: int) -> bool:
+    """Whether K1 (and a wide stage of K4) runs on its thread-block
+    cluster at ``(d_in, d_out)``: where K2 and K3 do
+    (:func:`backward_cluster`), with ``d_out`` past ``WINDOW_IN`` too
+    (``fwd_plan`` in ``csrc/hopfield_cluster.cuh``): up to it the window
+    kernel has one window, computes each score once, and ran faster. Other
+    wide widths take the window kernel."""
+    return backward_cluster(d_in, d_out) and d_out > WINDOW_IN
+
+
 def backward_cluster(d_in: int, d_out: int) -> bool:
     """Whether K2 and K3 run on their thread-block cluster at ``(d_in,
-    d_out)``: past ``BUILT_WIDTH`` and up to ``BWD_CLUSTER_MAX`` on the
+    d_out)``: past ``BUILT_WIDTH`` and up to ``CLUSTER_MAX`` on the
     wider side, with ``d_in`` past ``WINDOW_IN`` (``plan`` in
     ``csrc/hopfield_cluster.cuh``). Other wide widths take the window
     kernels."""
-    return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= BWD_CLUSTER_MAX
+    return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= CLUSTER_MAX
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -301,18 +313,44 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
 stream_bwd_dku.launches = 0
 
 
+def _cluster(stem: str, entry: str, d_in: int, d_out: int) -> dict:
+    """The cluster of ``(d_in, d_out)`` through ``<entry>(d_in, d_out,
+    out)`` of ``csrc/<stem>.cu``: its blocks, the depth slice a block owns
+    at most, the clusters the card holds at once and whether that is
+    positive (a cluster that cannot be held cannot launch)."""
+    out = (ctypes.c_int * 3)()
+    err = getattr(load_library(stem), entry)(d_in, d_out, out)
+    if err != 0:
+        raise RuntimeError(f"{entry}{(d_in, d_out)} failed: cudaError {err}")
+    return {"cluster": out[0], "slice": out[1], "active_clusters": out[2], "cluster_ok": out[2] > 0}
+
+
 def forward_attributes(d_in: int, d_out: int) -> dict:
     """K1's build for ``(d_in, d_out)`` as the card reports it: registers
     and spilled (local) bytes a thread, dynamic shared bytes, threads a
     block, blocks an SM, and its tiles (token rows resident, patterns
-    streamed). Launches nothing."""
-    return kernel_attributes("hopfield_stream_fwd", d_in, d_out)
+    streamed). Where it runs on its cluster (:func:`forward_cluster`)
+    also the cluster, as :func:`backward_attributes`. Launches nothing."""
+    stem = "hopfield_stream_fwd"
+    attrs = kernel_attributes(stem, d_in, d_out)
+    if forward_cluster(d_in, d_out):
+        attrs |= _cluster(stem, f"{stem}_cluster", d_in, d_out)
+    return attrs
 
 
 def fused_attributes(d: int, di: int) -> dict:
     """K4's build for the bottleneck widths ``(d, di)``, as
-    :func:`forward_attributes` (the streamed tile is its first lookup's)."""
-    return kernel_attributes("hopfield_bottleneck_fused", d, di)
+    :func:`forward_attributes` (the streamed tile is its first lookup's;
+    past ``BUILT_WIDTH`` its first stage's kernel). Past ``BUILT_WIDTH``
+    also ``stages``: for each stage's widths, its cluster where it runs
+    on one (:func:`forward_cluster`), else ``{"cluster": None}`` (the
+    window kernel)."""
+    stem = "hopfield_bottleneck_fused"
+    attrs = kernel_attributes(stem, d, di)
+    if kernel_route(d, di) == "wide":
+        attrs["stages"] = {f"{a}x{b}": _cluster(stem, f"{stem}_cluster", a, b) if forward_cluster(a, b)
+                           else {"cluster": None} for a, b in ((d, d), (d, di), (di, d))}
+    return attrs
 
 
 def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
@@ -321,18 +359,12 @@ def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
     dynamic shared bytes, threads a block, blocks an SM, and its tiles
     (token rows resident and patterns streamed in K2; patterns resident
     and token rows streamed in K3). Where they run on their cluster
-    (:func:`backward_cluster`) also the cluster: its blocks, the depth
-    slice a block owns at most, the clusters the card holds at once and
-    whether that is positive (a cluster that cannot be held cannot
-    launch). Launches nothing."""
+    (:func:`backward_cluster`) also the cluster (:func:`_cluster`).
+    Launches nothing."""
     stem = f"hopfield_stream_bwd_{kernel}"
     attrs = kernel_attributes(stem, d_in, d_out)
     if backward_cluster(d_in, d_out):
-        out = (ctypes.c_int * 3)()
-        err = getattr(load_library(stem), f"{stem}_cluster")(d_in, d_out, out)
-        if err != 0:
-            raise RuntimeError(f"{stem}_cluster{(d_in, d_out)} failed: cudaError {err}")
-        attrs |= {"cluster": out[0], "slice": out[1], "active_clusters": out[2], "cluster_ok": out[2] > 0}
+        attrs |= _cluster(stem, f"{stem}_cluster", d_in, d_out)
     return attrs
 
 
@@ -375,7 +407,7 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
 
     CUDA tensors launch the kernel (counted in
     ``bottleneck_fused_fwd.launches``, once a call: past ``BUILT_WIDTH``
-    the call's three stages run the wide walk as launches of their own);
+    the call's three stages take K1's wide route, launches of their own);
     CPU tensors take the plain version. Forward-only: on the card, with
     autograd on and a parameter or ``x`` that needs a gradient, it raises
     (the streaming bottleneck is the differentiable path)."""

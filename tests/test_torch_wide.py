@@ -2,35 +2,40 @@
 and the wide kernels' precision scheme emulated on the CPU.
 
 Past a width of 256 the streaming lookups (K1 to K4) run their wide
-variants: each product's depth streamed in chunks of 64, each chunk's
-three-pass TF32 products summed in a fresh sum and added to the running
-one, the outputs in column windows. K5-fwd past 8192 runs the same way
-(its window kernel), and so do K2 and K3 past 8192 or with d_in up to
-128. Elsewhere up to 8192 K5's forward and backward and the lookups'
-backward K2 and K3 split the depth across the blocks of a cluster
-instead: each block's slice of 128 (256 past 1024, 512 past 2048) in warp
-parts of 64, each part in a fresh sum, the parts of a slice added in
-order, the slices in rank order, the small TF32 parts truncated
+variants. Up to 8192 K5's forward and backward, the lookups' backward K2
+and K3 (with d_in past 128) and forward K1 (with d_in and d_out past
+128; K4's stages likewise) split the depth across the blocks of a
+cluster: each block's slice of 128 (256 past 1024, 512 past 2048) in
+warp parts of 64, each part in a fresh sum, the parts of a slice added
+in order, the slices in rank order, the small TF32 parts truncated
 (``cluster_tf32``); the products over keys, query rows, patterns or
-tokens by tiles of 32 (16 past 1024). The plain versions that the CPU
-runs hold the same functions at any width; ``tests/test_torch_hopfield.py``
-holds them against the Pallas kernels in interpret mode at (384, 3),
-(3, 384) and (300, 520). Here: the dispatch rule; a head of 320 through
-the kernels' zero padding and a Transformer prior with one head of 512
-against JAX; and the three-pass schemes at width 512 (the cluster's also
-at 384 and 1280; K2's and K3's at 512 → 512, (384, 3), (3, 384) and
-(300, 700)) against the plain versions, within the limits
-``chip_smoke.py`` holds the kernels to. Measured here (N 300, M 1024,
-512 → 512; K5 at B 2, S 48, one head), three passes: K1 out 6.9e-7, m
-5.5e-7, l 1.9e-6 from the plain version; K2 and K3 normwise at most
-1.3e-6, in the cluster's order 1.5e-6, 2.7e-6, 3.7e-6 and 1.8e-6 at the
-four widths (from float64 4.7e-7 to 1.2e-6); K5 in the window kernel's
-order at 512 forward 5.1e-7, backward 5.6e-7; in the cluster's order at
-384, 512 and 1280 forward 4.5e-7, 5.5e-7 and 3.1e-7, backward 1.1e-6,
-4.8e-7 and 8.4e-7. One pass: K1's m 3.0e-4 and l 1.1e-3 from float64, K2
-and K3 7.1e-4 (the cluster's order 7.1e-4 to 5.2e-3), K5's forward 4.6e-4
-(the cluster's order 3.6e-4 to 4.6e-4), the cluster's backward 5.7e-4 to
-6.8e-4.
+tokens by tiles of 32 (16 past 1024). Elsewhere the window kernels run:
+each product's depth streamed in chunks of 64, each chunk's three-pass
+TF32 products summed in a fresh sum and added to the running one, the
+outputs in column windows. The plain versions that the CPU runs hold the
+same functions at any width; ``tests/test_torch_hopfield.py`` holds them
+against the Pallas kernels in interpret mode at (384, 3), (3, 384) and
+(300, 520). Here: the dispatch rules; a head of 320 through the kernels'
+zero padding and a Transformer prior with one head of 512 against JAX;
+and the three-pass schemes at width 512 (the cluster's also at 384 and
+1280; K1's, K2's and K3's at 512 → 512, (384, 3), (3, 384) and (300,
+700), K1's also at (384, 384), (1280, 300) and (300, 2304)) against the
+plain versions, within the limits ``chip_smoke.py`` holds the kernels
+to. Measured here (N 300, M 1024, 512 → 512; K5 at B 2, S 48, one head),
+three passes: K1 out 6.9e-7, m 5.5e-7, l 1.9e-6 from the plain version,
+in the cluster's order at most 1.1e-6, 1.1e-6 and 3.8e-6 at the seven
+widths (from float64 3.7e-7, 2.7e-7, 9.9e-7), the attention K2 and K3
+rebuild from the wide K1's stats summing to 1 within 1.5e-7 a row (at
+most 1.46e-7, at (384, 3), where K1's window order meets K2's cluster
+order); K2 and K3 normwise at most 1.3e-6, in the cluster's order
+1.5e-6, 2.7e-6, 3.7e-6 and 1.8e-6 at the four widths (from float64
+4.7e-7 to 1.2e-6); K5 in the window kernel's order at 512 forward
+5.1e-7, backward 5.6e-7; in the cluster's order at 384, 512 and 1280
+forward 4.5e-7, 5.5e-7 and 3.1e-7, backward 1.1e-6, 4.8e-7 and 8.4e-7.
+One pass: K1's m 3.0e-4 and l 1.1e-3 from float64 (the cluster's order
+8.5e-4 to 2.3e-3), K2 and K3 7.1e-4 (the cluster's order 7.1e-4 to
+5.2e-3), K5's forward 4.6e-4 (the cluster's order 3.6e-4 to 4.6e-4), the
+cluster's backward 5.7e-4 to 6.8e-4.
 """
 
 import math
@@ -64,6 +69,8 @@ def test_widths_past_256_are_taken(width, padded):
         assert hc.kernel_takes(d_in, d_out) and hc.kernel_route(d_in, d_out) == "wide"
     # K2 and K3 on their cluster wherever d_in passes 128; (3, width) on the window kernels
     assert hc.backward_cluster(width, 3) and hc.backward_cluster(width, width) and not hc.backward_cluster(3, width)
+    # K1 (and K4's wide stages) on its cluster where both widths pass 128
+    assert hc.forward_cluster(width, width) and not hc.forward_cluster(width, 3) and not hc.forward_cluster(3, width)
     assert ac.kernel_width(width) == padded
     assert ac.kernel_width(padded) == padded
 
@@ -76,6 +83,20 @@ def test_lookup_backward_route(d_in, d_out, cluster):
     and dK have one window, and the window kernels ran faster); elsewhere
     past 256 on the window kernels, up to 256 on the built instances."""
     assert hc.backward_cluster(d_in, d_out) == cluster
+
+
+@pytest.mark.parametrize("d_in,d_out,cluster", [(257, 129, True), (129, 300, True), (128, 300, False),
+                                                (300, 128, False), (384, 3, False), (3, 384, False),
+                                                (384, 384, True), (8192, 129, True), (8320, 300, False),
+                                                (256, 256, False)])
+def test_lookup_forward_route(d_in, d_out, cluster):
+    """Where K1 (and each wide stage of K4) runs on its cluster
+    (``hopfield_cluster::fwd_plan``): past 256 on the wider side up to
+    8192, with both d_in and d_out past 128 (up to 128 on either side the
+    window kernel computes each score once, or recomputes only scores of
+    that depth, and ran faster). Elsewhere past 256 the window kernel
+    runs; up to 256 the built instances."""
+    assert hc.forward_cluster(d_in, d_out) == cluster
 
 
 def test_padded_wide_head_matches_jax(monkeypatch):
@@ -176,6 +197,35 @@ def wide_forward(x2, K, U, s, t, passes):
     return acc / l, m, l
 
 
+def cluster_forward(x2, K, U, s, t, passes):
+    """``(out, m, l)`` of the wide forward in its cluster kernel's order:
+    the scores through :func:`cluster_tf32` with the slice the plan picks
+    from the wider of ``d_in`` and ``d_out`` (a narrower side's last slice
+    holds only its real columns, as the kernel's zero padding leaves it),
+    an online softmax over the plan's pattern tiles with the compensated
+    denominator, each tile's ``P U`` in a fresh sum with the small parts
+    truncated."""
+    beta = 1.0 / math.sqrt(x2.shape[1])
+    q = hc._query(hc._state_ln(x2)[0], s, t)
+    slice_, tile = _cluster_plan(max(x2.shape[1], U.shape[1]))
+    n = x2.shape[0]
+    m, l, l_lo = torch.full((n, 1), -1e30), torch.zeros(n, 1), torch.zeros(n, 1)
+    acc = torch.zeros(n, U.shape[1])
+    for p0 in range(0, K.shape[0], tile):
+        sc = cluster_tf32(q, K[p0:p0 + tile].T.contiguous(), passes, slice_=slice_) * beta
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        a, b = l * alpha, l_lo * alpha + p.sum(-1, keepdim=True)
+        total = a + b
+        bb = total - a
+        l, l_lo = total, (a - (total - bb)) + (b - bb)
+        acc = acc * alpha + chunked_tf32(p, U[p0:p0 + tile].contiguous(), passes, chunk=tile, trunc=True)
+        m = m_new
+    l = l + l_lo
+    return acc / l, m, l
+
+
 def wide_backward(x2, K, U, s, t, g, m, l, delta, passes, cluster: bool = False):
     """``(dx, dK, dU, ds, dt)`` of the wide K2 and K3: ``q Kᵀ`` and ``g Uᵀ``
     over depth chunks, ``dS K`` over pattern tiles and ``Aᵀ g``, ``dSᵀ q``
@@ -214,14 +264,29 @@ def _lookup_case(d_in=512, d_out=512, n=300, m_patterns=1024, seed=3):
     return x, k, u, s, t, g, m, l, (g * out).sum(-1, keepdim=True)
 
 
-@pytest.mark.parametrize("passes", [3, 1])
-def test_wide_lookup_forward_scheme_at_512(passes):
-    """The wide K1 at 512 → 512 with three passes: out, m and l within
-    ``OUT_ATOL`` and ``STAT_RTOL`` of the f32 plain version, and no farther
-    from float64 than twice the plain version's distance, or 5e-8, 5e-7
-    and 2e-6. With one pass the row stats miss ``STAT_RTOL`` from float64."""
-    x, k, u, s, t, *_ = _lookup_case()
-    got = wide_forward(x, k, u, s, t, passes)
+@pytest.mark.parametrize("passes,d_in,d_out,order", [
+    (3, 512, 512, "window"), (1, 512, 512, "window"),
+    (3, 512, 512, "cluster"), (1, 512, 512, "cluster"), (3, 384, 384, "cluster"), (1, 384, 384, "cluster"),
+    (3, 384, 3, "cluster"), (1, 384, 3, "cluster"), (3, 3, 384, "cluster"), (1, 3, 384, "cluster"),
+    (3, 300, 700, "cluster"), (1, 300, 700, "cluster"), (3, 1280, 300, "cluster"), (1, 1280, 300, "cluster"),
+    (3, 300, 2304, "cluster"), (1, 300, 2304, "cluster"),
+], ids=["3", "1", "3-cluster512x512", "1-cluster512x512", "3-cluster384x384", "1-cluster384x384",
+        "3-cluster384x3", "1-cluster384x3", "3-cluster3x384", "1-cluster3x384", "3-cluster300x700",
+        "1-cluster300x700", "3-cluster1280x300", "1-cluster1280x300", "3-cluster300x2304", "1-cluster300x2304"])
+def test_wide_lookup_forward_scheme_at_512(passes, d_in, d_out, order):
+    """The wide K1 in the window kernel's order at 512 → 512, and in the
+    cluster kernel's order at 512 → 512, (384, 384), (384, 3), (3, 384)
+    (300, 700), (1280, 300) and (300, 2304) (the last two on slices of 256
+    and 512; N 300, M 1024): with three passes out, m and l
+    within ``OUT_ATOL`` and ``STAT_RTOL`` of the f32 plain version, and no
+    farther from float64 than twice the plain version's distance, or 5e-8,
+    5e-7 and 2e-6. With one pass the row stats miss ``STAT_RTOL`` from
+    float64."""
+    x, k, u, s, t, *_ = _lookup_case(d_in, d_out)
+    if order == "window":
+        got = wide_forward(x, k, u, s, t, passes)
+    else:
+        got = cluster_forward(x, k, u, s, t, passes)
     exact = _float64_forward(x, k, u, s, t)
     if passes == 1:
         assert max(_forward_errors(got, exact)[1:]) > STAT_RTOL
@@ -231,6 +296,31 @@ def test_wide_lookup_forward_scheme_at_512(passes):
     assert out_err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL
     for mine, theirs, floor in zip(_forward_errors(got, exact), _forward_errors(plain, exact), (5e-8, 5e-7, 2e-6)):
         assert mine <= max(2 * theirs, floor)
+
+
+@pytest.mark.parametrize("d_in,d_out", [(512, 512), (384, 384), (384, 3), (3, 384), (300, 700), (1280, 300)])
+def test_wide_forward_stats_rebuild_rows_summing_to_one(d_in, d_out):
+    """The attention that K2 and K3 rebuild from the wide forward's ``m``
+    and ``l`` (N 300, M 1024, three passes; the forward in its route's
+    order, ``hc.forward_cluster``), with the scores in the backward's own
+    order (its cluster's where ``hc.backward_cluster``, else its window
+    kernels' chunks of 64), sums to 1 within 1.5e-7 on every row, as
+    against the narrow K1's stats (``tests/test_torch_hopfield_tf32.py``).
+    (K1's cluster order against the backward's window order at (3, 384)
+    misses it: 3.7e-7, the small TF32 parts truncated in one and rounded
+    in the other.)"""
+    x, k, u, s, t, *_ = _lookup_case(d_in, d_out)
+    if hc.forward_cluster(d_in, d_out):
+        _, m, l = cluster_forward(x, k, u, s, t, 3)
+    else:
+        _, m, l = wide_forward(x, k, u, s, t, 3)
+    q = hc._query(hc._state_ln(x)[0], s, t)
+    if hc.backward_cluster(d_in, d_out):
+        scores = cluster_tf32(q, k.T.contiguous(), 3, slice_=_cluster_plan(max(d_in, d_out))[0])
+    else:
+        scores = chunked_tf32(q, k.T.contiguous(), 3)
+    a = torch.exp(scores * (1.0 / math.sqrt(d_in)) - m) / l
+    assert float((a.double().sum(-1) - 1).abs().max()) <= 1.5e-7
 
 
 @pytest.mark.parametrize("passes,d_in,d_out,order", [

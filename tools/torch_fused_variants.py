@@ -10,9 +10,10 @@ turns, at the cases of phase 12 of ``chip_smoke.py`` on the same tokens and
 tables: the ``zq`` bins that differ from the plain version, ``e``'s and
 ``r``'s max abs error, whether a second launch repeats the first bit for
 bit, whether the outputs equal the ``change`` build's bit for bit, and the
-time (CUDA events) at the full-width case. A build that does not take the
-widths in that entry (past 256 the port runs the wide walk, another
-entry) reports ``refused``. One JSON line per build and case.
+time (CUDA events) at the full-width case and past 256. Past 256 it calls
+the wide entry (each stage on K1's wide route), the workspace allocated
+inside the timed call as the port's wrapper allocates it. A build that
+refuses the widths reports ``refused``. One JSON line per build and case.
 """
 
 from __future__ import annotations
@@ -48,12 +49,21 @@ def build(name: str, csrc: Path, out_dir: str) -> ctypes.CDLL:
 
 
 def call(lib, x, tables, outs, num_levels) -> int:
-    fn = getattr(lib, STEM)
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    """The build's one-launch entry, or past 256 its wide entry (the three
+    stages on K1's wide route) with the workspace its ``_workspace`` entry
+    asks for."""
     d, di = x.shape[1], outs[1].shape[1]
-    return fn(x.data_ptr(), *(a.data_ptr() for table in tables for a in table), *(a.data_ptr() for a in outs),
-              x.shape[0], *(table[0].shape[0] for table in tables), d, di, num_levels,
-              torch.cuda.current_stream().cuda_stream)
+    wide = hc.kernel_route(d, di) == "wide"
+    fn = getattr(lib, f"{STEM}_wide" if wide else STEM)
+    fn.argtypes = [ctypes.c_void_p] * (20 if wide else 19) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    work = []
+    if wide:
+        floats = getattr(lib, f"{STEM}_workspace")
+        floats.argtypes, floats.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+        work = [torch.empty(floats(x.shape[0], d, di), device="cuda")]
+    return fn(x.data_ptr(), *(a.data_ptr() for table in tables for a in table),
+              *(a.data_ptr() for a in (*outs, *work)), x.shape[0], *(table[0].shape[0] for table in tables), d, di,
+              num_levels, torch.cuda.current_stream().cuda_stream)
 
 
 def main(argv: list[str]) -> int:
@@ -88,7 +98,7 @@ def main(argv: list[str]) -> int:
                 row = {"build": name, "shape": label, "d": d, "di": di, **cs.bins_and_errors(got, want),
                        "repeats_bitwise": all(torch.equal(a, b) for a, b in zip(got, again)),
                        "equals_change": all(torch.equal(a, b) for a, b in zip(got, first["change"]))}
-                if label.startswith("ffhq64"):
+                if label.startswith("ffhq64") or hc.kernel_route(d, di) == "wide":
                     row["ms"] = cs.cuda_ms(lambda: call(libs[name], x2, tables, got, levels), 10)
                 print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()

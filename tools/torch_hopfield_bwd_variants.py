@@ -15,10 +15,13 @@ stats from the plain forward. Per build and shape, one JSON line: K1's and
 the backward's normwise errors against the plain versions, whether a
 second launch repeats the first bit for bit, whether the outputs equal the
 ``change`` build's, and each kernel's time (CUDA events) at the large
-shapes and every shape past 256, where one ``torch.autograd.grad``
-through SDPA with the same cotangent (the library's K2 + K3) is timed
-too. A build that refuses a width
-(cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
+shapes and every shape past 256 (K1 there through its wide entry, the
+query build included), where SDPA's forward on the built q with scale
+beta (the library's K1) and one ``torch.autograd.grad`` through SDPA with
+the same cotangent (the library's K2 + K3) are timed too. Past 256 (but
+at full scale) K1's row also reads ``rebuilt_row_sum_err``, phase 2's
+row sums of the attention rebuilt from its ``m`` and ``l``. A build that
+refuses a width (cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
 ``mnist_28`` at ``embedding_dim=384`` on each build's K1 to K3, in turns,
 three rounds: three f32 Adam steps from the same weights, the losses,
 each step's ms between CUDA events (host gaps included) and the device's
@@ -68,10 +71,22 @@ def build(name: str, csrc: Path, flags: list[str], out_dir: str) -> dict:
     return libs
 
 
-def call(lib, stem: str, ptrs, ints) -> int:
-    fn = getattr(lib, stem)
+def call(lib, entry: str, ptrs, ints) -> int:
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     return fn(*(a.data_ptr() for a in ptrs), *ints, torch.cuda.current_stream().cuda_stream)
+
+
+def fwd_entry(d_in: int, d_out: int) -> str:
+    """K1's entry at these widths: past 256 its wide route, which builds q
+    into the workspace first."""
+    return f"{STEMS[0]}_wide" if hc.kernel_route(d_in, d_out) == "wide" else STEMS[0]
+
+
+def fwd_ptrs(x, k, u, s, t, outs, work) -> tuple:
+    """K1's pointer arguments: past 256 the workspace after the outputs."""
+    wide = hc.kernel_route(x.shape[1], u.shape[1]) == "wide"
+    return (x, k, u, s, t, *outs, work) if wide else (x, k, u, s, t, *outs)
 
 
 def run(libs, args, work):
@@ -85,10 +100,10 @@ def run(libs, args, work):
     dx = [torch.empty(n, d_in, device="cuda"), torch.empty(d_in, device="cuda"), torch.empty(d_in, device="cuda")]
     dku = [torch.empty(mp, d_in, device="cuda"), torch.empty(mp, d_out, device="cuda")]
     out = {}
-    for kernel, stem, ptrs, outs in (("fwd", STEMS[0], (x, k, u, s, t, *fwd), fwd),
+    for kernel, stem, ptrs, outs in (("fwd", STEMS[0], fwd_ptrs(x, k, u, s, t, fwd, work), fwd),
                                      ("dx", STEMS[1], (*args, *dx, work), dx),
                                      ("dku", STEMS[2], (*args, *dku, work), dku)):
-        err = call(libs[stem], stem, ptrs, ints)
+        err = call(libs[stem], fwd_entry(d_in, d_out) if kernel == "fwd" else stem, ptrs, ints)
         if err not in (0, 1):  # 1: cudaErrorInvalidValue, a width the build refuses
             raise RuntimeError(f"{stem}: cudaError {err}")
         out[kernel] = [a.clone() for a in outs] if err == 0 else None
@@ -100,7 +115,7 @@ def workspace(libs, n: int, mp: int, d_in: int, d_out: int):
     most any build's workspace entry asks for."""
     floats = 1
     for build in libs.values():
-        for stem in STEMS[1:]:
+        for stem in STEMS:
             fn = getattr(build[stem], f"{stem}_workspace")
             fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
             floats = max(floats, fn(n, mp, d_in, d_out))
@@ -186,16 +201,21 @@ def main(argv: list[str]) -> int:
                         "repeats_bitwise": all(torch.equal(a, b) for a, b in zip(outs, again[kernel])),
                         "equals_change": ref is not None and all(torch.equal(a, b) for a, b in zip(outs, ref)),
                     }
+                    if kernel == "fwd" and label.startswith("wide") and n * k.shape[0] <= 1e8:
+                        row[kernel]["rebuilt_row_sum_err"] = cs.rebuilt_rows_err(x, k, s, t, outs[1], outs[2], d_out)
                     if timed:
                         stem = STEMS[("fwd", "dx", "dku").index(kernel)]
-                        ptrs = (x, k, u, s, t, *outs) if kernel == "fwd" else (*args, *outs, work)
+                        entry = fwd_entry(d_in, d_out) if kernel == "fwd" else stem
+                        ptrs = fwd_ptrs(x, k, u, s, t, outs, work) if kernel == "fwd" else (*args, *outs, work)
                         row[kernel]["ms"] = cs.cuda_ms(
-                            lambda: call(libs[name][stem], stem, ptrs, (n, k.shape[0], d_in, d_out)), reps)
+                            lambda: call(libs[name][stem], entry, ptrs, (n, k.shape[0], d_in, d_out)), reps)
                 print(json.dumps(row), flush=True)
             if label.startswith("wide"):
+                fwd_ms, fwd_backend = cs.library_ms(cs.state_query(x, s, t), k, u, reps)
                 with torch.inference_mode(False):  # autograd through SDPA on fresh copies of the inference tensors
                     lib_ms, backend = cs.library_bwd_ms(cs.state_query(x, s, t), k, u, g.clone(), reps)
-                print(json.dumps({"shape": label, "library_bwd_ms": lib_ms, "library_backend": backend}), flush=True)
+                print(json.dumps({"shape": label, "library_fwd_ms": fwd_ms, "library_fwd_backend": fwd_backend,
+                                  "library_bwd_ms": lib_ms, "library_backend": backend}), flush=True)
             del x, g, out, m, l, args, want, first, work
             torch.cuda.empty_cache()
     width_steps(libs)
