@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Seventeen phases, each of which raises on failure:
+Eighteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -145,7 +145,26 @@ Seventeen phases, each of which raises on failure:
     times) and ``interpolate`` of 256 pairs (three requests, K1 3 a
     call); (f) ``ffhq_128`` (r 33, 1,089 pixel steps), ``sample`` of 64
     once, draws in [0, 511], every cell written.
-17. The run's wall time (the build included), the kernel summary as one
+17. Data and the multi-GPU layer: (a) the reference's torch checkpoint:
+    the MNIST backbone of ``PixelCNN-MNIST-28.msgpack`` under the
+    reference's 61 names in a ``.ckpt`` through ``load_reference_checkpoint``,
+    every tensor landing, bit for bit the ``.msgpack`` route's state, phase
+    3's f32 golden held; (b) ``ffhq_64_scaled`` at batch 256 on the
+    production path from 768 ``.npy`` images streamed by
+    ``LazyImageFolder`` (prefetch 2), 2 epochs of 2 steps under a one-rank
+    NCCL group (``parallel.mesh`` from a ``torchrun`` environment on
+    127.0.0.1) with gradient watching, the NaN check and the profiler on:
+    K1, K2 and K3 3 launches a step, counted and named in the trace, the
+    losses bit for bit those of the in-memory dataset without a group,
+    each ``grad_hist`` counting its module's parameters once a step, the
+    checkpoint resuming; images/s of both paths and a decoded batch's host
+    ms against a step's device ms logged; (c) the pattern-sharded lookup
+    (``ShardedStreamLookup``) at 2 and 4 shards in one process on the three
+    lookups of a full-width batch (N 73,984, M 4,096) and at 2 shards on
+    the wide cluster route (512 -> 512, N 4,096, M 512): forward within
+    1e-5 of the unsharded K1, the five gradients within 5e-5 normwise of
+    the unsharded K2 and K3, one launch of each a shard.
+18. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -157,6 +176,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -165,6 +187,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from hopvae_torch.config import load_config
@@ -180,9 +203,11 @@ from hopvae_torch.ops.bottleneck import LAYERS, streaming_bottleneck
 from hopvae_torch.ops.conv import full_f32
 from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
+from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
-from hopvae_torch.train import Trainer, load_weights, prior_train_golden, train_golden
+from hopvae_torch.train import Trainer, load_weights, prior_train_golden, profiled, train_golden
 from hopvae_torch.utils import nvcc
+from hopvae_torch.utils.checkpoint import load_reference_checkpoint
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINTS = ROOT / "checkpoints"
@@ -227,6 +252,9 @@ ATTN_BWD_NORMWISE = 5e-5
 # differ (a logit on a rounding edge may flip a bin)
 FUSED_ATOL = 1e-5
 FUSED_ZQ_SHARE = 1e-4
+# the pattern-sharded lookup's merged output against the unsharded K1, max
+# abs (its backward is held to BWD_NORMWISE)
+SHARDED_FWD_ATOL = 1e-5
 
 
 def log(*args) -> None:
@@ -2158,6 +2186,259 @@ def phase_pixelcnn_full_width() -> dict:
     return {"launches_prior_phase": training["launches"], "launches_sample": serving["requests"][0]["launches"],
             "launches_interpolate": calls[0]["launches"], "steps": training["steps"]}
 
+# ------------------------------------------------------------ phase 17
+
+
+def reference_key(name: str) -> str:
+    """The reference HopVAE's ``state_dict`` name of one of the port's
+    backbone tensors: the inverse of ``checkpoint.reference_name``."""
+    if m := re.match(r"^(encoder|decoder)\.residual_stack\.layers\.(\d+)\.conv_([ab])\.weight$", name):
+        return f"{m[1]}.residual_stack._layers.{m[2]}._block.{1 if m[3] == 'a' else 3}.weight"
+    lookup, _, rest = name.partition(".")
+    if lookup in LAYERS and rest != "lookup_weights":
+        module, _, param = rest.partition(".")
+        if module in ("in_proj", "out_proj"):
+            return (f"{lookup}.hopfield.association_core.in_proj_{param}" if module == "in_proj"
+                    else f"{lookup}.hopfield.association_core.out_proj.{param}")
+        norm = {"norm_stored": "norm_stored_pattern", "norm_state": "norm_state_pattern",
+                "norm_proj": "norm_pattern_projection"}[module]
+        return f"{lookup}.hopfield.{norm}.{param}"
+    return name
+
+
+@parity_mode()
+def phase_reference_checkpoint(out: Path) -> dict:
+    """(a) The reference's torch checkpoint (fault F2): the MNIST backbone
+    of ``PixelCNN-MNIST-28.msgpack`` written under the reference's 61 names
+    (``lookup_weights`` with its leading axis of 1) to a ``.ckpt``, loaded
+    through ``load_reference_checkpoint`` into a fresh ``mnist_28`` model:
+    every tensor lands, the state equals the ``.msgpack`` route's bit for
+    bit, and the f32 forward holds phase 3's golden."""
+    spec = GOLDENS["mnist_digits"]
+    msgpack = str(CHECKPOINTS / spec["checkpoint"])
+    backbone = {k: v for k, v in state_from_checkpoint(msgpack).items() if not k.startswith(PRIOR)}
+    ckpt = out / "MNIST-28.ckpt"
+    torch.save({reference_key(k): v[None] if k.endswith("lookup_weights") else v for k, v in backbone.items()}, ckpt)
+    cfg = load_config("mnist_28")
+    models = []
+    for path in (str(ckpt), msgpack):
+        torch.manual_seed(cfg.seed)
+        model = HopVAE(cfg, impl="cuda", device="cuda")
+        models.append((model, load_reference_checkpoint(model, path)))
+    (model, dropped), (model_msg, _) = models
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), model_msg.state_dict().values()))
+    x = torch.from_numpy(golden_input("mnist_digits")).cuda()
+    with torch.inference_mode():
+        x_recon, aux = model(x)
+    mse, aux = float(torch.mean((x_recon - x) ** 2)), float(aux)
+    res = {"tensors": len(backbone), "dropped": dropped, "equals_msgpack_route": same, "recon_mse_f32": mse,
+           "aux_f32": aux, "golden": spec["recon_mse"], "golden_aux": spec["aux"]}
+    log(json.dumps({"reference_checkpoint": res}))
+    if len(backbone) != 61 or dropped or not same:
+        raise AssertionError(f"the reference checkpoint did not load as the .msgpack does: {res}")
+    if abs(mse / spec["recon_mse"] - 1) > 1e-3 or abs(aux / spec["aux"] - 1) > 2e-2:
+        raise AssertionError(f"the reference checkpoint misses the MNIST golden: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """A one-rank ``torchrun`` environment on 127.0.0.1 and a free port,
+    the process group joined through ``mesh.init_distributed`` and left,
+    and the environment restored, when the block ends."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh_lib.init_distributed()
+        try:
+            yield mesh_lib.make_mesh()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class StepLossTrainer(Trainer):
+    """A ``Trainer`` that keeps each step's loss (on the device)."""
+
+    def train_step(self, x):
+        out = super().train_step(x)
+        self.losses.append(out["loss"])
+        return out
+
+
+# the kernels' main launches by name in a torch.profiler trace (K2 and K3
+# each also launch a helper: the dx finish, the query build)
+TRACE_KERNELS = {"hopfield_stream_fwd": "stream_fwd_kernel", "hopfield_stream_bwd_dx": "stream_bwd_dq_kernel",
+                 "hopfield_stream_bwd_dku": "stream_bwd_dku_kernel"}
+STREAM_IMAGES = 768  # 537 training files: 2 steps an epoch at batch 256
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(sym in n for n in names) for k, sym in TRACE_KERNELS.items()}
+
+
+def phase_streaming_training(out: Path) -> dict:
+    """(b) ``ffhq_64_scaled`` at batch 256 on the production path, from a
+    folder of ``.npy`` images (``synthetic_images``) streamed by
+    ``LazyImageFolder``, 2 epochs of 2 steps under a one-rank NCCL group,
+    with ``watch_gradients``, ``debug_nans`` and the profiler on: K1, K2 and
+    K3 3 launches a step (counted, and named in the trace); the losses
+    equal, bit for bit, those of the same steps without a group on the
+    in-memory ``ArrayDataset`` of the same files; each ``grad_hist``
+    counts every parameter of its module once a step; the checkpoint rank
+    0 wrote resumes. Logged: images/s of the streaming (without the debug
+    aids) and the in-memory path, and a decoded batch's host ms against a
+    step's device ms."""
+    cfg = load_config("ffhq_64_scaled")
+    folder = out / "images"
+    folder.mkdir()
+    for i, img in enumerate(synthetic_images(STREAM_IMAGES, cfg.image_size, seed=cfg.seed)):
+        np.save(folder / f"{i:05d}.npy", img)
+
+    def fresh(mesh=None, aids=False):
+        torch.manual_seed(cfg.seed)
+        model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
+        load_weights(model, str(CHECKPOINTS / GOLDENS["ffhq64_synthetic4"]["checkpoint"]))
+        trainer = StepLossTrainer(model, cfg, mesh)
+        trainer.losses = []
+        trainer.watch_gradients = trainer.debug_nans = aids
+        return trainer
+
+    def records(run: Path) -> list:
+        return [json.loads(line) for line in open(run / "metrics.jsonl")]
+
+    train_s, _val, test_s = get_datasets(cfg, str(folder), streaming=True)
+    train_m, _val, test_m = get_datasets(cfg, str(folder), streaming=False)
+    steps = 2 * (len(train_s) // cfg.batch_size)
+    with torchrun_env() as mesh:
+        checked = fresh(mesh, aids=True)
+        for fn in KERNEL_COUNTERS.values():
+            fn.launches = 0
+        with profiled(str(out / "checked"), cuda=True):
+            checked.fit(train_s, test_s, epochs=2, out_dir=str(out / "checked"), eval_every=0, save_every=1)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+        resumed = fresh(mesh)
+        resumed.fit(train_s, test_s, epochs=2, out_dir=str(out / "checked"), eval_every=0, save_every=0, resume=True)
+        plain = fresh(mesh)
+        plain.fit(train_s, test_s, epochs=2, out_dir=str(out / "plain"), eval_every=0, save_every=0)
+        x = torch.from_numpy(train_m.images[: cfg.batch_size]).cuda()
+        step_ms = cuda_ms(lambda: plain.train_step(x), reps=5)
+        idx = np.arange(len(train_s))
+        decode_ms = []
+        for rep in range(5):
+            t0 = time.perf_counter()
+            train_s.gather(np.roll(idx, rep * cfg.batch_size)[: cfg.batch_size])
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    memory = fresh()
+    memory.fit(train_m, test_m, epochs=2, out_dir=str(out / "memory"), eval_every=0, save_every=0)
+    train_s.close()
+    traced = trace_kernel_counts(out / "checked" / "trace" / "rank0.trace.json")
+    rec = records(out / "checked")
+    sizes = {k: sum(p.numel() for p in m.parameters()) for k, m in checked.model.named_children()}
+    hist_counts = {k[len("grad_hist/"):]: sum(v) for r in rec for k, v in r.items() if k.startswith("grad_hist/")}
+    per_epoch = steps // 2
+    hists_ok = set(hist_counts) == {k for k, n in sizes.items() if n} and all(
+        sum(r[f"grad_hist/{k}"]) == n * per_epoch for r in rec for k, n in sizes.items() if n)
+    same_losses = torch.equal(torch.stack(checked.losses), torch.stack(memory.losses))
+    adam, adam_resumed = checked.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    restored = resumed.schedule.last_epoch == checked.schedule.last_epoch == steps and all(
+        torch.equal(adam[i][k], adam_resumed[i][k]) for i in adam for k in adam[i]) and all(
+        torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(), checked.model.state_dict().values()))
+    res = {
+        "files": STREAM_IMAGES, "train_files": len(train_s), "steps": steps, "launches": launches,
+        "trace_launches": traced, "losses": [float(v) for v in checked.losses],
+        "losses_equal_in_memory_bitwise": same_losses, "grad_hist_counts_ok": hists_ok,
+        "grad_norm_epochs": [r["grad_norm"] for r in rec], "resume_restores": restored,
+        "images_per_s_streaming_epoch_2": records(out / "plain")[-1]["images_per_sec"],
+        "images_per_s_in_memory_epoch_2": records(out / "memory")[-1]["images_per_sec"],
+        "host_decode_ms_per_batch": decode_ms, "device_step_ms": step_ms, "card": smi("name,power.limit"),
+    }
+    log(json.dumps({"streaming_training": res}))
+    want = dict.fromkeys(KERNEL_COUNTERS, 3 * steps)
+    if launches != want or traced != want:
+        raise AssertionError(f"expected 3 launches of each kernel a step, counted and traced: {launches}, {traced}")
+    if not same_losses:
+        raise AssertionError("the streamed steps under the process group do not repeat the in-memory ones bit for bit")
+    if not hists_ok:
+        raise AssertionError(f"a grad_hist does not count its module's parameters once a step: {hist_counts}, {sizes}")
+    if not restored:
+        raise AssertionError("the checkpoint rank 0 wrote does not resume")
+    return res
+
+
+# (label, N, tables, d_in, d_out, shard counts): the three lookups of an
+# ffhq_64_scaled batch of 256 with the trained tables (M 4,096), and one
+# lookup on the wide cluster route (512 -> 512, M 512)
+def sharded_cases(tables: dict) -> list[tuple]:
+    cases = [(f"ffhq64 b256 {layer}", 73984, tables["ffhq"][layer], d_in, d_out, (2, 4))
+             for layer, (d_in, d_out) in zip(("L1", "L2", "L3"), hc.SUPPORTED)]
+    cases.append(("wide 512x512", 4096, tables["widths"]["wide 512x512"], 512, 512, (2,)))
+    return cases
+
+
+@parity_mode()
+def phase_sharded_lookup(tables: dict) -> list[dict]:
+    """(c) The pattern-sharded lookup on one card: ``ShardedStreamLookup``
+    over ``LocalShards`` (the model group's reductions over a stacked shard
+    axis), K1 on each shard and the merge; the backward K2 and K3 on each
+    shard fed the merged stats. Forward within 1e-5 max abs of the
+    unsharded K1; ``dx``, ``dK``, ``dU``, ``ds``, ``dt`` within phase 2's
+    backward limit (normwise) of the unsharded backward; one launch of K1,
+    K2 and K3 a shard."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, n, (k, u, s, t), d_in, d_out, splits in sharded_cases(tables):
+        x = case_input(n, d_in, gen)
+        g = torch.randn(n, d_out, device="cuda", generator=gen)
+
+        def run(group):
+            leaves = [a.detach().clone().requires_grad_() for a in (x, k, u, s, t)]
+            y = hc.stream_lookup(*leaves) if group is None else hc.ShardedStreamLookup.apply(*leaves, group)
+            y.backward(g)
+            torch.cuda.synchronize()
+            return y.detach(), [a.grad for a in leaves]
+
+        want, want_grads = run(None)
+        for n_shards in splits:
+            for fn in KERNEL_COUNTERS.values():
+                fn.launches = 0
+            got, grads = run(hc.LocalShards(n_shards))
+            launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+            row = {"shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out, "shards": n_shards,
+                   "route": lookup_route(d_in, d_out), "fwd_max_abs_err": (got - want).abs().max().item(),
+                   "bwd_normwise_err": {nm: normwise(a, b) for nm, a, b in
+                                        zip(("dx", "dK", "dU", "ds", "dt"), grads, want_grads)},
+                   "launches": launches}
+            log(json.dumps({"sharded_lookup": row}))
+            rows.append(row)
+            if row["fwd_max_abs_err"] > SHARDED_FWD_ATOL or max(row["bwd_normwise_err"].values()) > BWD_NORMWISE:
+                raise AssertionError(f"the sharded lookup disagrees with the unsharded one: {row}")
+            if launches != dict.fromkeys(KERNEL_COUNTERS, n_shards):
+                raise AssertionError(f"expected one launch of K1, K2 and K3 a shard: {row}")
+    return rows
+
+
+def phase_parallel_and_data(tables: dict) -> dict:
+    """Phase 17: (a), (b) and (c) above, in a scratch directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        ref = phase_reference_checkpoint(out)
+        streaming = phase_streaming_training(out)
+    return {"reference_checkpoint": ref, "streaming": streaming, "sharded": phase_sharded_lookup(tables)}
+
+
 
 # ------------------------------------------------------------ main
 
@@ -2297,6 +2578,9 @@ def main() -> int:
     decode = phase_decode_serving()
     phase_pixelcnn_checks()
     pixelcnn = phase_pixelcnn_full_width()
+    parallel = phase_parallel_and_data(tables)
+    streamed = parallel["streaming"]["launches"]
+    sharded = {f"{r['shape']} x{r['shards']}": r["launches"] for r in parallel["sharded"]}
     modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],
              "launches_serving_sample": serving_modes["launches_sample"],
              "launches_serving_sample_transformer": decode["launches_sample"],
@@ -2311,6 +2595,8 @@ def main() -> int:
                               launches_pixelcnn_prior_phase=pixelcnn["launches_prior_phase"]["hopfield_stream_fwd"],
                               launches_width_phase=width_launches["hopfield_stream_fwd"],
                               launches_serving_modes={k: v["hopfield_stream_fwd"] for k, v in modes.items()},
+                              launches_streaming_training=streamed["hopfield_stream_fwd"],
+                              launches_sharded_lookup={k: v["hopfield_stream_fwd"] for k, v in sharded.items()},
                               bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),
                               builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("ffhq64")})]
     kernels.append(kernel_summary("hopfield_stream_fwd", rows, wide_lookup_run["hopfield_stream_fwd"], prefix="wide",
@@ -2328,7 +2614,9 @@ def main() -> int:
                                       bound_f32_ms=sum(r["bound_f32_ms"] for r in mine if r["shape"].startswith("ffhq64")),
                                       builds={r["shape"]: r["build"] for r in mine if r["shape"].startswith("ffhq64")},
                                       launches_prior_phase=prior_launches[name],
-                                      launches_width_phase=width_launches[name]))
+                                      launches_width_phase=width_launches[name],
+                                      launches_streaming_training=streamed[name],
+                                      launches_sharded_lookup={k: v[name] for k, v in sharded.items()}))
         kernels.append(kernel_summary(name, mine, wide_lookup_run[name], prefix="wide",
                                       note="launches: phase 13 at embedding_dim=384",
                                       max_normwise_err=max(max(r["normwise_err"].values()) for r in mine

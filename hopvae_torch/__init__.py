@@ -2,12 +2,24 @@
 
 It imports torch and numpy, never JAX or ``hopvae_tpu``: the JAX package
 stays in the repository as the reference the port is tested against.
-It serves reconstructions (``hopvae_torch.serving``), trains the backbone
-and, in the prior phase, the Transformer prior (``hopvae_torch.train``).
+
+- ``hopvae_torch.serving``: reconstruct, encode, ``interpolate`` and
+  ``sample`` through the ``InferenceEngine`` and a batch CLI, under the
+  PixelCNN, Transformer or Normal prior.
+- ``hopvae_torch.train``: the backbone, then the prior phase, with JAX's
+  ``--watch-grads``, ``--profile`` and ``--debug-nans``; it starts from
+  the reference's torch checkpoint, a JAX ``.msgpack`` or its own ``.pt``
+  (``utils.checkpoint.load_reference_checkpoint``).
+- ``hopvae_torch.data``: the datasets, with an FFHQ folder streamed from
+  its files (``LazyImageFolder``, read ahead on a thread).
+- ``hopvae_torch.parallel``: data parallelism and the pattern memories
+  split over ranks under ``torchrun`` (NCCL).
+
 The TPU kernels on those paths are hand-written CUDA: the streaming
-Hopfield forward and its two backward kernels,
-``csrc/hopfield_stream_{fwd,bwd_dx,bwd_dku}.cu``, and the prior's causal
-flash attention, ``csrc/causal_attention_{fwd,bwd}.cu``.
+Hopfield forward and its two backward kernels (K1 to K3,
+``csrc/hopfield_stream_{fwd,bwd_dx,bwd_dku}.cu``), the fused bottleneck
+forward (K4, ``csrc/hopfield_bottleneck_fused.cu``) and the prior's
+causal flash attention (K5, ``csrc/causal_attention_{fwd,bwd}.cu``).
 """
 
 from hopvae_torch.config import MakeConfig, load_config

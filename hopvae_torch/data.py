@@ -5,10 +5,12 @@ The port's own copies of ``hopvae_tpu/data`` (importing any
 
 - the readers: MNIST IDX files, the CIFAR10 pickles and an FFHQ-style
   image folder (``.npy`` arrays, or image files through PIL);
-- :class:`ArrayDataset`, :func:`iterate_batches` (no per-process slice,
-  no prefetch thread) and :func:`get_datasets` with the reference's
-  splits and the hermetic fallbacks: :func:`render_digits` for MNIST (it
-  needs PIL) and :func:`synthetic_images` for CIFAR10 and FFHQ;
+- :class:`ArrayDataset`, the streaming :class:`LazyImageFolder`,
+  :func:`iterate_batches` (a per-process slice of every batch, and a
+  prefetch thread) and :func:`get_datasets` with the reference's splits
+  (an FFHQ folder of more than ``STREAMING_THRESHOLD`` files streams) and
+  the hermetic fallbacks: :func:`render_digits` for MNIST (it needs PIL)
+  and :func:`synthetic_images` for CIFAR10 and FFHQ;
 - :func:`golden_digits`: the committed ``assets/digits_28_seed0_64.npy``,
   64 rendered digits (``hopvae_tpu.data.render_digits(64, 28, seed=0)``),
   the golden input on hosts without PIL;
@@ -33,7 +35,10 @@ from __future__ import annotations
 import gzip
 import os
 import pickle
+import queue
 import struct
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
@@ -483,22 +488,69 @@ class ArrayDataset:
         return self.images[idx], self.labels[idx]
 
 
+class LazyImageFolder:
+    """A streaming image-folder dataset: it holds the file list alone, and
+    ``gather`` reads, checks and normalizes one batch of files, on a
+    thread pool of ``min(8, cpu_count)`` threads (PIL's decode and the
+    file reads release the GIL). ``.npy`` files (pre-resized
+    uint8 HWC arrays) are read without PIL. Pair it with
+    ``iterate_batches(..., prefetch=N)`` to read ahead of the device."""
+
+    def __init__(self, files: list, image_size: int, data_set: str = "FFHQ"):
+        self.files = list(files)
+        self.image_size = image_size
+        self.data_set = data_set
+        n = min(8, os.cpu_count() or 1)
+        self._pool = ThreadPoolExecutor(max_workers=n, thread_name_prefix="decode") if n > 1 else None
+
+    def __len__(self):
+        return len(self.files)
+
+    def _read_one(self, path: str) -> np.ndarray:
+        return _read_image_uint8(path, self.image_size)
+
+    def gather(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        paths = [self.files[int(i)] for i in np.asarray(idx)]
+        imgs = list((self._pool.map if self._pool is not None else map)(self._read_one, paths))
+        out = np.stack(imgs) if imgs else np.empty((0, self.image_size, self.image_size, 3), np.uint8)
+        return _normalize(out, self.data_set), np.zeros(len(idx), np.int64)
+
+    def close(self) -> None:
+        """Stop the decode threads."""
+        if self._pool is not None:
+            self._pool.shutdown()
+
+
+# an FFHQ folder of more files than this streams by default (about 1 GB of
+# 64×64 uint8 RGB)
+STREAMING_THRESHOLD = 65536
+
+
+def _split_indices(n: int, seed: int) -> tuple:
+    """The reference's random 70/10/20 train/val/test split of ``n`` items."""
+    perm = np.random.default_rng(seed).permutation(n)
+    n_tr, n_va = int(n * 0.7), int(n * 0.1)
+    return perm[:n_tr], perm[n_tr : n_tr + n_va], perm[n_tr + n_va :]
+
+
 def _split(x: np.ndarray, seed: int) -> tuple:
-    """The reference's random 70/10/20 train/val/test split."""
-    perm = np.random.default_rng(seed).permutation(len(x))
-    n_tr, n_va = int(len(x) * 0.7), int(len(x) * 0.1)
     zeros = np.zeros(len(x), np.int64)
-    return tuple(ArrayDataset(x[s], zeros[s]) for s in (perm[:n_tr], perm[n_tr : n_tr + n_va], perm[n_tr + n_va :]))
+    return tuple(ArrayDataset(x[s], zeros[s]) for s in _split_indices(len(x), seed))
 
 
-def get_datasets(config, path: str | None):
+def get_datasets(config, path: str | None, *, streaming: bool | None = None):
     """``(train, val, test)`` with the reference's split semantics.
 
     MNIST: val is test, the 10k test set. CIFAR10: the same. FFHQ: a
-    random 70/10/20 split of the folder. Without usable files under
-    ``path`` each falls back to hermetic data: 4096 + 512 rendered digits
-    (PIL), 2048 + 256 or 2048 synthetic images. Sets
+    random 70/10/20 split of the folder's files. Without usable files
+    under ``path`` each falls back to hermetic data: 4096 + 512 rendered
+    digits (PIL), 2048 + 256 or 2048 synthetic images. Sets
     ``config.data_variance`` as the JAX package does.
+
+    ``streaming`` (FFHQ with files only): serve the splits as
+    :class:`LazyImageFolder` datasets instead of one array in memory; by
+    default (None) where the folder holds more than
+    ``STREAMING_THRESHOLD`` files.
     """
     ds_name = config.data_set
     if ds_name == "MNIST":
@@ -528,23 +580,85 @@ def get_datasets(config, path: str | None):
 
     if ds_name == "FFHQ":
         config.data_variance = 1
-        imgs = load_image_folder(path, config.image_size) if path else None
-        if imgs is None:
-            imgs = synthetic_images(2048, config.image_size, config.seed)
-        return _split(_normalize(imgs, ds_name), config.seed)
+        files = list_image_files(path) if path else []
+        if not files:
+            return _split(_normalize(synthetic_images(2048, config.image_size, config.seed), ds_name), config.seed)
+        if streaming is None:
+            streaming = len(files) > STREAMING_THRESHOLD
+        if streaming:
+            return tuple(LazyImageFolder([files[i] for i in s], config.image_size, ds_name)
+                         for s in _split_indices(len(files), config.seed))
+        return _split(_normalize(load_image_folder(path, config.image_size), ds_name), config.seed)
 
     raise ValueError(f"unknown data_set {ds_name!r}")
 
 
+def _prefetched(gen, depth: int):
+    """Run ``gen`` on a daemon thread that keeps ``depth`` items ready, so
+    reading and decoding overlap the consumer's work. An exception in
+    ``gen`` is raised in the consumer; a consumer that stops early (a
+    break, an exception, the generator collected) sets the stop event,
+    and the thread then drops what it holds and ends."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:  # handed to the consumer, which raises it
+            put(e)
+
+    threading.Thread(target=worker, daemon=True, name="prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 def iterate_batches(
-    ds, batch_size: int, *, shuffle: bool, seed: int = 0, drop_remainder: bool = False
+    ds, batch_size: int, *, shuffle: bool, seed: int = 0, drop_remainder: bool = False, prefetch: int = 0,
+    local_slice: tuple[int, int] | None = None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Numpy batches ``(images, labels)`` of anything with ``__len__`` and
     ``gather(indices)``. ``shuffle`` permutes with
-    ``np.random.default_rng(seed)``, the JAX package's order."""
+    ``np.random.default_rng(seed)``, the JAX package's order.
+
+    ``prefetch > 0`` gathers that many batches ahead on a thread.
+    ``local_slice=(start, stop)`` yields only that part of every batch (a
+    process's share, ``parallel.mesh.process_batch_bounds``): every process
+    draws the same order and reads only its own files. It needs
+    ``drop_remainder``, since a ragged last batch has no such split."""
+    if local_slice is not None and not drop_remainder:
+        raise ValueError("local_slice needs drop_remainder=True: the ragged last batch has no per-process split")
     idx = np.arange(len(ds))
     if shuffle:
         np.random.default_rng(seed).shuffle(idx)
     end = len(idx) - (len(idx) % batch_size) if drop_remainder else len(idx)
-    for i in range(0, end, batch_size):
-        yield ds.gather(idx[i : i + batch_size])
+
+    def gen():
+        for i in range(0, end, batch_size):
+            b = idx[i : i + batch_size]
+            if local_slice is not None:
+                b = b[local_slice[0] : local_slice[1]]
+            yield ds.gather(b)
+
+    return _prefetched(gen(), prefetch) if prefetch > 0 else gen()

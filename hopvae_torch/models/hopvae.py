@@ -27,7 +27,9 @@ flattened to ``(B, r², d)`` tokens for the lookups.
 
 ``forward`` is differentiable on both paths: with ``impl="cuda"`` the
 backward runs through the streaming kernels (``hopvae_torch.train``
-trains with it).
+trains with it). Under a mesh that splits the patterns over ranks
+(``pattern_group``, set by the trainer) every lookup runs over this
+rank's pattern rows, the kernels or, on the CPU, their plain versions.
 """
 
 from __future__ import annotations
@@ -86,6 +88,10 @@ class HopVAE(nn.Module):
         self.post_vq_conv = nn.Conv2d(di, di, 1, device=dev)  # never applied
         self.decoder = Decoder(d, config.num_channels, h, nres, hres, dev)
         self.prior = get_prior(config, device=dev)
+        # set by a Trainer whose mesh splits the patterns over a model group
+        # of more than one rank (parallel.mesh): every lookup then runs over
+        # this rank's pattern rows and merges with the group's
+        self.pattern_group = None
 
     def _compute(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
@@ -122,7 +128,8 @@ class HopVAE(nn.Module):
         """``(x_recon, zq, aux_loss)``: the reconstruction, the quantized
         grid ``(B, r², index_dim)`` and the embedding round-trip loss."""
         z = self._encode_to_tokens(x)
-        e, zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl)
+        e, zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl,
+                                       group=self.pattern_group)
         return self._tokens_to_image(e), zq, torch.mean((r - e) ** 2)
 
     def prior_bits(self, zq: torch.Tensor) -> torch.Tensor:
@@ -147,9 +154,12 @@ class HopVAE(nn.Module):
 
     def _lookup(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """One lookup of the bottleneck outside ``backbone``, by ``impl``:
-        the streaming kernels (K1 on the card) or the eager lookup."""
+        the streaming kernels (K1 on the card) or the eager lookup; over
+        the pattern shards where ``pattern_group`` is set."""
         layer = getattr(self, name)
-        return hopfield_lookup_stream(layer, x, "cuda") if self.impl == "cuda" else hopfield_lookup(layer, x)
+        if self.impl == "cuda" or self.pattern_group is not None:
+            return hopfield_lookup_stream(layer, x, self.impl, self.pattern_group)
+        return hopfield_lookup(layer, x)
 
     def decode_grid(self, grid: torch.Tensor) -> torch.Tensor:
         """A level grid ``(B, r, r, index_dim)`` of levels in ``[0, L-1]`` →

@@ -39,16 +39,23 @@ def _compose(layers: Mapping[str, HopfieldLookup], x: torch.Tensor, num_levels: 
 
 
 def streaming_bottleneck(layers: Mapping[str, HopfieldLookup], x: torch.Tensor, num_levels: int,
-                         impl: str = "cuda"):
+                         impl: str = "cuda", group=None):
     """The bottleneck through the folded streaming lookups: the kernels
     (``impl="cuda"``, CUDA tensors) or their plain versions
-    (``impl="torch"``, CPU tensors)."""
-    return _compose(layers, x, num_levels, lambda layer, inp: hopfield_lookup_stream(layer, inp, impl))
+    (``impl="torch"``, CPU tensors); with a pattern ``group``, over
+    pattern shards (``hopfield_cuda.ShardedStreamLookup``)."""
+    return _compose(layers, x, num_levels, lambda layer, inp: hopfield_lookup_stream(layer, inp, impl, group))
 
 
 def hopfield_bottleneck(
-    layers: Mapping[str, HopfieldLookup], x: torch.Tensor, num_levels: int, impl: str = "cuda"
+    layers: Mapping[str, HopfieldLookup], x: torch.Tensor, num_levels: int, impl: str = "cuda", group=None
 ):
+    """``(e, zq, r)``: the streaming lookups under ``impl="cuda"``, the eager
+    ones under ``impl="torch"``; with a pattern ``group`` the streaming
+    lookups over pattern shards on either (JAX's ``_bottleneck_tp_local``),
+    the kernels or their plain versions by ``impl``."""
+    if group is not None:
+        return streaming_bottleneck(layers, x, num_levels, impl=impl, group=group)
     if impl == "cuda":
         return streaming_bottleneck(layers, x, num_levels, impl="cuda")
     if impl == "torch":

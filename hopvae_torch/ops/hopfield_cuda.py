@@ -39,6 +39,13 @@ so, and elsewhere on the window kernels (``csrc/hopfield_wide.cuh``: every
 product's depth streamed in chunks of 64, the outputs in column windows of
 128 on a grid axis, each window recomputing the scores).
 
+Pattern sharding (JAX's ``_attn_tp_merge``, ``_attn_ln_stream_tp``):
+:class:`ShardedStreamLookup` runs K1 on each pattern shard's rows and
+merges the shards' ``(out, m, l)`` (:func:`merge_lookup_stats`, its two
+reductions passed in: :class:`LocalShards` in one process, or a rank's
+model group, ``parallel.mesh.PatternGroup``); its backward runs K2 and K3
+on each shard fed the merged stats. No kernel of its own.
+
 K4 ``csrc/hopfield_bottleneck_fused.cu`` (:func:`bottleneck_fused_fwd`,
 plain version :func:`bottleneck_fused_fwd_reference`) is the port of the
 TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups
@@ -477,10 +484,91 @@ def stream_lookup(x2, K, U, s, t):
     return StreamLookup.apply(x2, K, U, s, t)
 
 
-def hopfield_lookup_stream(layer: HopfieldLookup, x: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
+# ------------------------------------------------------ sharded patterns
+
+
+def merge_lookup_stats(o, m, l, pmax, psum):
+    """The softmax merge of pattern shards (JAX's ``_attn_tp_merge``):
+    ``(out, gm, gl)`` from each shard's K1 output ``o`` and row stats ``m``,
+    ``l`` (natural-log units of the β-scaled scores, as
+    :func:`stream_lookup_fwd_reference` gives them)::
+
+        gm = max_r m      w = l · exp(m - gm)      gl = Σ_r w      out = Σ_r o · w / gl
+
+    ``pmax`` and ``psum`` are the two reductions over the shards, passed
+    in: over a stacked shard axis in one process (:class:`LocalShards`), or
+    across a model group of ranks (``parallel.mesh.PatternGroup``). ``gm``
+    and ``gl`` are the unsharded lookup's ``m`` and ``l``."""
+    gm = pmax(m)
+    w = l * torch.exp(m - gm)
+    gl = psum(w)
+    return psum(o * w) / gl, gm, gl
+
+
+class LocalShards:
+    """``n`` pattern shards held in one process: ``split`` cuts a table into
+    its row blocks, and the reductions run over the stacked shard axis
+    (the tests' and the chip check's stand-in for a model group)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def split(self, t: torch.Tensor) -> tuple:
+        if t.shape[0] % self.n:
+            raise ValueError(f"{t.shape[0]} patterns do not split into {self.n} shards")
+        return t.chunk(self.n)
+
+    def max(self, a: torch.Tensor) -> torch.Tensor:
+        return a.amax(0, keepdim=True)
+
+    def sum(self, a: torch.Tensor) -> torch.Tensor:
+        return a.sum(0, keepdim=True)
+
+
+class ShardedStreamLookup(torch.autograd.Function):
+    """:class:`StreamLookup` over pattern shards (JAX's ``_attn_ln_stream_tp``):
+    ``K`` and ``U`` hold this rank's rows, which ``group.split`` cuts into
+    the shards it runs here (one on a rank of a model group). The forward
+    runs K1 on each shard and merges by :func:`merge_lookup_stats`; the
+    backward feeds the merged ``gm``, ``gl`` and output into K2 and K3 on
+    each shard, and sums the partial ``dx``, ``ds`` and ``dt`` over the
+    shards. ``dK`` and ``dU`` are the shards' own rows, complete. The
+    cotangent is not reduced: every rank of a model group holds all of it
+    (JAX's ``psum`` of it undoes shard_map's split, which torch has not)."""
+
+    @staticmethod
+    def forward(ctx, x2, K, U, s, t, group):
+        parts = [stream_lookup_fwd(x2, k, u, s, t) for k, u in zip(group.split(K), group.split(U))]
+        out, gm, gl = (a[0] for a in merge_lookup_stats(*(torch.stack(p) for p in zip(*parts)), group.max,
+                                                         group.sum))
+        ctx.group = group
+        ctx.save_for_backward(x2, K, U, s, t, gm, gl, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2, K, U, s, t, gm, gl, out = ctx.saved_tensors
+        group = ctx.group
+        g = g.float().contiguous()
+        delta = (g * out).sum(-1, keepdim=True)
+        dx, ds, dt, dk, du = [], [], [], [], []
+        for k, u in zip(group.split(K), group.split(U)):
+            for acc, a in zip((dx, ds, dt), stream_bwd_dx(x2, k, u, s, t, g, gm, gl, delta)):
+                acc.append(a)
+            for acc, a in zip((dk, du), stream_bwd_dku(x2, k, u, s, t, g, gm, gl, delta)):
+                acc.append(a)
+        dx, ds, dt = (group.sum(torch.stack(a))[0] for a in (dx, ds, dt))
+        return dx, torch.cat(dk), torch.cat(du), ds, dt, None
+
+
+def hopfield_lookup_stream(layer: HopfieldLookup, x: torch.Tensor, impl: str = "cuda", group=None) -> torch.Tensor:
     """One lookup of ``x (..., d_in)`` with folded tables, differentiable.
     ``impl="cuda"`` launches the kernels and needs CUDA tensors;
-    ``impl="torch"`` takes their plain versions and needs CPU tensors."""
+    ``impl="torch"`` takes their plain versions and needs CPU tensors.
+    With a ``group`` (:class:`LocalShards`, or a rank's
+    ``parallel.mesh.PatternGroup``) the layer's ``lookup_weights`` are this
+    rank's rows and the lookup runs :class:`ShardedStreamLookup`."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     want = "cuda" if impl == "cuda" else "cpu"
@@ -489,5 +577,6 @@ def hopfield_lookup_stream(layer: HopfieldLookup, x: torch.Tensor, impl: str = "
         raise ValueError(f"impl={impl!r} needs {want.upper()} tensors, got {x.device}; use impl={other!r}")
     k, u, b, s, t = fold_layer(layer)
     *lead, d = x.shape
-    out = stream_lookup(x.reshape(-1, d).contiguous(), k, u, s, t)
+    x2 = x.reshape(-1, d).contiguous()
+    out = stream_lookup(x2, k, u, s, t) if group is None else ShardedStreamLookup.apply(x2, k, u, s, t, group)
     return (out + b).reshape(*lead, u.shape[1])

@@ -32,7 +32,7 @@ import torch
 from hopvae_torch.config import apply_overrides, load_config
 from hopvae_torch.data import MNIST_MEAN, MNIST_STD
 from hopvae_torch.models.hopvae import HopVAE
-from hopvae_torch.utils.checkpoint import load_msgpack, params_from_jax
+from hopvae_torch.utils.checkpoint import checkpoint_state, load_reference_checkpoint
 from hopvae_torch.utils.metrics import denormalize, save_image_grid
 
 OPS = ("reconstruct", "encode", "sample", "interpolate")
@@ -126,11 +126,22 @@ class InferenceEngine:
 
 def state_from_checkpoint(path: str) -> dict:
     """A checkpoint → ``HopVAE`` state_dict, on the host: the JAX package's
-    native ``.msgpack``, or else the ``.pt`` that ``hopvae_torch.train``
-    writes (its model state; the optimizer's is dropped)."""
-    if path.endswith(".msgpack"):
-        return params_from_jax(load_msgpack(path))
-    return torch.load(path, map_location="cpu")["model"]
+    native ``.msgpack``, the ``.pt`` that ``hopvae_torch.train`` writes
+    (its model state; the optimizer's is dropped), or the reference's
+    torch ``state_dict`` under the port's names. Nothing is merged: load
+    it leniently with ``load_reference_checkpoint``."""
+    return checkpoint_state(path)[0]
+
+
+def served_state(config, path: str) -> dict:
+    """The state the serving CLI serves: a fresh model of ``config`` on the
+    host, seeded with ``config.seed``, with the checkpoint at ``path``
+    loaded into it by ``load_reference_checkpoint`` (JAX's serving loads
+    the same way into ``model.init``)."""
+    torch.manual_seed(config.seed)
+    model = HopVAE(config, impl="torch", device="cpu")
+    load_reference_checkpoint(model, path)
+    return model.state_dict()
 
 
 # ----------------------------------------------------------------- CLI
@@ -169,7 +180,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Batch inference over image/.npy files")
     parser.add_argument("--config", default="mnist_28")
     parser.add_argument("--checkpoint", required=True,
-                        help="the JAX package's native .msgpack, or a .pt written by hopvae_torch.train")
+                        help="the JAX package's native .msgpack, a .pt written by hopvae_torch.train, or the "
+                             "reference's torch state_dict (.ckpt); loaded leniently")
     parser.add_argument("--mode", choices=("reconstruct", "sample", "interpolate"), default="reconstruct")
     parser.add_argument("--out", default="served")
     parser.add_argument("--seed", type=int, default=0)
@@ -200,7 +212,7 @@ def main(argv=None):
     x = _load_images(args.inputs, config) if args.mode != "sample" else None
     batch = {"reconstruct": len(args.inputs), "interpolate": len(args.inputs) // 2, "sample": 1}[args.mode]
     engine = InferenceEngine(
-        config, state_from_checkpoint(args.checkpoint),
+        config, served_state(config, args.checkpoint),
         max_batch=min(batch, args.max_batch), impl=args.impl,
         compute_dtype=torch.bfloat16 if args.compute_dtype == "bfloat16" else None,
         device=args.device, n_sample=args.n_sample, ops=(args.mode,),

@@ -18,11 +18,19 @@ its parameter pytree into a torch ``state_dict``.
   since the port keeps them as buffers. A ``prior`` subtree of another
   shape is left out; the model's lenient ``load_state_dict`` then keeps
   its fresh prior and says so.
+- :func:`load_reference_checkpoint` is JAX's loader of the same name: the
+  reference's torch ``state_dict`` (``checkpoints/MNIST-28.ckpt``, 61
+  tensors) through :func:`convert_reference_state_dict`, or a
+  ``.msgpack``, merged by :func:`lenient_merge` into the model's fresh
+  tensors; the port's own ``.pt`` as it is.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import struct
+import sys
 from typing import Any, Mapping
 
 import numpy as np
@@ -188,3 +196,125 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+# ------------------------------------------------ the reference's checkpoint
+
+_LOOKUPS = ("hopfield", "embedding_to_index", "index_to_embedding")
+# an hflayers HopfieldLayer's tensors under ``<lookup>.hopfield.`` → the
+# port's names under ``<lookup>.`` (torch Linear weights are (out, in) in
+# both, so nothing is transposed)
+_HOPFIELD_CORE = {
+    "association_core.in_proj_weight": "in_proj.weight",
+    "association_core.in_proj_bias": "in_proj.bias",
+    "association_core.out_proj.weight": "out_proj.weight",
+    "association_core.out_proj.bias": "out_proj.bias",
+    **{f"{ref}.{p}": f"{ours}.{p}" for ref, ours in (("norm_stored_pattern", "norm_stored"),
+                                                   ("norm_state_pattern", "norm_state"),
+                                                   ("norm_pattern_projection", "norm_proj"))
+       for p in ("weight", "bias")},
+}
+_RESIDUAL = re.compile(r"^(encoder|decoder)\.residual_stack\._layers\.(\d+)\._block\.([13])\.weight$")
+_CONV = re.compile(r"^(encoder\.conv_[1-4]|pre_vq_conv|post_vq_conv|decoder\.conv_1|decoder\.conv_trans_[1-3])"
+                   r"\.(weight|bias)$")
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A torch checkpoint's top-level mapping, its tensors on the host: the
+    reference's ``state_dict``, or the trainer's ``.pt``."""
+    return torch.load(path, map_location="cpu")
+
+
+def reference_name(key: str) -> str | None:
+    """The port's state-dict name of one tensor of the reference HopVAE's
+    ``state_dict`` (the names JAX's ``convert_torch_state_dict`` reads),
+    or None for a name the model has no place for."""
+    if m := _RESIDUAL.match(key):
+        return f"{m[1]}.residual_stack.layers.{m[2]}.conv_{'a' if m[3] == '1' else 'b'}.weight"
+    if _CONV.match(key):
+        return key
+    lookup, _, rest = key.partition(".")
+    if lookup in _LOOKUPS:
+        if rest == "lookup_weights":
+            return key
+        if rest.startswith("hopfield.") and rest[len("hopfield."):] in _HOPFIELD_CORE:
+            return f"{lookup}.{_HOPFIELD_CORE[rest[len('hopfield.'):]]}"
+    return None
+
+
+def convert_reference_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The reference's ``state_dict`` (``checkpoints/MNIST-28.ckpt``: 61
+    tensors, no prior) → the port's names. Its layouts are the port's
+    already: conv weights OIHW, transposed-conv weights ``(I, O, kH, kW)``,
+    Linear weights ``(out, in)``; each ``lookup_weights`` drops its leading
+    axis of 1. Tensors the model has no place for are left out, as JAX's
+    converter, which reads only the names it knows, leaves them."""
+    out = {}
+    for key, value in sd.items():
+        name = reference_name(key)
+        if name is not None:
+            out[name] = value[0] if name.endswith("lookup_weights") else value
+    return out
+
+
+def lenient_merge(fresh: Mapping[str, torch.Tensor], stored: Mapping[str, torch.Tensor],
+                  dropped: list | None = None) -> dict[str, torch.Tensor]:
+    """The reference's partial load over state dicts (JAX's ``lenient_merge``):
+    a stored tensor lands where ``fresh`` has one of that name and shape,
+    cast to its dtype; every other fresh tensor is kept. ``dropped``, when
+    given, collects where the checkpoint did not land: fresh tensors it
+    lacks or holds at another shape, and stored names with no place."""
+    out = {}
+    for name, value in fresh.items():
+        got = stored.get(name)
+        if got is not None and tuple(got.shape) == tuple(value.shape):
+            out[name] = got.to(value.dtype)
+            continue
+        out[name] = value
+        if dropped is not None:
+            dropped.append(f"{name} (shape {tuple(got.shape)} != {tuple(value.shape)})" if got is not None
+                           else f"{name} (not in checkpoint)")
+    if dropped is not None:
+        dropped.extend(f"{name} (in checkpoint, no such param)" for name in stored if name not in fresh)
+    return out
+
+
+def warn_dropped(dropped: list, path: str) -> None:
+    """JAX's warning for a partial load, on stderr."""
+    if dropped:
+        shown = ", ".join(dropped[:8]) + (" …" if len(dropped) > 8 else "")
+        print(f"warning: lenient load of {path}: {len(dropped)} subtree(s) kept their fresh initialization / "
+              f"were ignored: {shown}", file=sys.stderr)
+
+
+def checkpoint_state(path: str) -> tuple[dict[str, torch.Tensor], bool]:
+    """``(state_dict, lenient)`` of a checkpoint file, on the host, in the
+    port's names: the JAX package's native ``.msgpack`` (lenient), a
+    ``.pt`` that ``hopvae_torch.train`` writes, whose top level holds
+    ``"model"`` (strict), or else the reference's torch ``state_dict``
+    (lenient)."""
+    if path.endswith(".msgpack"):
+        return params_from_jax(load_msgpack(path)), True
+    sd = load_torch_state_dict(path)
+    if "model" in sd:
+        return sd["model"], False
+    return convert_reference_state_dict(sd), True
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str) -> list[str]:
+    """Load any checkpoint into ``model`` in place, as JAX's
+    ``load_reference_checkpoint``: an absent file is a no-op; a ``.msgpack``
+    (through :func:`params_from_jax`) and the reference's ``state_dict``
+    (through :func:`convert_reference_state_dict`) merge leniently into
+    the model's fresh tensors, and what did not land is printed; the
+    port's own ``.pt`` loads as ``model.load_state_dict`` does. Returns
+    the paths that did not land."""
+    if not os.path.exists(path):
+        return []
+    state, lenient = checkpoint_state(path)
+    dropped: list = []
+    if lenient:
+        state = lenient_merge(model.state_dict(), state, dropped)
+        warn_dropped(dropped, path)
+    model.load_state_dict(state)
+    return dropped

@@ -1,8 +1,7 @@
 """Metrics: a JSONL logger, the inverse of the input normalization and
 PNG image grids.
 
-Port of ``hopvae_tpu/utils/metrics.py`` without the wandb sink and the
-multi-process guard. :func:`save_image_grid` writes the PNG with
+Port of ``hopvae_tpu/utils/metrics.py`` without the wandb sink. :func:`save_image_grid` writes the PNG with
 ``zlib`` and ``struct`` alone, so a grid needs no PIL.
 """
 
@@ -21,14 +20,19 @@ from hopvae_torch.data import MNIST_MEAN, MNIST_STD
 
 class MetricLogger:
     """Appends one JSON record per ``log`` call to ``<out_dir>/metrics.jsonl``,
-    under the reference's metric names."""
+    under the reference's metric names. Ranks that share ``out_dir`` write
+    through one logger: those built with ``primary=False`` write nothing."""
 
-    def __init__(self, out_dir: str):
-        os.makedirs(out_dir, exist_ok=True)
+    def __init__(self, out_dir: str, primary: bool = True):
+        self.primary = primary
+        if primary:
+            os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, "metrics.jsonl")
         self._step = 0
 
     def log(self, metrics: dict, step: int | None = None) -> None:
+        if not self.primary:
+            return
         rec = {"time": time.time()}
         rec.update({k: (float(v) if np.isscalar(v) or getattr(v, "ndim", 1) == 0 else v) for k, v in metrics.items()})
         if step is None:

@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hopvae_tpu")
 def test_import_leaves_no_jax_module():
     code = (
         "import sys; import hopvae_torch, hopvae_torch.serving, hopvae_torch.train, chip_smoke, "
-        "hopvae_torch.ops.attention, hopvae_torch.ops.attention_cuda, hopvae_torch.models.priors; "
+        "hopvae_torch.ops.attention, hopvae_torch.ops.attention_cuda, hopvae_torch.models.priors, "
+        "hopvae_torch.parallel.mesh, hopvae_torch.data, hopvae_torch.utils.checkpoint; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -35,6 +36,6 @@ def _imported_roots(path: Path):
 
 def test_sources_import_no_jax():
     files = sorted((ROOT / "hopvae_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 10 and ROOT / "hopvae_torch" / "parallel" / "mesh.py" in files
     bad = {str(f.relative_to(ROOT)): r for f in files for r in _imported_roots(f) if r in FORBIDDEN}
     assert not bad, bad
