@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Eighteen phases, each of which raises on failure:
+Nineteen phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -164,7 +164,21 @@ Eighteen phases, each of which raises on failure:
     the wide cluster route (512 -> 512, N 4,096, M 512): forward within
     1e-5 of the unsharded K1, the five gradients within 5e-5 normwise of
     the unsharded K2 and K3, one launch of each a shard.
-18. The run's wall time (the build included), the kernel summary as one
+18. Tooling and launch: (a) ``examples/torch_quickstart.py``'s ``main``
+    at its defaults (``pixelcnn_mnist_28``, 512 rendered digits, 3
+    epochs, the prior phase in the last; ``impl="cuda"``), K1, K2 and K3
+    each launched at least once in it (counted), its three grids written,
+    its epoch losses and its recon MSE and aux finite, its seconds logged;
+    (b) ``tools/torch_convert_checkpoint.py``: the quickstart's ``.pt`` to
+    ``.msgpack``, read back through ``load_msgpack`` and
+    ``params_from_jax`` as the ``.pt``'s model state bit for bit, with its
+    epoch in ``MNIST-28.meta.json``; and phase 17a's reference ``.ckpt``
+    to ``.msgpack``, its 61 tensors bit for bit; (c) ``deploy/torch_job.sh``
+    run for real with ``NPROC=1`` on ``mnist_28`` (torchrun, one NCCL rank,
+    the production path), one epoch at batch 256 through the extra
+    arguments: exit 0, its ``.pt`` written, its epoch's loss finite; the
+    phase's wall time logged.
+19. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
@@ -174,10 +188,13 @@ prints no result, without a CUDA card or outside the repository.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -207,7 +224,7 @@ from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
 from hopvae_torch.train import Trainer, load_weights, prior_train_golden, profiled, train_golden
 from hopvae_torch.utils import nvcc
-from hopvae_torch.utils.checkpoint import load_reference_checkpoint
+from hopvae_torch.utils.checkpoint import load_msgpack, load_reference_checkpoint, params_from_jax
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINTS = ROOT / "checkpoints"
@@ -2206,6 +2223,16 @@ def reference_key(name: str) -> str:
     return name
 
 
+def write_reference_ckpt(path: Path) -> dict:
+    """Write the MNIST backbone of ``PixelCNN-MNIST-28.msgpack`` under the
+    reference's 61 names (``lookup_weights`` with its leading axis of 1)
+    to ``path``; returns it under the port's names."""
+    msgpack = str(CHECKPOINTS / GOLDENS["mnist_digits"]["checkpoint"])
+    backbone = {k: v for k, v in state_from_checkpoint(msgpack).items() if not k.startswith(PRIOR)}
+    torch.save({reference_key(k): v[None] if k.endswith("lookup_weights") else v for k, v in backbone.items()}, path)
+    return backbone
+
+
 @parity_mode()
 def phase_reference_checkpoint(out: Path) -> dict:
     """(a) The reference's torch checkpoint (fault F2): the MNIST backbone
@@ -2216,9 +2243,8 @@ def phase_reference_checkpoint(out: Path) -> dict:
     bit, and the f32 forward holds phase 3's golden."""
     spec = GOLDENS["mnist_digits"]
     msgpack = str(CHECKPOINTS / spec["checkpoint"])
-    backbone = {k: v for k, v in state_from_checkpoint(msgpack).items() if not k.startswith(PRIOR)}
     ckpt = out / "MNIST-28.ckpt"
-    torch.save({reference_key(k): v[None] if k.endswith("lookup_weights") else v for k, v in backbone.items()}, ckpt)
+    backbone = write_reference_ckpt(ckpt)
     cfg = load_config("mnist_28")
     models = []
     for path in (str(ckpt), msgpack):
@@ -2439,6 +2465,129 @@ def phase_parallel_and_data(tables: dict) -> dict:
     return {"reference_checkpoint": ref, "streaming": streaming, "sharded": phase_sharded_lookup(tables)}
 
 
+# ------------------------------------------------------------ phase 18
+
+
+def script_module(path: Path):
+    """A script of the checkout (``examples/``, ``tools/``) as a module: its
+    ``main`` is called as the script would call it."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def epoch_records(run: Path) -> list:
+    return [r for r in map(json.loads, open(run / "metrics.jsonl")) if "Train Reconstruction Error" in r]
+
+
+def phase_quickstart(out: Path) -> dict:
+    """(a) The quickstart's ``main`` at its defaults, K1 to K3 counted
+    around it."""
+    quickstart = script_module(ROOT / "examples" / "torch_quickstart.py")
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = quickstart.main(["--out", str(out / "quickstart")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+    records = epoch_records(out / "quickstart")
+    losses = [r["Train Reconstruction Error"] for r in records]
+    res = {"seconds": seconds, "launches": launches, "epoch_losses": losses,
+           "prior_phase": [bool(r["fit_prior"]) for r in records], "recon_mse": run["recon_mse"], "aux": run["aux"],
+           "grids": [os.path.basename(g) for g in run["grids"] if os.path.getsize(g) > 0]}
+    log(json.dumps({"quickstart": res}))
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the quickstart did not run every lookup kernel: {launches}")
+    if len(res["grids"]) != 3:
+        raise AssertionError(f"the quickstart did not write its three grids: {run['grids']}")
+    if res["prior_phase"] != [False, False, True]:
+        raise AssertionError(f"the quickstart's prior phase is not its last epoch: {res['prior_phase']}")
+    if not all(math.isfinite(v) for v in (*losses, run["recon_mse"], run["aux"])):
+        raise AssertionError(f"the quickstart's losses are not finite: {res}")
+    return {**res, "checkpoint": run["checkpoint"]}
+
+
+def phase_convert(out: Path, trained: str) -> dict:
+    """(b) The converter: the quickstart's trainer ``.pt`` and the reference
+    ``.ckpt`` to ``.msgpack``, read back bit for bit."""
+    converter = script_module(ROOT / "tools" / "torch_convert_checkpoint.py")
+    t0 = time.perf_counter()
+    jax_dir = out / "jax"
+    converter.main(["--config", "pixelcnn_mnist_28", "--input", trained,
+                    "--output", str(jax_dir / "MNIST-28.ckpt.msgpack")])
+    pt = torch.load(trained, map_location="cpu")
+    back = params_from_jax(load_msgpack(str(jax_dir / "MNIST-28.ckpt.msgpack")))
+    trained_same = back.keys() == pt["model"].keys() and all(torch.equal(back[k], v) for k, v in pt["model"].items())
+    meta = json.loads((jax_dir / "MNIST-28.meta.json").read_text())
+    backbone = write_reference_ckpt(out / "MNIST-28.ckpt")
+    converter.main(["--config", "mnist_28", "--input", str(out / "MNIST-28.ckpt"),
+                    "--output", str(out / "MNIST-28.msgpack")])
+    ref = params_from_jax(load_msgpack(str(out / "MNIST-28.msgpack")))
+    ref_same = ref.keys() == backbone.keys() and all(torch.equal(ref[k], v) for k, v in backbone.items())
+    res = {"seconds": time.perf_counter() - t0, "trained_tensors": len(back), "trained_bit_for_bit": trained_same,
+           "meta": meta, "epoch": pt["epoch"], "reference_tensors": len(ref), "reference_bit_for_bit": ref_same}
+    log(json.dumps({"convert": res}))
+    if not trained_same or meta != {"epoch": pt["epoch"]}:
+        raise AssertionError(f"the trainer's .pt did not come back from .msgpack bit for bit: {res}")
+    if len(ref) != 61 or not ref_same:
+        raise AssertionError(f"the reference .ckpt did not come back from .msgpack as its 61 tensors: {res}")
+    return res
+
+
+def run_group(cmd: list, env: dict, timeout: float) -> subprocess.CompletedProcess:
+    """Run ``cmd`` in a session of its own; on the timeout kill the whole
+    group (torchrun and its ranks), so no process outlives the call."""
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+
+
+LAUNCH_TIMEOUT_S = 300
+
+
+def phase_launch(out: Path) -> dict:
+    """(c) ``deploy/torch_job.sh`` for real: one rank on this card, one epoch
+    of ``mnist_28`` at batch 256 on the production path."""
+    (out / "mnist").mkdir()  # no MNIST files: the rendered digits
+    run = out / "launch"
+    cmd = ["bash", str(ROOT / "deploy" / "torch_job.sh"), str(out / "mnist"), "mnist_28", "--",
+           "--epochs", "1", "--set", "batch_size=256", "--out", str(run)]
+    t0 = time.perf_counter()
+    proc = run_group(cmd, {**os.environ, "NPROC": "1"}, LAUNCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    records = epoch_records(run) if (run / "metrics.jsonl").exists() else []
+    res = {"seconds": seconds, "returncode": proc.returncode,
+           "torchrun": shutil.which("torchrun"),
+           "checkpoint": (run / "MNIST-28.pt").exists(), "epochs": len(records),
+           "loss": records[-1]["Train Reconstruction Error"] if records else None}
+    log(json.dumps({"launch": res}))
+    if proc.returncode != 0 or not res["checkpoint"] or res["epochs"] != 1 or not math.isfinite(res["loss"]):
+        raise AssertionError(f"deploy/torch_job.sh failed: {res}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return res
+
+
+def phase_tooling() -> dict:
+    """Phase 18: (a), (b) and (c) above, in a scratch directory."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        quickstart = phase_quickstart(out)
+        convert = phase_convert(out, quickstart["checkpoint"])
+        launch = phase_launch(out)
+    res = {"quickstart": quickstart, "convert": convert, "launch": launch, "seconds": time.perf_counter() - t0,
+           "card": smi("name,power.limit")}
+    log(f"phase 18 (tooling and launch) passed in {res['seconds']:.1f} s on {res['card']}")
+    return res
+
+
 
 # ------------------------------------------------------------ main
 
@@ -2579,6 +2728,7 @@ def main() -> int:
     phase_pixelcnn_checks()
     pixelcnn = phase_pixelcnn_full_width()
     parallel = phase_parallel_and_data(tables)
+    phase_tooling()
     streamed = parallel["streaming"]["launches"]
     sharded = {f"{r['shape']} x{r['shards']}": r["launches"] for r in parallel["sharded"]}
     modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],

@@ -593,12 +593,22 @@ def get_datasets(config, path: str | None, *, streaming: bool | None = None):
     raise ValueError(f"unknown data_set {ds_name!r}")
 
 
+# how long a consumer that stops waits for its prefetch thread to end
+PREFETCH_JOIN_S = 5.0
+
+
 def _prefetched(gen, depth: int):
-    """Run ``gen`` on a daemon thread that keeps ``depth`` items ready, so
-    reading and decoding overlap the consumer's work. An exception in
-    ``gen`` is raised in the consumer; a consumer that stops early (a
-    break, an exception, the generator collected) sets the stop event,
-    and the thread then drops what it holds and ends."""
+    """Run ``gen`` on a daemon thread named ``"prefetch"`` that keeps
+    ``depth`` items ready, so reading and decoding overlap the consumer's
+    work. An exception in ``gen`` is raised in the consumer. A consumer
+    that stops, at the end, early (a break, an exception, the generator
+    closed or collected) or on ``gen``'s exception, sets the stop event
+    and joins the thread before it returns: the thread sees the event
+    within 0.1 s of a ``put``, drops what it holds and ends, so none is
+    left behind. A thread still blocked inside ``gen`` (a read that does
+    not return) after ``PREFETCH_JOIN_S`` is left to end by itself when
+    that read returns; being a daemon, it never keeps the process
+    alive."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     end = object()
@@ -621,7 +631,8 @@ def _prefetched(gen, depth: int):
         except BaseException as e:  # handed to the consumer, which raises it
             put(e)
 
-    threading.Thread(target=worker, daemon=True, name="prefetch").start()
+    thread = threading.Thread(target=worker, daemon=True, name="prefetch")
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -632,6 +643,8 @@ def _prefetched(gen, depth: int):
             yield item
     finally:
         stop.set()
+        if thread is not threading.current_thread():  # a collector may finalize us on the worker
+            thread.join(PREFETCH_JOIN_S)
 
 
 def iterate_batches(

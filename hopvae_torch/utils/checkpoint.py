@@ -1,11 +1,16 @@
-"""Checkpoints: read the JAX package's native ``.msgpack`` files and turn
-its parameter pytree into a torch ``state_dict``.
+"""Checkpoints: read and write the JAX package's native ``.msgpack`` files
+and map its parameter pytree to a torch ``state_dict`` and back.
 
 - :func:`load_msgpack` is a small pure-Python reader of the format that
   ``flax.serialization.msgpack_serialize`` writes: maps, str/bin, ints,
   floats, and the ndarray extension (ext type 1, whose payload is the
   msgpack triple ``(shape, dtype name, raw bytes)``). Lists are stored as
   maps keyed ``"0"``, ``"1"``, ….
+- :func:`save_msgpack` is the writer of the same format, byte for byte
+  what the JAX package's ``save_params`` (``flax.serialization.to_bytes``
+  of ``jax.device_get(tree)``) writes for the same tree: map keys sorted,
+  as JAX orders a dict's keys; a list as a map keyed by index, in index
+  order; each length in its smallest msgpack encoding.
 - :func:`params_from_jax` maps the JAX layouts onto torch's (the inverse
   of ``hopvae_tpu/utils/checkpoint.py``): conv HWIO → OIHW, the flipped
   HWIO of a transposed conv → ``(I, O, kH, kW)``, a Linear ``(d_in,
@@ -18,6 +23,11 @@ its parameter pytree into a torch ``state_dict``.
   since the port keeps them as buffers. A ``prior`` subtree of another
   shape is left out; the model's lenient ``load_state_dict`` then keeps
   its fresh prior and says so.
+- :func:`params_to_jax` is its inverse: a ``HopVAE`` state_dict → the
+  tree JAX's ``HopVAE.init`` gives for the same config, leaf for leaf
+  (f32), the PixelCNN prior's causality masks written from
+  ``_group_mask``, and ``prior: {}`` under the Normal prior. JAX's strict
+  ``load_params`` reads what :func:`save_msgpack` writes of it.
 - :func:`load_reference_checkpoint` is JAX's loader of the same name: the
   reference's torch ``state_dict`` (``checkpoints/MNIST-28.ckpt``, 61
   tensors) through :func:`convert_reference_state_dict`, or a
@@ -128,6 +138,100 @@ def load_msgpack(path: str) -> dict:
     return out
 
 
+# the largest array flax writes as one leaf; past it flax splits it in chunks
+_MAX_LEAF_BYTES = 1 << 30
+
+
+def _header(out: bytearray, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+    """A length ``n`` in its smallest msgpack encoding: the fix form up to
+    ``fix_max`` (when there is one), else ``codes`` for 8, 16 and 32 bits
+    (``None`` where a form has no 8-bit width)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"length {n} does not fit msgpack")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 0xFFFFFFFFFFFFFFFF)) if v >= 0 else (
+        (0xD0, ">b", -0x80, 0), (0xD1, ">h", -0x8000, 0), (0xD2, ">i", -0x80000000, 0),
+        (0xD3, ">q", -0x8000000000000000, 0))
+    for code, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out.append(code)
+            out += struct.pack(fmt, v)
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _ndarray_payload(a: np.ndarray) -> bytes:
+    """The ndarray extension's payload: ``(shape, dtype name, raw bytes)``."""
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise TypeError(f"cannot write an array of dtype {a.dtype}")
+    if a.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"an array of {a.nbytes} bytes is past one leaf of the format ({_MAX_LEAF_BYTES})")
+    out = bytearray()
+    _pack((tuple(int(n) for n in a.shape), a.dtype.name, a.tobytes("C")), out, tree=False)
+    return bytes(out)
+
+
+def _pack(v: Any, out: bytearray, tree: bool = True) -> None:
+    """Append ``v``'s msgpack encoding to ``out``. In a ``tree`` a map's keys
+    are written sorted and a list or tuple as a map keyed by index; outside
+    one (the ndarray payload) a tuple is an array."""
+    if isinstance(v, int) and not isinstance(v, bool):
+        _pack_int(out, v)
+    elif isinstance(v, str):
+        raw = v.encode("utf-8")
+        _header(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(v, (bytes, bytearray)):
+        _header(out, len(v), None, -1, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif isinstance(v, np.ndarray):
+        payload = _ndarray_payload(v)
+        if len(payload) in (1, 2, 4, 8, 16):  # fixext 1/2/4/8/16
+            out.append(0xD4 + (1, 2, 4, 8, 16).index(len(payload)))
+        else:
+            _header(out, len(payload), None, -1, (0xC7, 0xC8, 0xC9))
+        out.append(_EXT_NDARRAY)
+        out += payload
+    elif isinstance(v, Mapping) or (tree and isinstance(v, (list, tuple))):
+        items = sorted(v.items()) if isinstance(v, Mapping) else list(enumerate(v))
+        _header(out, len(items), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, x in items:
+            _pack(str(k), out)
+            _pack(x, out, tree)
+    elif isinstance(v, (list, tuple)):
+        _header(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
+        for x in v:
+            _pack(x, out, tree)
+    else:
+        raise TypeError(f"cannot write {type(v).__name__} to msgpack")
+
+
+def save_msgpack(path: str, tree: Mapping) -> None:
+    """Write a nested dict (lists allowed) of numpy arrays, str, bytes and
+    ints in the native format, to a temporary file renamed into place:
+    the bytes of the JAX package's ``save_params`` for the same tree."""
+    out = bytearray()
+    _pack(tree, out)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(out)
+    os.replace(tmp, path)
+
+
 def _leaf(path: tuple, a) -> tuple[str, np.ndarray]:
     """One JAX leaf → (torch name, array in torch layout)."""
     *parents, name = path
@@ -153,19 +257,31 @@ def _items(node):
     return node.items() if isinstance(node, Mapping) else ((str(i), v) for i, v in enumerate(node))
 
 
+def _pixelcnn_convs(prior: Mapping):
+    """``(name, conv subtree, mask kind)`` of each masked conv of a PixelCNN
+    prior subtree: mask A on ``conv_in``, mask B elsewhere."""
+    yield "conv_in", prior["conv_in"], "A"
+    for i, block in _items(prior["res"]):
+        yield f"res/{i}/conv_a", block["conv_a"], "B"
+        yield f"res/{i}/conv_b", block["conv_b"], "B"
+    yield "conv_out1", prior["conv_out1"], "B"
+    yield "conv_out2", prior["conv_out2"], "B"
+
+
+def _mask(conv: Mapping, kind: str, n_groups: int) -> np.ndarray:
+    return _group_mask(*np.shape(conv["kernel"]), n_groups, mask_type=kind)
+
+
 def check_pixelcnn_masks(prior: Mapping) -> None:
     """Raise ``ValueError`` unless every stored ``mask`` of a PixelCNN prior
     subtree equals ``_group_mask`` at its conv's shape: mask A on
     ``conv_in``, mask B elsewhere, in ``C`` groups (``conv_in``'s input
     channels)."""
     n_groups = np.shape(prior["conv_in"]["kernel"])[2]
-    convs = [("conv_in", prior["conv_in"], "A"), ("conv_out1", prior["conv_out1"], "B"),
-             ("conv_out2", prior["conv_out2"], "B")]
-    convs += [(f"res/{i}/{name}", block[name], "B") for i, block in _items(prior["res"]) for name in ("conv_a", "conv_b")]
-    for name, conv, kind in convs:
+    for name, conv, kind in _pixelcnn_convs(prior):
         if "mask" not in conv:
             continue
-        want = _group_mask(*np.shape(conv["kernel"]), n_groups, mask_type=kind)
+        want = _mask(conv, kind, n_groups)
         if not np.array_equal(np.asarray(conv["mask"], np.float32), want):
             raise ValueError(f"prior/{name}/mask is not the PixelCNN's mask {kind} at {want.shape} in "
                              f"{n_groups} groups")
@@ -196,6 +312,68 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def _jax_leaf(name: str, t) -> tuple[list[str], np.ndarray]:
+    """One torch tensor → (JAX path, array in JAX layout): the inverse of
+    :func:`_leaf`."""
+    *parents, leaf = name.split(".")
+    a = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, dtype=np.float32)
+    if leaf == "weight" and a.ndim == 4:
+        if parents and parents[-1].startswith("conv_trans"):
+            a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)  # (I, O, kH, kW) → flipped HWIO
+        else:
+            a = a.transpose(2, 3, 1, 0)  # OIHW → HWIO
+        leaf = "kernel"
+    elif leaf == "weight" and a.ndim == 2:
+        a, leaf = a.T, "kernel"  # Linear weight (d_out, d_in) → kernel (d_in, d_out)
+    elif leaf == "weight" and a.ndim == 1:
+        leaf = "scale"  # LayerNorm
+    elif leaf not in _KEPT:
+        raise ValueError(f"unknown parameter {name}")
+    return [*parents, leaf], np.array(a, order="C")
+
+
+def _lists(node):
+    """Maps keyed ``"0"`` … ``"n-1"`` (a ``ModuleList``'s indices) → lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        if sorted(map(int, node)) != list(range(len(node))):
+            raise ValueError(f"list indices {sorted(node)} are not 0 to {len(node) - 1}")
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def params_to_jax(state_dict: Mapping[str, Any], config) -> dict:
+    """A ``HopVAE`` state_dict → the JAX parameter tree of ``config``: the
+    tree ``hopvae_tpu``'s ``HopVAE(config).init`` gives, with the same
+    leaves, shapes and dtypes (f32), so JAX's strict ``load_params`` reads
+    it. Conv OIHW → HWIO, a transposed conv's ``(I, O, kH, kW)`` → its
+    flipped HWIO, Linear ``weight`` → ``kernel (d_in, d_out)``, LayerNorm
+    ``weight`` → ``scale``; ``ModuleList`` indices → the ``layers``,
+    ``blocks`` and ``res`` lists. The PixelCNN prior's causality masks,
+    which the JAX tree stores and the port keeps as buffers, are written
+    from ``_group_mask`` (``config.index_dim`` groups); the Normal prior's
+    subtree is ``{}``."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        path, a = _jax_leaf(name, t)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    tree = _lists(tree)
+    prior = tree.setdefault("prior", {})
+    keys = set(prior)
+    want = {"PixelCNN": PIXELCNN_KEYS, "Transformer": TRANSFORMER_PRIOR_KEYS}.get(config.prior, frozenset())
+    if keys != want:
+        raise ValueError(f"the state's prior holds {sorted(keys)}, not the {config.prior!r} prior's {sorted(want)}")
+    if config.prior == "PixelCNN":
+        for _name, conv, kind in _pixelcnn_convs(prior):
+            conv["mask"] = _mask(conv, kind, config.index_dim)
+    return tree
 
 
 # ------------------------------------------------ the reference's checkpoint

@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX, flax nor the
-JAX package, and no source of it (or of chip_smoke.py) imports them."""
+JAX package, and no source of it (or of chip_smoke.py, the converter
+tool and the quickstart) imports them."""
 
 import ast
 import os
@@ -35,7 +36,9 @@ def _imported_roots(path: Path):
 
 
 def test_sources_import_no_jax():
-    files = sorted((ROOT / "hopvae_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "hopvae_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_convert_checkpoint.py", ROOT / "examples" / "torch_quickstart.py",
+    ]
     assert len(files) > 10 and ROOT / "hopvae_torch" / "parallel" / "mesh.py" in files
     bad = {str(f.relative_to(ROOT)): r for f in files for r in _imported_roots(f) if r in FORBIDDEN}
     assert not bad, bad

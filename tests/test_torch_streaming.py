@@ -4,7 +4,6 @@
 ``.npy`` images (and of PNGs, which both read through PIL)."""
 
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -110,18 +109,24 @@ class _Failing(tdata.ArrayDataset):
         return super().gather(idx)
 
 
+def _new_prefetch_threads(known) -> list:
+    """The live ``"prefetch"`` threads that are not in ``known``: this
+    test's own, whatever else runs in the process."""
+    return [t for t in threading.enumerate() if t.name == "prefetch" and t not in known]
+
+
 def test_prefetch_raises_in_the_consumer_and_releases_its_thread():
-    """An exception in ``gather`` reaches the consumer; a consumer that stops
-    early leaves no thread behind."""
+    """An exception in ``gather`` reaches the consumer; a consumer that stops,
+    on that exception or early, has joined its thread when it returns."""
     ds = _Failing(np.zeros((40, 2), np.float32), np.zeros(40, np.int64))
+    known = set(threading.enumerate())
     with pytest.raises(OSError, match="unreadable"):
         list(tdata.iterate_batches(ds, 8, shuffle=False, prefetch=2))
-    before = threading.active_count()
+    assert _new_prefetch_threads(known) == []
     gen = tdata.iterate_batches(tdata.ArrayDataset(ds.images, ds.labels), 2, shuffle=False, prefetch=2)
     next(gen)
-    assert threading.active_count() == before + 1
+    (thread,) = _new_prefetch_threads(known)
+    assert thread.is_alive() and thread.daemon
     gen.close()
-    deadline = time.monotonic() + 5
-    while threading.active_count() > before and time.monotonic() < deadline:
-        time.sleep(0.02)
-    assert threading.active_count() == before
+    assert not thread.is_alive()
+    assert _new_prefetch_threads(known) == []

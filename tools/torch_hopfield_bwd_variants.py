@@ -18,7 +18,8 @@ second launch repeats the first bit for bit, whether the outputs equal the
 shapes and every shape past 256 (K1 there through its wide entry, the
 query build included), where SDPA's forward on the built q with scale
 beta (the library's K1) and one ``torch.autograd.grad`` through SDPA with
-the same cotangent (the library's K2 + K3) are timed too. Past 256 (but
+the same cotangent (the library's K2 + K3) are timed too, and K1's plain
+version (``stream_lookup_fwd_reference``). Past 256 (but
 at full scale) K1's row also reads ``rebuilt_row_sum_err``, phase 2's
 row sums of the attention rebuilt from its ``m`` and ``l``. A build that
 refuses a width (cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
@@ -211,10 +212,12 @@ def main(argv: list[str]) -> int:
                             lambda: call(libs[name][stem], entry, ptrs, (n, k.shape[0], d_in, d_out)), reps)
                 print(json.dumps(row), flush=True)
             if label.startswith("wide"):
+                plain_ms = cs.cuda_ms(lambda: hc.stream_lookup_fwd_reference(x, k, u, s, t), reps)
                 fwd_ms, fwd_backend = cs.library_ms(cs.state_query(x, s, t), k, u, reps)
                 with torch.inference_mode(False):  # autograd through SDPA on fresh copies of the inference tensors
                     lib_ms, backend = cs.library_bwd_ms(cs.state_query(x, s, t), k, u, g.clone(), reps)
-                print(json.dumps({"shape": label, "library_fwd_ms": fwd_ms, "library_fwd_backend": fwd_backend,
+                print(json.dumps({"shape": label, "plain_fwd_ms": plain_ms, "library_fwd_ms": fwd_ms,
+                                  "library_fwd_backend": fwd_backend,
                                   "library_bwd_ms": lib_ms, "library_backend": backend}), flush=True)
             del x, g, out, m, l, args, want, first, work
             torch.cuda.empty_cache()
