@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
-Nineteen phases, each of which raises on failure:
+Twenty phases, each of which raises on failure:
 
 1. Environment: versions, the card's name and power limit, and the build
    of every kernel in ``hopvae_torch/csrc`` (timed), with each instance's
@@ -178,8 +178,31 @@ Nineteen phases, each of which raises on failure:
     the production path), one epoch at batch 256 through the extra
     arguments: exit 0, its ``.pt`` written, its epoch's loss finite; the
     phase's wall time logged.
-19. The run's wall time (the build included), the kernel summary as one
+19. The graphed epoch (``Trainer.epoch_step``: the step captured once in
+    a CUDA graph a phase and replayed): ``fit`` on data staged on the card,
+    2 epochs, against the eager ``train_step`` loop over the same batches
+    in the same order, every step's loss, recon and aux (and ``grad_hist``
+    and gradient norms where watched), the final parameters, Adam's state
+    and the learning rate bit for bit, one capture, the counts read around
+    ``fit`` (through the replays): (a) ``mnist_28`` from the golden
+    backbone at batch 256 (16 steps an epoch), f32 with TF32 off, K1 to K3
+    3 a step; (b) ``ffhq_64_scaled`` at batch 256 on the production path
+    with ``watch_gradients``, K1 to K3 3 a step (where two eager runs
+    differed, the graph would be held to their spread instead, and the
+    record says so); (c) phase 10's Transformer prior phase, K5 4 a step
+    each, K1 3; (d) phase 16e's PixelCNN prior phase, K1 3 a step; peak
+    GiB of each; (e) logged, no limit: images/s of the graphed and the
+    eager epoch, the step's device seconds from
+    ``utils.benchmark.device_seconds_per_iter`` and the MFU of each from
+    ``utils.flops.train_flops_per_image`` at ``ffhq_64_scaled`` 256 and at
+    phase 13's ``mnist_28`` with ``embedding_dim=384`` (batch 256), beside
+    the card's name and power limit.
+20. The run's wall time (the build included), the kernel summary as one
     JSON line, the card line, and last ``{"ok": true, "device": {...}}``.
+
+Phases 6, 10, 11, 16e, 17b (its in-memory run) and 18a train through the
+graphed epoch too (``fit`` on staged data); their limits are unchanged.
+The bounds (``bound_ms``) come from ``hopvae_torch/utils/flops.py``.
 
 It imports nothing of JAX or of ``hopvae_tpu``; it exits non-zero, and
 prints no result, without a CUDA card or outside the repository.
@@ -222,22 +245,16 @@ from hopvae_torch.ops.hopfield import HopfieldLookup
 from hopvae_torch.ops.ste import straight_through_round
 from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
-from hopvae_torch.train import Trainer, load_weights, prior_train_golden, profiled, train_golden
+from hopvae_torch.train import (Trainer, load_weights, prior_has_parameters, prior_train_golden, profiled,
+                                train_golden)
 from hopvae_torch.utils import nvcc
+from hopvae_torch.utils.benchmark import device_seconds_per_iter
+from hopvae_torch.utils.flops import (PEAKS_CARD, SFU_PER_CLOCK_PER_SM, attention_bound, bound, bound_bwd, fused_bound,
+                                     mfu, train_flops_per_image)
 from hopvae_torch.utils.checkpoint import load_msgpack, load_reference_checkpoint, params_from_jax
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINTS = ROOT / "checkpoints"
-
-# H100 SXM peaks at a 700 W limit (NVIDIA data sheet): f32 on the CUDA
-# cores and HBM3 bandwidth. exp runs on the special-function units at 16
-# results per clock per SM (CUDA C++ Programming Guide, compute 9.0).
-F32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
-# dense TF32 on the tensor cores (NVIDIA data sheet): K1 to K5 run their
-# products in three TF32 passes, so their bound counts 3x the FLOPs at it
-TF32_FLOPS = 495e12
-SFU_PER_CLOCK_PER_SM = 16
 
 OUT_ATOL = 1e-4  # out: f32 sums in another order than cuBLAS's
 STAT_RTOL = 1e-5  # m (floored at |m| = 1: it enters only as exp(sc - m)) and l
@@ -341,46 +358,6 @@ def exp_per_s() -> float:
 
 
 # ------------------------------------------------------------ phase 2
-
-
-def roof(flops: float, exps: float, floats: float, exp_per_s: float, flops_per_s: float = F32_FLOPS
-         ) -> tuple[float, str]:
-    """Least time (ms) of a kernel: its FLOPs at ``flops_per_s`` (the f32
-    peak unless given) and its exps on the SFUs (they overlap) against the
-    f32 words it must move at the HBM rate, each input read once and each
-    output written once."""
-    ops_s = max(flops / flops_per_s, exps / exp_per_s)
-    bytes_s = 4 * floats / HBM_BYTES_PER_S
-    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
-
-
-def bound(n, m, d_in, d_out, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
-    """K1: reads x, K, U, s, t; writes out, m, l; the score and value
-    products at the real widths. ``tensor_cores``: three times the FLOPs
-    at the TF32 rate (the kernel's three passes) instead of the FLOPs at
-    the f32 rate of the CUDA cores."""
-    floats = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 2 * n
-    flops = 2 * n * m * (d_in + d_out)
-    if tensor_cores:
-        return roof(3 * flops, n * m, floats, exp_per_s, TF32_FLOPS)
-    return roof(flops, n * m, floats, exp_per_s)
-
-
-def bound_bwd(kernel: str, n, m, d_in, d_out, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
-    """K2 and K3 read x, K, U, s, t, g, m, l and delta. K2 does the score
-    product, g·Uᵀ and dS·K and writes dx, ds, dt; K3 does the score
-    product, g·Uᵀ, Aᵀg and dSᵀq and writes dK, dU. The FLOPs are those of
-    the real widths. ``tensor_cores``: three times the FLOPs at the TF32
-    rate (the kernels' three passes) instead of the FLOPs at the f32 rate
-    of the CUDA cores."""
-    reads = n * d_in + m * (d_in + d_out) + 2 * d_in + n * d_out + 3 * n
-    if kernel == "dx":
-        flops, words = 2 * n * m * (2 * d_in + d_out), reads + n * d_in + 2 * d_in
-    else:
-        flops, words = 2 * n * m * (2 * d_in + 2 * d_out), reads + m * (d_in + d_out)
-    if tensor_cores:
-        return roof(3 * flops, n * m, words, exp_per_s, TF32_FLOPS)
-    return roof(flops, n * m, words, exp_per_s)
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -896,7 +873,7 @@ def phase_train_full_width() -> dict:
     adam, adam_resumed = trainer.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
     restored = {
         "step": resumed.schedule.last_epoch == trainer.schedule.last_epoch == steps,
-        "lr": resumed.optimizer.param_groups[0]["lr"] == trainer.optimizer.param_groups[0]["lr"],
+        "lr": float(resumed.optimizer.param_groups[0]["lr"]) == float(trainer.optimizer.param_groups[0]["lr"]),
         "adam_state": adam.keys() == adam_resumed.keys() and all(
             torch.equal(adam[i][k], adam_resumed[i][k]) for i in adam for k in adam[i]
         ),
@@ -911,7 +888,7 @@ def phase_train_full_width() -> dict:
                                       "epoch_seconds", "images_per_sec")} for r in records],
         "images_per_s_epoch_2": records[-1]["images_per_sec"],
         "stage_ms": stages, "resume_restores": restored,
-        "lr_after": trainer.optimizer.param_groups[0]["lr"],
+        "lr_after": float(trainer.optimizer.param_groups[0]["lr"]),
     }
     log(json.dumps({"training": res}))
     if launches != dict.fromkeys(KERNEL_COUNTERS, 3 * steps):
@@ -966,25 +943,6 @@ def attention_kernels(dh: int) -> tuple[str, ...]:
     """The K5 kernels that take head width ``dh``: past ``BWD_WIDE_MAX``
     the forward alone (the backward wrappers raise there)."""
     return ("fwd", "dkv", "dq") if dh <= ac.BWD_WIDE_MAX else ("fwd",)
-
-
-def attention_bound(kernel: str, b, s, h, dh, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
-    """Least time of one K5 launch. Each product over the causal triangle
-    is 2·dh·S(S+1)/2 FLOPs per head; the forward needs 2 (QKᵀ, PV), dK/dV
-    4 (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) and dQ 3 (QKᵀ, dO·Vᵀ, dS·K), each with
-    one exp per score. Words: q, k, v (and dO, lse, delta) read once, the
-    outputs (out and lse; dK and dV; dQ) written once. ``tensor_cores``:
-    three times the FLOPs at the TF32 rate (the kernels' three passes)
-    instead of the FLOPs at the f32 rate of the CUDA cores."""
-    pairs = b * h * s * (s + 1) / 2
-    products = {"fwd": 2, "dkv": 4, "dq": 3}[kernel]
-    tensor = b * s * h * dh
-    words = {"fwd": 4 * tensor + b * h * s, "dkv": 6 * tensor + 2 * b * h * s,
-             "dq": 5 * tensor + 2 * b * h * s}[kernel]
-    flops = products * 2 * dh * pairs
-    if tensor_cores:
-        return roof(3 * flops, pairs, words, exp_per_s, TF32_FLOPS)
-    return roof(flops, pairs, words, exp_per_s)
 
 
 def attention_inputs(b, s, h, dh, g: torch.Generator, offset: int = 0):
@@ -1297,7 +1255,7 @@ def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
     restored = {
         "phase": resumed.fit_prior and trainer.fit_prior,
         "step": resumed.schedule.last_epoch == trainer.schedule.last_epoch == steps,
-        "lr": resumed.optimizer.param_groups[0]["lr"] == trainer.optimizer.param_groups[0]["lr"],
+        "lr": float(resumed.optimizer.param_groups[0]["lr"]) == float(trainer.optimizer.param_groups[0]["lr"]),
         "adam_state": adam.keys() == adam_resumed.keys() and all(
             torch.equal(adam[i][k], adam_resumed[i][k]) for i in adam for k in adam[i]
         ),
@@ -1338,24 +1296,6 @@ def phase_prior_train_full_width(label: str = "prior_training", **over) -> dict:
 
 
 # ------------------------------------------------------------ phase 12
-
-
-def fused_bound(n: int, layers, exp_per_s, tensor_cores: bool = False) -> tuple[float, str]:
-    """Least time of one K4 launch: each lookup's score and value products
-    (2·N·M·(d_in + d_out) FLOPs, three times over at the TF32 rate with
-    ``tensor_cores``, else once at the f32 rate) and N·M exps; reads x and
-    the six tables, writes e, zq and r."""
-    flops = exps = floats = 0
-    for layer in layers:
-        m, d_in, d_out = layer.lookup_weights.shape[0], layer.d_in, layer.out_proj.weight.shape[0]
-        flops += 2 * n * m * (d_in + d_out)
-        exps += n * m
-        floats += m * (d_in + d_out) + 2 * d_in + d_out
-    d, di = layers[0].d_in, layers[1].out_proj.weight.shape[0]
-    floats += n * (3 * d + di)
-    if tensor_cores:
-        return roof(3 * flops, exps, floats, exp_per_s, TF32_FLOPS)
-    return roof(flops, exps, floats, exp_per_s)
 
 
 # (d, di) of K4's cases: the configs' bottleneck, two widths no config
@@ -2292,13 +2232,32 @@ def torchrun_env():
                 os.environ[k] = v
 
 
-class StepLossTrainer(Trainer):
-    """A ``Trainer`` that keeps each step's loss (on the device)."""
+class StepMetricsTrainer(Trainer):
+    """A ``Trainer`` that keeps each step's metrics (on the device), from
+    ``train_step`` and from ``epoch_step`` alike."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.steps = []
 
     def train_step(self, x):
         out = super().train_step(x)
-        self.losses.append(out["loss"])
+        self.steps.append(out)
         return out
+
+    def epoch_step(self, fit_prior):
+        run = super().epoch_step(fit_prior)
+
+        def recorded(data, rows):
+            out = run(data, rows)
+            self.steps += [{k: v[i] for k, v in out.items()} for i in range(len(rows))]
+            return out
+
+        return recorded
+
+    @property
+    def losses(self) -> list:
+        return [m["loss"] for m in self.steps]
 
 
 # the kernels' main launches by name in a torch.profiler trace (K2 and K3
@@ -2336,8 +2295,7 @@ def phase_streaming_training(out: Path) -> dict:
         torch.manual_seed(cfg.seed)
         model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
         load_weights(model, str(CHECKPOINTS / GOLDENS["ffhq64_synthetic4"]["checkpoint"]))
-        trainer = StepLossTrainer(model, cfg, mesh)
-        trainer.losses = []
+        trainer = StepMetricsTrainer(model, cfg, mesh)
         trainer.watch_gradients = trainer.debug_nans = aids
         return trainer
 
@@ -2589,6 +2547,202 @@ def phase_tooling() -> dict:
 
 
 
+# ------------------------------------------------------------ phase 19
+
+
+def step_tensors(trainer: Trainer) -> dict:
+    """Every step's metrics, the model's state, Adam's state and the
+    learning rate, by name: what a graphed and an eager run must agree on."""
+    out = {f"step{i}.{k}": v for i, m in enumerate(trainer.steps) for k, v in m.items()}
+    out.update({f"model.{k}": v for k, v in trainer.model.state_dict().items()})
+    out.update({f"adam.{i}.{k}": v for i, st in trainer.optimizer.state_dict()["state"].items() for k, v in st.items()})
+    out["lr"] = trainer.optimizer.param_groups[0]["lr"]
+    return out
+
+
+def diffs(a: dict, b: dict) -> dict:
+    """``{name: max |a - b|}`` of the tensors of two ``step_tensors`` that
+    are not bit for bit the same (NaNs in the same places count as equal),
+    in step order; ``{"names or shapes": inf}`` where those differ."""
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        return {"names or shapes": math.inf}
+    out = {}
+    for k, x in a.items():
+        y = b[k]
+        if torch.equal(x, y):
+            continue
+        d = (x.double() - y.double()).abs()
+        if x.is_floating_point():
+            d = torch.where(x.isnan() & y.isnan(), 0.0, d.nan_to_num(math.inf))
+        if float(d.max()):
+            out[k] = float(d.max())
+    return out
+
+
+def eager_epochs(trainer: Trainer, ds, epochs: int, fit_prior: bool) -> list[float]:
+    """``fit``'s epochs without ``fit``: a fresh optimizer, then
+    ``train_step`` over ``epoch_batches`` (the staged gather, in fit's
+    order); the host seconds of each epoch, ended by a synchronize."""
+    trainer.build_optimizer(max(len(ds) // trainer.config.batch_size, 1), fit_prior=fit_prior)
+    seconds = []
+    for epoch in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in trainer.epoch_batches(ds, epoch):
+            trainer.train_step(x)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def graphed_fit(trainer: Trainer, ds, counters: dict) -> dict:
+    """2 epochs of ``fit`` (no eval, no save), the counts set to 0 just
+    before and read just after; its records and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        for fn in counters.values():
+            fn.launches = 0
+        trainer.fit(ds, ds, epochs=2, out_dir=out, eval_every=0, save_every=0)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        records = [json.loads(line) for line in open(Path(out) / "metrics.jsonl")]
+    return {"launches": launches, "records": records, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def graphed_vs_eager(label: str, cfg, make_model, ds, *, watch: bool = False, spread: bool = False) -> dict:
+    """``fit`` on the staged ``ds`` (2 epochs through ``epoch_step``, one
+    CUDA graph) against the eager ``train_step`` loop over the same batches
+    in the same order, each from ``make_model()``: every step's metrics,
+    the parameters, Adam's state and the learning rate bit for bit; one
+    capture; the kernels' launches a step, counted through the replays.
+    ``spread``: where the graph and eager runs differ, a second eager run
+    gives the eager path's own spread, and the graph must stay within it."""
+    fit_prior = cfg.prior_start < 0 and prior_has_parameters(cfg)
+    counters = {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}
+    steps = 2 * (len(ds) // cfg.batch_size)
+    graphed = StepMetricsTrainer(make_model(), cfg)
+    graphed.watch_gradients = watch
+    run = graphed_fit(graphed, ds, counters)
+    eager = StepMetricsTrainer(make_model(), cfg)
+    eager.watch_gradients = watch
+    eager_s = eager_epochs(eager, ds, 2, fit_prior)
+    ours, theirs = step_tensors(graphed), step_tensors(eager)
+    apart = diffs(ours, theirs)
+    diff = max(apart.values(), default=0.0)
+    res = {"config": label, "steps": steps, "captures": graphed.captures, "launches": run["launches"],
+           "watch": watch, "max_diff": diff, "bitwise": diff == 0.0, "first_diffs": dict(list(apart.items())[:6]),
+           "tensors_apart": len(apart), "peak_gib": run["peak_gib"],
+           "schedule_steps": [graphed.schedule.last_epoch, eager.schedule.last_epoch],
+           "images_per_s_graphed": [r["images_per_sec"] for r in run["records"]],
+           "images_per_s_eager": [len(ds) // cfg.batch_size * cfg.batch_size / t for t in eager_s],
+           "losses": [float(m["loss"]) for m in graphed.steps]}
+    if diff:  # the eager path's own spread, for the record (and the limit where ``spread``)
+        again = StepMetricsTrainer(make_model(), cfg)
+        again.watch_gradients = watch
+        eager_epochs(again, ds, 2, fit_prior)
+        res["eager_spread"] = max(diffs(theirs, step_tensors(again)).values(), default=0.0)
+    log(json.dumps({f"graphed_epoch {label}": res}))
+    layers = graphed.model.prior.n_layers if fit_prior and cfg.prior == "Transformer" else 0
+    a_step = {"hopfield_stream_fwd": 3, "hopfield_stream_bwd_dx": 0 if fit_prior else 3,
+              "hopfield_stream_bwd_dku": 0 if fit_prior else 3, **dict.fromkeys(ATTENTION_COUNTERS, layers)}
+    if run["launches"] != {k: n * steps for k, n in a_step.items()}:
+        raise AssertionError(f"{label}: expected {a_step} launches a step over {steps} steps: {run['launches']}")
+    if graphed.captures != 1 or len(graphed.steps) != steps or graphed.schedule.last_epoch != steps:
+        raise AssertionError(f"{label}: expected one capture and {steps} steps: {res}")
+    if diff and not (spread and diff <= res["eager_spread"]):
+        raise AssertionError(f"{label}: the graphed epochs differ from the eager steps by {diff} "
+                             f"(eager spread {res.get('eager_spread')})")
+    if not all(math.isfinite(r["train_loss_per_batch"]) for r in run["records"]) or len(run["records"]) != 2:
+        raise AssertionError(f"{label}: the graphed fit's records are missing or not finite: {run['records']}")
+    return res
+
+
+def ffhq_production(cfg, checkpoint: str = GOLDENS["ffhq64_synthetic4"]["checkpoint"]):
+    """A maker of ``cfg``'s model on the production path (kernels, bf16 conv
+    stacks), seeded, warm-started from ``checkpoint``."""
+    def make():
+        torch.manual_seed(cfg.seed)
+        model = HopVAE(cfg, impl="cuda", compute_dtype=torch.bfloat16, device="cuda")
+        load_weights(model, str(CHECKPOINTS / checkpoint))
+        return model
+
+    return make
+
+
+def throughput(label: str, cfg, make_model, ds) -> dict:
+    """(e) The graphed and the eager epoch's images/s (epoch 2 of 2), the
+    step's device seconds from ``utils.benchmark.device_seconds_per_iter``
+    (the body of a step chained over one batch, on CUDA graphs of 10 and
+    20 steps) and the MFU of each from ``utils.flops.train_flops_per_image``
+    against the dense bf16 peak; beside the card's name and power limit.
+    Logged, no limit."""
+    graphed = Trainer(make_model(), cfg)
+    run = graphed_fit(graphed, ds, {})
+    eager = Trainer(make_model(), cfg)
+    eager_s = eager_epochs(eager, ds, 2, False)
+    timed = Trainer(make_model(), cfg)
+    timed.build_optimizer(len(ds) // cfg.batch_size)
+    x = torch.from_numpy(ds.images[: cfg.batch_size]).cuda()
+
+    def step(x):
+        timed._step_core(x)
+        return x
+
+    device_s = device_seconds_per_iter(step, x, iters=10, repeats=3)
+    per_image = train_flops_per_image(cfg)
+    graphed_ips = run["records"][-1]["images_per_sec"]
+    eager_ips = len(ds) // cfg.batch_size * cfg.batch_size / eager_s[-1]
+    res = {"config": label, "batch": cfg.batch_size, "images_per_s_graphed": graphed_ips,
+           "images_per_s_eager": eager_ips, "device_s_per_step": device_s,
+           "images_per_s_device": cfg.batch_size / device_s, "train_flops_per_image": per_image,
+           "mfu_graphed": mfu(per_image, graphed_ips), "mfu_eager": mfu(per_image, eager_ips),
+           "mfu_device": mfu(per_image, cfg.batch_size / device_s), "mfu_peak": PEAKS_CARD,
+           "card": smi("name,power.limit")}
+    log(json.dumps({f"graphed_epoch_throughput {label}": res}))
+    return res
+
+
+def phase_graphed_epoch() -> dict:
+    """Phase 19: the graphed epoch (``Trainer.epoch_step``) against the
+    eager steps, then its throughput."""
+    t0 = time.perf_counter()
+    mnist = load_config("mnist_28")
+    mnist.batch_size = 256
+    mnist_ds = get_datasets(mnist, None)[0]
+
+    def mnist_golden():
+        model = HopVAE(mnist, impl="cuda", device="cuda")
+        model.load_state_dict(state_from_checkpoint(str(CHECKPOINTS / GOLDENS["mnist_digits"]["checkpoint"])))
+        return model
+
+    ffhq = load_config("ffhq_64_scaled")
+    ffhq_ds = get_datasets(ffhq, None)[0]
+    with parity_mode():
+        backbone_f32 = graphed_vs_eager("mnist_28 f32", mnist, mnist_golden, mnist_ds)
+    backbone = graphed_vs_eager("ffhq_64_scaled production watch", ffhq, ffhq_production(ffhq), ffhq_ds,
+                                watch=True, spread=True)
+    transformer = prior_config(prior_start=-1)
+    transformer_prior = graphed_vs_eager("ffhq_64_scaled transformer prior", transformer,
+                                         ffhq_production(transformer, PRIOR_GOLDENS["checkpoint"]), ffhq_ds)
+    pixelcnn = prior_config(prior_start=-1, prior="PixelCNN")
+    pixelcnn_prior = graphed_vs_eager("ffhq_64_scaled pixelcnn prior", pixelcnn,
+                                      ffhq_production(pixelcnn, PRIOR_GOLDENS["checkpoint"]), ffhq_ds)
+    wide = load_config("mnist_28")
+    wide.batch_size, wide.embedding_dim = 256, 384
+
+    def wide_model():
+        torch.manual_seed(wide.seed)
+        return HopVAE(wide, impl="cuda", device="cuda")
+
+    rates = [throughput("ffhq_64_scaled production", ffhq, ffhq_production(ffhq), ffhq_ds),
+             throughput("mnist_28 embedding_dim=384 f32", wide, wide_model, mnist_ds)]
+    res = {"backbone_f32": backbone_f32, "backbone_production": backbone, "transformer_prior": transformer_prior,
+           "pixelcnn_prior": pixelcnn_prior, "throughput": rates, "seconds": time.perf_counter() - t0}
+    log(f"phase 19 (the graphed epoch) passed in {res['seconds']:.1f} s on {smi('name,power.limit')}")
+    return res
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2729,6 +2883,9 @@ def main() -> int:
     pixelcnn = phase_pixelcnn_full_width()
     parallel = phase_parallel_and_data(tables)
     phase_tooling()
+    graphed = phase_graphed_epoch()
+    graph_runs = {k: graphed[k]["launches"] for k in ("backbone_f32", "backbone_production", "transformer_prior",
+                                                       "pixelcnn_prior")}
     streamed = parallel["streaming"]["launches"]
     sharded = {f"{r['shape']} x{r['shards']}": r["launches"] for r in parallel["sharded"]}
     modes = {"launches_serving_interpolate": serving_modes["launches_interpolate"],
@@ -2747,6 +2904,7 @@ def main() -> int:
                               launches_serving_modes={k: v["hopfield_stream_fwd"] for k, v in modes.items()},
                               launches_streaming_training=streamed["hopfield_stream_fwd"],
                               launches_sharded_lookup={k: v["hopfield_stream_fwd"] for k, v in sharded.items()},
+                              launches_graphed_epoch={k: v["hopfield_stream_fwd"] for k, v in graph_runs.items()},
                               bound_f32_ms=sum(r["bound_f32_ms"] for r in rows if r["shape"].startswith("ffhq64")),
                               builds={r["shape"]: r["build"] for r in rows if r["shape"].startswith("ffhq64")})]
     kernels.append(kernel_summary("hopfield_stream_fwd", rows, wide_lookup_run["hopfield_stream_fwd"], prefix="wide",
@@ -2766,13 +2924,16 @@ def main() -> int:
                                       launches_prior_phase=prior_launches[name],
                                       launches_width_phase=width_launches[name],
                                       launches_streaming_training=streamed[name],
-                                      launches_sharded_lookup={k: v[name] for k, v in sharded.items()}))
+                                      launches_sharded_lookup={k: v[name] for k, v in sharded.items()},
+                                      launches_graphed_epoch={k: v[name] for k, v in graph_runs.items()}))
         kernels.append(kernel_summary(name, mine, wide_lookup_run[name], prefix="wide",
                                       note="launches: phase 13 at embedding_dim=384",
                                       max_normwise_err=max(max(r["normwise_err"].values()) for r in mine
                                                            if r["shape"].startswith("wide")),
                                       builds={r["shape"]: r["build"] for r in mine if r["shape"].startswith("wide")}))
     narrow_k5 = [attention_summary(name, attn_rows, prior_launches[name]) for name in ATTENTION_COUNTERS]
+    for entry, name in zip(narrow_k5, ATTENTION_COUNTERS):
+        entry["launches_graphed_epoch"] = {k: v[name] for k, v in graph_runs.items()}
     narrow_k5[0]["launches_serving_interpolate"] = modes["launches_serving_interpolate"]["causal_attention_fwd"]
     kernels += narrow_k5
     kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], group="dh256")

@@ -50,6 +50,7 @@ from torch import nn
 
 from hopvae_torch.models.priors.decode import QMAX, Decoder
 from hopvae_torch.ops.attention import blocked_causal_attention, dense_causal_attention, flash_causal_attention
+from hopvae_torch.ops.conv import full_f32
 
 LN_EPS = 1e-5
 # from this sequence length "auto" leaves the dense backend, whose
@@ -69,6 +70,32 @@ def _quantize_token(x: torch.Tensor, kv: int, qmax: float) -> tuple[torch.Tensor
     s = torch.clamp(xh.abs().amax(dim=-1) / qmax, min=1e-12)
     q = torch.clamp(torch.round(xh / s[..., None]), -qmax, qmax).to(torch.int8)
     return q.reshape(b, w), s
+
+
+class TokenEmbedding(torch.autograd.Function):
+    """``F.embedding(tokens, table)`` with a backward that repeats bit for
+    bit: the table's gradient is one f32 product of the tokens' one-hot
+    rows with the cotangent (TF32 off). CUDA's embedding backward sums a
+    level's rows in an order that changes from run to run: on an H100 with
+    torch 2.11, two prior-phase steps from one state gave ``tok_emb``
+    gradients up to 9.7e-8 apart, and the steps drifted apart from there.
+    At the prior's full width (221,952 tokens, 512 levels, d 128) the
+    product is 29 GFLOP."""
+
+    @staticmethod
+    def forward(ctx, tokens, table):
+        ctx.save_for_backward(tokens)
+        ctx.levels = table.shape[0]
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1, 1)
+        onehot = torch.zeros(flat.shape[0], ctx.levels, dtype=g.dtype, device=g.device).scatter_(1, flat, 1.0)
+        with full_f32():
+            return None, onehot.T @ g.reshape(flat.shape[0], -1)
 
 
 def _init_linear(layer: nn.Linear) -> None:
@@ -223,7 +250,7 @@ class TransformerPrior(nn.Module):
     def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
         """Shift right: position p's input is token p-1, BOS at 0."""
         b, s = tokens.shape
-        emb = F.embedding(tokens[:, :-1], self.tok_emb)
+        emb = TokenEmbedding.apply(tokens[:, :-1], self.tok_emb)
         bos = self.bos.expand(b, 1, self.d)
         return torch.cat([bos, emb], dim=1) + self.pos_emb[:s]
 

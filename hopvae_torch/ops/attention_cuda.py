@@ -27,8 +27,9 @@ cluster); past it the forward streams q, k and v in depth chunks over
 windows of output columns, and the backward raises.
 :func:`kernel_width` names the width that any other head is zero-padded
 to. Each wrapper launches its kernel
-on CUDA tensors, counting the launch in its ``launches``, and takes its
-plain version on CPU tensors; the plain versions hold the ``(S, S)``
+on CUDA tensors, counting the launch in its ``launches`` (through
+``nvcc.count``: a launch inside a CUDA graph's capture counts at each
+replay), and takes its plain version on CPU tensors; the plain versions hold the ``(S, S)``
 matrices.
 """
 
@@ -38,7 +39,7 @@ import ctypes
 
 import torch
 
-from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
+from hopvae_torch.utils.nvcc import bind, count, kernel_attributes, launch, load_library
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths of the built instances
 WIDE_STEP = 128  # past HEAD_DIMS[-1], the wide kernels take every multiple of this
@@ -173,7 +174,7 @@ def causal_attention_fwd(q, k, v, scale: float):
     out = torch.empty(b, s, h, dh, device=q.device)
     lse = torch.empty(b, h, s, device=q.device)
     _launch("causal_attention_fwd", (q, k, v, out, lse), (q, k, v), (b, s, h, dh), scale, q.device)
-    causal_attention_fwd.launches += 1
+    count(causal_attention_fwd)
     return out, lse
 
 
@@ -193,7 +194,7 @@ def causal_attention_bwd_dkv(q, k, v, g, lse, delta, scale: float):
     dv = torch.empty(b, s, h, dh, device=q.device)
     _launch("causal_attention_bwd_dkv", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g), (b, s, h, dh),
             scale, q.device)
-    causal_attention_bwd_dkv.launches += 1
+    count(causal_attention_bwd_dkv)
     return dk, dv
 
 
@@ -212,7 +213,7 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
     dq = torch.empty(b, s, h, dh, device=q.device)
     _launch("causal_attention_bwd_dq", (q, k, v, g, lse, delta, dq), (q, k, v, g), (b, s, h, dh),
             scale, q.device)
-    causal_attention_bwd_dq.launches += 1
+    count(causal_attention_bwd_dq)
     return dq
 
 

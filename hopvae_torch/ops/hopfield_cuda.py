@@ -23,9 +23,11 @@ over ``(x2, K, U, s, t)`` with three kernels:
 The backward kernels rebuild the attention from ``m`` and ``l``, so the
 ``(N, M)`` matrix never reaches device memory. All three run their
 products on the tensor cores in three TF32 passes. Each wrapper launches
-its kernel on CUDA tensors (counting the launch in its ``launches``) and
-takes its plain version on CPU tensors: ``stream_lookup_fwd_reference``
-and ``stream_lookup_bwd_reference``, which hold the ``(N, M)`` matrices.
+its kernel on CUDA tensors (counting the launch in its ``launches``
+through ``nvcc.count``: a launch inside a CUDA graph's capture counts at
+each replay) and takes its plain version on CPU tensors:
+``stream_lookup_fwd_reference`` and ``stream_lookup_bwd_reference``, which
+hold the ``(N, M)`` matrices.
 
 Widths: the plain versions and the kernels take every ``(d_in, d_out)``
 of at least 1 (:func:`kernel_takes`), as the Pallas kernels do. Up to
@@ -65,7 +67,7 @@ import math
 import torch
 
 from hopvae_torch.ops.hopfield import LN_EPS, HopfieldLookup
-from hopvae_torch.utils.nvcc import bind, kernel_attributes, launch, load_library
+from hopvae_torch.utils.nvcc import bind, count, kernel_attributes, launch, load_library
 
 SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at the configs' default widths
 BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
@@ -266,7 +268,7 @@ def stream_lookup_fwd(x2, K, U, s, t):
         launch(stem, _bind(stem, f"{stem}_wide", 9, 4), x2.device, *ptrs, work.data_ptr(), n, m, d_in, d_out)
     else:
         launch(stem, _bind(stem, stem, 8, 4), x2.device, *ptrs, n, m, d_in, d_out)
-    stream_lookup_fwd.launches += 1
+    count(stream_lookup_fwd)
     return out, m_stat, l_stat
 
 
@@ -290,7 +292,7 @@ def stream_bwd_dx(x2, K, U, s, t, g, m, l, delta):
     launch(stem, _bind(stem, stem, 13, 4), x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dx, ds, dt, work)),
             n, m_pat, d_in, d_out)
-    stream_bwd_dx.launches += 1
+    count(stream_bwd_dx)
     return dx, ds, dt
 
 
@@ -313,7 +315,7 @@ def stream_bwd_dku(x2, K, U, s, t, g, m, l, delta):
     launch(stem, _bind(stem, stem, 12, 4), x2.device,
             *(a.data_ptr() for a in (x2, K, U, s, t, g, m, l, delta, dk, du, work)),
             n, m_pat, d_in, d_out)
-    stream_bwd_dku.launches += 1
+    count(stream_bwd_dku)
     return dk, du
 
 
@@ -449,7 +451,7 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
         launch(stem, _bind(stem, f"{stem}_wide", 20, 7), x.device, *ptrs, work.data_ptr(), *sizes)
     else:
         launch(stem, _bind(stem, stem, 19, 7), x.device, *ptrs, *sizes)
-    bottleneck_fused_fwd.launches += 1
+    count(bottleneck_fused_fwd)
     return e.reshape(*lead, d), zq.reshape(*lead, di), r.reshape(*lead, d)
 
 

@@ -58,11 +58,18 @@ What it keeps from the JAX driver:
   resume reads them on any layout. ``python -m hopvae_torch.train`` under
   ``torchrun`` trains data-parallel.
 
-The step runs eagerly: the forward under autograd, the backward through
-the streaming kernels (``impl="cuda"``) or the eager lookups
-(``impl="torch"``), the Transformer prior's attention through the flash
-kernels on the card, the PixelCNN prior's convs through cuDNN in full
-f32. Not ported yet (``ROADMAP.md``): CUDA graphs for the step.
+The step: the forward under autograd, the backward through the streaming
+kernels (``impl="cuda"``) or the eager lookups (``impl="torch"``), the
+Transformer prior's attention through the flash kernels on the card, the
+PixelCNN prior's convs through cuDNN in full f32, then Adam (fused and
+capturable on the card). Data staged on the device in a process without
+a group trains through ``Trainer.epoch_step``, JAX's whole-epoch step: on
+the card each phase's step is captured once in a CUDA graph, after two
+eager warm-up steps, and replayed for every later step; on the CPU the
+same body runs eagerly. ``--debug-nans`` (it reads the host between the
+backward and the update), streamed data and process groups run
+``train_step`` step by step. The epoch records are fetched and written on
+a logging thread, which ``fit`` joins when it returns or raises.
 """
 
 from __future__ import annotations
@@ -70,7 +77,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import queue
 import sys
+import threading
 import time
 
 import numpy as np
@@ -86,6 +95,7 @@ from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import load_reference_checkpoint
 from hopvae_torch.utils.metrics import MetricLogger, denormalize, save_image_grid
+from hopvae_torch.utils.nvcc import add_launches, captured_launches
 
 # --watch-grads' histograms: 16 unit bins of log10|v| over [-12, 4), the last
 # closed and values outside dropped (np.histogram's rule), as JAX's
@@ -96,18 +106,24 @@ HIST_RANGE = (-12.0, 4.0)
 FOLDED = ("norm_stored.weight", "norm_stored.bias", "norm_proj.weight", "norm_proj.bias", "in_proj.weight",
           "in_proj.bias", "out_proj.weight")
 PATTERNS = tuple(f"{name}.lookup_weights" for name in LAYERS)
+LOG_THREAD = "hopvae-epoch-log"  # the thread that writes fit's epoch records
 
 
 def log_magnitude_histogram(tensors) -> torch.Tensor:
     """``(HIST_BINS,)`` int64 counts of ``log10(|v| + 1e-12)`` over the
     values of ``tensors`` (f32), on their device: JAX's
-    ``_log_magnitude_histogram``, counted exactly."""
+    ``_log_magnitude_histogram``, counted exactly (``np.histogram``'s rule:
+    the last bin closed, values outside the range dropped). Every shape is
+    fixed by the inputs' sizes and nothing is read on the host, so a CUDA
+    graph can capture it: each value goes to its bin, or to an extra bin
+    past the last that is dropped, and the bins count with ``index_add_``."""
     v = torch.log10(torch.cat([t.detach().float().reshape(-1) for t in tensors]).abs() + 1e-12)
     lo, hi = HIST_RANGE
-    v = v[(v >= lo) & (v <= hi)]
     edges = torch.linspace(lo, hi, HIST_BINS + 1, device=v.device)
     idx = (torch.bucketize(v, edges, right=True) - 1).clamp_(max=HIST_BINS - 1)
-    return torch.bincount(idx, minlength=HIST_BINS)
+    idx = torch.where((v >= lo) & (v <= hi), idx, HIST_BINS)
+    counts = torch.zeros(HIST_BINS + 1, dtype=torch.int64, device=v.device)
+    return counts.index_add_(0, idx, torch.ones_like(idx))[:HIST_BINS]
 
 
 def param_histogram(tensors) -> list[int]:
@@ -150,21 +166,57 @@ def prior_has_parameters(config) -> bool:
     raise ValueError(f"unknown prior {config.prior!r}")
 
 
-def make_optimizer(config, model: torch.nn.Module, steps_per_epoch: int, *, prior_only: bool = False):
+def make_optimizer(config, model: torch.nn.Module, steps_per_epoch: int, *, prior_only: bool = False,
+                   capturable: bool | None = None):
     """``(Adam, schedule)`` over the parameters of ``model``, or with
     ``prior_only`` over those of ``model.prior`` alone: the learning rate
     at optimizer step ``k`` is ``learning_rate * gamma ** (k //
     steps_per_epoch)``, the value of ``optax.exponential_decay(staircase=
-    True)`` at update ``k``. Step the schedule after each optimizer step.
-    A prior without parameters raises ``ValueError`` under ``prior_only``."""
+    True)`` at update ``k``. Step the schedule after each optimizer step;
+    ``schedule.last_epoch`` counts the steps. A prior without parameters
+    raises ``ValueError`` under ``prior_only``.
+
+    ``capturable`` (by default: where the parameters are on a CUDA device)
+    makes Adam fused and capturable, so that a CUDA graph can hold its
+    step: the learning rate is a 0-d float32 tensor on the parameters'
+    device, which the schedule fills in place and the graph reads; the
+    step counts and the bias correction stay on the device. Fused, one
+    kernel updates every parameter, where ``foreach`` takes about ten
+    launches a step; the card's eager ``train_step`` and its graph run the
+    same optimizer, so the two agree bit for bit. Otherwise (the CPU, where
+    the tests hold the port against JAX) the learning rate is a Python
+    float and Adam takes its default implementation."""
     if prior_only:
         model = model.prior
         if not any(True for _ in model.parameters()):
             raise ValueError(f"the prior {type(model).__name__} has no parameters to train")
-    optimizer = torch.optim.Adam(model.parameters(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    params = list(model.parameters())
+    if capturable is None:
+        capturable = bool(params) and params[0].device.type == "cuda"
+    if capturable:
+        lr = torch.tensor(config.learning_rate, dtype=torch.float32, device=params[0].device)
+        optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=True, capturable=True)
+    else:
+        optimizer = torch.optim.Adam(params, lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8)
     per_epoch, gamma = max(steps_per_epoch, 1), config.gamma
     schedule = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: gamma ** (step // per_epoch))
     return optimizer, schedule
+
+
+def _keep_capturable(optimizer) -> None:
+    """After ``load_state_dict``, which takes each group's settings and
+    learning rate from the checkpoint (on the host, or a Python float from
+    an older or a CPU checkpoint): fused and capturable again, the learning
+    rate a new 0-d float32 tensor on the parameters' device, and the step
+    counts there in float32."""
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        group.update(fused=True, capturable=True, foreach=None)
+        group["lr"] = torch.as_tensor(group["lr"], dtype=torch.float32).to(device)
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = torch.as_tensor(state["step"], dtype=torch.float32).to(device)
 
 
 class Trainer:
@@ -195,7 +247,10 @@ class Trainer:
         self.steps_per_epoch = None
         self.fit_prior = False  # the phase of the optimizer
         self.position = (0, 0)  # (epoch, step) of the next train_step
+        self.captures = 0  # CUDA graphs captured by epoch_step
         self._staged = None  # (host images, device copy)
+        self._epochs = {}  # the epoch steps of the current optimizer, by key (epoch_step)
+        self._log = None  # the logging thread, its queue and its errors (_log_async)
         if mesh is not None:
             mesh_lib.broadcast_state(model)
         if self.sharded:
@@ -210,6 +265,7 @@ class Trainer:
                                                        prior_only=fit_prior)
         self.steps_per_epoch = steps_per_epoch
         self.fit_prior = fit_prior
+        self._epochs = {}  # their graphs update the old optimizer's state
 
     # ------------------------------------------------------------- steps
 
@@ -237,6 +293,13 @@ class Trainer:
         error; ``fit`` sets it."""
         if self.optimizer is None:
             raise RuntimeError("no optimizer: call build_optimizer(steps_per_epoch) first (fit does)")
+        out = self._step_core(x)
+        self.schedule.step()
+        return out
+
+    def _step_core(self, x: torch.Tensor) -> dict:
+        """One step's body, shared by ``train_step`` and ``epoch_step``: all
+        of ``train_step`` but the schedule's step, which runs on the host."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, (recon_error, aux) = self._loss_fn(x)
         loss.backward()
@@ -250,8 +313,58 @@ class Trainer:
         if self.watch_gradients:
             out.update(self._gradient_stats())
         self.optimizer.step()
-        self.schedule.step()
         return out
+
+    def epoch_step(self, fit_prior: bool):
+        """The whole-epoch step for data staged on the device (JAX's
+        ``epoch_step``): returns ``run(data, rows)``, which trains one step
+        for each row of the epoch's ``(K, B)`` index matrix ``rows`` (numpy)
+        over the staged images ``data``, and returns each step's metrics
+        stacked, ``{name: (K, ...)}`` tensors on the device.
+
+        The matrix goes to the device once an epoch. A step's body reads its
+        row through a step counter on the device, gathers the batch from
+        ``data``, runs ``_step_core`` (loss, backward, Adam and, with
+        ``watch_gradients``, the gradient stats), writes the metrics into
+        row ``step`` of an epoch buffer and adds 1 to the counter; the
+        schedule steps on the host after each step. On a CUDA device the
+        first ``_EpochRun.WARMUP`` steps of a key run that body eagerly on a
+        side stream (real steps, on the epoch's own batches); then the body
+        is captured once in a CUDA graph, which replays for every later step
+        of the key. A key is the phase, the batch shape, the steps an epoch,
+        ``watch_gradients``, the staged data and the optimizer's parameters
+        and learning-rate tensor, and its graph is kept across epochs and
+        ``fit`` calls until the next ``build_optimizer``; where Adam's state
+        was loaded anew since the capture (a resume), the key warms up and
+        captures again. A failed capture or replay raises; nothing falls
+        back to the eager step. On the CPU the body runs eagerly, step by
+        step.
+
+        ``fit_prior`` must be the optimizer's phase. ``debug_nans`` and a
+        process group keep ``train_step``: the NaN check reads the host
+        between the backward and the update, and a graph would have to hold
+        NCCL's collectives."""
+        if self.optimizer is None or fit_prior != self.fit_prior:
+            raise RuntimeError(f"the optimizer is not built for fit_prior={fit_prior}: call build_optimizer first")
+        if self.debug_nans or self.mesh is not None:
+            raise RuntimeError("debug_nans and a process group train step by step (train_step)")
+        return self._run_epoch
+
+    def _run_epoch(self, data: torch.Tensor, rows: np.ndarray) -> dict:
+        groups = self.optimizer.param_groups
+        tensors = [p for g in groups for p in g["params"]] + [g["lr"] for g in groups if torch.is_tensor(g["lr"])]
+        key = (self.fit_prior, tuple(data.shape), data.data_ptr(), rows.shape, self.watch_gradients,
+               tuple(t.data_ptr() for t in tensors))
+        run = self._epochs.get(key)
+        if run is None:  # a graph of other parameters or rate would update stale ones: drop those
+            self._epochs = {k: v for k, v in self._epochs.items() if k[-1] == key[-1]}
+            run = self._epochs[key] = _EpochRun(self, data, *rows.shape)
+        return run(rows)
+
+    def _optimizer_state(self) -> tuple:
+        """The addresses of Adam's state tensors (``load_state_dict``
+        replaces them)."""
+        return tuple(v.data_ptr() for st in self.optimizer.state.values() for v in st.values() if torch.is_tensor(v))
 
     # ------------------------------------------------------------- mesh
 
@@ -345,12 +458,20 @@ class Trainer:
         one rank, else None."""
         return mesh_lib.process_batch_bounds(self.mesh, self.config.batch_size) if self.multi else None
 
+    def epoch_rows(self, n: int, epoch: int) -> np.ndarray:
+        """The epoch's ``(K, B)`` index matrix over ``n`` images, in the JAX
+        order: shuffled by ``np.random.default_rng(seed + epoch)``,
+        remainder dropped."""
+        idx = np.arange(n)
+        np.random.default_rng(self.config.seed + epoch).shuffle(idx)
+        k = n // self.config.batch_size
+        return idx[: k * self.config.batch_size].reshape(k, self.config.batch_size)
+
     def epoch_batches(self, ds, epoch: int):
-        """The epoch's training batches on the device, in the JAX order:
-        shuffled by ``np.random.default_rng(seed + epoch)``, remainder
-        dropped. An in-memory dataset within the budget is gathered on the
-        device (one process); any other streams from the host, two
-        batches read ahead, each rank reading its slice."""
+        """The epoch's training batches on the device, in the JAX order
+        (:meth:`epoch_rows`). An in-memory dataset within the budget is
+        gathered on the device (one process); any other streams from the
+        host, two batches read ahead, each rank reading its slice."""
         cfg = self.config
         data = None if self.multi else self._device_data(ds)
         if data is None:
@@ -358,12 +479,23 @@ class Trainer:
                                          drop_remainder=True, prefetch=2, local_slice=self._local_slice()):
                 yield torch.from_numpy(bx).to(self.device)
             return
-        idx = np.arange(len(ds))
-        np.random.default_rng(cfg.seed + epoch).shuffle(idx)
-        n_batches = len(idx) // cfg.batch_size
-        rows = torch.from_numpy(idx[: n_batches * cfg.batch_size].reshape(n_batches, cfg.batch_size))
-        for row in rows.to(self.device):
+        for row in torch.from_numpy(self.epoch_rows(len(ds), epoch)).to(self.device):
             yield data[row]
+
+    def _train_epoch(self, ds, epoch: int) -> dict:
+        """One epoch's steps, ``{name: (K, ...)}`` metrics on the device:
+        data staged on the device in a process without a group goes through
+        ``epoch_step`` (JAX's choice in its ``fit``); ``debug_nans``,
+        streamed data and process groups run ``train_step`` step by step."""
+        data = self._device_data(ds) if self.mesh is None and not self.debug_nans else None
+        rows = self.epoch_rows(len(ds), epoch)
+        if data is not None and len(rows):
+            return self.epoch_step(self.fit_prior)(data, rows)
+        steps = []
+        for i, x in enumerate(self.epoch_batches(ds, epoch)):
+            self.position = (epoch, i)
+            steps.append(self.train_step(x))
+        return {k: torch.stack([m[k] for m in steps]) for k in steps[0]} if steps else {}
 
     def fit(self, train_ds, test_ds, *, epochs: int | None = None, out_dir: str = "outputs",
             eval_every: int = 5, save_every: int = 5, start_epoch: int = 0, resume: bool = False) -> None:
@@ -384,47 +516,103 @@ class Trainer:
         if resume and start_epoch > 0:
             self._try_resume_opt(out_dir)
 
-        for epoch in range(start_epoch, epochs):
-            if epoch > cfg.prior_start and has_prior and not self.fit_prior:
-                # the phase switch: a fresh optimizer and schedule over the prior
-                self.build_optimizer(steps_per_epoch, fit_prior=True)
-            t_epoch = time.perf_counter()
-            parts = []
-            for i, x in enumerate(self.epoch_batches(train_ds, epoch)):
-                self.position = (epoch, i)
-                parts.append(self.train_step(x))
-            base = {"epoch": epoch, "fit_prior": self.fit_prior}
-            if self.watch_gradients:
-                base.update(self._param_histograms())
-            self._write_epoch_record(logger, base, parts, len(train_ds), cfg.batch_size, t_epoch)
-            if eval_every and not epoch % eval_every:
-                self.evaluate(test_ds, epoch=epoch, logger=logger, out_dir=out_dir)
-            if save_every and (not epoch % save_every or epoch == epochs - 1):
-                self.save(epoch, out_dir)
+        try:
+            for epoch in range(start_epoch, epochs):
+                if epoch > cfg.prior_start and has_prior and not self.fit_prior:
+                    # the phase switch: a fresh optimizer and schedule over the prior
+                    self.build_optimizer(steps_per_epoch, fit_prior=True)
+                t_epoch = time.perf_counter()
+                parts = self._train_epoch(train_ds, epoch)
+                base = {"epoch": epoch, "fit_prior": self.fit_prior}
+                if self.watch_gradients:
+                    base.update(self._param_histograms())
+                self._log_async(logger, base, parts, len(train_ds), cfg.batch_size, t_epoch)
+                if eval_every and not epoch % eval_every:
+                    self.evaluate(test_ds, epoch=epoch, logger=logger, out_dir=out_dir)
+                if save_every and (not epoch % save_every or epoch == epochs - 1):
+                    self.save(epoch, out_dir)
+        except BaseException:
+            self._drain_log_worker(reraise=False)
+            raise
+        self._drain_log_worker()
+
+    # ------------------------------------------------- async metric logging
+
+    def _log_async(self, logger, base: dict, parts: dict, n_data: int, batch_size: int, t_start: float) -> None:
+        """Queue the epoch's record to the logging thread (JAX's
+        ``_log_async``), which the first call starts. On the card the
+        metrics are copied into pinned host memory behind the epoch's steps
+        and an event is recorded after them; the thread waits for that event,
+        so ``epoch_seconds`` ends where the epoch's work ends on the device,
+        while this thread goes on to the next epoch. Only rank 0's logger
+        writes."""
+        event = None
+        if any(v.is_cuda for v in parts.values()):
+            parts = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                     for k, v in parts.items()}
+            event = torch.cuda.Event()
+            event.record()
+        if self._log is None:
+            self._log = {"queue": queue.Queue(maxsize=4), "errors": []}
+            self._log["thread"] = threading.Thread(target=self._log_worker, args=(self._log,), name=LOG_THREAD,
+                                                   daemon=True)
+            self._log["thread"].start()
+        self._log["queue"].put((logger, base, parts, event, n_data, batch_size, t_start))
+
+    def _log_worker(self, log: dict) -> None:
+        """The logging thread: each epoch's record, in order, until ``None``.
+        An epoch's time runs from its start, or from the last epoch's
+        completion where that came later (the epochs overlap on the host),
+        to its own completion, as in JAX's."""
+        last = None
+        while (item := log["queue"].get()) is not None:
+            logger, base, parts, event, n_data, batch_size, t_start = item
+            try:
+                if event is not None:
+                    event.synchronize()
+                done = time.perf_counter()
+                self._write_epoch_record(logger, base, parts, n_data, batch_size,
+                                         t_start if last is None else max(t_start, last), t_done=done)
+                last = done
+            except Exception as e:  # re-raised by _drain_log_worker
+                log["errors"].append(e)
+
+    def _drain_log_worker(self, reraise: bool = True) -> None:
+        """Join the logging thread after the records queued so far; with
+        ``reraise``, raise its first error. The next ``fit`` starts a new
+        one."""
+        if self._log is None:
+            return
+        log, self._log = self._log, None
+        log["queue"].put(None)
+        log["thread"].join()
+        if reraise and log["errors"]:
+            raise log["errors"][0]
 
     @staticmethod
-    def _write_epoch_record(logger, base: dict, parts: list, n_data: int, batch_size: int,
-                            t_start: float) -> dict:
-        """The epoch's JSONL record from its steps' metrics, a fetch from
-        the device for each. Keeps the reference's quirk: "Train
-        Reconstruction Error" is the sum of the per-step means of
+    def _write_epoch_record(logger, base: dict, parts: dict, n_data: int, batch_size: int, t_start: float, *,
+                            t_done: float | None = None) -> dict:
+        """The epoch's JSONL record from its steps' metrics, each stacked over
+        the steps, ``parts = {name: (K, ...)}``. Keeps the reference's quirk:
+        "Train Reconstruction Error" is the sum of the per-step means of
         recon_error and aux over ``len(dataset)``. As in JAX's record,
         ``grad_hist/*`` are summed over the steps (int64) and
-        ``grad_norm*`` averaged."""
+        ``grad_norm*`` averaged. The epoch's time runs from ``t_start`` to
+        ``t_done`` (by default, once its metrics are fetched)."""
         record = dict(base)
-        n_batches = len(parts)
+        n_batches = len(next(iter(parts.values()))) if parts else 0
         epoch_sum = 0.0
-        for k in parts[0] if parts else ():
+        for k, v in parts.items():
             if k == "loss":
                 continue
-            arr = torch.stack([p[k] for p in parts]).cpu().numpy()
+            arr = v.cpu().numpy()
             if k in ("recon_error", "aux"):  # recon_error, then aux, as the JAX record sums them
                 epoch_sum += float(arr.astype(np.float64).sum())
             elif k.startswith("grad_hist"):
                 record[k] = arr.astype(np.int64).sum(axis=0).tolist()
             elif k.startswith("grad_norm"):
                 record[k] = float(arr.astype(np.float64).sum()) / n_batches
-        elapsed = time.perf_counter() - t_start
+        elapsed = (time.perf_counter() if t_done is None else t_done) - t_start
         record.update({
             "Train Reconstruction Error": epoch_sum / n_data,
             "train_loss_per_batch": epoch_sum / max(n_batches, 1),
@@ -576,6 +764,88 @@ class Trainer:
         elif ckpt is not None:
             self.optimizer.load_state_dict(self._moments(ckpt["optimizer"], self._rows))
             self.schedule.load_state_dict(ckpt["schedule"])
+            if self.optimizer.param_groups[0]["params"][0].is_cuda:
+                _keep_capturable(self.optimizer)
+
+
+class _EpochRun:
+    """``Trainer.epoch_step``'s state for one key: the static index matrix,
+    the step counter, the epoch's metric buffers and, on the card, the
+    step's CUDA graph with the kernels its capture recorded."""
+
+    WARMUP = 2  # eager steps of a key before its capture, over one epoch or more
+
+    def __init__(self, trainer: Trainer, data: torch.Tensor, k: int, b: int):
+        self.trainer, self.data = trainer, data
+        self.rows = torch.zeros(k, b, dtype=torch.int64, device=data.device)
+        self.step = torch.zeros(1, dtype=torch.int64, device=data.device)
+        self.metrics = None  # {name: (K, ...)}, made by the first step
+        self.graph = None
+        self.launches = {}  # {kernel wrapper: launches} of one replay
+        self.state = None  # the addresses of Adam's state the graph updates
+        self.warm = 0  # warm-up steps run since the last capture was dropped
+        self.side = torch.cuda.Stream() if data.is_cuda else None  # the warm-up's stream
+
+    def body(self) -> None:
+        """Step ``self.step`` of the epoch, all on the device."""
+        x = self.data.index_select(0, self.rows.index_select(0, self.step)[0])
+        out = self.trainer._step_core(x)
+        if self.metrics is None:
+            self.metrics = {k: torch.empty(len(self.rows), *v.shape, dtype=v.dtype, device=v.device)
+                            for k, v in out.items()}
+        for k, v in out.items():
+            self.metrics[k].index_copy_(0, self.step, v[None])
+        self.step.add_(1)
+
+    def __call__(self, rows: np.ndarray) -> dict:
+        tr, k = self.trainer, len(rows)
+        cuda = self.rows.is_cuda
+        host = torch.from_numpy(np.ascontiguousarray(rows, np.int64))
+        self.rows.copy_(host.pin_memory() if cuda else host, non_blocking=cuda)
+        self.step.zero_()
+        if self.graph is not None and tr._optimizer_state() != self.state:
+            self.graph, self.warm = None, 0  # Adam's state was loaded anew: warm up and capture again
+        if not cuda:
+            eager = k
+        else:  # the warm-up, until this key has run WARMUP steps
+            eager = min(self.WARMUP - self.warm, k) if self.graph is None else 0
+        if eager:
+            with _side_stream(self.side) if cuda else contextlib.nullcontext():
+                for _ in range(eager):
+                    self.body()
+                    tr.schedule.step()
+            self.warm += eager
+        if cuda and self.graph is None and eager < k:
+            self.capture()
+        lr = tr.optimizer.param_groups[0]["lr"]
+        for _ in range(eager, k):
+            self.graph.replay()
+            add_launches(self.launches)
+            tr.schedule.step()
+        if tr.optimizer.param_groups[0]["lr"] is not lr:
+            raise RuntimeError("the schedule replaced the learning-rate tensor that the graph reads")
+        return {name: buf.clone() for name, buf in self.metrics.items()}
+
+    def capture(self) -> None:
+        """Record the body in a CUDA graph (in a memory pool of its own): the
+        gradients are None before it, so the backward makes them in the
+        graph's pool, where every replay writes them again."""
+        self.trainer.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with captured_launches() as tally, torch.cuda.graph(graph):
+            self.body()
+        self.graph, self.launches, self.state = graph, tally, self.trainer._optimizer_state()
+        self.trainer.captures += 1
+
+
+@contextlib.contextmanager
+def _side_stream(side: torch.cuda.Stream):
+    """Work on ``side`` that starts after, and ends before, the current
+    stream's next work (PyTorch's warm-up before a capture)."""
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream().wait_stream(side)
 
 
 def load_weights(model: HopVAE, path: str) -> None:

@@ -5,10 +5,17 @@ compiled by ``nvcc`` for ``sm_90a`` into ``hopvae_torch/_build/``, named
 by a hash of its source, the shared ``csrc/*.cuh`` headers and the flags,
 so an edited source builds anew. A failed build raises; nothing falls
 back.
+
+Each kernel's wrapper counts its launches in ``launches`` through
+:func:`count`. A CUDA graph's capture runs nothing, so a launch recorded
+while a stream is captured goes to the tally of
+:func:`captured_launches` instead, and the graph's owner adds that tally
+at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +37,8 @@ FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# the tallies of the captures in progress, innermost last
+_tallies: list[dict] = []
 # ptxas register / shared-memory report of each build, and its seconds, by stem
 build_logs: dict[str, str] = {}
 build_seconds: dict[str, float] = {}
@@ -105,6 +114,38 @@ def launch(name: str, fn, device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def count(fn) -> None:
+    """One launch of ``fn``'s kernel on the current stream: ``fn.launches
+    += 1``, or, while that stream is captured into a CUDA graph, one more
+    in the tally of the innermost :func:`captured_launches` (a capture
+    outside one counts nothing: it launches nothing). A torch built
+    without CUDA captures nothing."""
+    if not (torch.backends.cuda.is_built() and torch.cuda.is_current_stream_capturing()):
+        fn.launches += 1
+    elif _tallies:
+        _tallies[-1][fn] = _tallies[-1].get(fn, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yields a dict, ``{wrapper: launches}``, of the kernels whose launches
+    are captured inside the block; add it to the wrappers' ``launches`` at
+    each replay of the graph. The backward's launches, made on autograd's
+    device thread, land in it too."""
+    tally: dict = {}
+    _tallies.append(tally)
+    try:
+        yield tally
+    finally:
+        _tallies.remove(tally)
+
+
+def add_launches(tally: dict) -> None:
+    """A replay of a graph whose capture recorded ``tally``."""
+    for fn, n in tally.items():
+        fn.launches += n
 
 
 ATTRIBUTES = ("registers", "shared_bytes", "spill_bytes", "threads", "blocks_per_sm", "resident_rows",

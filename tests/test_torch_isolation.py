@@ -16,7 +16,8 @@ def test_import_leaves_no_jax_module():
     code = (
         "import sys; import hopvae_torch, hopvae_torch.serving, hopvae_torch.train, chip_smoke, "
         "hopvae_torch.ops.attention, hopvae_torch.ops.attention_cuda, hopvae_torch.models.priors, "
-        "hopvae_torch.parallel.mesh, hopvae_torch.data, hopvae_torch.utils.checkpoint; "
+        "hopvae_torch.parallel.mesh, hopvae_torch.data, hopvae_torch.utils.checkpoint, hopvae_torch.utils.flops, "
+        "hopvae_torch.utils.benchmark; "
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -40,5 +41,6 @@ def test_sources_import_no_jax():
         ROOT / "chip_smoke.py", ROOT / "tools" / "torch_convert_checkpoint.py", ROOT / "examples" / "torch_quickstart.py",
     ]
     assert len(files) > 10 and ROOT / "hopvae_torch" / "parallel" / "mesh.py" in files
+    assert {ROOT / "hopvae_torch" / "utils" / f"{m}.py" for m in ("flops", "benchmark")} <= set(files)
     bad = {str(f.relative_to(ROOT)): r for f in files for r in _imported_roots(f) if r in FORBIDDEN}
     assert not bad, bad

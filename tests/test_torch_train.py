@@ -173,15 +173,20 @@ def test_port_holds_the_train_golden():
         np.testing.assert_allclose(norms[k], gold["grad_norms"][k], rtol=gold["grad_norm_rtol"], err_msg=k)
 
 
-def test_schedule_matches_optax():
+@pytest.mark.parametrize("capturable", [False, True], ids=["float", "device_tensor"])
+def test_schedule_matches_optax(capturable):
+    """The staircase decay against optax's, with the learning rate as a
+    Python float (the CPU's Adam) and as the capturable Adam's 0-d float32
+    tensor, which the schedule fills in place."""
     cfg = load_config("mnist_28")
     cfg.learning_rate, cfg.gamma = 2e-3, 0.5
     steps_per_epoch = 4
     want = optax.exponential_decay(2e-3, transition_steps=steps_per_epoch, decay_rate=0.5, staircase=True)
-    opt, schedule = ttrain.make_optimizer(cfg, torch.nn.Linear(2, 1), steps_per_epoch)
+    opt, schedule = ttrain.make_optimizer(cfg, torch.nn.Linear(2, 1), steps_per_epoch, capturable=capturable)
+    assert isinstance(opt.param_groups[0]["lr"], torch.Tensor) == capturable
     got = []
     for _ in range(10):  # 2.5 epochs
-        got.append(opt.param_groups[0]["lr"])
+        got.append(float(opt.param_groups[0]["lr"]))
         opt.step()
         schedule.step()
     np.testing.assert_allclose(got, [float(want(k)) for k in range(10)], rtol=1e-6)
@@ -233,7 +238,8 @@ def test_epoch_record_keeps_the_reference_quirk(tmp_path):
     from hopvae_tpu.utils.metrics import MetricLogger as JaxMetricLogger
 
     steps = np.random.default_rng(2).uniform(0, 1, (5, 2)).astype(np.float32)
-    parts = [{"loss": torch.tensor(r + a), "recon_error": torch.tensor(r), "aux": torch.tensor(a)} for r, a in steps]
+    parts = {"loss": torch.from_numpy(steps.sum(1)), "recon_error": torch.from_numpy(steps[:, 0]),
+             "aux": torch.from_numpy(steps[:, 1])}
     ours = ttrain.Trainer._write_epoch_record(MetricLogger(str(tmp_path / "t")), {"epoch": 3}, parts, 77, 16, 0.0)
     JaxTrainer._write_epoch_record(
         JaxMetricLogger(str(tmp_path / "j")), {"epoch": 3},
@@ -446,11 +452,12 @@ def test_port_holds_the_prior_train_golden():
 
 
 class _LrTrainer(ttrain.Trainer):
-    """Records the learning rate and the phase of every step."""
+    """Records the learning rate and the phase of every step (``fit`` runs
+    the step body ``_step_core`` through ``epoch_step`` on staged data)."""
 
-    def train_step(self, x):
+    def _step_core(self, x):
         self.seen.append((self.fit_prior, self.optimizer.param_groups[0]["lr"]))
-        return super().train_step(x)
+        return super()._step_core(x)
 
 
 def _tiny_prior_trainer(**over):

@@ -40,8 +40,11 @@ def tiny_setup():
 
 
 class Recording(ttrain.Trainer):
-    def train_step(self, x):
-        out = super().train_step(x)
+    """Keeps each step's loss: the step body runs under ``train_step`` (a
+    process group) and under ``epoch_step`` (staged data, one process)."""
+
+    def _step_core(self, x):
+        out = super()._step_core(x)
         self.losses.append(float(out["loss"]))
         return out
 
