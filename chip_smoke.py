@@ -22,13 +22,21 @@ Twenty phases, each of which raises on failure:
    and past 256, on the wide variants: (512, 512), (384, 384), (384, 3)
    and (3, 384) at N 4,096, M 512 (the last three phase 13's lookups at
    ``embedding_dim=384``), a ragged (300, 700), (1280, 3), (1280, 300)
-   (the clusters with slices of 256; K1's at (1280, 3) is the window
-   kernel) and (300, 2304) (slices of 512) at N 37, M 300, and (8320, 3)
-   at N 37, M 64 (past the widest cluster: the window kernels). Past 256
-   each K1 row names its route (the cluster or the window kernel) and
-   holds the rows of the attention rebuilt from its ``m`` and ``l``, the
-   scores summed in K2's and K3's order, to sum to 1 within
-   ``ROW_SUM_ATOL``.
+   (the clusters with slices of 256; K1's at (1280, 3) is its narrow-side
+   kernel) and (300, 2304) (slices of 512) at N 37, M 300, (8320, 3)
+   at N 37, M 64 (past the widest cluster: K1's and K3's narrow-side
+   kernels, K2's window kernel), and (384, 3) and (3, 384) at N 73,984, M
+   4,096, the lookups of a wide-embedding ffhq_64_scaled step, on random
+   tables. Past 256 each K1 and K3 row names its route and plan as the
+   built library gives it (``card_plan``: the cluster, or the narrow-side
+   kernel with its window, its order and, where N leaves the card idle,
+   its split scores), its route
+   held against ``hc.narrow_split``, the predicate the CPU tests read; each
+   K1 row holds the rows of the attention rebuilt from its ``m`` and ``l``,
+   the scores summed in K2's and K3's order, to sum to 1 within
+   ``ROW_SUM_ATOL``; and K1 at (3, 384), N 4,096 and (8320, 3), N 37,
+   where the narrow-side kernel keeps the window kernel's order, gives its bits on
+   hashed inputs (``PARENT_BITS``).
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -82,8 +90,8 @@ Twenty phases, each of which raises on failure:
     MNIST golden digits; a ragged case) and at the bottleneck widths
     (d, di) = (32, 4), (256, 3), (384, 3), (64, 300) and (384, 300) with
     random tables (N 4,096, M 512; the last three on K1's wide route,
-    stage by stage: the cluster or the window kernel, at (384, 300) the
-    cluster for all three):
+    stage by stage: the cluster or the narrow-side kernel, at (384, 300)
+    the cluster for all three):
     against its plain version and against the streaming bottleneck's
     three K1 launches, ``e`` and ``r`` within 1e-5, at most 1e-4 of the
     ``zq`` bins differing; one launch a call; the three-pass bound.
@@ -91,7 +99,8 @@ Twenty phases, each of which raises on failure:
     index_dim=4``, at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
     their 256 instances) and at ``embedding_dim=384`` (their wide
     variants: K1 on its cluster at (384, 384), K2 and K3 also at (384,
-    3), the window kernels elsewhere), three f32 Adam steps each through
+    3); elsewhere K1's and K3's narrow-side kernels and K2's window
+    kernel), three f32 Adam steps each through
     ``Trainer`` on the kernels against the same steps on the CPU's plain
     versions, losses within 1e-3, K1, K2 and K3 3 launches a step, the
     device ms of each step on the card from CUDA events logged; and the
@@ -211,6 +220,8 @@ prints no result, without a CUDA card or outside the repository.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import hashlib
 import importlib.util
 import json
 import math
@@ -229,6 +240,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from hopvae_torch.config import load_config
 from hopvae_torch.data import (DECODE_GOLDENS, GOLDENS, PIXELCNN_GOLDENS, PIXELCNN_TRAIN_GOLDEN, PRIOR_GOLDENS,
@@ -261,7 +273,7 @@ STAT_RTOL = 1e-5  # m (floored at |m| = 1: it enters only as exp(sc - m)) and l
 # |row sum - 1| of the attention rebuilt from the wide K1's m and l with
 # torch's exp (rebuilt_rows_err). l sums the kernels' __expf, whose error
 # torch's exp does not share: sound builds read 2.4e-7 to 1.05e-6 on an
-# H100, the window kernel among them (PERF.md); l without a tile of
+# H100, the former window kernel among them (PERF.md); l without a tile of
 # 32 patterns, or without a rank's sums, reads about 0.1 (the CPU
 # emulation at 512 -> 512). The CPU tests hold the emulated kernels, one
 # exp on both sides, to 1.5e-7 (tests/test_torch_wide.py).
@@ -313,6 +325,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int = 10) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by name
+    (``torch.profiler``, the mean of ``reps`` calls after a warm-up): past
+    256, for example, the query build, the split passes, the kernel and
+    its finishing sums."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:120]: e.device_time_total / 1e3 / reps for e in prof.key_averages() if e.device_time_total > 0}
 
 
 @contextlib.contextmanager
@@ -403,6 +429,8 @@ WIDTH_CASES = (
     ("wide ragged 1280x300", 37, 300, 1280, 300),
     ("wide ragged 300x2304", 37, 300, 300, 2304),
     ("wide ragged 8320x3", 37, 64, 8320, 3),
+    ("wide full 384x3", 73984, 4096, 384, 3),
+    ("wide full 3x384", 73984, 4096, 3, 384),
 )
 
 
@@ -433,10 +461,76 @@ def state_query(x, s, t) -> torch.Tensor:
 
 def lookup_route(d_in: int, d_out: int) -> str:
     """K1's route at these widths: a built instance, the cluster or the
-    window kernel (``hc.kernel_route``, ``hc.forward_cluster``)."""
+    narrow-side kernel (``hc.kernel_route``, ``hc.forward_cluster``)."""
     if hc.kernel_route(d_in, d_out) == "instance":
         return "instance"
-    return "cluster" if hc.forward_cluster(d_in, d_out) else "window"
+    return "cluster" if hc.forward_cluster(d_in, d_out) else "narrow"
+
+
+PLAN_ROUTES = ("instance", "cluster", "narrow", "narrow, split scores")
+SPLITS = {None: "narrow", "scores": "narrow, split scores"}
+
+
+def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
+    """K1's (``kernel="fwd"``) or K3's (``"dku"``) plan at these sizes as
+    the built library gives it (its ``_plan`` entry): the route, held
+    against ``hc.narrow_split`` (the predicate the CPU tests read), and on
+    the narrow-side kernel the card's window, K1's order and groups, K3's
+    chunks of the token tiles."""
+    stem = {"fwd": "hopfield_stream_fwd", "dku": "hopfield_stream_bwd_dku"}[kernel]
+    out = (ctypes.c_int * 6)()
+    err = getattr(nvcc.load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
+    if err != 0:
+        raise RuntimeError(f"{stem}_plan{(n, m, d_in, d_out)} failed: cudaError {err}")
+    plan = {"route": PLAN_ROUTES[out[0]]}
+    if out[0] >= 2 and kernel == "fwd":
+        plan |= {"window": out[1], "group": out[2], "trunc": bool(out[3])}
+    elif out[0] >= 2:
+        plan |= {"window": out[1], "dk_tiles": out[2], "dk_chunks": out[3], "du_tiles": out[4], "du_chunks": out[5]}
+    if hc.kernel_route(d_in, d_out) == "instance":
+        want = "instance"
+    elif (hc.forward_cluster if kernel == "fwd" else hc.backward_cluster)(d_in, d_out):
+        want = "cluster"
+    else:
+        want = SPLITS[hc.narrow_split(kernel, n, m, d_in, d_out, torch.cuda.get_device_properties(0).multi_processor_count)]
+    if plan["route"] != want:
+        raise AssertionError(f"{stem}'s route at {(n, m, d_in, d_out)} is {plan['route']}, the mirror's {want}")
+    return plan
+
+
+def hashed(shape: tuple, seed: int) -> torch.Tensor:
+    """f32 values of about unit variance from an integer hash of their
+    index, on the card: the same bits on any machine and any torch."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device="cuda")
+    h = (i * 2654435761 + seed * 40503) & 0xFFFFFFFF
+    h = ((h ^ (h >> 15)) * 0x45D9F3B) & 0xFFFFFFFF
+    h = (h ^ (h >> 13)) & 0xFFFFFF
+    return ((h.double() / (1 << 24) - 0.5) * 3.4641016151377544).float().reshape(shape)
+
+
+# K1 where the narrow-side kernel keeps the former window kernel's order (its depth in the
+# window kernels' parts, K2's and K3's order at these widths) and so its
+# bits: sha256 of out, m and l on hashed inputs, as the former window kernel
+# gave them on an H100 (tools/torch_hopfield_bwd_variants.py with the
+# parent's build; PERF.md)
+PARENT_BITS = {
+    (4096, 512, 3, 384): "305634550e59b1f2e95e01495ff99fd80e12b45d73be7340058c108919c2d62c",
+    (37, 64, 8320, 3): "856b258606e64cf24d4cde2cd8cc7c5ec3410f8503803e137c4d2a2940bca000",
+}
+
+
+def parent_bits_inputs(n: int, m: int, d_in: int, d_out: int) -> tuple:
+    """``(x, K, U, s, t)`` of a ``PARENT_BITS`` case, from ``hashed``."""
+    x, k, u = hashed((n, d_in), 1), hashed((m, d_in), 2), hashed((m, d_out), 3)
+    return x, k, u, 1 + 0.2 * hashed((d_in,), 4), 0.2 * hashed((d_in,), 5)
+
+
+def lookup_digest(outs) -> str:
+    """sha256 of the bytes of K1's ``(out, m, l)``."""
+    h = hashlib.sha256()
+    for a in outs:
+        h.update(a.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def tf32(x: torch.Tensor, trunc: bool = False) -> torch.Tensor:
@@ -523,7 +617,7 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             "repeats_bitwise": repeats,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
             "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
-            "build": hc.forward_attributes(d_in, d_out),
+            "build": hc.forward_attributes(d_in, d_out), "plan": card_plan("fwd", n, k.shape[0], d_in, d_out),
         }
         log(json.dumps(row))
         rows.append(row)
@@ -531,6 +625,12 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             raise AssertionError(f"kernel disagrees with its plain version at {label}: {row}")
         if rows_err is not None and not rows_err <= ROW_SUM_ATOL:
             raise AssertionError(f"the attention rebuilt from K1's stats does not sum to 1 at {label}: {row}")
+    for sizes, want in PARENT_BITS.items():
+        with torch.inference_mode():
+            got = lookup_digest(hc.stream_lookup_fwd(*parent_bits_inputs(*sizes)))
+        log(json.dumps({"parent_bits": sizes, "plan": card_plan("fwd", *sizes), "sha256": got, "held": got == want}))
+        if got != want:
+            raise AssertionError(f"K1 at {sizes} (N, M, d_in, d_out) lost the former window kernel's bits: {got}, not {want}")
     return rows
 
 
@@ -601,6 +701,8 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
                 "library_ms": lib_ms, "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by, "build": hc.backward_attributes(kernel, d_in, d_out),
             }
+            if kernel == "dku":
+                row["plan"] = card_plan("dku", n, k.shape[0], d_in, d_out)
             log(json.dumps(row))
             rows.append(row)
             if not (max(errs.values()) <= BWD_NORMWISE and repeats):

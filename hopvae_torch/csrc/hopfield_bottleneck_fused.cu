@@ -58,11 +58,13 @@
 // and zq / (L - 1) going through device memory (e and zq are outputs
 // anyway): the query build, then the stage's kernel (the cluster of
 // hopfield_cluster.cuh where the stage's d_in and d_out pass 128, else
-// the window kernel of hopfield_wide.cuh; fwd_plan) with the shift for e,
+// the narrow-side kernel of hopfield_narrow.cuh on its plan) with the
+// shift for e,
 // again with the sigmoid and the round for zq, again with the shift for
 // r. Six launches of one call, the arithmetic of each step as above.
 
 #include "hopfield_cluster.cuh"
+#include "hopfield_narrow.cuh"
 #include "hopfield_stream_fwd.cuh"
 #include "hopfield_wide.cuh"
 
@@ -220,16 +222,14 @@ extern "C" int hopfield_bottleneck_fused(const float* x, const float* k1, const 
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and the first stage's TN; past 256
 // the first stage's, (d, d): the cluster kernel where it runs
-// (hopfield_cluster::fwd_plan), else the window kernel. Returns a
+// (hopfield_cluster::fwd_plan), else the narrow-side kernel. Returns a
 // cudaError_t.
 extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
   int j, ranks;
   if (d >= 1 && di >= 1 && hopfield_wide::wide(d, di)) {
     if (hopfield_cluster::fwd_plan(d, d, j, ranks))
       return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::SHIFT>(d, d, true, out));
-    return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::SHIFT>,
-                                              hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
-                                              hopfield_wide::TN, out));
+    return static_cast<int>(hopfield_narrow::fwd_window_attributes<hopfield_wide::SHIFT>(d, out));
   }
   if (!fused_takes(d, di)) return cudaErrorInvalidValue;
   return with_fused_widths(d, di, [&](auto pd, auto pdi) {
@@ -250,18 +250,23 @@ extern "C" int hopfield_bottleneck_fused_cluster(int d_in, int d_out, int* out) 
 }
 
 // Floats of device scratch that hopfield_bottleneck_fused_wide needs: one
-// stage's queries (n, max(d, di)) and zq / (L - 1) (n, di).
-extern "C" long long hopfield_bottleneck_fused_workspace(int n, int d, int di) {
-  if (n <= 0 || d < 1 || di < 1) return 0;
-  return static_cast<long long>(n) * ((d > di ? d : di) + di);
+// stage's queries (n, max(d, di)) and zq / (L - 1) (n, di), then the most
+// that a stage's split scores take (hopfield_narrow::fwd_split_floats;
+// the stages run one after the other).
+extern "C" long long hopfield_bottleneck_fused_wide_workspace(int n, int m1, int m2, int m3, int d, int di) {
+  if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || d < 1 || di < 1) return 0;
+  using hopfield_narrow::fwd_split_floats;
+  const long long split = std::max({fwd_split_floats(n, m1, d, d), fwd_split_floats(n, m2, d, di),
+                                    fwd_split_floats(n, m3, di, d)});
+  return static_cast<long long>(n) * ((d > di ? d : di) + di) + split;
 }
 
 // The same as hopfield_bottleneck_fused past 256, with workspace as
 // above: each stage's query build, then the stage through
-// hopfield_cluster::launch_fwd (the route of K1's wide forward: the
-// cluster kernel up to 8192 on the stage's wider side, else the window
-// kernel) with the shift for e, the sigmoid and the round for zq, the
-// shift for r. Launches on `stream`.
+// hopfield_narrow::launch_fwd (the route of K1's wide forward: the cluster
+// kernel where the stage's widths both pass 128, up to 8192, else the
+// narrow-side kernel on its plan) with the shift for e, the sigmoid and
+// the round for zq, the shift for r. Launches on `stream`.
 extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, const float* u1, const float* b1,
                                               const float* s1, const float* t1, const float* k2, const float* u2,
                                               const float* b2, const float* s2, const float* t2, const float* k3,
@@ -269,23 +274,22 @@ extern "C" int hopfield_bottleneck_fused_wide(const float* x, const float* k1, c
                                               float* e, float* zq, float* r, float* workspace, int n, int m1, int m2,
                                               int m3, int d, int di, int num_levels, void* stream) {
   using namespace hopfield_wide;
-  using hopfield_cluster::launch_fwd;
-  if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || num_levels < 2 || d < 1 || di < 1 || windows(d) > 65535 ||
-      windows(di) > 65535)
-    return cudaErrorInvalidValue;
+  using hopfield_narrow::launch_fwd;
+  if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || num_levels < 2 || d < 1 || di < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float levels = static_cast<float>(num_levels - 1);
   float* q = workspace;
   float* zn = workspace + static_cast<size_t>(n) * (d > di ? d : di);
+  float* split = zn + static_cast<size_t>(n) * di;
   float* none = nullptr;  // the stages write no row stats
   cudaError_t err = build_queries(x, s1, t1, n, d, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd<SHIFT>(q, k1, u1, b1, e, none, none, none, n, m1, d, d, beta_of(d), levels, st);
+    err = launch_fwd<SHIFT>(q, k1, u1, b1, e, none, none, none, split, n, m1, d, d, beta_of(d), levels, st);
   if (err == cudaSuccess) err = build_queries(e, s2, t2, n, d, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd<QUANTIZE>(q, k2, u2, b2, zq, none, none, zn, n, m2, d, di, beta_of(d), levels, st);
+    err = launch_fwd<QUANTIZE>(q, k2, u2, b2, zq, none, none, zn, split, n, m2, d, di, beta_of(d), levels, st);
   if (err == cudaSuccess) err = build_queries(zn, s3, t3, n, di, q, nullptr, nullptr, st);
   if (err == cudaSuccess)
-    err = launch_fwd<SHIFT>(q, k3, u3, b3, r, none, none, none, n, m3, di, d, beta_of(di), levels, st);
+    err = launch_fwd<SHIFT>(q, k3, u3, b3, r, none, none, none, split, n, m3, di, d, beta_of(di), levels, st);
   return static_cast<int>(err);
 }

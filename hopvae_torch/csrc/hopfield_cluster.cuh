@@ -82,9 +82,10 @@ using hopfield_wide::SHIFT;
 // (chunks of 128 a slice) and the blocks of a cluster, from the wider
 // side; false where both widths are at most MAX_WIDTH (the built
 // instances), where d_in is at most WINDOW_IN, or where the wider is past
-// 8192 (a cluster of more than 16 blocks): the window kernels of
-// hopfield_wide.cuh take those. At d_in up to 128 dq and dK have one
-// window, so the window kernels compute g U^T once and recompute only a
+// 8192 (a cluster of more than 16 blocks): K2's window kernel
+// (hopfield_wide.cuh) and K3's narrow-side kernel (hopfield_narrow.cuh)
+// take those. At d_in up to 128 dq and dK have one window, so those
+// kernels compute g U^T once and recompute only a
 // q K^T of that depth; there they ran faster on an H100 (at (3, 384), N
 // 4,096, M 512: K2 0.113 ms against the cluster's 0.268, K3 0.246 against
 // 0.377; PERF.md).
@@ -552,7 +553,8 @@ cudaError_t cluster_build(int d_in, int d_out, bool attributes, int* out) {
 // K4's three stages (hopfield_bottleneck_fused.cu)
 
 // The cluster of the forward (K1, K4's stages): plan's, with d_out past
-// WINDOW_IN too. At d_out up to 128 the window kernel has one window and
+// WINDOW_IN too. At d_out up to 128 the window kernel (now the
+// narrow-side kernel of hopfield_narrow.cuh) has one window and
 // computes each score once; there it ran faster on an H100 (N 4,096, M
 // 512: K1 at (384, 3) 0.222 to 0.227 ms against the cluster's 0.251, and
 // at (3, 384), d_in up to 128, 0.119 against 0.216; K4 at (64, 300)
@@ -873,18 +875,15 @@ stream_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__
   }
 }
 
-// The wide forward over the built q (n, d_in), the route past 256: the
-// cluster kernel where fwd_plan takes the widths, else the window kernel
-// (hopfield_wide.cuh); a route by width, and a refused launch returns its
-// error.
+// The wide forward on its cluster over the built q (n, d_in), where
+// fwd_plan takes the widths (hopfield_narrow.cuh's launch_fwd routes the
+// others); a refused launch returns its error.
 template <int MODE>
-cudaError_t launch_fwd(const float* q, const float* K, const float* U, const float* bias, float* out, float* m,
-                       float* l, float* zn, int n, int m_patterns, int d_in, int d_out, float beta, float levels,
-                       cudaStream_t stream) {
+cudaError_t launch_fwd_cluster(const float* q, const float* K, const float* U, const float* bias, float* out,
+                               float* m, float* l, float* zn, int n, int m_patterns, int d_in, int d_out, float beta,
+                               float levels, cudaStream_t stream) {
   int j, ranks;
-  if (!fwd_plan(d_in, d_out, j, ranks))
-    return hopfield_wide::launch_fwd_wide<MODE>(q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta,
-                                                levels, stream);
+  if (!fwd_plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
   return with_chunks(j, [&](auto jj) {
     constexpr int J = decltype(jj)::value;
     using C = Cfg<J>;

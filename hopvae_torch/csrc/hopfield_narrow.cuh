@@ -1,0 +1,587 @@
+// The wide streaming Hopfield lookups where the clusters
+// (hopfield_cluster.cuh) do not run: one side at most 128 and the other
+// past 256, or a side past 8192. This header holds the forward K1
+// (hopfield_stream_fwd.cu) with K4's wide stages
+// (hopfield_bottleneck_fused.cu), the route of the wide forward
+// (launch_fwd), and the pieces that K3's narrow-side kernel
+// (hopfield_stream_bwd_dku.cu) shares with it: the ordered depth parts,
+// the staging sized to the live columns and the split of the scores.
+//
+// It replaces the window kernel (stream_fwd_wide_kernel), which padded
+// the narrow side to a window of 128 output columns (at d_out 3, 16
+// n-tiles of P U of which 1 is live) and to chunks of 64 of the depth (at d_in 3, 8 k-steps of
+// which 1 is live), ran ceil(N / 64) blocks whatever the card (64 at N
+// 4,096, one at N 37) and waited on a barrier at every chunk of a
+// two-buffer ring. What bounds these lookups on an H100 is latency: the
+// products are a few microseconds at the TF32 rate (phase 2 of
+// chip_smoke.py), and what the card waits on is the chain of mma.sync of a
+// part, the copies and the barriers. So the kernels here:
+// - size the narrow side to its width: the output window is a template
+//   width of 8, 16, 32, 64 or 128 columns (the output width padded to 8,
+//   up to 128), and a product's depth runs only the k-steps below its
+//   width; the copies stage the live columns only (to a power of two from
+//   8, zero-filled past the width);
+// - keep the 64-column parts of the depth as the window kernels had them (each part's
+//   three-pass TF32 products in a fresh sum of their own), and sum them in
+//   the order that the backward K2 and K3 use at the same widths
+//   (score_order): the window kernels' order (part after part) where K2
+//   and K3 run their window kernels, so that the scores, m and l keep
+//   the window kernel's bits there; the cluster's (groups of 2J parts, a slice, each
+//   group summed in order, the groups in order, the small TF32 parts
+//   truncated) where K2 and K3 run on their cluster. Either way the rows
+//   K2 and K3 rebuild from K1's m and l meet scores summed as K1 summed
+//   them;
+// - fill the card from the token count: where ceil(N / 64) blocks leave
+//   SMs idle and the depth has more than one group, the scores are split
+//   (split_scores): a first pass computes each group's sum of every
+//   (token tile, pattern tile) on a grid as wide as the card wants, a
+//   second adds the groups in order into S = q K^T (N, M), and the
+//   forward then reads S in place of its parts. The sums are the same
+//   operations in the same order: the same bits as without the split.
+//   The plan (fwd_window_plan) comes from N, M, the widths and the SMs;
+//   the scratch is capped at SPLIT_BYTES. A split over a thread-block
+//   cluster of the groups, their sums meeting over DSMEM in rank order
+//   at each tile, lost to it on an H100 (K1 at (384, 3), N 4,096, 0.143
+//   against 0.114 ms; at (1280, 3), N 37, 0.144 against 0.070; PERF.md):
+//   every tile waits on a cluster barrier, and rank 0's softmax and P U
+//   on the other ranks' sums, so the groups' walks never overlap;
+// - stream part items (a part of the resident rows and of the tile, or
+//   the tile's window) through two buffers, one block barrier an item. A
+//   ring of three (78,336 shared bytes, 2 blocks an SM) lost to two
+//   (52,224 bytes, 4 blocks an SM at a window of 8) on an H100: K1 at
+//   (384, 3), N 73,984, 9.89 against 7.56 ms (PERF.md).
+//
+// Every product is mma.sync m16n8k8 on TF32 operands in three passes; f32
+// sums in a fixed order, no float atomics: every output has the same bits
+// in every run. Shared bytes: 52,224 (two buffers of a 64 + 32 row part
+// item), whatever the widths; pass 1 of the split 26,112 more for each
+// part of its group of q.
+
+#pragma once
+
+#include <algorithm>
+
+#include "hopfield_cluster.cuh"
+#include "hopfield_stream.cuh"
+#include "hopfield_wide.cuh"
+
+namespace hopfield_narrow {
+
+using namespace hopfield_stream;
+using namespace tf32x3;
+using hopfield_wide::Epilogue;
+using hopfield_wide::PLAIN;
+using hopfield_wide::QUANTIZE;
+using hopfield_wide::SHIFT;
+
+constexpr int TM = 64;    // resident rows of a block: tokens (K1, K4) or patterns (K3)
+constexpr int TN = 32;    // streamed rows of a tile: patterns (K1, K4) or tokens (K3)
+constexpr int NT = TN / 8;
+constexpr int PART = 64;  // columns of a part of a product's depth
+constexpr int THREADS = 32 * TM / 16;  // a warp a 16-row slab
+constexpr int NB = 2;     // buffers: item i + 1 is staged while item i is used (three lost; see above)
+constexpr int RP = PART + 4;  // row stride of a part item (TM resident and TN streamed rows)
+constexpr int RSC = TN + 4;   // row stride of K1's staged scores (TM token rows, TN patterns)
+constexpr int RST = TM + 4;   // of K3's (TN token rows, TM patterns)
+constexpr int SLOT = (TM + TN) * RP;  // floats of a buffer
+static_assert(TM * RSC + TN * (128 + 4) <= SLOT, "K1's scores and a window of U fit a buffer");
+static_assert(TN * RST + TN * (128 + 4) + 3 * TN <= SLOT, "K3's scores, a window and the row stats fit a buffer");
+constexpr size_t BYTES = sizeof(float) * NB * SLOT;
+// the split's scratch at most: the groups' sums and S
+constexpr long long SPLIT_BYTES = 64ll << 20;
+
+__host__ __device__ inline int parts_of(int d) { return (d + PART - 1) / PART; }
+__host__ __device__ inline int windows_of(int d, int cw) { return (d + cw - 1) / cw; }
+// the staged width of `cols` live columns: the next power of two from 8
+__host__ __device__ inline int staged(int cols) {
+  int w = 8;
+  while (w < cols) w <<= 1;
+  return w;
+}
+
+// The order in which a lookup of widths (d_in, d_out) sums the parts of
+// its scores: `group` parts summed in order make a group, the groups add
+// in order; trunc: the small TF32 parts truncated. The backward's order at
+// the same widths: its cluster's (hopfield_cluster::plan; a slice of 128 J
+// columns is 2J parts) or its window kernels' (one part a group, rounded).
+struct Order {
+  int group;
+  bool trunc;
+};
+inline Order score_order(int d_in, int d_out) {
+  int j, ranks;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return {2 * j, true};
+  return {1, false};
+}
+inline int groups_of(int d_in, Order o) { return (parts_of(d_in) + o.group - 1) / o.group; }
+
+inline int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// Whether the scores of n token rows (n, m patterns) of `groups` groups
+// are split, when `blocks` blocks would walk them in one pass: more than
+// one group, fewer blocks than the card holds at two an SM, and the
+// scratch within SPLIT_BYTES.
+inline bool split_pays(int n, int m, int groups, long long blocks, int sms) {
+  return groups >= 2 && blocks < 2ll * sms && 4ll * (groups + 1) * n * m <= SPLIT_BYTES;
+}
+// floats of the split's scratch: each group's sums, then S
+inline long long split_floats(int n, int m, int groups) { return static_cast<long long>(groups + 1) * n * m; }
+
+// Rows [row0, row0 + ROWS) of columns [c0, c0 + w) of a row-major (rows,
+// d) array into a tile of row stride rs by cp.async (the caller commits);
+// w is a power of two from 8, zeros past d and past `rows`. vec16:
+// 16-byte copies (the base on 16 bytes, d and c0 multiples of 4).
+template <int ROWS>
+__device__ __forceinline__ void stage(float* dst, int rs, const float* __restrict__ src, int d, int c0, int w,
+                                      int row0, int rows, bool vec16) {
+  if (vec16) {
+    const int sh = 29 - __clz(w);  // log2(w / 4)
+    for (int i = threadIdx.x; i < (ROWS << sh); i += THREADS) {
+      const int r = i >> sh;
+      const int c = (i & ((1 << sh) - 1)) << 2;
+      const bool in = row0 + r < rows && c0 + c < d;
+      cp_async16(dst + r * rs + c, in ? src + static_cast<size_t>(row0 + r) * d + c0 + c : src, in);
+    }
+  } else {
+    const int sh = 31 - __clz(w);
+    for (int i = threadIdx.x; i < (ROWS << sh); i += THREADS) {
+      const int r = i >> sh;
+      const int c = i & (w - 1);
+      const bool in = row0 + r < rows && c0 + c < d;
+      cp_async4(dst + r * rs + c, in ? src + static_cast<size_t>(row0 + r) * d + c0 + c : src, in);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// The slab's 16 x TN product of a part item over its first ks k-steps, in
+// a fresh sum: the A rows at a, the B rows at b, both of row stride RP.
+template <bool TRUNC>
+__device__ __forceinline__ void part_product(float (&part)[NT][4], const float* a, const float* b, int ks, int gq,
+                                             int tq) {
+  zero(part);
+#pragma unroll 2
+  for (int c = 0; c < ks; ++c) {
+    const FragA fa = load_a<RP, TRUNC>(a + 8 * c, gq, tq);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      FragB b0, b1;
+      load_b_rows2<RP, TRUNC>(b0, b1, b + 8 * j * RP + 8 * c, gq, tq);
+      mma3(part[j], fa, b0);
+      mma3(part[j + 1], fa, b1);
+    }
+  }
+}
+
+// The k-steps of part p of a depth d: its live columns rounded up to 8.
+__device__ __forceinline__ int part_steps(int d, int p) { return (min(PART, d - p * PART) + 7) / 8; }
+
+// Part p's fresh sum pp into the running sums in `group` order: gs, the
+// open group's, takes the group's parts in order; sc, the scores', the
+// groups in order (the first group is sc itself).
+__device__ __forceinline__ void add_part(float (&sc)[NT][4], float (&gs)[NT][4], const float (&pp)[NT][4], int p,
+                                         int group, int parts) {
+  const int k = p % group;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gs[j][e] = k == 0 ? pp[j][e] : gs[j][e] + pp[j][e];
+  if (k == group - 1 || p == parts - 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = p < group ? gs[j][e] : sc[j][e] + gs[j][e];
+  }
+}
+
+// ---- the split: S = q K^T (n, m) of the built q (n, d_in)
+
+// Pass 1: the sums of group blockIdx.z of the block's TM token rows and
+// pattern tiles [blockIdx.y per, + per) into parts (groups, n, m). The
+// group's parts of q stay in shared memory for the whole walk, a TM x RP
+// tile each; the parts of K stream through the ring, a TN x RP item each.
+__global__ void __launch_bounds__(THREADS)
+partial_scores_kernel(const float* __restrict__ q, const float* __restrict__ K, float* __restrict__ parts, int n,
+                      int m_patterns, int d_in, int per, int group, int trunc, unsigned vec16) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int row0 = blockIdx.x * TM;
+  const int p0 = blockIdx.z * group;
+  const int np = min(group, parts_of(d_in) - p0);
+  float* q_s = reinterpret_cast<float*>(smem4);  // part k of the group at q_s + k TM RP
+  float* buf = q_s + np * TM * RP;               // buffer u at buf + u TN RP
+  const int t0 = blockIdx.y * per;
+  const int t1 = min((m_patterns + TN - 1) / TN, t0 + per);
+  const int items = (t1 - t0) * np;
+  const bool qv = vec16 & 1u, kv = vec16 >> 1 & 1u;
+
+  for (int k = 0; k < np; ++k) {
+    const int c0 = (p0 + k) * PART;
+    stage<TM>(q_s + k * TM * RP, RP, q, d_in, c0, staged(min(PART, d_in - c0)), row0, n, qv);
+  }
+  auto stage_item = [&](int i) {
+    if (i < items) {
+      const int it = t0 + i / np, c0 = (p0 + i % np) * PART;
+      stage<TN>(buf + (i % NB) * TN * RP, RP, K, d_in, c0, staged(min(PART, d_in - c0)), it * TN, m_patterns, kv);
+    }
+    cp_async_commit();  // the group's q goes with the first
+  };
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_item(i);
+
+  float gs[NT][4], pp[NT][4];
+  zero(gs);
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    stage_item(i + NB - 1);
+    const float* y = buf + (i % NB) * TN * RP;
+    const int k = i % np;
+    const float* a = q_s + k * TM * RP + m0 * RP;
+    if (trunc) part_product<true>(pp, a, y, part_steps(d_in, p0 + k), gq, tq);
+    else part_product<false>(pp, a, y, part_steps(d_in, p0 + k), gq, tq);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[j][e] = k == 0 ? pp[j][e] : gs[j][e] + pp[j][e];
+    if (k < np - 1) continue;
+    const int p_lo = (t0 + i / np) * TN;
+    float* out = parts + static_cast<size_t>(blockIdx.z) * n * m_patterns;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + m0 + gq + 8 * (e >> 1), col = p_lo + 8 * j + 2 * tq + (e & 1);
+        if (row < n && col < m_patterns) out[static_cast<size_t>(row) * m_patterns + col] = gs[j][e];
+      }
+  }
+}
+
+// shared bytes of pass 1 for groups of `group` parts: the group's q and
+// the ring of K's parts
+inline size_t partial_bytes(int group) { return sizeof(float) * (group * TM + NB * TN) * RP; }
+
+// Pass 2: S = the groups' sums added in order, in f32.
+__global__ void sum_groups_kernel(const float* __restrict__ parts, int groups, long long count,
+                                  float* __restrict__ S) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float t = parts[i];
+    for (int g = 1; g < groups; ++g) t += parts[g * count + i];
+    S[i] = t;
+  }
+}
+
+// S = q K^T (n, m_patterns) in the order o, through `work` (the groups'
+// sums, split_floats(...) - n m floats): pass 1 on about three blocks an
+// SM, then the ordered sum.
+inline cudaError_t split_scores(const float* q, const float* K, float* S, float* work, int n, int m_patterns,
+                                int d_in, Order o, int sms, cudaStream_t stream) {
+  const int groups = groups_of(d_in, o);
+  if (groups > 65535) return cudaErrorInvalidValue;
+  const int group = std::min(o.group, parts_of(d_in));
+  const size_t bytes = partial_bytes(group);
+  cudaError_t err =
+      cudaFuncSetAttribute(partial_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int rt = (n + TM - 1) / TM, tiles = (m_patterns + TN - 1) / TN;
+  const long long units = static_cast<long long>(rt) * tiles * groups;
+  const int per =
+      static_cast<int>(std::min<long long>(tiles, std::max<long long>(1, units / (3ll * std::max(sms, 1)))));
+  const unsigned vec16 = vec16_ok(q, d_in) | vec16_ok(K, d_in) << 1;
+  partial_scores_kernel<<<dim3(rt, (tiles + per - 1) / per, groups), THREADS, bytes, stream>>>(
+      q, K, work, n, m_patterns, d_in, per, o.group, o.trunc, vec16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long count = static_cast<long long>(n) * m_patterns;
+  constexpr int T = 256;
+  const long long blocks = std::min<long long>((count + T - 1) / T, 8ll * std::max(sms, 1));
+  sum_groups_kernel<<<static_cast<int>(blocks), T, 0, stream>>>(work, groups, count, S);
+  return cudaGetLastError();
+}
+
+// ---- the forward
+
+// The forward's plan where its cluster does not run: the output window
+// (d_out padded to 8 up to 128, else 128), the parts' order, and whether
+// the scores are split (split_pays, for ceil(n / TM) blocks a window).
+struct FwdPlan {
+  int cw;
+  Order order;
+  bool split;
+};
+inline FwdPlan fwd_window_plan(int n, int m_patterns, int d_in, int d_out, int sms) {
+  FwdPlan p;
+  p.cw = d_out <= 128 ? padded_width(d_out) : 128;
+  p.order = score_order(d_in, d_out);
+  const long long blocks = static_cast<long long>((n + TM - 1) / TM) * windows_of(d_out, p.cw);
+  p.split = split_pays(n, m_patterns, groups_of(d_in, p.order), blocks, sms);
+  return p;
+}
+
+// The narrow-side forward: out = softmax(beta q K^T) U / l for the block's
+// TM token rows of the built q (n, d_in) and the window [col0, col0 + CW)
+// of U. Per pattern tile: the parts of q and K (their columns below d_in),
+// summed in the plan's order into the scores, or, where the scores were
+// split, the tile of S; then the window of U (its live columns), the
+// online softmax on the fragments (the denominator a compensated sum) and
+// P U over the window's live n-tiles in fresh fragments, as the former window
+// kernel, whose bits it keeps where its order is the window kernels'. The
+// epilogue is MODE's (hopfield_wide.cuh; the first window writes m and l).
+template <int CW, int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
+stream_fwd_narrow_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                         const float* __restrict__ S, const float* __restrict__ bias, float* __restrict__ out,
+                         float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ zn_out, int n,
+                         int m_patterns, int d_in, int d_out, float beta, float levels, int group, int trunc,
+                         unsigned vec16) {
+  constexpr int CO = CW / 8, RW = CW + 4;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int row0 = blockIdx.x * TM;
+  const int col0 = blockIdx.y * CW;
+  const int np = S ? 0 : parts_of(d_in);  // part items a tile
+  const int per_tile = np + 1;
+  const int items = (m_patterns + TN - 1) / TN * per_tile;
+  const int u_cols = min(CW, d_out - col0);
+  const int wu = staged(u_cols), co = (u_cols + 7) / 8;  // the window's staged columns and live n-tiles
+  const bool qv = vec16 & 1u, kv = vec16 >> 1 & 1u, uv = vec16 >> 2 & 1u, sv = vec16 >> 3 & 1u;
+
+  auto stage_item = [&](int i) {
+    if (i < items) {
+      float* y = buf + (i % NB) * SLOT;
+      const int it = i / per_tile, sub = i - it * per_tile;
+      if (sub < np) {
+        const int c0 = sub * PART, w = staged(min(PART, d_in - c0));
+        stage<TM>(y, RP, q, d_in, c0, w, row0, n, qv);
+        stage<TN>(y + TM * RP, RP, K, d_in, c0, w, it * TN, m_patterns, kv);
+      } else {
+        if (S) stage<TM>(y, RSC, S, m_patterns, it * TN, TN, row0, n, sv);
+        stage<TN>(y + (S ? TM * RSC : 0), RW, U, d_out, col0, wu, it * TN, m_patterns, uv);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_item(i);
+
+  float m_r[2], l_r[2], l_lo[2], acc[CO][4], sc[NT][4], gs[NT][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) m_r[e] = MASKED, l_r[e] = 0.f, l_lo[e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  zero(sc);
+  zero(gs);
+
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    stage_item(i + NB - 1);
+    const float* y = buf + (i % NB) * SLOT;
+    const int it = i / per_tile, sub = i - it * per_tile;
+    if (sub < np) {
+      float pp[NT][4];
+      if (trunc) part_product<true>(pp, y + m0 * RP, y + TM * RP, part_steps(d_in, sub), gq, tq);
+      else part_product<false>(pp, y + m0 * RP, y + TM * RP, part_steps(d_in, sub), gq, tq);
+      add_part(sc, gs, pp, sub, group, np);
+      continue;
+    }
+    const float* ut = y;
+    if (S) {  // the tile's scores, rows gq and gq + 8 of the slab
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 v = *reinterpret_cast<const float2*>(y + (m0 + gq + 8 * r) * RSC + 8 * j + 2 * tq);
+          sc[j][2 * r] = v.x;
+          sc[j][2 * r + 1] = v.y;
+        }
+      ut = y + TM * RSC;
+    }
+    const int p_lo = it * TN;
+
+    // ---- online softmax on the whole scores
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float val = p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns ? sc[j][e] * beta : MASKED;
+        sc[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+      alpha[r] = __expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sc[j][e] - mx[e >> 1]);
+        sc[j][e] = p;
+        rsum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the compensated sum of hopfield_stream_fwd.cuh
+      const float a = __fmul_rn(l_r[r], alpha[r]);
+      const float b = __fadd_rn(__fmul_rn(l_lo[r], alpha[r]), rsum[r]);
+      const float sum = __fadd_rn(a, b);
+      const float bb = __fsub_rn(sum, a);
+      l_lo[r] = __fadd_rn(__fsub_rn(a, __fsub_rn(sum, bb)), __fsub_rn(b, bb));
+      l_r[r] = sum;
+    }
+
+    // ---- P U over the window's live n-tiles, into fresh fragments
+    float o[CO][4];
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (p_lo + 8 * j >= m_patterns) continue;
+      const FragA pa = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+      if (co == CO) {  // a whole window
+#pragma unroll
+        for (int c = 0; c < CO; ++c) mma3(o[c], pa, load_b_cols<RW>(ut + 8 * j * RW + 8 * c, gq, tq));
+      } else {
+#pragma unroll
+        for (int c = 0; c < CO; ++c)
+          if (c < co) mma3(o[c], pa, load_b_cols<RW>(ut + 8 * j * RW + 8 * c, gq, tq));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += l_lo[r];
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + m0 + gq + 8 * e;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < CO; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = col0 + 8 * c + 2 * tq + hh;
+        if (col >= d_out) continue;
+        const size_t at = static_cast<size_t>(row) * d_out + col;
+        const float v = acc[c][2 * e + hh] / l_r[e];
+        if constexpr (MODE == PLAIN) {
+          out[at] = v;
+        } else if constexpr (MODE == SHIFT) {
+          out[at] = v + bias[col];
+        } else {
+          const float zq = rintf(1.f / (1.f + expf(-(v + bias[col]))) * levels);
+          out[at] = zq;
+          zn_out[at] = zq / levels;
+        }
+      }
+    if (MODE == PLAIN && blockIdx.y == 0 && tq == 0) {
+      m_out[row] = m_r[e];
+      l_out[row] = l_r[e];
+    }
+  }
+}
+
+// f(std::integral_constant<int, CW>{}) for a window width of 8, 16, 32, 64 or 128.
+template <typename F>
+auto with_window(int cw, F&& f) {
+  switch (cw) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return f(std::integral_constant<int, 128>{});
+  }
+}
+
+// Floats of scratch the wide forward needs past the built q: the split's,
+// where its plan splits the scores.
+inline long long fwd_split_floats(int n, int m_patterns, int d_in, int d_out) {
+  int j, ranks;
+  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return 0;
+  const FwdPlan p = fwd_window_plan(n, m_patterns, d_in, d_out, sm_count());
+  return p.split ? split_floats(n, m_patterns, groups_of(d_in, p.order)) : 0;
+}
+
+// The wide forward over the built q (n, d_in), the route past 256: the
+// cluster kernel where fwd_plan takes the widths, else the narrow-side
+// kernel on its plan, the split scores through `work` (fwd_split_floats
+// floats: the groups' sums, then S). A refused launch returns its error.
+template <int MODE>
+cudaError_t launch_fwd(const float* q, const float* K, const float* U, const float* bias, float* out, float* m,
+                       float* l, float* zn, float* work, int n, int m_patterns, int d_in, int d_out, float beta,
+                       float levels, cudaStream_t stream) {
+  int j, ranks;
+  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks))
+    return hopfield_cluster::launch_fwd_cluster<MODE>(q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out,
+                                                      beta, levels, stream);
+  const int sms = sm_count();
+  const FwdPlan p = fwd_window_plan(n, m_patterns, d_in, d_out, sms);
+  if (windows_of(d_out, p.cw) > 65535) return cudaErrorInvalidValue;
+  const float* S = nullptr;
+  if (p.split) {
+    const int groups = groups_of(d_in, p.order);
+    float* s_out = work + static_cast<size_t>(groups) * n * m_patterns;
+    const cudaError_t err = split_scores(q, K, s_out, work, n, m_patterns, d_in, p.order, sms, stream);
+    if (err != cudaSuccess) return err;
+    S = s_out;
+  }
+  return with_window(p.cw, [&](auto c) {
+    constexpr int CW = decltype(c)::value;
+    auto kernel = stream_fwd_narrow_kernel<CW, MODE>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(BYTES));
+    if (err != cudaSuccess) return err;
+    const unsigned vec16 = vec16_ok(q, d_in) | vec16_ok(K, d_in) << 1 | vec16_ok(U, d_out) << 2 |
+                           (S ? vec16_ok(S, m_patterns) : 0u) << 3;
+    kernel<<<dim3((n + TM - 1) / TM, windows_of(d_out, CW)), THREADS, BYTES, stream>>>(
+        q, K, U, S, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta, levels, p.order.group, p.order.trunc,
+        vec16);
+    return cudaGetLastError();
+  });
+}
+
+// The forward's narrow-side kernel (MODE's instance) for a window of d_out
+// as the card reports it: tf32x3::kernel_attributes into out[0..6].
+template <int MODE>
+cudaError_t fwd_window_attributes(int d_out, int* out) {
+  return with_window(d_out <= 128 ? padded_width(d_out) : 128, [&](auto c) {
+    return kernel_attributes(stream_fwd_narrow_kernel<decltype(c)::value, MODE>, THREADS, BYTES, TM, TN, out);
+  });
+}
+
+}  // namespace hopfield_narrow

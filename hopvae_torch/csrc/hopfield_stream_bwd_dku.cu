@@ -68,17 +68,26 @@
 //   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.51 ms against
 //   the window kernel's 1.09; PERF.md); the chunks of the token axis plan
 //   from the clusters the card holds at once and each cluster's fixed
-//   cost (cluster_chunks). Elsewhere the window kernel (one instance for
-//   every width): a block owns 64 patterns and one window of 128 columns
-//   of dK or of dU (a grid axis); per token tile the chunks of K and q
-//   stream through (and, for dK, those of U and g), their products summed
-//   into the fragments, then the window of q's or g's columns with the
-//   tile's row stats. Each window block recomputes the scores: at d_in up
-//   to 128 only a K q^T of that depth (dK has one window, which alone
-//   computes U g^T), and the window kernel ran faster there (at (3, 384):
-//   0.246 ms against the cluster's 0.377), so the route is by width.
+//   cost (cluster_chunks). Elsewhere (d_in up to 128, or past 8192) the
+//   narrow-side kernel, which replaces the window kernel there (its
+//   pieces in hopfield_narrow.cuh): a block owns 64 patterns and one
+//   window of dK or of dU (a grid axis), the window the wider side's
+//   padded to 8 up to 128, each block's output only its live n-tiles (dK
+//   at d_in 3 one); per token tile the parts of K and q (and, for dK,
+//   those of U and g) stream through, their columns below the widths,
+//   summed part after part in fresh fragments (K2's window order), then
+//   the window's columns of q or g with the tile's row stats. Each window
+//   block recomputes the scores: at d_in up to 128 only a K q^T of that
+//   depth, so the route stays by width (at (3, 384) the cluster took
+//   0.377 ms against the window kernel's 0.246). What bounds it on an H100 is latency
+//   (8 warps an SM, a barrier a part); dK's blocks, which alone carry U
+//   g^T, get their own chunks of the token axis, planned apart from dU's
+//   by a tile's work (dku_window_plan), so that they do not set the pace;
+//   past 8192 the scores are split over the card once for all windows
+//   (hopfield_narrow::split_scores) instead of once a window.
 
 #include "hopfield_cluster.cuh"
+#include "hopfield_narrow.cuh"
 #include "hopfield_stream.cuh"
 #include "hopfield_wide.cuh"
 
@@ -339,65 +348,85 @@ int launch(const Args& a) {
 }
 
 
-// ---- past 256: the wide variant (hopfield_wide.cuh), one instance for
-// every width
+// ---- past 256: the cluster (hopfield_cluster.cuh) or the narrow-side
+// kernel (the pieces of hopfield_narrow.cuh)
 
-// dK's window [col0, col0 + CW) of d_in (blockIdx.z < windows(d_in)) or
-// dU's of d_out, for the block's TM patterns, over its chunk of the token
-// tiles of the built q: per tile the chunks of K and q, for dK those of U
-// and g, then the window of q (dK) or g (dU) with m, 1/l and delta.
-__global__ void __launch_bounds__(hopfield_wide::THREADS, 2)
-stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
-                           const float* __restrict__ g, const float* __restrict__ m_in,
-                           const float* __restrict__ il_in, const float* __restrict__ delta,
-                           float* __restrict__ dk_part, float* __restrict__ du_part, int n, int m_patterns, int d_in,
-                           int d_out, int tiles_per_chunk, float beta, unsigned vec16) {
-  using namespace hopfield_wide;
-  constexpr int tm = hopfield_wide::TM, tn = hopfield_wide::TN;
+// The narrow-side K3 for the block's TM patterns over its chunk of the
+// token tiles of the built q: blockIdx.y < ck wk, dK's window w (of CW
+// columns of d_in) and chunk c of ck (y = w ck + c); past them, dU's
+// window and chunk of cu (d_out). Per token tile: the parts of K and q
+// (their columns below d_in; the window kernels' order, part after part),
+// or, where the scores were split, the tile of S; for dK then the parts of
+// U and g; then the window of q (dK) or g (dU), its live columns, with
+// the tile's m, 1/l and delta. A^T (and dS^T for dK) on the fragments,
+// then the window's live n-tiles over the tile's tokens in fresh
+// fragments added to the running sums.
+template <int CW>
+__global__ void __launch_bounds__(hopfield_narrow::THREADS, 2)
+stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                             const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ m_in,
+                             const float* __restrict__ il_in, const float* __restrict__ delta,
+                             float* __restrict__ dk_part, float* __restrict__ du_part, int n, int m_patterns, int d_in,
+                             int d_out, int tk, int ck, int tu, int cu, float beta, unsigned vec16) {
+  using namespace hopfield_narrow;
+  constexpr int CO = CW / 8, RW = CW + 4;
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);
 
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);
-  const int p0 = blockIdx.x * tm;
-  const int chunk = blockIdx.y;
-  const int wi = windows(d_in);
-  const bool for_dk = static_cast<int>(blockIdx.z) < wi;
-  const int col0 = (for_dk ? blockIdx.z : blockIdx.z - wi) * CW;
+  const int p0 = blockIdx.x * hopfield_narrow::TM;
+  int y = blockIdx.y;
+  const bool for_dk = y < ck * windows_of(d_in, CW);
+  if (!for_dk) y -= ck * windows_of(d_in, CW);
+  const int chunks = for_dk ? ck : cu, per = for_dk ? tk : tu;
+  const int win = y / chunks, chunk = y - win * chunks;
+  const int col0 = win * CW;
   const int d_win = for_dk ? d_in : d_out;  // the width of the block's output
-  const int first = chunk * tiles_per_chunk;
-  const int last = min((n + tn - 1) / tn, first + tiles_per_chunk) - 1;
-  const int nci = chunks(d_in), nco = for_dk ? chunks(d_out) : 0;
-  const int per_tile = nci + nco + 1;
+  const int w_cols = min(CW, d_win - col0);
+  const int ww = staged(w_cols), co = (w_cols + 7) / 8;  // the window's staged columns and live n-tiles
+  const int first = chunk * per;
+  const int last = min((n + TN - 1) / TN, first + per) - 1;
+  const int nqi = S ? 0 : parts_of(d_in), ngo = for_dk ? parts_of(d_out) : 0;
+  const int per_tile = nqi + ngo + 1;
   const int items = (last - first + 1) * per_tile;
-  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u,
+             sv = vec16 >> 4 & 1u;
 
-  auto stage_item = [&](int i, int u) {
-    float* y = buf + u * SLOT;
-    const int it = first + i / per_tile, sub = i % per_tile;
-    if (sub < nci) {
-      stage_cols<DC, tm>(y, K, d_in, sub * DC, p0, m_patterns, kv);
-      stage_cols<DC, tn>(y + tm * RC, q, d_in, sub * DC, it * tn, n, qv);
-    } else if (sub < nci + nco) {
-      stage_cols<DC, tm>(y, U, d_out, (sub - nci) * DC, p0, m_patterns, uv);
-      stage_cols<DC, tn>(y + tm * RC, g, d_out, (sub - nci) * DC, it * tn, n, gv);
-    } else {
-      if (for_dk)
-        stage_cols<CW, tn>(y, q, d_in, col0, it * tn, n, qv);
-      else
-        stage_cols<CW, tn>(y, g, d_out, col0, it * tn, n, gv);
-      float* st = y + tn * RW;  // m, 1/l, delta of the tile's tokens
-      for (int j = threadIdx.x; j < 3 * tn; j += hopfield_wide::THREADS) {
-        const int r = it * tn + j % tn;
-        const bool in = r < n;
-        const float* src = j < tn ? m_in : j < 2 * tn ? il_in : delta;
-        cp_async4(st + j, in ? src + r : src, in);
+  auto stage_item = [&](int i) {
+    if (i < items) {
+      float* yb = buf + (i % NB) * SLOT;
+      const int it = first + i / per_tile, sub = i % per_tile;
+      if (sub < nqi) {
+        const int c0 = sub * PART, w = staged(min(PART, d_in - c0));
+        stage<hopfield_narrow::TM>(yb, RP, K, d_in, c0, w, p0, m_patterns, kv);
+        stage<TN>(yb + hopfield_narrow::TM * RP, RP, q, d_in, c0, w, it * TN, n, qv);
+      } else if (sub < nqi + ngo) {
+        const int c0 = (sub - nqi) * PART, w = staged(min(PART, d_out - c0));
+        stage<hopfield_narrow::TM>(yb, RP, U, d_out, c0, w, p0, m_patterns, uv);
+        stage<TN>(yb + hopfield_narrow::TM * RP, RP, g, d_out, c0, w, it * TN, n, gv);
+      } else {
+        float* wt = yb;
+        if (S) {
+          stage<TN>(yb, RST, S, m_patterns, p0, hopfield_narrow::TM, it * TN, n, sv);
+          wt = yb + TN * RST;
+        }
+        if (for_dk) stage<TN>(wt, RW, q, d_in, col0, ww, it * TN, n, qv);
+        else stage<TN>(wt, RW, g, d_out, col0, ww, it * TN, n, gv);
+        float* st = wt + TN * RW;  // m, 1/l, delta of the tile's tokens
+        for (int j = threadIdx.x; j < 3 * TN; j += hopfield_narrow::THREADS) {
+          const int r = it * TN + j % TN;
+          const bool in = r < n;
+          const float* src = j < TN ? m_in : j < 2 * TN ? il_in : delta;
+          cp_async4(st + j, in ? src + r : src, in);
+        }
       }
     }
     cp_async_commit();
   };
-  stage_item(0, 0);
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_item(i);
 
   bool live_p[2];
 #pragma unroll
@@ -407,29 +436,45 @@ stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict_
   for (int c = 0; c < CO; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  zero(sc);
-  zero(dp);
+  hopfield_narrow::zero(sc);
+  hopfield_narrow::zero(dp);
 
   for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
     cp_async_wait_all();
     __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
-    const float* y = buf + u * SLOT;
+    stage_item(i + NB - 1);
+    const float* yb = buf + (i % NB) * SLOT;
     const int it = first + i / per_tile, sub = i % per_tile;
-    if (sub < nci) {
-      if (sub == 0) zero(sc), zero(dp);
-      chunk_product(sc, y, m0, gq, tq);
+    if (sub < nqi + ngo) {  // a part of K q^T, or of U g^T, in a fresh sum added to the running one
+      const bool score = sub < nqi;
+      float pp[NT][4];
+      part_product<false>(pp, yb + m0 * RP, yb + hopfield_narrow::TM * RP,
+                          score ? part_steps(d_in, sub) : part_steps(d_out, sub - nqi), gq, tq);
+      if (score) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = sub == 0 ? pp[j][e] : sc[j][e] + pp[j][e];
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[j][e] = sub == nqi ? pp[j][e] : dp[j][e] + pp[j][e];
+      }
       continue;
     }
-    if (sub < nci + nco) {
-      chunk_product(dp, y, m0, gq, tq);
-      continue;
+    const float* wt = yb;
+    if (S) {  // the tile's scores, patterns gq and gq + 8 of the slab, tokens 8j + 2tq and + 1
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = yb[(8 * j + 2 * tq + (e & 1)) * RST + m0 + gq + 8 * (e >> 1)];
+      wt = yb + TN * RST;
     }
-    // ---- A^T (and dS^T for dK) on the fragments (patterns gq, gq + 8;
-    // tokens 8j + 2tq, + 1), then the window's outputs over the tile's tokens
-    const int tok_lo = it * tn;
-    const float* st = y + tn * RW;
+    // ---- A^T (and dS^T for dK) on the fragments, then the window's
+    // outputs over the tile's tokens
+    const int tok_lo = it * TN;
+    const float* st = wt + TN * RW;
     FragA fa[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -438,16 +483,17 @@ stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict_
       for (int e = 0; e < 4; ++e) {
         const int tl = 8 * j + 2 * tq + (e & 1);
         const float a =
-            live_p[e >> 1] && tok_lo + tl < n ? __expf(sc[j][e] * beta - st[tl]) * st[tn + tl] : 0.f;
-        v[e] = for_dk ? a * (dp[j][e] - st[2 * tn + tl]) * beta : a;
+            live_p[e >> 1] && tok_lo + tl < n ? __expf(sc[j][e] * beta - st[tl]) * st[TN + tl] : 0.f;
+        v[e] = for_dk ? a * (dp[j][e] - st[2 * TN + tl]) * beta : a;
       }
       fa[j] = split_a(v[0], v[2], v[1], v[3]);
     }
 #pragma unroll
     for (int c = 0; c < CO; ++c) {
+      if (c >= co) continue;
       float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<RW>(wt + 8 * j * RW + 8 * c, gq, tq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
     }
@@ -470,70 +516,146 @@ stream_bwd_dku_wide_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// The chunks of the token axis past 256: the cluster kernel's plan
-// (hopfield_cluster::cluster_chunks, clusters of pattern tiles) where it
-// runs, else about WAVES waves of the window kernel's blocks.
-int chunks_wide(int n, int m_patterns, int d_in, int d_out) {
-  using namespace hopfield_wide;
+// The narrow-side plan: the window (the wider side's, d padded to 8 up to
+// 128, else 128), whether the scores are split (past the widest cluster,
+// where every window would recompute them, with the scratch within
+// SPLIT_BYTES), and the chunks of the token tiles, dK's (tk tiles each, ck
+// of them) apart from dU's (tu, cu): about NARROW_WAVES waves of the
+// blocks the card holds, a block of either kind about the same work (a
+// tile's k-steps of its products and its window's n-tiles, and FIXED for
+// its staging and exps), so that dK's blocks, which alone carry U g^T, do
+// not set the pace.
+constexpr int NARROW_WAVES = 2;
+constexpr int FIXED_STEPS = 2;
+struct DkuPlan {
+  int cw;
+  bool split;
+  int tk, ck, tu, cu;
+};
+inline int narrow_width(int d_in, int d_out) {
+  const int d = d_in > d_out ? d_in : d_out;
+  return d <= 128 ? padded_width(d) : 128;
+}
+inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int concurrent) {
+  using namespace hopfield_narrow;
+  DkuPlan p;
+  p.cw = narrow_width(d_in, d_out);
+  const int groups = parts_of(d_in);
+  p.split = cluster::chunks_per_rank((d_in + cluster::STEP - 1) / cluster::STEP) == 0 && groups >= 2 &&
+            4ll * (groups + 1) * n * m_patterns <= SPLIT_BYTES;
+  const int tt = (n + TN - 1) / TN, pt = (m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
+  const long long wk = windows_of(d_in, p.cw), wu = windows_of(d_out, p.cw);
+  const long long ks_in = p.split ? 0 : (d_in + 7) / 8, ks_out = (d_out + 7) / 8;
+  const long long cost_k = ks_in + ks_out + (std::min(p.cw, d_in) + 7) / 8 + FIXED_STEPS;
+  const long long cost_u = ks_in + (std::min(p.cw, d_out) + 7) / 8 + FIXED_STEPS;
+  const long long total = static_cast<long long>(pt) * tt * (wk * cost_k + wu * cost_u);
+  const long long work = std::max(1ll, total / (NARROW_WAVES * static_cast<long long>(std::max(concurrent, 1))));
+  auto split_tiles = [&](long long cost, int& per, int& chunks) {
+    per = static_cast<int>(std::min<long long>(tt, std::max(1ll, work / cost)));
+    chunks = (tt + per - 1) / per;
+    per = (tt + chunks - 1) / chunks;
+  };
+  split_tiles(cost_k, p.tk, p.ck);
+  split_tiles(cost_u, p.tu, p.cu);
+  return p;
+}
+
+inline int concurrent_narrow(int cw) {
+  return hopfield_narrow::with_window(cw, [&](auto c) {
+    return concurrent_blocks(stream_bwd_dku_narrow_kernel<decltype(c)::value>, hopfield_narrow::THREADS,
+                             hopfield_narrow::BYTES);
+  });
+}
+
+inline DkuPlan dku_plan_of(int n, int m_patterns, int d_in, int d_out) {
+  return dku_window_plan(n, m_patterns, d_in, d_out, concurrent_narrow(narrow_width(d_in, d_out)));
+}
+
+// The chunks of the token axis past 256 on the cluster: its plan
+// (hopfield_cluster::cluster_chunks, clusters of pattern tiles).
+int chunks_cluster(int n, int m_patterns, int j, int ranks) {
+  int tm, tn;
+  hopfield_cluster::tile_rows(j, tm, tn);
+  return hopfield_cluster::cluster_chunks((n + tn - 1) / tn, (m_patterns + tm - 1) / tm,
+                                          hopfield_cluster::concurrent_clusters<true>(j, ranks));
+}
+
+// Floats of scratch past 256: q and 1/l, the partial rows of dK and dU,
+// and the split's scratch where the narrow-side plan splits the scores.
+long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
+  const long long qs = static_cast<long long>(n) * (d_in + 1);
   int j, ranks;
-  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) {
-    int tm, tn;
-    hopfield_cluster::tile_rows(j, tm, tn);
-    return hopfield_cluster::cluster_chunks((n + tn - 1) / tn, (m_patterns + tm - 1) / tm,
-                                            hopfield_cluster::concurrent_clusters<true>(j, ranks));
-  }
-  return chunks_for((n + hopfield_wide::TN - 1) / hopfield_wide::TN,
-                    (m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM * (windows(d_in) + windows(d_out)),
-                    concurrent_blocks(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS, BYTES));
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks))
+    return qs + static_cast<long long>(chunks_cluster(n, m_patterns, j, ranks)) * m_patterns * (d_in + d_out);
+  const DkuPlan p = dku_plan_of(n, m_patterns, d_in, d_out);
+  return qs + static_cast<long long>(m_patterns) * (static_cast<long long>(p.ck) * d_in + static_cast<long long>(p.cu) * d_out) +
+         (p.split ? hopfield_narrow::split_floats(n, m_patterns, hopfield_narrow::parts_of(d_in)) : 0);
 }
 
 // Past 256: the cluster kernel (hopfield_cluster.cuh) where its plan takes
-// the widths, else the window kernel (a route by width; see the header).
+// the widths, else the narrow-side kernel on its plan (a route by width).
 int launch_wide(const Args& a) {
-  using namespace hopfield_wide;
+  using hopfield_narrow::windows_of;
   int j, ranks;
   const bool clustered = hopfield_cluster::plan(a.d_in, a.d_out, j, ranks);
-  if (!clustered && windows(a.d_in) + windows(a.d_out) > 65535) return cudaErrorInvalidValue;
-  const int chunks = chunks_wide(a.n, a.m_patterns, a.d_in, a.d_out);
   float* q = a.workspace;
   float* il = q + static_cast<size_t>(a.n) * a.d_in;
   float* dk_part = il + a.n;
-  float* du_part = dk_part + static_cast<size_t>(chunks) * a.m_patterns * a.d_in;
-  cudaError_t err = build_queries(a.x, a.s, a.t, a.n, a.d_in, q, a.l, il, a.stream);
+  cudaError_t err = hopfield_wide::build_queries(a.x, a.s, a.t, a.n, a.d_in, q, a.l, il, a.stream);
   if (err != cudaSuccess) return err;
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
-  int parts;  // the chunks the launch writes
+  int dk_rows, du_rows;  // the chunks of the partial rows of dK and dU
+  float* du_part;
   if (clustered) {
+    const int chunks = chunks_cluster(a.n, a.m_patterns, j, ranks);
+    du_part = dk_part + static_cast<size_t>(chunks) * a.m_patterns * a.d_in;
     err = hopfield_cluster::with_chunks(j, [&](auto jj) {
       constexpr int J = decltype(jj)::value;
       using C = cluster::Cfg<J>;
       const int token_tiles = (a.n + C::TN - 1) / C::TN;
       const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
-      parts = (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+      dk_rows = du_rows = (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
       const unsigned cvec16 = (vec16 >> 2 & 3u) | (vec16 & 3u) << 2;  // K, U resident; q, g streamed
       return hopfield_cluster::launch_cluster<J, true>(
-          dim3((a.m_patterns + C::TM - 1) / C::TM, parts, ranks), a.K, a.U, q, a.g, a.m, il, a.delta, dk_part,
+          dim3((a.m_patterns + C::TM - 1) / C::TM, dk_rows, ranks), a.K, a.U, q, a.g, a.m, il, a.delta, dk_part,
           du_part, a.m_patterns, a.n, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in), cvec16, a.stream);
     });
   } else {
-    err = cudaFuncSetAttribute(stream_bwd_dku_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(BYTES));
-    if (err != cudaSuccess) return err;
-    const int token_tiles = (a.n + hopfield_wide::TN - 1) / hopfield_wide::TN;
-    const int tiles_per_chunk = (token_tiles + chunks - 1) / chunks;
-    parts = (token_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
-    const dim3 grid((a.m_patterns + hopfield_wide::TM - 1) / hopfield_wide::TM, parts,
-                    windows(a.d_in) + windows(a.d_out));
-    stream_bwd_dku_wide_kernel<<<grid, hopfield_wide::THREADS, BYTES, a.stream>>>(
-        q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, tiles_per_chunk,
-        beta_of(a.d_in), vec16);
-    err = cudaGetLastError();
+    const DkuPlan p = dku_plan_of(a.n, a.m_patterns, a.d_in, a.d_out);
+    const long long blocks_y =
+        static_cast<long long>(p.ck) * windows_of(a.d_in, p.cw) + static_cast<long long>(p.cu) * windows_of(a.d_out, p.cw);
+    if (blocks_y > 65535) return cudaErrorInvalidValue;
+    du_part = dk_part + static_cast<size_t>(p.ck) * a.m_patterns * a.d_in;
+    const float* S = nullptr;
+    if (p.split) {
+      float* work = du_part + static_cast<size_t>(p.cu) * a.m_patterns * a.d_out;
+      float* s_out = work + static_cast<size_t>(hopfield_narrow::parts_of(a.d_in)) * a.n * a.m_patterns;
+      err = hopfield_narrow::split_scores(q, a.K, s_out, work, a.n, a.m_patterns, a.d_in, {1, false},
+                                          hopfield_narrow::sm_count(), a.stream);
+      if (err != cudaSuccess) return err;
+      S = s_out;
+    }
+    dk_rows = p.ck;
+    du_rows = p.cu;
+    err = hopfield_narrow::with_window(p.cw, [&](auto c) {
+      constexpr int CW = decltype(c)::value;
+      auto kernel = stream_bwd_dku_narrow_kernel<CW>;
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(hopfield_narrow::BYTES));
+      if (e != cudaSuccess) return e;
+      const unsigned svec16 = vec16 | (S ? vec16_ok(S, a.m_patterns) : 0u) << 4;
+      kernel<<<dim3((a.m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM, static_cast<unsigned>(blocks_y)),
+               hopfield_narrow::THREADS, hopfield_narrow::BYTES, a.stream>>>(
+          q, a.K, a.U, a.g, S, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, p.tk, p.ck,
+          p.tu, p.cu, beta_of(a.d_in), svec16);
+      return cudaGetLastError();
+    });
   }
   if (err != cudaSuccess) return err;
-  err = sum_rows(dk_part, parts, a.m_patterns * a.d_in, a.dK, a.stream);
+  err = sum_rows(dk_part, dk_rows, a.m_patterns * a.d_in, a.dK, a.stream);
   if (err != cudaSuccess) return err;
-  return sum_rows(du_part, parts, a.m_patterns * a.d_out, a.dU, a.stream);
+  return sum_rows(du_part, du_rows, a.m_patterns * a.d_out, a.dU, a.stream);
 }
 
 }  // namespace
@@ -542,9 +664,10 @@ int launch_wide(const Args& a) {
 // and 1/l (n), then one partial dK (m_patterns, d_in) and one partial dU
 // (m_patterns, d_out) for each chunk of the token axis.
 extern "C" long long hopfield_stream_bwd_dku_workspace(int n, int m_patterns, int d_in, int d_out) {
-  const bool wide = n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out);
-  if (!wide && !takes(n, m_patterns, d_in, d_out)) return 0;
-  const int chunks = wide ? chunks_wide(n, m_patterns, d_in, d_out) : with_widths(d_in, d_out, [&](auto pi, auto po) {
+  if (n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
+    return workspace_wide(n, m_patterns, d_in, d_out);
+  if (!takes(n, m_patterns, d_in, d_out)) return 0;
+  const int chunks = with_widths(d_in, d_out, [&](auto pi, auto po) {
     return chunks_of<decltype(pi)::value, decltype(po)::value>(n, m_patterns);
   });
   return static_cast<long long>(n) * (d_in + 1) + static_cast<long long>(chunks) * m_patterns * (d_in + d_out);
@@ -573,14 +696,17 @@ extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const flo
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
 // where its plan takes the widths (hopfield_cluster::plan), else the
-// window kernel's. Returns a cudaError_t.
+// narrow-side kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out) {
   int j, ranks;
   if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, true, out));
   if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
-    return static_cast<int>(kernel_attributes(stream_bwd_dku_wide_kernel, hopfield_wide::THREADS,
-                                              hopfield_wide::BYTES, hopfield_wide::TM, hopfield_wide::TN, out));
+    return hopfield_narrow::with_window(narrow_width(d_in, d_out), [&](auto c) {
+      return static_cast<int>(kernel_attributes(stream_bwd_dku_narrow_kernel<decltype(c)::value>,
+                                                hopfield_narrow::THREADS, hopfield_narrow::BYTES,
+                                                hopfield_narrow::TM, hopfield_narrow::TN, out));
+    });
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
@@ -596,4 +722,26 @@ extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out)
 extern "C" int hopfield_stream_bwd_dku_cluster(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, false, out));
+}
+
+// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..5]: 1
+// the cluster, 2 the narrow-side kernel, 3 the same on split scores (0 up
+// to 256: a built instance); then the narrow-side plan's window, dK's
+// tiles a chunk and chunks, dU's (0 where it does not run). Returns a
+// cudaError_t.
+extern "C" int hopfield_stream_bwd_dku_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  int j, ranks;
+  if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
+  out[0] = 1;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
+  const DkuPlan p = dku_plan_of(n, m_patterns, d_in, d_out);
+  out[0] = p.split ? 3 : 2;
+  out[1] = p.cw;
+  out[2] = p.tk;
+  out[3] = p.ck;
+  out[4] = p.tu;
+  out[5] = p.cu;
+  return cudaSuccess;
 }

@@ -57,13 +57,16 @@
 // both pass 128, up to 8192 on the wider side, the cluster kernel of
 // hopfield_cluster.cuh (stream_fwd_cluster_kernel): the depth split
 // across the blocks of a thread-block cluster, each tile's scores
-// computed once; elsewhere the window kernel of hopfield_wide.cuh, which
-// streams q and K in depth chunks of 64 and covers d_out in windows of
-// 128, blocks of their own, each recomputing the scores. A route by width (fwd_plan); a refused launch
-// returns its error. The cluster is bound by latency (about 6 us a tile
-// of 32 patterns at 512 -> 512 on an H100; PERF.md).
+// computed once; elsewhere the narrow-side kernel of hopfield_narrow.cuh
+// (the window sized to d_out, the depth in parts of 64 summed in K2's and
+// K3's order, and, where few token tiles would leave the card idle, the
+// scores split over the card first: a plan from N, M, the widths and the
+// SMs). A refused launch returns its error. The cluster is bound by
+// latency (about 6 us a tile of 32 patterns at 512 -> 512 on an H100;
+// PERF.md).
 
 #include "hopfield_cluster.cuh"
+#include "hopfield_narrow.cuh"
 #include "hopfield_stream_fwd.cuh"
 #include "hopfield_wide.cuh"
 
@@ -160,40 +163,41 @@ extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* 
   return with_widths(d_in, d_out, [&](auto pi, auto po) { return launch<decltype(pi)::value, decltype(po)::value>(a); });
 }
 
-// Floats of device scratch that hopfield_stream_fwd_wide needs: q (n, d_in).
+// Floats of device scratch that hopfield_stream_fwd_wide needs: q (n,
+// d_in), then the split scores' where the narrow-side plan splits them.
 extern "C" long long hopfield_stream_fwd_workspace(int n, int m_patterns, int d_in, int d_out) {
-  return n > 0 && m_patterns > 0 && d_in >= 1 && d_out >= 1 ? static_cast<long long>(n) * d_in : 0;
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return 0;
+  return static_cast<long long>(n) * d_in + hopfield_narrow::fwd_split_floats(n, m_patterns, d_in, d_out);
 }
 
 // The same past 256, with workspace as above: the query build, then the
-// cluster kernel up to 8192 on the wider side, the window kernel past it
-// (hopfield_cluster::launch_fwd, a route by width). Launches on `stream`.
+// cluster kernel where both widths pass 128 up to 8192, else the
+// narrow-side kernel on its plan (hopfield_narrow::launch_fwd). Launches
+// on `stream`.
 extern "C" int hopfield_stream_fwd_wide(const float* x, const float* K, const float* U, const float* s,
                                         const float* t, float* out, float* m, float* l, float* workspace, int n,
                                         int m_patterns, int d_in, int d_out, void* stream) {
-  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1 || hopfield_wide::windows(d_out) > 65535)
-    return cudaErrorInvalidValue;
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = hopfield_wide::build_queries(x, s, t, n, d_in, workspace, nullptr, nullptr, st);
   if (err != cudaSuccess) return err;
-  return hopfield_cluster::launch_fwd<hopfield_wide::PLAIN>(workspace, K, U, nullptr, out, m, l, nullptr, n,
-                                                            m_patterns, d_in, d_out, beta_of(d_in), 0.f, st);
+  return hopfield_narrow::launch_fwd<hopfield_wide::PLAIN>(workspace, K, U, nullptr, out, m, l, nullptr,
+                                                           workspace + static_cast<size_t>(n) * d_in, n, m_patterns,
+                                                           d_in, d_out, beta_of(d_in), 0.f, st);
 }
 
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
-// where it runs (hopfield_cluster::fwd_plan), else the window kernel's.
-// Returns a cudaError_t.
+// where it runs (hopfield_cluster::fwd_plan), else the narrow-side
+// kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   int j, ranks;
   if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, true, out));
   if (hopfield_wide::wide(d_in, d_out))
-    return static_cast<int>(kernel_attributes(hopfield_wide::stream_fwd_wide_kernel<hopfield_wide::PLAIN>,
-                                              hopfield_wide::THREADS, hopfield_wide::BYTES, hopfield_wide::TM,
-                                              hopfield_wide::TN, out));
+    return static_cast<int>(hopfield_narrow::fwd_window_attributes<hopfield_wide::PLAIN>(d_out, out));
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
     using C = Tiles<PI, PO>;
@@ -208,4 +212,26 @@ extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
 extern "C" int hopfield_stream_fwd_cluster(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, false, out));
+}
+
+// The route of (n, m_patterns, d_in, d_out), into out[0..4]: 0 a built
+// instance (both widths up to 256), 1 the cluster, 2 the narrow-side
+// kernel, 3 the same on split scores; then, for 2 and 3, its window, the
+// parts of a group of its order and whether the small parts are
+// truncated (the card's SMs from the current device). Returns a
+// cudaError_t.
+extern "C" int hopfield_stream_fwd_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  for (int i = 0; i < 5; ++i) out[i] = 0;
+  int j, ranks;
+  if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
+  out[0] = 1;
+  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return cudaSuccess;
+  const hopfield_narrow::FwdPlan p =
+      hopfield_narrow::fwd_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count());
+  out[0] = p.split ? 3 : 2;
+  out[1] = p.cw;
+  out[2] = p.order.group;
+  out[3] = p.order.trunc;
+  return cudaSuccess;
 }

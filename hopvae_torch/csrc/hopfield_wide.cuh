@@ -1,7 +1,8 @@
 // The streaming Hopfield kernels past a width of 256: the pieces of the
 // wide variants of K1 (hopfield_stream_fwd.cu), K2
 // (hopfield_stream_bwd_dx.cu), K3 (hopfield_stream_bwd_dku.cu) and K4
-// (hopfield_bottleneck_fused.cu), one instance each for every width.
+// (hopfield_bottleneck_fused.cu): the query build, the epilogues of the
+// forward, and K2's window kernel's chunked products.
 //
 // The built instances (hopfield_stream.cuh, with_widths) keep 64 rows of
 // q resident at the padded width and cap an output window at 128 columns;
@@ -11,24 +12,23 @@
 // - build q = LN(x) * s + t of every token first (build_queries), the
 //   LayerNorm statistics in double over the full d_in, with the
 //   arithmetic of layer_norm_rows, so the same bits;
-// - stream every product's depth in chunks of DC = 64 columns: per
-//   streamed tile, the chunks of the resident rows and of the tile arrive
-//   by double-buffered cp.async one after the other, each chunk's
-//   three-pass TF32 products summed in fresh fragments and added to the
-//   score fragments before the exp (K1, K4) or the dS step (K2, K3);
-// - cover the output columns in windows of CW = 128 on a grid axis (K1's
-//   out, K2's dq, K3's dK and dU): each window block recomputes the scores
-//   over the full depth, the window's tile arriving as the tile's last
-//   item. They run only where the clusters (hopfield_cluster.cuh) do not:
-//   K2 and K3 past 8192 or with d_in up to 128, K1 and K4's stages past
-//   8192 or with d_in or d_out up to 128. There a lookup has one window
-//   of its output, or scores at most 128 deep, and the window kernels ran
-//   faster on an H100 (PERF.md).
+// - stream every product's depth in chunks of DC = 64 columns (K2's
+//   window kernel: per streamed tile, the chunks of the resident rows and
+//   of the tile arrive by double-buffered cp.async one after the other,
+//   each chunk's three-pass TF32 products summed in fresh fragments and
+//   added to the score fragments before the dS step), and cover the output
+//   columns in windows of CW = 128 on a grid axis, each window block
+//   recomputing the scores over the full depth. K2's window kernel runs
+//   where its cluster (hopfield_cluster.cuh) does not: past 8192 or with
+//   d_in up to 128. K1, K3 and K4's stages run the narrow-side kernels of
+//   hopfield_narrow.cuh there, which keep these chunks and their order.
 // Shared bytes: 52,224 (two buffers of a 64 + 32 row chunk), whatever the
 // widths. Registers and blocks an SM are in PERF.md, from the kernels'
 // attributes entries on the card.
 
 #pragma once
+
+#include <algorithm>
 
 #include "hopfield_stream.cuh"
 
@@ -100,13 +100,47 @@ __device__ __forceinline__ void chunk_product(float (&acc)[NT][4], const float* 
 constexpr int Q_ROWS = 32;  // token rows of a block of build_queries
 constexpr int Q_THREADS = 4 * Q_ROWS;
 
-// q = LN(x) * s + t of every row of x (n, d) into q (n, d), 4 lanes a row
-// reading x from device memory, with layer_norm_rows' arithmetic; and,
-// where il is given, il = 1 / l. Rows past n compute on row n - 1 (the
-// shuffles need the whole warp) and write nothing.
+// Wait until at most `pending` of this thread's groups of copies are in
+// flight (cp.async.wait_group takes an immediate).
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;" ::: "memory"); break;
+  }
+}
+
+// build_queries' chunk of QC columns: floats of a buffer (the block's
+// rows, then the chunk's s and t) and buffers at most (227 KB)
+template <int QC>
+struct QueryChunk {
+  static constexpr int RS = QC + 4;
+  static constexpr int BUF = Q_ROWS * RS + 2 * QC;
+  static constexpr int RING = QC == 128 ? 8 : 3;
+  static_assert(RING * BUF * 4 <= 232448, "the ring fits shared memory");
+};
+// the chunk of rows of d: 512 columns past 1,024 (fewer chunks, fewer
+// barriers), else 128 (a ring of 128 leaves room for more blocks an SM)
+inline int query_chunk(int d) { return d > 1024 ? 512 : 128; }
+// the widest row that build_queries reads from device memory directly: a
+// staged chunk of 128 columns with 3 live ones, in three passes behind
+// block barriers, made K2 at (3, 384), N 4,096, about 6% slower on an
+// H100 (PERF.md)
+constexpr int Q_DIRECT = 128;
+
+// q = LN(x) * s + t of every row of x (n, d <= Q_DIRECT) into q (n, d), 4
+// lanes a row reading x from device memory, with layer_norm_rows'
+// arithmetic; and, where il is given, il = 1 / l. Rows past n compute on
+// row n - 1 (the shuffles need the whole warp) and write nothing.
 __global__ void __launch_bounds__(Q_THREADS)
-build_queries_kernel(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ t, int n,
-                     int d, float* __restrict__ q, const float* __restrict__ l_in, float* __restrict__ il) {
+build_queries_direct_kernel(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ t,
+                            int n, int d, float* __restrict__ q, const float* __restrict__ l_in,
+                            float* __restrict__ il) {
   const int row = blockIdx.x * Q_ROWS + (threadIdx.x >> 2);
   const int part = threadIdx.x & 3;
   const bool live = row < n;
@@ -118,182 +152,130 @@ build_queries_kernel(const float* __restrict__ x, const float* __restrict__ s, c
   if (il != nullptr && part == 0) il[row] = 1.f / l_in[row];
 }
 
-inline cudaError_t build_queries(const float* x, const float* s, const float* t, int n, int d, float* q,
-                                 const float* l_in, float* il, cudaStream_t stream) {
-  build_queries_kernel<<<(n + Q_ROWS - 1) / Q_ROWS, Q_THREADS, 0, stream>>>(x, s, t, n, d, q, l_in, il);
-  return cudaGetLastError();
-}
-
-// What the wide forward (the window kernel below, or the cluster's in
-// hopfield_cluster.cuh) writes for out = softmax(beta q K^T) U / l: PLAIN
-// (K1) out, and m and l (here from the first window); SHIFT (K4's e and
-// r) out + b; QUANTIZE (K4's zq) rint(sigmoid(out + b) * levels), and zq /
-// levels into zn.
-enum Epilogue { PLAIN, SHIFT, QUANTIZE };
-
-// The wide forward: K1's walk at any widths, for the block's TM token
-// rows of the built q (n, d_in) and the window [col0, col0 + CW) of U.
-// Per pattern tile: the chunks of q and K, then the U window; the online
-// softmax and P U as in hopfield_stream_fwd.cuh (the denominator a
-// compensated sum).
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-stream_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
-                       const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ m_out,
-                       float* __restrict__ l_out, float* __restrict__ zn_out, int n, int m_patterns, int d_in,
-                       int d_out, float beta, float levels, unsigned vec16) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
-
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int m0 = 16 * (threadIdx.x >> 5);
-  const int row0 = blockIdx.x * TM;
-  const int col0 = blockIdx.y * CW;
-  const int nc = chunks(d_in);
-  const int per_tile = nc + 1;
-  const int items = (m_patterns + TN - 1) / TN * per_tile;
-  const bool qv = vec16 & 1u, kv = vec16 >> 1 & 1u, uv = vec16 >> 2 & 1u;
-
-  auto stage_item = [&](int i, int u) {
-    float* y = buf + u * SLOT;
-    const int it = i / per_tile, sub = i - it * per_tile;
-    if (sub < nc) {
-      stage_cols<DC, TM>(y, q, d_in, sub * DC, row0, n, qv);
-      stage_cols<DC, TN>(y + TM * RC, K, d_in, sub * DC, it * TN, m_patterns, kv);
-    } else {
-      stage_cols<CW, TN>(y, U, d_out, col0, it * TN, m_patterns, uv);
-    }
-    cp_async_commit();
-  };
-  stage_item(0, 0);
-
-  float m_r[2], l_r[2], l_lo[2], acc[CO][4], sc[NT][4];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) m_r[e] = MASKED, l_r[e] = 0.f, l_lo[e] = 0.f;
-#pragma unroll
-  for (int c = 0; c < CO; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  zero(sc);
-
-  for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
-    cp_async_wait_all();
-    __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
-    const float* y = buf + u * SLOT;
-    const int it = i / per_tile, sub = i - it * per_tile;
-    if (sub < nc) {
-      if (sub == 0) zero(sc);
-      chunk_product(sc, y, m0, gq, tq);
-      continue;
-    }
-    const int p_lo = it * TN;
-
-    // ---- online softmax on the whole scores
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float val = p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns ? sc[j][e] * beta : MASKED;
-        sc[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-      alpha[r] = __expf(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
-    }
-    float rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(sc[j][e] - mx[e >> 1]);
-        sc[j][e] = p;
-        rsum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the compensated sum of hopfield_stream_fwd.cuh
-      const float a = __fmul_rn(l_r[r], alpha[r]);
-      const float b = __fadd_rn(__fmul_rn(l_lo[r], alpha[r]), rsum[r]);
-      const float sum = __fadd_rn(a, b);
-      const float bb = __fsub_rn(sum, a);
-      l_lo[r] = __fadd_rn(__fsub_rn(a, __fsub_rn(sum, bb)), __fsub_rn(b, bb));
-      l_r[r] = sum;
-    }
-
-    // ---- P U over the window, into fresh fragments
-    float o[CO][4];
-#pragma unroll
-    for (int c = 0; c < CO; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (p_lo + 8 * j >= m_patterns) continue;
-      const FragA pa = split_a(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
-#pragma unroll
-      for (int c = 0; c < CO; ++c) mma3(o[c], pa, load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
-    }
-#pragma unroll
-    for (int c = 0; c < CO; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] = acc[c][e] * alpha[e >> 1] + o[c][e];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += l_lo[r];
-    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(FULL, l_r[r], 2);
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int row = row0 + m0 + gq + 8 * e;
-    if (row >= n) continue;
-#pragma unroll
-    for (int c = 0; c < CO; ++c)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int col = col0 + 8 * c + 2 * tq + hh;
-        if (col >= d_out) continue;
-        const size_t at = static_cast<size_t>(row) * d_out + col;
-        const float v = acc[c][2 * e + hh] / l_r[e];
-        if constexpr (MODE == PLAIN) {
-          out[at] = v;
-        } else if constexpr (MODE == SHIFT) {
-          out[at] = v + bias[col];
+// q = LN(x) * s + t of every row of x (n, d > Q_DIRECT) into q (n, d), 4
+// lanes a row, with layer_norm_rows' arithmetic; and, where il is given,
+// il = 1 / l. A lane's sum is a chain of d / 4 adds in double. Read from device memory
+// a column at a time, with s and t read there too for the write, a row of
+// 8,320 took about 0.4 ms on an H100 (PERF.md): every step waited on its
+// load. So the block stages its rows a chunk of QC columns at a time (and,
+// for the write, the chunk's s and t) by cp.async into a ring of `nbuf`
+// buffers (dynamic shared memory), nbuf - 1 chunks in flight while the
+// lanes run the current one from shared memory, its steps unrolled, in
+// three passes (the sum, the squares, the write). Each lane adds its
+// columns in ln_stats' order: the same sums, the same bits. Rows past n
+// compute on row n - 1 (the shuffles need the whole warp) and write
+// nothing.
+template <int QC>
+__global__ void __launch_bounds__(Q_THREADS)
+build_queries_kernel(const float* __restrict__ x, const float* __restrict__ s, const float* __restrict__ t, int n,
+                     int d, float* __restrict__ q, const float* __restrict__ l_in, float* __restrict__ il, int nbuf,
+                     bool vec16) {
+  using C = QueryChunk<QC>;
+  constexpr int STEPS = QC / 4;  // a lane's columns of a whole chunk
+  extern __shared__ float4 qsm4[];
+  float* xs = reinterpret_cast<float*>(qsm4);  // chunk c in buffer c % nbuf, at xs + (c % nbuf) C::BUF
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int row0 = blockIdx.x * Q_ROWS;
+  const int row = row0 + r;
+  const int chunks = (d + QC - 1) / QC;
+  auto stage = [&](int c, bool st) {
+    if (c < chunks) {
+      float* dst = xs + (c % nbuf) * C::BUF;
+      const int c0 = c * QC;
+      for (int i = threadIdx.x; i < Q_ROWS * QC / 4; i += Q_THREADS) {
+        const int rr = i / (QC / 4), cc = i % (QC / 4) * 4;
+        const float* src = x + static_cast<size_t>(min(row0 + rr, n - 1)) * d + c0 + cc;
+        if (vec16) {
+          tf32x3::cp_async16(dst + rr * C::RS + cc, c0 + cc < d ? src : x, c0 + cc < d);
         } else {
-          const float zq = rintf(1.f / (1.f + expf(-(v + bias[col]))) * levels);
-          out[at] = zq;
-          zn_out[at] = zq / levels;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tf32x3::cp_async4(dst + rr * C::RS + cc + j, c0 + cc + j < d ? src + j : x, c0 + cc + j < d);
         }
       }
-    if (MODE == PLAIN && blockIdx.y == 0 && tq == 0) {
-      m_out[row] = m_r[e];
-      l_out[row] = l_r[e];
+      if (st) {  // the chunk's s and t, for the write
+        for (int i = threadIdx.x; i < 2 * QC; i += Q_THREADS) {
+          const int k = c0 + i % QC;
+          const float* src = i < QC ? s : t;
+          tf32x3::cp_async4(dst + Q_ROWS * C::RS + i, k < d ? src + k : src, k < d);
+        }
+      }
     }
+    tf32x3::cp_async_commit();
+  };
+  double sum = 0.0, var = 0.0, mean = 0.0, inv = 0.0;
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int c = 0; c < nbuf - 1; ++c) stage(c, pass == 2);
+    for (int c = 0; c < chunks; ++c) {
+      stage(c + nbuf - 1, pass == 2);
+      cp_async_wait_pending(nbuf - 1);
+      __syncthreads();  // chunk c has landed
+      const float* buf = xs + (c % nbuf) * C::BUF;
+      const float* xr = buf + r * C::RS + part;  // the lane's columns: xr[4i]
+      const int c0 = c * QC, cols = min(QC, d - c0);
+      const int steps = cols == QC ? STEPS : (cols - part + 3) / 4;
+      if (pass == 0) {
+        if (steps == STEPS) {
+#pragma unroll
+          for (int i = 0; i < STEPS; ++i) sum += xr[4 * i];
+        } else {
+          for (int i = 0; i < steps; ++i) sum += xr[4 * i];
+        }
+      } else if (pass == 1) {
+        auto add = [&](int i) {
+          const double cv = xr[4 * i] - mean;
+          var += cv * cv;
+        };
+        if (steps == STEPS) {
+#pragma unroll
+          for (int i = 0; i < STEPS; ++i) add(i);
+        } else {
+          for (int i = 0; i < steps; ++i) add(i);
+        }
+      } else if (row < n) {
+        const float* sc = buf + Q_ROWS * C::RS + part;
+        float* qr = q + static_cast<size_t>(row) * d + c0 + part;
+#pragma unroll 8
+        for (int i = 0; i < steps; ++i)
+          qr[4 * i] = static_cast<float>((xr[4 * i] - mean) * inv * sc[4 * i] + sc[QC + 4 * i]);
+      }
+      __syncthreads();  // every lane is done with chunk c's buffer
+    }
+    tf32x3::cp_async_wait_all();  // the empty groups past the last chunk
+    if (pass == 0) mean = quad_sum(sum) / d;
+    if (pass == 1) inv = 1.0 / sqrt(quad_sum(var) / d + static_cast<double>(LN_EPS));
   }
+  if (row < n && il != nullptr && part == 0) il[row] = 1.f / l_in[row];
 }
 
-// Launch the wide forward over the built q (n, d_in); see Epilogue.
-template <int MODE>
-cudaError_t launch_fwd_wide(const float* q, const float* K, const float* U, const float* bias, float* out,
-                            float* m, float* l, float* zn, int n, int m_patterns, int d_in, int d_out, float beta,
-                            float levels, cudaStream_t stream) {
-  auto kernel = stream_fwd_wide_kernel<MODE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(BYTES));
+template <int QC>
+cudaError_t launch_build_queries(const float* x, const float* s, const float* t, int n, int d, float* q,
+                                 const float* l_in, float* il, cudaStream_t stream) {
+  using C = QueryChunk<QC>;
+  const int nbuf = std::min(C::RING, std::max(2, (d + QC - 1) / QC + 1));  // one more than the chunks of a row
+  const int bytes = static_cast<int>(sizeof(float)) * nbuf * C::BUF;
+  auto kernel = build_queries_kernel<QC>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const unsigned vec16 = vec16_ok(q, d_in) | vec16_ok(K, d_in) << 1 | vec16_ok(U, d_out) << 2;
-  kernel<<<dim3((n + TM - 1) / TM, windows(d_out)), THREADS, BYTES, stream>>>(
-      q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta, levels, vec16);
+  kernel<<<(n + Q_ROWS - 1) / Q_ROWS, Q_THREADS, bytes, stream>>>(x, s, t, n, d, q, l_in, il, nbuf, vec16_ok(x, d));
   return cudaGetLastError();
 }
+
+inline cudaError_t build_queries(const float* x, const float* s, const float* t, int n, int d, float* q,
+                                 const float* l_in, float* il, cudaStream_t stream) {
+  if (d <= Q_DIRECT) {
+    build_queries_direct_kernel<<<(n + Q_ROWS - 1) / Q_ROWS, Q_THREADS, 0, stream>>>(x, s, t, n, d, q, l_in, il);
+    return cudaGetLastError();
+  }
+  return query_chunk(d) == 512 ? launch_build_queries<512>(x, s, t, n, d, q, l_in, il, stream)
+                               : launch_build_queries<128>(x, s, t, n, d, q, l_in, il, stream);
+}
+
+// What the wide forward (the narrow-side kernel of hopfield_narrow.cuh,
+// or the cluster's in hopfield_cluster.cuh) writes for out = softmax(beta
+// q K^T) U / l: PLAIN (K1) out, and m and l; SHIFT (K4's e and r) out +
+// b; QUANTIZE (K4's zq) rint(sigmoid(out + b) * levels), and zq / levels
+// into zn.
+enum Epilogue { PLAIN, SHIFT, QUANTIZE };
 
 }  // namespace hopfield_wide

@@ -37,9 +37,16 @@ first (:func:`kernel_route` names the route). The wide kernels run on a
 thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split
 across the blocks of a cluster, each tile's scores computed once) where
 :func:`forward_cluster` (K1) and :func:`backward_cluster` (K2, K3) say
-so, and elsewhere on the window kernels (``csrc/hopfield_wide.cuh``: every
-product's depth streamed in chunks of 64, the outputs in column windows of
-128 on a grid axis, each window recomputing the scores).
+so. Elsewhere (one side at most 128, or a side past 8192) K1 and K3 run
+their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
+window sized to the narrow side, the depth in parts of 64 summed in K2's
+and K3's order, :func:`score_order`; where few token tiles would leave the
+card idle, K1's scores split over the card first, and past 8192 K3's,
+:func:`narrow_split`),
+and K2 its window kernel
+(``csrc/hopfield_wide.cuh``: every product's depth streamed in chunks of
+64, the outputs in column windows of 128, each window recomputing the
+scores).
 
 Pattern sharding (JAX's ``_attn_tp_merge``, ``_attn_ln_stream_tp``):
 :class:`ShardedStreamLookup` runs K1 on each pattern shard's rows and
@@ -54,7 +61,7 @@ TPU's single-shot fused bottleneck forward ``_kernel``: the three lookups
 (K1's pattern walk three times), the sigmoid and the round in one launch,
 for lookups that chain as ``(d, d), (d, di), (di, d)``; past
 ``BUILT_WIDTH`` each of its three stages takes K1's wide route (cluster or
-window kernel by the stage's widths), a launch each. As in the JAX
+narrow-side kernel by the stage's widths), a launch each. As in the JAX
 package, no entry point routes to it: serving and training run the
 streaming lookups.
 """
@@ -73,6 +80,11 @@ SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at th
 BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
 CLUSTER_MAX = 8192  # the wide K1 to K4 run on a cluster up to this wider side (16 blocks of 512 columns)
 WINDOW_IN = 128  # and past this d_in (K1: and d_out), where the window kernels have more than one window
+# copies of constants of csrc/hopfield_narrow.cuh that :func:`narrow_split` reads
+# (tests/test_torch_window.py holds each against its source)
+PART = 64  # ``PART``: columns of a part of the narrow-side kernels' depth (the window kernels' chunk)
+SPLIT_BYTES = 64 << 20  # ``SPLIT_BYTES``: the split scores' scratch at most
+TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's narrow-side kernel
 IMPLS = ("cuda", "torch")
 
 
@@ -94,9 +106,10 @@ def forward_cluster(d_in: int, d_out: int) -> bool:
     """Whether K1 (and a wide stage of K4) runs on its thread-block
     cluster at ``(d_in, d_out)``: where K2 and K3 do
     (:func:`backward_cluster`), with ``d_out`` past ``WINDOW_IN`` too
-    (``fwd_plan`` in ``csrc/hopfield_cluster.cuh``): up to it the window
-    kernel has one window, computes each score once, and ran faster. Other
-    wide widths take the window kernel."""
+    (``fwd_plan`` in ``csrc/hopfield_cluster.cuh``): up to it the
+    narrow-side kernel has one window, computes each score once, and ran
+    faster. Other wide widths take the narrow-side kernel
+    (:func:`narrow_split`)."""
     return backward_cluster(d_in, d_out) and d_out > WINDOW_IN
 
 
@@ -104,9 +117,57 @@ def backward_cluster(d_in: int, d_out: int) -> bool:
     """Whether K2 and K3 run on their thread-block cluster at ``(d_in,
     d_out)``: past ``BUILT_WIDTH`` and up to ``CLUSTER_MAX`` on the
     wider side, with ``d_in`` past ``WINDOW_IN`` (``plan`` in
-    ``csrc/hopfield_cluster.cuh``). Other wide widths take the window
-    kernels."""
+    ``csrc/hopfield_cluster.cuh``). Other wide widths take K2's window
+    kernel and K3's narrow-side kernel (:func:`narrow_split`)."""
     return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= CLUSTER_MAX
+
+
+def _cluster_chunks(d_in: int, d_out: int) -> int:
+    """J of the cluster's plan: chunks of 128 a block's slice, from the
+    wider side (1 up to 1024, 2 up to 2048, 4 up to 8192)."""
+    n = -(-max(d_in, d_out) // 128)
+    return 1 if n <= 8 else 2 if n <= 16 else 4
+
+
+def score_order(d_in: int, d_out: int) -> tuple[int, bool]:
+    """``(group, trunc)``: how the narrow-side kernels sum the parts of 64
+    columns of their scores at ``(d_in, d_out)``, in K2's and K3's order
+    at the same widths (``score_order``, ``csrc/hopfield_narrow.cuh``):
+    each part's three-pass TF32 products in a fresh sum, ``group`` parts
+    summed in order make a group, the groups add in order. On the cluster
+    (:func:`backward_cluster`) a group is a block's slice, ``2 J`` parts,
+    the small TF32 parts truncated; else every part is a group, rounded
+    (the window kernels' chunks)."""
+    if backward_cluster(d_in, d_out):
+        return 2 * _cluster_chunks(d_in, d_out), True
+    return 1, False
+
+
+def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -> str | None:
+    """How K1's (``kernel="fwd"``) or K3's (``"dku"``) narrow-side kernel
+    fills the card at these sizes (``fwd_window_plan`` and
+    ``dku_window_plan`` in ``csrc/``; the card's ``_plan`` entries report
+    the whole plan): ``None``, one pass, or ``"scores"``, the scores
+    split over the card first, each group's sums (:func:`score_order`)
+    through device memory, then added in order. K1 splits where its depth
+    has more than one group and its blocks (64 token rows and a window of
+    ``d_out`` each) are fewer than two an SM; K3 past 8192 on ``d_in``,
+    where every window would recompute the scores. Either needs its
+    scratch within ``SPLIT_BYTES``. So the route depends on N and M as
+    well as on the widths."""
+    if kernel_route(d_in, d_out) != "wide" or (forward_cluster if kernel == "fwd" else backward_cluster)(d_in, d_out):
+        raise ValueError(f"{(d_in, d_out)} does not take {kernel}'s narrow-side kernel")
+    parts = -(-d_in // PART)
+    if kernel == "fwd":
+        groups = -(-parts // score_order(d_in, d_out)[0])
+        windows = 1 if d_out <= 128 else -(-d_out // 128)
+        if groups < 2 or -(-n // TOKEN_TILE) * windows >= 2 * sms:
+            return None
+    elif d_in <= CLUSTER_MAX or parts < 2:
+        return None
+    else:
+        groups = parts
+    return "scores" if 4 * (groups + 1) * n * m <= SPLIT_BYTES else None
 
 
 def fold_layer(layer: HopfieldLookup):
@@ -353,7 +414,7 @@ def fused_attributes(d: int, di: int) -> dict:
     past ``BUILT_WIDTH`` its first stage's kernel). Past ``BUILT_WIDTH``
     also ``stages``: for each stage's widths, its cluster where it runs
     on one (:func:`forward_cluster`), else ``{"cluster": None}`` (the
-    window kernel)."""
+    narrow-side kernel)."""
     stem = "hopfield_bottleneck_fused"
     attrs = kernel_attributes(stem, d, di)
     if kernel_route(d, di) == "wide":
@@ -447,7 +508,8 @@ def bottleneck_fused_fwd(hopfield: HopfieldLookup, embedding_to_index: HopfieldL
             r.data_ptr()]
     sizes = (n, *(table[0].shape[0] for table in tables), d, di, num_levels)
     if kernel_route(d, di) == "wide":
-        work = torch.empty(_workspace_floats(stem, f"{stem}_workspace", n, d, di), device=x.device)
+        ms = [table[0].shape[0] for table in tables]
+        work = torch.empty(_workspace_floats(stem, f"{stem}_wide_workspace", n, *ms, d, di), device=x.device)
         launch(stem, _bind(stem, f"{stem}_wide", 20, 7), x.device, *ptrs, work.data_ptr(), *sizes)
     else:
         launch(stem, _bind(stem, stem, 19, 7), x.device, *ptrs, *sizes)

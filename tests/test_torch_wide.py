@@ -301,14 +301,16 @@ def test_wide_lookup_forward_scheme_at_512(passes, d_in, d_out, order):
 @pytest.mark.parametrize("d_in,d_out", [(512, 512), (384, 384), (384, 3), (3, 384), (300, 700), (1280, 300)])
 def test_wide_forward_stats_rebuild_rows_summing_to_one(d_in, d_out):
     """The attention that K2 and K3 rebuild from the wide forward's ``m``
-    and ``l`` (N 300, M 1024, three passes; the forward in its route's
-    order, ``hc.forward_cluster``), with the scores in the backward's own
-    order (its cluster's where ``hc.backward_cluster``, else its window
-    kernels' chunks of 64), sums to 1 within 1.5e-7 on every row, as
-    against the narrow K1's stats (``tests/test_torch_hopfield_tf32.py``).
-    (K1's cluster order against the backward's window order at (3, 384)
-    misses it: 3.7e-7, the small TF32 parts truncated in one and rounded
-    in the other.)"""
+    and ``l`` (N 300, M 1024, three passes; the forward in its cluster's
+    order where ``hc.forward_cluster``, else in the window kernels' order, whose
+    parts the narrow-side kernel keeps: its own order, the backward's, is
+    held in ``tests/test_torch_window.py``), with the scores in the
+    backward's own order (its cluster's where ``hc.backward_cluster``, else
+    its window kernels' chunks of 64), sums to 1 within 1.5e-7 on every
+    row, as against the narrow K1's stats
+    (``tests/test_torch_hopfield_tf32.py``). (K1's cluster order against
+    the backward's window order at (3, 384) misses it: 3.7e-7, the small
+    TF32 parts truncated in one and rounded in the other.)"""
     x, k, u, s, t, *_ = _lookup_case(d_in, d_out)
     if hc.forward_cluster(d_in, d_out):
         _, m, l = cluster_forward(x, k, u, s, t, 3)

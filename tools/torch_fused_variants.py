@@ -12,8 +12,11 @@ tables: the ``zq`` bins that differ from the plain version, ``e``'s and
 bit, whether the outputs equal the ``change`` build's bit for bit, and the
 time (CUDA events) at the full-width case and past 256. Past 256 it calls
 the wide entry (each stage on K1's wide route), the workspace allocated
-inside the timed call as the port's wrapper allocates it. A build that
-refuses the widths reports ``refused``. One JSON line per build and case.
+inside the timed call as the port's wrapper allocates it, and times each
+kernel of the call by name with ``torch.profiler`` (``kernel_ms``: the
+stages' query builds, the narrow-side stages with their split passes, the
+cluster stages). A build that refuses the widths reports ``refused``. One
+JSON line per build and case.
 """
 
 from __future__ import annotations
@@ -58,9 +61,13 @@ def call(lib, x, tables, outs, num_levels) -> int:
     fn.argtypes = [ctypes.c_void_p] * (20 if wide else 19) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     work = []
     if wide:
-        floats = getattr(lib, f"{STEM}_workspace")
-        floats.argtypes, floats.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-        work = [torch.empty(floats(x.shape[0], d, di), device="cuda")]
+        ms = [table[0].shape[0] for table in tables]
+        try:  # the workspace entry of the stages' split scores, or a build's from before them
+            floats, args = getattr(lib, f"{STEM}_wide_workspace"), (x.shape[0], *ms, d, di)
+        except AttributeError:
+            floats, args = getattr(lib, f"{STEM}_workspace"), (x.shape[0], d, di)
+        floats.argtypes, floats.restype = [ctypes.c_int] * len(args), ctypes.c_longlong
+        work = [torch.empty(floats(*args), device="cuda")]
     return fn(x.data_ptr(), *(a.data_ptr() for table in tables for a in table),
               *(a.data_ptr() for a in (*outs, *work)), x.shape[0], *(table[0].shape[0] for table in tables), d, di,
               num_levels, torch.cuda.current_stream().cuda_stream)
@@ -100,6 +107,8 @@ def main(argv: list[str]) -> int:
                        "equals_change": all(torch.equal(a, b) for a, b in zip(got, first["change"]))}
                 if label.startswith("ffhq64") or hc.kernel_route(d, di) == "wide":
                     row["ms"] = cs.cuda_ms(lambda: call(libs[name], x2, tables, got, levels), 10)
+                if hc.kernel_route(d, di) == "wide":
+                    row["kernel_ms"] = cs.kernel_ms(lambda: call(libs[name], x2, tables, got, levels))
                 print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
     return 0

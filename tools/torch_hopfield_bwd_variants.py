@@ -9,8 +9,9 @@ example a parent commit unpacked with ``git archive``; ``-D`` flags after a
 colon) with the port's nvcc flags, prints each build's ptxas registers and
 spills, and runs every build twice, in turns, at the shapes of phase 2 of
 ``chip_smoke.py`` (the trained FFHQ-64 and MNIST tables, a ragged case,
-and its width cases) and at 512 -> 512 with random tables at the full
-scale of ffhq_64_scaled (N 73,984, M 4,096), on the same inputs, the row
+and its width cases, among them (384, 3) and (3, 384) at the full scale
+of ffhq_64_scaled) and at 512 -> 512 with random tables at that scale (N
+73,984, M 4,096), on the same inputs, the row
 stats from the plain forward. Per build and shape, one JSON line: K1's and
 the backward's normwise errors against the plain versions, whether a
 second launch repeats the first bit for bit, whether the outputs equal the
@@ -19,7 +20,9 @@ shapes and every shape past 256 (K1 there through its wide entry, the
 query build included), where SDPA's forward on the built q with scale
 beta (the library's K1) and one ``torch.autograd.grad`` through SDPA with
 the same cotangent (the library's K2 + K3) are timed too, and K1's plain
-version (``stream_lookup_fwd_reference``). Past 256 (but
+version (``stream_lookup_fwd_reference``); past 256, below full scale,
+each kernel's row also times each kernel its entry launches by name
+(``kernel_ms``, ``torch.profiler``). Past 256 (but
 at full scale) K1's row also reads ``rebuilt_row_sum_err``, phase 2's
 row sums of the attention rebuilt from its ``m`` and ``l``. A build that
 refuses a width (cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
@@ -208,8 +211,10 @@ def main(argv: list[str]) -> int:
                         stem = STEMS[("fwd", "dx", "dku").index(kernel)]
                         entry = fwd_entry(d_in, d_out) if kernel == "fwd" else stem
                         ptrs = fwd_ptrs(x, k, u, s, t, outs, work) if kernel == "fwd" else (*args, *outs, work)
-                        row[kernel]["ms"] = cs.cuda_ms(
-                            lambda: call(libs[name][stem], entry, ptrs, (n, k.shape[0], d_in, d_out)), reps)
+                        launch_once = lambda: call(libs[name][stem], entry, ptrs, (n, k.shape[0], d_in, d_out))  # noqa: E731
+                        row[kernel]["ms"] = cs.cuda_ms(launch_once, reps)
+                        if label.startswith("wide") and n * k.shape[0] <= 1e8:
+                            row[kernel]["kernel_ms"] = cs.kernel_ms(launch_once)
                 print(json.dumps(row), flush=True)
             if label.startswith("wide"):
                 plain_ms = cs.cuda_ms(lambda: hc.stream_lookup_fwd_reference(x, k, u, s, t), reps)
