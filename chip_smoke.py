@@ -24,19 +24,29 @@ Twenty phases, each of which raises on failure:
    ``embedding_dim=384``), a ragged (300, 700), (1280, 3), (1280, 300)
    (the clusters with slices of 256; K1's at (1280, 3) is its narrow-side
    kernel) and (300, 2304) (slices of 512) at N 37, M 300, (8320, 3)
-   at N 37, M 64 (past the widest cluster: K1's and K3's narrow-side
-   kernels, K2's window kernel), and (384, 3) and (3, 384) at N 73,984, M
-   4,096, the lookups of a wide-embedding ffhq_64_scaled step, on random
-   tables. Past 256 each K1 and K3 row names its route and plan as the
-   built library gives it (``card_plan``: the cluster, or the narrow-side
-   kernel with its window, its order and, where N leaves the card idle,
-   its split scores), its route
-   held against ``hc.narrow_split``, the predicate the CPU tests read; each
-   K1 row holds the rows of the attention rebuilt from its ``m`` and ``l``,
+   and (3, 8320) at N 37, M 64 and (8320, 300) at N 37, M 300 (past the
+   widest cluster: the narrow-side kernels of K1, K2 and K3, K2's with
+   its scores, its g Uᵀ or both split over the card first), (8320, 3) at
+   N 4,096, M 64 (the split scores' scratch past its cap: every window
+   recomputes them), K2's other windows, 16, 32, 64 and 128, at (16,
+   384), (32, 384), (64, 384) and (100, 384), N 4,096, M 512 (nothing
+   split: windows up to 32 walk 4 pattern tiles a group, wider ones 2)
+   and at a ragged (13, 700), (30, 2304) and (50, 700), N 37, M 300 (g Uᵀ
+   split: a tile at a time), and (384, 3) and
+   (3, 384) at N 73,984, M 4,096, the lookups of a wide-embedding
+   ffhq_64_scaled step, on random tables. Past 256 each K1, K2 and K3 row
+   names its route and plan as the built library gives it
+   (``card_plan``: the cluster, or the narrow-side kernel with its
+   window, its order or its splits and, where N leaves the card idle or
+   every window would recompute them, its split products), its route held
+   against ``hc.narrow_split``, the predicate the CPU tests read; each K1
+   row holds the rows of the attention rebuilt from its ``m`` and ``l``,
    the scores summed in K2's and K3's order, to sum to 1 within
-   ``ROW_SUM_ATOL``; and K1 at (3, 384), N 4,096 and (8320, 3), N 37,
-   where the narrow-side kernel keeps the window kernel's order, gives its bits on
-   hashed inputs (``PARENT_BITS``).
+   ``ROW_SUM_ATOL``; K1 (``PARENT_BITS``) at (3, 384), N 4,096 and (8320,
+   3), N 37 gives the former window kernel's bits on hashed inputs, and
+   K2 (``K2_PARENT_BITS``) does so on every route and instance of its
+   narrow-side kernel: at those two shapes and at each of the ten other
+   narrow-side cases above.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -58,7 +68,12 @@ Twenty phases, each of which raises on failure:
    of 256 (``prior_d_model=256``), at one head of 384 and one of 512 (the
    wide kernels: forward and backward on a thread-block cluster), and at
    small ragged shapes (one at 256; at 768, 1280, 2560 and 8192, the
-   clusters' plans; the forward alone at 8320, its window kernel; two with
+   clusters' plans; the forward alone at one head of 8320, its window
+   kernel, at B 2, S 37 on scores split over the card and at B 1, S 400,
+   where their scratch would pass its cap, recomputing them in every
+   window, each row naming its route as the library plans it, and its
+   ``out`` and ``lse`` held to the former window kernel's bits on hashed
+   inputs at both, ``K5_PARENT_BITS``; two with
    views off 16-byte alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
@@ -99,8 +114,8 @@ Twenty phases, each of which raises on failure:
     index_dim=4``, at ``embedding_dim=200, index_dim=3`` (K1 to K3 at
     their 256 instances) and at ``embedding_dim=384`` (their wide
     variants: K1 on its cluster at (384, 384), K2 and K3 also at (384,
-    3); elsewhere K1's and K3's narrow-side kernels and K2's window
-    kernel), three f32 Adam steps each through
+    3); elsewhere the narrow-side kernels of K1, K2 and K3), three f32
+    Adam steps each through
     ``Trainer`` on the kernels against the same steps on the CPU's plain
     versions, losses within 1e-3, K1, K2 and K3 3 launches a step, the
     device ms of each step on the card from CUDA events logged; and the
@@ -429,6 +444,16 @@ WIDTH_CASES = (
     ("wide ragged 1280x300", 37, 300, 1280, 300),
     ("wide ragged 300x2304", 37, 300, 300, 2304),
     ("wide ragged 8320x3", 37, 64, 8320, 3),
+    ("wide ragged 3x8320", 37, 64, 3, 8320),
+    ("wide ragged 8320x300", 37, 300, 8320, 300),
+    ("wide 8320x3 over the cap", 4096, 64, 8320, 3),
+    ("wide 16x384", 4096, 512, 16, 384),
+    ("wide ragged 13x700", 37, 300, 13, 700),
+    ("wide 32x384", 4096, 512, 32, 384),
+    ("wide ragged 30x2304", 37, 300, 30, 2304),
+    ("wide ragged 50x700", 37, 300, 50, 700),
+    ("wide 64x384", 4096, 512, 64, 384),
+    ("wide 100x384", 4096, 512, 100, 384),
     ("wide full 384x3", 73984, 4096, 384, 3),
     ("wide full 3x384", 73984, 4096, 3, 384),
 )
@@ -467,24 +492,30 @@ def lookup_route(d_in: int, d_out: int) -> str:
     return "cluster" if hc.forward_cluster(d_in, d_out) else "narrow"
 
 
-PLAN_ROUTES = ("instance", "cluster", "narrow", "narrow, split scores")
-SPLITS = {None: "narrow", "scores": "narrow, split scores"}
+PLAN_ROUTES = ("instance", "cluster", "narrow", "narrow, split scores", "narrow, split g Uᵀ",
+               "narrow, split scores and g Uᵀ")
+SPLITS = {None: "narrow", "scores": "narrow, split scores", "gu": "narrow, split g Uᵀ",
+          "scores+gu": "narrow, split scores and g Uᵀ"}
 
 
 def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
-    """K1's (``kernel="fwd"``) or K3's (``"dku"``) plan at these sizes as
-    the built library gives it (its ``_plan`` entry): the route, held
-    against ``hc.narrow_split`` (the predicate the CPU tests read), and on
-    the narrow-side kernel the card's window, K1's order and groups, K3's
-    chunks of the token tiles."""
-    stem = {"fwd": "hopfield_stream_fwd", "dku": "hopfield_stream_bwd_dku"}[kernel]
+    """K1's (``kernel="fwd"``), K2's (``"dx"``) or K3's (``"dku"``) plan at
+    these sizes as the built library gives it (its ``_plan`` entry): the
+    route, held against ``hc.narrow_split`` (the predicate the CPU tests
+    read), and on the narrow-side kernel the card's window, K1's order and
+    groups, K2's splits of the pattern axis and their tiles, K3's chunks
+    of the token tiles."""
+    stem = {"fwd": "hopfield_stream_fwd", "dx": "hopfield_stream_bwd_dx", "dku": "hopfield_stream_bwd_dku"}[kernel]
     out = (ctypes.c_int * 6)()
     err = getattr(nvcc.load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
     if err != 0:
         raise RuntimeError(f"{stem}_plan{(n, m, d_in, d_out)} failed: cudaError {err}")
     plan = {"route": PLAN_ROUTES[out[0]]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if out[0] >= 2 and kernel == "fwd":
         plan |= {"window": out[1], "group": out[2], "trunc": bool(out[3])}
+    elif out[0] >= 2 and kernel == "dx":
+        plan |= {"window": out[1], "splits": out[2], "per": out[3]}
     elif out[0] >= 2:
         plan |= {"window": out[1], "dk_tiles": out[2], "dk_chunks": out[3], "du_tiles": out[4], "du_chunks": out[5]}
     if hc.kernel_route(d_in, d_out) == "instance":
@@ -492,7 +523,7 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
     elif (hc.forward_cluster if kernel == "fwd" else hc.backward_cluster)(d_in, d_out):
         want = "cluster"
     else:
-        want = SPLITS[hc.narrow_split(kernel, n, m, d_in, d_out, torch.cuda.get_device_properties(0).multi_processor_count)]
+        want = SPLITS[hc.narrow_split(kernel, n, m, d_in, d_out, sms)]
     if plan["route"] != want:
         raise AssertionError(f"{stem}'s route at {(n, m, d_in, d_out)} is {plan['route']}, the mirror's {want}")
     return plan
@@ -517,6 +548,27 @@ PARENT_BITS = {
     (4096, 512, 3, 384): "305634550e59b1f2e95e01495ff99fd80e12b45d73be7340058c108919c2d62c",
     (37, 64, 8320, 3): "856b258606e64cf24d4cde2cd8cc7c5ec3410f8503803e137c4d2a2940bca000",
 }
+# K2 and K5-fwd where their narrow-side and split-score kernels keep the former window
+# kernels' order: sha256 of K2's (dx, ds, dt) (``backward_bits_args``) and of K5-fwd's
+# (out, lse) (``attention_bits_inputs``, scale 1/sqrt(dh)) as the window kernels gave
+# them on an H100 (tools/torch_hopfield_bwd_variants.py and
+# tools/torch_attention_fwd_variants.py, --bits, on the parent's build; PERF.md)
+K2_PARENT_BITS = {
+    (4096, 512, 3, 384): "f9337a73088039005b11b77c8029e194d74aae39ab258ca62a324e0649efc61f",
+    (37, 64, 8320, 3): "a94c4182956eae7244b909f8fe2995acd33249152c62ab3842222e3bcefe7155",
+    (37, 64, 3, 8320): "262b1310388edb42fd6c0259dee6459479ad3bdc514cbb628ed9e75e7ad07da6",
+    (37, 300, 8320, 300): "895ca9f22ae8aabc9ef9db281832646dbe434870e396ed09abfd253a78c3481e",
+    (4096, 64, 8320, 3): "b7eb2195009d4a49c66c29e387ce3b869942ec8800a5a479e24c3a080ccc7ba2",
+    (4096, 512, 16, 384): "a5b966750733b5e6be62a579d43509cf90c3f2b2419482eba868e2eb1f941211",
+    (37, 300, 13, 700): "2057f6949a5becc5c55dd9b83f37938cbd0de7757cefdabf6a08b34208845832",
+    (4096, 512, 32, 384): "18c505e6c2ac9392043d2570e7807839970aceeca7b7ebd8dd09c900762728ff",
+    (37, 300, 30, 2304): "7f57672988ab64d92554f9d3286c8da1ca475cdaf513d7b69efe4f753f09580e",
+    (37, 300, 50, 700): "4d1683284c52b5ec15fe9c91dd180a1e130611aea73a8b7735b9ebf06b76c6c6",
+    (4096, 512, 64, 384): "09a207cc49eaf550a7fe806a92209450d29ceaf09dafe6b783aa8b6522804ce4",
+    (4096, 512, 100, 384): "bfbc720020b5d7924835c222ef913c07553d3007c04933067e0e0266deca97a5",
+}
+K5_PARENT_BITS = {(2, 37, 1, 8320): "f061f702f318bea0f7bc62bf99f6522a3797a0c27e7ca36c01c63f6641cd4ded",
+                  (1, 400, 1, 8320): "83aae70c5162a11f7bf8dd59671a3f10d06465cabb97f9548c51ad0764e867d6"}
 
 
 def parent_bits_inputs(n: int, m: int, d_in: int, d_out: int) -> tuple:
@@ -525,8 +577,23 @@ def parent_bits_inputs(n: int, m: int, d_in: int, d_out: int) -> tuple:
     return x, k, u, 1 + 0.2 * hashed((d_in,), 4), 0.2 * hashed((d_in,), 5)
 
 
+def backward_bits_args(n: int, m: int, d_in: int, d_out: int) -> tuple:
+    """K2's arguments of a ``K2_PARENT_BITS`` case: ``parent_bits_inputs``,
+    a hashed cotangent, and K1's ``m``, ``l`` and ``delta`` from them."""
+    x, k, u, s, t = parent_bits_inputs(n, m, d_in, d_out)
+    g = hashed((n, d_out), 6)
+    out, m_stat, l_stat = hc.stream_lookup_fwd(x, k, u, s, t)
+    return x, k, u, s, t, g, m_stat, l_stat, (g * out).sum(-1, keepdim=True)
+
+
+def attention_bits_inputs(b: int, s: int, h: int, dh: int) -> tuple:
+    """q, k, v of a ``K5_PARENT_BITS`` case, from ``hashed``."""
+    return tuple(hashed((b, s, h, dh), seed) for seed in (11, 12, 13))
+
+
 def lookup_digest(outs) -> str:
-    """sha256 of the bytes of K1's ``(out, m, l)``."""
+    """sha256 of the bytes of a kernel's outputs: K1's ``(out, m, l)``,
+    K2's ``(dx, ds, dt)``, K5-fwd's ``(out, lse)``."""
     h = hashlib.sha256()
     for a in outs:
         h.update(a.detach().contiguous().cpu().numpy().tobytes())
@@ -701,12 +768,17 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
                 "library_ms": lib_ms, "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by, "build": hc.backward_attributes(kernel, d_in, d_out),
             }
-            if kernel == "dku":
-                row["plan"] = card_plan("dku", n, k.shape[0], d_in, d_out)
+            row["plan"] = card_plan(kernel, n, k.shape[0], d_in, d_out)
             log(json.dumps(row))
             rows.append(row)
             if not (max(errs.values()) <= BWD_NORMWISE and repeats):
                 raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
+    for sizes, want in K2_PARENT_BITS.items():
+        with torch.inference_mode():
+            got = lookup_digest(hc.stream_bwd_dx(*backward_bits_args(*sizes)))
+        log(json.dumps({"k2_parent_bits": sizes, "plan": card_plan("dx", *sizes), "sha256": got, "held": got == want}))
+        if got != want:
+            raise AssertionError(f"K2 at {sizes} (N, M, d_in, d_out) lost the former window kernel's bits: {got}, not {want}")
     return rows
 
 
@@ -1035,6 +1107,7 @@ ATTENTION_CASES = (
     ("ragged S37 dh2560", 2, 37, 1, 2560),
     ("ragged S37 dh8192", 2, 37, 1, 8192),
     ("ragged S37 dh8320", 2, 37, 1, 8320),
+    ("ragged S400 dh8320 over the cap", 1, 400, 1, 8320),
     ("ragged S37 dh384 misaligned", 2, 37, 1, 384),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
@@ -1144,6 +1217,8 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 "bound_f32_by": f32_by,
             }
             row["build"] = ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
+            if kn == "fwd" and dh > ac.BWD_WIDE_MAX:
+                row["route"] = forward_window_route(b, s, h, dh)
             log(json.dumps(row))
             rows.append(row)
             limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
@@ -1151,8 +1226,23 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 raise AssertionError(f"{row['kernel']} disagrees with its plain version at {label}: {row}")
         del q, k, v, g, out, lse, delta, args, calls
         torch.cuda.empty_cache()
+    for sizes, want in K5_PARENT_BITS.items():
+        with torch.inference_mode():
+            got = lookup_digest(ac.causal_attention_fwd(*attention_bits_inputs(*sizes), 1 / math.sqrt(sizes[3])))
+        log(json.dumps({"k5_fwd_parent_bits": sizes, "route": forward_window_route(*sizes), "sha256": got,
+                        "held": got == want}))
+        if got != want:
+            raise AssertionError(f"K5-fwd at {sizes} (B, S, heads, dh) lost the former window kernel's bits: {got}, "
+                                 f"not {want}")
     rows.append(padded_attention_vs_plain(gen))
     return rows
+
+
+def forward_window_route(b: int, s: int, h: int, dh: int) -> str:
+    """K5-fwd's route past ``BWD_WIDE_MAX`` as the built library plans it:
+    the scores split over the card first where it asks for scratch
+    (``ac.forward_workspace``), else recomputed in every window."""
+    return "window, split scores" if ac.forward_workspace(b, s, h, dh) > 0 else "window, recomputed scores"
 
 
 def padded_attention_vs_plain(gen: torch.Generator) -> dict:

@@ -107,16 +107,28 @@
 //   a block (100,864 bytes, the same bits) 4% to 11% slower.
 // - Past 8192 a cluster would need more than 16 blocks; there the window
 //   kernel runs (a route by width): a block owns 64 query rows and one
-//   window of 128 output columns (a grid axis); per key tile it streams q
-//   and k in depth chunks of 64, each chunk's products summed in fresh
-//   fragments and added to the score fragments before the exp, then the
-//   tile's v window. Every window block recomputes the same scores in the
-//   same order, so m and l agree bit for bit across windows; the first
-//   writes lse. Shared bytes: 52,224.
+//   window of 128 output columns (a grid axis) and walks the key tiles up
+//   to its diagonal. Where the causal scores' scratch is within
+//   SPLIT_BYTES (window::split: (D / 64 + 1) B heads S S floats; at B 2,
+//   S 37, D 8320 1.4 MB) they are computed once, split over the card: a
+//   first pass computes each depth chunk of 64 of every (query tile, key
+//   tile) in a fresh sum, chunks in groups on a grid sized to the card; a
+//   second adds the chunks in order into S (B heads, S, S); then every
+//   window replays the online softmax key tile by key tile from S and runs
+//   P v on its 128 columns of v, one item a tile. Elsewhere each window
+//   streams q and k in depth chunks of 64 per key tile, each chunk's
+//   products summed in fresh fragments and added to the scores in order,
+//   then the tile's v window: the same sums in the same order either way,
+//   so out and lse have the same bits on both routes, and m and l agree
+//   across windows; the first writes lse. Recomputing, each of the D / 128
+//   windows walked every chunk of the depth: at B 2, S 37, D 8320, 130
+//   blocks of 262 items, a barrier each (0.45 ms on an H100; PERF.md).
+//   Shared bytes: 52,224.
 // tools/torch_attention_fwd_variants.py times this source against copies
 // of it with other tiles; PERF.md has the times, and registers, spills and
 // blocks an SM from causal_attention_fwd_attributes.
 
+#include <algorithm>
 #include <cstdint>
 
 #include "causal_attention_cluster.cuh"
@@ -402,7 +414,8 @@ int attributes(int* out) {
 
 
 // ---- head widths past 8192: the window kernel, one instance for every
-// multiple of 128 past 256 (the width d is a runtime argument)
+// multiple of 128 past 256 (the width d is a runtime argument), on scores
+// split over the card first where their scratch is within SPLIT_BYTES
 namespace window {
 constexpr int TM = 64;                // query rows of a block, a warp a 16-row slab
 constexpr int TN = 32;                // keys of a streamed tile
@@ -412,16 +425,47 @@ constexpr int CW = 128;               // output columns of a block: its window
 constexpr int CT = CW / 8;            // a warp's output n-tiles
 constexpr int THREADS = 32 * TM / 16;
 constexpr int RC = DC + 4, RW = CW + 4;  // row strides of a chunk and of a v window
+constexpr int RSC = TN + 4;           // row stride of a tile of the split scores
 // one buffer: a chunk of q (TM rows) and of k (TN rows), or a v window
-constexpr int SLOT = (TM + TN) * RC > TN * RW ? (TM + TN) * RC : TN * RW;
+// (after a tile of the split scores, where they are split)
+constexpr int SLOT = (TM + TN) * RC > TM * RSC + TN * RW ? (TM + TN) * RC : TM * RSC + TN * RW;
 constexpr size_t BYTES = sizeof(float) * 2 * SLOT;
 constexpr int STEP = 128;             // the wide widths: multiples of this past 256
+constexpr long long SPLIT_BYTES = 64ll << 20;  // the split scores' scratch at most
+
+// Whether the scores of (b, s, h, d) are split: each chunk's sums of the
+// causal (B heads, S, S) scores and their sum within SPLIT_BYTES.
+inline bool split(int b, int s, int h, int d) {
+  return 4ll * (d / DC + 1) * b * h * s * s <= SPLIT_BYTES;
+}
 }  // namespace window
+
+// A chunk item's part of the slab's 16 x TN scores (q's TM rows at y, k's
+// TN rows after them, row stride RC) in a fresh sum: the window kernel's
+// walk and the split's first pass run this one sequence.
+__device__ __forceinline__ void chunk_scores(float (&part)[window::NT][4], const float* y, int m0, int gq, int tq) {
+  using namespace window;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < DC / 8; ++c) {
+    const FragA qa = load_a<RC>(y + m0 * RC + 8 * c, gq, tq);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      FragB b0, b1;
+      load_b_rows2<RC>(b0, b1, y + TM * RC + 8 * j * RC + 8 * c, gq, tq);
+      mma3(part[j], qa, b0);
+      mma3(part[j + 1], qa, b1);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(window::THREADS)
 causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         float* __restrict__ out, float* __restrict__ lse, int s, int h, int d, Strides qs,
-                         Strides ks, Strides vs, float scale, unsigned vec16) {
+                         const float* __restrict__ S, float* __restrict__ out, float* __restrict__ lse, int s, int h,
+                         int d, Strides qs, Strides ks, Strides vs, float scale, unsigned vec16) {
   using namespace window;
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
@@ -436,7 +480,7 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int col0 = blockIdx.z * CW;                       // the block's window
   const int last = (min(row_m0 + TM, s) - 1) / TN;
   const int slab_lo = row_m0 + m0;
-  const int chunks = d / DC;
+  const int chunks = S ? 0 : d / DC;
   const int per_tile = chunks + 1;  // items of a key tile: the depth chunks, then the v window
   const int items = (last + 1) * per_tile;
   const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u, vv = vec16 >> 2 & 1u;
@@ -448,6 +492,15 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
       stage<DC, TM, THREADS>(y, q + sub * DC, qs, b, hh, row_m0, s, vq);
       stage<DC, TN, THREADS>(y + TM * RC, k + sub * DC, ks, b, hh, it * TN, s, vk);
     } else {
+      if (S) {  // the tile of the split scores, zeros past S
+        const float* sb = S + static_cast<size_t>(bh) * s * s;
+        for (int e = threadIdx.x; e < TM * TN; e += THREADS) {
+          const int r = e / TN, c = e - r * TN;
+          const bool in = row_m0 + r < s && it * TN + c < s;
+          tf32x3::cp_async4(y + r * RSC + c, in ? sb + static_cast<size_t>(row_m0 + r) * s + it * TN + c : sb, in);
+        }
+        y += TM * RSC;
+      }
       stage<CW, TN, THREADS>(y, v + col0, vs, b, hh, it * TN, s, vv);
     }
     cp_async_commit();
@@ -480,21 +533,7 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
       // fragments (the tensor cores' sums truncate: short chains), then
       // added to sc
       float part[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll 2
-      for (int c = 0; c < DC / 8; ++c) {
-        const FragA qa = load_a<RC>(y + m0 * RC + 8 * c, gq, tq);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          FragB b0, b1;
-          load_b_rows2<RC>(b0, b1, y + TM * RC + 8 * j * RC + 8 * c, gq, tq);
-          mma3(part[j], qa, b0);
-          mma3(part[j + 1], qa, b1);
-        }
-      }
+      chunk_scores(part, y, m0, gq, tq);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -502,7 +541,19 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
       continue;
     }
 
-    // ---- the v window: online softmax on the whole scores, then P v
+    // ---- the v window: online softmax on the whole scores (the split
+    // tile's where the scores were split), then P v
+    if (S) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 t = *reinterpret_cast<const float2*>(y + (m0 + gq + 8 * r) * RSC + 8 * j + 2 * tq);
+          sc[j][2 * r] = t.x;
+          sc[j][2 * r + 1] = t.y;
+        }
+      y += TM * RSC;
+    }
     float alpha[2];
     online_softmax(sc, m_r, l_r, alpha, n_lo, slab_lo, scale, gq, tq);
 
@@ -544,18 +595,127 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
-int launch_window(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h,
-                  int d, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+// The split's first pass: each chunk of 64 columns of the depth of the
+// causal scores q k^T of (head bh, the block's TM query rows), every key
+// tile up to the diagonal, in a fresh sum as the window kernel sums it,
+// into parts (chunks, B heads, S, S). Grid: the heads, the query tiles,
+// and groups of `group` chunks, sized to the card.
+__global__ void __launch_bounds__(window::THREADS)
+causal_partial_scores_kernel(const float* __restrict__ q, const float* __restrict__ k, float* __restrict__ parts,
+                             int s, int h, int d, int group, Strides qs, Strides ks, unsigned vec16) {
+  using namespace window;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;
+  const int tiles = (min(row_m0 + TM, s) - 1) / TN + 1;
+  const int slab_lo = row_m0 + m0;
+  const int c0 = blockIdx.z * group;
+  const int items = min(group, d / DC - c0) * tiles;  // chunk after chunk, its key tiles in order
+  const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u;
+  const size_t plane = static_cast<size_t>(gridDim.x) * s * s;
+
+  auto stage_item = [&](int i, int u) {
+    float* y = buf + u * SLOT;
+    const int c = c0 + i / tiles, it = i % tiles;
+    stage<DC, TM, THREADS>(y, q + c * DC, qs, b, hh, row_m0, s, vq);
+    stage<DC, TN, THREADS>(y + TM * RC, k + c * DC, ks, b, hh, it * TN, s, vk);
+    cp_async_commit();
+  };
+  stage_item(0, 0);
+  for (int i = 0; i < items; ++i) {
+    const int u = i & 1;
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    const float* y = buf + u * SLOT;
+    const int c = c0 + i / tiles, n_lo = i % tiles * TN;
+    if (n_lo > slab_lo + 15 || slab_lo >= s) continue;  // as the window kernel skips it
+    float part[NT][4];
+    chunk_scores(part, y, m0, gq, tq);
+    float* out = parts + c * plane + static_cast<size_t>(bh) * s * s;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = slab_lo + gq + 8 * (e >> 1), key = n_lo + 8 * j + 2 * tq + (e & 1);
+        if (row < s && key < s) out[static_cast<size_t>(row) * s + key] = part[j][e];
+      }
+  }
+}
+
+// The split's second pass: S = the chunks' sums added in chunk order, in
+// f32, as the window kernel adds them. An entry whose key tile lies past
+// the diagonal for its row's 16-row slab, which the first pass skips and
+// the window kernel stages but never reads, is written 0, so no read of S
+// or of the parts meets memory that nothing wrote.
+__global__ void causal_sum_chunks_kernel(const float* __restrict__ parts, int chunks, long long count, int s,
+                                         float* __restrict__ S) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long at = i % (static_cast<long long>(s) * s);
+    const int row = static_cast<int>(at / s), key = static_cast<int>(at % s);
+    if (key / window::TN * window::TN > row / 16 * 16 + 15) {  // the first pass's `n_lo > slab_lo + 15`
+      S[i] = 0.f;
+      continue;
+    }
+    float t = parts[i];
+    for (int c = 1; c < chunks; ++c) t += parts[c * count + i];
+    S[i] = t;
+  }
+}
+
+int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 1;
+  return sms > 0 ? sms : 1;
+}
+
+// Past 8192: the window kernel, on scores split over the card first
+// (window::split: the chunks' sums in `work`, then S after them) or, past
+// the scratch's cap, recomputing them in every window (a route by plan).
+int launch_window(const float* q, const float* k, const float* v, float* out, float* lse, float* work, int b, int s,
+                  int h, int d, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
   using namespace window;
   const int m_tiles = (s + TM - 1) / TM;
   if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
       m_tiles > 65535 || d / CW > 65535)
     return cudaErrorInvalidValue;
   const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
+  const float* S = nullptr;
+  if (split(b, s, h, d)) {
+    if (work == nullptr) return cudaErrorInvalidValue;
+    const int chunks = d / DC;
+    const long long units = static_cast<long long>(b) * h * m_tiles * chunks;
+    const int group = static_cast<int>(std::min<long long>(chunks, std::max<long long>(1, units / (3ll * sm_count()))));
+    cudaError_t err = cudaFuncSetAttribute(causal_partial_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(BYTES));
+    if (err != cudaSuccess) return err;
+    causal_partial_scores_kernel<<<dim3(b * h, m_tiles, (chunks + group - 1) / group), THREADS, BYTES, stream>>>(
+        q, k, work, s, h, d, group, qs, ks, vec16);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const long long count = static_cast<long long>(b) * h * s * s;
+    float* s_out = work + chunks * count;
+    constexpr int T = 256;
+    causal_sum_chunks_kernel<<<static_cast<int>(std::min<long long>((count + T - 1) / T, 8ll * sm_count())), T, 0,
+                               stream>>>(work, chunks, count, s, s_out);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    S = s_out;
+  }
   cudaError_t err = cudaFuncSetAttribute(causal_fwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(BYTES));
   if (err != cudaSuccess) return err;
-  causal_fwd_window_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, out, lse, s, h, d,
+  causal_fwd_window_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, S, out, lse, s, h, d,
                                                                                    qs, ks, vs, scale, vec16);
   return cudaGetLastError();
 }
@@ -810,10 +970,10 @@ int launch_cluster(const float* q, const float* k, const float* v, float* out, f
 
 // Past 256: the cluster kernel up to 8192, the window kernel past it (a
 // route by width: a cluster of more than 16 blocks cannot launch).
-int launch_wide(const float* q, const float* k, const float* v, float* out, float* lse, int b, int s, int h, int d,
-                Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
+int launch_wide(const float* q, const float* k, const float* v, float* out, float* lse, float* work, int b, int s,
+                int h, int d, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
   int j, ranks;
-  if (!wide_plan(d, j, ranks)) return launch_window(q, k, v, out, lse, b, s, h, d, qs, ks, vs, scale, stream);
+  if (!wide_plan(d, j, ranks)) return launch_window(q, k, v, out, lse, work, b, s, h, d, qs, ks, vs, scale, stream);
   if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch (j) {
     case 1: return launch_cluster<1>(q, k, v, out, lse, b, s, h, d, ranks, qs, ks, vs, scale, stream);
@@ -834,15 +994,29 @@ int wide_cluster(int ranks, int* out) {
 }
 }  // namespace
 
+// Floats of device scratch that causal_attention_fwd needs at (B, S,
+// heads, D): past 8192, where the window kernel's scores split over the
+// card (window::split), the chunks' sums and S, (D / 64 + 1) B heads S S;
+// else 0.
+extern "C" long long causal_attention_fwd_workspace(int b, int s, int h, int d) {
+  int j, ranks;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % window::STEP != 0 || wide_plan(d, j, ranks) ||
+      !window::split(b, s, h, d))
+    return 0;
+  return static_cast<long long>(d / window::DC + 1) * b * h * s * s;
+}
+
 // Plain C entry point (bound with ctypes). q, k, v are device pointers to
 // strided (B, S, heads, D) f32 arrays whose D axis is contiguous, with
 // their batch, sequence and head strides in elements; out is a contiguous
-// (B, S, heads, D) and lse a contiguous (B, heads, S); D is 8, 16, 32,
-// 64, 128, 256 or a multiple of 128 past 256 (the cluster kernel up to
-// 8192, the window kernel past it). Returns a cudaError_t; 0 means the
-// launch was accepted; a cluster that fails to launch returns its error.
+// (B, S, heads, D) and lse a contiguous (B, heads, S); work is the
+// scratch of causal_attention_fwd_workspace (null where that is 0); D is
+// 8, 16, 32, 64, 128, 256 or a multiple of 128 past 256 (the cluster
+// kernel up to 8192, the window kernel past it). Returns a cudaError_t; 0
+// means the launch was accepted; a cluster that fails to launch returns
+// its error.
 extern "C" int causal_attention_fwd(const float* q, const float* k, const float* v, float* out, float* lse,
-                                    int b, int s, int h, int d, long long q_sb, long long q_ss,
+                                    float* work, int b, int s, int h, int d, long long q_sb, long long q_ss,
                                     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                     long long v_sb, long long v_ss, long long v_sh, float scale,
                                     void* stream) {
@@ -855,7 +1029,7 @@ extern "C" int causal_attention_fwd(const float* q, const float* k, const float*
     case 64: return launch<64>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 128: return launch<128>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
     case 256: return launch<256>(q, k, v, out, lse, b, s, h, qs, ks, vs, scale, st);
-    default: return launch_wide(q, k, v, out, lse, b, s, h, d, qs, ks, vs, scale, st);
+    default: return launch_wide(q, k, v, out, lse, work, b, s, h, d, qs, ks, vs, scale, st);
   }
 }
 

@@ -82,13 +82,12 @@ using hopfield_wide::SHIFT;
 // (chunks of 128 a slice) and the blocks of a cluster, from the wider
 // side; false where both widths are at most MAX_WIDTH (the built
 // instances), where d_in is at most WINDOW_IN, or where the wider is past
-// 8192 (a cluster of more than 16 blocks): K2's window kernel
-// (hopfield_wide.cuh) and K3's narrow-side kernel (hopfield_narrow.cuh)
-// take those. At d_in up to 128 dq and dK have one window, so those
-// kernels compute g U^T once and recompute only a
-// q K^T of that depth; there they ran faster on an H100 (at (3, 384), N
-// 4,096, M 512: K2 0.113 ms against the cluster's 0.268, K3 0.246 against
-// 0.377; PERF.md).
+// 8192 (a cluster of more than 16 blocks): K2's and K3's narrow-side
+// kernels (on the pieces of hopfield_narrow.cuh) take those. At d_in up
+// to 128 dq and dK have one window, so those kernels compute g U^T once
+// and recompute only a q K^T of that depth; there the former window
+// kernels already ran faster on an H100 (at (3, 384), N 4,096, M 512: K2
+// 0.113 ms against the cluster's 0.268, K3 0.246 against 0.377; PERF.md).
 constexpr int WINDOW_IN = 128;
 inline bool plan(int d_in, int d_out, int& j, int& ranks) {
   const int d = d_in > d_out ? d_in : d_out;

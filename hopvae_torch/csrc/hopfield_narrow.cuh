@@ -3,11 +3,13 @@
 // past 256, or a side past 8192. This header holds the forward K1
 // (hopfield_stream_fwd.cu) with K4's wide stages
 // (hopfield_bottleneck_fused.cu), the route of the wide forward
-// (launch_fwd), and the pieces that K3's narrow-side kernel
-// (hopfield_stream_bwd_dku.cu) shares with it: the ordered depth parts,
-// the staging sized to the live columns and the split of the scores.
+// (launch_fwd), and the pieces that the narrow-side kernels of K2
+// (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu) share
+// with it: the ordered depth parts, the staging sized to the live columns
+// and the split of a product (the scores, or K2's g U^T) over the card.
 //
-// It replaces the window kernel (stream_fwd_wide_kernel), which padded
+// It replaces the window kernels (K1's stream_fwd_wide_kernel and K2's
+// stream_bwd_dq_wide_kernel; K3's likewise), the forward's of which padded
 // the narrow side to a window of 128 output columns (at d_out 3, 16
 // n-tiles of P U of which 1 is live) and to chunks of 64 of the depth (at d_in 3, 8 k-steps of
 // which 1 is live), ran ceil(N / 64) blocks whatever the card (64 at N
@@ -25,8 +27,8 @@
 //   three-pass TF32 products in a fresh sum of their own), and sum them in
 //   the order that the backward K2 and K3 use at the same widths
 //   (score_order): the window kernels' order (part after part) where K2
-//   and K3 run their window kernels, so that the scores, m and l keep
-//   the window kernel's bits there; the cluster's (groups of 2J parts, a slice, each
+//   and K3 run their narrow-side kernels, which keep it, so that the
+//   scores, m and l keep the window kernels' bits there; the cluster's (groups of 2J parts, a slice, each
 //   group summed in order, the groups in order, the small TF32 parts
 //   truncated) where K2 and K3 run on their cluster. Either way the rows
 //   K2 and K3 rebuild from K1's m and l meet scores summed as K1 summed
@@ -103,7 +105,8 @@ __host__ __device__ inline int staged(int cols) {
 // its scores: `group` parts summed in order make a group, the groups add
 // in order; trunc: the small TF32 parts truncated. The backward's order at
 // the same widths: its cluster's (hopfield_cluster::plan; a slice of 128 J
-// columns is 2J parts) or its window kernels' (one part a group, rounded).
+// columns is 2J parts) or its narrow-side kernels' (one part a group,
+// rounded: the former window kernels' order).
 struct Order {
   int group;
   bool trunc;

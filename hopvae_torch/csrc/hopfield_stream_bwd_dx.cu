@@ -74,21 +74,50 @@
 //   depth split across the blocks of a cluster, each tile's scores
 //   computed once, every output column summed by the block whose slice
 //   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.47 ms against
-//   the window kernel's 0.80; PERF.md). Elsewhere the window kernel (one
-//   instance for every width): per pattern tile the chunks of q and K,
-//   then those of g and U, stream through (their products summed into the
-//   score and g U^T fragments), then the window of K's columns that the
-//   block sums dq over (windows of 128 on a grid axis, each recomputing
-//   the scores). At d_in up to 128 dq has one window, nothing of weight is
-//   recomputed, and the window kernel ran faster (at (3, 384): 0.113 ms
-//   against the cluster's 0.268), so the route is by width. The splits
-//   of the pattern axis plan from the clusters (or blocks) the card holds
-//   at once. The finishing pass, a warp a row, reads x and the splits' dq
-//   from device memory, keeps dq in q's scratch and dq * xhat over split
-//   0's partial for the column sums (with 4 lanes a row it took 0.26 ms of
-//   0.71 at 512 -> 512, N 4,096; a warp a row 0.034).
+//   the former window kernel's 0.80; PERF.md). Elsewhere (d_in up to 128,
+//   or a side past 8192) the narrow-side kernel (stream_bwd_dq_narrow_kernel,
+//   on the pieces of hopfield_narrow.cuh), which replaces the window
+//   kernel there and keeps its order: dq's window is a template width, d_in
+//   padded to 8 up to 128 (one window: nothing is recomputed), else 128 on
+//   a grid axis; per group of pattern tiles the parts of q and K, then of
+//   g and U, stream through, their k-steps and copies below the widths
+//   only, each part's products in a fresh sum added to each tile's in
+//   order; then the group's windows of K. A group is 4 tiles where
+//   nothing is split and the window is at most 32 columns (GROUP): each
+//   part of q and g is staged once for the 4 tiles, where a tile at a time
+//   restaged all of g's parts for every 32 patterns (at (3, 384) on an
+//   H100: N 4,096, 0.083 ms against 0.098 a tile at a time and the window
+//   kernel's 0.112; N 73,984, 7.53 against 8.41 and 12.28; two tiles a
+//   group 0.086 and 8.03; PERF.md). Its 128 score and g U^T fragments
+//   take 255 registers with 96 bytes of spill at a window of 8. At
+//   windows of 64 and 128 a group is 2 tiles (WIDE_GROUP; 235 and 254
+//   registers, no spill): on an H100 at (64, 384), N 4,096 0.102 to
+//   0.105 ms against 0.114 to 0.116 a tile at a time and the window
+//   kernel's 0.108 to 0.111; at (8320, 3), N 4,096, M 64 (the scores
+//   recomputed in each of 65 windows) 9.63 against 11.06 to 11.11 and
+//   10.40 to 10.46.
+//   Where dq has more than one window, S = q K^T is split over the card
+//   once (hopfield_narrow::split_scores: each part apart, then added in
+//   order, the same bits) and every window reads it instead of
+//   recomputing it, and so is P = g U^T, which is also split where the
+//   blocks leave the card idle; each within SPLIT_BYTES of scratch, else
+//   the windows recompute it (a route by plan: dx_window_plan,
+//   hopfield_stream_bwd_dx_plan). At d_in up to 128 the cluster ran
+//   slower (at (3, 384): 0.268 ms against the former window kernel's
+//   0.113), so the route is by width. The splits of the pattern axis plan
+//   from the clusters the card holds at once, or on the narrow-side kernel
+//   from two blocks an SM (PLAN_PER_SM), the window kernel's, whatever the
+//   narrow kernel's occupancy: they fix the order of dq's sums, so dx, ds
+//   and dt keep the window kernel's bits. The finishing pass, a warp a
+//   row, reads x and the splits' dq from device memory, keeps dq in q's
+//   scratch and dq * xhat over split 0's partial for the column sums (with
+//   4 lanes a row it took 0.26 ms of 0.71 at 512 -> 512, N 4,096; a warp a
+//   row 0.034).
+
+#include <algorithm>
 
 #include "hopfield_cluster.cuh"
+#include "hopfield_narrow.cuh"
 #include "hopfield_stream.cuh"
 #include "hopfield_wide.cuh"
 
@@ -388,50 +417,79 @@ int launch(const Args& a) {
 }
 
 
-// ---- past 256: the wide variant (hopfield_wide.cuh), one instance for
-// every width
+// ---- past 256: the cluster (hopfield_cluster.cuh) or the narrow-side
+// kernel (the pieces of hopfield_narrow.cuh)
 
-// dq over the window [col0, col0 + CW) of d_in for the block's TM token
-// rows of the built q, over its split of the pattern tiles: per tile the
-// chunks of q and K, those of g and U, then K's window.
-__global__ void __launch_bounds__(hopfield_wide::THREADS, 2)
-stream_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
-                          const float* __restrict__ g, const float* __restrict__ m_in, const float* __restrict__ l_in,
-                          const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
-                          int d_in, int d_out, int per, float beta, unsigned vec16) {
-  using namespace hopfield_wide;
+// The narrow-side K2: dq over the window [col0, col0 + CW) of d_in for the
+// block's TM token rows of the built q, over its split of the pattern
+// tiles, G tiles at a time. Per group of tiles: the parts of q and K
+// (their columns below d_in), then those of g and U (below d_out), each
+// part's products in a fresh sum added to each tile's running one in
+// order (the window kernels' order), or, where they were split (G = 1),
+// the tile of S = q K^T and of P = g U^T; then the windows of K of the
+// group's tiles (their live columns). A and dS on the fragments, then dq
+// over the window's live n-tiles, a tile at a time in order, each in a
+// fresh fragment added to the running sum after the tile. A buffer holds
+// a part item (the resident rows and G tiles), or the window item: the S
+// and P tiles (TM x RSC each) where split, and the group's K windows.
+// A group shares each part of the resident rows among its G tiles: one
+// copy of g's parts where each tile restaged them.
+template <int CW, int G>
+__global__ void __launch_bounds__(hopfield_narrow::THREADS, 2)
+stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                            const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ P,
+                            const float* __restrict__ m_in, const float* __restrict__ l_in,
+                            const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
+                            int d_in, int d_out, int per, int slot, float beta, unsigned vec16) {
+  using namespace hopfield_narrow;
+  constexpr int CO = CW / 8, RW = CW + 4, GT = G * TN;
   extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * slot
 
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);
-  const int row0 = blockIdx.x * hopfield_wide::TM;
+  const int row0 = blockIdx.x * hopfield_narrow::TM;
   const int split = blockIdx.y;
   const int col0 = blockIdx.z * CW;
   const int first = split * per;
-  const int last = min((m_patterns + hopfield_wide::TN - 1) / hopfield_wide::TN, first + per) - 1;
-  const int nci = chunks(d_in), nco = chunks(d_out);
-  const int per_tile = nci + nco + 1;
-  const int items = (last - first + 1) * per_tile;
-  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+  const int last = min((m_patterns + TN - 1) / TN, first + per) - 1;
+  const int w_cols = min(CW, d_in - col0);
+  const int ww = staged(w_cols), co = (w_cols + 7) / 8;  // the window's staged columns and live n-tiles
+  const int nqi = S ? 0 : parts_of(d_in), ngo = P ? 0 : parts_of(d_out);
+  const int per_group = nqi + ngo + 1;
+  const int items = (last - first + G) / G * per_group;
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u,
+             sv = vec16 >> 4 & 1u, pv = vec16 >> 5 & 1u;
 
-  auto stage_item = [&](int i, int u) {
-    float* y = buf + u * SLOT;
-    const int it = first + i / per_tile, sub = i % per_tile;
-    constexpr int tm = hopfield_wide::TM, tn = hopfield_wide::TN;
-    if (sub < nci) {
-      stage_cols<DC, tm>(y, q, d_in, sub * DC, row0, n, qv);
-      stage_cols<DC, tn>(y + tm * RC, K, d_in, sub * DC, it * tn, m_patterns, kv);
-    } else if (sub < nci + nco) {
-      stage_cols<DC, tm>(y, g, d_out, (sub - nci) * DC, row0, n, gv);
-      stage_cols<DC, tn>(y + tm * RC, U, d_out, (sub - nci) * DC, it * tn, m_patterns, uv);
-    } else {
-      stage_cols<CW, tn>(y, K, d_in, col0, it * tn, m_patterns, kv);
+  auto stage_item = [&](int i) {
+    if (i < items) {
+      float* y = buf + (i % NB) * slot;
+      const int it0 = first + i / per_group * G, sub = i % per_group;
+      if (sub < nqi) {
+        const int c0 = sub * PART, w = staged(min(PART, d_in - c0));
+        stage<hopfield_narrow::TM>(y, RP, q, d_in, c0, w, row0, n, qv);
+        stage<GT>(y + hopfield_narrow::TM * RP, RP, K, d_in, c0, w, it0 * TN, m_patterns, kv);
+      } else if (sub < nqi + ngo) {
+        const int c0 = (sub - nqi) * PART, w = staged(min(PART, d_out - c0));
+        stage<hopfield_narrow::TM>(y, RP, g, d_out, c0, w, row0, n, gv);
+        stage<GT>(y + hopfield_narrow::TM * RP, RP, U, d_out, c0, w, it0 * TN, m_patterns, uv);
+      } else {
+        if (S) {
+          stage<hopfield_narrow::TM>(y, RSC, S, m_patterns, it0 * TN, TN, row0, n, sv);
+          y += hopfield_narrow::TM * RSC;
+        }
+        if (P) {
+          stage<hopfield_narrow::TM>(y, RSC, P, m_patterns, it0 * TN, TN, row0, n, pv);
+          y += hopfield_narrow::TM * RSC;
+        }
+        stage<GT>(y, RW, K, d_in, col0, ww, it0 * TN, m_patterns, kv);
+      }
     }
     cp_async_commit();
   };
-  stage_item(0, 0);
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_item(i);
 
   bool live[2];
   float m_r[2], il_r[2], dl_r[2];
@@ -443,52 +501,96 @@ stream_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__
     il_r[e] = live[e] ? 1.f / l_in[row] : 0.f;
     dl_r[e] = live[e] ? delta[row] : 0.f;
   }
-  float acc[CO][4], sc[NT][4], dp[NT][4];
+  float acc[CO][4], sc[G][NT][4], dp[G][NT][4];
 #pragma unroll
   for (int c = 0; c < CO; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  zero(sc);
-  zero(dp);
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    zero(sc[t]);
+    zero(dp[t]);
+  }
+
+  // the slab's rows gq and gq + 8 of a TM x RSC tile of S or P into a C fragment
+  auto load_tile = [&](float (&f)[NT][4], const float* t) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(t + (m0 + gq + 8 * r) * RSC + 8 * j + 2 * tq);
+        f[j][2 * r] = v.x;
+        f[j][2 * r + 1] = v.y;
+      }
+  };
 
   for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
     cp_async_wait_all();
     __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
-    const float* y = buf + u * SLOT;
-    const int it = first + i / per_tile, sub = i % per_tile;
-    if (sub < nci) {
-      if (sub == 0) zero(sc), zero(dp);
-      chunk_product(sc, y, m0, gq, tq);
-      continue;
-    }
-    if (sub < nci + nco) {
-      chunk_product(dp, y, m0, gq, tq);
-      continue;
-    }
-    // ---- A and dS on the fragments, then dq += dS K over the window
-    const int p_lo = it * hopfield_wide::TN;
-    FragA dsa[NT];
+    stage_item(i + NB - 1);
+    const float* y = buf + (i % NB) * slot;
+    const int it0 = first + i / per_group * G, sub = i % per_group;
+    const int gt = min(G, last - it0 + 1);  // the group's tiles
+    if (sub < nqi + ngo) {  // a part of q K^T, or of g U^T, for each tile in a fresh sum added to its running one
+      const bool score = sub < nqi;
+      const int steps = score ? part_steps(d_in, sub) : part_steps(d_out, sub - nqi);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float v[4];
+      for (int t = 0; t < G; ++t) {
+        if (t >= gt) break;
+        float pp[NT][4];
+        part_product<false>(pp, y + m0 * RP, y + (hopfield_narrow::TM + t * TN) * RP, steps, gq, tq);
+        if (score) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool in = live[r] && p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns;
-        const float a = in ? __expf(sc[j][e] * beta - m_r[r]) * il_r[r] : 0.f;
-        v[e] = a * (dp[j][e] - dl_r[r]) * beta;
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[t][j][e] = sub == 0 ? pp[j][e] : sc[t][j][e] + pp[j][e];
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp[t][j][e] = sub == nqi ? pp[j][e] : dp[t][j][e] + pp[j][e];
+        }
       }
-      dsa[j] = split_a(v[0], v[2], v[1], v[3]);
+      continue;
     }
+    if (S) {
+      load_tile(sc[0], y);
+      y += hopfield_narrow::TM * RSC;
+    }
+    if (P) {
+      load_tile(dp[0], y);
+      y += hopfield_narrow::TM * RSC;
+    }
+
+    // ---- per tile of the group, in order: A and dS on the fragments, then
+    // dq += dS K over the window's live n-tiles
 #pragma unroll
-    for (int c = 0; c < CO; ++c) {
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < G; ++t) {
+      if (t >= gt) break;
+      const int p_lo = (it0 + t) * TN;
+      FragA dsa[NT];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<RW>(y + 8 * j * RW + 8 * c, gq, tq));
+      for (int j = 0; j < NT; ++j) {
+        float v[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool in = live[r] && p_lo + 8 * j + 2 * tq + (e & 1) < m_patterns;
+          const float a = in ? __expf(sc[t][j][e] * beta - m_r[r]) * il_r[r] : 0.f;
+          v[e] = a * (dp[t][j][e] - dl_r[r]) * beta;
+        }
+        dsa[j] = split_a(v[0], v[2], v[1], v[3]);
+      }
+      const float* kw = y + t * TN * RW;
+#pragma unroll
+      for (int c = 0; c < CO; ++c) {
+        if (c >= co) continue;
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<RW>(kw + 8 * j * RW + 8 * c, gq, tq));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
+      }
     }
   }
 
@@ -576,10 +678,47 @@ stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __res
   }
 }
 
+// The narrow-side plan: the window (d_in padded to 8 up to 128, else
+// 128), the splits of the pattern axis, and which products are split over
+// the card first (hopfield_narrow::split_scores: each part's sums apart,
+// then added in order, the same bits). The splits plan from PLAN_PER_SM
+// blocks an SM whatever the kernel's occupancy: they set the order of
+// dq's sums (a split's tiles in f32, the splits in double), and so dx,
+// ds and dt keep the bits that the window kernel (252 registers, two
+// blocks an SM) gave them. S = q K^T splits where d_in has more than one
+// part and dq more than one window (each would recompute it); P = g U^T
+// where d_out has more than one part and dq more than one window, or the
+// blocks, the pattern splits counted, leave SMs idle (fewer than one an
+// SM: at (3, 8320), N 37, two blocks walked 130 parts each, 0.229 ms
+// against the split's 0.015 on an H100; at (3, 384), N 4,096, 256 blocks
+// fill the card and the split lost, 0.141 against 0.077; PERF.md). Each
+// split's scratch (its parts' sums and itself, split_floats) counts
+// against SPLIT_BYTES, S's first.
+constexpr int PLAN_PER_SM = 2;
+struct DxPlan {
+  int cw;
+  bool split_s, split_p;
+  Plan p;
+};
+inline DxPlan dx_window_plan(int n, int m_patterns, int d_in, int d_out, int sms) {
+  using namespace hopfield_narrow;
+  DxPlan d;
+  d.cw = d_in <= 128 ? padded_width(d_in) : 128;
+  const int windows = windows_of(d_in, d.cw);
+  const int token_tiles = (n + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
+  d.p = plan_for(token_tiles * windows, (m_patterns + TN - 1) / TN, PLAN_PER_SM * std::max(sms, 1));
+  const long long blocks = static_cast<long long>(token_tiles) * windows * d.p.splits;
+  const long long fs = split_floats(n, m_patterns, parts_of(d_in));
+  const long long fp = split_floats(n, m_patterns, parts_of(d_out));
+  d.split_s = parts_of(d_in) >= 2 && windows > 1 && 4 * fs <= SPLIT_BYTES;
+  d.split_p = parts_of(d_out) >= 2 && (windows > 1 || blocks < sms) &&
+              4 * ((d.split_s ? fs : 0) + fp) <= SPLIT_BYTES;
+  return d;
+}
+
 // The splits of the pattern axis past 256: from the cluster kernel's
-// clusters of token tiles where it runs, else the window kernel's blocks.
+// clusters of token tiles where it runs, else the narrow-side plan's.
 Plan plan_wide(int n, int m_patterns, int d_in, int d_out) {
-  using namespace hopfield_wide;
   int j, ranks;
   if (hopfield_cluster::plan(d_in, d_out, j, ranks)) {
     int tm, tn;
@@ -587,24 +726,64 @@ Plan plan_wide(int n, int m_patterns, int d_in, int d_out) {
     return plan_for((n + tm - 1) / tm, (m_patterns + tn - 1) / tn,
                     hopfield_cluster::concurrent_clusters<false>(j, ranks));
   }
-  return plan_for((n + hopfield_wide::TM - 1) / hopfield_wide::TM * windows(d_in),
-                  (m_patterns + hopfield_wide::TN - 1) / hopfield_wide::TN,
-                  concurrent_blocks(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, BYTES));
+  return dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count()).p;
+}
+
+// Floats of the split products' scratch on the narrow-side plan: S's
+// split_floats, then P's.
+long long split_scratch(const DxPlan& d, int n, int m_patterns, int d_in, int d_out) {
+  using namespace hopfield_narrow;
+  return (d.split_s ? split_floats(n, m_patterns, parts_of(d_in)) : 0) +
+         (d.split_p ? split_floats(n, m_patterns, parts_of(d_out)) : 0);
 }
 
 // Floats of the wide variant's scratch: q (n, d_in), later dq; each
 // split's partial dq (n, d_in), split 0's later dq * xhat; one partial row
-// of ds and of dt for each 32 tokens.
+// of ds and of dt for each 32 tokens; on the narrow-side plan, the split
+// products', from the next multiple of 4 floats.
 long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
   const int splits = plan_wide(n, m_patterns, d_in, d_out).splits;
-  return static_cast<long long>(1 + splits) * n * d_in + 2LL * fin_blocks(n) * d_in;
+  long long floats = static_cast<long long>(1 + splits) * n * d_in + 2LL * fin_blocks(n) * d_in;
+  int j, ranks;
+  if (!hopfield_cluster::plan(d_in, d_out, j, ranks))
+    floats = (floats + 3) / 4 * 4 + split_scratch(dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count()),
+                                                  n, m_patterns, d_in, d_out);
+  return floats;
+}
+
+// Tiles of a group of the narrow-side kernel where nothing is split:
+// GROUP where dq's window is at most 32 columns (the group's K windows fit
+// a part item's buffer), WIDE_GROUP at 64 and 128 (their accumulators
+// leave room for two tiles' fragments, not four); else one. (A K3-style
+// group is what the split products replace: with them a tile has one
+// item.)
+constexpr int GROUP = 4, WIDE_GROUP = 2;
+inline int group_of(const DxPlan& d) {
+  return d.split_s || d.split_p ? 1 : d.cw <= 32 ? GROUP : WIDE_GROUP;
+}
+
+// f on the narrow-side kernel of window CW for the plan's group.
+template <int CW, class F>
+int with_group(const DxPlan& d, F&& f) {
+  if (group_of(d) > 1) return f(stream_bwd_dq_narrow_kernel<CW, (CW <= 32 ? GROUP : WIDE_GROUP)>);
+  return f(stream_bwd_dq_narrow_kernel<CW, 1>);
+}
+
+// The narrow-side kernel's slot: a part item (the resident rows and a
+// group's tiles), or the window item (the split products' tiles and the
+// group's K windows, of 128 columns at most).
+inline int narrow_slot(const DxPlan& d) {
+  using namespace hopfield_narrow;
+  const int g = group_of(d);
+  return std::max((hopfield_narrow::TM + g * TN) * RP,
+                  (d.split_s + d.split_p) * hopfield_narrow::TM * RSC + g * TN * (d.cw + 4));
 }
 
 // dq of every split past 256: the cluster kernel (hopfield_cluster.cuh)
-// where its plan takes the widths, else the window kernel (a route by
-// width; see the header).
-int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part) {
-  using namespace hopfield_wide;
+// where its plan takes the widths, else the narrow-side kernel on its plan
+// (a route by width; see the header), its split products first through
+// `work`.
+int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part, float* work) {
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
   int j, ranks;
@@ -617,15 +796,44 @@ int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part)
           a.d_in, a.d_out, p.per, beta_of(a.d_in), vec16, a.stream));
     });
   }
-  if (windows(a.d_in) > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(BYTES));
-  if (err != cudaSuccess) return err;
-  stream_bwd_dq_wide_kernel<<<dim3((a.n + hopfield_wide::TM - 1) / hopfield_wide::TM, p.splits, windows(a.d_in)),
-                              hopfield_wide::THREADS, BYTES, a.stream>>>(
-      q, a.K, a.U, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per, beta_of(a.d_in),
-      vec16);
-  return cudaGetLastError();
+  using namespace hopfield_narrow;
+  const int sms = sm_count();
+  const DxPlan d = dx_window_plan(a.n, a.m_patterns, a.d_in, a.d_out, sms);
+  if (windows_of(a.d_in, d.cw) > 65535) return cudaErrorInvalidValue;
+  const long long nm = static_cast<long long>(a.n) * a.m_patterns;
+  const float *S = nullptr, *P = nullptr;
+  if (d.split_s) {  // [the parts' sums | S]
+    const int parts = parts_of(a.d_in);
+    float* s_out = work + parts * nm;
+    const cudaError_t err = split_scores(q, a.K, s_out, work, a.n, a.m_patterns, a.d_in, {1, false}, sms, a.stream);
+    if (err != cudaSuccess) return err;
+    S = s_out;
+    work += (parts + 1) * nm;
+  }
+  if (d.split_p) {  // [the parts' sums | P]
+    float* p_out = work + parts_of(a.d_out) * nm;
+    const cudaError_t err =
+        split_scores(a.g, a.U, p_out, work, a.n, a.m_patterns, a.d_out, {1, false}, sms, a.stream);
+    if (err != cudaSuccess) return err;
+    P = p_out;
+  }
+  const int slot = narrow_slot(d);
+  const size_t bytes = sizeof(float) * NB * slot;
+  const unsigned svec16 = vec16 | (S ? vec16_ok(S, a.m_patterns) : 0u) << 4 | (P ? vec16_ok(P, a.m_patterns) : 0u) << 5;
+  return with_window(d.cw, [&](auto c) {
+    constexpr int CW = decltype(c)::value;
+    auto launch_group = [&](auto kernel) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<dim3((a.n + hopfield_narrow::TM - 1) / hopfield_narrow::TM, p.splits, windows_of(a.d_in, CW)),
+               hopfield_narrow::THREADS, bytes, a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, a.l, a.delta, dq_part, a.n,
+                                                            a.m_patterns, a.d_in, a.d_out, p.per, slot,
+                                                            beta_of(a.d_in), svec16);
+      return static_cast<int>(cudaGetLastError());
+    };
+    return with_group<CW>(d, launch_group);
+  });
 }
 
 int launch_wide(const Args& a) {
@@ -634,9 +842,11 @@ int launch_wide(const Args& a) {
   float* dq_part = q + static_cast<size_t>(a.n) * a.d_in;
   float* ds_part = dq_part + static_cast<size_t>(p.splits) * a.n * a.d_in;
   float* dt_part = ds_part + static_cast<size_t>(fin_blocks(a.n)) * a.d_in;
+  // the split products', from a 16-byte boundary (the workspace's base is one)
+  float* work = a.workspace + (static_cast<size_t>(dt_part - a.workspace) + fin_blocks(a.n) * a.d_in + 3) / 4 * 4;
   cudaError_t err = hopfield_wide::build_queries(a.x, a.s, a.t, a.n, a.d_in, q, nullptr, nullptr, a.stream);
   if (err != cudaSuccess) return err;
-  err = static_cast<cudaError_t>(launch_dq_wide(a, p, q, dq_part));
+  err = static_cast<cudaError_t>(launch_dq_wide(a, p, q, dq_part, work));
   if (err != cudaSuccess) return err;
   stream_bwd_dx_finish_wide_kernel<<<fin_blocks(a.n), WIDE_FIN_THREADS, 0, a.stream>>>(
       a.x, a.s, dq_part, p.splits, a.n, a.d_in, a.dx, q, ds_part, dt_part);
@@ -686,14 +896,25 @@ extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const floa
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
 // where its plan takes the widths (hopfield_cluster::plan), else the
-// window kernel's. Returns a cudaError_t.
+// narrow-side kernel's where nothing is split (its group of tiles the
+// streamed rows). Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) {
   int j, ranks;
   if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, true, out));
-  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
-    return static_cast<int>(kernel_attributes(stream_bwd_dq_wide_kernel, hopfield_wide::THREADS, hopfield_wide::BYTES,
-                                              hopfield_wide::TM, hopfield_wide::TN, out));
+  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out)) {  // on the plan of a call with nothing split
+    DxPlan d{};
+    d.cw = d_in <= 128 ? padded_width(d_in) : 128;
+    const size_t bytes = sizeof(float) * hopfield_narrow::NB * narrow_slot(d);
+    return hopfield_narrow::with_window(d.cw, [&](auto c) {
+      constexpr int CW = decltype(c)::value;
+      auto attrs = [&](auto kernel) {
+        return static_cast<int>(kernel_attributes(kernel, hopfield_narrow::THREADS, bytes, hopfield_narrow::TM,
+                                                  group_of(d) * hopfield_narrow::TN, out));
+      };
+      return with_group<CW>(d, attrs);
+    });
+  }
   if (!takes(1, 1, d_in, d_out)) return cudaErrorInvalidValue;
   return with_widths(d_in, d_out, [&](auto pi, auto po) {
     constexpr int PI = decltype(pi)::value, PO = decltype(po)::value;
@@ -709,4 +930,25 @@ extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) 
 extern "C" int hopfield_stream_bwd_dx_cluster(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, false, out));
+}
+
+// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..4]: 1
+// the cluster; on the narrow-side kernel 2, plus 1 where S = q K^T is
+// split over the card first and 2 where P = g U^T is (0 up to 256: a
+// built instance); then the narrow-side plan's window, the splits of the
+// pattern axis and their pattern tiles each (0 where it does not run).
+// Returns a cudaError_t.
+extern "C" int hopfield_stream_bwd_dx_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
+  if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
+  for (int i = 0; i < 5; ++i) out[i] = 0;
+  int j, ranks;
+  if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
+  out[0] = 1;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
+  const DxPlan d = dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count());
+  out[0] = 2 + d.split_s + 2 * d.split_p;
+  out[1] = d.cw;
+  out[2] = d.p.splits;
+  out[3] = d.p.per;
+  return cudaSuccess;
 }

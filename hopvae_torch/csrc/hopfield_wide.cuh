@@ -1,30 +1,24 @@
-// The streaming Hopfield kernels past a width of 256: the pieces of the
+// The streaming Hopfield kernels past a width of 256: the pieces that the
 // wide variants of K1 (hopfield_stream_fwd.cu), K2
 // (hopfield_stream_bwd_dx.cu), K3 (hopfield_stream_bwd_dku.cu) and K4
-// (hopfield_bottleneck_fused.cu): the query build, the epilogues of the
-// forward, and K2's window kernel's chunked products.
+// (hopfield_bottleneck_fused.cu) share with the clusters
+// (hopfield_cluster.cuh) and the narrow-side kernels (hopfield_narrow.cuh):
+// the query build and the epilogues of the forward.
 //
 // The built instances (hopfield_stream.cuh, with_widths) keep 64 rows of
 // q resident at the padded width and cap an output window at 128 columns;
 // past 256 that no longer fits 227 KB beside two streamed buffers, and a
 // warp's outputs would take too many registers. The wide variants
-// therefore:
-// - build q = LN(x) * s + t of every token first (build_queries), the
-//   LayerNorm statistics in double over the full d_in, with the
-//   arithmetic of layer_norm_rows, so the same bits;
-// - stream every product's depth in chunks of DC = 64 columns (K2's
-//   window kernel: per streamed tile, the chunks of the resident rows and
-//   of the tile arrive by double-buffered cp.async one after the other,
-//   each chunk's three-pass TF32 products summed in fresh fragments and
-//   added to the score fragments before the dS step), and cover the output
-//   columns in windows of CW = 128 on a grid axis, each window block
-//   recomputing the scores over the full depth. K2's window kernel runs
-//   where its cluster (hopfield_cluster.cuh) does not: past 8192 or with
-//   d_in up to 128. K1, K3 and K4's stages run the narrow-side kernels of
-//   hopfield_narrow.cuh there, which keep these chunks and their order.
-// Shared bytes: 52,224 (two buffers of a 64 + 32 row chunk), whatever the
-// widths. Registers and blocks an SM are in PERF.md, from the kernels'
-// attributes entries on the card.
+// therefore build q = LN(x) * s + t of every token first (build_queries),
+// the LayerNorm statistics in double over the full d_in, with the
+// arithmetic of layer_norm_rows, so the same bits; then the cluster
+// kernels split the depth across the blocks of a cluster (up to 8192 on
+// the wider side, d_in past 128; K1 also d_out past 128), and elsewhere
+// the narrow-side kernels of K1, K2, K3 and K4's stages size their output
+// window to the narrow side and stream the depth in parts of 64 columns.
+// The former window kernels, which padded every product's depth to chunks of
+// 64 and every output to windows of 128, each window recomputing the
+// scores, are gone: the narrow-side kernels keep their parts and order.
 
 #pragma once
 
@@ -37,65 +31,8 @@ namespace hopfield_wide {
 using namespace hopfield_stream;
 using namespace tf32x3;
 
-constexpr int TM = 64;   // resident rows of a block: tokens (K1, K2, K4) or patterns (K3)
-constexpr int TN = 32;   // streamed rows of a tile: patterns (K1, K2, K4) or tokens (K3)
-constexpr int NT = TN / 8;
-constexpr int DC = 64;   // columns of a streamed chunk of a product's depth
-constexpr int CW = 128;  // output columns of a block: its window
-constexpr int CO = CW / 8;
-constexpr int THREADS = 32 * TM / 16;  // a warp a 16-row slab
-constexpr int RC = DC + 4, RW = CW + 4;  // row strides of a chunk and of a window tile
-// one buffer: a chunk item (TM resident and TN streamed rows of DC
-// columns) or a window item (TN rows of CW columns and 3 TN row stats)
-constexpr int SLOT = (TM + TN) * RC;
-static_assert(TN * RW + 3 * TN <= SLOT, "a window item fits a buffer");
-constexpr size_t BYTES = sizeof(float) * 2 * SLOT;
-
 // whether a lookup of widths (d_in, d_out) takes the wide variants
 __host__ __device__ inline bool wide(int d_in, int d_out) { return d_in > MAX_WIDTH || d_out > MAX_WIDTH; }
-__host__ __device__ inline int chunks(int d) { return (d + DC - 1) / DC; }
-__host__ __device__ inline int windows(int d) { return (d + CW - 1) / CW; }
-
-// Columns [c0, c0 + W) of rows [row0, row0 + ROWS) of a row-major (rows,
-// d) array into a ROWS x (W + 4) tile by cp.async (the caller commits);
-// zeros past d and past `rows`.
-template <int W, int ROWS>
-__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, int d, int c0, int row0,
-                                           int rows, bool vec16) {
-  stage_async<W, ROWS, THREADS>(dst, src + c0, min(W, d - c0), row0, rows, vec16, d);
-}
-
-__device__ __forceinline__ void zero(float (&a)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
-}
-
-// acc += the slab's 16 x TN product of a chunk item: the A rows at
-// y + m0 RC (row stride RC), the B rows at y + TM RC. The chunk is summed
-// in fresh fragments and then added in f32: the tensor cores' sums
-// truncate, and one chain over a depth of 512 (192 mma) left l 1.3e-5
-// from the plain version on an H100, past STAT_RTOL.
-__device__ __forceinline__ void chunk_product(float (&acc)[NT][4], const float* y, int m0, int gq, int tq) {
-  float part[NT][4];
-  zero(part);
-#pragma unroll 2
-  for (int c = 0; c < DC / 8; ++c) {
-    const FragA a = load_a<RC>(y + m0 * RC + 8 * c, gq, tq);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      FragB b0, b1;
-      load_b_rows2<RC>(b0, b1, y + TM * RC + 8 * j * RC + 8 * c, gq, tq);
-      mma3(part[j], a, b0);
-      mma3(part[j + 1], a, b1);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-}
 
 constexpr int Q_ROWS = 32;  // token rows of a block of build_queries
 constexpr int Q_THREADS = 4 * Q_ROWS;

@@ -23,8 +23,11 @@ the last of them on wide instances: up to ``BWD_WIDE_MAX`` the forward
 and the backward split the depth across the blocks of a thread-block
 cluster, which compute each tile's scores once
 (:func:`forward_attributes` and :func:`backward_attributes` name the
-cluster); past it the forward streams q, k and v in depth chunks over
-windows of output columns, and the backward raises.
+cluster); past it the forward runs its window kernel over windows of
+output columns, on causal scores computed once, split over the card
+first, where their scratch fits (:func:`forward_workspace` is then more
+than 0), else streaming q and k in depth chunks in every window; the
+backward raises there.
 :func:`kernel_width` names the width that any other head is zero-padded
 to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches`` (through
@@ -139,6 +142,21 @@ def kernel_width(dh: int) -> int:
     return -(-dh // WIDE_STEP) * WIDE_STEP
 
 
+def forward_workspace(b: int, s: int, h: int, dh: int) -> int:
+    """Floats of device scratch that K5-fwd takes at ``(B, S, heads, dh)``,
+    as the built library plans it (``causal_attention_fwd_workspace``):
+    past ``BWD_WIDE_MAX``, where the window kernel computes the causal
+    scores once, split over the card first (each depth chunk of 64 apart,
+    then added in chunk order into ``(B·heads, S, S)``, from which every
+    window of output columns replays its online softmax), the chunks' sums
+    and S; 0 where that scratch would pass the plan's cap and every window
+    recomputes the scores (the same bits), and at every other width."""
+    fn = load_library("causal_attention_fwd").causal_attention_fwd_workspace
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    return fn(b, s, h, dh)
+
+
 def _require_kernel(q, dh: int, widest: int | None = None) -> None:
     if kernel_width(dh) != dh:
         raise ValueError(f"head width {dh} is not one the kernels take ({HEAD_DIMS} or a multiple of "
@@ -157,7 +175,8 @@ def _launch(name: str, ptrs, strided, shape, scale: float, device) -> None:
     argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 4 + [ctypes.c_longlong] * (3 * len(strided))
                 + [ctypes.c_float, ctypes.c_void_p])
     strides = [st for a in strided for st in a.stride()[:3]]
-    launch(name, bind(stem, name, argtypes), device, *(a.data_ptr() for a in ptrs), *shape, *strides, scale)
+    launch(name, bind(stem, name, argtypes), device, *(None if a is None else a.data_ptr() for a in ptrs), *shape,
+           *strides, scale)
 
 
 def causal_attention_fwd(q, k, v, scale: float):
@@ -173,7 +192,9 @@ def causal_attention_fwd(q, k, v, scale: float):
         raise RuntimeError("causal_attention_fwd is forward-only: differentiate through FlashCausalAttention")
     out = torch.empty(b, s, h, dh, device=q.device)
     lse = torch.empty(b, h, s, device=q.device)
-    _launch("causal_attention_fwd", (q, k, v, out, lse), (q, k, v), (b, s, h, dh), scale, q.device)
+    floats = forward_workspace(b, s, h, dh) if dh > BWD_WIDE_MAX else 0
+    work = torch.empty(floats, device=q.device) if floats else None
+    _launch("causal_attention_fwd", (q, k, v, out, lse, work), (q, k, v), (b, s, h, dh), scale, q.device)
     count(causal_attention_fwd)
     return out, lse
 

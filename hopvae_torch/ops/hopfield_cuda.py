@@ -37,16 +37,13 @@ first (:func:`kernel_route` names the route). The wide kernels run on a
 thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split
 across the blocks of a cluster, each tile's scores computed once) where
 :func:`forward_cluster` (K1) and :func:`backward_cluster` (K2, K3) say
-so. Elsewhere (one side at most 128, or a side past 8192) K1 and K3 run
-their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
+so. Elsewhere (one side at most 128, or a side past 8192) K1, K2 and K3
+run their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
 window sized to the narrow side, the depth in parts of 64 summed in K2's
-and K3's order, :func:`score_order`; where few token tiles would leave the
-card idle, K1's scores split over the card first, and past 8192 K3's,
-:func:`narrow_split`),
-and K2 its window kernel
-(``csrc/hopfield_wide.cuh``: every product's depth streamed in chunks of
-64, the outputs in column windows of 128, each window recomputing the
-scores).
+and K3's order, :func:`score_order`); where few token tiles would leave
+the card idle, or every window would recompute them, a product is split
+over the card first (K1's and K3's scores, K2's scores and ``g Uᵀ``:
+:func:`narrow_split`).
 
 Pattern sharding (JAX's ``_attn_tp_merge``, ``_attn_ln_stream_tp``):
 :class:`ShardedStreamLookup` runs K1 on each pattern shard's rows and
@@ -80,11 +77,15 @@ SUPPORTED = ((64, 64), (64, 3), (3, 64))  # the bottleneck's (d_in, d_out) at th
 BUILT_WIDTH = 256  # K1 to K4 have built instances up to this width on both sides; wider runs the wide variants
 CLUSTER_MAX = 8192  # the wide K1 to K4 run on a cluster up to this wider side (16 blocks of 512 columns)
 WINDOW_IN = 128  # and past this d_in (K1: and d_out), where the window kernels have more than one window
-# copies of constants of csrc/hopfield_narrow.cuh that :func:`narrow_split` reads
-# (tests/test_torch_window.py holds each against its source)
+# copies of constants of csrc/hopfield_narrow.cuh (and the last of
+# csrc/hopfield_stream_bwd_dx.cu) that :func:`narrow_split` reads
+# (tests/test_torch_window.py and tests/test_torch_narrow_bwd.py hold each
+# against its source)
 PART = 64  # ``PART``: columns of a part of the narrow-side kernels' depth (the window kernels' chunk)
-SPLIT_BYTES = 64 << 20  # ``SPLIT_BYTES``: the split scores' scratch at most
-TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's narrow-side kernel
+SPLIT_BYTES = 64 << 20  # ``SPLIT_BYTES``: the split products' scratch at most
+TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's and K2's narrow-side kernels
+PATTERN_TILE = 32  # ``TN``: patterns of a streamed tile of K1's and K2's
+PLAN_PER_SM = 2  # ``PLAN_PER_SM``: the blocks an SM that K2's narrow-side splits of the pattern axis plan from
 IMPLS = ("cuda", "torch")
 
 
@@ -117,8 +118,8 @@ def backward_cluster(d_in: int, d_out: int) -> bool:
     """Whether K2 and K3 run on their thread-block cluster at ``(d_in,
     d_out)``: past ``BUILT_WIDTH`` and up to ``CLUSTER_MAX`` on the
     wider side, with ``d_in`` past ``WINDOW_IN`` (``plan`` in
-    ``csrc/hopfield_cluster.cuh``). Other wide widths take K2's window
-    kernel and K3's narrow-side kernel (:func:`narrow_split`)."""
+    ``csrc/hopfield_cluster.cuh``). Other wide widths take K2's and K3's
+    narrow-side kernels (:func:`narrow_split`)."""
     return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= CLUSTER_MAX
 
 
@@ -143,21 +144,53 @@ def score_order(d_in: int, d_out: int) -> tuple[int, bool]:
     return 1, False
 
 
+def _pattern_splits(blocks: int, tiles: int, concurrent: int) -> tuple[int, int]:
+    """``(splits, per)`` of K2's pattern axis (``plan_for`` in
+    ``csrc/hopfield_stream_bwd_dx.cu``): the splits whose waves of
+    ``blocks`` blocks, ``concurrent`` at once, end soonest, the fewest on a
+    tie, each of ``per`` pattern tiles (the last may be short)."""
+    c = max(concurrent, 1)
+    limit = min(max(-(-4 * c // blocks), 4), tiles)
+    best, best_waves = 1, -(-blocks // c)
+    for splits in range(2, limit + 1):
+        waves = -(-blocks * splits // c)
+        if waves * best < best_waves * splits:
+            best, best_waves = splits, waves
+    per = -(-tiles // best)
+    return -(-tiles // per), per
+
+
 def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -> str | None:
-    """How K1's (``kernel="fwd"``) or K3's (``"dku"``) narrow-side kernel
-    fills the card at these sizes (``fwd_window_plan`` and
-    ``dku_window_plan`` in ``csrc/``; the card's ``_plan`` entries report
-    the whole plan): ``None``, one pass, or ``"scores"``, the scores
-    split over the card first, each group's sums (:func:`score_order`)
-    through device memory, then added in order. K1 splits where its depth
-    has more than one group and its blocks (64 token rows and a window of
-    ``d_out`` each) are fewer than two an SM; K3 past 8192 on ``d_in``,
-    where every window would recompute the scores. Either needs its
-    scratch within ``SPLIT_BYTES``. So the route depends on N and M as
-    well as on the widths."""
+    """How K1's (``kernel="fwd"``), K2's (``"dx"``) or K3's (``"dku"``)
+    narrow-side kernel fills the card at these sizes (``fwd_window_plan``,
+    ``dx_window_plan`` and ``dku_window_plan`` in ``csrc/``; the card's
+    ``_plan`` entries report the whole plan): ``None``, one pass, or the
+    products split over the card first, each group's sums
+    (:func:`score_order`) through device memory, then added in order:
+    ``"scores"``, and for K2 also ``"gu"`` (``g Uᵀ``) or ``"scores+gu"``.
+    K1 splits where its depth has more than one group and its blocks (64
+    token rows and a window of ``d_out`` each) are fewer than two an SM;
+    K3 past 8192 on ``d_in``, where every window would recompute the
+    scores. K2 splits its scores where d_in has more than one part and dq
+    more than one window of 128 (each would recompute them), and ``g Uᵀ``
+    where d_out has more than one part and dq more than one window, or
+    where its blocks (64 token rows, a window and a split of the pattern
+    axis, planned from ``PLAN_PER_SM`` blocks an SM) are fewer than the
+    SMs. Each needs its scratch within ``SPLIT_BYTES`` (K2's scores
+    first). So the route depends on N and M as well as on the widths."""
     if kernel_route(d_in, d_out) != "wide" or (forward_cluster if kernel == "fwd" else backward_cluster)(d_in, d_out):
         raise ValueError(f"{(d_in, d_out)} does not take {kernel}'s narrow-side kernel")
     parts = -(-d_in // PART)
+    if kernel == "dx":
+        windows = 1 if d_in <= 128 else -(-d_in // 128)
+        blocks = -(-n // TOKEN_TILE) * windows
+        blocks *= _pattern_splits(blocks, -(-m // PATTERN_TILE), PLAN_PER_SM * max(sms, 1))[0]
+        parts_out = -(-d_out // PART)
+        fs, fp = (parts + 1) * n * m, (parts_out + 1) * n * m  # each split's parts' sums and itself
+        split_s = parts >= 2 and windows > 1 and 4 * fs <= SPLIT_BYTES
+        split_p = (parts_out >= 2 and (windows > 1 or blocks < sms)
+                   and 4 * ((fs if split_s else 0) + fp) <= SPLIT_BYTES)
+        return "+".join(name for name, on in (("scores", split_s), ("gu", split_p)) if on) or None
     if kernel == "fwd":
         groups = -(-parts // score_order(d_in, d_out)[0])
         windows = 1 if d_out <= 128 else -(-d_out // 128)

@@ -1,6 +1,6 @@
 """Compare builds of K5's forward kernel on the card (PyTorch/CUDA port).
 
-    python3 tools/torch_attention_fwd_variants.py [--reps N] [NAME=SOURCE ...]
+    python3 tools/torch_attention_fwd_variants.py [--reps N] [--bits] [NAME=SOURCE ...]
 
 Builds ``hopvae_torch/csrc/causal_attention_fwd.cu`` (as ``change``) and
 each ``NAME=SOURCE`` (a copy of the source elsewhere beside the headers it
@@ -12,14 +12,17 @@ few more ragged ones (one with views off 16-byte alignment): the
 normwise error of ``out`` and ``lse`` against the plain version, whether
 a second launch repeats the first bit for bit, whether its outputs equal
 the ``change`` build's bit for bit (a build that does not take a head
-width reports ``refused``), and, at the full-width shapes, its time (CUDA
-events, mean of ``--reps`` launches) beside
+width reports ``refused``), and, at the full-width shapes and past 8192
+(the window kernel, with each kernel its entry launches timed by name,
+``kernel_ms``), its time (CUDA events, mean of ``--reps`` launches) beside
 ``F.scaled_dot_product_attention(is_causal=True)``'s forward on the same
 inputs and the bounds of ``chip_smoke.py`` (three TF32 passes, and the
 f32 CUDA cores' as context), and the build's registers, spills, shared
 bytes, blocks an SM and, past 256, its cluster (blocks, slice, clusters
 the card holds) where the build reports them. One JSON line per build and
-shape.
+shape. First, and alone with ``--bits``, the sha256 of each build's
+``(out, lse)`` at the cases of ``chip_smoke.K5_PARENT_BITS`` (hashed
+inputs), the digests that phase 7 holds the port's K5-fwd to.
 """
 
 from __future__ import annotations
@@ -50,12 +53,22 @@ CASES = [*cs.ATTENTION_CASES, ("ragged S48 dh64", 2, 48, 2, 64), ("ragged S48 dh
 
 
 def call(lib, q, k, v, scale, out, lse) -> None:
+    """The build's forward on the current stream; a build with
+    ``causal_attention_fwd_workspace`` (the split scores past 8192) takes
+    its scratch after lse."""
     fn = lib.causal_attention_fwd
     b, s, h, dh = q.shape
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_float,
-                                                                                           ctypes.c_void_p]
+    work = []
+    if hasattr(lib, "causal_attention_fwd_workspace"):
+        ws = lib.causal_attention_fwd_workspace
+        ws.argtypes, ws.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+        floats = ws(b, s, h, dh)
+        scratch = torch.empty(floats, device="cuda") if floats else None  # held until the launch is queued
+        work = [None if scratch is None else scratch.data_ptr()]
+    fn.argtypes = ([ctypes.c_void_p] * (5 + len(work)) + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
     strides = [st for a in (q, k, v) for st in a.stride()[:3]]
-    err = fn(*(a.data_ptr() for a in (q, k, v, out, lse)), b, s, h, dh, *strides, scale,
+    err = fn(*(a.data_ptr() for a in (q, k, v, out, lse)), *work, b, s, h, dh, *strides, scale,
              torch.cuda.current_stream().cuda_stream)
     if err == 1:  # cudaErrorInvalidValue: a head width the build does not take
         raise ValueError("refused")
@@ -80,9 +93,23 @@ def attributes(lib, dh: int) -> dict:
     return attrs
 
 
+def bits(libs) -> None:
+    """One JSON line a build and ``chip_smoke.K5_PARENT_BITS`` case: the
+    sha256 of its ``(out, lse)`` on the case's hashed inputs."""
+    for sizes in cs.K5_PARENT_BITS:
+        b, s, h, dh = sizes
+        q, k, v = cs.attention_bits_inputs(*sizes)
+        for name, lib in libs.items():
+            outs = (torch.empty(b, s, h, dh, device="cuda"), torch.empty(b, h, s, device="cuda"))
+            call(lib, q, k, v, 1 / math.sqrt(dh), *outs)
+            torch.cuda.synchronize()
+            print(json.dumps({"build": name, "k5_fwd_bits": sizes, "sha256": cs.lookup_digest(outs)}), flush=True)
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--bits", action="store_true", help="print the parent-bits digests alone")
     parser.add_argument("builds", nargs="*", metavar="NAME=SOURCE")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -96,6 +123,9 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(build, n, src, [], tmp) for n, src in builds.items()}
         libs = {n: f.result() for n, f in futures.items()}
+    bits(libs)
+    if args.bits:
+        return 0
     exps = cs.exp_per_s()
     gen = torch.Generator(device="cuda").manual_seed(3)
     with cs.parity_mode(), torch.inference_mode():
@@ -103,7 +133,7 @@ def main(argv: list[str]) -> int:
             q, k, v, _g = cs.attention_inputs(b, s, h, dh, gen, offset=1 if "misaligned" in label else 0)
             scale = 1 / math.sqrt(dh)
             want = ac.causal_attention_fwd_reference(q, k, v, scale)
-            timed = b * h * s * s > 1e8
+            timed = b * h * s * s > 1e8 or dh > ac.BWD_WIDE_MAX
             extra = {}
             if timed:
                 qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -133,6 +163,8 @@ def main(argv: list[str]) -> int:
                 row["equals_change"] = all(torch.equal(a, c) for a, c in zip(got, first["change"]))
                 if timed:
                     row["ms"] = cs.cuda_ms(lambda: call(lib, q, k, v, scale, *got), args.reps)
+                    if dh > ac.BWD_WIDE_MAX:
+                        row["kernel_ms"] = cs.kernel_ms(lambda: call(lib, q, k, v, scale, *got))
                     row.update(extra, attrs=attributes(lib, dh))
                 print(json.dumps(row), flush=True)
             del q, k, v, want, first

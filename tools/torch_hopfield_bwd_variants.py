@@ -1,6 +1,7 @@
 """Compare builds of the streaming Hopfield kernels K1, K2 and K3 on the card.
 
-    python3 tools/torch_hopfield_bwd_variants.py [NAME=CSRC_DIR[:-DFLAG,...] ...]
+    python3 tools/torch_hopfield_bwd_variants.py [--bits] [--shapes LABEL,...] [--no-steps]
+        [NAME=CSRC_DIR[:-DFLAG,...] ...]
 
 Builds ``hopfield_stream_fwd.cu``, ``hopfield_stream_bwd_dx.cu`` and
 ``hopfield_stream_bwd_dku.cu`` from ``hopvae_torch/csrc`` (as ``change``)
@@ -22,7 +23,7 @@ beta (the library's K1) and one ``torch.autograd.grad`` through SDPA with
 the same cotangent (the library's K2 + K3) are timed too, and K1's plain
 version (``stream_lookup_fwd_reference``); past 256, below full scale,
 each kernel's row also times each kernel its entry launches by name
-(``kernel_ms``, ``torch.profiler``). Past 256 (but
+(``kernel_ms``, ``torch.profiler``; K2's at full scale too). Past 256 (but
 at full scale) K1's row also reads ``rebuilt_row_sum_err``, phase 2's
 row sums of the attention rebuilt from its ``m`` and ``l``. A build that
 refuses a width (cudaErrorInvalidValue) is reported as refusing it. Last, phase 13's
@@ -30,7 +31,10 @@ refuses a width (cudaErrorInvalidValue) is reported as refusing it. Last, phase 
 three rounds: three f32 Adam steps from the same weights, the losses,
 each step's ms between CUDA events (host gaps included) and the device's
 busy ms a step (``torch.profiler``: every kernel, and the lookups' K1 to
-K3 with their passes alone), one JSON line a run.
+K3 with their passes alone), one JSON line a run. First, and alone with
+``--bits``, the sha256 of each build's K2 ``(dx, ds, dt)`` at the cases of
+``chip_smoke.K2_PARENT_BITS`` (hashed inputs, K1's stats from the port's
+K1), the digests that phase 2 holds the port's K2 to.
 """
 
 from __future__ import annotations
@@ -136,6 +140,25 @@ def cases() -> list[tuple]:
     return [*cs.kernel_cases(cs.folded_tables()), (label, n, tables, d_in, d_out)]
 
 
+def bits(libs) -> None:
+    """One JSON line a build and ``chip_smoke.K2_PARENT_BITS`` case: the
+    sha256 of its K2's ``(dx, ds, dt)`` on the case's hashed inputs."""
+    stem = STEMS[1]
+    with torch.inference_mode():
+        for sizes in cs.K2_PARENT_BITS:
+            n, mp, d_in, d_out = sizes
+            args = cs.backward_bits_args(*sizes)
+            work = workspace(libs, *sizes)
+            for name in libs:
+                outs = [torch.empty(n, d_in, device="cuda"), torch.empty(d_in, device="cuda"),
+                        torch.empty(d_in, device="cuda")]
+                err = call(libs[name][stem], stem, (*args, *outs, work), sizes)
+                if err:
+                    raise RuntimeError(f"{name} {stem}{sizes}: cudaError {err}")
+                torch.cuda.synchronize()
+                print(json.dumps({"build": name, "k2_bits": sizes, "sha256": cs.lookup_digest(outs)}), flush=True)
+
+
 def width_steps(libs) -> None:
     """Phase 13's run at ``embedding_dim=384`` on each build's K1 to K3, in
     turns, ``WIDTH_ROUNDS`` times (each build's libraries stand in for the
@@ -167,6 +190,12 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_hopfield_bwd_variants: no CUDA device", file=sys.stderr)
         return 2
+    only_bits, steps, shapes = "--bits" in argv, "--no-steps" not in argv, None
+    if "--shapes" in argv:
+        at = argv.index("--shapes")
+        shapes = set(argv[at + 1].split(","))
+        argv = argv[:at] + argv[at + 2:]
+    argv = [a for a in argv if a not in ("--bits", "--no-steps")]
     builds = {"change": (nvcc.CSRC, [])}
     for arg in argv:
         name, _, spec = arg.partition("=")
@@ -176,10 +205,15 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(builds)) as pool:
         futures = {n: pool.submit(build, n, src, fl, tmp) for n, (src, fl) in builds.items()}
         libs = {n: f.result() for n, f in futures.items()}
+    bits(libs)
+    if only_bits:
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = {"fwd": ("out", "m", "l"), "dx": ("dx", "ds", "dt"), "dku": ("dK", "dU")}
     with cs.parity_mode(), torch.inference_mode():
         for label, n, (k, u, s, t), d_in, d_out in cases():
+            if shapes is not None and label not in shapes:
+                continue
             x = cs.case_input(n, d_in, gen)
             g = torch.randn(n, d_out, device="cuda", generator=gen)
             out, m, l = hc.stream_lookup_fwd_reference(x, k, u, s, t)
@@ -213,7 +247,7 @@ def main(argv: list[str]) -> int:
                         ptrs = fwd_ptrs(x, k, u, s, t, outs, work) if kernel == "fwd" else (*args, *outs, work)
                         launch_once = lambda: call(libs[name][stem], entry, ptrs, (n, k.shape[0], d_in, d_out))  # noqa: E731
                         row[kernel]["ms"] = cs.cuda_ms(launch_once, reps)
-                        if label.startswith("wide") and n * k.shape[0] <= 1e8:
+                        if label.startswith("wide") and (n * k.shape[0] <= 1e8 or kernel == "dx"):
                             row[kernel]["kernel_ms"] = cs.kernel_ms(launch_once)
                 print(json.dumps(row), flush=True)
             if label.startswith("wide"):
@@ -226,7 +260,8 @@ def main(argv: list[str]) -> int:
                                   "library_bwd_ms": lib_ms, "library_backend": backend}), flush=True)
             del x, g, out, m, l, args, want, first, work
             torch.cuda.empty_cache()
-    width_steps(libs)
+    if steps:
+        width_steps(libs)
     return 0
 
 
