@@ -68,12 +68,14 @@ Twenty phases, each of which raises on failure:
    of 256 (``prior_d_model=256``), at one head of 384 and one of 512 (the
    wide kernels: forward and backward on a thread-block cluster), and at
    small ragged shapes (one at 256; at 768, 1280, 2560 and 8192, the
-   clusters' plans; the forward alone at one head of 8320, its window
-   kernel, at B 2, S 37 on scores split over the card and at B 1, S 400,
-   where their scratch would pass its cap, recomputing them in every
-   window, each row naming its route as the library plans it, and its
-   ``out`` and ``lse`` held to the former window kernel's bits on hashed
-   inputs at both, ``K5_PARENT_BITS``; two with
+   clusters' plans; past 8192 the window kernels, forward and backward,
+   on scores split over the card within 64 MiB: at one head of 8320 at
+   B 2, S 37, at B 1, S 400 (two slabs of query or key tiles) and at
+   B 1, S 2100 (slabs of one tile, the depth chunks in two rounds), and
+   at one head of 16384 at B 1, S 37, each row naming its route, slabs
+   and rounds as the library plans them, and K5-fwd's ``out`` and
+   ``lse`` held to the former window kernel's bits on hashed inputs at
+   (2, 37, 1, 8320) and (1, 400, 1, 8320), ``K5_PARENT_BITS``; two with
    views off 16-byte alignment); each kernel, whose products run
    on the tensor cores in three TF32 passes, runs twice and must repeat
    bit for bit; kernel, plain and SDPA times, the three-pass TF32 bound
@@ -122,7 +124,12 @@ Twenty phases, each of which raises on failure:
     prior phase of
     ``pixelcnn_mnist_28`` with ``prior=Transformer, prior_d_model=512,
     prior_heads=1, prior_attn=flash`` (K5's wide kernels at a head of 512,
-    4 launches a step each; K1 3), three prior-only steps the same way.
+    4 launches a step each; K1 3), three prior-only steps the same way;
+    and with ``prior_d_model=8320, prior_heads=1, prior_layers=1`` (one
+    layer of 830 M parameters, K5's window kernels) at batch 1, three
+    prior-only steps on the card against the same steps from the same
+    weights with ``prior_attn=blocked`` on the card, losses within 1e-3,
+    K5-fwd, K5-dkv and K5-dq 1 launch a step each, K1 3.
 14. Serving ``interpolate`` and ``sample`` at full width: ``ffhq_64_scaled``
     with ``Transformer-FFHQ-64.msgpack``, ``max_batch=256``, the
     production path, ``interpolate`` under ``prior=Transformer`` and
@@ -1087,9 +1094,10 @@ ATTENTION_COUNTERS = {
 # tile, of one tile, below one) at each of the forward's tile
 # configurations (dh up to 64, 128, 256) and at each cluster plan of the
 # wide kernels past 256, forward and backward (slices of 128, 256 and 512;
-# 16 blocks, a non-portable cluster, at 8192); past 8192 the forward alone
-# (its window kernel: the backward refuses the width); "misaligned" views
-# take the 4-byte copies
+# 16 blocks, a non-portable cluster, at 8192); past 8192 the window kernels
+# on scores split over the card (at S 400 in two slabs; at S 2100 each
+# slab one query or key tile, its depth chunks in two rounds); "misaligned"
+# views take the 4-byte copies
 ATTENTION_CASES = (
     ("full B256 S867 h4 dh32", 256, 867, 4, 32),
     ("heads1 B256 S867 h1 dh128", 256, 867, 1, 128),
@@ -1107,17 +1115,16 @@ ATTENTION_CASES = (
     ("ragged S37 dh2560", 2, 37, 1, 2560),
     ("ragged S37 dh8192", 2, 37, 1, 8192),
     ("ragged S37 dh8320", 2, 37, 1, 8320),
-    ("ragged S400 dh8320 over the cap", 1, 400, 1, 8320),
+    ("ragged S400 dh8320 slabs", 1, 400, 1, 8320),
+    ("ragged S37 dh16384", 1, 37, 1, 16384),
+    ("ragged S2100 dh8320 rounds", 1, 2100, 1, 8320),
     ("ragged S37 dh384 misaligned", 2, 37, 1, 384),
     ("ragged S37 dh32 misaligned", 2, 37, 2, 32),
 )
 PADDED_CASE = ("padded B4 S867 h4 dh48", 4, 867, 4, 48)  # prior_d_model=192, 4 heads
 
 
-def attention_kernels(dh: int) -> tuple[str, ...]:
-    """The K5 kernels that take head width ``dh``: past ``BWD_WIDE_MAX``
-    the forward alone (the backward wrappers raise there)."""
-    return ("fwd", "dkv", "dq") if dh <= ac.BWD_WIDE_MAX else ("fwd",)
+ATTENTION_KERNELS = ("fwd", "dkv", "dq")
 
 
 def attention_inputs(b, s, h, dh, g: torch.Generator, offset: int = 0):
@@ -1167,7 +1174,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     registers, shared bytes and blocks an SM at that width as the card
     reports them."""
     log(json.dumps({"k5_builds": {dh: {kn: ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
-                                       for kn in attention_kernels(dh)}
+                                       for kn in ATTENTION_KERNELS}
                                   for dh in sorted({*ac.HEAD_DIMS, *(c[4] for c in ATTENTION_CASES)})}}))
     widths = [*hc.SUPPORTED, *((d_in, d_out) for _l, _n, _m, d_in, d_out in WIDTH_CASES)]
     log(json.dumps({"k2_k3_builds": {f"{d_in}x{d_out}": {kn: hc.backward_attributes(kn, d_in, d_out)
@@ -1182,7 +1189,6 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
         scale = 1.0 / math.sqrt(dh)
         big = b * h * s * s > 1e8
         reps, plain_reps = (10, 3) if big else (50, 20)
-        kernels = attention_kernels(dh)
         with torch.inference_mode():
             out, lse = ac.causal_attention_fwd(q, k, v, scale)
             delta = ac.attention_delta(out, g)
@@ -1193,17 +1199,18 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                              lambda: ac.causal_attention_bwd_dkv_reference(*args)),
                      "dq": (lambda: (ac.causal_attention_bwd_dq(*args),),
                             lambda: (ac.causal_attention_bwd_dq_reference(*args),))}
-            got = {kn: (out, lse) if kn == "fwd" else calls[kn][0]() for kn in kernels}
-            again = {kn: calls[kn][0]() for kn in kernels}
+            got = {kn: (out, lse) if kn == "fwd" else calls[kn][0]() for kn in ATTENTION_KERNELS}
+            again = {kn: calls[kn][0]() for kn in ATTENTION_KERNELS}
             torch.cuda.synchronize()
-            repeats = {kn: all(torch.equal(a, c) for a, c in zip(got[kn], again[kn])) for kn in kernels}
-            want = {kn: calls[kn][1]() for kn in kernels}
+            repeats = {kn: all(torch.equal(a, c) for a, c in zip(got[kn], again[kn])) for kn in ATTENTION_KERNELS}
+            want = {kn: calls[kn][1]() for kn in ATTENTION_KERNELS}
             errs = {kn: [normwise(a, w) for a, w in zip(got[kn], want[kn])] for kn in got}
             abs_errs = {kn: max((a - w).abs().max().item() for a, w in zip(got[kn], want[kn])) for kn in got}
             del want, got, again
-            times = {kn: (cuda_ms(calls[kn][0], reps), cuda_ms(calls[kn][1], plain_reps)) for kn in kernels}
+            times = {kn: (cuda_ms(calls[kn][0], reps), cuda_ms(calls[kn][1], plain_reps)) for kn in ATTENTION_KERNELS}
+            parts = {kn: kernel_ms(calls[kn][0], 5) for kn in ATTENTION_KERNELS} if dh > ac.BWD_WIDE_MAX else {}
         lib = sdpa_causal_ms(q, k, v, g, reps)
-        for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",)))[:len(kernels)]:
+        for kn, names in (("fwd", ("out", "lse")), ("dkv", ("dK", "dV")), ("dq", ("dQ",))):
             f32_ms, f32_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"])
             b_ms, b_by = attention_bound(kn, b, s, h, dh, env["exp_per_s"], tensor_cores=True)
             row = {
@@ -1217,8 +1224,10 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
                 "bound_f32_by": f32_by,
             }
             row["build"] = ac.forward_attributes(dh) if kn == "fwd" else ac.backward_attributes(kn, dh)
-            if kn == "fwd" and dh > ac.BWD_WIDE_MAX:
-                row["route"] = forward_window_route(b, s, h, dh)
+            if dh > ac.BWD_WIDE_MAX:  # the route, and a call's device ms in the split passes and the window kernel
+                row["route"] = window_route(kn, b, s, h, dh)
+                row["split_ms"] = sum(ms for name, ms in parts[kn].items() if "split_" in name)
+                row["window_ms"] = sum(ms for name, ms in parts[kn].items() if "window_kernel" in name)
             log(json.dumps(row))
             rows.append(row)
             limit = ATTN_FWD_NORMWISE if kn == "fwd" else ATTN_BWD_NORMWISE
@@ -1229,7 +1238,7 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     for sizes, want in K5_PARENT_BITS.items():
         with torch.inference_mode():
             got = lookup_digest(ac.causal_attention_fwd(*attention_bits_inputs(*sizes), 1 / math.sqrt(sizes[3])))
-        log(json.dumps({"k5_fwd_parent_bits": sizes, "route": forward_window_route(*sizes), "sha256": got,
+        log(json.dumps({"k5_fwd_parent_bits": sizes, "route": window_route("fwd", *sizes), "sha256": got,
                         "held": got == want}))
         if got != want:
             raise AssertionError(f"K5-fwd at {sizes} (B, S, heads, dh) lost the former window kernel's bits: {got}, "
@@ -1238,11 +1247,17 @@ def phase_attention_vs_plain(env: dict) -> list[dict]:
     return rows
 
 
-def forward_window_route(b: int, s: int, h: int, dh: int) -> str:
-    """K5-fwd's route past ``BWD_WIDE_MAX`` as the built library plans it:
-    the scores split over the card first where it asks for scratch
-    (``ac.forward_workspace``), else recomputed in every window."""
-    return "window, split scores" if ac.forward_workspace(b, s, h, dh) > 0 else "window, recomputed scores"
+def window_route(kernel: str, b: int, s: int, h: int, dh: int) -> dict:
+    """K5-fwd's, K5-dkv's or K5-dq's route past ``BWD_WIDE_MAX`` as the
+    built library plans it: the window kernel on scores split over the card
+    first, its slabs and rounds of depth chunks (``ac.split_plan``) and the
+    scratch the wrapper allocates (at most 64 MiB)."""
+    floats = (ac.forward_workspace(b, s, h, dh) if kernel == "fwd"
+              else ac.backward_workspace(b, s, h, dh, kernel))
+    route = {"route": "window, split scores", **ac.split_plan(kernel, b, s, h, dh), "scratch_mib": floats * 4 / 2**20}
+    if not 0 < route["scratch_mib"] <= 64:
+        raise AssertionError(f"K5-{kernel} at {(b, s, h, dh)}: split scratch of {route['scratch_mib']} MiB")
+    return route
 
 
 def padded_attention_vs_plain(gen: torch.Generator) -> dict:
@@ -1666,6 +1681,63 @@ def phase_width_training(config: str, over: dict, fit_prior: bool) -> dict:
         raise AssertionError(f"expected {a_step} launches a step over {WIDTH_STEPS} steps: {launches}")
     if not all(math.isfinite(v) for v in losses) or max(rel) > WIDTH_LOSS_RTOL:
         raise AssertionError(f"the card's losses {losses} are not within {WIDTH_LOSS_RTOL} of the CPU's {plain}")
+    return res
+
+
+# the prior phase at one head past BWD_WIDE_MAX: an 830 M-parameter layer, held on the card
+# against the same steps through the plain attention (prior_attn=blocked), at batch 1
+WINDOW_HEAD_RUN = ("pixelcnn_mnist_28", {"prior": "Transformer", "prior_d_model": 8320, "prior_heads": 1,
+                                         "prior_layers": 1, "prior_attn": "flash"})
+WINDOW_HEAD_BATCH = 1
+
+
+@parity_mode()
+def phase_window_head_prior() -> dict:
+    """``WINDOW_HEAD_RUN``: three prior-only f32 Adam steps on the first
+    ``WINDOW_HEAD_BATCH`` committed digits through ``Trainer`` with
+    ``impl="cuda"``, K5 on its window kernels past ``BWD_WIDE_MAX``; the
+    counts set to 0 just before the steps and read just after (K5-fwd,
+    K5-dkv and K5-dq once a step, K1 3, K2 and K3 none). Then the same
+    steps from the same weights with ``prior_attn=blocked`` on the card
+    (K5's plain route; the CPU would hold the layer in host memory): the
+    losses within ``WIDTH_LOSS_RTOL``. Each step's device ms logged."""
+    config, over = WINDOW_HEAD_RUN
+    x = torch.from_numpy(golden_input("mnist_digits"))[:WINDOW_HEAD_BATCH].cuda()
+    runs, state = {}, None
+    for attn in ("flash", "blocked"):
+        cfg = load_config(config)
+        for key, val in {**over, "prior_attn": attn}.items():
+            setattr(cfg, key, val)
+        cfg.gamma = 1.0
+        torch.manual_seed(cfg.seed)
+        model = HopVAE(cfg, impl="cuda", device="cuda")
+        seq = model.prior.seq
+        if state is None:
+            state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+            state = None
+        for fn in {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}.values():
+            fn.launches = 0
+        losses, step_ms = width_steps(model, cfg, x, fit_prior=True)
+        torch.cuda.synchronize()
+        runs[attn] = {"losses": losses, "step_ms": step_ms,
+                      "launches": {name: fn.launches for name, fn in {**KERNEL_COUNTERS, **ATTENTION_COUNTERS}.items()}}
+        del model
+        torch.cuda.empty_cache()
+    rel = [abs(a / b - 1) for a, b in zip(runs["flash"]["losses"], runs["blocked"]["losses"])]
+    res = {"config": {"name": config, **over}, "batch": WINDOW_HEAD_BATCH, "seq": seq, "losses": runs["flash"]["losses"],
+           "blocked_losses": runs["blocked"]["losses"], "loss_rel_err": rel, "launches": runs["flash"]["launches"],
+           "step_ms": runs["flash"]["step_ms"], "blocked_step_ms": runs["blocked"]["step_ms"],
+           "routes": {kn: window_route(kn, WINDOW_HEAD_BATCH, seq, 1, over["prior_d_model"]) for kn in ATTENTION_KERNELS}}
+    log(json.dumps({"window_head_prior": res}))
+    a_step = dict.fromkeys(KERNEL_COUNTERS, 3) | dict.fromkeys(ATTENTION_COUNTERS, 1)
+    a_step |= {"hopfield_stream_bwd_dx": 0, "hopfield_stream_bwd_dku": 0}
+    if res["launches"] != {name: n * WIDTH_STEPS for name, n in a_step.items()}:
+        raise AssertionError(f"expected {a_step} launches a step over {WIDTH_STEPS} steps: {res['launches']}")
+    if not all(math.isfinite(v) for v in res["losses"]) or max(rel) > WIDTH_LOSS_RTOL:
+        raise AssertionError(f"the window kernels' losses {res['losses']} are not within {WIDTH_LOSS_RTOL} of the "
+                             f"plain attention's {res['blocked_losses']}")
     return res
 
 
@@ -2990,18 +3062,25 @@ def attention_summary(name: str, rows: list[dict], launches: int, group: str = "
     every shape of its group, ``launches`` from the run that is its path.
     ``group``: ``"narrow"`` the widths up to 128 (the prior-phase run);
     ``"dh256"`` the head width 256 (32-row tiles; phase 11's prior);
-    ``"wide"`` the wide kernels past 256, timed at one head of 512 (phase
-    13's prior), the head of 384 in ``by_width``."""
-    in_group = {"narrow": lambda dh: dh <= 128, "dh256": lambda dh: dh == WIDE_HEAD, "wide": lambda dh: dh > WIDE_HEAD}
+    ``"wide"`` the cluster kernels past 256 up to ``BWD_WIDE_MAX``, timed at
+    one head of 512 (phase 13's prior), the head of 384 in ``by_width``;
+    ``"window"`` the window kernels past it, timed at B 1, S 400, one head
+    of 8320 (phase 13's prior of one head of 8320 launches them), each
+    shape's route in ``routes``."""
+    in_group = {"narrow": lambda dh: dh <= 128, "dh256": lambda dh: dh == WIDE_HEAD,
+                "wide": lambda dh: WIDE_HEAD < dh <= ac.BWD_WIDE_MAX, "window": lambda dh: dh > ac.BWD_WIDE_MAX}
     mine = [r for r in rows if r["kernel"] == name and in_group[group](r["dh"])]
-    head = {"narrow": "full", "dh256": "wide B256", "wide": "wide512"}[group]
+    head = {"narrow": "full", "dh256": "wide B256", "wide": "wide512", "window": "ragged S400"}[group]
     full = next(r for r in mine if r["shape"].startswith(head))
     extra = {}
     if group == "wide":
         extra["by_width"] = {r["dh"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "build")}
                              for r in mine if r["b"] == 256}
+    if group == "window":
+        extra["routes"] = {r["shape"]: r["route"] for r in mine}
     return {
-        "name": {"narrow": name, "dh256": f"{name}_dh{WIDE_HEAD}", "wide": f"{name}_wide"}[group], "route": "cuda",
+        "name": {"narrow": name, "dh256": f"{name}_dh{WIDE_HEAD}", "wide": f"{name}_wide",
+                 "window": f"{name}_window"}[group], "route": "cuda",
         "source": SOURCES[name],
         "replaces": REPLACES[name],
         "launches": launches,
@@ -3066,6 +3145,7 @@ def main() -> int:
     wide_training = phase_prior_train_full_width("prior_training_d256_h1", prior_d_model=256, prior_heads=1)
     fused_rows = phase_fused_bottleneck(env)
     width_results = [phase_width_training(*run) for run in WIDTH_RUNS]
+    window_head = phase_window_head_prior()
     width_runs = [res["launches"] for res in width_results]
     width_launches = {name: [run[name] for run in width_runs] for name in KERNEL_COUNTERS}
     serving_modes = phase_serving_modes()
@@ -3131,6 +3211,8 @@ def main() -> int:
     kernels += [attention_summary(name, attn_rows, wide_training["launches"][name], group="dh256")
                 for name in ATTENTION_COUNTERS]
     kernels += [attention_summary(name, attn_rows, wide_prior_run[name], group="wide") for name in ATTENTION_COUNTERS]
+    kernels += [attention_summary(name, attn_rows, window_head["launches"][name], group="window")
+                for name in ATTENTION_COUNTERS]
     for full in (fused_rows[0], next(r for r in fused_rows if r["shape"] == "width 384x3")):
         wide = full["d"] > hc.BUILT_WIDTH
         mine = [r for r in fused_rows if (max(r["d"], r["di"]) > hc.BUILT_WIDTH) == wide]

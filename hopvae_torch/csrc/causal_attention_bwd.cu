@@ -128,7 +128,8 @@
 //
 //   8 warps a block, one block an SM. Clusters past 8 blocks (n past 32)
 //   are non-portable, opted in at the launch; past 64 chunks (8192) a
-//   cluster would need more than 16 blocks, and the width is refused.
+//   cluster would need more than 16 blocks, and the window kernels below
+//   take the width.
 //   The plan, the cluster's helpers and its launch configuration are
 //   cluster.cuh's (the head width's plan causal_attention_cluster.cuh's),
 //   shared with the forward's cluster kernel (causal_attention_fwd.cu),
@@ -138,10 +139,31 @@
 //   causal_attention_bwd_cluster reports it, the slice width and whether
 //   the card can hold such a cluster at once. A launch that fails returns
 //   its error; nothing falls back.
+//
+// Past 8192 (a route by width) each kernel first computes the causal S and
+// dP once, split over the card, as the forward's window route computes S
+// (causal_attention_split.cuh): K5-dq slab after slab of query tiles, K5-dkv
+// of key tiles (its S^T = k q^T and dP^T = v g^T, the keys resident), each
+// slab within SPLIT_BYTES of scratch, in rounds of depth chunks where one
+// tile's chunks alone pass it. Then a window kernel: a block owns 64
+// resident rows (a warp a 16-row slab) and one window of output columns
+// (128 in K5-dq; 64 in K5-dkv, whose dK and dV both stay in registers), and
+// walks the streamed tiles of its unit (K5-dq the key tiles up to its
+// diagonal, K5-dkv the query tiles from its diagonal down), one item a
+// tile: the tiles of S and dP and the tile's window of k (or of q and g,
+// with their lse and delta). It rebuilds P = exp(scale S - lse) and
+// dS = P (dP - delta) in registers and runs dQ = scale dS k, or
+// dV = P^T g and dK = scale dS^T q, as the narrow instances' SPLIT = 1 path
+// does (C fragments as A fragments, each tile's sums in fresh fragments).
+// Every output row belongs to one unit and so to one slab: nothing carries
+// across launches, no float atomics, and two runs give the same bits. The
+// two entry points each compute their own split, so each is right alone.
 
+#include <algorithm>
 #include <cstdint>
 
 #include "causal_attention_cluster.cuh"
+#include "causal_attention_split.cuh"
 
 namespace {
 
@@ -794,13 +816,224 @@ int launch_cluster(const float* q, const float* k, const float* v, const float* 
                             d, qs, ks, vs, gs, scale, vec16);
 }
 
+// ---- head widths past 8192: the window kernels, one instance each (the
+// width d is a runtime argument), on S and dP split over the card first
+template <bool DKV>
+struct Window {
+  static constexpr int TM = causal_split::TM, TN = causal_split::TN, NT = causal_split::NT;
+  static constexpr int RSC = causal_split::RSC, THREADS = causal_split::THREADS;
+  static constexpr int CW = DKV ? 64 : 128;  // output columns of a block: its window
+  static constexpr int CT = CW / 8;          // a warp's output n-tiles
+  static constexpr int RW = CW + 4;          // row stride of a streamed window
+  static constexpr int NW = DKV ? 2 : 1;     // streamed windows: q and g (dkv), k (dq)
+  // one buffer: the tiles of S and dP, the streamed windows, K5-dkv's lse and delta
+  static constexpr int BUF = 2 * TM * RSC + NW * TN * RW + (DKV ? 2 * TN : 0);
+  static constexpr size_t BYTES = sizeof(float) * 2 * BUF;
+};
+
+// Block (x, y) of a slab of `units` units from u0 (causal_split's units of
+// bhs heads: query tiles in K5-dq, key tiles in K5-dkv): the unit's 64
+// resident rows, window y of the output columns. sums: the slab's S, then
+// its dP, each (units, TM, S).
+template <bool DKV>
+__global__ void __launch_bounds__(causal_split::THREADS)
+causal_bwd_window_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ sums, float* __restrict__ out_a, float* __restrict__ out_b, int s,
+                         int h, int d, int bhs, int u0, int units, Strides qs, Strides ks, Strides gs, float scale,
+                         unsigned vec16) {
+  using W = Window<DKV>;
+  constexpr int TM = W::TM, TN = W::TN, NT = W::NT, RSC = W::RSC, RW = W::RW, CW = W::CW, CT = W::CT;
+  constexpr int THREADS = W::THREADS, BUF = W::BUF;
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * BUF
+
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);  // the warp's resident rows in the tile
+  const int ul = causal_split::slab_unit<DKV>(units);
+  const int u = u0 + ul, mt = u / bhs, bh = u - mt * bhs;
+  const int b = bh / h;
+  const int hh = bh - b * h;
+  const int row_m0 = mt * TM;
+  const int slab_lo = row_m0 + m0;  // its first resident row (key or query row)
+  const int col0 = blockIdx.y * CW;  // the block's window
+  const int first = DKV ? row_m0 / TN : 0;
+  const int last = DKV ? (s - 1) / TN : (min(row_m0 + TM, s) - 1) / TN;
+  const float* s0 = sums + static_cast<size_t>(ul) * TM * s;  // the unit's S
+  const float* s1 = s0 + static_cast<size_t>(units) * TM * s;   // its dP
+  const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u, vg = vec16 >> 3 & 1u;
+
+  auto stage_item = [&](int it, int u) {
+    float* y = buf + u * BUF;
+    causal_split::stage_sums(y, s0, it, s);
+    causal_split::stage_sums(y + TM * RSC, s1, it, s);
+    float* w = y + 2 * TM * RSC;
+    if constexpr (DKV) {
+      stage<CW, TN, THREADS>(w, q + col0, qs, b, hh, it * TN, s, vq);
+      stage<CW, TN, THREADS>(w + TN * RW, g + col0, gs, b, hh, it * TN, s, vg);
+      float* st = w + 2 * TN * RW;
+      for (int i = threadIdx.x; i < 2 * TN; i += THREADS) {
+        const int r = it * TN + (i % TN);
+        const bool in = r < s;
+        const float* src = (i < TN ? lse : delta) + static_cast<size_t>(bh) * s;
+        cp_async4(st + i, in ? src + r : src, in);
+      }
+    } else {
+      stage<CW, TN, THREADS>(w, k + col0, ks, b, hh, it * TN, s, vk);
+    }
+    cp_async_commit();
+  };
+  stage_item(first, 0);
+
+  // K5-dq: lse and delta of the warp's rows gq and gq + 8
+  float lse_r[2] = {0.f, 0.f}, dl_r[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = slab_lo + gq + 8 * e;
+      if (row < s) {
+        lse_r[e] = lse[static_cast<size_t>(bh) * s + row];
+        dl_r[e] = delta[static_cast<size_t>(bh) * s + row];
+      }
+    }
+  }
+
+  // dK and dV (dkv) or dQ (dq, acc0 only) over the window, rows gq and
+  // gq + 8 of the slab, columns col0 + 8c + 2tq and + 1
+  float acc0[CT][4], acc1[DKV ? CT : 1][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[c][e] = acc1[DKV ? c : 0][e] = 0.f;
+
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it < last) stage_item(it + 1, u ^ 1);
+    const float* y = buf + u * BUF;
+    const float* w0 = y + 2 * TM * RSC;  // q (dkv) or k (dq)
+    const float* w1 = w0 + TN * RW;      // g (dkv)
+    const float* st = w0 + W::NW * TN * RW;
+    const int n_lo = it * TN;  // the tile's first streamed row
+    if (causal_split::slab_skips<DKV>(slab_lo, n_lo, s)) continue;
+
+    // ---- P and dS of the slab's 16 x TN tile, from S and dP, in place
+    float fs[NT][4], fd[NT][4];
+    causal_split::load_sums(fs, y, m0, gq, tq);
+    causal_split::load_sums(fd, y + TM * RSC, m0, gq, tq);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = slab_lo + gq + 8 * (e >> 1);     // resident row
+        const int n = n_lo + 8 * j + 2 * tq + (e & 1);  // streamed row
+        const int key = DKV ? m : n, row = DKV ? n : m;
+        const float l = DKV ? st[n - n_lo] : lse_r[e >> 1];
+        const float dl = DKV ? st[TN + n - n_lo] : dl_r[e >> 1];
+        const float p = key <= row && row < s ? __expf(fs[j][e] * scale - l) : 0.f;
+        fs[j][e] = p;
+        fd[j][e] = p * (fd[j][e] - dl);
+      }
+
+    // ---- dV += P^T g and dK += dS^T q (dkv), dQ += dS k (dq), over the
+    // tile's streamed rows 8j .. 8j + 7 in order, in fresh fragments added
+    // to the running sums after the tile
+    float o0[CT][4], o1[DKV ? CT : 1][4];
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o0[c][e] = o1[DKV ? c : 0][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n8 = n_lo + 8 * j;
+      if (DKV ? (n8 + 7 < slab_lo || n8 >= s) : (n8 > slab_lo + 15 || n8 >= s)) continue;
+      const FragA dsa = split_a(fd[j][0], fd[j][2], fd[j][1], fd[j][3]);
+      if constexpr (DKV) {
+        const FragA pfa = split_a(fs[j][0], fs[j][2], fs[j][1], fs[j][3]);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          mma3(o1[c], pfa, load_b_cols<RW>(w1 + 8 * j * RW + 8 * c, gq, tq));  // dV, g
+          mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dK, q
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) mma3(o0[c], dsa, load_b_cols<RW>(w0 + 8 * j * RW + 8 * c, gq, tq));  // dQ, k
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[c][e] += o0[c][e];
+        if constexpr (DKV) acc1[c][e] += o1[c][e];
+      }
+  }
+
+  // ---- write dK, dV (dkv) or dQ (dq) over the window: rows of the slab < S
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = slab_lo + gq + 8 * e;
+    if (row >= s) continue;
+    const size_t at = (static_cast<size_t>(b) * s + row) * static_cast<size_t>(h) * d + static_cast<size_t>(hh) * d +
+                      col0 + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      *reinterpret_cast<float2*>(out_a + at + 8 * c) =
+          make_float2(acc0[c][2 * e] * scale, acc0[c][2 * e + 1] * scale);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(out_b + at + 8 * c) = make_float2(acc1[c][2 * e], acc1[c][2 * e + 1]);
+    }
+  }
+}
+
+// Past 8192: slab after slab, S and dP split over the card into work
+// (causal_split::split_slab; K5-dkv's transposed, its keys resident), then
+// the window kernel on them.
+template <bool DKV>
+int launch_window(const float* q, const float* k, const float* v, const float* g, const float* lse,
+                  const float* delta, float* out_a, float* out_b, float* work, int b, int s, int h, int d, Strides qs,
+                  Strides ks, Strides vs, Strides gs, float scale, cudaStream_t stream) {
+  using W = Window<DKV>;
+  causal_split::Plan plan;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % wide::STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
+      d / W::CW > 65535 || !causal_split::split_plan(b, s, h, d, 2, plan) || work == nullptr)
+    return cudaErrorInvalidValue;
+  const unsigned vq = vec16_ok(q, qs), vk = vec16_ok(k, ks), vv = vec16_ok(v, vs), vg = vec16_ok(g, gs);
+  const causal_split::Product scores = DKV ? causal_split::Product{k, q, ks, qs, vk | vq << 1}
+                                           : causal_split::Product{q, k, qs, ks, vq | vk << 1};
+  const causal_split::Product dscores = DKV ? causal_split::Product{v, g, vs, gs, vv | vg << 1}
+                                            : causal_split::Product{g, v, gs, vs, vg | vv << 1};
+  cudaError_t err = cudaFuncSetAttribute(causal_bwd_window_kernel<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(W::BYTES));
+  if (err != cudaSuccess) return err;
+  const int bhs = b * h;
+  const long long units = static_cast<long long>(bhs) * ((s + W::TM - 1) / W::TM);
+  for (long long u0 = 0; u0 < units; u0 += plan.slab) {
+    const int n = static_cast<int>(std::min<long long>(plan.slab, units - u0));
+    err = causal_split::split_slab<DKV>(scores, dscores, 2, plan, work, s, h, bhs, d, static_cast<int>(u0), n,
+                                        stream);
+    if (err != cudaSuccess) return err;
+    causal_bwd_window_kernel<DKV><<<dim3(n, d / W::CW), W::THREADS, W::BYTES, stream>>>(
+        q, k, g, lse, delta, work, out_a, out_b, s, h, d, bhs, static_cast<int>(u0), n, qs, ks, gs, scale,
+        vq | vk << 1 | vv << 2 | vg << 3);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Past 256: the cluster kernels up to 8192, the window kernels past it (a
+// route by width: a cluster of more than 16 blocks cannot launch).
 template <bool DKV>
 int launch_wide(const float* q, const float* k, const float* v, const float* g, const float* lse,
-                const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs, Strides ks,
-                Strides vs, Strides gs, float scale, cudaStream_t stream) {
+                const float* delta, float* out_a, float* out_b, float* work, int b, int s, int h, int d, Strides qs,
+                Strides ks, Strides vs, Strides gs, float scale, cudaStream_t stream) {
   int j, ranks;
-  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL || !wide_plan(d, j, ranks))
-    return cudaErrorInvalidValue;
+  if (!wide_plan(d, j, ranks))
+    return launch_window<DKV>(q, k, v, g, lse, delta, out_a, out_b, work, b, s, h, d, qs, ks, vs, gs, scale, stream);
+  if (b <= 0 || s <= 0 || h <= 0 || static_cast<long long>(b) * h > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch (j) {
     case 1: return launch_cluster<1, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, ranks, qs, ks, vs, gs, scale, stream);
     case 2: return launch_cluster<2, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, ranks, qs, ks, vs, gs, scale, stream);
@@ -822,8 +1055,8 @@ int wide_attributes(int* out) {
 
 template <bool DKV>
 int dispatch(const float* q, const float* k, const float* v, const float* g, const float* lse,
-             const float* delta, float* out_a, float* out_b, int b, int s, int h, int d, Strides qs,
-             Strides ks, Strides vs, Strides gs, float scale, void* stream) {
+             const float* delta, float* out_a, float* out_b, float* work, int b, int s, int h, int d,
+             Strides qs, Strides ks, Strides vs, Strides gs, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8: return launch<8, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
@@ -832,8 +1065,15 @@ int dispatch(const float* q, const float* k, const float* v, const float* g, con
     case 64: return launch<64, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 128: return launch<128, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
     case 256: return launch<256, DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, qs, ks, vs, gs, scale, st);
-    default: return launch_wide<DKV>(q, k, v, g, lse, delta, out_a, out_b, b, s, h, d, qs, ks, vs, gs, scale, st);
+    default:
+      return launch_wide<DKV>(q, k, v, g, lse, delta, out_a, out_b, work, b, s, h, d, qs, ks, vs, gs, scale, st);
   }
+}
+
+template <bool DKV>
+int window_attributes(int* out) {
+  using W = Window<DKV>;
+  return kernel_attributes(causal_bwd_window_kernel<DKV>, W::THREADS, W::BYTES, W::TM, W::TN, out);
 }
 
 template <int D, bool DKV>
@@ -848,27 +1088,56 @@ int attributes(int* out) {
 // of out) are device pointers to strided (B, S, heads, D) f32 arrays whose
 // D axis is contiguous, with their batch, sequence and head strides in
 // elements; lse and delta are contiguous (B, heads, S); dk, dv and dq are
-// contiguous (B, S, heads, D); D is 8, 16, 32, 64, 128, 256 or a multiple
-// of 128 past 256 up to 8192. Each returns a cudaError_t; 0 means the
-// launch was accepted.
+// contiguous (B, S, heads, D); work is the scratch of
+// causal_attention_bwd_workspace (null where that is 0); D is 8, 16, 32,
+// 64, 128, 256 or a multiple of 128 past 256 (the cluster kernels up to
+// 8192, the window kernels past it). Each returns a cudaError_t; 0 means
+// the launch was accepted.
 extern "C" int causal_attention_bwd_dkv(const float* q, const float* k, const float* v, const float* g,
-                                        const float* lse, const float* delta, float* dk, float* dv, int b,
-                                        int s, int h, int d, long long q_sb, long long q_ss, long long q_sh,
+                                        const float* lse, const float* delta, float* dk, float* dv, float* work,
+                                        int b, int s, int h, int d, long long q_sb, long long q_ss, long long q_sh,
                                         long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                                         long long v_ss, long long v_sh, long long g_sb, long long g_ss,
                                         long long g_sh, float scale, void* stream) {
-  return dispatch<true>(q, k, v, g, lse, delta, dk, dv, b, s, h, d, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+  return dispatch<true>(q, k, v, g, lse, delta, dk, dv, work, b, s, h, d, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
                         {v_sb, v_ss, v_sh}, {g_sb, g_ss, g_sh}, scale, stream);
 }
 
 extern "C" int causal_attention_bwd_dq(const float* q, const float* k, const float* v, const float* g,
-                                       const float* lse, const float* delta, float* dq, int b, int s, int h,
-                                       int d, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                                       const float* lse, const float* delta, float* dq, float* work, int b,
+                                       int s, int h, int d, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                                        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                                        long long v_sh, long long g_sb, long long g_ss, long long g_sh,
                                        float scale, void* stream) {
-  return dispatch<false>(q, k, v, g, lse, delta, dq, nullptr, b, s, h, d, {q_sb, q_ss, q_sh},
+  return dispatch<false>(q, k, v, g, lse, delta, dq, nullptr, work, b, s, h, d, {q_sb, q_ss, q_sh},
                          {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh}, {g_sb, g_ss, g_sh}, scale, stream);
+}
+
+// Floats of device scratch that causal_attention_bwd_dkv (dkv != 0) or
+// causal_attention_bwd_dq needs at (B, S, heads, D): past 8192, the split S
+// and dP of a slab and the parts of a round of chunks
+// (causal_attention_split.cuh), at most SPLIT_BYTES; 0 at other widths,
+// and -1 where the plan refuses the shape.
+extern "C" long long causal_attention_bwd_workspace(int b, int s, int h, int d, int dkv) {
+  (void)dkv;  // both kernels split S and dP over units of 64 rows: the same plan
+  int j, ranks;
+  causal_split::Plan plan;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % wide::STEP != 0 || wide_plan(d, j, ranks)) return 0;
+  return causal_split::split_plan(b, s, h, d, 2, plan) ? plan.floats : -1;
+}
+
+// The split plan of (B, S, heads, D) past 8192, the same for both kernels
+// (K5-dkv's units are key tiles, K5-dq's query tiles): out receives the
+// slabs, the units (tiles of 64 rows of one head) of a slab, the rounds of
+// depth chunks and the chunks of a round. Returns a cudaError_t
+// (cudaErrorInvalidValue where the plan refuses the shape).
+extern "C" int causal_attention_bwd_plan(int b, int s, int h, int d, int* out) {
+  int j, ranks;
+  causal_split::Plan plan;
+  if (d <= 256 || d % wide::STEP != 0 || wide_plan(d, j, ranks) || !causal_split::split_plan(b, s, h, d, 2, plan))
+    return cudaErrorInvalidValue;
+  out[0] = plan.slabs, out[1] = plan.slab, out[2] = plan.rounds, out[3] = plan.round;
+  return cudaSuccess;
 }
 
 // The kernel of head width d (dkv != 0: K5-dkv, else K5-dq) as built: out
@@ -884,7 +1153,10 @@ extern "C" int causal_attention_bwd_attributes(int d, int dkv, int* out) {
     case 256: return dkv ? attributes<256, true>(out) : attributes<256, false>(out);
     default: {
       int j, ranks;
-      if (!wide_plan(d, j, ranks)) return cudaErrorInvalidValue;
+      if (!wide_plan(d, j, ranks)) {
+        if (d <= 256 || d % wide::STEP != 0) return cudaErrorInvalidValue;
+        return dkv ? window_attributes<true>(out) : window_attributes<false>(out);
+      }
       if (j == 1) return dkv ? wide_attributes<1, true>(out) : wide_attributes<1, false>(out);
       if (j == 2) return dkv ? wide_attributes<2, true>(out) : wide_attributes<2, false>(out);
       return dkv ? wide_attributes<4, true>(out) : wide_attributes<4, false>(out);

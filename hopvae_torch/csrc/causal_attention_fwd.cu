@@ -106,24 +106,18 @@
 //   152 bytes of spill) 8% to 11% slower, with 4 warps and 32 query rows
 //   a block (100,864 bytes, the same bits) 4% to 11% slower.
 // - Past 8192 a cluster would need more than 16 blocks; there the window
-//   kernel runs (a route by width): a block owns 64 query rows and one
-//   window of 128 output columns (a grid axis) and walks the key tiles up
-//   to its diagonal. Where the causal scores' scratch is within
-//   SPLIT_BYTES (window::split: (D / 64 + 1) B heads S S floats; at B 2,
-//   S 37, D 8320 1.4 MB) they are computed once, split over the card: a
-//   first pass computes each depth chunk of 64 of every (query tile, key
-//   tile) in a fresh sum, chunks in groups on a grid sized to the card; a
-//   second adds the chunks in order into S (B heads, S, S); then every
-//   window replays the online softmax key tile by key tile from S and runs
-//   P v on its 128 columns of v, one item a tile. Elsewhere each window
-//   streams q and k in depth chunks of 64 per key tile, each chunk's
-//   products summed in fresh fragments and added to the scores in order,
-//   then the tile's v window: the same sums in the same order either way,
-//   so out and lse have the same bits on both routes, and m and l agree
-//   across windows; the first writes lse. Recomputing, each of the D / 128
-//   windows walked every chunk of the depth: at B 2, S 37, D 8320, 130
-//   blocks of 262 items, a barrier each (0.45 ms on an H100; PERF.md).
-//   Shared bytes: 52,224.
+//   kernel runs (a route by width), on causal scores computed once, split
+//   over the card (causal_attention_split.cuh): slab after slab of query
+//   tiles within SPLIT_BYTES of scratch (and, where one tile's depth chunks
+//   alone pass it, in rounds of chunks), a first pass computes each depth
+//   chunk of 64 of every (query tile, key tile) pair in a fresh sum, chunks
+//   in groups on a grid sized to the card; a second adds the chunks in
+//   order into S; then a block owns 64 query rows and one window of 128
+//   output columns (a grid axis), replays the online softmax key tile by
+//   key tile from S and runs P v on its 128 columns of v, one item a tile.
+//   Every score is the same chunk sums in the same order on every plan, so
+//   m and l agree across windows; the first writes lse. Shared bytes:
+//   52,224.
 // tools/torch_attention_fwd_variants.py times this source against copies
 // of it with other tiles; PERF.md has the times, and registers, spills and
 // blocks an SM from causal_attention_fwd_attributes.
@@ -132,6 +126,7 @@
 #include <cstdint>
 
 #include "causal_attention_cluster.cuh"
+#include "causal_attention_split.cuh"
 
 namespace {
 
@@ -414,58 +409,32 @@ int attributes(int* out) {
 
 
 // ---- head widths past 8192: the window kernel, one instance for every
-// multiple of 128 past 256 (the width d is a runtime argument), on scores
-// split over the card first where their scratch is within SPLIT_BYTES
+// multiple of 128 past 256 (the width d is a runtime argument), on the
+// causal scores split over the card first (causal_attention_split.cuh)
 namespace window {
-constexpr int TM = 64;                // query rows of a block, a warp a 16-row slab
-constexpr int TN = 32;                // keys of a streamed tile
-constexpr int NT = TN / 8;            // n-tiles of a 16 x TN score slab
-constexpr int DC = 64;                // depth of a streamed chunk of q and k
+using causal_split::RSC;
+using causal_split::THREADS;
+using causal_split::TM;
+using causal_split::TN;
+using causal_split::NT;
 constexpr int CW = 128;               // output columns of a block: its window
 constexpr int CT = CW / 8;            // a warp's output n-tiles
-constexpr int THREADS = 32 * TM / 16;
-constexpr int RC = DC + 4, RW = CW + 4;  // row strides of a chunk and of a v window
-constexpr int RSC = TN + 4;           // row stride of a tile of the split scores
-// one buffer: a chunk of q (TM rows) and of k (TN rows), or a v window
-// (after a tile of the split scores, where they are split)
-constexpr int SLOT = (TM + TN) * RC > TM * RSC + TN * RW ? (TM + TN) * RC : TM * RSC + TN * RW;
+constexpr int RW = CW + 4;            // row stride of a v window
+constexpr int SLOT = TM * RSC + TN * RW;  // one buffer: a tile of the scores, then the tile's v window
 constexpr size_t BYTES = sizeof(float) * 2 * SLOT;
 constexpr int STEP = 128;             // the wide widths: multiples of this past 256
-constexpr long long SPLIT_BYTES = 64ll << 20;  // the split scores' scratch at most
-
-// Whether the scores of (b, s, h, d) are split: each chunk's sums of the
-// causal (B heads, S, S) scores and their sum within SPLIT_BYTES.
-inline bool split(int b, int s, int h, int d) {
-  return 4ll * (d / DC + 1) * b * h * s * s <= SPLIT_BYTES;
-}
 }  // namespace window
 
-// A chunk item's part of the slab's 16 x TN scores (q's TM rows at y, k's
-// TN rows after them, row stride RC) in a fresh sum: the window kernel's
-// walk and the split's first pass run this one sequence.
-__device__ __forceinline__ void chunk_scores(float (&part)[window::NT][4], const float* y, int m0, int gq, int tq) {
-  using namespace window;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < DC / 8; ++c) {
-    const FragA qa = load_a<RC>(y + m0 * RC + 8 * c, gq, tq);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      FragB b0, b1;
-      load_b_rows2<RC>(b0, b1, y + TM * RC + 8 * j * RC + 8 * c, gq, tq);
-      mma3(part[j], qa, b0);
-      mma3(part[j + 1], qa, b1);
-    }
-  }
-}
-
+// Block (x, y) of a slab of `units` units from u0 (causal_split's units:
+// query tiles of B heads = bhs heads): the unit's TM query rows, window y
+// of 128 output columns. It walks the key tiles up to its diagonal, one
+// item a tile: the tile of the slab's scores S (B heads ... by unit, TM, S)
+// and the tile's v window; the online softmax on the scores, then P v on
+// the window.
 __global__ void __launch_bounds__(window::THREADS)
-causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         const float* __restrict__ S, float* __restrict__ out, float* __restrict__ lse, int s, int h,
-                         int d, Strides qs, Strides ks, Strides vs, float scale, unsigned vec16) {
+causal_fwd_window_kernel(const float* __restrict__ v, const float* __restrict__ S, float* __restrict__ out,
+                         float* __restrict__ lse, int s, int h, int d, int bhs, int u0, int units, Strides vs,
+                         float scale, bool vv) {
   using namespace window;
   extern __shared__ float4 smem4[];
   float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
@@ -473,36 +442,20 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);  // the warp's query rows in the tile
-  const int bh = blockIdx.x;
+  const int ul = causal_split::slab_unit<false>(units);
+  const int u = u0 + ul, mt = u / bhs, bh = u - mt * bhs;
   const int b = bh / h;
   const int hh = bh - b * h;
-  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;  // the longest walks first
-  const int col0 = blockIdx.z * CW;                       // the block's window
+  const int row_m0 = mt * TM;
+  const int col0 = blockIdx.y * CW;  // the block's window
   const int last = (min(row_m0 + TM, s) - 1) / TN;
   const int slab_lo = row_m0 + m0;
-  const int chunks = S ? 0 : d / DC;
-  const int per_tile = chunks + 1;  // items of a key tile: the depth chunks, then the v window
-  const int items = (last + 1) * per_tile;
-  const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u, vv = vec16 >> 2 & 1u;
+  const float* sb = S + static_cast<size_t>(ul) * TM * s;  // the unit's scores
 
-  auto stage_item = [&](int i, int u) {
+  auto stage_item = [&](int it, int u) {
     float* y = buf + u * SLOT;
-    const int it = i / per_tile, sub = i - it * per_tile;
-    if (sub < chunks) {
-      stage<DC, TM, THREADS>(y, q + sub * DC, qs, b, hh, row_m0, s, vq);
-      stage<DC, TN, THREADS>(y + TM * RC, k + sub * DC, ks, b, hh, it * TN, s, vk);
-    } else {
-      if (S) {  // the tile of the split scores, zeros past S
-        const float* sb = S + static_cast<size_t>(bh) * s * s;
-        for (int e = threadIdx.x; e < TM * TN; e += THREADS) {
-          const int r = e / TN, c = e - r * TN;
-          const bool in = row_m0 + r < s && it * TN + c < s;
-          tf32x3::cp_async4(y + r * RSC + c, in ? sb + static_cast<size_t>(row_m0 + r) * s + it * TN + c : sb, in);
-        }
-        y += TM * RSC;
-      }
-      stage<CW, TN, THREADS>(y, v + col0, vs, b, hh, it * TN, s, vv);
-    }
+    causal_split::stage_sums(y, sb, it, s);
+    stage<CW, TN, THREADS>(y + TM * RSC, v + col0, vs, b, hh, it * TN, s, vv);
     cp_async_commit();
   };
   stage_item(0, 0);
@@ -513,47 +466,19 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int c = 0; c < CT; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 
-  for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
+  for (int it = 0; it <= last; ++it) {
+    const int u = it & 1;
     cp_async_wait_all();
-    __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1
+    if (it < last) stage_item(it + 1, u ^ 1);
     const float* y = buf + u * SLOT;
-    const int it = i / per_tile, sub = i - it * per_tile;
     const int n_lo = it * TN;
-    if (n_lo > slab_lo + 15 || slab_lo >= s) continue;  // as in causal_fwd_kernel
+    if (causal_split::slab_skips<false>(slab_lo, n_lo, s)) continue;  // as in causal_fwd_kernel
 
-    if (sub < chunks) {
-      // ---- this chunk's part of the slab's 16 x TN scores, in fresh
-      // fragments (the tensor cores' sums truncate: short chains), then
-      // added to sc
-      float part[NT][4];
-      chunk_scores(part, y, m0, gq, tq);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = sub == 0 ? part[j][e] : sc[j][e] + part[j][e];
-      continue;
-    }
-
-    // ---- the v window: online softmax on the whole scores (the split
-    // tile's where the scores were split), then P v
-    if (S) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float2 t = *reinterpret_cast<const float2*>(y + (m0 + gq + 8 * r) * RSC + 8 * j + 2 * tq);
-          sc[j][2 * r] = t.x;
-          sc[j][2 * r + 1] = t.y;
-        }
-      y += TM * RSC;
-    }
+    // ---- online softmax on the tile's scores, then P v on the window
+    causal_split::load_sums(sc, y, m0, gq, tq);
+    y += TM * RSC;
     float alpha[2];
     online_softmax(sc, m_r, l_r, alpha, n_lo, slab_lo, scale, gq, tq);
 
@@ -591,133 +516,37 @@ causal_fwd_window_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int c = 0; c < CT; ++c)
       *reinterpret_cast<float2*>(out + at + 8 * c) =
           make_float2(acc[c][2 * e] / l_r[e], acc[c][2 * e + 1] / l_r[e]);
-    if (blockIdx.z == 0 && tq == 0) lse[static_cast<size_t>(bh) * s + row] = m_r[e] + logf(l_r[e]);
+    if (blockIdx.y == 0 && tq == 0) lse[static_cast<size_t>(bh) * s + row] = m_r[e] + logf(l_r[e]);
   }
 }
 
-// The split's first pass: each chunk of 64 columns of the depth of the
-// causal scores q k^T of (head bh, the block's TM query rows), every key
-// tile up to the diagonal, in a fresh sum as the window kernel sums it,
-// into parts (chunks, B heads, S, S). Grid: the heads, the query tiles,
-// and groups of `group` chunks, sized to the card.
-__global__ void __launch_bounds__(window::THREADS)
-causal_partial_scores_kernel(const float* __restrict__ q, const float* __restrict__ k, float* __restrict__ parts,
-                             int s, int h, int d, int group, Strides qs, Strides ks, unsigned vec16) {
-  using namespace window;
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
-
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int m0 = 16 * (threadIdx.x >> 5);
-  const int bh = blockIdx.x;
-  const int b = bh / h;
-  const int hh = bh - b * h;
-  const int row_m0 = (gridDim.y - 1 - blockIdx.y) * TM;
-  const int tiles = (min(row_m0 + TM, s) - 1) / TN + 1;
-  const int slab_lo = row_m0 + m0;
-  const int c0 = blockIdx.z * group;
-  const int items = min(group, d / DC - c0) * tiles;  // chunk after chunk, its key tiles in order
-  const bool vq = vec16 & 1u, vk = vec16 >> 1 & 1u;
-  const size_t plane = static_cast<size_t>(gridDim.x) * s * s;
-
-  auto stage_item = [&](int i, int u) {
-    float* y = buf + u * SLOT;
-    const int c = c0 + i / tiles, it = i % tiles;
-    stage<DC, TM, THREADS>(y, q + c * DC, qs, b, hh, row_m0, s, vq);
-    stage<DC, TN, THREADS>(y + TM * RC, k + c * DC, ks, b, hh, it * TN, s, vk);
-    cp_async_commit();
-  };
-  stage_item(0, 0);
-  for (int i = 0; i < items; ++i) {
-    const int u = i & 1;
-    cp_async_wait_all();
-    __syncthreads();  // item i has landed; every warp is done with item i - 1
-    if (i + 1 < items) stage_item(i + 1, u ^ 1);
-    const float* y = buf + u * SLOT;
-    const int c = c0 + i / tiles, n_lo = i % tiles * TN;
-    if (n_lo > slab_lo + 15 || slab_lo >= s) continue;  // as the window kernel skips it
-    float part[NT][4];
-    chunk_scores(part, y, m0, gq, tq);
-    float* out = parts + c * plane + static_cast<size_t>(bh) * s * s;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = slab_lo + gq + 8 * (e >> 1), key = n_lo + 8 * j + 2 * tq + (e & 1);
-        if (row < s && key < s) out[static_cast<size_t>(row) * s + key] = part[j][e];
-      }
-  }
-}
-
-// The split's second pass: S = the chunks' sums added in chunk order, in
-// f32, as the window kernel adds them. An entry whose key tile lies past
-// the diagonal for its row's 16-row slab, which the first pass skips and
-// the window kernel stages but never reads, is written 0, so no read of S
-// or of the parts meets memory that nothing wrote.
-__global__ void causal_sum_chunks_kernel(const float* __restrict__ parts, int chunks, long long count, int s,
-                                         float* __restrict__ S) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long at = i % (static_cast<long long>(s) * s);
-    const int row = static_cast<int>(at / s), key = static_cast<int>(at % s);
-    if (key / window::TN * window::TN > row / 16 * 16 + 15) {  // the first pass's `n_lo > slab_lo + 15`
-      S[i] = 0.f;
-      continue;
-    }
-    float t = parts[i];
-    for (int c = 1; c < chunks; ++c) t += parts[c * count + i];
-    S[i] = t;
-  }
-}
-
-int sm_count() {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    return 1;
-  return sms > 0 ? sms : 1;
-}
-
-// Past 8192: the window kernel, on scores split over the card first
-// (window::split: the chunks' sums in `work`, then S after them) or, past
-// the scratch's cap, recomputing them in every window (a route by plan).
+// Past 8192: slab after slab, the causal scores split over the card into
+// work (causal_split::split_slab), then the window kernel on them.
 int launch_window(const float* q, const float* k, const float* v, float* out, float* lse, float* work, int b, int s,
                   int h, int d, Strides qs, Strides ks, Strides vs, float scale, cudaStream_t stream) {
   using namespace window;
-  const int m_tiles = (s + TM - 1) / TM;
+  causal_split::Plan plan;
   if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % STEP != 0 || static_cast<long long>(b) * h > 0x7fffffffLL ||
-      m_tiles > 65535 || d / CW > 65535)
+      d / CW > 65535 || !causal_split::split_plan(b, s, h, d, 1, plan) || work == nullptr)
     return cudaErrorInvalidValue;
-  const unsigned vec16 = vec16_ok(q, qs) | vec16_ok(k, ks) << 1 | vec16_ok(v, vs) << 2;
-  const float* S = nullptr;
-  if (split(b, s, h, d)) {
-    if (work == nullptr) return cudaErrorInvalidValue;
-    const int chunks = d / DC;
-    const long long units = static_cast<long long>(b) * h * m_tiles * chunks;
-    const int group = static_cast<int>(std::min<long long>(chunks, std::max<long long>(1, units / (3ll * sm_count()))));
-    cudaError_t err = cudaFuncSetAttribute(causal_partial_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(BYTES));
-    if (err != cudaSuccess) return err;
-    causal_partial_scores_kernel<<<dim3(b * h, m_tiles, (chunks + group - 1) / group), THREADS, BYTES, stream>>>(
-        q, k, work, s, h, d, group, qs, ks, vec16);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const long long count = static_cast<long long>(b) * h * s * s;
-    float* s_out = work + chunks * count;
-    constexpr int T = 256;
-    causal_sum_chunks_kernel<<<static_cast<int>(std::min<long long>((count + T - 1) / T, 8ll * sm_count())), T, 0,
-                               stream>>>(work, chunks, count, s, s_out);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    S = s_out;
-  }
+  const causal_split::Product scores{q, k, qs, ks, vec16_ok(q, qs) | vec16_ok(k, ks) << 1};
   cudaError_t err = cudaFuncSetAttribute(causal_fwd_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(BYTES));
   if (err != cudaSuccess) return err;
-  causal_fwd_window_kernel<<<dim3(b * h, m_tiles, d / CW), THREADS, BYTES, stream>>>(q, k, v, S, out, lse, s, h, d,
-                                                                                   qs, ks, vs, scale, vec16);
-  return cudaGetLastError();
+  const int bhs = b * h;
+  const long long units = static_cast<long long>(bhs) * ((s + TM - 1) / TM);
+  for (long long u0 = 0; u0 < units; u0 += plan.slab) {
+    const int n = static_cast<int>(std::min<long long>(plan.slab, units - u0));
+    err = causal_split::split_slab<false>(scores, scores, 1, plan, work, s, h, bhs, d, static_cast<int>(u0), n,
+                                          stream);
+    if (err != cudaSuccess) return err;
+    causal_fwd_window_kernel<<<dim3(n, d / CW), THREADS, BYTES, stream>>>(v, work, out, lse, s, h, d, bhs,
+                                                                         static_cast<int>(u0), n, vs, scale,
+                                                                         vec16_ok(v, vs));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 
@@ -995,15 +824,27 @@ int wide_cluster(int ranks, int* out) {
 }  // namespace
 
 // Floats of device scratch that causal_attention_fwd needs at (B, S,
-// heads, D): past 8192, where the window kernel's scores split over the
-// card (window::split), the chunks' sums and S, (D / 64 + 1) B heads S S;
-// else 0.
+// heads, D): past 8192, the split scores of a slab and the parts of a
+// round of chunks (causal_attention_split.cuh), at most SPLIT_BYTES; 0 at
+// other widths, and -1 where the plan refuses the shape.
 extern "C" long long causal_attention_fwd_workspace(int b, int s, int h, int d) {
   int j, ranks;
-  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % window::STEP != 0 || wide_plan(d, j, ranks) ||
-      !window::split(b, s, h, d))
-    return 0;
-  return static_cast<long long>(d / window::DC + 1) * b * h * s * s;
+  causal_split::Plan plan;
+  if (b <= 0 || s <= 0 || h <= 0 || d <= 256 || d % window::STEP != 0 || wide_plan(d, j, ranks)) return 0;
+  return causal_split::split_plan(b, s, h, d, 1, plan) ? plan.floats : -1;
+}
+
+// The split plan of (B, S, heads, D) past 8192: out receives the slabs,
+// the units (query tiles of 64 rows of one head) of a slab, the rounds of
+// depth chunks and the chunks of a round. Returns a cudaError_t
+// (cudaErrorInvalidValue where the plan refuses the shape).
+extern "C" int causal_attention_fwd_plan(int b, int s, int h, int d, int* out) {
+  int j, ranks;
+  causal_split::Plan plan;
+  if (d <= 256 || d % window::STEP != 0 || wide_plan(d, j, ranks) || !causal_split::split_plan(b, s, h, d, 1, plan))
+    return cudaErrorInvalidValue;
+  out[0] = plan.slabs, out[1] = plan.slab, out[2] = plan.rounds, out[3] = plan.round;
+  return cudaSuccess;
 }
 
 // Plain C entry point (bound with ctypes). q, k, v are device pointers to

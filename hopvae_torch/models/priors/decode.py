@@ -28,6 +28,8 @@ import time
 
 import torch
 
+from hopvae_torch.utils.graphs import collector_held
+
 # the largest code of a quantized cache; int4's codes are kept in int8
 # (JAX's S4 packs two a byte: the values are the same, the bytes are not)
 QMAX = {"int8": 127.0, "int4": 7.0}
@@ -85,11 +87,12 @@ class Decoder:
         torch.cuda.current_stream().wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
         graphs = []
-        for k in range(len(self.segments)):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                self.step(k)
-            graphs.append(graph)
+        with collector_held():
+            for k in range(len(self.segments)):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    self.step(k)
+                graphs.append(graph)
         torch.cuda.synchronize()
         self.graphs = graphs
         self.capture_s = time.perf_counter() - t0

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from hopvae_torch.models.priors.transformer import gumbel_
+from hopvae_torch.utils.graphs import collector_held
 
 
 class ColumnSampler:
@@ -187,7 +188,7 @@ class ColumnSampler:
         if getattr(self.prior, "_graph_pool", None) is None:
             self.prior._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.prior._graph_pool):
+        with collector_held(), torch.cuda.graph(graph, pool=self.prior._graph_pool):
             self.step()
         torch.cuda.synchronize()
         self.graph = graph

@@ -19,15 +19,16 @@ on the tensor cores in three TF32 passes of their own (f32-grade, whatever
 views (the prior's q, k and v are slices of one projection); only the
 head width must be contiguous. The kernels take the head widths of
 ``HEAD_DIMS`` on built instances, and every multiple of ``WIDE_STEP`` past
-the last of them on wide instances: up to ``BWD_WIDE_MAX`` the forward
-and the backward split the depth across the blocks of a thread-block
-cluster, which compute each tile's scores once
+the last of them on wide instances: up to ``BWD_WIDE_MAX``, the widest
+cluster, the forward and the backward split the depth across the blocks
+of a thread-block cluster, which compute each tile's scores once
 (:func:`forward_attributes` and :func:`backward_attributes` name the
-cluster); past it the forward runs its window kernel over windows of
-output columns, on causal scores computed once, split over the card
-first, where their scratch fits (:func:`forward_workspace` is then more
-than 0), else streaming q and k in depth chunks in every window; the
-backward raises there.
+cluster); past it each kernel runs its window kernel over windows of
+output columns, on causal scores (and, in the backward, ``dO·Vᵀ``)
+computed once, split over the card first, slab after slab of row tiles
+within 64 MiB of scratch that the wrapper allocates
+(:func:`forward_workspace`, :func:`backward_workspace`; :func:`split_plan`
+reads the slabs and rounds of depth chunks the library plans).
 :func:`kernel_width` names the width that any other head is zero-padded
 to. Each wrapper launches its kernel
 on CUDA tensors, counting the launch in its ``launches`` (through
@@ -46,7 +47,7 @@ from hopvae_torch.utils.nvcc import bind, count, kernel_attributes, launch, load
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the head widths of the built instances
 WIDE_STEP = 128  # past HEAD_DIMS[-1], the wide kernels take every multiple of this
-BWD_WIDE_MAX = 8192  # the widest cluster, 16 blocks of 512 columns: the backward's widest head
+BWD_WIDE_MAX = 8192  # the widest cluster, 16 blocks of 512 columns: past it, the window kernels
 
 
 # ------------------------------------------------------------ plain versions
@@ -142,29 +143,62 @@ def kernel_width(dh: int) -> int:
     return -(-dh // WIDE_STEP) * WIDE_STEP
 
 
+def _workspace(stem: str, name: str, *args: int) -> int:
+    fn = getattr(load_library(stem), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_longlong
+    floats = fn(*args)
+    if floats < 0:
+        raise ValueError(f"{name}{args}: one tile's split scores pass the plan's 64 MiB of scratch")
+    return floats
+
+
 def forward_workspace(b: int, s: int, h: int, dh: int) -> int:
     """Floats of device scratch that K5-fwd takes at ``(B, S, heads, dh)``,
     as the built library plans it (``causal_attention_fwd_workspace``):
     past ``BWD_WIDE_MAX``, where the window kernel computes the causal
     scores once, split over the card first (each depth chunk of 64 apart,
-    then added in chunk order into ``(B·heads, S, S)``, from which every
-    window of output columns replays its online softmax), the chunks' sums
-    and S; 0 where that scratch would pass the plan's cap and every window
-    recomputes the scores (the same bits), and at every other width."""
-    fn = load_library("causal_attention_fwd").causal_attention_fwd_workspace
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_longlong
-    return fn(b, s, h, dh)
+    then added in chunk order), a slab of query tiles' scores and a round
+    of chunks' sums, at most 64 MiB; 0 at every other width. Raises where
+    one tile's scratch alone would pass the cap."""
+    return _workspace("causal_attention_fwd", "causal_attention_fwd_workspace", b, s, h, dh)
 
 
-def _require_kernel(q, dh: int, widest: int | None = None) -> None:
+def backward_workspace(b: int, s: int, h: int, dh: int, kernel: str) -> int:
+    """Floats of device scratch that K5-dkv (``kernel="dkv"``) or K5-dq
+    (``"dq"``) takes, as the built library plans it
+    (``causal_attention_bwd_workspace``): past ``BWD_WIDE_MAX`` the split
+    ``S`` and ``dP = dO·Vᵀ`` of a slab of key tiles (K5-dkv) or query
+    tiles (K5-dq) and a round of chunks' sums, at most 64 MiB; 0 at every
+    other width."""
+    return _workspace("causal_attention_bwd", "causal_attention_bwd_workspace", b, s, h, dh, int(kernel == "dkv"))
+
+
+def split_plan(kernel: str, b: int, s: int, h: int, dh: int) -> dict:
+    """The split plan of K5-fwd (``kernel="fwd"``), K5-dkv or K5-dq past
+    ``BWD_WIDE_MAX`` as the built library makes it: its slabs, the units
+    (tiles of 64 rows of one head) of a slab, its rounds of depth chunks
+    and the chunks of a round. Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    if kernel == "fwd":
+        err = load_library("causal_attention_fwd").causal_attention_fwd_plan(b, s, h, dh, out)
+    else:
+        err = load_library("causal_attention_bwd").causal_attention_bwd_plan(b, s, h, dh, out)
+    if err != 0:
+        raise RuntimeError(f"no split plan of K5-{kernel} at {(b, s, h, dh)}: cudaError {err}")
+    return dict(zip(("slabs", "units_per_slab", "rounds", "chunks_per_round"), out))
+
+
+def _require_kernel(q, dh: int) -> None:
     if kernel_width(dh) != dh:
         raise ValueError(f"head width {dh} is not one the kernels take ({HEAD_DIMS} or a multiple of "
                          f"{WIDE_STEP} past them): flash_causal_attention zero-pads it")
-    if widest is not None and dh > widest:
-        raise ValueError(f"head width {dh} is past {widest}, the widest the backward kernels take")
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+
+
+def _scratch(floats: int, device):
+    return torch.empty(floats, device=device) if floats else None
 
 
 def _launch(name: str, ptrs, strided, shape, scale: float, device) -> None:
@@ -192,8 +226,7 @@ def causal_attention_fwd(q, k, v, scale: float):
         raise RuntimeError("causal_attention_fwd is forward-only: differentiate through FlashCausalAttention")
     out = torch.empty(b, s, h, dh, device=q.device)
     lse = torch.empty(b, h, s, device=q.device)
-    floats = forward_workspace(b, s, h, dh) if dh > BWD_WIDE_MAX else 0
-    work = torch.empty(floats, device=q.device) if floats else None
+    work = _scratch(forward_workspace(b, s, h, dh) if dh > BWD_WIDE_MAX else 0, q.device)
     _launch("causal_attention_fwd", (q, k, v, out, lse, work), (q, k, v), (b, s, h, dh), scale, q.device)
     count(causal_attention_fwd)
     return out, lse
@@ -210,10 +243,11 @@ def causal_attention_bwd_dkv(q, k, v, g, lse, delta, scale: float):
     b, s, h, dh = _check(q, k, v, g, lse, delta)
     if q.device.type == "cpu":
         return causal_attention_bwd_dkv_reference(q, k, v, g, lse, delta, scale)
-    _require_kernel(q, dh, BWD_WIDE_MAX)
+    _require_kernel(q, dh)
     dk = torch.empty(b, s, h, dh, device=q.device)
     dv = torch.empty(b, s, h, dh, device=q.device)
-    _launch("causal_attention_bwd_dkv", (q, k, v, g, lse, delta, dk, dv), (q, k, v, g), (b, s, h, dh),
+    work = _scratch(backward_workspace(b, s, h, dh, "dkv") if dh > BWD_WIDE_MAX else 0, q.device)
+    _launch("causal_attention_bwd_dkv", (q, k, v, g, lse, delta, dk, dv, work), (q, k, v, g), (b, s, h, dh),
             scale, q.device)
     count(causal_attention_bwd_dkv)
     return dk, dv
@@ -230,9 +264,10 @@ def causal_attention_bwd_dq(q, k, v, g, lse, delta, scale: float):
     b, s, h, dh = _check(q, k, v, g, lse, delta)
     if q.device.type == "cpu":
         return causal_attention_bwd_dq_reference(q, k, v, g, lse, delta, scale)
-    _require_kernel(q, dh, BWD_WIDE_MAX)
+    _require_kernel(q, dh)
     dq = torch.empty(b, s, h, dh, device=q.device)
-    _launch("causal_attention_bwd_dq", (q, k, v, g, lse, delta, dq), (q, k, v, g), (b, s, h, dh),
+    work = _scratch(backward_workspace(b, s, h, dh, "dq") if dh > BWD_WIDE_MAX else 0, q.device)
+    _launch("causal_attention_bwd_dq", (q, k, v, g, lse, delta, dq, work), (q, k, v, g), (b, s, h, dh),
             scale, q.device)
     count(causal_attention_bwd_dq)
     return dq
@@ -269,12 +304,13 @@ def backward_attributes(kernel: str, dh: int) -> dict:
     """K5-dkv's (``kernel="dkv"``) or K5-dq's (``"dq"``) build at head width
     ``dh``, as :func:`forward_attributes` reports it (resident and streamed
     rows: keys and query rows in K5-dkv, query rows and keys in K5-dq).
-    Past 256 also the cluster: its blocks, the depth slice a block owns at
-    most, the clusters the card holds at once and whether that is positive
-    (a cluster that cannot be held cannot launch). Launches nothing."""
+    Past 256 up to ``BWD_WIDE_MAX`` also the cluster: its blocks, the depth
+    slice a block owns at most, the clusters the card holds at once and
+    whether that is positive (a cluster that cannot be held cannot launch);
+    past it the window kernel's build, with no cluster. Launches nothing."""
     dkv = int(kernel == "dkv")
     attrs = kernel_attributes("causal_attention_bwd", dh, dkv)
-    if dh > HEAD_DIMS[-1]:
+    if HEAD_DIMS[-1] < dh <= BWD_WIDE_MAX:
         attrs = _cluster(attrs, "causal_attention_bwd", "causal_attention_bwd_cluster", dh, dkv)
     return attrs
 

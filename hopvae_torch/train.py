@@ -94,6 +94,7 @@ from hopvae_torch.ops.bottleneck import LAYERS
 from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import load_reference_checkpoint
+from hopvae_torch.utils.graphs import collector_held
 from hopvae_torch.utils.metrics import MetricLogger, denormalize, save_image_grid
 from hopvae_torch.utils.nvcc import add_launches, captured_launches
 
@@ -829,10 +830,13 @@ class _EpochRun:
     def capture(self) -> None:
         """Record the body in a CUDA graph (in a memory pool of its own): the
         gradients are None before it, so the backward makes them in the
-        graph's pool, where every replay writes them again."""
+        graph's pool, where every replay writes them again. The capture
+        forbids unsafe CUDA calls on its own thread only: ``fit``'s logging
+        thread may wait on the last epoch's event meanwhile, which a capture
+        in CUDA's global mode would take for an error and invalidate."""
         self.trainer.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
-        with captured_launches() as tally, torch.cuda.graph(graph):
+        with collector_held(), captured_launches() as tally, torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.body()
         self.graph, self.launches, self.state = graph, tally, self.trainer._optimizer_state()
         self.trainer.captures += 1

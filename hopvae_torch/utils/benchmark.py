@@ -32,6 +32,8 @@ import time
 
 import torch
 
+from hopvae_torch.utils.graphs import collector_held
+
 
 def _tensors(state) -> list:
     if isinstance(state, torch.Tensor):
@@ -57,7 +59,7 @@ def _graphed_chain(step_fn, init_state, n: int):
         step_fn(init_state)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_held(), torch.cuda.graph(graph):
         _chain(step_fn, init_state, n)
 
     def run():

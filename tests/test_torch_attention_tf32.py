@@ -28,6 +28,8 @@ f32 plain version's; one pass 3.6e-4 to 5.6e-4, with ``lse`` off by up to
 K5-fwd to.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 
 import numpy as np

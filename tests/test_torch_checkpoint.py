@@ -3,6 +3,8 @@ msgpack reader against flax's, the layout conversions against the JAX
 converters and convs, the Transformer prior's subtree, the lenient load
 of a prior that does not match, and the committed golden digits."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np

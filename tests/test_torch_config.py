@@ -1,5 +1,7 @@
 """The port's config copies equal the JAX package's."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import pytest
 
 from hopvae_tpu.config import apply_overrides as jax_apply_overrides

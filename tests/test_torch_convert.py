@@ -17,6 +17,8 @@
   of JAX's own converter; a trainer ``.pt`` resumes in JAX's ``Trainer``.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import json
 import os
 import sys

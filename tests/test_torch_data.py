@@ -8,6 +8,8 @@ that ffhq_64_scaled trains on (2048 images of 64×64) differs in 10 of
 25.2 M values, each by one step.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import numpy as np
 import pytest
 

@@ -21,6 +21,8 @@ over the bridge:
 - the error messages.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np
@@ -49,17 +51,6 @@ PORT = Path(__file__).resolve().parents[1] / "hopvae_torch"
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8, "int4": jnp.int4}
 TINY = {"representation_dim": 5, "index_dim": 3, "num_levels": 16, "prior": "Transformer", "prior_d_model": 32,
         "prior_heads": 2, "prior_layers": 2, "prior_decode_segment": 16}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The eager decode runs thousands of tiny ops a call; under several
-    test workers on a few cores torch's thread pool spins against theirs
-    and a test takes minutes instead of seconds, so these run on one."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _numpy_params(template, seed: int):

@@ -4,6 +4,8 @@ CPU against them: ffhq_64_scaled with ``Transformer-FFHQ-64.msgpack``
 (S 867 in seven segments of 128), the committed grid ``golden_grid()``
 and the noise of ``gumbel_noise()``."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np
@@ -19,7 +21,7 @@ from hopvae_tpu.models.hopvae import HopVAE as JaxHopVAE
 from hopvae_torch import HopVAE, load_config
 from hopvae_torch.data import DECODE_GOLDENS, PRIOR_GOLDENS, golden_grid, gumbel_noise, sample_grid
 from hopvae_torch.serving import state_from_checkpoint
-from test_torch_decode import JAX_DTYPES, one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_decode import JAX_DTYPES
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 LOG2E = float(np.log2(np.e))

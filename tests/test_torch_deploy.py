@@ -4,6 +4,8 @@ torch's own launcher parses and whose trainer flags
 ``hopvae_torch/train.py`` defines, as ``tests/test_deploy.py`` checks the
 TPU script."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import os
 import shlex
 import subprocess

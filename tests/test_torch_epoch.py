@@ -15,6 +15,8 @@ Sizes are ``tests/test_train.py::_tiny_cfg``'s scale: batch 8, 32 images,
 2 epochs. Parameters cross from JAX's init over the bridge.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import json
 import threading
 

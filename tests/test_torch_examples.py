@@ -1,6 +1,8 @@
 """The port's quickstart (``examples/torch_quickstart.py``) stays runnable:
 one epoch on the CPU writes its three grids."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 import os
 import sys

@@ -2,6 +2,8 @@
 ``hopvae_tpu/__init__.py`` does: importing the package loads neither
 ``hopvae_torch.train`` nor ``hopvae_torch.serving``."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import os
 import subprocess
 import sys

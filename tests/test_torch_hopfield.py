@@ -9,6 +9,8 @@ against ``jax.grad``. Inputs and parameters come from numpy with a seed;
 tolerances are those of tests/test_pallas.py.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import numpy as np
 import pytest
 import torch

@@ -44,6 +44,8 @@ denominator, not compensated, gave 3.6e-7 to 4.4e-7). Three-pass K4 at M =
 version's.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 
 import numpy as np

@@ -2,6 +2,8 @@
 JAX package, and no source of it (or of chip_smoke.py, the converter
 tool and the quickstart) imports them."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import ast
 import os
 import subprocess

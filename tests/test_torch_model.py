@@ -7,6 +7,8 @@ which ``chip_smoke.py`` checks on the card. Tolerances are those of
 tests/test_checkpoint_parity.py.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np

@@ -25,6 +25,8 @@ head of 8320: out within 6.0e-7 normwise of JAX's
 ``blocked_causal_attention``, lse within 1.7e-7 of the plain version.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 import re
 from pathlib import Path

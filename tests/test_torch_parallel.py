@@ -9,6 +9,8 @@ two gloo processes at ``(n_data, n_model)`` of ``(2, 1)`` and ``(1, 2)``
 against the single-process port.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import json
 import socket
 import subprocess

@@ -23,6 +23,8 @@ initialization carried over the bridge, and the trained anchor
   and ``interpolate``, the serving CLI, and ``evaluate``'s PNG grids.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np
@@ -47,7 +49,6 @@ from hopvae_torch.data import ArrayDataset, golden_input
 from hopvae_torch.models.priors.pixelcnn import PixelCNNPrior, _group_mask
 from hopvae_torch.serving import InferenceEngine, main, state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
-from test_torch_decode import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 ANCHOR = CKPTS / "PixelCNN-MNIST-28.msgpack"

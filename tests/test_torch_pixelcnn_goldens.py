@@ -5,6 +5,8 @@ holds the card to, recomputed with the JAX package on the CPU (f32,
 ``pixelcnn_noise()`` through the copy of JAX's sampler in
 ``tests/test_torch_pixelcnn.py`` (held there to JAX's own ``sample``)."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +29,6 @@ from hopvae_torch import train as ttrain
 from hopvae_torch.data import (PIXELCNN_GOLDENS, PIXELCNN_TRAIN_GOLDEN, golden_input, gumbel_noise, pixelcnn_grid,
                                pixelcnn_noise, pixelcnn_sample_grid)
 from hopvae_torch.serving import state_from_checkpoint
-from test_torch_decode import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_pixelcnn import jax_colchain_draws
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"

@@ -9,6 +9,8 @@ grid and ``PRIOR_GOLDENS`` against both packages, and
 ``HopVAE.forward(fit_prior=True)`` against JAX on the golden batch.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np

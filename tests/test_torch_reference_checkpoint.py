@@ -11,6 +11,8 @@ extra, one shape off; a wider ``.msgpack``). Then the trainer's default
 checkpoint path and the serving CLI.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import re
 
 import numpy as np

@@ -19,6 +19,8 @@ CLI, against the JAX package on the CPU (``impl="xla"``, f32).
   PNG grids; the PNG writer against JAX's (PIL) pixel for pixel.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np
@@ -42,17 +44,6 @@ from test_torch_model import _pair
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 MNIST_CKPT = CKPTS / GOLDENS["mnist_digits"]["checkpoint"]
-
-
-@pytest.fixture
-def one_thread():
-    """Torch on one thread for a test that runs an eager sampler's many
-    tiny ops: under several test workers on a few cores torch's thread
-    pool spins against theirs (``test_torch_decode.py::one_torch_thread``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_grid(jm, params, x, y):
@@ -214,7 +205,7 @@ def test_engine_interpolates_with_padding(mnist_state):
         eng.reconstruct(x[:1])
 
 
-def test_engine_samples_from_a_seed(mnist_state, one_thread):
+def test_engine_samples_from_a_seed(mnist_state):
     """``n_sample`` images a call, the same for the same seed and others
     for another; under a PixelCNN config (the anchor's prior) the engine
     warms up and serves ``sample`` and ``interpolate`` too, and an engine

@@ -1,5 +1,7 @@
 """The port's InferenceEngine and CLI on the CPU path (impl="torch", f32)."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 from pathlib import Path
 
 import numpy as np

@@ -3,6 +3,8 @@
 ``iterate_batches`` with ``prefetch`` and ``local_slice``, on folders of
 ``.npy`` images (and of PNGs, which both read through PIL)."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import threading
 
 import numpy as np

@@ -13,6 +13,8 @@ backbone, and a resume across the switch. Inputs come from numpy with a
 seed, and parameters cross over the bridge.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import json
 from pathlib import Path
 
@@ -39,7 +41,6 @@ from hopvae_torch import train as ttrain
 from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import params_from_jax
 from hopvae_torch.utils.metrics import MetricLogger, denormalize
-from test_torch_sample import one_thread  # noqa: F401 (a fixture)
 
 CKPTS = Path(__file__).resolve().parents[1] / "checkpoints"
 SMALL = {"num_hiddens": 16, "num_residual_hiddens": 8, "num_embeddings": 64, "batch_size": 8}
@@ -283,7 +284,7 @@ def test_save_and_resume_round_trip(tmp_path):
     assert [r["epoch"] for r in records] == [0, 1, 2]
 
 
-def test_fit_evaluates_and_raises_at_the_prior_phase(tmp_path, one_thread):
+def test_fit_evaluates_and_raises_at_the_prior_phase(tmp_path):
     """A PixelCNN config evaluates in epoch 0, then trains its prior phase
     (a fresh PixelCNN, the backbone frozen); an unknown prior raises at the
     phase check; a prior without parameters never switches."""

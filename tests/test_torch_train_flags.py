@@ -5,6 +5,8 @@
 own converter from the port's seeded init (a JAX init compiles for
 seconds)."""
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import json
 
 import numpy as np

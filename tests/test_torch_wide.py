@@ -38,6 +38,8 @@ One pass: K1's m 3.0e-4 and l 1.1e-3 from float64 (the cluster's order
 cluster's backward 5.7e-4 to 6.8e-4.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 
 import numpy as np
@@ -403,20 +405,27 @@ def _wide_attention(q, k, v, g, scale, passes, cluster: bool = False):
     delta = (gh * out).sum(-1)
     ds = p * (product(gh, vh.transpose(-1, -2).contiguous(), passes) - delta[..., None])
     dq = tiled(ds, kh, passes, chunk=tile) * scale
-    dk = tiled(ds.transpose(-1, -2).contiguous(), qh, passes, chunk=tile) * scale
-    dv = tiled(p.transpose(-1, -2).contiguous(), gh, passes, chunk=tile)
+    pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
+    if not cluster and q.shape[-1] > ac.BWD_WIDE_MAX:  # K5-dkv's own split, its keys resident: k qᵀ and v gᵀ
+        st = product(kh, qh.transpose(-1, -2).contiguous(), passes) * scale
+        pt = torch.where(mask.T, torch.exp(st - lse[..., None, :]), 0.0)
+        dst = pt * (product(vh, gh.transpose(-1, -2).contiguous(), passes) - delta[..., None, :])
+    dk = tiled(dst.contiguous(), qh, passes, chunk=tile) * scale
+    dv = tiled(pt.contiguous(), gh, passes, chunk=tile)
     return [out.transpose(1, 2), lse] + [a.transpose(1, 2) for a in (dq, dk, dv)]
 
 
 @pytest.mark.parametrize("passes,dh,cluster",
                          [(3, 512, False), (1, 512, False), (3, 384, True), (1, 384, True), (3, 512, True),
-                          (1, 512, True), (3, 1280, True), (1, 1280, True)],
+                          (1, 512, True), (3, 1280, True), (1, 1280, True), (3, 8320, False)],
                          ids=["3", "1", "3-cluster384", "1-cluster384", "3-cluster512", "1-cluster512",
-                              "3-cluster1280", "1-cluster1280"])
+                              "3-cluster1280", "1-cluster1280", "3-window8320"])
 def test_wide_attention_scheme_at_512(passes, dh, cluster):
     """K5's wide kernels at one head of 512 (B 2, S 48) in the window
-    kernel's order, and the cluster kernels' order (forward and backward)
-    at 384, 512 and 1280 (slices of 256, tiles of 16): with three passes
+    kernel's order, at one head of 8320 in the window kernels' order past
+    ``BWD_WIDE_MAX`` (the scores and ``g vᵀ`` split in chunks of 64,
+    K5-dkv's from its own ``k qᵀ`` and ``v gᵀ``), and the cluster kernels'
+    order (forward and backward) at 384, 512 and 1280 (slices of 256, tiles of 16): with three passes
     out and lse within ``ATTN_FWD_NORMWISE`` and dQ, dK, dV within
     ``ATTN_BWD_NORMWISE`` of the plain versions; one pass misses the
     forward's limit from float64 (and, in the cluster's order, the
@@ -440,21 +449,20 @@ def test_wide_attention_scheme_at_512(passes, dh, cluster):
 
 
 @pytest.mark.parametrize("width", [8320, 16384])
-def test_backward_refuses_past_the_widest_cluster(width):
+def test_backward_takes_heads_past_the_widest_cluster(width):
     """Past ``BWD_WIDE_MAX`` (a cluster of 16 blocks of 512 columns) the
-    backward wrappers raise before any launch; up to it, a multiple of 128
-    gets as far as the device check (meta tensors: no kernel). The forward
-    takes the width either way (past it, its window kernel)."""
+    backward wrappers take the width on their window kernels, as the
+    forward does: a multiple of 128 gets as far as the device check (meta
+    tensors: no kernel), past the widest cluster and at it alike, with no
+    refusal of the width."""
     def args(dh):
         t = torch.empty(1, 4, 1, dh, device="meta")
         return (t, t, t, t, torch.empty(1, 1, 4, device="meta"), torch.empty(1, 1, 4, device="meta"), 1.0)
 
-    for fn in (ac.causal_attention_bwd_dkv, ac.causal_attention_bwd_dq):
-        with pytest.raises(ValueError, match="widest the backward kernels take"):
-            fn(*args(width))
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            fn(*args(ac.BWD_WIDE_MAX))
     for dh in (width, ac.BWD_WIDE_MAX):
+        for fn in (ac.causal_attention_bwd_dkv, ac.causal_attention_bwd_dq):
+            with pytest.raises(ValueError, match="no kernel for device meta"):
+                fn(*args(dh))
         t = args(dh)[0]
         with pytest.raises(ValueError, match="no kernel for device meta"):
             ac.causal_attention_fwd(t, t, t, 1.0)

@@ -26,6 +26,8 @@ plain version at (3, 384) and (8320, 3); one pass 1.8e-3 and 6.9e-4 from
 float64.
 """
 
+import torch_threads  # noqa: F401 (one torch thread in each test worker)
+
 import math
 import re
 from pathlib import Path

@@ -63,7 +63,7 @@ def call(lib, q, k, v, scale, out, lse) -> None:
         ws = lib.causal_attention_fwd_workspace
         ws.argtypes, ws.restype = [ctypes.c_int] * 4, ctypes.c_longlong
         floats = ws(b, s, h, dh)
-        scratch = torch.empty(floats, device="cuda") if floats else None  # held until the launch is queued
+        scratch = torch.empty(floats, device="cuda") if floats > 0 else None  # held until the launch is queued
         work = [None if scratch is None else scratch.data_ptr()]
     fn.argtypes = ([ctypes.c_void_p] * (5 + len(work)) + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
