@@ -27,8 +27,10 @@ Twenty phases, each of which raises on failure:
    and (3, 8320) at N 37, M 64 and (8320, 300) at N 37, M 300 (past the
    widest cluster: the narrow-side kernels of K1, K2 and K3, K2's with
    its scores, its g Uᵀ or both split over the card first), (8320, 3) at
-   N 4,096, M 64 (the split scores' scratch past its cap: every window
-   recomputes them), K2's other windows, 16, 32, 64 and 128, at (16,
+   N 4,096, M 64 (the split products' sums past 64 MiB: K2 and K3 split
+   them slab after slab of tiles), at N 256, M 2,048 (one token tile's
+   parts past 64 MiB: rounds of parts) and (8320, 8320) at N 256, M 256
+   (K2's and K3's two products in slabs), K2's other windows, 16, 32, 64 and 128, at (16,
    384), (32, 384), (64, 384) and (100, 384), N 4,096, M 512 (nothing
    split: windows up to 32 walk 4 pattern tiles a group, wider ones 2)
    and at a ragged (13, 700), (30, 2304) and (50, 700), N 37, M 300 (g Uᵀ
@@ -39,14 +41,19 @@ Twenty phases, each of which raises on failure:
    (``card_plan``: the cluster, or the narrow-side kernel with its
    window, its order or its splits and, where N leaves the card idle or
    every window would recompute them, its split products), its route held
-   against ``hc.narrow_split``, the predicate the CPU tests read; each K1
+   against ``hc.narrow_split``, the predicate the CPU tests read, K2's
+   and K3's with their slabs and rounds (``hc.split_plan``, the scratch
+   within 64 MiB) and, past 8192, a call's device ms in the split passes
+   and in the window kernel (``torch.profiler``); each K1
    row holds the rows of the attention rebuilt from its ``m`` and ``l``,
    the scores summed in K2's and K3's order, to sum to 1 within
    ``ROW_SUM_ATOL``; K1 (``PARENT_BITS``) at (3, 384), N 4,096 and (8320,
    3), N 37 gives the former window kernel's bits on hashed inputs, and
    K2 (``K2_PARENT_BITS``) does so on every route and instance of its
-   narrow-side kernel: at those two shapes and at each of the ten other
-   narrow-side cases above.
+   narrow-side kernel: at those two shapes and at each of the twelve other
+   narrow-side cases above; K3 (``K3_PARENT_BITS``) gives its window
+   walk's bits at (8320, 3), N 37, M 64 and N 4,096, M 64 and at the two
+   new shapes.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -454,6 +461,8 @@ WIDTH_CASES = (
     ("wide ragged 3x8320", 37, 64, 3, 8320),
     ("wide ragged 8320x300", 37, 300, 8320, 300),
     ("wide 8320x3 over the cap", 4096, 64, 8320, 3),
+    ("wide 8320x3 rounds", 256, 2048, 8320, 3),
+    ("wide 8320x8320 over the cap", 256, 256, 8320, 8320),
     ("wide 16x384", 4096, 512, 16, 384),
     ("wide ragged 13x700", 37, 300, 13, 700),
     ("wide 32x384", 4096, 512, 32, 384),
@@ -511,9 +520,10 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
     route, held against ``hc.narrow_split`` (the predicate the CPU tests
     read), and on the narrow-side kernel the card's window, K1's order and
     groups, K2's splits of the pattern axis and their tiles, K3's chunks
-    of the token tiles."""
+    of the token tiles, and K2's and K3's slabs and rounds of their split
+    products (``hc.split_plan``), whose scratch must fit 64 MiB."""
     stem = {"fwd": "hopfield_stream_fwd", "dx": "hopfield_stream_bwd_dx", "dku": "hopfield_stream_bwd_dku"}[kernel]
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 11)()
     err = getattr(nvcc.load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
     if err != 0:
         raise RuntimeError(f"{stem}_plan{(n, m, d_in, d_out)} failed: cudaError {err}")
@@ -525,6 +535,12 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
         plan |= {"window": out[1], "splits": out[2], "per": out[3]}
     elif out[0] >= 2:
         plan |= {"window": out[1], "dk_tiles": out[2], "dk_chunks": out[3], "du_tiles": out[4], "du_chunks": out[5]}
+    if out[0] >= 3 and kernel != "fwd":
+        split = hc.split_plan(kernel, n, m, d_in, d_out)
+        plan |= {key: split[key] for key in ("slabs", "units_per_slab", "rounds", "parts_per_round")}
+        plan["split_mib"] = split["scratch_floats"] * 4 / 2**20
+        if not 0 < plan["split_mib"] <= 64 or split["slabs"] < 1:
+            raise AssertionError(f"{stem}'s split at {(n, m, d_in, d_out)} passes 64 MiB: {plan}")
     if hc.kernel_route(d_in, d_out) == "instance":
         want = "instance"
     elif (hc.forward_cluster if kernel == "fwd" else hc.backward_cluster)(d_in, d_out):
@@ -573,6 +589,21 @@ K2_PARENT_BITS = {
     (37, 300, 50, 700): "4d1683284c52b5ec15fe9c91dd180a1e130611aea73a8b7735b9ebf06b76c6c6",
     (4096, 512, 64, 384): "09a207cc49eaf550a7fe806a92209450d29ceaf09dafe6b783aa8b6522804ce4",
     (4096, 512, 100, 384): "bfbc720020b5d7924835c222ef913c07553d3007c04933067e0e0266deca97a5",
+    (256, 2048, 8320, 3): "624bbc3514f20cd6193ba031e588345479b875f9919096fe223abbac23b2764d",
+    (256, 256, 8320, 8320): "f5372df3ac5dfccd48a35d6da5c2307db136f5c4cb0c5b38c9671138ce9f52b6",
+}
+# K3 where its split products keep its window walk's order (K3's own orientation, K q^T
+# and U g^T, and the walk's chunks of the token axis): sha256 of (dK, dU) on
+# ``backward_bits_args`` as the former walk gave them on an H100: at (4096, 64, 8320, 3)
+# and (256, 2048, 8320, 3) the parent's build, which walked there (its split scratch past
+# 64 MiB); at (37, 64, 8320, 3) and (256, 256, 8320, 8320) the parent's build with its
+# split turned off (``SPLIT_BYTES`` 0), whose own split summed q K^T in the other
+# orientation (tools/torch_hopfield_bwd_variants.py --bits; PERF.md)
+K3_PARENT_BITS = {
+    (37, 64, 8320, 3): "f12b6f5b1ba5ef7c1788602ace06c3785e3bc737add3e5672bfc82936d2526e7",
+    (4096, 64, 8320, 3): "ffab8c4fa56e6c5786db1d306ed1ad9e86d257b505f27ec02766f0f2dc1edf27",
+    (256, 2048, 8320, 3): "22f336521df9a1ea080dabe73f8e9d6666670721c6e86efbd22141e551c52118",
+    (256, 256, 8320, 8320): "71a92141d186f47271d3f1902825cd261ab03ad68dd28370347dcc5db32ad3fe",
 }
 K5_PARENT_BITS = {(2, 37, 1, 8320): "f061f702f318bea0f7bc62bf99f6522a3797a0c27e7ca36c01c63f6641cd4ded",
                   (1, 400, 1, 8320): "83aae70c5162a11f7bf8dd59671a3f10d06465cabb97f9548c51ad0764e867d6"}
@@ -585,7 +616,7 @@ def parent_bits_inputs(n: int, m: int, d_in: int, d_out: int) -> tuple:
 
 
 def backward_bits_args(n: int, m: int, d_in: int, d_out: int) -> tuple:
-    """K2's arguments of a ``K2_PARENT_BITS`` case: ``parent_bits_inputs``,
+    """K2's and K3's arguments of a ``K2_PARENT_BITS`` or ``K3_PARENT_BITS`` case: ``parent_bits_inputs``,
     a hashed cotangent, and K1's ``m``, ``l`` and ``delta`` from them."""
     x, k, u, s, t = parent_bits_inputs(n, m, d_in, d_out)
     g = hashed((n, d_out), 6)
@@ -600,7 +631,7 @@ def attention_bits_inputs(b: int, s: int, h: int, dh: int) -> tuple:
 
 def lookup_digest(outs) -> str:
     """sha256 of the bytes of a kernel's outputs: K1's ``(out, m, l)``,
-    K2's ``(dx, ds, dt)``, K5-fwd's ``(out, lse)``."""
+    K2's ``(dx, ds, dt)``, K3's ``(dK, dU)``, K5-fwd's ``(out, lse)``."""
     h = hashlib.sha256()
     for a in outs:
         h.update(a.detach().contiguous().cpu().numpy().tobytes())
@@ -738,7 +769,11 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
     twice and must repeat bit for bit. Each row's ``bound_ms`` is the bound
     of the three TF32 passes the kernels run on the tensor cores;
     ``bound_f32_ms``, the same FLOPs at the f32 rate of the CUDA cores, is
-    context. Each row also carries the kernel's build at its widths."""
+    context. Each row also carries the kernel's build at its widths and
+    its plan; where that splits its products past 8192, a call's device ms
+    in the split passes (``split_ms``) and the window kernel
+    (``window_ms``). Then K2 and K3 on hashed inputs against the digests of
+    their former kernels (``K2_PARENT_BITS``, ``K3_PARENT_BITS``)."""
     g_gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for label, n, (k, u, s, t), d_in, d_out in kernel_cases(tables):
@@ -755,12 +790,13 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
             torch.cuda.synchronize()
             want = {"dx": hc.stream_bwd_dx_reference(*args), "dku": hc.stream_bwd_dku_reference(*args)}
             names = {"dx": ("dx", "ds", "dt"), "dku": ("dK", "dU")}
-            times = {
-                "dx": (cuda_ms(lambda: hc.stream_bwd_dx(*args), reps),
-                       cuda_ms(lambda: hc.stream_bwd_dx_reference(*args), plain_reps)),
-                "dku": (cuda_ms(lambda: hc.stream_bwd_dku(*args), reps),
-                        cuda_ms(lambda: hc.stream_bwd_dku_reference(*args), plain_reps)),
-            }
+            calls = {"dx": hc.stream_bwd_dx, "dku": hc.stream_bwd_dku}
+            plains = {"dx": hc.stream_bwd_dx_reference, "dku": hc.stream_bwd_dku_reference}
+            times = {kn: (cuda_ms(lambda: calls[kn](*args), reps), cuda_ms(lambda: plains[kn](*args), plain_reps))
+                     for kn in calls}
+            plans = {kn: card_plan(kn, n, k.shape[0], d_in, d_out) for kn in calls}
+            parts = {kn: kernel_ms(lambda: calls[kn](*args), 5) for kn in calls
+                     if plans[kn].get("slabs") and max(d_in, d_out) > hc.CLUSTER_MAX}
         lib_ms, backend = library_bwd_ms(state_query(x, s, t), k, u, g, reps)
         for kernel in ("dx", "dku"):
             errs = {nm: normwise(a, b) for nm, a, b in zip(names[kernel], got[kernel], want[kernel])}
@@ -774,8 +810,12 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
                 "repeats_bitwise": repeats, "ms": times[kernel][0], "plain_ms": times[kernel][1],
                 "library_ms": lib_ms, "library_backend": backend, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by, "build": hc.backward_attributes(kernel, d_in, d_out),
+                "plan": plans[kernel],
             }
-            row["plan"] = card_plan(kernel, n, k.shape[0], d_in, d_out)
+            if kernel in parts:  # a call's device ms in the split passes and in the window kernel
+                row["split_ms"] = sum(ms for name, ms in parts[kernel].items() if "partial_scores" in name or
+                                      "sum_groups" in name)
+                row["window_ms"] = sum(ms for name, ms in parts[kernel].items() if "narrow_kernel" in name)
             log(json.dumps(row))
             rows.append(row)
             if not (max(errs.values()) <= BWD_NORMWISE and repeats):
@@ -786,6 +826,12 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
         log(json.dumps({"k2_parent_bits": sizes, "plan": card_plan("dx", *sizes), "sha256": got, "held": got == want}))
         if got != want:
             raise AssertionError(f"K2 at {sizes} (N, M, d_in, d_out) lost the former window kernel's bits: {got}, not {want}")
+    for sizes, want in K3_PARENT_BITS.items():
+        with torch.inference_mode():
+            got = lookup_digest(hc.stream_bwd_dku(*backward_bits_args(*sizes)))
+        log(json.dumps({"k3_parent_bits": sizes, "plan": card_plan("dku", *sizes), "sha256": got, "held": got == want}))
+        if got != want:
+            raise AssertionError(f"K3 at {sizes} (N, M, d_in, d_out) lost its window walk's bits: {got}, not {want}")
     return rows
 
 

@@ -6,7 +6,8 @@
 // (launch_fwd), and the pieces that the narrow-side kernels of K2
 // (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu) share
 // with it: the ordered depth parts, the staging sized to the live columns
-// and the split of a product (the scores, or K2's g U^T) over the card.
+// and the split of a product (the scores, or K2's g U^T) over the card,
+// which K2 and K3 run in slabs of tiles (slab_plan).
 //
 // It replaces the window kernels (K1's stream_fwd_wide_kernel and K2's
 // stream_bwd_dq_wide_kernel; K3's likewise), the forward's of which padded
@@ -83,13 +84,12 @@ constexpr int PART = 64;  // columns of a part of a product's depth
 constexpr int THREADS = 32 * TM / 16;  // a warp a 16-row slab
 constexpr int NB = 2;     // buffers: item i + 1 is staged while item i is used (three lost; see above)
 constexpr int RP = PART + 4;  // row stride of a part item (TM resident and TN streamed rows)
-constexpr int RSC = TN + 4;   // row stride of K1's staged scores (TM token rows, TN patterns)
-constexpr int RST = TM + 4;   // of K3's (TN token rows, TM patterns)
+constexpr int RSC = TN + 4;   // row stride of a staged tile of split sums (TM resident rows, TN streamed)
 constexpr int SLOT = (TM + TN) * RP;  // floats of a buffer
 static_assert(TM * RSC + TN * (128 + 4) <= SLOT, "K1's scores and a window of U fit a buffer");
-static_assert(TN * RST + TN * (128 + 4) + 3 * TN <= SLOT, "K3's scores, a window and the row stats fit a buffer");
+static_assert(TN * (128 + 4) + 3 * TN <= SLOT, "K3's window and the row stats fit a buffer");
 constexpr size_t BYTES = sizeof(float) * NB * SLOT;
-// the split's scratch at most: the groups' sums and S
+// the split's scratch at most: K1's groups' sums and S; a slab's of K2 and K3
 constexpr long long SPLIT_BYTES = 64ll << 20;
 
 __host__ __device__ inline int parts_of(int d) { return (d + PART - 1) / PART; }
@@ -211,19 +211,20 @@ __device__ __forceinline__ void add_part(float (&sc)[NT][4], float (&gs)[NT][4],
 
 // ---- the split: S = q K^T (n, m) of the built q (n, d_in)
 
-// Pass 1: the sums of group blockIdx.z of the block's TM token rows and
-// pattern tiles [blockIdx.y per, + per) into parts (groups, n, m). The
-// group's parts of q stay in shared memory for the whole walk, a TM x RP
-// tile each; the parts of K stream through the ring, a TN x RP item each.
+// Pass 1: the sums of group g0 + blockIdx.z of the block's TM token rows
+// and pattern tiles [blockIdx.y per, + per) into parts (round's groups, n,
+// m). The group's parts of q stay in shared memory for the whole walk, a
+// TM x RP tile each; the parts of K stream through the ring, a TN x RP
+// item each.
 __global__ void __launch_bounds__(THREADS)
 partial_scores_kernel(const float* __restrict__ q, const float* __restrict__ K, float* __restrict__ parts, int n,
-                      int m_patterns, int d_in, int per, int group, int trunc, unsigned vec16) {
+                      int m_patterns, int d_in, int per, int group, int trunc, unsigned vec16, int g0) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);
   const int row0 = blockIdx.x * TM;
-  const int p0 = blockIdx.z * group;
+  const int p0 = (g0 + blockIdx.z) * group;
   const int np = min(group, parts_of(d_in) - p0);
   float* q_s = reinterpret_cast<float*>(smem4);  // part k of the group at q_s + k TM RP
   float* buf = q_s + np * TM * RP;               // buffer u at buf + u TN RP
@@ -278,12 +279,15 @@ partial_scores_kernel(const float* __restrict__ q, const float* __restrict__ K, 
 // the ring of K's parts
 inline size_t partial_bytes(int group) { return sizeof(float) * (group * TM + NB * TN) * RP; }
 
-// Pass 2: S = the groups' sums added in order, in f32.
+// Pass 2: the groups' sums added in order, in f32, into S: onto S as it
+// stands, or, for the first groups (`first`), from the first group's sums.
+// Re-reading an f32 from memory changes no bit, so S is the same whatever
+// the rounds of groups.
 __global__ void sum_groups_kernel(const float* __restrict__ parts, int groups, long long count,
-                                  float* __restrict__ S) {
+                                  float* __restrict__ S, bool first) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < count;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float t = parts[i];
+    float t = first ? parts[i] : S[i] + parts[i];
     for (int g = 1; g < groups; ++g) t += parts[g * count + i];
     S[i] = t;
   }
@@ -291,11 +295,13 @@ __global__ void sum_groups_kernel(const float* __restrict__ parts, int groups, l
 
 // S = q K^T (n, m_patterns) in the order o, through `work` (the groups'
 // sums, split_floats(...) - n m floats): pass 1 on about three blocks an
-// SM, then the ordered sum.
+// SM, then the ordered sum. With a `round` of groups from g0 (0: the rest),
+// only those, added onto S in order (g0 0: S starts from them), through
+// round n m floats of `work`.
 inline cudaError_t split_scores(const float* q, const float* K, float* S, float* work, int n, int m_patterns,
-                                int d_in, Order o, int sms, cudaStream_t stream) {
-  const int groups = groups_of(d_in, o);
-  if (groups > 65535) return cudaErrorInvalidValue;
+                                int d_in, Order o, int sms, cudaStream_t stream, int g0 = 0, int round = 0) {
+  const int groups = round > 0 ? std::min(round, groups_of(d_in, o) - g0) : groups_of(d_in, o) - g0;
+  if (groups < 1 || groups > 65535) return cudaErrorInvalidValue;
   const int group = std::min(o.group, parts_of(d_in));
   const size_t bytes = partial_bytes(group);
   cudaError_t err =
@@ -307,14 +313,79 @@ inline cudaError_t split_scores(const float* q, const float* K, float* S, float*
       static_cast<int>(std::min<long long>(tiles, std::max<long long>(1, units / (3ll * std::max(sms, 1)))));
   const unsigned vec16 = vec16_ok(q, d_in) | vec16_ok(K, d_in) << 1;
   partial_scores_kernel<<<dim3(rt, (tiles + per - 1) / per, groups), THREADS, bytes, stream>>>(
-      q, K, work, n, m_patterns, d_in, per, o.group, o.trunc, vec16);
+      q, K, work, n, m_patterns, d_in, per, o.group, o.trunc, vec16, g0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long count = static_cast<long long>(n) * m_patterns;
   constexpr int T = 256;
   const long long blocks = std::min<long long>((count + T - 1) / T, 8ll * std::max(sms, 1));
-  sum_groups_kernel<<<static_cast<int>(blocks), T, 0, stream>>>(work, groups, count, S);
+  sum_groups_kernel<<<static_cast<int>(blocks), T, 0, stream>>>(work, groups, count, S, g0 == 0);
   return cudaGetLastError();
+}
+
+// ---- the split products of K2 and K3 in slabs
+//
+// K2 (hopfield_stream_bwd_dx.cu) and K3 (hopfield_stream_bwd_dku.cu) split
+// their products over the card in slabs. A unit is one tile of TM resident
+// rows whose sums span every column: token rows in K2 (S = q K^T and
+// P = g U^T over the M patterns), pattern rows in K3 (S^T = K q^T and
+// P^T = U g^T over the N tokens, the orientation of its own walk). A slab
+// is a run of units. For each slab and each of its products in turn:
+// rounds of the product's parts of 64, each round's parts apart (pass 1,
+// one part a group), then added in part order onto the product's sums
+// (pass 2; the first round from part 0's sums); then the window kernel
+// reads the slab's sums. Every entry is the parts' sum in part order, as
+// the walk adds them in registers, whatever the slabs and rounds. Every
+// output row of K2 (dq of a token) and of K3 (dK and dU of a pattern)
+// belongs to one unit, so a slab finishes its rows: nothing carries across
+// launches, and no float atomics.
+//
+//   sums  [products][slab's rows][cols]
+//   parts [round's parts][slab's rows][cols]   (one product's at a time)
+struct SlabPlan {
+  int slab;          // units of a slab (the last may hold fewer)
+  int slabs;
+  int round;         // parts of a round (the last may hold fewer)
+  int rounds;
+  long long floats;  // the scratch: the sums, then a round's parts
+};
+
+// The plan of `rows` resident rows (units of TM) by `cols` columns for
+// `products` products of at most `parts` parts: slabs of the most units
+// whose sums and every part fit SPLIT_BYTES; where those are fewer than
+// `fill` units (as many as keep the window kernel at two blocks an SM),
+// slabs of `fill` units, or as many as their sums and one part allow, in
+// rounds of the most parts that fit; balanced. false, p untouched, where
+// one unit's sums and one part pass the cap.
+inline bool slab_plan(int rows, int cols, int products, int parts, long long fill, SlabPlan& p) {
+  if (rows <= 0 || cols <= 0 || products <= 0 || parts <= 0) return false;
+  const long long units = (rows + TM - 1) / TM, unit = static_cast<long long>(TM) * cols;
+  const long long cap = SPLIT_BYTES / static_cast<long long>(sizeof(float));
+  const long long want = std::min(units, std::max(fill, 1ll));
+  long long per = std::min(units, cap / ((products + parts) * unit)), round = parts;
+  if (per < want) {
+    per = std::min(want, cap / ((products + 1) * unit));
+    if (per < 1) return false;
+    round = std::min<long long>(parts, cap / (per * unit) - products);
+  }
+  const long long slabs = (units + per - 1) / per, rounds = (parts + round - 1) / round;
+  p.slabs = static_cast<int>(slabs);
+  p.slab = static_cast<int>((units + slabs - 1) / slabs);
+  p.rounds = static_cast<int>(rounds);
+  p.round = static_cast<int>((parts + rounds - 1) / rounds);
+  p.floats = (products + p.round) * std::min<long long>(static_cast<long long>(p.slab) * TM, rows) * cols;
+  return true;
+}
+
+// One slab's product a b^T, a (rows, d) resident and b (cols, d) streamed,
+// into sums (rows, cols): rounds of `round` parts through `parts`.
+inline cudaError_t split_slab(const float* a, const float* b, float* sums, float* parts, int rows, int cols, int d,
+                              int round, int sms, cudaStream_t stream) {
+  for (int g0 = 0; g0 < parts_of(d); g0 += round) {
+    const cudaError_t err = split_scores(a, b, sums, parts, rows, cols, d, {1, false}, sms, stream, g0, round);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // ---- the forward

@@ -82,9 +82,20 @@
 //   0.377 ms against the window kernel's 0.246). What bounds it on an H100 is latency
 //   (8 warps an SM, a barrier a part); dK's blocks, which alone carry U
 //   g^T, get their own chunks of the token axis, planned apart from dU's
-//   by a tile's work (dku_window_plan), so that they do not set the pace;
-//   past 8192 the scores are split over the card once for all windows
-//   (hopfield_narrow::split_scores) instead of once a window.
+//   by a tile's work (dku_window_plan), so that they do not set the pace.
+//   Where d_in passes 128 (so past 8192 on one side), S^T = K q^T is split
+//   over the card once for all windows instead of once a window, and so is
+//   P^T = U g^T (dK's windows) where d_out has more than one part: in K3's
+//   own orientation (the patterns' rows resident, as the walk has them)
+//   and order, so dK and dU keep the walk's bits; slab after slab of
+//   pattern tiles within SPLIT_BYTES, in rounds of parts where a slab's
+//   parts pass it (hopfield_narrow::slab_plan), each slab's window kernel
+//   after its split. At (8320, 3), N 4,096, M 64 the parts' sums take 137
+//   MB, where every window recomputed the scores; one slab in 3 rounds of
+//   44 parts took 0.80 ms against 12.84 to 13.01 on an H100 (PERF.md).
+//   Only where one pattern tile's sums and one part pass the cap (N past
+//   87,381 with both products, 131,072 with one) do the windows compute
+//   the products themselves.
 
 #include "hopfield_cluster.cuh"
 #include "hopfield_narrow.cuh"
@@ -356,27 +367,30 @@ int launch(const Args& a) {
 // columns of d_in) and chunk c of ck (y = w ck + c); past them, dU's
 // window and chunk of cu (d_out). Per token tile: the parts of K and q
 // (their columns below d_in; the window kernels' order, part after part),
-// or, where the scores were split, the tile of S; for dK then the parts of
-// U and g; then the window of q (dK) or g (dU), its live columns, with
-// the tile's m, 1/l and delta. A^T (and dS^T for dK) on the fragments,
-// then the window's live n-tiles over the tile's tokens in fresh
-// fragments added to the running sums.
+// or, where the scores were split, the tile of S^T; for dK then the parts
+// of U and g, or the tile of P^T; then the window of q (dK) or g (dU), its
+// live columns, with the tile's m, 1/l and delta. A^T (and dS^T for dK) on
+// the fragments, then the window's live n-tiles over the tile's tokens in
+// fresh fragments added to the running sums. S^T and P^T are the slab's
+// (M by N, their rows from pattern p_base; the grid's x axis is the slab's
+// pattern tiles). A buffer holds `slot` floats.
 template <int CW>
 __global__ void __launch_bounds__(hopfield_narrow::THREADS, 2)
 stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
-                             const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ m_in,
-                             const float* __restrict__ il_in, const float* __restrict__ delta,
-                             float* __restrict__ dk_part, float* __restrict__ du_part, int n, int m_patterns, int d_in,
-                             int d_out, int tk, int ck, int tu, int cu, float beta, unsigned vec16) {
+                             const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ P,
+                             const float* __restrict__ m_in, const float* __restrict__ il_in,
+                             const float* __restrict__ delta, float* __restrict__ dk_part, float* __restrict__ du_part,
+                             int n, int m_patterns, int d_in, int d_out, int tk, int ck, int tu, int cu, int p_base,
+                             int slot, float beta, unsigned vec16) {
   using namespace hopfield_narrow;
   constexpr int CO = CW / 8, RW = CW + 4;
   extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * slot
 
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);
-  const int p0 = blockIdx.x * hopfield_narrow::TM;
+  const int p0 = p_base + blockIdx.x * hopfield_narrow::TM;
   int y = blockIdx.y;
   const bool for_dk = y < ck * windows_of(d_in, CW);
   if (!for_dk) y -= ck * windows_of(d_in, CW);
@@ -388,15 +402,16 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
   const int ww = staged(w_cols), co = (w_cols + 7) / 8;  // the window's staged columns and live n-tiles
   const int first = chunk * per;
   const int last = min((n + TN - 1) / TN, first + per) - 1;
-  const int nqi = S ? 0 : parts_of(d_in), ngo = for_dk ? parts_of(d_out) : 0;
+  const bool with_p = for_dk && P;  // the block reads P^T
+  const int nqi = S ? 0 : parts_of(d_in), ngo = for_dk && !P ? parts_of(d_out) : 0;
   const int per_tile = nqi + ngo + 1;
   const int items = (last - first + 1) * per_tile;
   const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u,
-             sv = vec16 >> 4 & 1u;
+             sv = vec16 >> 4 & 1u, pv = vec16 >> 5 & 1u;
 
   auto stage_item = [&](int i) {
     if (i < items) {
-      float* yb = buf + (i % NB) * SLOT;
+      float* yb = buf + (i % NB) * slot;
       const int it = first + i / per_tile, sub = i % per_tile;
       if (sub < nqi) {
         const int c0 = sub * PART, w = staged(min(PART, d_in - c0));
@@ -409,8 +424,12 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
       } else {
         float* wt = yb;
         if (S) {
-          stage<TN>(yb, RST, S, m_patterns, p0, hopfield_narrow::TM, it * TN, n, sv);
-          wt = yb + TN * RST;
+          stage<hopfield_narrow::TM>(wt, RSC, S, n, it * TN, TN, p0 - p_base, m_patterns - p_base, sv);
+          wt += hopfield_narrow::TM * RSC;
+        }
+        if (with_p) {
+          stage<hopfield_narrow::TM>(wt, RSC, P, n, it * TN, TN, p0 - p_base, m_patterns - p_base, pv);
+          wt += hopfield_narrow::TM * RSC;
         }
         if (for_dk) stage<TN>(wt, RW, q, d_in, col0, ww, it * TN, n, qv);
         else stage<TN>(wt, RW, g, d_out, col0, ww, it * TN, n, gv);
@@ -439,11 +458,23 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
   hopfield_narrow::zero(sc);
   hopfield_narrow::zero(dp);
 
+  // the slab's rows gq and gq + 8 of a TM x RSC tile of S^T or P^T into a C fragment
+  auto load_tile = [&](float (&f)[NT][4], const float* t) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(t + (m0 + gq + 8 * r) * RSC + 8 * j + 2 * tq);
+        f[j][2 * r] = v.x;
+        f[j][2 * r + 1] = v.y;
+      }
+  };
+
   for (int i = 0; i < items; ++i) {
     cp_async_wait_all();
     __syncthreads();  // item i has landed; every warp is done with item i - 1
     stage_item(i + NB - 1);
-    const float* yb = buf + (i % NB) * SLOT;
+    const float* yb = buf + (i % NB) * slot;
     const int it = first + i / per_tile, sub = i % per_tile;
     if (sub < nqi + ngo) {  // a part of K q^T, or of U g^T, in a fresh sum added to the running one
       const bool score = sub < nqi;
@@ -465,11 +496,12 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
     }
     const float* wt = yb;
     if (S) {  // the tile's scores, patterns gq and gq + 8 of the slab, tokens 8j + 2tq and + 1
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = yb[(8 * j + 2 * tq + (e & 1)) * RST + m0 + gq + 8 * (e >> 1)];
-      wt = yb + TN * RST;
+      load_tile(sc, wt);
+      wt += hopfield_narrow::TM * RSC;
+    }
+    if (with_p) {  // and its U g^T
+      load_tile(dp, wt);
+      wt += hopfield_narrow::TM * RSC;
     }
     // ---- A^T (and dS^T for dK) on the fragments, then the window's
     // outputs over the tile's tokens
@@ -517,35 +549,39 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
 }
 
 // The narrow-side plan: the window (the wider side's, d padded to 8 up to
-// 128, else 128), whether the scores are split (past the widest cluster,
-// where every window would recompute them, with the scratch within
-// SPLIT_BYTES), and the chunks of the token tiles, dK's (tk tiles each, ck
+// 128, else 128), the chunks of the token tiles, dK's (tk tiles each, ck
 // of them) apart from dU's (tu, cu): about NARROW_WAVES waves of the
 // blocks the card holds, a block of either kind about the same work (a
 // tile's k-steps of its products and its window's n-tiles, and FIXED for
 // its staging and exps), so that dK's blocks, which alone carry U g^T, do
-// not set the pace.
+// not set the pace; a tile's work counted as the walk's (its products
+// computed in the window) on every route, so the chunks, and with them
+// dK's and dU's sums, are the walk's. Then which products are split over
+// the card first: S^T where d_in has more than one part and more than one
+// window (each window would recompute it), P^T likewise for dK's windows;
+// and the split's slabs of pattern tiles and rounds of parts
+// (hopfield_narrow::slab_plan, each slab at least as many tiles as keep
+// the window kernel at two blocks an SM where the cap allows). Where one
+// pattern tile's sums and one part pass SPLIT_BYTES, nothing is split.
 constexpr int NARROW_WAVES = 2;
 constexpr int FIXED_STEPS = 2;
 struct DkuPlan {
   int cw;
-  bool split;
+  bool split_s, split_p;
   int tk, ck, tu, cu;
+  hopfield_narrow::SlabPlan slabs;
 };
 inline int narrow_width(int d_in, int d_out) {
   const int d = d_in > d_out ? d_in : d_out;
   return d <= 128 ? padded_width(d) : 128;
 }
-inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int concurrent) {
+inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int concurrent, int sms) {
   using namespace hopfield_narrow;
-  DkuPlan p;
+  DkuPlan p{};
   p.cw = narrow_width(d_in, d_out);
-  const int groups = parts_of(d_in);
-  p.split = cluster::chunks_per_rank((d_in + cluster::STEP - 1) / cluster::STEP) == 0 && groups >= 2 &&
-            4ll * (groups + 1) * n * m_patterns <= SPLIT_BYTES;
   const int tt = (n + TN - 1) / TN, pt = (m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
   const long long wk = windows_of(d_in, p.cw), wu = windows_of(d_out, p.cw);
-  const long long ks_in = p.split ? 0 : (d_in + 7) / 8, ks_out = (d_out + 7) / 8;
+  const long long ks_in = (d_in + 7) / 8, ks_out = (d_out + 7) / 8;
   const long long cost_k = ks_in + ks_out + (std::min(p.cw, d_in) + 7) / 8 + FIXED_STEPS;
   const long long cost_u = ks_in + (std::min(p.cw, d_out) + 7) / 8 + FIXED_STEPS;
   const long long total = static_cast<long long>(pt) * tt * (wk * cost_k + wu * cost_u);
@@ -557,7 +593,23 @@ inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int c
   };
   split_tiles(cost_k, p.tk, p.ck);
   split_tiles(cost_u, p.tu, p.cu);
+  p.split_s = parts_of(d_in) >= 2 && wk > 1;
+  p.split_p = parts_of(d_out) >= 2 && wk > 1;
+  if (p.split_s || p.split_p) {
+    const long long per_tile = p.ck * wk + p.cu * wu;  // window blocks a pattern tile
+    const int parts = std::max(p.split_s ? parts_of(d_in) : 0, p.split_p ? parts_of(d_out) : 0);
+    const long long fill = (2ll * std::max(sms, 1) + per_tile - 1) / per_tile;
+    if (!slab_plan(m_patterns, n, p.split_s + p.split_p, parts, fill, p.slabs)) p.split_s = p.split_p = false;
+  }
   return p;
+}
+
+// Floats of a buffer of the narrow-side kernel on the plan: a part item,
+// or the window item (the split products' tiles, a window of q or g, the
+// row stats).
+inline int dku_slot(const DkuPlan& p) {
+  using namespace hopfield_narrow;
+  return std::max(SLOT, (p.split_s + p.split_p) * hopfield_narrow::TM * RSC + TN * (p.cw + 4) + 3 * TN);
 }
 
 inline int concurrent_narrow(int cw) {
@@ -568,7 +620,8 @@ inline int concurrent_narrow(int cw) {
 }
 
 inline DkuPlan dku_plan_of(int n, int m_patterns, int d_in, int d_out) {
-  return dku_window_plan(n, m_patterns, d_in, d_out, concurrent_narrow(narrow_width(d_in, d_out)));
+  return dku_window_plan(n, m_patterns, d_in, d_out, concurrent_narrow(narrow_width(d_in, d_out)),
+                         hopfield_narrow::sm_count());
 }
 
 // The chunks of the token axis past 256 on the cluster: its plan
@@ -581,15 +634,18 @@ int chunks_cluster(int n, int m_patterns, int j, int ranks) {
 }
 
 // Floats of scratch past 256: q and 1/l, the partial rows of dK and dU,
-// and the split's scratch where the narrow-side plan splits the scores.
+// and on the narrow-side plan, from the next multiple of 4 floats, the
+// split products' (a slab's S^T and P^T, then a round's parts: at most
+// SPLIT_BYTES; none where nothing is split).
 long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
   const long long qs = static_cast<long long>(n) * (d_in + 1);
   int j, ranks;
   if (hopfield_cluster::plan(d_in, d_out, j, ranks))
     return qs + static_cast<long long>(chunks_cluster(n, m_patterns, j, ranks)) * m_patterns * (d_in + d_out);
   const DkuPlan p = dku_plan_of(n, m_patterns, d_in, d_out);
-  return qs + static_cast<long long>(m_patterns) * (static_cast<long long>(p.ck) * d_in + static_cast<long long>(p.cu) * d_out) +
-         (p.split ? hopfield_narrow::split_floats(n, m_patterns, hopfield_narrow::parts_of(d_in)) : 0);
+  const long long floats =
+      qs + static_cast<long long>(m_patterns) * (static_cast<long long>(p.ck) * d_in + static_cast<long long>(p.cu) * d_out);
+  return (floats + 3) / 4 * 4 + p.slabs.floats;
 }
 
 // Past 256: the cluster kernel (hopfield_cluster.cuh) where its plan takes
@@ -621,35 +677,46 @@ int launch_wide(const Args& a) {
           dim3((a.m_patterns + C::TM - 1) / C::TM, dk_rows, ranks), a.K, a.U, q, a.g, a.m, il, a.delta, dk_part,
           du_part, a.m_patterns, a.n, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in), cvec16, a.stream);
     });
-  } else {
+  } else {  // slab after slab of pattern tiles: the slab's split products, then the kernel over its tiles
+    using hopfield_narrow::TM;
     const DkuPlan p = dku_plan_of(a.n, a.m_patterns, a.d_in, a.d_out);
     const long long blocks_y =
         static_cast<long long>(p.ck) * windows_of(a.d_in, p.cw) + static_cast<long long>(p.cu) * windows_of(a.d_out, p.cw);
     if (blocks_y > 65535) return cudaErrorInvalidValue;
     du_part = dk_part + static_cast<size_t>(p.ck) * a.m_patterns * a.d_in;
-    const float* S = nullptr;
-    if (p.split) {
-      float* work = du_part + static_cast<size_t>(p.cu) * a.m_patterns * a.d_out;
-      float* s_out = work + static_cast<size_t>(hopfield_narrow::parts_of(a.d_in)) * a.n * a.m_patterns;
-      err = hopfield_narrow::split_scores(q, a.K, s_out, work, a.n, a.m_patterns, a.d_in, {1, false},
-                                          hopfield_narrow::sm_count(), a.stream);
-      if (err != cudaSuccess) return err;
-      S = s_out;
-    }
+    // the split's scratch, from a 16-byte boundary (the workspace's base is one): [S^T | P^T | a round's parts]
+    float* work = a.workspace +
+                  (static_cast<size_t>(du_part - a.workspace) + static_cast<size_t>(p.cu) * a.m_patterns * a.d_out + 3) /
+                      4 * 4;
+    const bool split = p.split_s || p.split_p;
+    const int slab_rows = split ? std::min(p.slabs.slab * TM, a.m_patterns) : a.m_patterns;
+    const long long sums = static_cast<long long>(slab_rows) * a.n;  // floats of a product's sums
+    float* S = p.split_s ? work : nullptr;
+    float* P = p.split_p ? work + (p.split_s ? sums : 0) : nullptr;
+    float* parts = work + (p.split_s + p.split_p) * sums;
+    const int slot = dku_slot(p), sms = hopfield_narrow::sm_count();
+    const size_t bytes = sizeof(float) * hopfield_narrow::NB * slot;
     dk_rows = p.ck;
     du_rows = p.cu;
     err = hopfield_narrow::with_window(p.cw, [&](auto c) {
       constexpr int CW = decltype(c)::value;
       auto kernel = stream_bwd_dku_narrow_kernel<CW>;
-      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(hopfield_narrow::BYTES));
-      if (e != cudaSuccess) return e;
-      const unsigned svec16 = vec16 | (S ? vec16_ok(S, a.m_patterns) : 0u) << 4;
-      kernel<<<dim3((a.m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM, static_cast<unsigned>(blocks_y)),
-               hopfield_narrow::THREADS, hopfield_narrow::BYTES, a.stream>>>(
-          q, a.K, a.U, a.g, S, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in, a.d_out, p.tk, p.ck,
-          p.tu, p.cu, beta_of(a.d_in), svec16);
-      return cudaGetLastError();
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      const unsigned svec16 = vec16 | (S ? vec16_ok(S, a.n) : 0u) << 4 | (P ? vec16_ok(P, a.n) : 0u) << 5;
+      for (int r0 = 0; e == cudaSuccess && r0 < a.m_patterns; r0 += slab_rows) {
+        const int rows = std::min(slab_rows, a.m_patterns - r0);
+        if (S) e = hopfield_narrow::split_slab(a.K + static_cast<size_t>(r0) * a.d_in, q, S, parts, rows, a.n, a.d_in,
+                                               p.slabs.round, sms, a.stream);
+        if (P && e == cudaSuccess)
+          e = hopfield_narrow::split_slab(a.U + static_cast<size_t>(r0) * a.d_out, a.g, P, parts, rows, a.n,
+                                          a.d_out, p.slabs.round, sms, a.stream);
+        if (e != cudaSuccess) break;
+        kernel<<<dim3((rows + TM - 1) / TM, static_cast<unsigned>(blocks_y)), hopfield_narrow::THREADS, bytes,
+                 a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in,
+                             a.d_out, p.tk, p.ck, p.tu, p.cu, r0, slot, beta_of(a.d_in), svec16);
+        e = cudaGetLastError();
+      }
+      return e;
     });
   }
   if (err != cudaSuccess) return err;
@@ -724,24 +791,31 @@ extern "C" int hopfield_stream_bwd_dku_cluster(int d_in, int d_out, int* out) {
   return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, false, out));
 }
 
-// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..5]: 1
-// the cluster, 2 the narrow-side kernel, 3 the same on split scores (0 up
-// to 256: a built instance); then the narrow-side plan's window, dK's
-// tiles a chunk and chunks, dU's (0 where it does not run). Returns a
-// cudaError_t.
+// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..10]: 1
+// the cluster; on the narrow-side kernel 2, plus 1 where S^T = K q^T is
+// split over the card first and 2 where P^T = U g^T is (0 up to 256: a
+// built instance); then the narrow-side plan's window, dK's tiles a chunk
+// and chunks, dU's; where a product is split, its slabs, the pattern tiles
+// of a slab, the rounds and the parts of a round, and the split's floats
+// of scratch (0 where it does not run). Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dku_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
   if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
-  for (int i = 0; i < 6; ++i) out[i] = 0;
+  for (int i = 0; i < 11; ++i) out[i] = 0;
   int j, ranks;
   if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
   out[0] = 1;
   if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
   const DkuPlan p = dku_plan_of(n, m_patterns, d_in, d_out);
-  out[0] = p.split ? 3 : 2;
+  out[0] = 2 + p.split_s + 2 * p.split_p;
   out[1] = p.cw;
   out[2] = p.tk;
   out[3] = p.ck;
   out[4] = p.tu;
   out[5] = p.cu;
+  out[6] = p.slabs.slabs;
+  out[7] = p.slabs.slab;
+  out[8] = p.slabs.rounds;
+  out[9] = p.slabs.round;
+  out[10] = static_cast<int>(p.slabs.floats);
   return cudaSuccess;
 }

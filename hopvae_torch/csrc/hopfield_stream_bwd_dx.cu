@@ -100,9 +100,16 @@
 //   once (hopfield_narrow::split_scores: each part apart, then added in
 //   order, the same bits) and every window reads it instead of
 //   recomputing it, and so is P = g U^T, which is also split where the
-//   blocks leave the card idle; each within SPLIT_BYTES of scratch, else
-//   the windows recompute it (a route by plan: dx_window_plan,
-//   hopfield_stream_bwd_dx_plan). At d_in up to 128 the cluster ran
+//   blocks leave the card idle (a route by plan: dx_window_plan,
+//   hopfield_stream_bwd_dx_plan). The split runs slab after slab of token
+//   tiles within SPLIT_BYTES of scratch (hopfield_narrow::slab_plan), in
+//   rounds of parts where a slab's parts pass it, each slab's window
+//   kernel after its split: at (8320, 3), N 4,096, M 64 the parts' sums
+//   take 137 MB, where every window recomputed the scores; in 3 slabs of
+//   22 tiles the call took 1.55 ms against 9.49 to 9.61 on an H100, the
+//   split passes 0.24 and the window kernel 0.36 of it (PERF.md). Only where one token tile's sums and one part pass the
+//   cap (M past 87,381 with both products, 131,072 with one) do the
+//   windows compute the products themselves. At d_in up to 128 the cluster ran
 //   slower (at (3, 384): 0.268 ms against the former window kernel's
 //   0.113), so the route is by width. The splits of the pattern axis plan
 //   from the clusters the card holds at once, or on the narrow-side kernel
@@ -426,7 +433,8 @@ int launch(const Args& a) {
 // (their columns below d_in), then those of g and U (below d_out), each
 // part's products in a fresh sum added to each tile's running one in
 // order (the window kernels' order), or, where they were split (G = 1),
-// the tile of S = q K^T and of P = g U^T; then the windows of K of the
+// the tile of S = q K^T and of P = g U^T (the slab's, whose rows start at
+// row_base; the grid's x axis is the slab's token tiles); then the windows of K of the
 // group's tiles (their live columns). A and dS on the fragments, then dq
 // over the window's live n-tiles, a tile at a time in order, each in a
 // fresh fragment added to the running sum after the tile. A buffer holds
@@ -440,7 +448,7 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ P,
                             const float* __restrict__ m_in, const float* __restrict__ l_in,
                             const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
-                            int d_in, int d_out, int per, int slot, float beta, unsigned vec16) {
+                            int d_in, int d_out, int per, int slot, int row_base, float beta, unsigned vec16) {
   using namespace hopfield_narrow;
   constexpr int CO = CW / 8, RW = CW + 4, GT = G * TN;
   extern __shared__ float4 smem4[];
@@ -449,7 +457,7 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int m0 = 16 * (threadIdx.x >> 5);
-  const int row0 = blockIdx.x * hopfield_narrow::TM;
+  const int row0 = row_base + blockIdx.x * hopfield_narrow::TM;  // S and P hold the slab's rows from row_base
   const int split = blockIdx.y;
   const int col0 = blockIdx.z * CW;
   const int first = split * per;
@@ -476,11 +484,11 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
         stage<GT>(y + hopfield_narrow::TM * RP, RP, U, d_out, c0, w, it0 * TN, m_patterns, uv);
       } else {
         if (S) {
-          stage<hopfield_narrow::TM>(y, RSC, S, m_patterns, it0 * TN, TN, row0, n, sv);
+          stage<hopfield_narrow::TM>(y, RSC, S, m_patterns, it0 * TN, TN, row0 - row_base, n - row_base, sv);
           y += hopfield_narrow::TM * RSC;
         }
         if (P) {
-          stage<hopfield_narrow::TM>(y, RSC, P, m_patterns, it0 * TN, TN, row0, n, pv);
+          stage<hopfield_narrow::TM>(y, RSC, P, m_patterns, it0 * TN, TN, row0 - row_base, n - row_base, pv);
           y += hopfield_narrow::TM * RSC;
         }
         stage<GT>(y, RW, K, d_in, col0, ww, it0 * TN, m_patterns, kv);
@@ -679,9 +687,12 @@ stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __res
 }
 
 // The narrow-side plan: the window (d_in padded to 8 up to 128, else
-// 128), the splits of the pattern axis, and which products are split over
+// 128), the splits of the pattern axis, which products are split over
 // the card first (hopfield_narrow::split_scores: each part's sums apart,
-// then added in order, the same bits). The splits plan from PLAN_PER_SM
+// then added in order, the same bits), and the split's slabs of token
+// tiles and rounds of parts (hopfield_narrow::slab_plan, each slab at
+// least as many tiles as keep the window kernel at PLAN_PER_SM blocks an
+// SM where the cap allows). The splits plan from PLAN_PER_SM
 // blocks an SM whatever the kernel's occupancy: they set the order of
 // dq's sums (a split's tiles in f32, the splits in double), and so dx,
 // ds and dt keep the bits that the window kernel (252 registers, two
@@ -691,28 +702,32 @@ stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __res
 // blocks, the pattern splits counted, leave SMs idle (fewer than one an
 // SM: at (3, 8320), N 37, two blocks walked 130 parts each, 0.229 ms
 // against the split's 0.015 on an H100; at (3, 384), N 4,096, 256 blocks
-// fill the card and the split lost, 0.141 against 0.077; PERF.md). Each
-// split's scratch (its parts' sums and itself, split_floats) counts
-// against SPLIT_BYTES, S's first.
+// fill the card and the split lost, 0.141 against 0.077; PERF.md). Where
+// one token tile's sums and one part pass SPLIT_BYTES, nothing is split.
 constexpr int PLAN_PER_SM = 2;
 struct DxPlan {
   int cw;
   bool split_s, split_p;
   Plan p;
+  hopfield_narrow::SlabPlan slabs;
 };
 inline DxPlan dx_window_plan(int n, int m_patterns, int d_in, int d_out, int sms) {
   using namespace hopfield_narrow;
-  DxPlan d;
+  DxPlan d{};
   d.cw = d_in <= 128 ? padded_width(d_in) : 128;
   const int windows = windows_of(d_in, d.cw);
   const int token_tiles = (n + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
-  d.p = plan_for(token_tiles * windows, (m_patterns + TN - 1) / TN, PLAN_PER_SM * std::max(sms, 1));
+  const int concurrent = PLAN_PER_SM * std::max(sms, 1);
+  d.p = plan_for(token_tiles * windows, (m_patterns + TN - 1) / TN, concurrent);
   const long long blocks = static_cast<long long>(token_tiles) * windows * d.p.splits;
-  const long long fs = split_floats(n, m_patterns, parts_of(d_in));
-  const long long fp = split_floats(n, m_patterns, parts_of(d_out));
-  d.split_s = parts_of(d_in) >= 2 && windows > 1 && 4 * fs <= SPLIT_BYTES;
-  d.split_p = parts_of(d_out) >= 2 && (windows > 1 || blocks < sms) &&
-              4 * ((d.split_s ? fs : 0) + fp) <= SPLIT_BYTES;
+  d.split_s = parts_of(d_in) >= 2 && windows > 1;
+  d.split_p = parts_of(d_out) >= 2 && (windows > 1 || blocks < sms);
+  if (d.split_s || d.split_p) {
+    const long long per_tile = static_cast<long long>(windows) * d.p.splits;  // window blocks a token tile
+    const int parts = std::max(d.split_s ? parts_of(d_in) : 0, d.split_p ? parts_of(d_out) : 0);
+    if (!slab_plan(n, m_patterns, d.split_s + d.split_p, parts, (concurrent + per_tile - 1) / per_tile, d.slabs))
+      d.split_s = d.split_p = false;
+  }
   return d;
 }
 
@@ -729,25 +744,17 @@ Plan plan_wide(int n, int m_patterns, int d_in, int d_out) {
   return dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count()).p;
 }
 
-// Floats of the split products' scratch on the narrow-side plan: S's
-// split_floats, then P's.
-long long split_scratch(const DxPlan& d, int n, int m_patterns, int d_in, int d_out) {
-  using namespace hopfield_narrow;
-  return (d.split_s ? split_floats(n, m_patterns, parts_of(d_in)) : 0) +
-         (d.split_p ? split_floats(n, m_patterns, parts_of(d_out)) : 0);
-}
-
 // Floats of the wide variant's scratch: q (n, d_in), later dq; each
 // split's partial dq (n, d_in), split 0's later dq * xhat; one partial row
-// of ds and of dt for each 32 tokens; on the narrow-side plan, the split
-// products', from the next multiple of 4 floats.
+// of ds and of dt for each 32 tokens; on the narrow-side plan, from the
+// next multiple of 4 floats, the split products' (a slab's S and P, then a
+// round's parts: at most SPLIT_BYTES; none where nothing is split).
 long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
   const int splits = plan_wide(n, m_patterns, d_in, d_out).splits;
   long long floats = static_cast<long long>(1 + splits) * n * d_in + 2LL * fin_blocks(n) * d_in;
   int j, ranks;
   if (!hopfield_cluster::plan(d_in, d_out, j, ranks))
-    floats = (floats + 3) / 4 * 4 + split_scratch(dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count()),
-                                                  n, m_patterns, d_in, d_out);
+    floats = (floats + 3) / 4 * 4 + dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count()).slabs.floats;
   return floats;
 }
 
@@ -781,8 +788,9 @@ inline int narrow_slot(const DxPlan& d) {
 
 // dq of every split past 256: the cluster kernel (hopfield_cluster.cuh)
 // where its plan takes the widths, else the narrow-side kernel on its plan
-// (a route by width; see the header), its split products first through
-// `work`.
+// (a route by width; see the header): slab after slab of token tiles, the
+// slab's split products first through `work` ([S | P | a round's parts]),
+// then the kernel over the slab's tiles.
 int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part, float* work) {
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
@@ -800,23 +808,12 @@ int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part,
   const int sms = sm_count();
   const DxPlan d = dx_window_plan(a.n, a.m_patterns, a.d_in, a.d_out, sms);
   if (windows_of(a.d_in, d.cw) > 65535) return cudaErrorInvalidValue;
-  const long long nm = static_cast<long long>(a.n) * a.m_patterns;
-  const float *S = nullptr, *P = nullptr;
-  if (d.split_s) {  // [the parts' sums | S]
-    const int parts = parts_of(a.d_in);
-    float* s_out = work + parts * nm;
-    const cudaError_t err = split_scores(q, a.K, s_out, work, a.n, a.m_patterns, a.d_in, {1, false}, sms, a.stream);
-    if (err != cudaSuccess) return err;
-    S = s_out;
-    work += (parts + 1) * nm;
-  }
-  if (d.split_p) {  // [the parts' sums | P]
-    float* p_out = work + parts_of(a.d_out) * nm;
-    const cudaError_t err =
-        split_scores(a.g, a.U, p_out, work, a.n, a.m_patterns, a.d_out, {1, false}, sms, a.stream);
-    if (err != cudaSuccess) return err;
-    P = p_out;
-  }
+  const bool split = d.split_s || d.split_p;
+  const int slab_rows = split ? std::min(d.slabs.slab * hopfield_narrow::TM, a.n) : a.n;
+  const long long sums = static_cast<long long>(slab_rows) * a.m_patterns;  // floats of a product's sums
+  float* S = d.split_s ? work : nullptr;
+  float* P = d.split_p ? work + (d.split_s ? sums : 0) : nullptr;
+  float* parts = work + (d.split_s + d.split_p) * sums;
   const int slot = narrow_slot(d);
   const size_t bytes = sizeof(float) * NB * slot;
   const unsigned svec16 = vec16 | (S ? vec16_ok(S, a.m_patterns) : 0u) << 4 | (P ? vec16_ok(P, a.m_patterns) : 0u) << 5;
@@ -825,12 +822,21 @@ int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part,
     auto launch_group = [&](auto kernel) {
       cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<dim3((a.n + hopfield_narrow::TM - 1) / hopfield_narrow::TM, p.splits, windows_of(a.d_in, CW)),
-               hopfield_narrow::THREADS, bytes, a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, a.l, a.delta, dq_part, a.n,
-                                                            a.m_patterns, a.d_in, a.d_out, p.per, slot,
-                                                            beta_of(a.d_in), svec16);
-      return static_cast<int>(cudaGetLastError());
+      for (int r0 = 0; err == cudaSuccess && r0 < a.n; r0 += slab_rows) {
+        const int rows = std::min(slab_rows, a.n - r0);
+        if (S) err = split_slab(q + static_cast<size_t>(r0) * a.d_in, a.K, S, parts, rows, a.m_patterns, a.d_in,
+                                d.slabs.round, sms, a.stream);
+        if (P && err == cudaSuccess)
+          err = split_slab(a.g + static_cast<size_t>(r0) * a.d_out, a.U, P, parts, rows, a.m_patterns, a.d_out,
+                           d.slabs.round, sms, a.stream);
+        if (err != cudaSuccess) break;
+        kernel<<<dim3((rows + hopfield_narrow::TM - 1) / hopfield_narrow::TM, p.splits, windows_of(a.d_in, CW)),
+                 hopfield_narrow::THREADS, bytes, a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, a.l, a.delta, dq_part,
+                                                              a.n, a.m_patterns, a.d_in, a.d_out, p.per, slot, r0,
+                                                              beta_of(a.d_in), svec16);
+        err = cudaGetLastError();
+      }
+      return static_cast<int>(err);
     };
     return with_group<CW>(d, launch_group);
   });
@@ -932,15 +938,17 @@ extern "C" int hopfield_stream_bwd_dx_cluster(int d_in, int d_out, int* out) {
   return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, false, out));
 }
 
-// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..4]: 1
+// The route of (n, m_patterns, d_in, d_out) past 256, into out[0..8]: 1
 // the cluster; on the narrow-side kernel 2, plus 1 where S = q K^T is
 // split over the card first and 2 where P = g U^T is (0 up to 256: a
 // built instance); then the narrow-side plan's window, the splits of the
-// pattern axis and their pattern tiles each (0 where it does not run).
+// pattern axis and their pattern tiles each; where a product is split,
+// its slabs, the token tiles of a slab, the rounds and the parts of a
+// round, and the split's floats of scratch (0 where it does not run).
 // Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dx_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
   if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
-  for (int i = 0; i < 5; ++i) out[i] = 0;
+  for (int i = 0; i < 9; ++i) out[i] = 0;
   int j, ranks;
   if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
   out[0] = 1;
@@ -950,5 +958,10 @@ extern "C" int hopfield_stream_bwd_dx_plan(int n, int m_patterns, int d_in, int 
   out[1] = d.cw;
   out[2] = d.p.splits;
   out[3] = d.p.per;
+  out[4] = d.slabs.slabs;
+  out[5] = d.slabs.slab;
+  out[6] = d.slabs.rounds;
+  out[7] = d.slabs.round;
+  out[8] = static_cast<int>(d.slabs.floats);
   return cudaSuccess;
 }

@@ -42,8 +42,9 @@ run their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
 window sized to the narrow side, the depth in parts of 64 summed in K2's
 and K3's order, :func:`score_order`); where few token tiles would leave
 the card idle, or every window would recompute them, a product is split
-over the card first (K1's and K3's scores, K2's scores and ``g Uᵀ``:
-:func:`narrow_split`).
+over the card first (K1's scores, K2's and K3's scores and ``g Uᵀ``:
+:func:`narrow_split`), K2's and K3's slab after slab within 64 MiB
+(:func:`split_plan`).
 
 Pattern sharding (JAX's ``_attn_tp_merge``, ``_attn_ln_stream_tp``):
 :class:`ShardedStreamLookup` runs K1 on each pattern shard's rows and
@@ -83,7 +84,7 @@ WINDOW_IN = 128  # and past this d_in (K1: and d_out), where the window kernels 
 # against its source)
 PART = 64  # ``PART``: columns of a part of the narrow-side kernels' depth (the window kernels' chunk)
 SPLIT_BYTES = 64 << 20  # ``SPLIT_BYTES``: the split products' scratch at most
-TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's and K2's narrow-side kernels
+TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's and K2's narrow-side kernels (K3's: pattern rows)
 PATTERN_TILE = 32  # ``TN``: patterns of a streamed tile of K1's and K2's
 PLAN_PER_SM = 2  # ``PLAN_PER_SM``: the blocks an SM that K2's narrow-side splits of the pattern axis plan from
 IMPLS = ("cuda", "torch")
@@ -167,40 +168,55 @@ def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -
     ``_plan`` entries report the whole plan): ``None``, one pass, or the
     products split over the card first, each group's sums
     (:func:`score_order`) through device memory, then added in order:
-    ``"scores"``, and for K2 also ``"gu"`` (``g Uᵀ``) or ``"scores+gu"``.
-    K1 splits where its depth has more than one group and its blocks (64
-    token rows and a window of ``d_out`` each) are fewer than two an SM;
-    K3 past 8192 on ``d_in``, where every window would recompute the
-    scores. K2 splits its scores where d_in has more than one part and dq
-    more than one window of 128 (each would recompute them), and ``g Uᵀ``
-    where d_out has more than one part and dq more than one window, or
+    ``"scores"``, and for K2 and K3 also ``"gu"`` (``g Uᵀ``) or
+    ``"scores+gu"``. K1 splits where its depth has more than one group and
+    its blocks (64 token rows and a window of ``d_out`` each) are fewer
+    than two an SM, its scratch within ``SPLIT_BYTES``. K2 and K3 split a
+    product where its depth has more than one part and d_in more than one
+    window of 128 (each window would recompute it); K2 also splits ``g Uᵀ``
     where its blocks (64 token rows, a window and a split of the pattern
     axis, planned from ``PLAN_PER_SM`` blocks an SM) are fewer than the
-    SMs. Each needs its scratch within ``SPLIT_BYTES`` (K2's scores
-    first). So the route depends on N and M as well as on the widths."""
+    SMs. K2's and K3's splits run slab after slab within ``SPLIT_BYTES``
+    (:func:`split_plan`), at every N and M but where one tile of 64
+    resident rows (K2: tokens, its sums across M; K3: patterns, across N)
+    cannot hold its sums and one part: past 87,381 columns with both
+    products, 131,072 with one, the windows compute the products. So the
+    route depends on N and M as well as on the widths."""
     if kernel_route(d_in, d_out) != "wide" or (forward_cluster if kernel == "fwd" else backward_cluster)(d_in, d_out):
         raise ValueError(f"{(d_in, d_out)} does not take {kernel}'s narrow-side kernel")
     parts = -(-d_in // PART)
-    if kernel == "dx":
-        windows = 1 if d_in <= 128 else -(-d_in // 128)
-        blocks = -(-n // TOKEN_TILE) * windows
-        blocks *= _pattern_splits(blocks, -(-m // PATTERN_TILE), PLAN_PER_SM * max(sms, 1))[0]
-        parts_out = -(-d_out // PART)
-        fs, fp = (parts + 1) * n * m, (parts_out + 1) * n * m  # each split's parts' sums and itself
-        split_s = parts >= 2 and windows > 1 and 4 * fs <= SPLIT_BYTES
-        split_p = (parts_out >= 2 and (windows > 1 or blocks < sms)
-                   and 4 * ((fs if split_s else 0) + fp) <= SPLIT_BYTES)
-        return "+".join(name for name, on in (("scores", split_s), ("gu", split_p)) if on) or None
     if kernel == "fwd":
         groups = -(-parts // score_order(d_in, d_out)[0])
         windows = 1 if d_out <= 128 else -(-d_out // 128)
         if groups < 2 or -(-n // TOKEN_TILE) * windows >= 2 * sms:
             return None
-    elif d_in <= CLUSTER_MAX or parts < 2:
+        return "scores" if 4 * (groups + 1) * n * m <= SPLIT_BYTES else None
+    windows = 1 if d_in <= 128 else -(-d_in // 128)
+    split_s = parts >= 2 and windows > 1
+    split_p = -(-d_out // PART) >= 2 and windows > 1
+    if kernel == "dx" and not split_p and -(-d_out // PART) >= 2:
+        blocks = -(-n // TOKEN_TILE) * windows
+        split_p = blocks * _pattern_splits(blocks, -(-m // PATTERN_TILE), PLAN_PER_SM * max(sms, 1))[0] < sms
+    products = split_s + split_p
+    if (products + 1) * TOKEN_TILE * 4 * (m if kernel == "dx" else n) > SPLIT_BYTES:  # one tile's sums and a part
         return None
-    else:
-        groups = parts
-    return "scores" if 4 * (groups + 1) * n * m <= SPLIT_BYTES else None
+    return "+".join(name for name, on in (("scores", split_s), ("gu", split_p)) if on) or None
+
+
+def split_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
+    """The slabs of K2's (``kernel="dx"``) or K3's (``"dku"``) split
+    products at these sizes as the built library plans them (its ``_plan``
+    entry): the slabs, the units (tiles of 64 resident rows: tokens in K2,
+    patterns in K3) of a slab, the rounds of depth parts and the parts of a
+    round, and the split's scratch in floats, at most 64 MiB; zeros where
+    nothing is split (:func:`narrow_split`). Launches nothing."""
+    stem = f"hopfield_stream_bwd_{kernel}"
+    out = (ctypes.c_int * 11)()
+    err = getattr(load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
+    if err != 0:
+        raise RuntimeError(f"{stem}_plan{(n, m, d_in, d_out)} failed: cudaError {err}")
+    at = 4 if kernel == "dx" else 6
+    return dict(zip(("slabs", "units_per_slab", "rounds", "parts_per_round", "scratch_floats"), out[at:at + 5]))
 
 
 def fold_layer(layer: HopfieldLookup):

@@ -7,7 +7,8 @@ one each test skips with its reason. On the card, from the repository root
 Past ``BWD_WIDE_MAX`` the backward kernels take every multiple of 128 on
 their window kernels: ``backward_attributes`` reports the window kernel's
 build, with no cluster, and ``backward_workspace`` and ``forward_workspace``
-plan split scratch within 64 MiB, as ``split_plan`` says. A CUDA graph
+plan split scratch within 64 MiB, as ``split_plan`` says; so do K2's and
+K3's split products past 8192 (``hopfield_cuda.split_plan``). A CUDA graph
 left dead in a reference cycle does not break a later capture.
 """
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from hopvae_torch.ops import attention_cuda as ac
+from hopvae_torch.ops import hopfield_cuda as hc
 from hopvae_torch.utils.graphs import collector_held
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +45,16 @@ def test_window_backward_attributes_and_workspace(card, width):
             assert 0 < ac.backward_workspace(b, s, 1, width, kernel) * 4 <= 64 << 20
             assert ac.split_plan(kernel, b, s, 1, width)["slabs"] >= 1
         assert 0 < ac.forward_workspace(b, s, 1, width) * 4 <= 64 << 20
+
+
+@pytest.mark.parametrize("kernel", ["dx", "dku"])
+@pytest.mark.parametrize("sizes", [(4096, 64, 8320, 3), (256, 2048, 8320, 3), (256, 256, 8320, 8320)])
+def test_lookup_split_plans_fit_the_cap(card, kernel, sizes):
+    """K2's and K3's products past 8192, whose sums and parts pass 64 MiB
+    whole, split slab after slab within it: the library's plan has a slab
+    at least, a round of parts at least, and scratch within the cap."""
+    plan = hc.split_plan(kernel, *sizes)
+    assert plan["slabs"] >= 1 and plan["rounds"] >= 1 and 0 < plan["scratch_floats"] * 4 <= 64 << 20
 
 
 def test_capture_survives_a_dead_graph_in_a_cycle(card):

@@ -105,21 +105,24 @@ def split_in_order(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tenso
     return total
 
 
-def k2_scheme(x2, K, U, s, t, g, m, l, delta, passes: int, narrow: bool, per: int):
+def k2_scheme(x2, K, U, s, t, g, m, l, delta, passes: int, narrow: bool, per: int, product=None):
     """``(dx, ds, dt)`` of K2 at widths past 256 where d_in is at most 128
     or a side passes 8192: with ``narrow`` the narrow-side kernel (products
     split as ``hc.narrow_split("dx", ...)`` says, k-steps and dq's window
     at the widths), else the former window kernel (every product
-    recomputed over whole chunks of 64, dq in windows of 128). Both sum dq
-    over pattern tiles of 32, a tile's ``dS K`` a fresh sum added to its
-    split's f32 sum, the splits of ``per`` tiles (the card's plan) in
+    recomputed over whole chunks of 64, dq in windows of 128); ``product(a,
+    b, passes)``, where given, computes ``q Kᵀ`` and ``g Uᵀ`` instead. All
+    sum dq over pattern tiles of 32, a tile's ``dS K`` a fresh sum added to
+    its split's f32 sum, the splits of ``per`` tiles (the card's plan) in
     float64; then the LayerNorm backward in float64."""
     n, d_in = x2.shape
     beta = 1.0 / math.sqrt(d_in)
     xhat, inv = hc._state_ln(x2)
     q = hc._query(xhat, s, t)
     split = hc.narrow_split("dx", n, K.shape[0], d_in, U.shape[1], SMS) or ""
-    if narrow:
+    if product is not None:
+        sc, dp = product(q, K.T, passes), product(g, U.T, passes)
+    elif narrow:
         sc = split_in_order(q, K.T, passes) if "scores" in split else parts_in_order(q, K.T, passes, False)
         dp = split_in_order(g, U.T, passes) if "gu" in split else parts_in_order(g, U.T, passes, False)
     else:
@@ -217,19 +220,26 @@ def test_narrow_dx_matches_pallas_at_3x300():
     (4096, 512, 3, 384, None),             # 64 token tiles, 4 splits: 256 blocks fill the card
     (73984, 4096, 3, 384, None),           # 1,156 tiles; g Uᵀ's scratch would be 8.5 GB
     (37, 64, 8320, 3, "scores"),           # 65 windows read the scores once
-    (4096, 64, 8320, 3, None),             # the scores' scratch would be 137 MB: every window recomputes them
+    (4096, 64, 8320, 3, "scores"),         # the parts' sums take 137 MB: in 3 slabs of 22 token tiles
+    (256, 2048, 8320, 3, "scores"),        # one token tile's parts take 68.7 MB: in rounds
+    (256, 256, 8320, 8320, "scores+gu"),   # S and P in one slab, one after the other
     (37, 64, 3, 8320, "gu"),               # 130 parts of g Uᵀ on one block
     (37, 300, 8320, 300, "scores+gu"),
     (300, 1024, 3, 384, None),
     (37, 1024, 3, 384, "gu"),              # 32 blocks
     (37, 300, 13, 700, "gu"),              # 10 blocks
-    (8192, 512, 64, 300, None),            # 256 blocks, but g Uᵀ's scratch would be 100 MB
+    (8192, 512, 64, 300, None),            # 256 blocks fill the card
     (37, 64, 100, 9000, "gu"),             # one part of q Kᵀ: nothing to split
-    (20000, 4096, 9000, 3, None),          # past SPLIT_BYTES
+    (20000, 4096, 9000, 3, "scores"),      # one token tile's parts pass 64 MiB: rounds
+    (64, 131072, 8320, 3, "scores"),       # one token tile's sums and a part: 64 MiB, the most a unit may take
+    (64, 131073, 8320, 3, None),           # past it the windows compute the scores
+    (64, 87382, 8320, 8320, None),         # two products past 87,381 patterns
 ])
 def test_narrow_split_dx(n, m, d_in, d_out, split):
     """K2's narrow-side route on 132 SMs: which products split over the
-    card, which depends on N and M as well as on the widths."""
+    card, which depends on N and M as well as on the widths, and nowhere
+    on the scratch but where one token tile's sums and one part pass 64
+    MiB."""
     assert hc.narrow_split("dx", n, m, d_in, d_out, SMS) == split
 
 

@@ -256,12 +256,17 @@ def test_forward_narrow_split(n, m, d_in, d_out, split):
 
 
 @pytest.mark.parametrize("n,m,d_in,d_out,split", [
-    (4096, 512, 3, 384, None), (37, 64, 8320, 3, "scores"), (73984, 4096, 8320, 3, None),
-    (4096, 512, 64, 300, None), (37, 64, 3, 8320, None),
+    (4096, 512, 3, 384, None), (37, 64, 8320, 3, "scores"), (73984, 4096, 8320, 3, "scores"),
+    (4096, 512, 64, 300, None), (37, 64, 3, 8320, None), (256, 256, 8320, 8320, "scores+gu"),
+    (37, 300, 8320, 300, "scores+gu"), (4096, 64, 8320, 3, "scores"), (131072, 64, 8320, 3, "scores"),
+    (131073, 64, 8320, 3, None), (278784, 64, 8320, 3, None),
 ])
 def test_backward_narrow_split(n, m, d_in, d_out, split):
-    """K3's narrow-side split: past 8192 on d_in, where every window would
-    recompute them, the scores split within ``SPLIT_BYTES``."""
+    """K3's narrow-side split: where d_in passes 128 (past 8192 on a side),
+    every window would recompute them, so the scores, and ``U gᵀ`` for
+    dK's windows, split in slabs of pattern tiles within ``SPLIT_BYTES``;
+    only where one tile's sums across N and one part pass it (N past
+    131,072 with one product) do the windows compute them."""
     assert hc.narrow_split("dku", n, m, d_in, d_out, sms=132) == split
 
 

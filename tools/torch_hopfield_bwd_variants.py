@@ -33,8 +33,9 @@ each step's ms between CUDA events (host gaps included) and the device's
 busy ms a step (``torch.profiler``: every kernel, and the lookups' K1 to
 K3 with their passes alone), one JSON line a run. First, and alone with
 ``--bits``, the sha256 of each build's K2 ``(dx, ds, dt)`` at the cases of
-``chip_smoke.K2_PARENT_BITS`` (hashed inputs, K1's stats from the port's
-K1), the digests that phase 2 holds the port's K2 to.
+``chip_smoke.K2_PARENT_BITS`` and of its K3 ``(dK, dU)`` at those of
+``chip_smoke.K3_PARENT_BITS`` (hashed inputs, K1's stats from the port's
+K1), the digests that phase 2 holds the port's K2 and K3 to.
 """
 
 from __future__ import annotations
@@ -142,21 +143,26 @@ def cases() -> list[tuple]:
 
 def bits(libs) -> None:
     """One JSON line a build and ``chip_smoke.K2_PARENT_BITS`` case: the
-    sha256 of its K2's ``(dx, ds, dt)`` on the case's hashed inputs."""
-    stem = STEMS[1]
+    sha256 of its K2's ``(dx, ds, dt)`` on the case's hashed inputs; then
+    the same of its K3's ``(dK, dU)`` at each ``chip_smoke.K3_PARENT_BITS``
+    case."""
     with torch.inference_mode():
-        for sizes in cs.K2_PARENT_BITS:
-            n, mp, d_in, d_out = sizes
-            args = cs.backward_bits_args(*sizes)
-            work = workspace(libs, *sizes)
-            for name in libs:
-                outs = [torch.empty(n, d_in, device="cuda"), torch.empty(d_in, device="cuda"),
-                        torch.empty(d_in, device="cuda")]
-                err = call(libs[name][stem], stem, (*args, *outs, work), sizes)
-                if err:
-                    raise RuntimeError(f"{name} {stem}{sizes}: cudaError {err}")
-                torch.cuda.synchronize()
-                print(json.dumps({"build": name, "k2_bits": sizes, "sha256": cs.lookup_digest(outs)}), flush=True)
+        for kernel, stem, cases in (("k2", STEMS[1], cs.K2_PARENT_BITS), ("k3", STEMS[2], cs.K3_PARENT_BITS)):
+            for sizes in cases:
+                n, mp, d_in, d_out = sizes
+                args = cs.backward_bits_args(*sizes)
+                work = workspace(libs, *sizes)
+                for name in libs:
+                    outs = ([torch.empty(n, d_in, device="cuda"), torch.empty(d_in, device="cuda"),
+                             torch.empty(d_in, device="cuda")] if kernel == "k2" else
+                            [torch.empty(mp, d_in, device="cuda"), torch.empty(mp, d_out, device="cuda")])
+                    err = call(libs[name][stem], stem, (*args, *outs, work), sizes)
+                    if err:
+                        raise RuntimeError(f"{name} {stem}{sizes}: cudaError {err}")
+                    torch.cuda.synchronize()
+                    print(json.dumps({"build": name, f"{kernel}_bits": sizes, "sha256": cs.lookup_digest(outs)}),
+                          flush=True)
+                del args, work
 
 
 def width_steps(libs) -> None:
