@@ -36,19 +36,26 @@ Twenty phases, each of which raises on failure:
    and at a ragged (13, 700), (30, 2304) and (50, 700), N 37, M 300 (g Uᵀ
    split: a tile at a time), and (384, 3) and
    (3, 384) at N 73,984, M 4,096, the lookups of a wide-embedding
-   ffhq_64_scaled step, on random tables. Past 256 each K1, K2 and K3 row
+   ffhq_64_scaled step, and (384, 3) at N 16,384, M 512 (an mnist_28
+   batch of 256 at ``embedding_dim=384``) and at N 4,096, M 4,096, on
+   random tables; K1 at (8320, 3), N 4,096 and N 256 and at those two
+   (384, 3) shapes runs its score pass in slabs (its groups' sums past 64
+   MiB). Past 256 each K1, K2 and K3 row
    names its route and plan as the built library gives it
    (``card_plan``: the cluster, or the narrow-side kernel with its
    window, its order or its splits and, where N leaves the card idle or
    every window would recompute them, its split products), its route held
    against ``hc.narrow_split``, the predicate the CPU tests read, K2's
    and K3's with their slabs and rounds (``hc.split_plan``, the scratch
-   within 64 MiB) and, past 8192, a call's device ms in the split passes
-   and in the window kernel (``torch.profiler``); each K1
+   within 64 MiB), K1's with the slabs of its score pass, and, past 8192,
+   a call's device ms in the split passes and in the window kernel
+   (``torch.profiler``; on K1's slabs the query build, the score pass and
+   the kernel); each K1
    row holds the rows of the attention rebuilt from its ``m`` and ``l``,
    the scores summed in K2's and K3's order, to sum to 1 within
    ``ROW_SUM_ATOL``; K1 (``PARENT_BITS``) at (3, 384), N 4,096 and (8320,
-   3), N 37 gives the former window kernel's bits on hashed inputs, and
+   3), N 37 gives the former window kernel's bits on hashed inputs, and at
+   the four shapes of its slabs the one-pass walk's, and
    K2 (``K2_PARENT_BITS``) does so on every route and instance of its
    narrow-side kernel: at those two shapes and at each of the twelve other
    narrow-side cases above; K3 (``K3_PARENT_BITS``) gives its window
@@ -115,7 +122,8 @@ Twenty phases, each of which raises on failure:
     (d, di) = (32, 4), (256, 3), (384, 3), (64, 300) and (384, 300) with
     random tables (N 4,096, M 512; the last three on K1's wide route,
     stage by stage: the cluster or the narrow-side kernel, at (384, 300)
-    the cluster for all three):
+    the cluster for all three), and (384, 3) at N 16,384 (its second
+    stage on K1's score pass in slabs):
     against its plain version and against the streaming bottleneck's
     three K1 launches, ``e`` and ``r`` within 1e-5, at most 1e-4 of the
     ``zq`` bins differing; one launch a call; the three-pass bound.
@@ -440,7 +448,9 @@ def library_ms(q, k, u, reps) -> tuple[float | None, str]:
 # and a ragged case with neither width a multiple of 8; then widths past
 # 256, on the wide variants (on a cluster up to 8192, K1 with both widths
 # past 128: 1280 takes slices of 256, 2304 slices of 512; 8320 the window
-# kernels)
+# kernels); the last two, after the cases before them so as to leave those
+# their random tables and inputs, take K1's score pass in slabs (as do
+# (8320, 3) at N 4,096, M 64 and at N 256, M 2,048)
 WIDTH_CASES = (
     ("width 32x32", 4096, 512, 32, 32),
     ("width 64x4", 4096, 512, 64, 4),
@@ -472,6 +482,8 @@ WIDTH_CASES = (
     ("wide 100x384", 4096, 512, 100, 384),
     ("wide full 384x3", 73984, 4096, 384, 3),
     ("wide full 3x384", 73984, 4096, 3, 384),
+    ("wide 384x3 over the cap", 16384, 512, 384, 3),
+    ("wide 384x3 4096 patterns", 4096, 4096, 384, 3),
 )
 
 
@@ -509,9 +521,9 @@ def lookup_route(d_in: int, d_out: int) -> str:
 
 
 PLAN_ROUTES = ("instance", "cluster", "narrow", "narrow, split scores", "narrow, split g Uᵀ",
-               "narrow, split scores and g Uᵀ")
+               "narrow, split scores and g Uᵀ", "narrow, score pass in slabs")
 SPLITS = {None: "narrow", "scores": "narrow, split scores", "gu": "narrow, split g Uᵀ",
-          "scores+gu": "narrow, split scores and g Uᵀ"}
+          "scores+gu": "narrow, split scores and g Uᵀ", "slabs": "narrow, score pass in slabs"}
 
 
 def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
@@ -521,7 +533,8 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
     read), and on the narrow-side kernel the card's window, K1's order and
     groups, K2's splits of the pattern axis and their tiles, K3's chunks
     of the token tiles, and K2's and K3's slabs and rounds of their split
-    products (``hc.split_plan``), whose scratch must fit 64 MiB."""
+    products and K1's slabs of its score pass (``hc.split_plan``), whose
+    scratch (K1's split's too) must fit 64 MiB."""
     stem = {"fwd": "hopfield_stream_fwd", "dx": "hopfield_stream_bwd_dx", "dku": "hopfield_stream_bwd_dku"}[kernel]
     out = (ctypes.c_int * 11)()
     err = getattr(nvcc.load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
@@ -535,11 +548,13 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
         plan |= {"window": out[1], "splits": out[2], "per": out[3]}
     elif out[0] >= 2:
         plan |= {"window": out[1], "dk_tiles": out[2], "dk_chunks": out[3], "du_tiles": out[4], "du_chunks": out[5]}
-    if out[0] >= 3 and kernel != "fwd":
+    if out[0] >= 3:
         split = hc.split_plan(kernel, n, m, d_in, d_out)
-        plan |= {key: split[key] for key in ("slabs", "units_per_slab", "rounds", "parts_per_round")}
+        slabbed = kernel != "fwd" or out[0] == 6  # K1's split of the scores runs in one piece
+        if slabbed:
+            plan |= {key: val for key, val in split.items() if key != "scratch_floats"}
         plan["split_mib"] = split["scratch_floats"] * 4 / 2**20
-        if not 0 < plan["split_mib"] <= 64 or split["slabs"] < 1:
+        if not 0 < plan["split_mib"] <= 64 or slabbed and split["slabs"] < 1:
             raise AssertionError(f"{stem}'s split at {(n, m, d_in, d_out)} passes 64 MiB: {plan}")
     if hc.kernel_route(d_in, d_out) == "instance":
         want = "instance"
@@ -566,10 +581,16 @@ def hashed(shape: tuple, seed: int) -> torch.Tensor:
 # window kernels' parts, K2's and K3's order at these widths) and so its
 # bits: sha256 of out, m and l on hashed inputs, as the former window kernel
 # gave them on an H100 (tools/torch_hopfield_bwd_variants.py with the
-# parent's build; PERF.md)
+# parent's build; PERF.md); at the last four shapes, where the score pass
+# in slabs runs, as the one-pass walk it replaced gave them (the variants
+# tool, --bits, on the parent's build, which walked there)
 PARENT_BITS = {
     (4096, 512, 3, 384): "305634550e59b1f2e95e01495ff99fd80e12b45d73be7340058c108919c2d62c",
     (37, 64, 8320, 3): "856b258606e64cf24d4cde2cd8cc7c5ec3410f8503803e137c4d2a2940bca000",
+    (4096, 64, 8320, 3): "675e455d5c2103ee4239a08b6bbc0aaf248e2fe0085dffb8e2ea7ccfe56edd77",
+    (256, 2048, 8320, 3): "3e2bb705be0bcd4a036139132342f625289ce69c4d6d8eed9e2007a0a0d94832",
+    (16384, 512, 384, 3): "3df1590c1c529b38b25197148b8e1975f08e37d5e112edd8c1104b2558c014ec",
+    (4096, 4096, 384, 3): "216486942237db95746c8b651fbd07c345261a27c28c630d1fb7b758caa8fc7f",
 }
 # K2 and K5-fwd where their narrow-side and split-score kernels keep the former window
 # kernels' order: sha256 of K2's (dx, ds, dt) (``backward_bits_args``) and of K5-fwd's
@@ -711,19 +732,25 @@ def phase_kernel_vs_plain(env: dict, tables: dict) -> list[dict]:
             rows_err = rebuilt_rows_err(x, k, s, t, m, l, d_out) if route != "instance" else None
             big = n * k.shape[0] > 1e8
             reps = 10 if big else 50
-            kernel_ms = cuda_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), reps)
+            call_ms = cuda_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), reps)
             plain_ms = cuda_ms(lambda: hc.stream_lookup_fwd_reference(x, k, u, s, t), 3 if big else 20)
             lib_ms, backend = library_ms(state_query(x, s, t), k, u, reps)
+            plan = card_plan("fwd", n, k.shape[0], d_in, d_out)
+            parts = kernel_ms(lambda: hc.stream_lookup_fwd(x, k, u, s, t), 5) if plan.get("slabs") else {}
         b_ms, b_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"], tensor_cores=True)
         f32_ms, f32_by = bound(n, k.shape[0], d_in, d_out, env["exp_per_s"])
         row = {
             "shape": label, "n": n, "m": k.shape[0], "d_in": d_in, "d_out": d_out, "route": route,
             "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err, "rebuilt_row_sum_err": rows_err,
             "repeats_bitwise": repeats,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
+            "ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "library_backend": backend,
             "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
-            "build": hc.forward_attributes(d_in, d_out), "plan": card_plan("fwd", n, k.shape[0], d_in, d_out),
+            "build": hc.forward_attributes(d_in, d_out), "plan": plan,
         }
+        if parts:  # a call's device ms in the query build, the score pass and the kernel
+            for key, name in (("query_ms", "build_queries"), ("split_ms", "slab_scores"),
+                              ("window_ms", "narrow_kernel")):
+                row[key] = sum(ms for kn, ms in parts.items() if name in kn)
         log(json.dumps(row))
         rows.append(row)
         if not (err <= OUT_ATOL and m_err <= STAT_RTOL and l_err <= STAT_RTOL and repeats):
@@ -1561,9 +1588,9 @@ def fused_cases() -> list[tuple]:
     """``(label, layers, x, num_levels)``: the encoder's tokens of a
     full-width ffhq_64_scaled batch of 256 with the trained tables (N =
     73,984, M = 4096), the MNIST golden digits with the trained MNIST
-    tables (N = 3,136, M = 512), random tables of M = 300 on 37 tokens, and
+    tables (N = 3,136, M = 512), random tables of M = 300 on 37 tokens,
     random tables of M = 512 on 4,096 tokens at each other width of
-    ``FUSED_WIDTHS``."""
+    ``FUSED_WIDTHS``, and the (384, 3) tables on 16,384 tokens."""
     cases = []
     for label, golden, batch in (("ffhq64 b256", "ffhq64_synthetic4", 256), ("mnist b64", "mnist_digits", None)):
         spec = GOLDENS[golden]
@@ -1581,12 +1608,16 @@ def fused_cases() -> list[tuple]:
         layers[name] = HopfieldLookup(d_in, d_out, 300, device="cuda")
         layers[name].reset_parameters(generator=g)
     cases.append(("ragged", layers, torch.randn(37, 64, device="cuda", generator=g), 512))
+    tables = {}
     for d, di in FUSED_WIDTHS[1:]:
-        layers = {}
+        tables[d, di] = layers = {}
         for name, (d_in, d_out) in zip(LAYERS, ((d, d), (d, di), (di, d))):
             layers[name] = HopfieldLookup(d_in, d_out, 512, device="cuda")
             layers[name].reset_parameters(generator=g)
         cases.append((f"width {d}x{di}", layers, torch.randn(4096, d, device="cuda", generator=g), 512))
+    # (384, 3) again at N 16,384: its second stage, (384, 3), takes K1's score pass in slabs
+    cases.append(("width 384x3 over the cap", tables[384, 3], torch.randn(16384, 384, device="cuda", generator=g),
+                  512))
     return cases
 
 

@@ -251,8 +251,8 @@ extern "C" int hopfield_bottleneck_fused_cluster(int d_in, int d_out, int* out) 
 
 // Floats of device scratch that hopfield_bottleneck_fused_wide needs: one
 // stage's queries (n, max(d, di)) and zq / (L - 1) (n, di), then the most
-// that a stage's split scores take (hopfield_narrow::fwd_split_floats;
-// the stages run one after the other).
+// that a stage's split scores or a slab of its score pass take
+// (hopfield_narrow::fwd_split_floats; the stages run one after the other).
 extern "C" long long hopfield_bottleneck_fused_wide_workspace(int n, int m1, int m2, int m3, int d, int di) {
   if (n <= 0 || m1 <= 0 || m2 <= 0 || m3 <= 0 || d < 1 || di < 1) return 0;
   using hopfield_narrow::fwd_split_floats;

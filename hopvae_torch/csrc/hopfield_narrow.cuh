@@ -42,17 +42,26 @@
 //   forward then reads S in place of its parts. The sums are the same
 //   operations in the same order: the same bits as without the split.
 //   The plan (fwd_window_plan) comes from N, M, the widths and the SMs;
-//   the scratch is capped at SPLIT_BYTES. A split over a thread-block
-//   cluster of the groups, their sums meeting over DSMEM in rank order
-//   at each tile, lost to it on an H100 (K1 at (384, 3), N 4,096, 0.143
-//   against 0.114 ms; at (1280, 3), N 37, 0.144 against 0.070; PERF.md):
+//   the scratch is capped at SPLIT_BYTES. Where the groups' sums pass it,
+//   S is computed once all the same, slab after slab of token tiles
+//   within SPLIT_BYTES (fwd_slab_plan): a score pass in which each block
+//   owns its tiles of S and adds every part in registers in the walk's
+//   order, then the forward on the slab's S; no part reaches memory, and
+//   the pass's grid fills the card where ceil(N / 64) walking blocks
+//   would not (at (8320, 3), N 256, M 2,048: 256 blocks, not 4). A split
+//   over a thread-block cluster of the groups, their sums meeting over
+//   DSMEM in rank order at each tile, lost to it on an H100 (K1 at (384,
+//   3), N 4,096, 0.143 against 0.114 ms; at (1280, 3), N 37, 0.144
+//   against 0.070; PERF.md):
 //   every tile waits on a cluster barrier, and rank 0's softmax and P U
 //   on the other ranks' sums, so the groups' walks never overlap;
 // - stream part items (a part of the resident rows and of the tile, or
 //   the tile's window) through two buffers, one block barrier an item. A
 //   ring of three (78,336 shared bytes, 2 blocks an SM) lost to two
 //   (52,224 bytes, 4 blocks an SM at a window of 8) on an H100: K1 at
-//   (384, 3), N 73,984, 9.89 against 7.56 ms (PERF.md).
+//   (384, 3), N 73,984, 9.89 against 7.56 ms; in the score pass rings of
+//   three and four ran no faster, and 1.3 times slower at (384, 3), N
+//   4,096, M 4,096 (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 //
 // Every product is mma.sync m16n8k8 on TF32 operands in three passes; f32
 // sums in a fixed order, no float atomics: every output has the same bits
@@ -126,13 +135,13 @@ inline int sm_count() {
   return sms;
 }
 
-// Whether the scores of n token rows (n, m patterns) of `groups` groups
-// are split, when `blocks` blocks would walk them in one pass: more than
-// one group, fewer blocks than the card holds at two an SM, and the
-// scratch within SPLIT_BYTES.
-inline bool split_pays(int n, int m, int groups, long long blocks, int sms) {
-  return groups >= 2 && blocks < 2ll * sms && 4ll * (groups + 1) * n * m <= SPLIT_BYTES;
-}
+// Whether the scores of a depth of `groups` groups are computed apart
+// before the forward, when `blocks` blocks would walk them in one pass:
+// more than one group, and fewer blocks than the card holds at two an SM.
+inline bool split_pays(int groups, long long blocks, int sms) { return groups >= 2 && blocks < 2ll * sms; }
+// Whether the split (split_scores) of n token rows by m patterns fits:
+// every group's sums and S within SPLIT_BYTES.
+inline bool split_fits(int n, int m, int groups) { return 4ll * (groups + 1) * n * m <= SPLIT_BYTES; }
 // floats of the split's scratch: each group's sums, then S
 inline long long split_floats(int n, int m, int groups) { return static_cast<long long>(groups + 1) * n * m; }
 
@@ -390,21 +399,112 @@ inline cudaError_t split_slab(const float* a, const float* b, float* sums, float
 
 // ---- the forward
 
+// The forward's routes where its cluster does not run, by the codes of
+// hopfield_stream_fwd_plan: one pass (the walk), the scores split over
+// groups first (split_scores), or S by the score pass in slabs of token
+// tiles (4 and 5 are K2's and K3's codes).
+enum FwdRoute { WALK = 2, SPLIT = 3, SLABS = 6 };
+
+// K1's slabs past the split's cap: the most token tiles whose S (TM rows
+// by m_patterns) fits SPLIT_BYTES, balanced, in s (no rounds: the score
+// pass keeps every part in registers); and `per`, the pattern tiles a
+// block of the score pass, the fewest runs of them that put two blocks an
+// SM on a slab's grid where the tiles allow, balanced. false where one
+// tile's S passes the cap (m_patterns past 262,144).
+inline bool fwd_slab_plan(int n, int m_patterns, int sms, SlabPlan& s, int& per) {
+  const long long units = (n + TM - 1) / TM, unit = static_cast<long long>(TM) * m_patterns;
+  const long long most = std::min(units, SPLIT_BYTES / static_cast<long long>(sizeof(float)) / unit);
+  if (most < 1) return false;
+  const long long slabs = (units + most - 1) / most;
+  s.slabs = static_cast<int>(slabs);
+  s.slab = static_cast<int>((units + slabs - 1) / slabs);
+  s.round = s.rounds = 0;
+  s.floats = std::min<long long>(static_cast<long long>(s.slab) * TM, n) * m_patterns;
+  const long long tiles = (m_patterns + TN - 1) / TN;
+  const long long runs = std::min(tiles, (2ll * std::max(sms, 1) + s.slab - 1) / s.slab);
+  per = static_cast<int>((tiles + runs - 1) / runs);
+  return true;
+}
+
 // The forward's plan where its cluster does not run: the output window
-// (d_out padded to 8 up to 128, else 128), the parts' order, and whether
-// the scores are split (split_pays, for ceil(n / TM) blocks a window).
+// (d_out padded to 8 up to 128, else 128), the parts' order, and its
+// route: where ceil(n / TM) blocks a window leave the card idle
+// (split_pays), the split if it fits, else the slabs; else the walk.
 struct FwdPlan {
   int cw;
   Order order;
-  bool split;
+  int route;
+  SlabPlan slabs;  // SLABS: slabs of token tiles
+  int per;         // SLABS: pattern tiles a block of the score pass
 };
 inline FwdPlan fwd_window_plan(int n, int m_patterns, int d_in, int d_out, int sms) {
-  FwdPlan p;
+  FwdPlan p{};
   p.cw = d_out <= 128 ? padded_width(d_out) : 128;
   p.order = score_order(d_in, d_out);
+  p.route = WALK;
+  const int groups = groups_of(d_in, p.order);
   const long long blocks = static_cast<long long>((n + TM - 1) / TM) * windows_of(d_out, p.cw);
-  p.split = split_pays(n, m_patterns, groups_of(d_in, p.order), blocks, sms);
+  if (!split_pays(groups, blocks, sms)) return p;
+  if (split_fits(n, m_patterns, groups)) p.route = SPLIT;
+  else if (fwd_slab_plan(n, m_patterns, sms, p.slabs, p.per)) p.route = SLABS;
   return p;
+}
+
+// The score pass: S = q K^T of the block's TM token rows of q (n, d_in)
+// and pattern tiles [blockIdx.y per, + per) into S (n, m_patterns). Each
+// tile's part items (a part of the rows of q and of the tile of K) stream
+// through the ring, as the walk of stream_fwd_narrow_kernel streams them;
+// each part's product in a fresh sum, added in the order (group, trunc)
+// in registers (add_part), then the tile's scores written. The same
+// operations in the same order as the walk: the same bits.
+__global__ void __launch_bounds__(THREADS)
+slab_scores_kernel(const float* __restrict__ q, const float* __restrict__ K, float* __restrict__ S, int n,
+                   int m_patterns, int d_in, int per, int group, int trunc, unsigned vec16) {
+  extern __shared__ float4 smem4[];
+  float* buf = reinterpret_cast<float*>(smem4);  // buffer u at buf + u * SLOT
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (threadIdx.x >> 5);
+  const int row0 = blockIdx.x * TM;
+  const int np = parts_of(d_in);
+  const int t0 = blockIdx.y * per;
+  const int items = (min((m_patterns + TN - 1) / TN, t0 + per) - t0) * np;
+  const bool qv = vec16 & 1u, kv = vec16 >> 1 & 1u;
+
+  auto stage_item = [&](int i) {
+    if (i < items) {
+      float* y = buf + (i % NB) * SLOT;
+      const int it = t0 + i / np, c0 = i % np * PART, w = staged(min(PART, d_in - c0));
+      stage<TM>(y, RP, q, d_in, c0, w, row0, n, qv);
+      stage<TN>(y + TM * RP, RP, K, d_in, c0, w, it * TN, m_patterns, kv);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NB - 1; ++i) stage_item(i);
+
+  float sc[NT][4], gs[NT][4], pp[NT][4];
+  zero(sc);
+  zero(gs);
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    stage_item(i + NB - 1);
+    const float* y = buf + (i % NB) * SLOT;
+    const int sub = i % np;
+    if (trunc) part_product<true>(pp, y + m0 * RP, y + TM * RP, part_steps(d_in, sub), gq, tq);
+    else part_product<false>(pp, y + m0 * RP, y + TM * RP, part_steps(d_in, sub), gq, tq);
+    add_part(sc, gs, pp, sub, group, np);
+    if (sub < np - 1) continue;
+    const int p_lo = (t0 + i / np) * TN;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + m0 + gq + 8 * (e >> 1), col = p_lo + 8 * j + 2 * tq + (e & 1);
+        if (row < n && col < m_patterns) S[static_cast<size_t>(row) * m_patterns + col] = sc[j][e];
+      }
+  }
 }
 
 // The narrow-side forward: out = softmax(beta q K^T) U / l for the block's
@@ -603,19 +703,23 @@ auto with_window(int cw, F&& f) {
   }
 }
 
-// Floats of scratch the wide forward needs past the built q: the split's,
-// where its plan splits the scores.
+// Floats of scratch the wide forward needs past the built q: the split's
+// or a slab's S, where its plan takes either route.
 inline long long fwd_split_floats(int n, int m_patterns, int d_in, int d_out) {
   int j, ranks;
   if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return 0;
   const FwdPlan p = fwd_window_plan(n, m_patterns, d_in, d_out, sm_count());
-  return p.split ? split_floats(n, m_patterns, groups_of(d_in, p.order)) : 0;
+  if (p.route == SPLIT) return split_floats(n, m_patterns, groups_of(d_in, p.order));
+  return p.route == SLABS ? p.slabs.floats : 0;
 }
 
 // The wide forward over the built q (n, d_in), the route past 256: the
 // cluster kernel where fwd_plan takes the widths, else the narrow-side
-// kernel on its plan, the split scores through `work` (fwd_split_floats
-// floats: the groups' sums, then S). A refused launch returns its error.
+// kernel on its plan, through `work` (fwd_split_floats floats): the split
+// scores (the groups' sums, then S), or slab after slab of token tiles
+// the score pass into a slab's S, then the kernel on the slab's rows
+// (every output row belongs to one slab). A refused launch returns its
+// error.
 template <int MODE>
 cudaError_t launch_fwd(const float* q, const float* K, const float* U, const float* bias, float* out, float* m,
                        float* l, float* zn, float* work, int n, int m_patterns, int d_in, int d_out, float beta,
@@ -627,26 +731,43 @@ cudaError_t launch_fwd(const float* q, const float* K, const float* U, const flo
   const int sms = sm_count();
   const FwdPlan p = fwd_window_plan(n, m_patterns, d_in, d_out, sms);
   if (windows_of(d_out, p.cw) > 65535) return cudaErrorInvalidValue;
-  const float* S = nullptr;
-  if (p.split) {
-    const int groups = groups_of(d_in, p.order);
-    float* s_out = work + static_cast<size_t>(groups) * n * m_patterns;
-    const cudaError_t err = split_scores(q, K, s_out, work, n, m_patterns, d_in, p.order, sms, stream);
-    if (err != cudaSuccess) return err;
-    S = s_out;
+  // the kernel on rows [r0, r0 + rows), S (rows, m_patterns) their scores or null
+  auto window = [&](const float* S, size_t r0, int rows) {
+    return with_window(p.cw, [&](auto c) {
+      constexpr int CW = decltype(c)::value;
+      auto kernel = stream_fwd_narrow_kernel<CW, MODE>;
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(BYTES));
+      if (err != cudaSuccess) return err;
+      const float* qr = q + r0 * d_in;
+      const unsigned vec16 = vec16_ok(qr, d_in) | vec16_ok(K, d_in) << 1 | vec16_ok(U, d_out) << 2 |
+                             (S ? vec16_ok(S, m_patterns) : 0u) << 3;
+      kernel<<<dim3((rows + TM - 1) / TM, windows_of(d_out, CW)), THREADS, BYTES, stream>>>(
+          qr, K, U, S, bias, out + r0 * d_out, m ? m + r0 : m, l ? l + r0 : l, zn ? zn + r0 * d_out : zn, rows,
+          m_patterns, d_in, d_out, beta, levels, p.order.group, p.order.trunc, vec16);
+      return cudaGetLastError();
+    });
+  };
+  if (p.route == SPLIT) {
+    float* S = work + static_cast<size_t>(groups_of(d_in, p.order)) * n * m_patterns;
+    const cudaError_t err = split_scores(q, K, S, work, n, m_patterns, d_in, p.order, sms, stream);
+    return err != cudaSuccess ? err : window(S, 0, n);
   }
-  return with_window(p.cw, [&](auto c) {
-    constexpr int CW = decltype(c)::value;
-    auto kernel = stream_fwd_narrow_kernel<CW, MODE>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(BYTES));
-    if (err != cudaSuccess) return err;
-    const unsigned vec16 = vec16_ok(q, d_in) | vec16_ok(K, d_in) << 1 | vec16_ok(U, d_out) << 2 |
-                           (S ? vec16_ok(S, m_patterns) : 0u) << 3;
-    kernel<<<dim3((n + TM - 1) / TM, windows_of(d_out, CW)), THREADS, BYTES, stream>>>(
-        q, K, U, S, bias, out, m, l, zn, n, m_patterns, d_in, d_out, beta, levels, p.order.group, p.order.trunc,
-        vec16);
-    return cudaGetLastError();
-  });
+  if (p.route != SLABS) return window(nullptr, 0, n);
+  cudaError_t err = cudaFuncSetAttribute(slab_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(BYTES));
+  const int runs = ((m_patterns + TN - 1) / TN + p.per - 1) / p.per;
+  const size_t step = static_cast<size_t>(p.slabs.slab) * TM;
+  for (size_t r0 = 0; r0 < static_cast<size_t>(n) && err == cudaSuccess; r0 += step) {
+    const int rows = static_cast<int>(std::min(step, n - r0));
+    const float* qr = q + r0 * d_in;
+    slab_scores_kernel<<<dim3((rows + TM - 1) / TM, runs), THREADS, BYTES, stream>>>(
+        qr, K, work, rows, m_patterns, d_in, p.per, p.order.group, p.order.trunc,
+        vec16_ok(qr, d_in) | vec16_ok(K, d_in) << 1);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = window(work, r0, rows);
+  }
+  return err;
 }
 
 // The forward's narrow-side kernel (MODE's instance) for a window of d_out

@@ -60,10 +60,11 @@
 // computed once; elsewhere the narrow-side kernel of hopfield_narrow.cuh
 // (the window sized to d_out, the depth in parts of 64 summed in K2's and
 // K3's order, and, where few token tiles would leave the card idle, the
-// scores split over the card first: a plan from N, M, the widths and the
-// SMs). A refused launch returns its error. The cluster is bound by
-// latency (about 6 us a tile of 32 patterns at 512 -> 512 on an H100;
-// PERF.md).
+// scores split over the card first, or past the split's cap computed by a
+// score pass slab after slab of token tiles within 64 MiB: a plan from N,
+// M, the widths and the SMs). A refused launch returns its error. The
+// cluster is bound by latency (about 6 us a tile of 32 patterns at 512 ->
+// 512 on an H100; PERF.md).
 
 #include "hopfield_cluster.cuh"
 #include "hopfield_narrow.cuh"
@@ -164,7 +165,8 @@ extern "C" int hopfield_stream_fwd(const float* x, const float* K, const float* 
 }
 
 // Floats of device scratch that hopfield_stream_fwd_wide needs: q (n,
-// d_in), then the split scores' where the narrow-side plan splits them.
+// d_in), then the split scores' or a slab's S where the narrow-side plan
+// takes either route.
 extern "C" long long hopfield_stream_fwd_workspace(int n, int m_patterns, int d_in, int d_out) {
   if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return 0;
   return static_cast<long long>(n) * d_in + hopfield_narrow::fwd_split_floats(n, m_patterns, d_in, d_out);
@@ -214,24 +216,32 @@ extern "C" int hopfield_stream_fwd_cluster(int d_in, int d_out, int* out) {
   return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, false, out));
 }
 
-// The route of (n, m_patterns, d_in, d_out), into out[0..4]: 0 a built
+// The route of (n, m_patterns, d_in, d_out), into out[0..7]: 0 a built
 // instance (both widths up to 256), 1 the cluster, 2 the narrow-side
-// kernel, 3 the same on split scores; then, for 2 and 3, its window, the
+// kernel, 3 the same on split scores, 6 the same on S from the score pass
+// in slabs (hopfield_narrow::FwdRoute); then, from 2, its window, the
 // parts of a group of its order and whether the small parts are
-// truncated (the card's SMs from the current device). Returns a
-// cudaError_t.
+// truncated; for 6 the slabs, the token tiles of a slab and the pattern
+// tiles a block of the score pass; for 3 and 6 the scratch in floats past
+// q (the card's SMs from the current device). Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_plan(int n, int m_patterns, int d_in, int d_out, int* out) {
   if (n <= 0 || m_patterns <= 0 || d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
-  for (int i = 0; i < 5; ++i) out[i] = 0;
+  for (int i = 0; i < 8; ++i) out[i] = 0;
   int j, ranks;
   if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
   out[0] = 1;
   if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return cudaSuccess;
   const hopfield_narrow::FwdPlan p =
       hopfield_narrow::fwd_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count());
-  out[0] = p.split ? 3 : 2;
+  out[0] = p.route;
   out[1] = p.cw;
   out[2] = p.order.group;
   out[3] = p.order.trunc;
+  if (p.route == hopfield_narrow::SLABS) {
+    out[4] = p.slabs.slabs;
+    out[5] = p.slabs.slab;
+    out[6] = p.per;
+  }
+  out[7] = static_cast<int>(hopfield_narrow::fwd_split_floats(n, m_patterns, d_in, d_out));
   return cudaSuccess;
 }

@@ -43,7 +43,8 @@ window sized to the narrow side, the depth in parts of 64 summed in K2's
 and K3's order, :func:`score_order`); where few token tiles would leave
 the card idle, or every window would recompute them, a product is split
 over the card first (K1's scores, K2's and K3's scores and ``g Uᵀ``:
-:func:`narrow_split`), K2's and K3's slab after slab within 64 MiB
+:func:`narrow_split`), K2's and K3's slab after slab within 64 MiB, and
+K1's past its split's cap by a score pass slab after slab of token tiles
 (:func:`split_plan`).
 
 Pattern sharding (JAX's ``_attn_tp_merge``, ``_attn_ln_stream_tp``):
@@ -171,7 +172,10 @@ def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -
     ``"scores"``, and for K2 and K3 also ``"gu"`` (``g Uᵀ``) or
     ``"scores+gu"``. K1 splits where its depth has more than one group and
     its blocks (64 token rows and a window of ``d_out`` each) are fewer
-    than two an SM, its scratch within ``SPLIT_BYTES``. K2 and K3 split a
+    than two an SM, its scratch within ``SPLIT_BYTES``; where the groups'
+    sums pass it, ``"slabs"``: ``S`` by a score pass slab after slab of
+    token tiles within ``SPLIT_BYTES``, every part in registers (one pass
+    where one tile's ``S`` passes it, M past 262,144). K2 and K3 split a
     product where its depth has more than one part and d_in more than one
     window of 128 (each window would recompute it); K2 also splits ``g Uᵀ``
     where its blocks (64 token rows, a window and a split of the pattern
@@ -190,7 +194,9 @@ def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -
         windows = 1 if d_out <= 128 else -(-d_out // 128)
         if groups < 2 or -(-n // TOKEN_TILE) * windows >= 2 * sms:
             return None
-        return "scores" if 4 * (groups + 1) * n * m <= SPLIT_BYTES else None
+        if 4 * (groups + 1) * n * m <= SPLIT_BYTES:
+            return "scores"
+        return "slabs" if 4 * TOKEN_TILE * m <= SPLIT_BYTES else None
     windows = 1 if d_in <= 128 else -(-d_in // 128)
     split_s = parts >= 2 and windows > 1
     split_p = -(-d_out // PART) >= 2 and windows > 1
@@ -209,12 +215,17 @@ def split_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
     entry): the slabs, the units (tiles of 64 resident rows: tokens in K2,
     patterns in K3) of a slab, the rounds of depth parts and the parts of a
     round, and the split's scratch in floats, at most 64 MiB; zeros where
-    nothing is split (:func:`narrow_split`). Launches nothing."""
-    stem = f"hopfield_stream_bwd_{kernel}"
+    nothing is split (:func:`narrow_split`). For K1 (``"fwd"``) the slabs
+    of its score pass (:func:`narrow_split`'s ``"slabs"``), the token tiles
+    of a slab and the pattern tiles a block of the pass, and the scratch
+    past q of the split or of a slab's ``S``. Launches nothing."""
+    stem = "hopfield_stream_fwd" if kernel == "fwd" else f"hopfield_stream_bwd_{kernel}"
     out = (ctypes.c_int * 11)()
     err = getattr(load_library(stem), f"{stem}_plan")(n, m, d_in, d_out, out)
     if err != 0:
         raise RuntimeError(f"{stem}_plan{(n, m, d_in, d_out)} failed: cudaError {err}")
+    if kernel == "fwd":
+        return dict(zip(("slabs", "units_per_slab", "pattern_tiles_per_block", "scratch_floats"), out[4:8]))
     at = 4 if kernel == "dx" else 6
     return dict(zip(("slabs", "units_per_slab", "rounds", "parts_per_round", "scratch_floats"), out[at:at + 5]))
 

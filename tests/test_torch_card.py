@@ -8,7 +8,8 @@ Past ``BWD_WIDE_MAX`` the backward kernels take every multiple of 128 on
 their window kernels: ``backward_attributes`` reports the window kernel's
 build, with no cluster, and ``backward_workspace`` and ``forward_workspace``
 plan split scratch within 64 MiB, as ``split_plan`` says; so do K2's and
-K3's split products past 8192 (``hopfield_cuda.split_plan``). A CUDA graph
+K3's split products past 8192 and K1's score pass past its split cap
+(``hopfield_cuda.split_plan``). A CUDA graph
 left dead in a reference cycle does not break a later capture.
 """
 
@@ -55,6 +56,17 @@ def test_lookup_split_plans_fit_the_cap(card, kernel, sizes):
     at least, a round of parts at least, and scratch within the cap."""
     plan = hc.split_plan(kernel, *sizes)
     assert plan["slabs"] >= 1 and plan["rounds"] >= 1 and 0 < plan["scratch_floats"] * 4 <= 64 << 20
+
+
+@pytest.mark.parametrize("sizes", [(4096, 64, 8320, 3), (256, 2048, 8320, 3), (16384, 512, 384, 3),
+                                   (4096, 4096, 384, 3)])
+def test_forward_slab_plans_fit_the_cap(card, sizes):
+    """K1's score pass past its split cap: the library's plan covers every
+    token tile in its slabs, gives a block a pattern tile at least, and
+    holds a slab's S within 64 MiB."""
+    plan = hc.split_plan("fwd", *sizes)
+    assert plan["slabs"] * plan["units_per_slab"] >= -(-sizes[0] // hc.TOKEN_TILE)
+    assert plan["pattern_tiles_per_block"] >= 1 and 0 < plan["scratch_floats"] * 4 <= 64 << 20
 
 
 def test_capture_survives_a_dead_graph_in_a_cycle(card):

@@ -239,19 +239,24 @@ def test_score_order_is_the_backward_order(d_in, d_out, order):
     (4096, 512, 3, 384, None),            # one group: nothing to split
     (37, 300, 1280, 3, "scores"),
     (37, 64, 8320, 3, "scores"),
-    (73984, 4096, 8320, 3, None),         # past SPLIT_BYTES
+    (73984, 4096, 8320, 3, None),         # 1,156 tiles fill the card
     (8192, 512, 384, 3, "scores"),        # 128 tiles; the scratch at 64 MiB, the most it may take
-    (16384, 512, 384, 3, None),           # 256 tiles, under two an SM, but 128 MiB of scratch
+    (16384, 512, 384, 3, "slabs"),        # 256 tiles, under two an SM, but 128 MiB of groups' sums
     (16384, 128, 384, 3, "scores"),
     (20000, 128, 384, 3, None),           # 313 tiles
     (4096, 512, 128, 300, "scores"),      # two parts, three windows: 192 blocks
     (4096, 512, 64, 300, None),
     (4096, 512, 300, 64, "scores"),
+    (256, 2048, 8320, 3, "slabs"),        # 4 tiles; 275 MB of groups' sums
+    (4096, 64, 8320, 3, "slabs"),         # 64 tiles; 137 MB
+    (4096, 4096, 384, 3, "slabs"),        # 64 tiles; 268 MB
+    (256, 262144, 8320, 3, "slabs"),      # one tile's S at 64 MiB, the most a slab may hold
+    (256, 262145, 8320, 3, None),         # one tile's S past it: one pass
 ])
 def test_forward_narrow_split(n, m, d_in, d_out, split):
     """K1's narrow-side split on 132 SMs depends on N and M as well as on
     the widths: the scores through device memory within ``SPLIT_BYTES``,
-    or one pass."""
+    past it the score pass in slabs, or one pass."""
     assert hc.narrow_split("fwd", n, m, d_in, d_out, sms=132) == split
 
 
@@ -285,6 +290,7 @@ def test_narrow_split_constants_match_the_sources():
     narrow = (csrc / "hopfield_narrow.cuh").read_text()
     assert re.search(r"constexpr int PART = (\d+);", narrow)[1] == str(hc.PART)
     assert re.search(r"constexpr int TM = (\d+);", narrow)[1] == str(hc.TOKEN_TILE)
+    assert re.search(r"constexpr int TN = (\d+);", narrow)[1] == str(hc.PATTERN_TILE)
     assert re.search(r"SPLIT_BYTES = (\d+)ll << (\d+);", narrow).groups() == ("64", "20")
     assert hc.SPLIT_BYTES == 64 << 20
 

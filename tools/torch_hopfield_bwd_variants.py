@@ -35,7 +35,9 @@ K3 with their passes alone), one JSON line a run. First, and alone with
 ``--bits``, the sha256 of each build's K2 ``(dx, ds, dt)`` at the cases of
 ``chip_smoke.K2_PARENT_BITS`` and of its K3 ``(dK, dU)`` at those of
 ``chip_smoke.K3_PARENT_BITS`` (hashed inputs, K1's stats from the port's
-K1), the digests that phase 2 holds the port's K2 and K3 to.
+K1), the digests that phase 2 holds the port's K2 and K3 to, after the
+sha256 of each build's K1 ``(out, m, l)`` at the cases of
+``chip_smoke.PARENT_BITS``.
 """
 
 from __future__ import annotations
@@ -141,11 +143,31 @@ def cases() -> list[tuple]:
     return [*cs.kernel_cases(cs.folded_tables()), (label, n, tables, d_in, d_out)]
 
 
+def k1_bits(libs) -> None:
+    """One JSON line a build and ``chip_smoke.PARENT_BITS`` case: the
+    sha256 of its K1's ``(out, m, l)`` on the case's hashed inputs."""
+    with torch.inference_mode():
+        for sizes in cs.PARENT_BITS:
+            n, mp, d_in, d_out = sizes
+            inputs = cs.parent_bits_inputs(*sizes)
+            work = workspace(libs, *sizes)
+            for name in libs:
+                outs = [torch.empty(n, d_out, device="cuda"), torch.empty(n, 1, device="cuda"),
+                        torch.empty(n, 1, device="cuda")]
+                err = call(libs[name][STEMS[0]], fwd_entry(d_in, d_out), fwd_ptrs(*inputs, outs, work), sizes)
+                if err:
+                    raise RuntimeError(f"{name} {STEMS[0]}{sizes}: cudaError {err}")
+                torch.cuda.synchronize()
+                print(json.dumps({"build": name, "k1_bits": sizes, "sha256": cs.lookup_digest(outs)}), flush=True)
+            del inputs, work
+
+
 def bits(libs) -> None:
     """One JSON line a build and ``chip_smoke.K2_PARENT_BITS`` case: the
     sha256 of its K2's ``(dx, ds, dt)`` on the case's hashed inputs; then
     the same of its K3's ``(dK, dU)`` at each ``chip_smoke.K3_PARENT_BITS``
-    case."""
+    case; first K1's (``k1_bits``)."""
+    k1_bits(libs)
     with torch.inference_mode():
         for kernel, stem, cases in (("k2", STEMS[1], cs.K2_PARENT_BITS), ("k3", STEMS[2], cs.K3_PARENT_BITS)):
             for sizes in cases:
