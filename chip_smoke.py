@@ -22,8 +22,9 @@ Twenty phases, each of which raises on failure:
    and past 256, on the wide variants: (512, 512), (384, 384), (384, 3)
    and (3, 384) at N 4,096, M 512 (the last three phase 13's lookups at
    ``embedding_dim=384``), a ragged (300, 700), (1280, 3), (1280, 300)
-   (the clusters with slices of 256; K1's at (1280, 3) is its narrow-side
-   kernel) and (300, 2304) (slices of 512) at N 37, M 300, (8320, 3)
+   (the clusters with slices of 256; at (1280, 3) the narrow-side kernels
+   in the cluster's order, K2's and K3's on split scores) and (300, 2304)
+   (slices of 512) at N 37, M 300, (8320, 3)
    and (3, 8320) at N 37, M 64 and (8320, 300) at N 37, M 300 (past the
    widest cluster: the narrow-side kernels of K1, K2 and K3, K2's with
    its scores, its g Uᵀ or both split over the card first), (8320, 3) at
@@ -40,11 +41,14 @@ Twenty phases, each of which raises on failure:
    batch of 256 at ``embedding_dim=384``) and at N 4,096, M 4,096, on
    random tables; K1 at (8320, 3), N 4,096 and N 256 and at those two
    (384, 3) shapes runs its score pass in slabs (its groups' sums past 64
-   MiB). Past 256 each K1, K2 and K3 row
+   MiB); K2 and K3 at (384, 3) and at (300, 64), N 4,096, M 512 run
+   their whole window (all of d_in in one block, each score computed once
+   in registers). Past 256 each K1, K2 and K3 row
    names its route and plan as the built library gives it
    (``card_plan``: the cluster, or the narrow-side kernel with its
    window, its order or its splits and, where N leaves the card idle or
-   every window would recompute them, its split products), its route held
+   every window would recompute them, its split products, or K2's and
+   K3's whole window), its route held
    against ``hc.narrow_split``, the predicate the CPU tests read, K2's
    and K3's with their slabs and rounds (``hc.split_plan``, the scratch
    within 64 MiB), K1's with the slabs of its score pass, and, past 8192,
@@ -60,7 +64,9 @@ Twenty phases, each of which raises on failure:
    narrow-side kernel: at those two shapes and at each of the twelve other
    narrow-side cases above; K3 (``K3_PARENT_BITS``) gives its window
    walk's bits at (8320, 3), N 37, M 64 and N 4,096, M 64 and at the two
-   new shapes.
+   new shapes; K2 and K3 at (384, 3), N 4,096 and 16,384, at (1280, 3), N
+   37 and at (300, 64), N 4,096 give the bits their narrow-side kernels
+   first gave there, in the cluster's order, when they left the cluster.
 3. MNIST golden: the trained backbone in ``checkpoints/`` through the
    ``InferenceEngine`` on the 64 committed digits, on the f32 path and on
    the production path (bf16 conv stacks).
@@ -484,6 +490,7 @@ WIDTH_CASES = (
     ("wide full 3x384", 73984, 4096, 3, 384),
     ("wide 384x3 over the cap", 16384, 512, 384, 3),
     ("wide 384x3 4096 patterns", 4096, 4096, 384, 3),
+    ("wide 300x64", 4096, 512, 300, 64),
 )
 
 
@@ -514,25 +521,27 @@ def state_query(x, s, t) -> torch.Tensor:
 
 def lookup_route(d_in: int, d_out: int) -> str:
     """K1's route at these widths: a built instance, the cluster or the
-    narrow-side kernel (``hc.kernel_route``, ``hc.forward_cluster``)."""
+    narrow-side kernel (``hc.kernel_route``, ``hc.on_cluster``)."""
     if hc.kernel_route(d_in, d_out) == "instance":
         return "instance"
-    return "cluster" if hc.forward_cluster(d_in, d_out) else "narrow"
+    return "cluster" if hc.on_cluster(d_in, d_out) else "narrow"
 
 
 PLAN_ROUTES = ("instance", "cluster", "narrow", "narrow, split scores", "narrow, split g Uᵀ",
-               "narrow, split scores and g Uᵀ", "narrow, score pass in slabs")
+               "narrow, split scores and g Uᵀ", "narrow, score pass in slabs", "narrow, whole window")
 SPLITS = {None: "narrow", "scores": "narrow, split scores", "gu": "narrow, split g Uᵀ",
-          "scores+gu": "narrow, split scores and g Uᵀ", "slabs": "narrow, score pass in slabs"}
+          "scores+gu": "narrow, split scores and g Uᵀ", "slabs": "narrow, score pass in slabs",
+          "whole": "narrow, whole window"}
 
 
 def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
     """K1's (``kernel="fwd"``), K2's (``"dx"``) or K3's (``"dku"``) plan at
     these sizes as the built library gives it (its ``_plan`` entry): the
     route, held against ``hc.narrow_split`` (the predicate the CPU tests
-    read), and on the narrow-side kernel the card's window, K1's order and
-    groups, K2's splits of the pattern axis and their tiles, K3's chunks
-    of the token tiles, and K2's and K3's slabs and rounds of their split
+    read), and on the narrow-side kernel the card's window (K2's and K3's
+    whole window: its staged depth), K1's order and groups, K2's splits of
+    the pattern axis and their tiles, K3's chunks of the token tiles, and
+    K2's and K3's slabs and rounds of their split
     products and K1's slabs of its score pass (``hc.split_plan``), whose
     scratch (K1's split's too) must fit 64 MiB."""
     stem = {"fwd": "hopfield_stream_fwd", "dx": "hopfield_stream_bwd_dx", "dku": "hopfield_stream_bwd_dku"}[kernel]
@@ -548,7 +557,7 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
         plan |= {"window": out[1], "splits": out[2], "per": out[3]}
     elif out[0] >= 2:
         plan |= {"window": out[1], "dk_tiles": out[2], "dk_chunks": out[3], "du_tiles": out[4], "du_chunks": out[5]}
-    if out[0] >= 3:
+    if 3 <= out[0] <= 6:
         split = hc.split_plan(kernel, n, m, d_in, d_out)
         slabbed = kernel != "fwd" or out[0] == 6  # K1's split of the scores runs in one piece
         if slabbed:
@@ -558,7 +567,7 @@ def card_plan(kernel: str, n: int, m: int, d_in: int, d_out: int) -> dict:
             raise AssertionError(f"{stem}'s split at {(n, m, d_in, d_out)} passes 64 MiB: {plan}")
     if hc.kernel_route(d_in, d_out) == "instance":
         want = "instance"
-    elif (hc.forward_cluster if kernel == "fwd" else hc.backward_cluster)(d_in, d_out):
+    elif hc.on_cluster(d_in, d_out):
         want = "cluster"
     else:
         want = SPLITS[hc.narrow_split(kernel, n, m, d_in, d_out, sms)]
@@ -596,7 +605,11 @@ PARENT_BITS = {
 # kernels' order: sha256 of K2's (dx, ds, dt) (``backward_bits_args``) and of K5-fwd's
 # (out, lse) (``attention_bits_inputs``, scale 1/sqrt(dh)) as the window kernels gave
 # them on an H100 (tools/torch_hopfield_bwd_variants.py and
-# tools/torch_attention_fwd_variants.py, --bits, on the parent's build; PERF.md)
+# tools/torch_attention_fwd_variants.py, --bits, on the parent's build; PERF.md); in
+# K2's and K3's tables, the last four cases (past a d_in of 256 with d_out at most 128,
+# where they left the cluster) as their narrow-side kernels first gave them on an H100,
+# the whole window at (384, 3) and (300, 64) and the split scores at (1280, 3), in the
+# cluster's order (the variants tool, --bits, on that build; PERF.md)
 K2_PARENT_BITS = {
     (4096, 512, 3, 384): "f9337a73088039005b11b77c8029e194d74aae39ab258ca62a324e0649efc61f",
     (37, 64, 8320, 3): "a94c4182956eae7244b909f8fe2995acd33249152c62ab3842222e3bcefe7155",
@@ -612,6 +625,10 @@ K2_PARENT_BITS = {
     (4096, 512, 100, 384): "bfbc720020b5d7924835c222ef913c07553d3007c04933067e0e0266deca97a5",
     (256, 2048, 8320, 3): "624bbc3514f20cd6193ba031e588345479b875f9919096fe223abbac23b2764d",
     (256, 256, 8320, 8320): "f5372df3ac5dfccd48a35d6da5c2307db136f5c4cb0c5b38c9671138ce9f52b6",
+    (4096, 512, 384, 3): "444556b8f0e4e1b5bdcb3d315d46c30c246e9d87f9b9ebb03e1daa1a4e18ea52",
+    (16384, 512, 384, 3): "bb888e638e137cba8dfb746c5a123a716920133fecd78abab87d477a1b8878ca",
+    (37, 300, 1280, 3): "2a9d35ef90e34ef045d29d1403c43ee872ff35704ab1508c28282caeefdb7dd3",
+    (4096, 512, 300, 64): "7a928f3680597fd8a90aff9097cb30c18c456c02369f75e1cf7fdb0260592f8a",
 }
 # K3 where its split products keep its window walk's order (K3's own orientation, K q^T
 # and U g^T, and the walk's chunks of the token axis): sha256 of (dK, dU) on
@@ -619,12 +636,17 @@ K2_PARENT_BITS = {
 # and (256, 2048, 8320, 3) the parent's build, which walked there (its split scratch past
 # 64 MiB); at (37, 64, 8320, 3) and (256, 256, 8320, 8320) the parent's build with its
 # split turned off (``SPLIT_BYTES`` 0), whose own split summed q K^T in the other
-# orientation (tools/torch_hopfield_bwd_variants.py --bits; PERF.md)
+# orientation (tools/torch_hopfield_bwd_variants.py --bits; PERF.md); the last four as
+# K2's last four
 K3_PARENT_BITS = {
     (37, 64, 8320, 3): "f12b6f5b1ba5ef7c1788602ace06c3785e3bc737add3e5672bfc82936d2526e7",
     (4096, 64, 8320, 3): "ffab8c4fa56e6c5786db1d306ed1ad9e86d257b505f27ec02766f0f2dc1edf27",
     (256, 2048, 8320, 3): "22f336521df9a1ea080dabe73f8e9d6666670721c6e86efbd22141e551c52118",
     (256, 256, 8320, 8320): "71a92141d186f47271d3f1902825cd261ab03ad68dd28370347dcc5db32ad3fe",
+    (4096, 512, 384, 3): "b3151cd0fae42878a5962e4786dd313fc445741cfaaa7165b7b32bebc468996a",
+    (16384, 512, 384, 3): "2d064b3df6b639d95da08c83bdbfb20ba8680bf7e9b39f6e7601256765240ffc",
+    (37, 300, 1280, 3): "aef41d09e376430699a77d322035e2d434e186fd3b125bfa6a09a44f74818abf",
+    (4096, 512, 300, 64): "384fdc4fffffa5b45963c4339143490ee2857a754a5b4d255bef29e46d8d688f",
 }
 K5_PARENT_BITS = {(2, 37, 1, 8320): "f061f702f318bea0f7bc62bf99f6522a3797a0c27e7ca36c01c63f6641cd4ded",
                   (1, 400, 1, 8320): "83aae70c5162a11f7bf8dd59671a3f10d06465cabb97f9548c51ad0764e867d6"}
@@ -695,14 +717,13 @@ def scores_in_order(q: torch.Tensor, k: torch.Tensor, group: int, trunc: bool) -
 def rebuilt_rows_err(x, k, s, t, m, l, d_out: int) -> float:
     """max |row sum - 1| of the attention ``exp(beta s - m) / l`` rebuilt
     from K1's ``m`` and ``l`` with the scores summed in K2's and K3's order
-    (the cluster's slices, or the window kernels' chunks of 64), in f32 as
-    the CPU tests rebuild it, with torch's ``exp``."""
+    (``hc.score_order``: the cluster's slices, or the window kernels' chunks
+    of 64, whatever their routes), in f32 as the CPU tests rebuild it, with
+    torch's ``exp``."""
     d_in = x.shape[1]
     q = hc._query(hc._state_ln(x)[0], s, t)
-    if hc.backward_cluster(d_in, d_out):
-        sc = scores_in_order(q, k, hc.backward_attributes("dx", d_in, d_out)["slice"], trunc=True)
-    else:
-        sc = scores_in_order(q, k, 64, trunc=False)
+    group, trunc = hc.score_order(d_in, d_out)
+    sc = scores_in_order(q, k, hc.PART * group, trunc=trunc)
     a = torch.exp(sc * (1.0 / math.sqrt(d_in)) - m) / l
     return float((a.double().sum(-1) - 1).abs().max())
 
@@ -852,13 +873,13 @@ def phase_backward_vs_plain(env: dict, tables: dict) -> list[dict]:
             got = lookup_digest(hc.stream_bwd_dx(*backward_bits_args(*sizes)))
         log(json.dumps({"k2_parent_bits": sizes, "plan": card_plan("dx", *sizes), "sha256": got, "held": got == want}))
         if got != want:
-            raise AssertionError(f"K2 at {sizes} (N, M, d_in, d_out) lost the former window kernel's bits: {got}, not {want}")
+            raise AssertionError(f"K2 at {sizes} (N, M, d_in, d_out) lost its recorded bits: {got}, not {want}")
     for sizes, want in K3_PARENT_BITS.items():
         with torch.inference_mode():
             got = lookup_digest(hc.stream_bwd_dku(*backward_bits_args(*sizes)))
         log(json.dumps({"k3_parent_bits": sizes, "plan": card_plan("dku", *sizes), "sha256": got, "held": got == want}))
         if got != want:
-            raise AssertionError(f"K3 at {sizes} (N, M, d_in, d_out) lost its window walk's bits: {got}, not {want}")
+            raise AssertionError(f"K3 at {sizes} (N, M, d_in, d_out) lost its recorded bits: {got}, not {want}")
     return rows
 
 

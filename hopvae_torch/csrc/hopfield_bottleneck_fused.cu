@@ -222,12 +222,12 @@ extern "C" int hopfield_bottleneck_fused(const float* x, const float* k1, const 
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and the first stage's TN; past 256
 // the first stage's, (d, d): the cluster kernel where it runs
-// (hopfield_cluster::fwd_plan), else the narrow-side kernel. Returns a
+// (hopfield_cluster::plan), else the narrow-side kernel. Returns a
 // cudaError_t.
 extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
   int j, ranks;
   if (d >= 1 && di >= 1 && hopfield_wide::wide(d, di)) {
-    if (hopfield_cluster::fwd_plan(d, d, j, ranks))
+    if (hopfield_cluster::plan(d, d, j, ranks))
       return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::SHIFT>(d, d, true, out));
     return static_cast<int>(hopfield_narrow::fwd_window_attributes<hopfield_wide::SHIFT>(d, out));
   }
@@ -241,7 +241,7 @@ extern "C" int hopfield_bottleneck_fused_attributes(int d, int di, int* out) {
 }
 
 // The cluster kernel of a wide stage of widths (d_in, d_out) where it runs
-// (hopfield_cluster::fwd_plan; else cudaErrorInvalidValue): out receives
+// (hopfield_cluster::plan; else cudaErrorInvalidValue): out receives
 // the blocks of a cluster, the slice width at most, and the clusters the
 // card can hold at once (0: it cannot launch). Returns a cudaError_t.
 extern "C" int hopfield_bottleneck_fused_cluster(int d_in, int d_out, int* out) {

@@ -1,10 +1,10 @@
 // The wide streaming Hopfield lookups on a thread-block cluster, past a
 // width of 256 on either side and up to 8192 on the wider one: the
 // backward, K2's dq (hopfield_stream_bwd_dx.cu) and K3's dK and dU
-// (hopfield_stream_bwd_dku.cu), with d_in past 128 (plan, below); and the
-// forward, K1 (hopfield_stream_fwd.cu) and K4's three stages
-// (hopfield_bottleneck_fused.cu), with d_in and d_out past 128 (fwd_plan;
-// the forward is described at stream_fwd_cluster_kernel).
+// (hopfield_stream_bwd_dku.cu), and the forward, K1
+// (hopfield_stream_fwd.cu) and K4's three stages
+// (hopfield_bottleneck_fused.cu), with d_in and d_out past 128 (plan,
+// below; the forward is described at stream_fwd_cluster_kernel).
 //
 // The backward is one kernel, stream_bwd_cluster_kernel<J, DKU>, with the roles
 // of K5's cluster backward (causal_attention_bwd.cu: K2 is its dq, K3 its
@@ -78,24 +78,37 @@ using hopfield_wide::PLAIN;
 using hopfield_wide::QUANTIZE;
 using hopfield_wide::SHIFT;
 
-// The cluster of a lookup of widths (d_in, d_out) in the backward: J
-// (chunks of 128 a slice) and the blocks of a cluster, from the wider
-// side; false where both widths are at most MAX_WIDTH (the built
-// instances), where d_in is at most WINDOW_IN, or where the wider is past
-// 8192 (a cluster of more than 16 blocks): K2's and K3's narrow-side
-// kernels (on the pieces of hopfield_narrow.cuh) take those. At d_in up
-// to 128 dq and dK have one window, so those kernels compute g U^T once
-// and recompute only a q K^T of that depth; there the former window
-// kernels already ran faster on an H100 (at (3, 384), N 4,096, M 512: K2
-// 0.113 ms against the cluster's 0.268, K3 0.246 against 0.377; PERF.md).
+// The slices of a lookup of widths (d_in, d_out): J (chunks of 128 a
+// slice) and the blocks of a cluster, from the wider side; false where
+// both widths are at most MAX_WIDTH (the built instances), where d_in is
+// at most WINDOW_IN, or where the wider is past 8192 (a cluster of more
+// than 16 blocks). Where it holds, a product's parts of 64 are summed in
+// the slices' order (groups of 2J parts, the small TF32 parts truncated),
+// on the cluster (plan) and on the narrow-side kernels alike
+// (hopfield_narrow::score_order), so that the scores K2 and K3 rebuild
+// meet K1's m and l summed as K1 summed them, whichever route each runs.
 constexpr int WINDOW_IN = 128;
-inline bool plan(int d_in, int d_out, int& j, int& ranks) {
+inline bool slices(int d_in, int d_out, int& j, int& ranks) {
   const int d = d_in > d_out ? d_in : d_out;
   if (d <= MAX_WIDTH || d_in <= WINDOW_IN) return false;
   const int n = (d + STEP - 1) / STEP;
   j = chunks_per_rank(n);
   ranks = j ? (n + j - 1) / j : 0;
   return j != 0;
+}
+
+// The cluster of a lookup, forward (K1, K4's stages) and backward (K2,
+// K3) alike: slices', with d_out past WINDOW_IN too. With one side at most
+// 128 the narrow-side kernels (hopfield_narrow.cuh) run instead: dq, dK
+// or the output then has one window, or the scores are computed once for
+// all windows (K2's and K3's split products), and they ran faster on an
+// H100 (N 4,096, M 512: K1 at (384, 3) 0.222 to 0.227 ms against the
+// cluster's 0.251, at (3, 384) 0.119 against 0.216; K2 at (3, 384) 0.113
+// against 0.268, K3 0.246 against 0.377; K4 at (64, 300) 0.372 to 0.381
+// against 0.473 with its (300, 64) stage on the cluster; K2 and K3 at
+// (384, 3): PERF.md).
+inline bool plan(int d_in, int d_out, int& j, int& ranks) {
+  return d_out > WINDOW_IN && slices(d_in, d_out, j, ranks);
 }
 
 // The chunks of `tiles` streamed tiles for `clusters` clusters of resident
@@ -551,18 +564,6 @@ cudaError_t cluster_build(int d_in, int d_out, bool attributes, int* out) {
 // ---- the wide forward on the cluster: K1 (hopfield_stream_fwd.cu) and
 // K4's three stages (hopfield_bottleneck_fused.cu)
 
-// The cluster of the forward (K1, K4's stages): plan's, with d_out past
-// WINDOW_IN too. At d_out up to 128 the window kernel (now the
-// narrow-side kernel of hopfield_narrow.cuh) has one window and
-// computes each score once; there it ran faster on an H100 (N 4,096, M
-// 512: K1 at (384, 3) 0.222 to 0.227 ms against the cluster's 0.251, and
-// at (3, 384), d_in up to 128, 0.119 against 0.216; K4 at (64, 300)
-// 0.372 to 0.381 against 0.473 with its (300, 64) stage on the cluster;
-// PERF.md).
-inline bool fwd_plan(int d_in, int d_out, int& j, int& ranks) {
-  return d_out > WINDOW_IN && plan(d_in, d_out, j, ranks);
-}
-
 // The wide forward: out = softmax(beta q K^T) U for TM token rows of the
 // built q (n, d_in), with K5's cluster forward schedule
 // (causal_attention_fwd.cu) and no mask but the patterns past M. The grid
@@ -875,14 +876,14 @@ stream_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 // The wide forward on its cluster over the built q (n, d_in), where
-// fwd_plan takes the widths (hopfield_narrow.cuh's launch_fwd routes the
+// plan takes the widths (hopfield_narrow.cuh's launch_fwd routes the
 // others); a refused launch returns its error.
 template <int MODE>
 cudaError_t launch_fwd_cluster(const float* q, const float* K, const float* U, const float* bias, float* out,
                                float* m, float* l, float* zn, int n, int m_patterns, int d_in, int d_out, float beta,
                                float levels, cudaStream_t stream) {
   int j, ranks;
-  if (!fwd_plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
+  if (!plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
   return with_chunks(j, [&](auto jj) {
     constexpr int J = decltype(jj)::value;
     using C = Cfg<J>;
@@ -907,7 +908,7 @@ cudaError_t launch_fwd_cluster(const float* q, const float* K, const float* U, c
 template <int MODE>
 cudaError_t fwd_cluster_build(int d_in, int d_out, bool attributes, int* out) {
   int j, ranks;
-  if (!fwd_plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
+  if (!plan(d_in, d_out, j, ranks)) return cudaErrorInvalidValue;
   return with_chunks(j, [&](auto jj) {
     constexpr int J = decltype(jj)::value;
     using C = Cfg<J>;

@@ -27,13 +27,14 @@
 // - keep the 64-column parts of the depth as the window kernels had them (each part's
 //   three-pass TF32 products in a fresh sum of their own), and sum them in
 //   the order that the backward K2 and K3 use at the same widths
-//   (score_order): the window kernels' order (part after part) where K2
-//   and K3 run their narrow-side kernels, which keep it, so that the
-//   scores, m and l keep the window kernels' bits there; the cluster's (groups of 2J parts, a slice, each
-//   group summed in order, the groups in order, the small TF32 parts
-//   truncated) where K2 and K3 run on their cluster. Either way the rows
-//   K2 and K3 rebuild from K1's m and l meet scores summed as K1 summed
-//   them;
+//   (score_order), on whichever route they run: the window kernels' order
+//   (part after part) where d_in is at most 128 or a side passes 8192, so
+//   that the scores, m and l keep the window kernels' bits there; the
+//   cluster's slices' (groups of 2J parts, a slice, each group summed in
+//   order, the groups in order, the small TF32 parts truncated) where
+//   hopfield_cluster::slices takes the widths, as on the cluster. Either
+//   way the rows K2 and K3 rebuild from K1's m and l meet scores summed as
+//   K1 summed them;
 // - fill the card from the token count: where ceil(N / 64) blocks leave
 //   SMs idle and the depth has more than one group, the scores are split
 //   (split_scores): a first pass computes each group's sum of every
@@ -112,17 +113,20 @@ __host__ __device__ inline int staged(int cols) {
 
 // The order in which a lookup of widths (d_in, d_out) sums the parts of
 // its scores: `group` parts summed in order make a group, the groups add
-// in order; trunc: the small TF32 parts truncated. The backward's order at
-// the same widths: its cluster's (hopfield_cluster::plan; a slice of 128 J
-// columns is 2J parts) or its narrow-side kernels' (one part a group,
-// rounded: the former window kernels' order).
+// in order; trunc: the small TF32 parts truncated. The order of K1, K2 and
+// K3 at the same widths, whatever their routes: the cluster's slices'
+// where hopfield_cluster::slices takes the widths (a slice of 128 J
+// columns is 2J parts), else one part a group, rounded (the former window
+// kernels' order). It reads the slices, not the route: where the
+// narrow-side K2 and K3 replace the cluster they keep its order, in which
+// K1's bits were made.
 struct Order {
   int group;
   bool trunc;
 };
 inline Order score_order(int d_in, int d_out) {
   int j, ranks;
-  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return {2 * j, true};
+  if (hopfield_cluster::slices(d_in, d_out, j, ranks)) return {2 * j, true};
   return {1, false};
 }
 inline int groups_of(int d_in, Order o) { return (parts_of(d_in) + o.group - 1) / o.group; }
@@ -148,13 +152,14 @@ inline long long split_floats(int n, int m, int groups) { return static_cast<lon
 // Rows [row0, row0 + ROWS) of columns [c0, c0 + w) of a row-major (rows,
 // d) array into a tile of row stride rs by cp.async (the caller commits);
 // w is a power of two from 8, zeros past d and past `rows`. vec16:
-// 16-byte copies (the base on 16 bytes, d and c0 multiples of 4).
-template <int ROWS>
+// 16-byte copies (the base on 16 bytes, d and c0 multiples of 4). NTH:
+// the block's threads.
+template <int ROWS, int NTH = THREADS>
 __device__ __forceinline__ void stage(float* dst, int rs, const float* __restrict__ src, int d, int c0, int w,
                                       int row0, int rows, bool vec16) {
   if (vec16) {
     const int sh = 29 - __clz(w);  // log2(w / 4)
-    for (int i = threadIdx.x; i < (ROWS << sh); i += THREADS) {
+    for (int i = threadIdx.x; i < (ROWS << sh); i += NTH) {
       const int r = i >> sh;
       const int c = (i & ((1 << sh) - 1)) << 2;
       const bool in = row0 + r < rows && c0 + c < d;
@@ -162,7 +167,7 @@ __device__ __forceinline__ void stage(float* dst, int rs, const float* __restric
     }
   } else {
     const int sh = 31 - __clz(w);
-    for (int i = threadIdx.x; i < (ROWS << sh); i += THREADS) {
+    for (int i = threadIdx.x; i < (ROWS << sh); i += NTH) {
       const int r = i >> sh;
       const int c = i & (w - 1);
       const bool in = row0 + r < rows && c0 + c < d;
@@ -340,11 +345,12 @@ inline cudaError_t split_scores(const float* q, const float* K, float* S, float*
 // P = g U^T over the M patterns), pattern rows in K3 (S^T = K q^T and
 // P^T = U g^T over the N tokens, the orientation of its own walk). A slab
 // is a run of units. For each slab and each of its products in turn:
-// rounds of the product's parts of 64, each round's parts apart (pass 1,
-// one part a group), then added in part order onto the product's sums
-// (pass 2; the first round from part 0's sums); then the window kernel
-// reads the slab's sums. Every entry is the parts' sum in part order, as
-// the walk adds them in registers, whatever the slabs and rounds. Every
+// rounds of the product's groups (S: score_order's groups of parts of 64;
+// P: one part a group, rounded), each round's groups apart (pass 1), then
+// added in order onto the product's sums (pass 2; the first round from
+// group 0's sums); then the window kernel reads the slab's sums. Every
+// entry is the groups' sum in order, as the walk adds them in registers,
+// whatever the slabs and rounds. Every
 // output row of K2 (dq of a token) and of K3 (dK and dU of a pattern)
 // belongs to one unit, so a slab finishes its rows: nothing carries across
 // launches, and no float atomics.
@@ -360,12 +366,12 @@ struct SlabPlan {
 };
 
 // The plan of `rows` resident rows (units of TM) by `cols` columns for
-// `products` products of at most `parts` parts: slabs of the most units
+// `products` products of at most `parts` groups: slabs of the most units
 // whose sums and every part fit SPLIT_BYTES; where those are fewer than
 // `fill` units (as many as keep the window kernel at two blocks an SM),
-// slabs of `fill` units, or as many as their sums and one part allow, in
-// rounds of the most parts that fit; balanced. false, p untouched, where
-// one unit's sums and one part pass the cap.
+// slabs of `fill` units, or as many as their sums and one group allow, in
+// rounds of the most groups that fit; balanced. false, p untouched, where
+// one unit's sums and one group pass the cap.
 inline bool slab_plan(int rows, int cols, int products, int parts, long long fill, SlabPlan& p) {
   if (rows <= 0 || cols <= 0 || products <= 0 || parts <= 0) return false;
   const long long units = (rows + TM - 1) / TM, unit = static_cast<long long>(TM) * cols;
@@ -387,14 +393,127 @@ inline bool slab_plan(int rows, int cols, int products, int parts, long long fil
 }
 
 // One slab's product a b^T, a (rows, d) resident and b (cols, d) streamed,
-// into sums (rows, cols): rounds of `round` parts through `parts`.
+// into sums (rows, cols) in the order o: rounds of `round` groups through
+// `parts`.
 inline cudaError_t split_slab(const float* a, const float* b, float* sums, float* parts, int rows, int cols, int d,
-                              int round, int sms, cudaStream_t stream) {
-  for (int g0 = 0; g0 < parts_of(d); g0 += round) {
-    const cudaError_t err = split_scores(a, b, sums, parts, rows, cols, d, {1, false}, sms, stream, g0, round);
+                              Order o, int round, int sms, cudaStream_t stream) {
+  for (int g0 = 0; g0 < groups_of(d, o); g0 += round) {
+    const cudaError_t err = split_scores(a, b, sums, parts, rows, cols, d, o, sms, stream, g0, round);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// ---- the whole window: K2's and K3's plan where all of d_in fits a block
+//
+// Where d_in passes 256 and d_out is narrow, dq (K2) and dK (K3) need
+// ceil(d_in / 128) windows, and the narrow-side plan splits the scores
+// over the card first so that no window recomputes them: at (384, 3), N
+// 73,984, M 4,096 the groups' sums and S move about 12 GB through device
+// memory. The whole window instead keeps one block's 64 resident rows by
+// all of d_in: eight warps, a 16-row slab and half of the output columns
+// each; per streamed tile each warp computes two n-tiles of its slab's
+// scores (ordered_pair, every part in registers) and hands them, as dS
+// (K3: A^T and dS^T), to the slab's other warp through shared memory.
+// Every score is computed once and none reaches device memory. It takes
+// d_in up to 384 with d_out up to 8, and up to 320 with d_out up to 64
+// (whole_fits): the resident rows, two streamed tiles and the exchange
+// fill about 210 KB of shared memory, one block an SM, 96 accumulators a
+// thread at 384.
+constexpr int WHOLE_THREADS = 256;
+constexpr int DS = TN + 4;  // row stride of the exchanged tiles (TM resident rows by TN streamed)
+
+// The whole window's instance at (d_in, d_out) past 256: dw, the staged
+// depth (384 where d_out is at most 8, 320 up to 64), and wo, the staged
+// width of g and U; false where no instance takes the widths.
+inline bool whole_fits(int d_in, int d_out, int& dw, int& wo) {
+  if (d_in <= 256) return false;
+  if (d_in <= 384 && d_out <= 8) {
+    dw = 384, wo = 8;
+    return true;
+  }
+  if (d_in <= 320 && d_out <= 64) {
+    dw = 320, wo = 64;
+    return true;
+  }
+  return false;
+}
+
+// f(DW, WO) as std::integral_constants for whole_fits' dw.
+template <typename F>
+auto with_whole(int dw, F&& f) {
+  if (dw == 384) return f(std::integral_constant<int, 384>{}, std::integral_constant<int, 8>{});
+  return f(std::integral_constant<int, 320>{}, std::integral_constant<int, 64>{});
+}
+
+// Two n-tiles (the 16 streamed rows at b) of the 16-row slab at a of a
+// part of a b^T, both of row stride RS, over its first ks k-steps in a
+// fresh sum: per k-step the same three passes in the same order as
+// part_product, so each entry has part_product's bits.
+template <int RS, bool TRUNC>
+__device__ __forceinline__ void pair_part(float (&pp)[2][4], const float* a, const float* b, int ks, int gq, int tq) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pp[j][e] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < ks; ++c) {
+    const FragA fa = load_a<RS, TRUNC>(a + 8 * c, gq, tq);
+    FragB b0, b1;
+    load_b_rows2<RS, TRUNC>(b0, b1, b + 8 * c, gq, tq);
+    mma3(pp[0], fa, b0);
+    mma3(pp[1], fa, b1);
+  }
+}
+
+// The same two n-tiles of a b^T over the depth d in the order (group,
+// trunc): the parts of PART columns, each in a fresh sum, summed as
+// add_part sums them, so each score has the walk's bits.
+template <int RS>
+__device__ __forceinline__ void ordered_pair(float (&sc)[2][4], const float* a, const float* b, int d, int group,
+                                             int trunc, int gq, int tq) {
+  float gs[2][4], pp[2][4];
+  const int np = parts_of(d);
+  for (int p = 0; p < np; ++p) {
+    if (trunc) pair_part<RS, true>(pp, a + p * PART, b + p * PART, part_steps(d, p), gq, tq);
+    else pair_part<RS, false>(pp, a + p * PART, b + p * PART, part_steps(d, p), gq, tq);
+    const int k = p % group;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[j][e] = k == 0 ? pp[j][e] : gs[j][e] + pp[j][e];
+    if (k == group - 1 || p == np - 1) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = p < group ? gs[j][e] : sc[j][e] + gs[j][e];
+    }
+  }
+}
+
+// A warp's C fragment (rows gq, gq + 8 of the slab at t; columns 2 tq,
+// + 1 of n-tile j) into an exchanged tile, and the slab's A fragment of
+// k-step j back, over the permuted k (the C layout read as (c0, c2, c1,
+// c3), as load_b_cols pairs it).
+__device__ __forceinline__ void put_pair(float* t, int j, const float (&v)[4], int gq, int tq) {
+  float* r = t + gq * DS + 8 * j + 2 * tq;
+  *reinterpret_cast<float2*>(r) = make_float2(v[0], v[1]);
+  *reinterpret_cast<float2*>(r + 8 * DS) = make_float2(v[2], v[3]);
+}
+__device__ __forceinline__ FragA get_pair(const float* t, int j, int gq, int tq) {
+  const float* r = t + gq * DS + 8 * j + 2 * tq;
+  const float2 a = *reinterpret_cast<const float2*>(r), b = *reinterpret_cast<const float2*>(r + 8 * DS);
+  return split_a(a.x, b.x, a.y, b.y);
+}
+
+// Stage the rows [row0, row0 + ROWS) of all d columns of src (rows, d)
+// into a tile of row stride rs, part by part (zeros past d within the
+// last part's staged width, and past `rows`).
+template <int ROWS>
+__device__ __forceinline__ void stage_whole(float* dst, int rs, const float* __restrict__ src, int d, int row0,
+                                            int rows, bool vec16) {
+  for (int c0 = 0; c0 < d; c0 += PART)
+    stage<ROWS, WHOLE_THREADS>(dst + c0, rs, src, d, c0, staged(min(PART, d - c0)), row0, rows, vec16);
 }
 
 // ---- the forward
@@ -707,14 +826,14 @@ auto with_window(int cw, F&& f) {
 // or a slab's S, where its plan takes either route.
 inline long long fwd_split_floats(int n, int m_patterns, int d_in, int d_out) {
   int j, ranks;
-  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return 0;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return 0;
   const FwdPlan p = fwd_window_plan(n, m_patterns, d_in, d_out, sm_count());
   if (p.route == SPLIT) return split_floats(n, m_patterns, groups_of(d_in, p.order));
   return p.route == SLABS ? p.slabs.floats : 0;
 }
 
 // The wide forward over the built q (n, d_in), the route past 256: the
-// cluster kernel where fwd_plan takes the widths, else the narrow-side
+// cluster kernel where plan takes the widths, else the narrow-side
 // kernel on its plan, through `work` (fwd_split_floats floats): the split
 // scores (the groups' sums, then S), or slab after slab of token tiles
 // the score pass into a slab's S, then the kernel on the slab's rows
@@ -725,7 +844,7 @@ cudaError_t launch_fwd(const float* q, const float* K, const float* U, const flo
                        float* l, float* zn, float* work, int n, int m_patterns, int d_in, int d_out, float beta,
                        float levels, cudaStream_t stream) {
   int j, ranks;
-  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks))
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks))
     return hopfield_cluster::launch_fwd_cluster<MODE>(q, K, U, bias, out, m, l, zn, n, m_patterns, d_in, d_out,
                                                       beta, levels, stream);
   const int sms = sm_count();

@@ -61,21 +61,29 @@
 //   70,400 at 64 -> 64, 200,064 at 256 -> 256. Registers and blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dku_attributes on the card.
 // - Past 256 on either side the first pass builds q and 1/l at any width
-//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in past 128,
-//   dK and dU run on a thread-block cluster (hopfield_cluster.cuh): the
+//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in and d_out
+//   past 128, dK and dU run on a thread-block cluster (hopfield_cluster.cuh): the
 //   depth split across the blocks of a cluster, each tile's scores
 //   computed once, every output column summed by the block whose slice
 //   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.51 ms against
 //   the window kernel's 1.09; PERF.md); the chunks of the token axis plan
 //   from the clusters the card holds at once and each cluster's fixed
-//   cost (cluster_chunks). Elsewhere (d_in up to 128, or past 8192) the
+//   cost (cluster_chunks). Where d_in passes 256 with d_out up to 8, or
+//   64 at a d_in up to 320, the whole window (stream_bwd_dku_whole_kernel,
+//   hopfield_narrow.cuh): one block's 64 patterns by all of d_in, each
+//   score computed once in registers, dK's and dU's chunks of the token
+//   axis the same (whole_chunks; at (384, 3) on an H100: N 4,096, 0.178
+//   ms against the cluster's 0.347 and the split scores' 0.237; N 73,984,
+//   16.2 against 36.1 and 345; PERF.md). Elsewhere (d_in up to 128, d_out
+//   up to 128, or past 8192) the
 //   narrow-side kernel, which replaces the window kernel there (its
 //   pieces in hopfield_narrow.cuh): a block owns 64 patterns and one
 //   window of dK or of dU (a grid axis), the window the wider side's
 //   padded to 8 up to 128, each block's output only its live n-tiles (dK
 //   at d_in 3 one); per token tile the parts of K and q (and, for dK,
 //   those of U and g) stream through, their columns below the widths,
-//   summed part after part in fresh fragments (K2's window order), then
+//   summed part after part in fresh fragments (K2's order: the window
+//   kernels', or the cluster's groups where score_order says so), then
 //   the window's columns of q or g with the tile's row stats. Each window
 //   block recomputes the scores: at d_in up to 128 only a K q^T of that
 //   depth, so the route stays by width (at (3, 384) the cluster took
@@ -83,7 +91,7 @@
 //   (8 warps an SM, a barrier a part); dK's blocks, which alone carry U
 //   g^T, get their own chunks of the token axis, planned apart from dU's
 //   by a tile's work (dku_window_plan), so that they do not set the pace.
-//   Where d_in passes 128 (so past 8192 on one side), S^T = K q^T is split
+//   Where d_in passes 128, S^T = K q^T is split
 //   over the card once for all windows instead of once a window, and so is
 //   P^T = U g^T (dK's windows) where d_out has more than one part: in K3's
 //   own orientation (the patterns' rows resident, as the walk has them)
@@ -366,7 +374,8 @@ int launch(const Args& a) {
 // token tiles of the built q: blockIdx.y < ck wk, dK's window w (of CW
 // columns of d_in) and chunk c of ck (y = w ck + c); past them, dU's
 // window and chunk of cu (d_out). Per token tile: the parts of K and q
-// (their columns below d_in; the window kernels' order, part after part),
+// (their columns below d_in; in the order (group, trunc), score_order's:
+// part after part, or the cluster's groups),
 // or, where the scores were split, the tile of S^T; for dK then the parts
 // of U and g, or the tile of P^T; then the window of q (dK) or g (dU), its
 // live columns, with the tile's m, 1/l and delta. A^T (and dS^T for dK) on
@@ -381,7 +390,7 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ m_in, const float* __restrict__ il_in,
                              const float* __restrict__ delta, float* __restrict__ dk_part, float* __restrict__ du_part,
                              int n, int m_patterns, int d_in, int d_out, int tk, int ck, int tu, int cu, int p_base,
-                             int slot, float beta, unsigned vec16) {
+                             int slot, float beta, int group, int trunc, unsigned vec16) {
   using namespace hopfield_narrow;
   constexpr int CO = CW / 8, RW = CW + 4;
   extern __shared__ float4 smem4[];
@@ -450,13 +459,14 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
   bool live_p[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) live_p[e] = p0 + m0 + gq + 8 * e < m_patterns;
-  float acc[CO][4], sc[NT][4], dp[NT][4];
+  float acc[CO][4], sc[NT][4], dp[NT][4], gs[NT][4];
 #pragma unroll
   for (int c = 0; c < CO; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
   hopfield_narrow::zero(sc);
   hopfield_narrow::zero(dp);
+  hopfield_narrow::zero(gs);
 
   // the slab's rows gq and gq + 8 of a TM x RSC tile of S^T or P^T into a C fragment
   auto load_tile = [&](float (&f)[NT][4], const float* t) {
@@ -476,16 +486,14 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
     stage_item(i + NB - 1);
     const float* yb = buf + (i % NB) * slot;
     const int it = first + i / per_tile, sub = i % per_tile;
-    if (sub < nqi + ngo) {  // a part of K q^T, or of U g^T, in a fresh sum added to the running one
+    if (sub < nqi + ngo) {  // a part of K q^T (in the order's groups), or of U g^T, in a fresh sum
       const bool score = sub < nqi;
       float pp[NT][4];
-      part_product<false>(pp, yb + m0 * RP, yb + hopfield_narrow::TM * RP,
-                          score ? part_steps(d_in, sub) : part_steps(d_out, sub - nqi), gq, tq);
+      const float* b = yb + hopfield_narrow::TM * RP;
+      if (score && trunc) part_product<true>(pp, yb + m0 * RP, b, part_steps(d_in, sub), gq, tq);
+      else part_product<false>(pp, yb + m0 * RP, b, score ? part_steps(d_in, sub) : part_steps(d_out, sub - nqi), gq, tq);
       if (score) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] = sub == 0 ? pp[j][e] : sc[j][e] + pp[j][e];
+        add_part(sc, gs, pp, sub, group, nqi);
       } else {
 #pragma unroll
         for (int j = 0; j < NT; ++j)
@@ -548,8 +556,177 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
   }
 }
 
-// The narrow-side plan: the window (the wider side's, d padded to 8 up to
-// 128, else 128), the chunks of the token tiles, dK's (tk tiles each, ck
+// The whole window (hopfield_narrow.cuh) for the block's TM patterns of
+// K and U over its chunk of the token tiles of the built q: dK over all
+// of d_in (staged to DW) and dU (WO columns). Warp w holds the 16-pattern
+// slab w & 3 and half w >> 2 of dK's n-tiles (CT each) and of dU's (CU
+// each). K and U stay in shared memory for the walk; each token tile's q
+// (every column), g and row stats arrive in one of two buffers. Per tile
+// each warp computes two n-tiles of its slab's K q^T (tokens 16 h to
+// 16 h + 15 of the tile) in the order (group, trunc) and of U g^T (one
+// part, rounded), A^T and dS^T on them, and hands both to the slab's
+// other warp through shared memory (a named barrier of the two); then
+// dU += A^T g and dK += dS^T q over its half's live n-tiles, the tile in
+// fresh fragments added to the running sums after the tile.
+template <int DW, int WO>
+__global__ void __launch_bounds__(hopfield_narrow::WHOLE_THREADS, 1)
+stream_bwd_dku_whole_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                            const float* __restrict__ g, const float* __restrict__ m_in,
+                            const float* __restrict__ il_in, const float* __restrict__ delta,
+                            float* __restrict__ dk_part, float* __restrict__ du_part, int n, int m_patterns, int d_in,
+                            int d_out, int per, float beta, int group, int trunc, unsigned vec16) {
+  using namespace hopfield_narrow;
+  constexpr int QS = DW + 4, GS = WO + 4, CT = DW / 16, CU = (WO / 8 + 1) / 2, BUF = TN * (QS + GS) + 3 * TN;
+  constexpr int TM = hopfield_narrow::TM;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* u_s = k_s + TM * QS;
+  float* a_s = u_s + TM * GS;
+  float* ds_s = a_s + TM * DS;
+  float* str = ds_s + TM * DS;  // buffer u at str + u * BUF: q tile, g tile, then m, 1/l, delta
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (warp & 3), h = warp >> 2;
+  const int p0 = blockIdx.x * TM;
+  const int first = blockIdx.y * per;
+  const int last = min((n + TN - 1) / TN, first + per) - 1;
+  const int co = (d_in + 7) / 8, cou = (d_out + 7) / 8;  // dK's and dU's live n-tiles (dU's: g U^T's k-steps)
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+
+  stage_whole<TM>(k_s, QS, K, d_in, p0, m_patterns, kv);
+  stage<TM, WHOLE_THREADS>(u_s, GS, U, d_out, 0, staged(d_out), p0, m_patterns, uv);
+  auto stage_tile = [&](int it, int u) {
+    float* y = str + u * BUF;
+    stage_whole<TN>(y, QS, q, d_in, it * TN, n, qv);
+    stage<TN, WHOLE_THREADS>(y + TN * QS, GS, g, d_out, 0, staged(d_out), it * TN, n, gv);
+    float* st = y + TN * (QS + GS);
+    for (int i = threadIdx.x; i < 3 * TN; i += WHOLE_THREADS) {
+      const int r = it * TN + i % TN;
+      const bool in = r < n;
+      const float* src = i < TN ? m_in : i < 2 * TN ? il_in : delta;
+      cp_async4(st + i, in ? src + r : src, in);
+    }
+    cp_async_commit();
+  };
+  stage_tile(first, 0);  // one group with K and U
+
+  bool live_p[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) live_p[e] = p0 + m0 + gq + 8 * e < m_patterns;
+  float dk[CT][4], du[CU][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CU; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) du[c][e] = 0.f;
+
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1 and its A^T, dS^T
+    if (it < last) stage_tile(it + 1, u ^ 1);
+    const float* y = str + u * BUF;  // q
+    const float* gt = y + TN * QS;
+    const float* st = gt + TN * GS;  // m, 1/l, delta of the tile's tokens
+    const int tok_lo = it * TN;
+
+    // ---- the warp's two n-tiles of K q^T and U g^T, A^T and dS^T on them
+    float sc[2][4], dp[2][4];
+    ordered_pair<QS>(sc, k_s + m0 * QS, y + 16 * h * QS, d_in, group, trunc, gq, tq);
+    pair_part<GS, false>(dp, u_s + m0 * GS, gt + 16 * h * GS, cou, gq, tq);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float a[4], d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = 16 * h + 8 * j + 2 * tq + (e & 1);
+        a[e] = live_p[e >> 1] && tok_lo + tl < n ? __expf(sc[j][e] * beta - st[tl]) * st[TN + tl] : 0.f;
+        d[e] = a[e] * (dp[j][e] - st[2 * TN + tl]) * beta;
+      }
+      put_pair(a_s + m0 * DS, 2 * h + j, a, gq, tq);
+      put_pair(ds_s + m0 * DS, 2 * h + j, d, gq, tq);
+    }
+    named_barrier(1 + (warp & 3), 64);  // the slab's two warps have written its A^T and dS^T
+
+    // ---- dU += A^T g, then dK += dS^T q, over the half's live n-tiles
+    FragA fa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fa[j] = get_pair(a_s + m0 * DS, j, gq, tq);
+#pragma unroll
+    for (int c = 0; c < CU; ++c) {
+      const int cn = h * CU + c;
+      if (cn >= cou) break;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<GS>(gt + 8 * j * GS + 8 * cn, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) du[c][e] += o[e];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fa[j] = get_pair(ds_s + m0 * DS, j, gq, tq);
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const int cn = h * CT + c;
+      if (cn >= co) break;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, fa[j], load_b_cols<QS>(y + 8 * j * QS + 8 * cn, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[c][e] += o[e];
+    }
+  }
+
+  // ---- this chunk's partial rows of dK and dU, (chunks, M, d), the
+  // half's columns below the widths
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live_p[e]) continue;
+    const size_t row = static_cast<size_t>(blockIdx.y) * m_patterns + p0 + m0 + gq + 8 * e;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = 8 * (h * CT + c) + 2 * tq + hh;
+        if (col < d_in) dk_part[row * d_in + col] = dk[c][2 * e + hh];
+      }
+#pragma unroll
+    for (int c = 0; c < CU; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = 8 * (h * CU + c) + 2 * tq + hh;
+        if (col < d_out) du_part[row * d_out + col] = du[c][2 * e + hh];
+      }
+  }
+}
+
+// Shared bytes of the whole window's instance: K and U, the A^T and dS^T
+// tiles, two buffers of a q and a g tile with their row stats.
+template <int DW, int WO>
+constexpr size_t whole_bytes() {
+  using namespace hopfield_narrow;
+  return sizeof(float) *
+         (hopfield_narrow::TM * (DW + 4 + WO + 4 + 2 * DS) + 2 * (TN * (DW + 4 + WO + 4) + 3 * TN));
+}
+
+// The whole window's chunks of the token tiles: about WHOLE_WAVES waves of
+// one block an SM over the pattern tiles, at most one chunk a token tile;
+// balanced.
+constexpr int WHOLE_WAVES = 2;
+inline void whole_chunks(int token_tiles, int pattern_tiles, int sms, int& per, int& chunks) {
+  chunks = std::max(1, std::min(token_tiles, WHOLE_WAVES * std::max(sms, 1) / pattern_tiles));
+  per = (token_tiles + chunks - 1) / chunks;
+  chunks = (token_tiles + per - 1) / per;
+}
+
+// The narrow-side plan: the order of the score parts (score_order); the
+// whole window where whole_fits takes the widths (whole_chunks; dK's and
+// dU's chunks the same, nothing split); else the window (the wider
+// side's, d padded to 8 up to 128, else 128), the chunks of the token
+// tiles, dK's (tk tiles each, ck
 // of them) apart from dU's (tu, cu): about NARROW_WAVES waves of the
 // blocks the card holds, a block of either kind about the same work (a
 // tile's k-steps of its products and its window's n-tiles, and FIXED for
@@ -559,15 +736,19 @@ stream_bwd_dku_narrow_kernel(const float* __restrict__ q, const float* __restric
 // dK's and dU's sums, are the walk's. Then which products are split over
 // the card first: S^T where d_in has more than one part and more than one
 // window (each window would recompute it), P^T likewise for dK's windows;
-// and the split's slabs of pattern tiles and rounds of parts
+// and the split's slabs of pattern tiles and rounds of groups
 // (hopfield_narrow::slab_plan, each slab at least as many tiles as keep
-// the window kernel at two blocks an SM where the cap allows). Where one
-// pattern tile's sums and one part pass SPLIT_BYTES, nothing is split.
+// the window kernel at two blocks an SM where the cap allows; where it
+// does not, more chunks: at (1280, 3), N 73,984, M 4,096 a slab holds one
+// pattern tile, and 11 blocks walked all 2,312 token tiles, 1,049 ms
+// against the cluster's 242 on an H100). Where one pattern tile's sums
+// and one group pass SPLIT_BYTES, nothing is split.
 constexpr int NARROW_WAVES = 2;
 constexpr int FIXED_STEPS = 2;
 struct DkuPlan {
-  int cw;
-  bool split_s, split_p;
+  int cw;  // the window: on the whole window its staged depth
+  hopfield_narrow::Order order;
+  bool whole, split_s, split_p;
   int tk, ck, tu, cu;
   hopfield_narrow::SlabPlan slabs;
 };
@@ -578,8 +759,16 @@ inline int narrow_width(int d_in, int d_out) {
 inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int concurrent, int sms) {
   using namespace hopfield_narrow;
   DkuPlan p{};
-  p.cw = narrow_width(d_in, d_out);
+  p.order = score_order(d_in, d_out);
   const int tt = (n + TN - 1) / TN, pt = (m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
+  int wo;
+  if (whole_fits(d_in, d_out, p.cw, wo)) {
+    p.whole = true;
+    whole_chunks(tt, pt, sms, p.tk, p.ck);
+    p.tu = p.tk, p.cu = p.ck;
+    return p;
+  }
+  p.cw = narrow_width(d_in, d_out);
   const long long wk = windows_of(d_in, p.cw), wu = windows_of(d_out, p.cw);
   const long long ks_in = (d_in + 7) / 8, ks_out = (d_out + 7) / 8;
   const long long cost_k = ks_in + ks_out + (std::min(p.cw, d_in) + 7) / 8 + FIXED_STEPS;
@@ -597,9 +786,26 @@ inline DkuPlan dku_window_plan(int n, int m_patterns, int d_in, int d_out, int c
   p.split_p = parts_of(d_out) >= 2 && wk > 1;
   if (p.split_s || p.split_p) {
     const long long per_tile = p.ck * wk + p.cu * wu;  // window blocks a pattern tile
-    const int parts = std::max(p.split_s ? parts_of(d_in) : 0, p.split_p ? parts_of(d_out) : 0);
+    const int parts = std::max(p.split_s ? groups_of(d_in, p.order) : 0, p.split_p ? parts_of(d_out) : 0);
     const long long fill = (2ll * std::max(sms, 1) + per_tile - 1) / per_tile;
-    if (!slab_plan(m_patterns, n, p.split_s + p.split_p, parts, fill, p.slabs)) p.split_s = p.split_p = false;
+    if (!slab_plan(m_patterns, n, p.split_s + p.split_p, parts, fill, p.slabs)) {
+      p.split_s = p.split_p = false;
+      return p;
+    }
+    // Where the cap leaves a slab too few pattern tiles to hold two window
+    // blocks an SM (one tile's sums across N take most of it), dK's and
+    // dU's token axes take that many times more chunks, up to a tile each.
+    const long long blocks = static_cast<long long>(p.slabs.slab) * per_tile;
+    if (blocks < 2ll * std::max(sms, 1)) {
+      const long long more = (2ll * std::max(sms, 1) + blocks - 1) / blocks;
+      auto widen = [&](int& per, int& chunks) {
+        chunks = static_cast<int>(std::min<long long>(tt, chunks * more));
+        per = (tt + chunks - 1) / chunks;
+        chunks = (tt + per - 1) / per;
+      };
+      widen(p.tk, p.ck);
+      widen(p.tu, p.cu);
+    }
   }
   return p;
 }
@@ -649,7 +855,8 @@ long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
 }
 
 // Past 256: the cluster kernel (hopfield_cluster.cuh) where its plan takes
-// the widths, else the narrow-side kernel on its plan (a route by width).
+// the widths, else the narrow-side plan: the whole window where it fits,
+// or the narrow-side kernel slab after slab.
 int launch_wide(const Args& a) {
   using hopfield_narrow::windows_of;
   int j, ranks;
@@ -677,9 +884,24 @@ int launch_wide(const Args& a) {
           dim3((a.m_patterns + C::TM - 1) / C::TM, dk_rows, ranks), a.K, a.U, q, a.g, a.m, il, a.delta, dk_part,
           du_part, a.m_patterns, a.n, a.d_in, a.d_out, tiles_per_chunk, beta_of(a.d_in), cvec16, a.stream);
     });
+  } else if (const DkuPlan w = dku_plan_of(a.n, a.m_patterns, a.d_in, a.d_out); w.whole) {
+    du_part = dk_part + static_cast<size_t>(w.ck) * a.m_patterns * a.d_in;
+    dk_rows = du_rows = w.ck;
+    err = hopfield_narrow::with_whole(w.cw, [&](auto dw, auto wo) {
+      constexpr int DW = decltype(dw)::value, WO = decltype(wo)::value;
+      auto kernel = stream_bwd_dku_whole_kernel<DW, WO>;
+      constexpr size_t bytes = whole_bytes<DW, WO>();
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3((a.m_patterns + hopfield_narrow::TM - 1) / hopfield_narrow::TM, w.ck),
+               hopfield_narrow::WHOLE_THREADS, bytes, a.stream>>>(q, a.K, a.U, a.g, a.m, il, a.delta, dk_part, du_part,
+                                                                  a.n, a.m_patterns, a.d_in, a.d_out, w.tk,
+                                                                  beta_of(a.d_in), w.order.group, w.order.trunc, vec16);
+      return cudaGetLastError();
+    });
   } else {  // slab after slab of pattern tiles: the slab's split products, then the kernel over its tiles
     using hopfield_narrow::TM;
-    const DkuPlan p = dku_plan_of(a.n, a.m_patterns, a.d_in, a.d_out);
+    const DkuPlan& p = w;
     const long long blocks_y =
         static_cast<long long>(p.ck) * windows_of(a.d_in, p.cw) + static_cast<long long>(p.cu) * windows_of(a.d_out, p.cw);
     if (blocks_y > 65535) return cudaErrorInvalidValue;
@@ -706,14 +928,15 @@ int launch_wide(const Args& a) {
       for (int r0 = 0; e == cudaSuccess && r0 < a.m_patterns; r0 += slab_rows) {
         const int rows = std::min(slab_rows, a.m_patterns - r0);
         if (S) e = hopfield_narrow::split_slab(a.K + static_cast<size_t>(r0) * a.d_in, q, S, parts, rows, a.n, a.d_in,
-                                               p.slabs.round, sms, a.stream);
+                                               p.order, p.slabs.round, sms, a.stream);
         if (P && e == cudaSuccess)
           e = hopfield_narrow::split_slab(a.U + static_cast<size_t>(r0) * a.d_out, a.g, P, parts, rows, a.n,
-                                          a.d_out, p.slabs.round, sms, a.stream);
+                                          a.d_out, {1, false}, p.slabs.round, sms, a.stream);
         if (e != cudaSuccess) break;
         kernel<<<dim3((rows + TM - 1) / TM, static_cast<unsigned>(blocks_y)), hopfield_narrow::THREADS, bytes,
                  a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, il, a.delta, dk_part, du_part, a.n, a.m_patterns, a.d_in,
-                             a.d_out, p.tk, p.ck, p.tu, p.cu, r0, slot, beta_of(a.d_in), svec16);
+                             a.d_out, p.tk, p.ck, p.tu, p.cu, r0, slot, beta_of(a.d_in), p.order.group,
+                             p.order.trunc, svec16);
         e = cudaGetLastError();
       }
       return e;
@@ -762,12 +985,19 @@ extern "C" int hopfield_stream_bwd_dku(const float* x, const float* K, const flo
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
-// where its plan takes the widths (hopfield_cluster::plan), else the
+// where its plan takes the widths (hopfield_cluster::plan), the whole
+// window's where it fits (hopfield_narrow::whole_fits), else the
 // narrow-side kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dku_attributes(int d_in, int d_out, int* out) {
-  int j, ranks;
+  int j, ranks, dw, wo;
   if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::cluster_build<true>(d_in, d_out, true, out));
+  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out) && hopfield_narrow::whole_fits(d_in, d_out, dw, wo))
+    return hopfield_narrow::with_whole(dw, [&](auto w, auto o) {
+      constexpr int DW = decltype(w)::value, WO = decltype(o)::value;
+      return static_cast<int>(kernel_attributes(stream_bwd_dku_whole_kernel<DW, WO>, hopfield_narrow::WHOLE_THREADS,
+                                                whole_bytes<DW, WO>(), hopfield_narrow::TM, hopfield_narrow::TN, out));
+    });
   if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out))
     return hopfield_narrow::with_window(narrow_width(d_in, d_out), [&](auto c) {
       return static_cast<int>(kernel_attributes(stream_bwd_dku_narrow_kernel<decltype(c)::value>,
@@ -793,8 +1023,9 @@ extern "C" int hopfield_stream_bwd_dku_cluster(int d_in, int d_out, int* out) {
 
 // The route of (n, m_patterns, d_in, d_out) past 256, into out[0..10]: 1
 // the cluster; on the narrow-side kernel 2, plus 1 where S^T = K q^T is
-// split over the card first and 2 where P^T = U g^T is (0 up to 256: a
-// built instance); then the narrow-side plan's window, dK's tiles a chunk
+// split over the card first and 2 where P^T = U g^T is; 7 the whole
+// window (0 up to 256: a built instance); then the narrow-side plan's
+// window (the whole window's staged depth), dK's tiles a chunk
 // and chunks, dU's; where a product is split, its slabs, the pattern tiles
 // of a slab, the rounds and the parts of a round, and the split's floats
 // of scratch (0 where it does not run). Returns a cudaError_t.
@@ -806,7 +1037,7 @@ extern "C" int hopfield_stream_bwd_dku_plan(int n, int m_patterns, int d_in, int
   out[0] = 1;
   if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
   const DkuPlan p = dku_plan_of(n, m_patterns, d_in, d_out);
-  out[0] = 2 + p.split_s + 2 * p.split_p;
+  out[0] = p.whole ? 7 : 2 + p.split_s + 2 * p.split_p;
   out[1] = p.cw;
   out[2] = p.tk;
   out[3] = p.ck;

@@ -69,21 +69,30 @@
 //   blocks an SM per width are in PERF.md, from
 //   hopfield_stream_bwd_dx_attributes on the card.
 // - Past 256 on either side q is built first into the scratch
-//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in past
-//   128, dq runs on a thread-block cluster (hopfield_cluster.cuh): the
-//   depth split across the blocks of a cluster, each tile's scores
-//   computed once, every output column summed by the block whose slice
-//   holds it (at 512 -> 512, N 4,096, M 512 on an H100: 0.47 ms against
-//   the former window kernel's 0.80; PERF.md). Elsewhere (d_in up to 128,
-//   or a side past 8192) the narrow-side kernel (stream_bwd_dq_narrow_kernel,
-//   on the pieces of hopfield_narrow.cuh), which replaces the window
-//   kernel there and keeps its order: dq's window is a template width, d_in
+//   (hopfield_wide.cuh). Up to 8192 on the wider side, with d_in and
+//   d_out past 128, dq runs on a thread-block cluster
+//   (hopfield_cluster.cuh): the depth split across the blocks of a
+//   cluster, each tile's scores computed once, every output column summed
+//   by the block whose slice holds it (at 512 -> 512, N 4,096, M 512 on an
+//   H100: 0.47 ms against the former window kernel's 0.80; PERF.md).
+//   Where d_in passes 256 with d_out up to 8, or 64 at a d_in up to 320,
+//   the whole window (stream_bwd_dq_whole_kernel, hopfield_narrow.cuh):
+//   one block's 64 token rows by all of d_in, each score computed once in
+//   registers (at (384, 3) on an H100: N 4,096, 0.182 ms against the
+//   cluster's 0.365 and the split scores' 0.243; N 73,984, 16.7 against
+//   36.5 to 37.1 and 25.1 to 25.5; PERF.md). Elsewhere (d_in up to 128,
+//   d_out up to 128, or a side past 8192) the narrow-side kernel
+//   (stream_bwd_dq_narrow_kernel, on the pieces of hopfield_narrow.cuh),
+//   which replaces the window kernel there and keeps its order where d_in
+//   is at most 128 or past 8192, else sums the score parts in the
+//   cluster's order (score_order), as K1 did: dq's window is a template width, d_in
 //   padded to 8 up to 128 (one window: nothing is recomputed), else 128 on
 //   a grid axis; per group of pattern tiles the parts of q and K, then of
 //   g and U, stream through, their k-steps and copies below the widths
 //   only, each part's products in a fresh sum added to each tile's in
 //   order; then the group's windows of K. A group is 4 tiles where
-//   nothing is split and the window is at most 32 columns (GROUP): each
+//   nothing is split, the order is the window kernels' and the window is
+//   at most 32 columns (GROUP): each
 //   part of q and g is staged once for the 4 tiles, where a tile at a time
 //   restaged all of g's parts for every 32 patterns (at (3, 384) on an
 //   H100: N 4,096, 0.083 ms against 0.098 a tile at a time and the window
@@ -111,7 +120,8 @@
 //   cap (M past 87,381 with both products, 131,072 with one) do the
 //   windows compute the products themselves. At d_in up to 128 the cluster ran
 //   slower (at (3, 384): 0.268 ms against the former window kernel's
-//   0.113), so the route is by width. The splits of the pattern axis plan
+//   0.113), and at d_out up to 128 too, so the route is by width. The
+//   splits of the pattern axis plan
 //   from the clusters the card holds at once, or on the narrow-side kernel
 //   from two blocks an SM (PLAN_PER_SM), the window kernel's, whatever the
 //   narrow kernel's occupancy: they fix the order of dq's sums, so dx, ds
@@ -432,7 +442,8 @@ int launch(const Args& a) {
 // tiles, G tiles at a time. Per group of tiles: the parts of q and K
 // (their columns below d_in), then those of g and U (below d_out), each
 // part's products in a fresh sum added to each tile's running one in
-// order (the window kernels' order), or, where they were split (G = 1),
+// order (the window kernels' order; with G = 1 the scores' parts in the
+// order (group, trunc), score_order's), or, where they were split (G = 1),
 // the tile of S = q K^T and of P = g U^T (the slab's, whose rows start at
 // row_base; the grid's x axis is the slab's token tiles); then the windows of K of the
 // group's tiles (their live columns). A and dS on the fragments, then dq
@@ -448,7 +459,8 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ g, const float* __restrict__ S, const float* __restrict__ P,
                             const float* __restrict__ m_in, const float* __restrict__ l_in,
                             const float* __restrict__ delta, float* __restrict__ dq_part, int n, int m_patterns,
-                            int d_in, int d_out, int per, int slot, int row_base, float beta, unsigned vec16) {
+                            int d_in, int d_out, int per, int slot, int row_base, float beta, int group, int trunc,
+                            unsigned vec16) {
   using namespace hopfield_narrow;
   constexpr int CO = CW / 8, RW = CW + 4, GT = G * TN;
   extern __shared__ float4 smem4[];
@@ -509,7 +521,7 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
     il_r[e] = live[e] ? 1.f / l_in[row] : 0.f;
     dl_r[e] = live[e] ? delta[row] : 0.f;
   }
-  float acc[CO][4], sc[G][NT][4], dp[G][NT][4];
+  float acc[CO][4], sc[G][NT][4], dp[G][NT][4], gs[NT][4];
 #pragma unroll
   for (int c = 0; c < CO; ++c)
 #pragma unroll
@@ -519,6 +531,7 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
     zero(sc[t]);
     zero(dp[t]);
   }
+  zero(gs);
 
   // the slab's rows gq and gq + 8 of a TM x RSC tile of S or P into a C fragment
   auto load_tile = [&](float (&f)[NT][4], const float* t) {
@@ -546,8 +559,12 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
       for (int t = 0; t < G; ++t) {
         if (t >= gt) break;
         float pp[NT][4];
-        part_product<false>(pp, y + m0 * RP, y + (hopfield_narrow::TM + t * TN) * RP, steps, gq, tq);
-        if (score) {
+        const float* b = y + (hopfield_narrow::TM + t * TN) * RP;
+        if (score && trunc) part_product<true>(pp, y + m0 * RP, b, steps, gq, tq);
+        else part_product<false>(pp, y + m0 * RP, b, steps, gq, tq);
+        if (score && G == 1) {  // the order's groups (one part a group: part after part)
+          add_part(sc[0], gs, pp, sub, group, nqi);
+        } else if (score) {  // the window kernels' order, part after part (the plan's groups of tiles)
 #pragma unroll
           for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -615,6 +632,134 @@ stream_bwd_dq_narrow_kernel(const float* __restrict__ q, const float* __restrict
         if (col < d_in) out[col] = acc[c][2 * e + hh];
       }
   }
+}
+
+// The whole window (hopfield_narrow.cuh): dq over all of d_in (staged to
+// DW) for the block's TM token rows of the built q, over its split of the
+// pattern tiles. Warp w holds the 16-row slab w & 3 and half w >> 2 of
+// dq's n-tiles, CT each. q and g stay in shared memory for the walk; each
+// pattern tile's K (every column) and U arrive in one of two buffers. Per
+// tile each warp computes two n-tiles of its slab's scores (patterns 16 h
+// to 16 h + 15 of the tile) in the order (group, trunc) and of g U^T (one
+// part, rounded), A and dS on them, and hands dS to the slab's other warp
+// through shared memory (a named barrier of the two); then dq += dS K over
+// its half's live n-tiles, the tile in a fresh fragment added to the
+// running sum after the tile.
+template <int DW, int WO>
+__global__ void __launch_bounds__(hopfield_narrow::WHOLE_THREADS, 1)
+stream_bwd_dq_whole_kernel(const float* __restrict__ q, const float* __restrict__ K, const float* __restrict__ U,
+                           const float* __restrict__ g, const float* __restrict__ m_in,
+                           const float* __restrict__ l_in, const float* __restrict__ delta,
+                           float* __restrict__ dq_part, int n, int m_patterns, int d_in, int d_out, int per,
+                           float beta, int group, int trunc, unsigned vec16) {
+  using namespace hopfield_narrow;
+  constexpr int QS = DW + 4, GS = WO + 4, CT = DW / 16, BUF = TN * (QS + GS);
+  constexpr int TM = hopfield_narrow::TM;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* g_s = q_s + TM * QS;
+  float* ds_s = g_s + TM * GS;
+  float* str = ds_s + TM * DS;  // buffer u: K tile at str + u * BUF, its U tile TN * QS after
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = 16 * (warp & 3), h = warp >> 2;
+  const int row0 = blockIdx.x * TM;
+  const int first = blockIdx.y * per;
+  const int last = min((m_patterns + TN - 1) / TN, first + per) - 1;
+  const int co = (d_in + 7) / 8, ks_out = (d_out + 7) / 8;  // dq's live n-tiles; g U^T's k-steps
+  const bool qv = vec16 & 1u, gv = vec16 >> 1 & 1u, kv = vec16 >> 2 & 1u, uv = vec16 >> 3 & 1u;
+
+  stage_whole<TM>(q_s, QS, q, d_in, row0, n, qv);
+  stage<TM, WHOLE_THREADS>(g_s, GS, g, d_out, 0, staged(d_out), row0, n, gv);
+  auto stage_tile = [&](int it, int u) {
+    float* kt = str + u * BUF;
+    stage_whole<TN>(kt, QS, K, d_in, it * TN, m_patterns, kv);
+    stage<TN, WHOLE_THREADS>(kt + TN * QS, GS, U, d_out, 0, staged(d_out), it * TN, m_patterns, uv);
+    cp_async_commit();
+  };
+  stage_tile(first, 0);  // one group with q and g
+
+  bool live[2];
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + m0 + gq + 8 * e;
+    live[e] = row < n;
+    m_r[e] = live[e] ? m_in[row] : 0.f;
+    il_r[e] = live[e] ? 1.f / l_in[row] : 0.f;
+    dl_r[e] = live[e] ? delta[row] : 0.f;
+  }
+  float acc[CT][4];
+#pragma unroll
+  for (int c = 0; c < CT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int it = first; it <= last; ++it) {
+    const int u = (it - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with tile it - 1 and its dS
+    if (it < last) stage_tile(it + 1, u ^ 1);
+    const float* kt = str + u * BUF;
+    const float* ut = kt + TN * QS;
+
+    // ---- the warp's two n-tiles of the scores and of g U^T, A and dS on
+    // them, into the slab's dS tile
+    float sc[2][4], dp[2][4];
+    ordered_pair<QS>(sc, q_s + m0 * QS, kt + 16 * h * QS, d_in, group, trunc, gq, tq);
+    pair_part<GS, false>(dp, g_s + m0 * GS, ut + 16 * h * GS, ks_out, gq, tq);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool in = live[r] && it * TN + 16 * h + 8 * j + 2 * tq + (e & 1) < m_patterns;
+        const float a = in ? __expf(sc[j][e] * beta - m_r[r]) * il_r[r] : 0.f;
+        v[e] = a * (dp[j][e] - dl_r[r]) * beta;
+      }
+      put_pair(ds_s + m0 * DS, 2 * h + j, v, gq, tq);
+    }
+    named_barrier(1 + (warp & 3), 64);  // the slab's two warps have written its dS
+
+    // ---- dq += dS K over the half's live n-tiles
+    FragA dsa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) dsa[j] = get_pair(ds_s + m0 * DS, j, gq, tq);
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const int ct = h * CT + c;
+      if (ct >= co) break;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma3(o, dsa[j], load_b_cols<QS>(kt + 8 * j * QS + 8 * ct, gq, tq));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += o[e];
+    }
+  }
+
+  // ---- this split's partial dq, (splits, n, d_in), the half's columns < d_in
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live[e]) continue;
+    float* out = dq_part + (static_cast<size_t>(blockIdx.y) * n + row0 + m0 + gq + 8 * e) * d_in;
+#pragma unroll
+    for (int c = 0; c < CT; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int col = 8 * (h * CT + c) + 2 * tq + hh;
+        if (col < d_in) out[col] = acc[c][2 * e + hh];
+      }
+  }
+}
+
+// Shared bytes of the whole window's instance: q and g, the dS tile, two
+// buffers of a K and a U tile.
+template <int DW, int WO>
+constexpr size_t whole_bytes() {
+  using namespace hopfield_narrow;
+  return sizeof(float) * (hopfield_narrow::TM * (DW + 4 + WO + 4 + DS) + 2 * TN * (DW + 4 + WO + 4));
 }
 
 constexpr int WIDE_FIN_THREADS = 32 * FIN_ROWS;  // the wide finishing pass: a warp a row
@@ -686,11 +831,14 @@ stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __res
   }
 }
 
-// The narrow-side plan: the window (d_in padded to 8 up to 128, else
-// 128), the splits of the pattern axis, which products are split over
-// the card first (hopfield_narrow::split_scores: each part's sums apart,
-// then added in order, the same bits), and the split's slabs of token
-// tiles and rounds of parts (hopfield_narrow::slab_plan, each slab at
+// The narrow-side plan: the order of the score parts (score_order); the
+// whole window where whole_fits takes the widths (its splits of the
+// pattern axis from one block an SM, the instance's occupancy; nothing
+// split); else the window (d_in padded to 8 up to 128, else 128), the
+// splits of the pattern axis, which products are split over the card
+// first (hopfield_narrow::split_scores: each group's sums apart, then
+// added in order, the same bits), and the split's slabs of token tiles
+// and rounds of groups (hopfield_narrow::slab_plan, each slab at
 // least as many tiles as keep the window kernel at PLAN_PER_SM blocks an
 // SM where the cap allows). The splits plan from PLAN_PER_SM
 // blocks an SM whatever the kernel's occupancy: they set the order of
@@ -706,25 +854,33 @@ stream_bwd_dx_finish_wide_kernel(const float* __restrict__ x, const float* __res
 // one token tile's sums and one part pass SPLIT_BYTES, nothing is split.
 constexpr int PLAN_PER_SM = 2;
 struct DxPlan {
-  int cw;
-  bool split_s, split_p;
+  int cw;  // the window: on the whole window its staged depth
+  hopfield_narrow::Order order;
+  bool whole, split_s, split_p;
   Plan p;
   hopfield_narrow::SlabPlan slabs;
 };
 inline DxPlan dx_window_plan(int n, int m_patterns, int d_in, int d_out, int sms) {
   using namespace hopfield_narrow;
   DxPlan d{};
+  d.order = score_order(d_in, d_out);
+  const int token_tiles = (n + hopfield_narrow::TM - 1) / hopfield_narrow::TM, tiles = (m_patterns + TN - 1) / TN;
+  int wo;
+  if (whole_fits(d_in, d_out, d.cw, wo)) {
+    d.whole = true;
+    d.p = plan_for(token_tiles, tiles, std::max(sms, 1));
+    return d;
+  }
   d.cw = d_in <= 128 ? padded_width(d_in) : 128;
   const int windows = windows_of(d_in, d.cw);
-  const int token_tiles = (n + hopfield_narrow::TM - 1) / hopfield_narrow::TM;
   const int concurrent = PLAN_PER_SM * std::max(sms, 1);
-  d.p = plan_for(token_tiles * windows, (m_patterns + TN - 1) / TN, concurrent);
+  d.p = plan_for(token_tiles * windows, tiles, concurrent);
   const long long blocks = static_cast<long long>(token_tiles) * windows * d.p.splits;
   d.split_s = parts_of(d_in) >= 2 && windows > 1;
   d.split_p = parts_of(d_out) >= 2 && (windows > 1 || blocks < sms);
   if (d.split_s || d.split_p) {
     const long long per_tile = static_cast<long long>(windows) * d.p.splits;  // window blocks a token tile
-    const int parts = std::max(d.split_s ? parts_of(d_in) : 0, d.split_p ? parts_of(d_out) : 0);
+    const int parts = std::max(d.split_s ? groups_of(d_in, d.order) : 0, d.split_p ? parts_of(d_out) : 0);
     if (!slab_plan(n, m_patterns, d.split_s + d.split_p, parts, (concurrent + per_tile - 1) / per_tile, d.slabs))
       d.split_s = d.split_p = false;
   }
@@ -758,15 +914,17 @@ long long workspace_wide(int n, int m_patterns, int d_in, int d_out) {
   return floats;
 }
 
-// Tiles of a group of the narrow-side kernel where nothing is split:
-// GROUP where dq's window is at most 32 columns (the group's K windows fit
-// a part item's buffer), WIDE_GROUP at 64 and 128 (their accumulators
-// leave room for two tiles' fragments, not four); else one. (A K3-style
-// group is what the split products replace: with them a tile has one
-// item.)
+// Tiles of a group of the narrow-side kernel where nothing is split and
+// the scores keep the window kernels' order: GROUP where dq's window is
+// at most 32 columns (the group's K windows fit a part item's buffer),
+// WIDE_GROUP at 64 and 128 (their accumulators leave room for two tiles'
+// fragments, not four); else one (a tile's scores then take the order's
+// groups in a sum of their own). (A K3-style group is what the split
+// products replace: with them a tile has one item.)
 constexpr int GROUP = 4, WIDE_GROUP = 2;
 inline int group_of(const DxPlan& d) {
-  return d.split_s || d.split_p ? 1 : d.cw <= 32 ? GROUP : WIDE_GROUP;
+  if (d.split_s || d.split_p || d.order.group > 1 || d.order.trunc) return 1;
+  return d.cw <= 32 ? GROUP : WIDE_GROUP;
 }
 
 // f on the narrow-side kernel of window CW for the plan's group.
@@ -787,10 +945,10 @@ inline int narrow_slot(const DxPlan& d) {
 }
 
 // dq of every split past 256: the cluster kernel (hopfield_cluster.cuh)
-// where its plan takes the widths, else the narrow-side kernel on its plan
-// (a route by width; see the header): slab after slab of token tiles, the
-// slab's split products first through `work` ([S | P | a round's parts]),
-// then the kernel over the slab's tiles.
+// where its plan takes the widths, else the narrow-side plan: the whole
+// window where it fits, or slab after slab of token tiles, the slab's
+// split products first through `work` ([S | P | a round's groups]), then
+// the narrow-side kernel over the slab's tiles.
 int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part, float* work) {
   const unsigned vec16 = vec16_ok(q, a.d_in) | vec16_ok(a.g, a.d_out) << 1 | vec16_ok(a.K, a.d_in) << 2 |
                          vec16_ok(a.U, a.d_out) << 3;
@@ -807,6 +965,18 @@ int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part,
   using namespace hopfield_narrow;
   const int sms = sm_count();
   const DxPlan d = dx_window_plan(a.n, a.m_patterns, a.d_in, a.d_out, sms);
+  if (d.whole)
+    return with_whole(d.cw, [&](auto dw, auto wo) {
+      constexpr int DW = decltype(dw)::value, WO = decltype(wo)::value;
+      auto kernel = stream_bwd_dq_whole_kernel<DW, WO>;
+      constexpr size_t bytes = whole_bytes<DW, WO>();
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<dim3((a.n + hopfield_narrow::TM - 1) / hopfield_narrow::TM, p.splits), WHOLE_THREADS, bytes, a.stream>>>(
+          q, a.K, a.U, a.g, a.m, a.l, a.delta, dq_part, a.n, a.m_patterns, a.d_in, a.d_out, p.per, beta_of(a.d_in),
+          d.order.group, d.order.trunc, vec16);
+      return static_cast<int>(cudaGetLastError());
+    });
   if (windows_of(a.d_in, d.cw) > 65535) return cudaErrorInvalidValue;
   const bool split = d.split_s || d.split_p;
   const int slab_rows = split ? std::min(d.slabs.slab * hopfield_narrow::TM, a.n) : a.n;
@@ -825,15 +995,15 @@ int launch_dq_wide(const Args& a, const Plan& p, const float* q, float* dq_part,
       for (int r0 = 0; err == cudaSuccess && r0 < a.n; r0 += slab_rows) {
         const int rows = std::min(slab_rows, a.n - r0);
         if (S) err = split_slab(q + static_cast<size_t>(r0) * a.d_in, a.K, S, parts, rows, a.m_patterns, a.d_in,
-                                d.slabs.round, sms, a.stream);
+                                d.order, d.slabs.round, sms, a.stream);
         if (P && err == cudaSuccess)
           err = split_slab(a.g + static_cast<size_t>(r0) * a.d_out, a.U, P, parts, rows, a.m_patterns, a.d_out,
-                           d.slabs.round, sms, a.stream);
+                           {1, false}, d.slabs.round, sms, a.stream);
         if (err != cudaSuccess) break;
         kernel<<<dim3((rows + hopfield_narrow::TM - 1) / hopfield_narrow::TM, p.splits, windows_of(a.d_in, CW)),
                  hopfield_narrow::THREADS, bytes, a.stream>>>(q, a.K, a.U, a.g, S, P, a.m, a.l, a.delta, dq_part,
                                                               a.n, a.m_patterns, a.d_in, a.d_out, p.per, slot, r0,
-                                                              beta_of(a.d_in), svec16);
+                                                              beta_of(a.d_in), d.order.group, d.order.trunc, svec16);
         err = cudaGetLastError();
       }
       return static_cast<int>(err);
@@ -901,16 +1071,24 @@ extern "C" int hopfield_stream_bwd_dx(const float* x, const float* K, const floa
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
-// where its plan takes the widths (hopfield_cluster::plan), else the
+// where its plan takes the widths (hopfield_cluster::plan), the whole
+// window's where it fits (hopfield_narrow::whole_fits), else the
 // narrow-side kernel's where nothing is split (its group of tiles the
 // streamed rows). Returns a cudaError_t.
 extern "C" int hopfield_stream_bwd_dx_attributes(int d_in, int d_out, int* out) {
-  int j, ranks;
+  int j, ranks, dw, wo;
   if (d_in >= 1 && d_out >= 1 && hopfield_cluster::plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::cluster_build<false>(d_in, d_out, true, out));
+  if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out) && hopfield_narrow::whole_fits(d_in, d_out, dw, wo))
+    return hopfield_narrow::with_whole(dw, [&](auto w, auto o) {
+      constexpr int DW = decltype(w)::value, WO = decltype(o)::value;
+      return static_cast<int>(kernel_attributes(stream_bwd_dq_whole_kernel<DW, WO>, hopfield_narrow::WHOLE_THREADS,
+                                                whole_bytes<DW, WO>(), hopfield_narrow::TM, hopfield_narrow::TN, out));
+    });
   if (d_in >= 1 && d_out >= 1 && hopfield_wide::wide(d_in, d_out)) {  // on the plan of a call with nothing split
     DxPlan d{};
     d.cw = d_in <= 128 ? padded_width(d_in) : 128;
+    d.order = hopfield_narrow::score_order(d_in, d_out);
     const size_t bytes = sizeof(float) * hopfield_narrow::NB * narrow_slot(d);
     return hopfield_narrow::with_window(d.cw, [&](auto c) {
       constexpr int CW = decltype(c)::value;
@@ -940,8 +1118,9 @@ extern "C" int hopfield_stream_bwd_dx_cluster(int d_in, int d_out, int* out) {
 
 // The route of (n, m_patterns, d_in, d_out) past 256, into out[0..8]: 1
 // the cluster; on the narrow-side kernel 2, plus 1 where S = q K^T is
-// split over the card first and 2 where P = g U^T is (0 up to 256: a
-// built instance); then the narrow-side plan's window, the splits of the
+// split over the card first and 2 where P = g U^T is; 7 the whole window
+// (0 up to 256: a built instance); then the narrow-side plan's window (the
+// whole window's staged depth), the splits of the
 // pattern axis and their pattern tiles each; where a product is split,
 // its slabs, the token tiles of a slab, the rounds and the parts of a
 // round, and the split's floats of scratch (0 where it does not run).
@@ -954,7 +1133,7 @@ extern "C" int hopfield_stream_bwd_dx_plan(int n, int m_patterns, int d_in, int 
   out[0] = 1;
   if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
   const DxPlan d = dx_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count());
-  out[0] = 2 + d.split_s + 2 * d.split_p;
+  out[0] = d.whole ? 7 : 2 + d.split_s + 2 * d.split_p;
   out[1] = d.cw;
   out[2] = d.p.splits;
   out[3] = d.p.per;

@@ -191,12 +191,12 @@ extern "C" int hopfield_stream_fwd_wide(const float* x, const float* K, const fl
 // The kernel built for (d_in, d_out) as the card reports it: out receives
 // registers a thread, dynamic shared bytes, local (spill) bytes a thread,
 // threads a block, blocks an SM, TM and TN; past 256 the cluster kernel's
-// where it runs (hopfield_cluster::fwd_plan), else the narrow-side
+// where it runs (hopfield_cluster::plan), else the narrow-side
 // kernel's. Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
   if (d_in < 1 || d_out < 1) return cudaErrorInvalidValue;
   int j, ranks;
-  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks))
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks))
     return static_cast<int>(hopfield_cluster::fwd_cluster_build<hopfield_wide::PLAIN>(d_in, d_out, true, out));
   if (hopfield_wide::wide(d_in, d_out))
     return static_cast<int>(hopfield_narrow::fwd_window_attributes<hopfield_wide::PLAIN>(d_out, out));
@@ -208,7 +208,7 @@ extern "C" int hopfield_stream_fwd_attributes(int d_in, int d_out, int* out) {
 }
 
 // The cluster kernel of (d_in, d_out) where it runs
-// (hopfield_cluster::fwd_plan; else cudaErrorInvalidValue): out receives
+// (hopfield_cluster::plan; else cudaErrorInvalidValue): out receives
 // the blocks of a cluster, the slice width at most, and the clusters the
 // card can hold at once (0: it cannot launch). Returns a cudaError_t.
 extern "C" int hopfield_stream_fwd_cluster(int d_in, int d_out, int* out) {
@@ -230,7 +230,7 @@ extern "C" int hopfield_stream_fwd_plan(int n, int m_patterns, int d_in, int d_o
   int j, ranks;
   if (!hopfield_wide::wide(d_in, d_out)) return cudaSuccess;
   out[0] = 1;
-  if (hopfield_cluster::fwd_plan(d_in, d_out, j, ranks)) return cudaSuccess;
+  if (hopfield_cluster::plan(d_in, d_out, j, ranks)) return cudaSuccess;
   const hopfield_narrow::FwdPlan p =
       hopfield_narrow::fwd_window_plan(n, m_patterns, d_in, d_out, hopfield_narrow::sm_count());
   out[0] = p.route;

@@ -36,13 +36,16 @@ in shared memory; past it on either side on the wide variants, q built
 first (:func:`kernel_route` names the route). The wide kernels run on a
 thread-block cluster (``csrc/hopfield_cluster.cuh``: the depth split
 across the blocks of a cluster, each tile's scores computed once) where
-:func:`forward_cluster` (K1) and :func:`backward_cluster` (K2, K3) say
-so. Elsewhere (one side at most 128, or a side past 8192) K1, K2 and K3
-run their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
-window sized to the narrow side, the depth in parts of 64 summed in K2's
-and K3's order, :func:`score_order`); where few token tiles would leave
-the card idle, or every window would recompute them, a product is split
-over the card first (K1's scores, K2's and K3's scores and ``g Uᵀ``:
+:func:`on_cluster` says so: both widths past 128, the wider up to 8192.
+Elsewhere (one side at most 128, or a side past 8192) K1, K2 and K3 run
+their narrow-side kernels (``csrc/hopfield_narrow.cuh``: the output
+window sized to the narrow side, the depth in parts of 64 summed in one
+order for the three at the same widths, :func:`score_order`). Where all
+of d_in fits one block (d_in up to 384 with d_out up to 8, up to 320
+with d_out up to 64) K2 and K3 take the whole window, each score computed
+once in registers; elsewhere, where few token tiles would leave the card
+idle, or every window would recompute them, a product is split over the
+card first (K1's scores, K2's and K3's scores and ``g Uᵀ``:
 :func:`narrow_split`), K2's and K3's slab after slab within 64 MiB, and
 K1's past its split's cap by a score pass slab after slab of token tiles
 (:func:`split_plan`).
@@ -88,6 +91,7 @@ SPLIT_BYTES = 64 << 20  # ``SPLIT_BYTES``: the split products' scratch at most
 TOKEN_TILE = 64  # ``TM``: token rows of a block of K1's and K2's narrow-side kernels (K3's: pattern rows)
 PATTERN_TILE = 32  # ``TN``: patterns of a streamed tile of K1's and K2's
 PLAN_PER_SM = 2  # ``PLAN_PER_SM``: the blocks an SM that K2's narrow-side splits of the pattern axis plan from
+WHOLE = ((384, 8), (320, 64))  # K2's and K3's whole window: (d_in, d_out) at most, in ``whole_fits``'s order
 IMPLS = ("cuda", "torch")
 
 
@@ -105,24 +109,33 @@ def kernel_route(d_in: int, d_out: int) -> str:
     return "instance" if max(d_in, d_out) <= BUILT_WIDTH else "wide"
 
 
-def forward_cluster(d_in: int, d_out: int) -> bool:
-    """Whether K1 (and a wide stage of K4) runs on its thread-block
-    cluster at ``(d_in, d_out)``: where K2 and K3 do
-    (:func:`backward_cluster`), with ``d_out`` past ``WINDOW_IN`` too
-    (``fwd_plan`` in ``csrc/hopfield_cluster.cuh``): up to it the
-    narrow-side kernel has one window, computes each score once, and ran
-    faster. Other wide widths take the narrow-side kernel
-    (:func:`narrow_split`)."""
-    return backward_cluster(d_in, d_out) and d_out > WINDOW_IN
-
-
-def backward_cluster(d_in: int, d_out: int) -> bool:
-    """Whether K2 and K3 run on their thread-block cluster at ``(d_in,
-    d_out)``: past ``BUILT_WIDTH`` and up to ``CLUSTER_MAX`` on the
-    wider side, with ``d_in`` past ``WINDOW_IN`` (``plan`` in
-    ``csrc/hopfield_cluster.cuh``). Other wide widths take K2's and K3's
-    narrow-side kernels (:func:`narrow_split`)."""
+def cluster_order(d_in: int, d_out: int) -> bool:
+    """Whether K1, K2 and K3 sum the parts of their scores in the
+    cluster's slices' order at ``(d_in, d_out)`` (:func:`score_order`),
+    whatever their routes: past ``BUILT_WIDTH`` and up to ``CLUSTER_MAX``
+    on the wider side, with ``d_in`` past ``WINDOW_IN`` (``slices`` in
+    ``csrc/hopfield_cluster.cuh``)."""
     return kernel_route(d_in, d_out) == "wide" and d_in > WINDOW_IN and max(d_in, d_out) <= CLUSTER_MAX
+
+
+def on_cluster(d_in: int, d_out: int) -> bool:
+    """Whether K1 (and a wide stage of K4), K2 and K3 run on their
+    thread-block clusters at ``(d_in, d_out)``: where the order is the
+    cluster's (:func:`cluster_order`), with ``d_out`` past ``WINDOW_IN``
+    too (``plan`` in ``csrc/hopfield_cluster.cuh``). With one side at
+    most 128 the narrow-side kernels have one window, or compute the
+    scores once for all windows, and ran faster. Other wide widths take
+    the narrow-side kernels (:func:`narrow_split`)."""
+    return cluster_order(d_in, d_out) and d_out > WINDOW_IN
+
+
+def whole_window(d_in: int, d_out: int) -> bool:
+    """Whether K2 and K3 take their whole window at ``(d_in, d_out)``
+    (``whole_fits`` in ``csrc/hopfield_narrow.cuh``): past 256 on the
+    narrow-side route, d_in up to 384 with d_out up to 8, or up to 320
+    with d_out up to 64; one block's 64 resident rows by all of d_in, each
+    score computed once in registers."""
+    return d_in > BUILT_WIDTH and any(d_in <= a and d_out <= b for a, b in WHOLE)
 
 
 def _cluster_chunks(d_in: int, d_out: int) -> int:
@@ -137,11 +150,11 @@ def score_order(d_in: int, d_out: int) -> tuple[int, bool]:
     columns of their scores at ``(d_in, d_out)``, in K2's and K3's order
     at the same widths (``score_order``, ``csrc/hopfield_narrow.cuh``):
     each part's three-pass TF32 products in a fresh sum, ``group`` parts
-    summed in order make a group, the groups add in order. On the cluster
-    (:func:`backward_cluster`) a group is a block's slice, ``2 J`` parts,
-    the small TF32 parts truncated; else every part is a group, rounded
-    (the window kernels' chunks)."""
-    if backward_cluster(d_in, d_out):
+    summed in order make a group, the groups add in order. Where
+    :func:`cluster_order` holds a group is a cluster block's slice, ``2 J``
+    parts, the small TF32 parts truncated, on either route; else every
+    part is a group, rounded (the window kernels' chunks)."""
+    if cluster_order(d_in, d_out):
         return 2 * _cluster_chunks(d_in, d_out), True
     return 1, False
 
@@ -170,7 +183,8 @@ def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -
     products split over the card first, each group's sums
     (:func:`score_order`) through device memory, then added in order:
     ``"scores"``, and for K2 and K3 also ``"gu"`` (``g Uᵀ``) or
-    ``"scores+gu"``. K1 splits where its depth has more than one group and
+    ``"scores+gu"``; for K2 and K3 ``"whole"`` where their whole window
+    takes the widths (:func:`whole_window`), at every N and M. K1 splits where its depth has more than one group and
     its blocks (64 token rows and a window of ``d_out`` each) are fewer
     than two an SM, its scratch within ``SPLIT_BYTES``; where the groups'
     sums pass it, ``"slabs"``: ``S`` by a score pass slab after slab of
@@ -186,8 +200,10 @@ def narrow_split(kernel: str, n: int, m: int, d_in: int, d_out: int, sms: int) -
     cannot hold its sums and one part: past 87,381 columns with both
     products, 131,072 with one, the windows compute the products. So the
     route depends on N and M as well as on the widths."""
-    if kernel_route(d_in, d_out) != "wide" or (forward_cluster if kernel == "fwd" else backward_cluster)(d_in, d_out):
+    if kernel_route(d_in, d_out) != "wide" or on_cluster(d_in, d_out):
         raise ValueError(f"{(d_in, d_out)} does not take {kernel}'s narrow-side kernel")
+    if kernel != "fwd" and whole_window(d_in, d_out):
+        return "whole"
     parts = -(-d_in // PART)
     if kernel == "fwd":
         groups = -(-parts // score_order(d_in, d_out)[0])
@@ -459,11 +475,11 @@ def forward_attributes(d_in: int, d_out: int) -> dict:
     """K1's build for ``(d_in, d_out)`` as the card reports it: registers
     and spilled (local) bytes a thread, dynamic shared bytes, threads a
     block, blocks an SM, and its tiles (token rows resident, patterns
-    streamed). Where it runs on its cluster (:func:`forward_cluster`)
-    also the cluster, as :func:`backward_attributes`. Launches nothing."""
+    streamed). Where it runs on its cluster (:func:`on_cluster`) also the
+    cluster, as :func:`backward_attributes`. Launches nothing."""
     stem = "hopfield_stream_fwd"
     attrs = kernel_attributes(stem, d_in, d_out)
-    if forward_cluster(d_in, d_out):
+    if on_cluster(d_in, d_out):
         attrs |= _cluster(stem, f"{stem}_cluster", d_in, d_out)
     return attrs
 
@@ -473,12 +489,12 @@ def fused_attributes(d: int, di: int) -> dict:
     :func:`forward_attributes` (the streamed tile is its first lookup's;
     past ``BUILT_WIDTH`` its first stage's kernel). Past ``BUILT_WIDTH``
     also ``stages``: for each stage's widths, its cluster where it runs
-    on one (:func:`forward_cluster`), else ``{"cluster": None}`` (the
+    on one (:func:`on_cluster`), else ``{"cluster": None}`` (the
     narrow-side kernel)."""
     stem = "hopfield_bottleneck_fused"
     attrs = kernel_attributes(stem, d, di)
     if kernel_route(d, di) == "wide":
-        attrs["stages"] = {f"{a}x{b}": _cluster(stem, f"{stem}_cluster", a, b) if forward_cluster(a, b)
+        attrs["stages"] = {f"{a}x{b}": _cluster(stem, f"{stem}_cluster", a, b) if on_cluster(a, b)
                            else {"cluster": None} for a, b in ((d, d), (d, di), (di, d))}
     return attrs
 
@@ -488,12 +504,12 @@ def backward_attributes(kernel: str, d_in: int, d_out: int) -> dict:
     as the card reports it: registers and spilled (local) bytes a thread,
     dynamic shared bytes, threads a block, blocks an SM, and its tiles
     (token rows resident and patterns streamed in K2; patterns resident
-    and token rows streamed in K3). Where they run on their cluster
-    (:func:`backward_cluster`) also the cluster (:func:`_cluster`).
-    Launches nothing."""
+    and token rows streamed in K3; on the whole window 256 threads, its
+    eight warps). Where they run on their cluster (:func:`on_cluster`)
+    also the cluster (:func:`_cluster`). Launches nothing."""
     stem = f"hopfield_stream_bwd_{kernel}"
     attrs = kernel_attributes(stem, d_in, d_out)
-    if backward_cluster(d_in, d_out):
+    if on_cluster(d_in, d_out):
         attrs |= _cluster(stem, f"{stem}_cluster", d_in, d_out)
     return attrs
 

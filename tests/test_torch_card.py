@@ -49,13 +49,23 @@ def test_window_backward_attributes_and_workspace(card, width):
 
 
 @pytest.mark.parametrize("kernel", ["dx", "dku"])
-@pytest.mark.parametrize("sizes", [(4096, 64, 8320, 3), (256, 2048, 8320, 3), (256, 256, 8320, 8320)])
+@pytest.mark.parametrize("sizes", [(4096, 64, 8320, 3), (256, 2048, 8320, 3), (256, 256, 8320, 8320),
+                                   (73984, 4096, 1280, 3), (73984, 4096, 8192, 3)])
 def test_lookup_split_plans_fit_the_cap(card, kernel, sizes):
     """K2's and K3's products past 8192, whose sums and parts pass 64 MiB
     whole, split slab after slab within it: the library's plan has a slab
     at least, a round of parts at least, and scratch within the cap."""
     plan = hc.split_plan(kernel, *sizes)
     assert plan["slabs"] >= 1 and plan["rounds"] >= 1 and 0 < plan["scratch_floats"] * 4 <= 64 << 20
+
+
+@pytest.mark.parametrize("kernel", ["dx", "dku"])
+@pytest.mark.parametrize("sizes", [(4096, 512, 384, 3), (73984, 4096, 384, 3), (4096, 512, 300, 64)])
+def test_whole_window_plans_split_nothing(card, kernel, sizes):
+    """Where K2 and K3 take their whole window, the library's plan splits
+    no product: no slab, no scratch past the partial sums."""
+    assert hc.narrow_split(kernel, sizes[0], sizes[1], *sizes[2:], 132) == "whole"
+    assert not any(hc.split_plan(kernel, *sizes).values())
 
 
 @pytest.mark.parametrize("sizes", [(4096, 64, 8320, 3), (256, 2048, 8320, 3), (16384, 512, 384, 3),

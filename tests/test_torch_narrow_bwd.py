@@ -46,6 +46,7 @@ from hopvae_torch.ops import hopfield_cuda as hc
 from test_torch_hopfield import ATOL, RTOL, _jax, _np_params, _torch_layer
 from test_torch_hopfield_tf32 import BWD_NORMWISE, _float64_backward, _normwise, round_tf32
 from test_torch_wide import _lookup_case
+from test_torch_window import WIDE_IN_SPLITS
 
 PART = hc.PART
 TILE = hc.PATTERN_TILE  # K2's pattern tile; K5's key tile
@@ -234,12 +235,13 @@ def test_narrow_dx_matches_pallas_at_3x300():
     (64, 131072, 8320, 3, "scores"),       # one token tile's sums and a part: 64 MiB, the most a unit may take
     (64, 131073, 8320, 3, None),           # past it the windows compute the scores
     (64, 87382, 8320, 8320, None),         # two products past 87,381 patterns
+    *WIDE_IN_SPLITS,                       # past a d_in of 256 with d_out at most 128: off the cluster
 ])
 def test_narrow_split_dx(n, m, d_in, d_out, split):
     """K2's narrow-side route on 132 SMs: which products split over the
     card, which depends on N and M as well as on the widths, and nowhere
     on the scratch but where one token tile's sums and one part pass 64
-    MiB."""
+    MiB; the whole window wherever all of d_in fits a block."""
     assert hc.narrow_split("dx", n, m, d_in, d_out, SMS) == split
 
 
@@ -255,8 +257,8 @@ def test_pattern_splits_follow_plan_for(blocks, tiles, concurrent, splits):
 
 def test_narrow_split_dx_refuses_the_other_routes():
     """K2's route names only the narrow-side kernel's widths: up to 256 a
-    built instance, d_in past 128 up to 8192 the cluster."""
-    for widths in ((64, 64), (384, 3), (512, 512)):
+    built instance, d_in and d_out past 128 up to 8192 the cluster."""
+    for widths in ((64, 64), (384, 200), (512, 512)):
         with pytest.raises(ValueError, match="narrow-side"):
             hc.narrow_split("dx", 64, 64, *widths, SMS)
 
@@ -269,6 +271,20 @@ def test_plan_constants_match_the_sources():
     assert re.search(r"constexpr int TN = (\d+);", narrow)[1] == str(hc.PATTERN_TILE)
     assert re.search(r"constexpr int TM = (\d+);", narrow)[1] == str(hc.TOKEN_TILE)
     assert re.search(r"constexpr int PLAN_PER_SM = (\d+);", dx)[1] == str(hc.PLAN_PER_SM)
+
+
+def test_whole_window_constants_match_the_sources():
+    """The whole window's widths that ``hc.whole_window`` copies equal
+    ``whole_fits``'s in ``hopfield_narrow.cuh``, and its instances are the
+    ones that ``with_whole`` builds."""
+    narrow = (CSRC / "hopfield_narrow.cuh").read_text()
+    fits = re.search(r"inline bool whole_fits\(.*?\n\}", narrow, re.S)[0]
+    pairs = [tuple(map(int, p)) for p in re.findall(r"d_in <= (\d+) && d_out <= (\d+)", fits)]
+    assert tuple(pairs) == hc.WHOLE
+    assert [tuple(map(int, p)) for p in re.findall(r"dw = (\d+), wo = (\d+);", fits)] == list(hc.WHOLE)
+    for (d_in, d_out), whole in (((384, 3), True), ((385, 3), False), ((384, 9), False), ((320, 64), True),
+                                 ((321, 64), False), ((300, 65), False), ((257, 8), True), ((256, 3), False)):
+        assert hc.whole_window(d_in, d_out) == whole
 
 
 def _softmax_walk(scores_of_tile, v, s: int, scale: float, passes: int):

@@ -69,22 +69,25 @@ def test_widths_past_256_are_taken(width, padded):
     any other width to the next one. Nothing raises."""
     for d_in, d_out in ((width, 3), (3, width), (width, width)):
         assert hc.kernel_takes(d_in, d_out) and hc.kernel_route(d_in, d_out) == "wide"
-    # K2 and K3 on their cluster wherever d_in passes 128; (3, width) on the window kernels
-    assert hc.backward_cluster(width, 3) and hc.backward_cluster(width, width) and not hc.backward_cluster(3, width)
-    # K1 (and K4's wide stages) on its cluster where both widths pass 128
-    assert hc.forward_cluster(width, width) and not hc.forward_cluster(width, 3) and not hc.forward_cluster(3, width)
+    # K1 to K3 (and K4's wide stages) on their clusters where both widths pass 128; (width, 3) and (3, width)
+    # on the narrow-side kernels, (width, 3) in the cluster's order
+    assert hc.on_cluster(width, width) and not hc.on_cluster(width, 3) and not hc.on_cluster(3, width)
+    assert hc.cluster_order(width, 3) and not hc.cluster_order(3, width)
     assert ac.kernel_width(width) == padded
     assert ac.kernel_width(padded) == padded
 
 
-@pytest.mark.parametrize("d_in,d_out,cluster", [(129, 300, True), (128, 300, False), (8192, 3, True),
-                                                (8320, 3, False), (3, 8192, False), (256, 256, False)])
+@pytest.mark.parametrize("d_in,d_out,cluster", [(129, 300, True), (128, 300, False), (8192, 3, False),
+                                                (8320, 3, False), (3, 8192, False), (256, 256, False),
+                                                (384, 3, False), (300, 64, False), (384, 200, True)])
 def test_lookup_backward_route(d_in, d_out, cluster):
-    """Where K2 and K3 run on their cluster (``hopfield_cluster::plan``):
-    past 256 on the wider side up to 8192, with d_in past 128 (up to it dq
-    and dK have one window, and the window kernels ran faster); elsewhere
-    past 256 on the window kernels, up to 256 on the built instances."""
-    assert hc.backward_cluster(d_in, d_out) == cluster
+    """Where K2 and K3 run on their cluster (``hopfield_cluster::plan``,
+    K1's too): past 256 on the wider side up to 8192, with d_in and d_out
+    past 128 (with d_in up to 128 dq and dK have one window; with d_out up
+    to 128 their whole window or their split products compute each score
+    once); elsewhere past 256 on the narrow-side kernels, up to 256 on the
+    built instances."""
+    assert hc.on_cluster(d_in, d_out) == cluster
 
 
 @pytest.mark.parametrize("d_in,d_out,cluster", [(257, 129, True), (129, 300, True), (128, 300, False),
@@ -93,12 +96,12 @@ def test_lookup_backward_route(d_in, d_out, cluster):
                                                 (256, 256, False)])
 def test_lookup_forward_route(d_in, d_out, cluster):
     """Where K1 (and each wide stage of K4) runs on its cluster
-    (``hopfield_cluster::fwd_plan``): past 256 on the wider side up to
+    (``hopfield_cluster::plan``): past 256 on the wider side up to
     8192, with both d_in and d_out past 128 (up to 128 on either side the
     window kernel computes each score once, or recomputes only scores of
     that depth, and ran faster). Elsewhere past 256 the window kernel
     runs; up to 256 the built instances."""
-    assert hc.forward_cluster(d_in, d_out) == cluster
+    assert hc.on_cluster(d_in, d_out) == cluster
 
 
 def test_padded_wide_head_matches_jax(monkeypatch):
@@ -304,22 +307,23 @@ def test_wide_lookup_forward_scheme_at_512(passes, d_in, d_out, order):
 def test_wide_forward_stats_rebuild_rows_summing_to_one(d_in, d_out):
     """The attention that K2 and K3 rebuild from the wide forward's ``m``
     and ``l`` (N 300, M 1024, three passes; the forward in its cluster's
-    order where ``hc.forward_cluster``, else in the window kernels' order, whose
+    order where ``hc.on_cluster``, else in the window kernels' order, whose
     parts the narrow-side kernel keeps: its own order, the backward's, is
     held in ``tests/test_torch_window.py``), with the scores in the
-    backward's own order (its cluster's where ``hc.backward_cluster``, else
-    its window kernels' chunks of 64), sums to 1 within 1.5e-7 on every
+    backward's own order (its cluster's slices where ``hc.cluster_order``,
+    on either route, else its window kernels' chunks of 64), sums to 1
+    within 1.5e-7 on every
     row, as against the narrow K1's stats
     (``tests/test_torch_hopfield_tf32.py``). (K1's cluster order against
     the backward's window order at (3, 384) misses it: 3.7e-7, the small
     TF32 parts truncated in one and rounded in the other.)"""
     x, k, u, s, t, *_ = _lookup_case(d_in, d_out)
-    if hc.forward_cluster(d_in, d_out):
+    if hc.on_cluster(d_in, d_out):
         _, m, l = cluster_forward(x, k, u, s, t, 3)
     else:
         _, m, l = wide_forward(x, k, u, s, t, 3)
     q = hc._query(hc._state_ln(x)[0], s, t)
-    if hc.backward_cluster(d_in, d_out):
+    if hc.cluster_order(d_in, d_out):
         scores = cluster_tf32(q, k.T.contiguous(), 3, slice_=_cluster_plan(max(d_in, d_out))[0])
     else:
         scores = chunked_tf32(q, k.T.contiguous(), 3)
@@ -339,8 +343,9 @@ def test_wide_lookup_backward_scheme_at_512(passes, d_in, d_out, order):
     (300, 700) (N 300, M 1024): with three passes each of dx, dK, dU, ds,
     dt within ``BWD_NORMWISE`` of the f32 plain version, and within twice
     its distance from float64 (or 2e-6). One pass misses ``BWD_NORMWISE``
-    from float64. (On the card (3, 384) takes the window kernels, which
-    ran faster there: ``hc.backward_cluster``.)"""
+    from float64. (On the card (384, 3) and (3, 384) take the narrow-side
+    kernels, which ran faster there, (384, 3) in the cluster's order:
+    ``hc.on_cluster``, ``hc.score_order``.)"""
     args = _lookup_case(d_in, d_out, seed=4)
     got = wide_backward(*args, passes=passes, cluster=order == "cluster")
     exact = _float64_backward(args)

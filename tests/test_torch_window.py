@@ -48,6 +48,12 @@ from test_torch_hopfield_tf32 import (BWD_NORMWISE, OUT_ATOL, STAT_RTOL, _float6
 from test_torch_wide import TILE, _lookup_case, chunked_tf32, trunc_tf32
 
 PART = hc.PART
+# (N, M, d_in, d_out, route) of K2 and K3 past a d_in of 256 with d_out at most 128, where they left the
+# cluster: the whole window, or the scores split (each split's slabs within 64 MiB: one token or pattern tile's
+# sums and a group take 1 to 38 MB), at N 4,096 and 16,384 (M 512) and 73,984 (M 4,096)
+WIDE_IN_SPLITS = [(n, m, d_in, d_out, route) for d_in, d_out, route in ((384, 3, "whole"), (1280, 3, "scores"),
+                                                                         (8192, 3, "scores"), (300, 64, "whole"))
+                  for n, m in ((4096, 512), (16384, 512), (73984, 4096))]
 # (d_in, d_out, N, M): phase 2's narrow-side shapes, at a size the CPU runs in a second
 CASES = [(384, 3, 300, 1024), (3, 384, 300, 1024), (1280, 3, 37, 300), (8320, 3, 37, 64)]
 IDS = ["384x3", "3x384", "1280x3", "8320x3"]
@@ -223,14 +229,42 @@ def test_split_scores_keep_the_one_pass_bits(d_in, d_out):
     assert torch.equal(split, walk)
 
 
+@pytest.mark.parametrize("side", ["dx", "dku"])
+@pytest.mark.parametrize("d_in,d_out", [(384, 3), (1280, 3), (8192, 3), (300, 64)])
+def test_split_rounds_keep_the_cluster_order_bits(d_in, d_out, side):
+    """Where K2 and K3 left the cluster, their split scores (in K2's
+    orientation ``q Kᵀ`` or K3's ``K qᵀ``) in the cluster's order, in rounds
+    of every size of the order's groups, each round's groups apart and
+    then added onto S in order (``split_slab``), equal bit for bit the
+    walk's (a part at a time, each group closing into the running sum in
+    registers): the scores K1's stats were made from, whatever the slabs
+    and rounds."""
+    x, k, _u, s, t, *_ = _lookup_case(d_in, d_out, n=37, m_patterns=64)
+    q = hc._query(hc._state_ln(x)[0], s, t)
+    a, b = (q, k) if side == "dx" else (k, q)
+    group, trunc = hc.score_order(d_in, d_out)
+    assert trunc and group == 2 * hc._cluster_chunks(d_in, d_out) and not hc.on_cluster(d_in, d_out)
+    walk = ordered_tf32(a, b.T.contiguous(), 3, group, trunc)
+    sums = group_sums(a, b.T.contiguous(), 3, group, trunc)
+    for rnd in range(1, len(sums) + 1):
+        split = None
+        for g0 in range(0, len(sums), rnd):  # a round's groups apart, then added onto S in order
+            total = sums[g0].clone() if split is None else split + sums[g0]
+            for gs in sums[g0 + 1:g0 + rnd]:
+                total += gs
+            split = total
+        assert torch.equal(split, walk), rnd
+
+
 @pytest.mark.parametrize("d_in,d_out,order", [(384, 3, (2, True)), (1280, 3, (4, True)), (8320, 3, (1, False)),
                                               (3, 384, (1, False)), (300, 64, (2, True)), (3000, 3, (8, True)),
                                               (64, 300, (1, False))])
 def test_score_order_is_the_backward_order(d_in, d_out, order):
     """``hc.score_order``: the cluster's slice (2J parts, truncated) where
-    K2 and K3 run on it, else one part a group, rounded."""
+    the order is the cluster's (``hc.cluster_order``, on the cluster or
+    the narrow-side kernels alike), else one part a group, rounded."""
     assert hc.score_order(d_in, d_out) == order
-    assert (order[0] > 1) == hc.backward_cluster(d_in, d_out)
+    assert (order[0] > 1) == hc.cluster_order(d_in, d_out)
 
 
 @pytest.mark.parametrize("n,m,d_in,d_out,split", [
@@ -265,13 +299,16 @@ def test_forward_narrow_split(n, m, d_in, d_out, split):
     (4096, 512, 64, 300, None), (37, 64, 3, 8320, None), (256, 256, 8320, 8320, "scores+gu"),
     (37, 300, 8320, 300, "scores+gu"), (4096, 64, 8320, 3, "scores"), (131072, 64, 8320, 3, "scores"),
     (131073, 64, 8320, 3, None), (278784, 64, 8320, 3, None),
+    *WIDE_IN_SPLITS,
 ])
 def test_backward_narrow_split(n, m, d_in, d_out, split):
-    """K3's narrow-side split: where d_in passes 128 (past 8192 on a side),
-    every window would recompute them, so the scores, and ``U gᵀ`` for
-    dK's windows, split in slabs of pattern tiles within ``SPLIT_BYTES``;
-    only where one tile's sums across N and one part pass it (N past
-    131,072 with one product) do the windows compute them."""
+    """K3's narrow-side split: where d_in passes 128, every window would
+    recompute them, so the scores, and ``U gᵀ`` for dK's windows, split in
+    slabs of pattern tiles within ``SPLIT_BYTES``; only where one tile's
+    sums across N and one part pass it (N past 131,072 with one product)
+    do the windows compute them. Where all of d_in fits one block (384
+    with d_out up to 8, 320 with d_out up to 64) the whole window runs,
+    nothing split, at every N."""
     assert hc.narrow_split("dku", n, m, d_in, d_out, sms=132) == split
 
 

@@ -1,7 +1,7 @@
 """Compare builds of the streaming Hopfield kernels K1, K2 and K3 on the card.
 
     python3 tools/torch_hopfield_bwd_variants.py [--bits] [--shapes LABEL,...] [--no-steps]
-        [NAME=CSRC_DIR[:-DFLAG,...] ...]
+        [--full D_INxD_OUT,...] [NAME=CSRC_DIR[:-DFLAG,...] ...]
 
 Builds ``hopfield_stream_fwd.cu``, ``hopfield_stream_bwd_dx.cu`` and
 ``hopfield_stream_bwd_dku.cu`` from ``hopvae_torch/csrc`` (as ``change``)
@@ -12,7 +12,8 @@ spills, and runs every build twice, in turns, at the shapes of phase 2 of
 ``chip_smoke.py`` (the trained FFHQ-64 and MNIST tables, a ragged case,
 and its width cases, among them (384, 3) and (3, 384) at the full scale
 of ffhq_64_scaled) and at 512 -> 512 with random tables at that scale (N
-73,984, M 4,096), on the same inputs, the row
+73,984, M 4,096), and at each ``--full`` width pair at that scale (random
+tables, labelled ``wide full D_INxD_OUT``), on the same inputs, the row
 stats from the plain forward. Per build and shape, one JSON line: K1's and
 the backward's normwise errors against the plain versions, whether a
 second launch repeats the first bit for bit, whether the outputs equal the
@@ -133,14 +134,18 @@ def workspace(libs, n: int, mp: int, d_in: int, d_out: int):
     return torch.empty(floats, device="cuda")
 
 
-def cases() -> list[tuple]:
-    """Phase 2's cases, then FULL_CASE with random tables."""
-    label, n, mp, d_in, d_out = FULL_CASE
-    layer = cs.HopfieldLookup(d_in, d_out, mp, device="cuda")
-    layer.reset_parameters(generator=torch.Generator(device="cuda").manual_seed(5))
-    with torch.inference_mode():
-        tables = tuple(a.contiguous() for i, a in enumerate(hc.fold_layer(layer)) if i != 2)
-    return [*cs.kernel_cases(cs.folded_tables()), (label, n, tables, d_in, d_out)]
+def cases(full: list[tuple[int, int]]) -> list[tuple]:
+    """Phase 2's cases, then FULL_CASE and each of ``full``'s widths at
+    its scale, with random tables."""
+    _, n, mp, *_ = FULL_CASE
+    out = cs.kernel_cases(cs.folded_tables())
+    for label, d_in, d_out in [(FULL_CASE[0], *FULL_CASE[3:]), *((f"wide full {a}x{b}", a, b) for a, b in full)]:
+        layer = cs.HopfieldLookup(d_in, d_out, mp, device="cuda")
+        layer.reset_parameters(generator=torch.Generator(device="cuda").manual_seed(5))
+        with torch.inference_mode():
+            tables = tuple(a.contiguous() for i, a in enumerate(hc.fold_layer(layer)) if i != 2)
+        out.append((label, n, tables, d_in, d_out))
+    return out
 
 
 def k1_bits(libs) -> None:
@@ -218,10 +223,14 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_hopfield_bwd_variants: no CUDA device", file=sys.stderr)
         return 2
-    only_bits, steps, shapes = "--bits" in argv, "--no-steps" not in argv, None
+    only_bits, steps, shapes, full = "--bits" in argv, "--no-steps" not in argv, None, []
     if "--shapes" in argv:
         at = argv.index("--shapes")
         shapes = set(argv[at + 1].split(","))
+        argv = argv[:at] + argv[at + 2:]
+    if "--full" in argv:
+        at = argv.index("--full")
+        full = [tuple(int(w) for w in pair.split("x")) for pair in argv[at + 1].split(",")]
         argv = argv[:at] + argv[at + 2:]
     argv = [a for a in argv if a not in ("--bits", "--no-steps")]
     builds = {"change": (nvcc.CSRC, [])}
@@ -239,7 +248,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(2)
     names = {"fwd": ("out", "m", "l"), "dx": ("dx", "ds", "dt"), "dku": ("dK", "dU")}
     with cs.parity_mode(), torch.inference_mode():
-        for label, n, (k, u, s, t), d_in, d_out in cases():
+        for label, n, (k, u, s, t), d_in, d_out in cases(full):
             if shapes is not None and label not in shapes:
                 continue
             x = cs.case_input(n, d_in, gen)
