@@ -302,7 +302,7 @@ from hopvae_torch.parallel import mesh as mesh_lib
 from hopvae_torch.serving import InferenceEngine, state_from_checkpoint
 from hopvae_torch.train import (Trainer, load_weights, prior_has_parameters, prior_train_golden, profiled,
                                 train_golden)
-from hopvae_torch.utils import nvcc
+from hopvae_torch.utils import nvcc, tracing
 from hopvae_torch.utils.benchmark import device_seconds_per_iter
 from hopvae_torch.utils.flops import (PEAKS_CARD, SFU_PER_CLOCK_PER_SM, attention_bound, bound, bound_bwd, fused_bound,
                                      mfu, train_flops_per_image)
@@ -403,11 +403,13 @@ def phase_environment() -> dict:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     card = smi("name,power.limit")
     log(f"card: {card}")
+    tracing.enable()
     t0 = time.perf_counter()
     stems = nvcc.build_all()
     build_s = time.perf_counter() - t0
-    log(f"built {stems} in {build_s:.1f} s; each source's nvcc, all started together, in s: "
-        f"{json.dumps({stem: round(sec, 1) for stem, sec in nvcc.build_seconds.items()})}")
+    tracing.disable()
+    each = sorted(round(1e-9 * (s.end - s.start), 1) for s in tracing.spans() if s.name == "nvcc.build")
+    log(f"built {stems} in {build_s:.1f} s; each source's nvcc, all started together, in s: {each}")
     for stem in stems:
         entry = ""
         for line in nvcc.build_logs.get(stem, "").splitlines():
@@ -2112,10 +2114,12 @@ def decode_serving(label: str, config: str, checkpoint: str, n: int, requests: i
     cfg = load_config(config)
     cfg.prior = "Transformer"
     torch.cuda.reset_peak_memory_stats()
+    tracing.enable()
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, state_from_checkpoint(str(CHECKPOINTS / checkpoint)), max_batch=1, n_sample=n,
                           ops=("sample",))
     build_s = time.perf_counter() - t0
+    tracing.disable()
     prior = eng.model.prior
     dec = graphed(prior, "sample", n, prior.cache_dtype)
     calls, wall = [], 0.0
@@ -2130,7 +2134,7 @@ def decode_serving(label: str, config: str, checkpoint: str, n: int, requests: i
     with torch.inference_mode():
         steps = step_times(dec)
     res = {"config": config, "checkpoint": checkpoint, "batch": n, "seq": prior.seq, "cache_dtype": prior.cache_dtype,
-           "segments": len(dec.segments), "engine_build_s": build_s, "capture_s": dec.capture_s,
+           "segments": len(dec.segments), "engine_build_s": build_s, "capture_s": tracing.seconds("graph.capture"),
            "samples_per_s": 1e3 * n * requests / wall, "requests": calls, "draws_in_range": draws_in_range,
            "caches_written": written, "peak_gib": peak / 2**30,
            "step_graph_ms": mean_step(steps, "graph_ms"), "step_eager_ms": mean_step(steps, "eager_ms"),
@@ -2225,7 +2229,9 @@ def phase_decode_serving() -> dict:
         torch.cuda.reset_peak_memory_stats()
         prior = decode_prior(cdt).prior
         gen = torch.Generator(device="cuda")
+        tracing.enable()
         prior.sample(256, generator=gen.manual_seed(0))  # captures the graphs
+        tracing.disable()
         torch.cuda.synchronize()  # sample returns before its replays end
         t0 = time.perf_counter()
         prior.sample(256, generator=gen.manual_seed(1))
@@ -2234,7 +2240,7 @@ def phase_decode_serving() -> dict:
         dec = graphed(prior, "sample", 256, cdt)
         with torch.inference_mode():
             steps = step_times(dec)
-        by_dtype[cdt] = {"prior_samples_per_s": 256 / wall, "capture_s": dec.capture_s,
+        by_dtype[cdt] = {"prior_samples_per_s": 256 / wall, "capture_s": tracing.seconds("graph.capture"),
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                          "step_graph_ms": mean_step(steps, "graph_ms"), "step_eager_ms": mean_step(steps, "eager_ms"),
                          "steps": steps}
@@ -2428,10 +2434,12 @@ def pixelcnn_sampling(label: str, config: str, checkpoint: str, n: int, requests
     cfg = load_config(config)
     torch.manual_seed(cfg.seed)
     torch.cuda.reset_peak_memory_stats()
+    tracing.enable()
     t0 = time.perf_counter()
     eng = InferenceEngine(cfg, state_from_checkpoint(str(CHECKPOINTS / checkpoint)), max_batch=1, n_sample=n,
                           ops=("sample",))
     build_s = time.perf_counter() - t0
+    tracing.disable()
     prior = eng.model.prior
     sampler = prior._samplers[("sample", n)]
     want = {**dict.fromkeys((*KERNEL_COUNTERS, *ATTENTION_COUNTERS, "hopfield_bottleneck_fused"), 0),
@@ -2449,7 +2457,7 @@ def pixelcnn_sampling(label: str, config: str, checkpoint: str, n: int, requests
     peak = torch.cuda.max_memory_allocated()
     res = {"config": config, "batch": n, "pixel_steps": prior.representation_dim**2,
            "features": prior.features, "res_blocks": prior.n_res, "engine_build_s": build_s,
-           "capture_s": sampler.capture_s, "samples_per_s": 1e3 * n * requests / wall, "requests": calls,
+           "capture_s": tracing.seconds("graph.capture"), "samples_per_s": 1e3 * n * requests / wall, "requests": calls,
            "draws_in_range": in_range, **check, "peak_gib": peak / 2**30, **pixel_step_ms(sampler)}
     bad = [c for c in calls if c["launches"] != want or not (c["finite"] and c["shape_ok"])]
     if bad or not (in_range and check["cells_written"] and check["preset_reaches_nothing"]

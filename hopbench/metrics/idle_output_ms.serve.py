@@ -1,0 +1,10 @@
+"""Device idle ms a reconstruct call while the host is in ``engine.output``
+(the answer back to the host as numpy), in the traced slice."""
+
+from hopbench.spans import per_call_ms
+
+MOVES = "recon_images_per_s"
+
+
+def read(reading):
+    return per_call_ms(reading, lambda st: st.idle_s(("engine.output",)))

@@ -48,6 +48,7 @@ from hopvae_torch.ops.conv import conv2d
 from hopvae_torch.ops.hopfield import HopfieldLookup, hopfield_lookup
 from hopvae_torch.ops.hopfield_cuda import hopfield_lookup_stream
 from hopvae_torch.ops.ste import straight_through_round
+from hopvae_torch.utils.tracing import span
 
 PRIOR = "prior."
 
@@ -109,17 +110,19 @@ class HopVAE(nn.Module):
                 f"{expected[2]}) for config image_size={cfg.image_size}, got "
                 f"{tuple(x.shape)}{hint}"
             )
-        z = self.encoder(self._compute(x).permute(0, 3, 1, 2))
-        z = conv2d(z, self.pre_vq_conv.weight, self.pre_vq_conv.bias)
-        b = z.shape[0]
-        return z.permute(0, 2, 3, 1).float().reshape(b, self.representation_dim**2, self.embedding_dim)
+        with span("model.encoder"):
+            z = self.encoder(self._compute(x).permute(0, 3, 1, 2))
+            z = conv2d(z, self.pre_vq_conv.weight, self.pre_vq_conv.bias)
+            b = z.shape[0]
+            return z.permute(0, 2, 3, 1).float().reshape(b, self.representation_dim**2, self.embedding_dim)
 
     def _tokens_to_image(self, z_embeddings: torch.Tensor) -> torch.Tensor:
         """Latent tokens ``(B, r², d)`` → decoded image ``(B, H, W, C)``, f32."""
         b, r = z_embeddings.shape[0], self.representation_dim
-        grid = self._compute(z_embeddings).reshape(b, r, r, self.embedding_dim)
-        out = self.decoder(grid.permute(0, 3, 1, 2))
-        return out.permute(0, 2, 3, 1).float()
+        with span("model.decoder"):
+            grid = self._compute(z_embeddings).reshape(b, r, r, self.embedding_dim)
+            out = self.decoder(grid.permute(0, 3, 1, 2))
+            return out.permute(0, 2, 3, 1).float()
 
     def bottleneck_layers(self) -> dict:
         return {name: getattr(self, name) for name in LAYERS}
@@ -128,8 +131,9 @@ class HopVAE(nn.Module):
         """``(x_recon, zq, aux_loss)``: the reconstruction, the quantized
         grid ``(B, r², index_dim)`` and the embedding round-trip loss."""
         z = self._encode_to_tokens(x)
-        e, zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl,
-                                       group=self.pattern_group)
+        with span("model.lookups"):
+            e, zq, r = hopfield_bottleneck(self.bottleneck_layers(), z, self.num_levels, impl=self.impl,
+                                           group=self.pattern_group)
         return self._tokens_to_image(e), zq, torch.mean((r - e) ** 2)
 
     def prior_bits(self, zq: torch.Tensor) -> torch.Tensor:
@@ -157,9 +161,10 @@ class HopVAE(nn.Module):
         the streaming kernels (K1 on the card) or the eager lookup; over
         the pattern shards where ``pattern_group`` is set."""
         layer = getattr(self, name)
-        if self.impl == "cuda" or self.pattern_group is not None:
-            return hopfield_lookup_stream(layer, x, self.impl, self.pattern_group)
-        return hopfield_lookup(layer, x)
+        with span("model.lookups"):
+            if self.impl == "cuda" or self.pattern_group is not None:
+                return hopfield_lookup_stream(layer, x, self.impl, self.pattern_group)
+            return hopfield_lookup(layer, x)
 
     def decode_grid(self, grid: torch.Tensor) -> torch.Tensor:
         """A level grid ``(B, r, r, index_dim)`` of levels in ``[0, L-1]`` →

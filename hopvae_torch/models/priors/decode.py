@@ -24,11 +24,10 @@ Port of the loop of ``_decode_all`` in
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from hopvae_torch.utils.graphs import collector_held
+from hopvae_torch.utils.tracing import span
 
 # the largest code of a quantized cache; int4's codes are kept in int8
 # (JAX's S4 packs two a byte: the values are the same, the bytes are not)
@@ -60,7 +59,6 @@ class Decoder:
             self.tokens = torch.zeros(b, s, dtype=torch.int64, device=dev)
             self.out = torch.zeros(s, b, lvl, device=dev)
         self.graphs: list | None = None
-        self.capture_s: float | None = None  # seconds the warm-up and capture took
 
     def reset(self, t: int = 0) -> None:
         """Zeroed caches, ``t`` at the given position, previous token 0."""
@@ -76,26 +74,26 @@ class Decoder:
 
     def capture(self) -> None:
         """Capture one step of each segment in a CUDA graph, all in one
-        memory pool, after a warm-up step of each on a side stream."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for k, (start, _stop) in enumerate(self.segments):
-                self.t.fill_(start)
-                self.step(k)
-        torch.cuda.current_stream().wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = []
-        with collector_held():
-            for k in range(len(self.segments)):
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool):
+        memory pool, after a warm-up step of each on a side stream (the
+        span ``graph.capture``)."""
+        with span("graph.capture"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for k, (start, _stop) in enumerate(self.segments):
+                    self.t.fill_(start)
                     self.step(k)
-                graphs.append(graph)
-        torch.cuda.synchronize()
-        self.graphs = graphs
-        self.capture_s = time.perf_counter() - t0
+            torch.cuda.current_stream().wait_stream(side)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = []
+            with collector_held():
+                for k in range(len(self.segments)):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool):
+                        self.step(k)
+                    graphs.append(graph)
+            torch.cuda.synchronize()
+            self.graphs = graphs
 
     def run(self, fill=None) -> torch.Tensor:
         """Every position from 0, segment by segment: ``fill(noise, start,

@@ -40,13 +40,12 @@ right while the prior trains.
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.nn.functional as F
 
 from hopvae_torch.models.priors.transformer import gumbel_
 from hopvae_torch.utils.graphs import collector_held
+from hopvae_torch.utils.tracing import span
 
 
 class ColumnSampler:
@@ -73,7 +72,6 @@ class ColumnSampler:
             self.tokens = torch.zeros(b, r * r, c, device=dev)
             self.out = torch.zeros(r * r, c, b, lvl, device=dev)
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.capture_s: float | None = None  # seconds the warm-up and capture took
 
     def _taps(self) -> dict:
         """The step's matrices, ``(in, out)``, from the masked weights:
@@ -177,22 +175,21 @@ class ColumnSampler:
 
     def capture(self) -> None:
         """Capture one step in a CUDA graph, in the prior's memory pool,
-        after a warm-up step on a side stream."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.reset()
-            self.step()
-        torch.cuda.current_stream().wait_stream(side)
-        if getattr(self.prior, "_graph_pool", None) is None:
-            self.prior._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with collector_held(), torch.cuda.graph(graph, pool=self.prior._graph_pool):
-            self.step()
-        torch.cuda.synchronize()
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        after a warm-up step on a side stream (the span ``graph.capture``)."""
+        with span("graph.capture"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.reset()
+                self.step()
+            torch.cuda.current_stream().wait_stream(side)
+            if getattr(self.prior, "_graph_pool", None) is None:
+                self.prior._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with collector_held(), torch.cuda.graph(graph, pool=self.prior._graph_pool):
+                self.step()
+            torch.cuda.synchronize()
+            self.graph = graph
 
     def run(self, *, generator: torch.Generator | None = None, gumbel: torch.Tensor | None = None,
             grid: torch.Tensor | None = None) -> torch.Tensor:
@@ -203,20 +200,23 @@ class ColumnSampler:
         C)`` (``mode="sample"``) or, given ``grid`` ``(B, r, r, C)``, the
         logits ``(r², C, B, L)``; the next run overwrites either."""
         r, c, n = self.prior.representation_dim, self.prior.index_dim, self.batch
-        self.load_taps()
-        self.reset()
+        with span("sampler.rows"):
+            self.load_taps()
+            self.reset()
         if self.mode == "logits":
             self.tokens.copy_(grid.reshape(n, r * r, c))
         for i in range(r):
             if self.mode == "sample":
-                if gumbel is not None:
-                    self.noise.copy_(gumbel[i * r : (i + 1) * r])
-                else:
-                    torch.rand(self.noise.shape, generator=generator, device=self.noise.device, out=self.noise)
-                    gumbel_(self.noise)
+                with span("sampler.rows"):
+                    if gumbel is not None:
+                        self.noise.copy_(gumbel[i * r : (i + 1) * r])
+                    else:
+                        torch.rand(self.noise.shape, generator=generator, device=self.noise.device, out=self.noise)
+                        gumbel_(self.noise)
             for _ in range(r):
-                if self.graph is None:
-                    self.step()
-                else:
-                    self.graph.replay()
+                with span("sampler.replay"):
+                    if self.graph is None:
+                        self.step()
+                    else:
+                        self.graph.replay()
         return self.grid[:, 3:, 3 : r + 3] if self.mode == "sample" else self.out

@@ -34,6 +34,7 @@ from hopvae_torch.data import MNIST_MEAN, MNIST_STD
 from hopvae_torch.models.hopvae import HopVAE
 from hopvae_torch.utils.checkpoint import checkpoint_state, load_reference_checkpoint
 from hopvae_torch.utils.metrics import denormalize, save_image_grid
+from hopvae_torch.utils.tracing import span
 
 OPS = ("reconstruct", "encode", "sample", "interpolate")
 GRIDS = {"reconstruct": "reconstructions", "sample": "samples", "interpolate": "interpolations"}
@@ -70,21 +71,28 @@ class InferenceEngine:
         s, c = config.image_size, config.num_channels
         warm = np.zeros((max_batch, s, s, c), np.float32)
         for op in self.ops:
-            if op == "sample":
-                self.sample(0)
-            elif op == "interpolate":
-                self.interpolate(warm, warm)
-            else:
-                getattr(self, op)(warm)
+            with span("engine.warmup"):
+                if op == "sample":
+                    self.sample(0)
+                elif op == "interpolate":
+                    self.interpolate(warm, warm)
+                else:
+                    getattr(self, op)(warm)
 
     def _pad(self, x: np.ndarray) -> tuple[torch.Tensor, int]:
-        x = np.asarray(x, np.float32)
-        n = x.shape[0]
-        if n > self.max_batch:
-            raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
-        if n < self.max_batch:
-            x = np.concatenate([x, np.zeros((self.max_batch - n, *x.shape[1:]), x.dtype)])
-        return torch.from_numpy(x).to(self.device), n
+        with span("engine.input"):
+            x = np.asarray(x, np.float32)
+            n = x.shape[0]
+            if n > self.max_batch:
+                raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
+            if n < self.max_batch:
+                x = np.concatenate([x, np.zeros((self.max_batch - n, *x.shape[1:]), x.dtype)])
+            return torch.from_numpy(x).to(self.device), n
+
+    @staticmethod
+    def _output(y: torch.Tensor) -> np.ndarray:
+        with span("engine.output"):
+            return y.cpu().numpy()
 
     def _require(self, op: str) -> None:
         if op not in self.ops:
@@ -95,22 +103,28 @@ class InferenceEngine:
         """Normalized NHWC batch → reconstructions (unpadded)."""
         self._require("reconstruct")
         xp, n = self._pad(x)
-        return self.model.reconstruct(xp)[0][:n].cpu().numpy()
+        with span("engine.forward"):
+            y = self.model.reconstruct(xp)[0]
+        return self._output(y[:n])
 
     @torch.inference_mode()
     def encode(self, x: np.ndarray) -> np.ndarray:
         """Normalized NHWC batch → pre-VQ latent tokens ``(B, r², d)``."""
         self._require("encode")
         xp, n = self._pad(x)
-        return self.model._encode_to_tokens(xp)[:n].cpu().numpy()
+        with span("engine.forward"):
+            y = self.model._encode_to_tokens(xp)
+        return self._output(y[:n])
 
     @torch.inference_mode()
     def sample(self, seed: int = 0) -> np.ndarray:
         """``n_sample`` unconditional images, drawn from a generator on the
         engine's device seeded with ``seed`` (torch's draws, not JAX's)."""
         self._require("sample")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self.model.sample(self.n_sample, generator=gen).cpu().numpy()
+        with span("engine.forward"):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            y = self.model.sample(self.n_sample, generator=gen)
+        return self._output(y)
 
     @torch.inference_mode()
     def interpolate(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -121,7 +135,9 @@ class InferenceEngine:
         yp, m = self._pad(y)
         if n != m:
             raise ValueError(f"interpolate needs equal batch sizes, got {n} and {m}")
-        return self.model.interpolate(xp, yp)[:n].cpu().numpy()
+        with span("engine.forward"):
+            y = self.model.interpolate(xp, yp)
+        return self._output(y[:n])
 
 
 def state_from_checkpoint(path: str) -> dict:

@@ -41,7 +41,8 @@ What it keeps from the JAX driver:
   (int64 counts); each epoch's record holds their mean and their sum, and
   the same histogram of each module's parameters. ``--profile``: a
   ``torch.profiler`` trace (CPU and, on the card, CUDA activity) written
-  under ``<out>/trace``. ``--debug-nans`` (``Trainer.debug_nans``): the
+  under ``<out>/trace``, with the program's spans on its clock.
+  ``--debug-nans`` (``Trainer.debug_nans``): the
   first step whose loss or any gradient is not finite raises
   ``FloatingPointError`` before its update, naming the epoch, the step
   and the modules.
@@ -76,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import queue
 import sys
@@ -96,6 +98,7 @@ from hopvae_torch.serving import state_from_checkpoint
 from hopvae_torch.utils.checkpoint import load_reference_checkpoint
 from hopvae_torch.utils.graphs import collector_held
 from hopvae_torch.utils.metrics import MetricLogger, denormalize, save_image_grid
+from hopvae_torch.utils import tracing
 from hopvae_torch.utils.nvcc import add_launches, captured_launches
 
 # --watch-grads' histograms: 16 unit bins of log10|v| over [-12, 4), the last
@@ -138,8 +141,10 @@ def profiled(out_dir: str, enabled: bool = True, cuda: bool = True):
     """A ``torch.profiler`` trace of the block (CPU and, with ``cuda``, CUDA
     activity), written as Chrome trace JSON to
     ``<out_dir>/trace/rank<r>.trace.json`` when the block ends, as JAX
-    stops its trace, also on an exception. Yields the profiler, or None
-    when not ``enabled``."""
+    stops its trace, also on an exception. The program's spans
+    (:mod:`hopvae_torch.utils.tracing`) are recorded over the block and
+    written into the trace on its clock, with ``"cat": "program_span"``.
+    Yields the profiler, or None when not ``enabled``."""
     if not enabled:
         yield None
         return
@@ -148,13 +153,21 @@ def profiled(out_dir: str, enabled: bool = True, cuda: bool = True):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     rank = dist.get_rank() if dist.is_initialized() else 0
     prof = torch.profiler.profile(activities=activities)
+    tracing.enable()
     prof.start()
     try:
         yield prof
     finally:
         prof.stop()
+        tracing.disable()
         os.makedirs(os.path.join(out_dir, "trace"), exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "trace", f"rank{rank}.trace.json"))
+        path = os.path.join(out_dir, "trace", f"rank{rank}.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"].extend(tracing.chrome_events(trace.get("baseTimeNanoseconds", 0)))
+        with open(path, "w") as f:
+            json.dump(trace, f)
 
 
 def prior_has_parameters(config) -> bool:

@@ -22,11 +22,12 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from hopvae_torch.utils.tracing import span
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -39,9 +40,8 @@ FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 # the tallies of the captures in progress, innermost last
 _tallies: list[dict] = []
-# ptxas register / shared-memory report of each build, and its seconds, by stem
+# ptxas register / shared-memory report of each build, by stem
 build_logs: dict[str, str] = {}
-build_seconds: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -71,14 +71,13 @@ def _build(stem: str) -> Path:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
     os.close(fd)
     try:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
-            capture_output=True, text=True,
-        )
+        with span("nvcc.build"):
+            proc = subprocess.run(
+                [nvcc_path(), *FLAGS, "-o", tmp, str(CSRC / f"{stem}.cu")],
+                capture_output=True, text=True,
+            )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {stem}.cu:\n{proc.stdout}{proc.stderr}")
-        build_seconds[stem] = time.perf_counter() - t0
         build_logs[stem] = proc.stdout + proc.stderr
         os.replace(tmp, out)
     finally:
